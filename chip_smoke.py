@@ -7,15 +7,22 @@ Phases (any failure raises and exits non-zero):
   1. the card: name and power limit as nvidia-smi reports them;
   2. the kernels: built from csrc/ with nvcc, build time printed;
   3. the main path: books-like u64 keys made on the card from a seed,
-     ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup
-     and search; every kernel must have launched in that run, and the
-     keys made twice and the two builds must be bit-equal;
+     ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup,
+     search of 2^22 random queries (sort -> K5 -> unsort at the default
+     size) and search_sorted of the same queries sorted (K5); every
+     kernel must have launched in that run, and the keys made twice and
+     the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys;
-  5. exact search against torch.searchsorted, and its rate;
-  6. each kernel replayed on the inputs the main path gave it, against
-     its plain PyTorch version: K1 and K2 on the card, K3 and K4 on CPU
-     copies (CPU torch.addcmul is an exact FMA);
-  7. a build on the card against the plain build on the CPU.
+  5. exact search against torch.searchsorted: search and search_sorted
+     of the main path, then search, search_sorted and fast_search on
+     2^16 queries (the packed plan); the search rate;
+  6. the serving curve: lookups/s at 2^14 ... 2^22 queries for the
+     bounded path, the packed plan, sort -> K5 -> unsort without the
+     density gate, and search_sorted on sorted batches;
+  7. each kernel replayed on the inputs the main path gave it, against
+     its plain PyTorch version: K1, K2 and K5 on the card, K3 and K4 on
+     CPU copies (CPU torch.addcmul is an exact FMA);
+  8. a build on the card against the plain build on the CPU.
 The last line is the device JSON; the line before it lists the kernels.
 """
 
@@ -30,11 +37,12 @@ import time
 import torch
 
 import rmi_tpu_torch
-from rmi_tpu_torch import config
+from rmi_tpu_torch import config, lookup_fast
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.lookup import lookup, search
-from rmi_tpu_torch.ops import _build, eval_kernel, scan_kernel, select_kernel, sweep_kernel
+from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
+from rmi_tpu_torch.ops import (_build, eval_kernel, scan_kernel, select_kernel,
+                               sorted_serve_kernel, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -56,7 +64,11 @@ KERNELS = [
     (eval_kernel, "leaf_eval_clamped", "leaf_eval_clamped_plain",
      "rmi_leaf_eval_linear", "cpu",
      "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
+    (sorted_serve_kernel, "serve_sorted", "serve_sorted_plain", "rmi_serve_sorted",
+     None, "rmi_tpu_torch/csrc/sorted_serve.cu",
+     "rmi_tpu/ops/sorted_serve_kernel.py:88"),
 ]
+CURVE = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22]   # serving curve batch sizes
 
 
 def log(*a):
@@ -177,6 +189,53 @@ def make_queries(keys, nq, gen):
     return q
 
 
+def mismatches(keys, q, got):
+    return int((got != torch.searchsorted(keys, q, side="left")).sum())
+
+
+def check_search(rmi, keys, gen):
+    """search, search_sorted and fast_search on 2^16 queries (the packed
+    plan; search_sorted runs K5) against torch.searchsorted."""
+    q = make_queries(keys, min(1 << 16, keys.shape[0]), gen)
+    qs = torch.sort(q).values
+    res = {"search": mismatches(keys, q, search(rmi, q)),
+           "search_sorted": mismatches(keys, qs, search_sorted(rmi, qs)),
+           "fast_search": mismatches(keys, q, lookup_fast.fast_search(rmi, q))}
+    log(f"search check, {q.shape[0]} queries: mismatches {json.dumps(res)}")
+    if any(res.values()):
+        raise RuntimeError("search disagrees with torch.searchsorted")
+
+
+def serving_curve(rmi, keys, gen):
+    """lookups/s per path and batch size over the main path's keys, each
+    path's answers checked against torch.searchsorted once."""
+    plan = lookup_fast.get_plan(rmi)
+    paths = {
+        "bounded": lambda q: bounded_search(rmi, q),
+        "packed": lambda q: lookup_fast.fast_search(rmi, q),
+        "sort_k5": lambda q: lookup_fast.serve_via_sort(rmi, plan, q),
+        "sorted_k5": lambda q: search_sorted(rmi, q),
+    }
+    rows = []
+    for nq in CURVE:
+        q = make_queries(keys, nq, gen)
+        qs = torch.sort(q).values
+        row = {"nq": nq}
+        for name, fn in paths.items():
+            x = qs if name == "sorted_k5" else q
+            if mismatches(keys, x, fn(x)):
+                raise RuntimeError(f"serving curve: {name} wrong at {nq} queries")
+            ms = cuda_ms(lambda: fn(x), 20 if nq <= 1 << 18 else 5)
+            row[name] = nq / (ms / 1e3)
+        rows.append(row)
+        log(f"serving curve nq={nq}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in row.items() if k != "nq") + " lookups/s")
+    over = [r["nq"] for r in rows if r["sort_k5"] > r["packed"]]
+    log(f"serving curve (plan {plan.kind}, S={plan.S}, F={plan.F}): sort -> K5 "
+        f"-> unsort beats the packed plan at nq in {over}")
+    log("serving curve " + json.dumps(rows))
+
+
 def same_build(a, b):
     """Two TrainedRMIs with bit-equal parameters, errors and metrics."""
     return (torch.equal(a.device_top_params, b.device_top_params)
@@ -279,9 +338,11 @@ def main():
     t0 = time.perf_counter()
     warm_rmi = rmi_tpu_torch.train(data, SPEC, B)
     warm = time.perf_counter() - t0
+    queries_sorted = torch.sort(queries).values
     with rec:
         viol = bound_violations(rmi, keys, nq, gen)
         idx = search(rmi, queries)
+        idx_sorted = search_sorted(rmi, queries_sorted)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     log(f"build {SPEC} {B}: cold {cold:.4f} s, warm {warm:.4f} s, peak device "
@@ -308,23 +369,29 @@ def main():
         raise RuntimeError("bound |guess - lb| <= err violated")
 
     # 5. exact search
-    want = torch.searchsorted(keys, queries, side="left")
-    mism = int((idx != want).sum())
-    log(f"search check: {mism} mismatches on {queries.shape[0]} queries")
-    if mism:
+    plan = lookup_fast.get_plan(rmi)
+    mism = mismatches(keys, queries, idx)
+    mism_sorted = mismatches(keys, queries_sorted, idx_sorted)
+    log(f"search check: {mism} mismatches on {queries.shape[0]} queries, "
+        f"search_sorted {mism_sorted}; plan {plan.kind} S={plan.S} F={plan.F}")
+    if mism or mism_sorted:
         raise RuntimeError("search disagrees with torch.searchsorted")
+    check_search(rmi, keys, gen)
     ms = cuda_ms(lambda: search(rmi, queries), 5)
     log(f"search: {queries.shape[0] / (ms / 1e3):.6g} lookups/s "
         f"({ms:.4f} ms per batch of {queries.shape[0]})")
-    del idx, want
+    del idx, idx_sorted
 
-    # 6. kernels against their plain versions, on main-path inputs
-    del rmi
+    # 6. the serving curve
+    serving_curve(rmi, keys, gen)
+
+    # 7. kernels against their plain versions, on main-path inputs
+    del rmi, plan
     rows = check_kernels(rec, launches)
     del rec
     torch.cuda.empty_cache()
 
-    # 7. card against CPU
+    # 8. card against CPU
     cross_check(cross_n, max(64, (B * cross_n) // n), args.seed + 2, dev)
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,16 +1,23 @@
 """Batched serving: lookup and exact search (counterpart of
-rmi_tpu/lookup.py:39-94, 143-159, 223-285).
+rmi_tpu/lookup.py:39-94, 143-159, 223-305).
 
   guess, err = lookup(rmi, queries)   # top eval -> leaf eval (K4) -> err
-  idx = search(rmi, queries)          # + bounded lower_bound over the keys
+  idx = search(rmi, queries)          # exact lower bounds, any order
+  idx = search_sorted(rmi, queries)   # exact lower bounds, sorted batch
 
 Queries are int64 key images (rmi_tpu_torch.keys.to_image) on the
-index's device.  Serving evaluates in the normalized key domain with the
-top function the build assigned leaves with and the leaf function the
-build measured errors with, so |guess - lower_bound| <= err holds for
-every key.  Every batch goes through this 2-gather path; the sorted-batch
-kernel the JAX package uses for batches of 2^20 or more (K5) and its
-packed/sort serving plans come with the next slice.
+index's device.  ``lookup`` evaluates in the normalized key domain with
+the top function the build assigned leaves with and the leaf function
+the build measured errors with, so |guess - lower_bound| <= err holds
+for every key.  ``search`` routes as rmi_tpu's does for an index without
+cache fix: batches of SORT_SERVE_MIN or more go through sort -> K5 ->
+unsort (lookup_fast.fast_search_via_sort), smaller ones through the
+packed plan's two counts (lookup_fast.fast_search); an index whose
+leaves are too wide for a packed plan serves every batch through lookup
+and the bounded binary search (bounded_search).  ``search_sorted`` sends
+sorted batches straight to K5.  rmi_tpu keeps its sort route off where
+its kernel runs interpreted; here the route is the same on every device,
+since on the CPU each kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -19,9 +26,15 @@ import math
 
 import torch
 
+from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.ops import eval_kernel
 from rmi_tpu_torch.train import two_layer
+
+# Batch size from which search sorts and serves through K5: rmi_tpu's
+# value, calibrated on the TPU v5e (rmi_tpu/lookup.py:242-245); the
+# H100's crossover is measured by chip_smoke.py's serving curve.
+SORT_SERVE_MIN = 1 << 20
 
 
 def lookup(rmi, queries: torch.Tensor):
@@ -56,8 +69,9 @@ def err_iters(max_err: int) -> int:
     return max(1, math.ceil(math.log2(2 * max_err + 2)) + 1)
 
 
-def search(rmi, queries: torch.Tensor) -> torch.Tensor:
-    """Exact lower-bound indices (searchsorted side='left') per query.
+def bounded_search(rmi, queries: torch.Tensor) -> torch.Tensor:
+    """Exact lower bounds through lookup and the bounded binary search:
+    how a "bounded" plan (lookup_fast.get_plan) serves.
 
     A query above the largest key has lower bound n, which the error
     bound does not cover when the keys end in a duplicate run: the
@@ -69,3 +83,21 @@ def search(rmi, queries: torch.Tensor) -> torch.Tensor:
     lb = bounded_lower_bound(rmi.keys, queries, guess, err, n,
                              err_iters(rmi.model_max_error))
     return torch.where(queries > rmi.keys[-1], n, lb)
+
+
+def search(rmi, queries: torch.Tensor) -> torch.Tensor:
+    """Exact lower-bound indices (searchsorted side='left') per query."""
+    if lookup_fast.supports_fast_path(rmi):
+        if queries.shape[0] >= SORT_SERVE_MIN:
+            return lookup_fast.fast_search_via_sort(rmi, queries)
+        return lookup_fast.fast_search(rmi, queries)
+    return bounded_search(rmi, queries)
+
+
+def search_sorted(rmi, queries: torch.Tensor) -> torch.Tensor:
+    """Exact lower bounds of a NON-DECREASING batch: the bulk shape
+    (merge joins, range scans, sorted probe streams), served by K5
+    without the sort."""
+    if lookup_fast.supports_fast_path(rmi):
+        return lookup_fast.fast_search_sorted(rmi, queries)
+    return search(rmi, queries)

@@ -1,11 +1,13 @@
 """nvcc build and ctypes binding of the CUDA kernels in ``csrc/``.
 
-Every ``.cu`` file compiles into ONE shared library with a plain C
-interface, built on first use into ``rmi_tpu_torch/_build/`` and keyed
-by a hash of the sources and flags, so a fresh checkout builds once and
-an edited kernel rebuilds.  ``-fmad=false`` stops nvcc from contracting
-a multiply and an add that the source leaves apart: every fused
-multiply-add in the kernels is an explicit ``fma()`` (csrc/leaf_eval.cuh).
+Every ``.cu`` file compiles to an object with its own ``nvcc``, all
+started together, and the objects link into ONE shared library with a
+plain C interface, built on first use into ``rmi_tpu_torch/_build/`` and
+keyed by a hash of the sources and flags, so a fresh checkout builds
+once and an edited kernel rebuilds.  ``-fmad=false`` stops nvcc from
+contracting a multiply and an add that the source leaves apart: every
+fused multiply-add in the kernels is an explicit ``fma()``
+(csrc/leaf_eval.cuh).
 
 The C entry points launch on the stream they are given and return
 ``cudaGetLastError()``; ``launch`` raises if it is not 0, and otherwise
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 
@@ -24,9 +27,9 @@ import torch
 
 from rmi_tpu_torch import config
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_info = {}      # path, seconds (0.0 when loaded from an earlier build), log
@@ -59,18 +62,45 @@ def _load() -> ctypes.CDLL:
     so = config.BUILD_DIR / f"librmi_kernels_{_digest()}.so"
     seconds, log = 0.0, ""
     if not so.exists():
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-        cmd = [config.nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *cus]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(so)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)          # atomic: concurrent builders agree
     build_info.update(path=str(so), seconds=seconds, log=log)
     return ctypes.CDLL(str(so))
+
+
+def _compile(so) -> str:
+    """One nvcc per .cu file, all running at once, then one link into
+    ``so``; returns the compilers' output.  Raises if any step fails."""
+    nvcc = config.nvcc_path()
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    obj_dir = so.with_name(f"{so.stem}.{os.getpid()}.obj")
+    obj_dir.mkdir()
+    try:
+        jobs = []
+        for cu in (p for p in _sources() if p.suffix == ".cu"):
+            obj = obj_dir / f"{cu.stem}.o"
+            jobs.append((cu.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for name, _, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, so)          # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    return log
 
 
 _P = ctypes.c_void_p
@@ -83,6 +113,7 @@ SIGNATURES = {
     "rmi_aug_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_sweep_linear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_linear": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P),
 }
 
 # successful launches per C entry point since the process started

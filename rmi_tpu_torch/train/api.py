@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,12 @@ class TrainedRMI:
     norm_scale: float
     keys: torch.Tensor                 # [n] int64 images served over
     build_time: int = 0                # ns
+    # serving state that lookup_fast makes on first use: the per-leaf
+    # (starts, next_idx) and the search plan built from them
+    leaf_spans_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default=None, init=False, repr=False, compare=False)
+    plan_cache: Optional[Any] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def top_type(self) -> str:

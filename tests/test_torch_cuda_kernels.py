@@ -10,7 +10,9 @@ runs on a machine without it:
 Tolerances: K1, K3 and K4 bit-equal (max/min never round; K3 and K4 are
 compared with the plain version on CPU copies, where torch.addcmul is an
 exact FMA); K2 within rtol 1e-9 (summation order) plus 1e-12 of the
-Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c.
+Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its
+plain version on the card and to np.searchsorted (int64 compares never
+round).
 """
 
 import numpy as np
@@ -19,8 +21,11 @@ import torch
 
 import rmi_tpu_torch as rt
 from rmi_tpu_torch import data as rdata
+from rmi_tpu_torch import keys as tkeys
+from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.ops import _build, eval_kernel, scan_kernel, select_kernel, sweep_kernel
+from rmi_tpu_torch.ops import (_build, eval_kernel, scan_kernel, select_kernel,
+                               sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.utils import segments as seg
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +123,106 @@ def test_card_build_matches_cpu_build(dev):
     g, e = rt.lookup(card, keys)
     assert int(((g - lb).abs() > e).sum()) == 0
     assert torch.equal(rt.search(card, keys), lb)
+
+
+def _k5_case(case):
+    """(sorted int64 keys, sorted int64 queries) of one K5 case."""
+    rng = np.random.default_rng(len(case))
+    if case == "duplicates":           # runs longer than a stripe
+        keys = np.repeat(rng.integers(-(1 << 40), 1 << 40, 3000), rng.integers(1, 300, 3000))
+        keys.sort()
+        q = np.concatenate([keys[rng.integers(0, keys.size, 1 << 16)],
+                            rng.integers(-(1 << 41), 1 << 41, 1 << 14)])
+        return keys, np.sort(q)
+    n = {"dense": 1 << 20, "sparse": 1 << 22, "extremes": 1 << 16,
+         "ragged": 1 << 18}[case]
+    keys = np.sort(rng.integers(-(1 << 62), 1 << 62, n))
+    nq = {"dense": 1 << 20, "sparse": 2048, "extremes": 1 << 14,
+          "ragged": 3 * ssk.KQ + 17}[case]
+    q = rng.integers(-(1 << 62), 1 << 62, nq)
+    if case == "extremes":
+        keys[:5] = tkeys.IMAGE_MIN
+        keys[-70:] = KeyType.U64.max_image
+        q[:300] = tkeys.IMAGE_MIN
+        q[300:600] = KeyType.U64.max_image
+        q[600:700] = KeyType.U64.max_image - 1
+    return np.sort(keys), np.sort(q)
+
+
+def _tight_bounds(stripe_first, q):
+    """Per-block [lo, hi]: min of max(lb1 - 1, 0) and max of lb1."""
+    lb1 = np.searchsorted(stripe_first, q)
+    nb = -(-q.size // ssk.KQ)
+    pad = np.full(nb * ssk.KQ - q.size, lb1[-1])
+    blocks = np.concatenate([lb1, pad]).reshape(nb, ssk.KQ)
+    return np.maximum(blocks.min(1) - 1, 0), blocks.max(1)
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "duplicates", "extremes", "ragged"])
+def test_k5_serve_sorted(dev, case):
+    keys, q = _k5_case(case)
+    sf = keys[::64]
+    lo, hi = _tight_bounds(sf, q)
+    if case == "sparse":     # every block's window exceeds the shared-memory window
+        assert (hi - lo).min() > 4096
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (q, sf, keys, lo, hi)]
+    before = _build.launches["rmi_serve_sorted"]
+    got = ssk.serve_sorted(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_serve_sorted"] == before + 1
+    want = np.searchsorted(keys, q, side="left")
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    plain = ssk.serve_sorted_plain(*[a.to(dev) for a in args])
+    assert torch.equal(got, plain)
+    # the whole stripe-first array as every block's window: still exact
+    wide = ssk.serve_sorted(args[0].to(dev), args[1].to(dev), args[2].to(dev),
+                            torch.zeros_like(args[3]).to(dev),
+                            torch.full_like(args[4], sf.size).to(dev))
+    np.testing.assert_array_equal(wide.cpu().numpy(), want)
+
+
+def test_k5_window_off_lb1_disagrees(dev):
+    keys, q = _k5_case("dense")
+    sf = keys[::64]
+    lo, hi = _tight_bounds(sf, q)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (q, sf, keys, lo + 2, hi)]
+    got = ssk.serve_sorted(*args)
+    assert torch.equal(got, ssk.serve_sorted_plain(*args))
+    assert int((got.cpu().numpy() != np.searchsorted(keys, q)).sum()) > 0
+
+
+def test_k5_refuses_bad_inputs(dev):
+    keys = torch.arange(10_000, dtype=torch.int64, device=dev)
+    sf = keys[::64].contiguous()
+    q = torch.arange(0, 4000, 2, dtype=torch.int64, device=dev)
+    b = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):                  # a bound on the CPU
+        ssk.serve_sorted(q, sf, keys, b.cpu(), b)
+    with pytest.raises(ValueError):                  # non-contiguous queries
+        ssk.serve_sorted(torch.arange(0, 8000, 2, dtype=torch.int64, device=dev)[::2],
+                         sf, keys, b, b)
+    with pytest.raises(ValueError):                  # one bound per block
+        ssk.serve_sorted(q, sf, keys, b[:1], b[:1])
+    with pytest.raises(ValueError):                  # int64 only
+        ssk.serve_sorted(q.int(), sf, keys, b, b)
+
+
+def test_card_serving_routes(dev):
+    """search (2^20 random queries: sort -> K5 -> unsort), search_sorted
+    (K5) and fast_search (the packed plan) on the card, all exact."""
+    keys = rdata.books_like_on_device(1 << 20, 6, dev)
+    rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), "cubic,linear", 1374)
+    assert lookup_fast.get_plan(rmi).kind == "packed"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randint(int(keys[0]) - 1000, int(keys[-1]) + 1000, (1 << 20,),
+                      generator=gen, device=dev)
+    q[:1000] = keys[:1000]
+    want = torch.searchsorted(keys, q)
+    before = _build.launches["rmi_serve_sorted"]
+    assert torch.equal(rt.search(rmi, q), want)
+    qs = torch.sort(q).values
+    assert torch.equal(rt.search_sorted(rmi, qs), torch.searchsorted(keys, qs))
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_serve_sorted"] == before + 2
+    assert torch.equal(lookup_fast.fast_search(rmi, q), want)

@@ -3,10 +3,12 @@
     python3 tools/trace_torch_build.py [--n 200000000] [--trace build_trace.json]
 
 Makes books-like keys on the card (as chip_smoke.py does), runs one
-untraced build to warm up, then traces a warm ``cubic,linear 262144``
-build and one search batch of 2^22 queries with torch.profiler.  Prints the device time of each
-build stage (the rmi.build.* ranges of train/two_layer.py), the kernels
-by device time, and the device's busy share of the traced wall time.
+untraced build and search to warm up, then traces with torch.profiler a
+warm ``cubic,linear 262144`` build, and apart from it SEARCH_BATCHES
+search batches of 2^22 random queries (sort -> K5 -> unsort).  For each
+trace it prints the device time of the rmi.* ranges (the build stages of
+train/two_layer.py), the kernels by device time, and the device's busy
+share of the traced wall time.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from rmi_tpu_torch.keys import KeyType  # noqa: E402
 
 B = 262144
 QUERIES = 1 << 22
+SEARCH_BATCHES = 5
 
 
 def _dev_us(evt, self_only=False):
@@ -67,15 +70,28 @@ def main():
         rmi = rmi_tpu_torch.train(data, "cubic,linear", B)
         torch.cuda.synchronize()
         build_wall = time.perf_counter() - t0
+    _report(prof, build_wall, f"n={args.n} B={B}: build", 25)
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+    rmi_tpu_torch.search(rmi, q)          # the plan is made on first use
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
-        with record_function("rmi.search"):
-            rmi_tpu_torch.search(rmi, q)
+        for _ in range(SEARCH_BATCHES):
+            with record_function("rmi.search"):
+                rmi_tpu_torch.search(rmi, q)
         torch.cuda.synchronize()
         search_wall = time.perf_counter() - t0
+    _report(prof, search_wall,
+            f"search, {SEARCH_BATCHES} batches of {QUERIES} queries", 15)
 
+
+def _report(prof, wall_s, label, top):
     evts = prof.key_averages()
-    print(f"n={args.n} B={B}: build wall {build_wall * 1e3:.3f} ms, "
-          f"search wall {search_wall * 1e3:.3f} ms for {QUERIES} queries")
+    print(f"{label}: wall {wall_s * 1e3:.3f} ms")
     # a range appears twice: its host span and its span on the device
     for key in sorted({e.key for e in evts if e.key.startswith("rmi.")}):
         same = [e for e in evts if e.key == key]
@@ -83,14 +99,11 @@ def main():
               f"  device {max(_dev_us(e) for e in same) / 1e3:9.3f} ms")
     kernels = [e for e in evts if _on_device(e) and not e.key.startswith("rmi.")]
     busy = sum(_dev_us(e, True) for e in kernels) / 1e3
-    wall = (build_wall + search_wall) * 1e3
-    print(f"device busy {busy:.3f} ms of {wall:.3f} ms traced wall "
+    wall = wall_s * 1e3
+    print(f"  device busy {busy:.3f} ms of {wall:.3f} ms traced wall "
           f"(idle share {1 - busy / wall:.3f})")
-    for e in sorted(kernels, key=lambda e: -_dev_us(e, True))[:25]:
+    for e in sorted(kernels, key=lambda e: -_dev_us(e, True))[:top]:
         print(f"  {_dev_us(e, True) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":
