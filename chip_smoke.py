@@ -1,29 +1,35 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, cubic,linear 262144
+    python3 chip_smoke.py              # 200M keys, both paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
   1. the card: name and power limit as nvidia-smi reports them;
   2. the kernels: built from csrc/ with nvcc, build time printed;
-  3. the main path: books-like u64 keys made on the card from a seed,
+  3. path 1 on books-like u64 keys made on the card from a seed:
      ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup,
      search of 2^22 random queries (sort -> K5 -> unsort at the default
      size) and search_sorted of the same queries sorted (K5); every
-     kernel must have launched in that run, and the keys made twice and
-     the two builds must be bit-equal;
+     kernel of the path must have launched in that run, and the keys made
+     twice and the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys;
   5. exact search against torch.searchsorted: search and search_sorted
-     of the main path, then search, search_sorted and fast_search on
-     2^16 queries (the packed plan); the search rate;
+     of the path, then search, search_sorted and fast_search on 2^16
+     queries (the packed plan); the search rate;
   6. the serving curve: lookups/s at 2^14 ... 2^22 queries for the
      bounded path, the packed plan, sort -> K5 -> unsort without the
      density gate, and search_sorted on sorted batches;
-  7. each kernel replayed on the inputs the main path gave it, against
-     its plain PyTorch version: K1, K2 and K5 on the card, K3 and K4 on
-     CPU copies (CPU torch.addcmul is an exact FMA);
-  8. a build on the card against the plain build on the CPU.
-The last line is the device JSON; the line before it lists the kernels.
+  7. each kernel of the path replayed on the inputs the path gave it,
+     against its plain PyTorch version: K1, K2 and K5 on the card, K3
+     and K4 on CPU copies (CPU torch.addcmul is an exact FMA);
+  8. a build on the card against the plain build on the CPU;
+  9. path 2 on the same keys, once path 1's index is freed:
+     ``train(data, "robust_linear,cubic", 65536)`` cold and warm (bit-
+     equal), its max_err and its index, phases 3-5 for it, then K3 and K4
+     for cubic leaves (on CPU copies) and K6 (on the card) replayed
+     against their plain versions, and its card-vs-CPU cross-check.
+The last line is the device JSON; the line before it lists the kernels,
+one row per C entry point.
 """
 
 from __future__ import annotations
@@ -41,33 +47,50 @@ from rmi_tpu_torch import config, lookup_fast
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
-from rmi_tpu_torch.ops import (_build, eval_kernel, scan_kernel, select_kernel,
-                               sorted_serve_kernel, sweep_kernel)
+from rmi_tpu_torch.models import get_model
+from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, scan_kernel,
+                               select_kernel, sorted_serve_kernel, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
-SPEC = "cubic,linear"
-B = 262144
 K2_RTOL = 1e-9            # summation order
 METRIC_RTOL = 1e-7
 
-# (module, wrapper name, plain version name, C entry point, device the
-#  plain version is compared on (None: the card), source, TPU kernel replaced)
+# one row per C entry point: (entry, module, wrapper name, plain version
+# name, device the plain version is compared on (None: the card), source,
+# TPU kernel replaced)
 KERNELS = [
-    (scan_kernel, "scan_i32", "scan_i32_plain", "rmi_scan_i32", None,
+    ("rmi_scan_i32", scan_kernel, "scan_i32", "scan_i32_plain", None,
      "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
-    (select_kernel, "aug_centered_moments", "aug_centered_moments_plain",
-     "rmi_aug_moments", None,
+    ("rmi_aug_moments", select_kernel, "aug_centered_moments",
+     "aug_centered_moments_plain", None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
-    (sweep_kernel, "sweep_errors", "sweep_errors_plain", "rmi_sweep_linear", "cpu",
+    ("rmi_sweep_linear", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
      "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
-    (eval_kernel, "leaf_eval_clamped", "leaf_eval_clamped_plain",
-     "rmi_leaf_eval_linear", "cpu",
+    ("rmi_sweep_cubic", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
+     "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    ("rmi_leaf_eval_linear", eval_kernel, "leaf_eval_clamped",
+     "leaf_eval_clamped_plain", "cpu",
      "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
-    (sorted_serve_kernel, "serve_sorted", "serve_sorted_plain", "rmi_serve_sorted",
+    ("rmi_leaf_eval_cubic", eval_kernel, "leaf_eval_clamped",
+     "leaf_eval_clamped_plain", "cpu",
+     "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
+    ("rmi_serve_sorted", sorted_serve_kernel, "serve_sorted", "serve_sorted_plain",
      None, "rmi_tpu_torch/csrc/sorted_serve.cu",
      "rmi_tpu/ops/sorted_serve_kernel.py:88"),
+    ("rmi_cubic_l1", cubic_l1_kernel, "cubic_l1_sums", "cubic_l1_sums_plain", None,
+     "rmi_tpu_torch/csrc/cubic_l1.cu", "rmi_tpu/ops/select_kernel.py:30"),
 ]
+# (spec, B, the C entry points the path launches, those it replays)
+PATH1 = ("cubic,linear", 262144,
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
+          "rmi_leaf_eval_linear", "rmi_serve_sorted"),
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
+          "rmi_leaf_eval_linear", "rmi_serve_sorted"))
+PATH2 = ("robust_linear,cubic", 65536,
+         ("rmi_scan_i32", "rmi_sweep_cubic", "rmi_leaf_eval_cubic",
+          "rmi_serve_sorted", "rmi_cubic_l1"),
+         ("rmi_sweep_cubic", "rmi_leaf_eval_cubic", "rmi_cubic_l1"))
 CURVE = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22]   # serving curve batch sizes
 
 
@@ -77,15 +100,16 @@ def log(*a):
 
 class Recorder:
     """Keeps the arguments of every call of the kernel wrappers while
-    installed, so each kernel can be replayed on main-path inputs."""
+    installed, so each kernel can be replayed on a path's inputs."""
 
     def __init__(self):
-        self.calls = {name: [] for _, name, *_ in KERNELS}
+        self.wrappers = {(mod, name) for _, mod, name, *_ in KERNELS}
+        self.calls = {name: [] for _, name in self.wrappers}
         self._saved = []
 
     def __enter__(self):
         self._saved = []
-        for mod, name, *_ in KERNELS:
+        for mod, name in self.wrappers:
             fn = getattr(mod, name)
             self._saved.append((mod, name, fn))
 
@@ -98,6 +122,12 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+
+    def calls_of(self, entry, name):
+        """The recorded calls of wrapper ``name`` that launch ``entry``:
+        K3 and K4 launch one entry point per leaf family."""
+        return [(a, kw) for a, kw in self.calls[name] if "leaf_type" not in kw
+                or entry.endswith("_" + get_model(kw["leaf_type"]).leaf_kernel)]
 
 
 def cuda_ms(fn, iters):
@@ -131,18 +161,39 @@ def compare(name, got, want, args):
         err = max(float((m2 - wm2).abs().max()), float((c - wc).abs().max()))
         ok = bool(((m2 - wm2).abs() <= tol_m2).all() and ((c - wc).abs() <= tol_c).all())
         return err, ok
+    if name == "cubic_l1_sums":
+        return compare_l1(got, want)
     got, want = got.cpu().long(), want.cpu().long()
     err = int((got - want).abs().max()) if got.numel() else 0
     return err, bool(torch.equal(got, want))
 
 
-def check_kernels(rec, launches):
-    rows = []
-    for mod, name, plain_name, entry, where, source, replaces in KERNELS:
+def compare_l1(got, want):
+    """K6: both sums within cubic_l1_kernel.sum_tolerance, and the choice
+    l_err < c_err the same wherever the two sums are not a near tie, that
+    is closer than their two tolerances."""
+    (c, l), (wc, wl) = [[t.cpu() for t in r] for r in (got, want)]
+    tc, tl = cubic_l1_kernel.sum_tolerance(wc), cubic_l1_kernel.sum_tolerance(wl)
+    err = max(float((c - wc).abs().max()), float((l - wl).abs().max()))
+    near_tie = (wl - wc).abs() <= tc + tl
+    same_choice = ((l < c) == (wl < wc)) | near_tie
+    log(f"  K6: {int(near_tie.sum())} near-tie leaves of {c.shape[0]}, "
+        f"{int(((l < c) != (wl < wc)).sum())} choices differ")
+    return err, bool(((c - wc).abs() <= tc).all() and ((l - wl).abs() <= tl).all()
+                     and same_choice.all())
+
+
+def check_kernels(rec, launches, entries):
+    """Replay each of ``entries`` on its recorded calls against its plain
+    version, and time its largest call beside the plain version."""
+    rows = {}
+    for entry, mod, name, plain_name, where, source, replaces in KERNELS:
+        if entry not in entries:
+            continue
         wrapper, plain = getattr(mod, name), getattr(mod, plain_name)
-        calls = rec.calls[name]
+        calls = rec.calls_of(entry, name)
         if not calls:
-            raise RuntimeError(f"{name}: no main-path call recorded")
+            raise RuntimeError(f"{entry}: no call recorded on the path")
         worst = 0
         for args, kw in calls:
             got = wrapper(*args, **kw)
@@ -150,18 +201,19 @@ def check_kernels(rec, launches):
             want = plain(*pa, **pk)
             err, ok = compare(name, got, want, args)
             if not ok:
-                raise RuntimeError(f"{name}: kernel disagrees with its plain "
+                raise RuntimeError(f"{entry}: kernel disagrees with its plain "
                                    f"version (max abs err {err})")
             worst = max(worst, err)
-        # time the largest main-path call, kernel and plain version on the card
+            del got, want, pa
+        # time the largest call, kernel and plain version on the card
         args, kw = max(calls, key=lambda c: c[0][0].shape[0])
         pa, pk = plain_args(name, args, kw, args[0].device)
         ms = cuda_ms(lambda: wrapper(*args, **kw), 10)
         plain_ms = cuda_ms(lambda: plain(*pa, **pk), 3)
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[entry],
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
-        log(f"kernel {name}: {len(calls)} main-path calls match the plain "
+        rows[entry] = {"name": entry, "route": "cuda", "source": source,
+                       "replaces": replaces, "launches": launches[entry],
+                       "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
             f"version (max abs err {worst}); {ms:.4f} ms vs plain {plain_ms:.4f} ms "
             f"at {list(args[0].shape)}")
     return rows
@@ -245,16 +297,16 @@ def same_build(a, b):
             == (b.model_avg_log2_error, b.model_avg_error, b.model_max_error))
 
 
-def cross_check(n, B, seed, dev):
+def cross_check(spec, n, B, seed, dev):
     """A build on the card against the plain build on the CPU, same keys."""
     keys = rdata.books_like_on_device(n, seed, dev)
-    card = rmi_tpu_torch.train(rdata.RMIDataset(keys, KeyType.U64), SPEC, B)
-    cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), SPEC, B)
+    card = rmi_tpu_torch.train(rdata.RMIDataset(keys, KeyType.U64), spec, B)
+    cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), spec, B)
 
     def ids_counts(r, k):
         xn = two_layer.normalize(k, r.norm_offset, r.norm_scale)
         t = two_layer.predict_top_assignment(
-            rmi_tpu_torch.models.get_model("cubic"), r.device_top_params, xn, B - 1)
+            get_model(r.top_type), r.device_top_params, xn, B - 1)
         spans = seg.make_spans(t.to(torch.int32), B)
         return t.cpu(), (spans.ends - spans.starts).cpu()
 
@@ -270,7 +322,7 @@ def cross_check(n, B, seed, dev):
     explained = float((contrib(cnt_card, e_card) - contrib(cnt_cpu, e_cpu))[leaves]
                       .abs().sum()) / n
     d_log2 = abs(card.model_avg_log2_error - cpu.model_avg_log2_error)
-    res = {"n": n, "B": B, "max_err_card": card.model_max_error,
+    res = {"spec": spec, "n": n, "B": B, "max_err_card": card.model_max_error,
            "max_err_cpu": cpu.model_max_error,
            "avg_log2_card": card.model_avg_log2_error,
            "avg_log2_cpu": cpu.model_avg_log2_error,
@@ -288,7 +340,66 @@ def cross_check(n, B, seed, dev):
           and res["leaf_ids_max_diff"] <= 1 and res["leaf_errors_max_diff"] <= 1
           and res["leaf_ids_differing"] <= few and res["leaf_errors_differing"] <= few)
     if not ok:
-        raise RuntimeError("card build and CPU build disagree beyond tolerance")
+        raise RuntimeError(f"{spec}: card build and CPU build disagree beyond tolerance")
+
+
+def drive(path, data, queries, gen):
+    """Phases 3-5 of one path: cold and warm builds with the launches
+    counted from 0 and every call of a kernel wrapper recorded, the bound
+    check, search and search_sorted; returns (index, recorder, launches)."""
+    spec, B, entries, _ = path
+    keys = data.keys
+    nq = queries.shape[0]
+    queries_sorted = torch.sort(queries).values
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        t0 = time.perf_counter()
+        rmi = rmi_tpu_torch.train(data, spec, B)
+        cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    warm_rmi = rmi_tpu_torch.train(data, spec, B)
+    warm = time.perf_counter() - t0
+    with rec:
+        viol = bound_violations(rmi, keys, nq, gen)
+        idx = search(rmi, queries)
+        idx_sorted = search_sorted(rmi, queries_sorted)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"build {spec} {B}: cold {cold:.4f} s, warm {warm:.4f} s, peak device "
+        f"memory {peak / 2**30:.2f} GiB; model_max_error {rmi.model_max_error} "
+        f"at leaf {rmi.model_max_error_idx}, "
+        f"model_avg_log2_error {rmi.model_avg_log2_error!r}, "
+        f"model_avg_error {rmi.model_avg_error!r}")
+    log(f"{spec} launches: {json.dumps(launches)}")
+    missing = [e for e in entries if launches[e] <= 0]
+    if missing:
+        raise RuntimeError(f"{spec}: kernels not launched on the path: {missing}")
+    if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
+        raise RuntimeError(f"{spec}: build produced malformed metrics")
+    builds_again = same_build(rmi, warm_rmi)
+    log(f"{spec} reproducible: cold and warm builds bit-equal {builds_again}")
+    if not builds_again:
+        raise RuntimeError(f"{spec}: the same keys gave different builds")
+    del warm_rmi
+
+    log(f"{spec} bound check: {viol} violations on {nq} sampled keys")
+    if viol:
+        raise RuntimeError("bound |guess - lb| <= err violated")
+    plan = lookup_fast.get_plan(rmi)
+    mism = mismatches(keys, queries, idx)
+    mism_sorted = mismatches(keys, queries_sorted, idx_sorted)
+    log(f"{spec} search check: {mism} mismatches on {nq} queries, search_sorted "
+        f"{mism_sorted}; plan {plan.kind} S={plan.S} F={plan.F}")
+    if mism or mism_sorted:
+        raise RuntimeError("search disagrees with torch.searchsorted")
+    check_search(rmi, keys, gen)
+    ms = cuda_ms(lambda: search(rmi, queries), 5)
+    log(f"{spec} search: {nq / (ms / 1e3):.6g} lookups/s ({ms:.4f} ms per batch "
+        f"of {nq})")
+    return rmi, rec, launches
 
 
 def main():
@@ -317,7 +428,6 @@ def main():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas " + line.split("ptxas info    :")[-1].strip())
 
-    # 3. the main path
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     t0 = time.perf_counter()
@@ -325,76 +435,37 @@ def main():
     data = rdata.RMIDataset(keys, KeyType.U64)
     torch.cuda.synchronize()
     log(f"keys: n={n} made on the card in {time.perf_counter() - t0:.2f} s")
-    queries = make_queries(keys, nq, gen)
-
-    for entry in _build.launches:
-        _build.launches[entry] = 0
-    torch.cuda.reset_peak_memory_stats()
-    with Recorder() as rec:
-        t0 = time.perf_counter()
-        rmi = rmi_tpu_torch.train(data, SPEC, B)
-        cold = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    warm_rmi = rmi_tpu_torch.train(data, SPEC, B)
-    warm = time.perf_counter() - t0
-    queries_sorted = torch.sort(queries).values
-    with rec:
-        viol = bound_violations(rmi, keys, nq, gen)
-        idx = search(rmi, queries)
-        idx_sorted = search_sorted(rmi, queries_sorted)
-    torch.cuda.synchronize()
-    launches = dict(_build.launches)
-    log(f"build {SPEC} {B}: cold {cold:.4f} s, warm {warm:.4f} s, peak device "
-        f"memory {peak / 2**30:.2f} GiB; model_max_error {rmi.model_max_error}, "
-        f"model_avg_log2_error {rmi.model_avg_log2_error!r}, "
-        f"model_avg_error {rmi.model_avg_error!r}")
-    log(f"main-path launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
-        raise RuntimeError("build produced malformed metrics")
     keys_again = torch.equal(keys, rdata.books_like_on_device(n, args.seed, dev))
-    builds_again = same_build(rmi, warm_rmi)
-    log(f"reproducible: keys made twice equal {keys_again}, cold and warm "
-        f"builds bit-equal {builds_again}")
-    if not (keys_again and builds_again):
-        raise RuntimeError("the same seed gave different keys or builds")
-    del warm_rmi
+    log(f"reproducible: keys made twice equal {keys_again}")
+    if not keys_again:
+        raise RuntimeError("the same seed gave different keys")
+    queries = make_queries(keys, nq, gen)
+    rows, launches = {}, dict.fromkeys(_build.launches, 0)
 
-    # 4. the bound contract
-    log(f"bound check: {viol} violations on {nq} sampled keys")
-    if viol:
-        raise RuntimeError("bound |guess - lb| <= err violated")
-
-    # 5. exact search
-    plan = lookup_fast.get_plan(rmi)
-    mism = mismatches(keys, queries, idx)
-    mism_sorted = mismatches(keys, queries_sorted, idx_sorted)
-    log(f"search check: {mism} mismatches on {queries.shape[0]} queries, "
-        f"search_sorted {mism_sorted}; plan {plan.kind} S={plan.S} F={plan.F}")
-    if mism or mism_sorted:
-        raise RuntimeError("search disagrees with torch.searchsorted")
-    check_search(rmi, keys, gen)
-    ms = cuda_ms(lambda: search(rmi, queries), 5)
-    log(f"search: {queries.shape[0] / (ms / 1e3):.6g} lookups/s "
-        f"({ms:.4f} ms per batch of {queries.shape[0]})")
-    del idx, idx_sorted
-
-    # 6. the serving curve
+    # 3-8. path 1
+    spec, B, _, replayed = PATH1
+    rmi, rec, counts = drive(PATH1, data, queries, gen)
     serving_curve(rmi, keys, gen)
-
-    # 7. kernels against their plain versions, on main-path inputs
-    del rmi, plan
-    rows = check_kernels(rec, launches)
+    del rmi
+    rows.update(check_kernels(rec, counts, replayed))
+    launches = {e: launches[e] + counts[e] for e in launches}
     del rec
     torch.cuda.empty_cache()
+    cross_check(spec, cross_n, max(64, (B * cross_n) // n), args.seed + 2, dev)
 
-    # 8. card against CPU
-    cross_check(cross_n, max(64, (B * cross_n) // n), args.seed + 2, dev)
+    # 9. path 2
+    spec, B, _, replayed = PATH2
+    rmi, rec, counts = drive(PATH2, data, queries, gen)
+    del rmi
+    rows.update(check_kernels(rec, counts, replayed))
+    launches = {e: launches[e] + counts[e] for e in launches}
+    del rec
+    torch.cuda.empty_cache()
+    cross_check(spec, cross_n, max(64, (B * cross_n) // n), args.seed + 3, dev)
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    for entry, row in rows.items():
+        row["launches"] = launches[entry]
+    print(json.dumps({"kernels": [rows[entry] for entry, *_ in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -45,7 +45,7 @@ def lookup(rmi, queries: torch.Tensor):
         get_model(rmi.top_type), rmi.device_top_params, xn, B - 1)
     # final clamp to n - 1 (codegen.rs:713-717)
     guess = eval_kernel.leaf_eval_clamped(xn, rmi.device_leaf_params, midx,
-                                          n - 1).long()
+                                          n - 1, leaf_type=rmi.leaf_type).long()
     return guess, rmi.leaf_errors[midx]
 
 

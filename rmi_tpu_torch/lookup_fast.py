@@ -53,7 +53,7 @@ _PACKED_MAX_LANES = 256
 # the wide plan's mid-level count covers lb1 while F + 63 < WIDTH
 _WIDE_MAX_STRIDE = 64
 # the port's tops that are monotone on the key domain
-_MONOTONE_TOPS = ("linear", "cubic")
+_MONOTONE_TOPS = ("linear", "robust_linear", "cubic")
 
 SORTED_MIN = 1 << 14    # smallest batch fast_search_sorted sends to K5
 MAX_CHUNK = 1 << 21     # queries per packed-search step: ~1 GB of [., 64] rows

@@ -1,7 +1,7 @@
-"""Model registry of the port.  Importing this package registers the
-models of the main path, ``cubic`` (top) and ``linear`` (top or leaf);
-every other model the reference knows raises NotImplementedError that
-names the ROADMAP queue holding it (models/base.py)."""
+"""Model registry of the port.  Importing this package registers
+``linear``, ``robust_linear`` and ``cubic``, each as a top or a leaf
+model; every other model the reference knows raises NotImplementedError
+that names the ROADMAP queue holding it (models/base.py)."""
 
 from rmi_tpu_torch.models.base import (ModelDef, REGISTRY, get_model,
                                        predict_clamped, validate_spec)

@@ -23,6 +23,15 @@ def predict_clamped(pred_f: torch.Tensor, bound) -> torch.Tensor:
     return p.to(torch.int64)
 
 
+def leaf_columns(w: torch.Tensor, leaf_ids: Optional[torch.Tensor]):
+    """The parameter columns of each element's row w[leaf_ids], gathered
+    column by column, or of the single top row w[0] when ``leaf_ids`` is
+    None."""
+    if leaf_ids is None:
+        return w[0].unbind(-1)
+    return tuple(w[leaf_ids, k] for k in range(w.shape[1]))
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     """One RMI layer model type.
@@ -32,19 +41,25 @@ class ModelDef:
         FixDups positions scaled by B/n and truncated; ``ep_y_*`` the
         scaled raw indices of the container's first and last rows
         (RMITrainingData::get bypasses FixDups, models/mod.rs:268-274).
-    fit_leaves(xf, yf, spans) -> [B, ppm]
-        Batched per-leaf fit over overlap-augmented spans (None if the
-        model cannot be a leaf in this port yet).
-    predict(w [1, ppm], x) -> f64 predictions of the top model.
+    fit_leaves(xf, yfix, spans) -> [B, ppm]
+        Batched per-leaf fit over overlap-augmented spans, ``yfix`` the
+        int32 FixDups positions.
+    predict(w [B, ppm], leaf_ids, x) -> f64 predictions, each element
+        through its row w[leaf_ids]; leaf_ids None evaluates the top row
+        (rmi_tpu's predict(params, leaf_idx, keys_f)).
     constant_params(value_f [B]) -> [B, ppm]
         set_to_constant_model (models/mod.rs:761-763).
+    leaf_kernel: the leaf evaluation of csrc/leaf_eval.cuh that kernels
+        K3 and K4 run for this model as a leaf ("linear" or "cubic").
     """
 
     name: str
+    ppm: int
     fit_top: Callable
-    fit_leaves: Optional[Callable]
+    fit_leaves: Callable
     predict: Callable
-    constant_params: Optional[Callable]
+    constant_params: Callable
+    leaf_kernel: str
 
 
 REGISTRY: Dict[str, ModelDef] = {}
@@ -64,16 +79,20 @@ def get_model(name: str) -> ModelDef:
     return REGISTRY[name]
 
 
+def leaf_predict(leaf_type: str, w: torch.Tensor, leaf_ids: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """f64 predictions of leaf model ``leaf_type``, each element x[i]
+    through its row w[leaf_ids[i]]: the leaf evaluation of every plain
+    path (the kernels' is csrc/leaf_eval.cuh)."""
+    return get_model(leaf_type).predict(w, leaf_ids, x)
+
+
 def validate_spec(spec_list) -> None:
-    """Two layers, every name known, the last one leaf-capable here."""
+    """Two layers, every name known."""
     if len(spec_list) != 2:
         raise ValueError(
             "rmi_tpu_torch supports exactly two model layers (the "
             "reference's multi-layer trainer is disabled upstream, "
             "train/mod.rs:125)")
-    get_model(spec_list[0])
-    leaf = get_model(spec_list[1])
-    if leaf.fit_leaves is None:
-        raise NotImplementedError(
-            f"model type {leaf.name} as a leaf layer is not ported to "
-            f"rmi_tpu_torch yet (ROADMAP.md Queue 1, item 7)")
+    for name in spec_list:
+        get_model(name)

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the port (csrc/*.cu) with their plain
 PyTorch versions: K1 scan_kernel, K2 select_kernel, K3 sweep_kernel,
-K4 eval_kernel, K5 sorted_serve_kernel.  A wrapper given CPU tensors
+K4 eval_kernel, K5 sorted_serve_kernel, K6 cubic_l1_kernel.  K3 and K4
+launch one C entry point per leaf family (linear, cubic).  A wrapper
+given CPU tensors
 runs the plain version; given CUDA tensors it launches the kernel (built
 by _build) or raises."""

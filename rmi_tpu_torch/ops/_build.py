@@ -112,7 +112,10 @@ SIGNATURES = {
     "rmi_scan_i32": (_P, _P, _I64, _I32, _I32, _I32, _P, _P),
     "rmi_aug_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_sweep_linear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_sweep_cubic": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_linear": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_leaf_eval_cubic": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_cubic_l1": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P),
 }
 

@@ -55,6 +55,10 @@ class TrainedRMI:
     def top_type(self) -> str:
         return self.models.split(",")[0]
 
+    @property
+    def leaf_type(self) -> str:
+        return self.models.split(",")[1]
+
 
 def _trained(data_keys, key_type, model_spec, B, out, build_time=0):
     return TrainedRMI(
@@ -87,18 +91,24 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     arrays: the JAX build's ``device_top_params["w"]`` [1, ppm],
     ``device_leaf_params["w"]`` [B, ppm], ``leaf_errors`` [B] and
     normalization constants, over the unsigned ``keys`` it was built on.
-    The metrics are recomputed from the leaf errors and the leaf counts
-    that the top model assigns."""
-    validate_spec(models.split(","))
+    Only the rows ``"w"`` cross over (cubic leaves: [B, 4]); rmi_tpu's
+    generator aux waits for the artifacts (ROADMAP item 10).  The metrics
+    are recomputed from the leaf errors and the leaf counts that the top
+    model assigns."""
+    top_type, leaf_type = models.split(",")
+    validate_spec([top_type, leaf_type])
     dev = torch.device("cpu") if device is None else torch.device(device)
     keys_img = keymod.to_image(keys).to(dev)
     top = torch.tensor(np.asarray(top_w, np.float64), device=dev).reshape(1, -1)
     leaf = torch.tensor(np.asarray(leaf_w, np.float64), device=dev)
+    B, ppm = int(branching_factor), get_model(leaf_type).ppm
+    if leaf.shape != (B, ppm):
+        raise ValueError(f"leaf_w must be [B, {ppm}] for {leaf_type} leaves, "
+                         f"not {list(leaf.shape)}")
     errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
-    B = int(branching_factor)
     xn = two_layer.normalize(keys_img, norm_offset, norm_scale)
-    t = two_layer.predict_top_assignment(get_model(models.split(",")[0]),
-                                         top, xn, B - 1).to(torch.int32)
+    t = two_layer.predict_top_assignment(get_model(top_type), top, xn,
+                                         B - 1).to(torch.int32)
     spans = seg.make_spans(t, B)
     metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
                                       keys_img.shape[0])

@@ -7,8 +7,8 @@ device, in three stages whose per-key temporaries are freed before the
 next stage allocates:
 
   A  FixDups (kernel K1) + top fit + leaf assignment;
-  B  per-leaf fits over overlap-augmented spans (kernel K2) +
-     lower-bound fills + empty-leaf patch;
+  B  per-leaf fits over overlap-augmented spans (kernel K2 for linear
+     leaves, K6 for cubic ones) + lower-bound fills + empty-leaf patch;
   C  error sweep (K3) + epsilon probes (K4) + duplicate-run inflation
      (K1) + the reference's error metrics.
 
@@ -53,7 +53,7 @@ def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
 def predict_top_assignment(mtop, top_w, xn, bound: int) -> torch.Tensor:
     """min(bound, predict_to_int(top(x'))) as int64 (two_layer.rs:49).
     The build's leaf assignment and serving's top eval both call this."""
-    return predict_clamped(mtop.predict(top_w, xn), bound)
+    return predict_clamped(mtop.predict(top_w, None, xn), bound)
 
 
 def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
@@ -129,7 +129,7 @@ def _fit_body(xn, yfix, spans: seg.Spans, next_idx, *, leaf_type: str):
     """Stage B: leaf rows [B, ppm], constant-patched where a leaf is
     empty, except the final leaf (the reference's loop stops at B-1)."""
     mleaf = get_model(leaf_type)
-    w = mleaf.fit_leaves(xn, yfix.double(), spans)
+    w = mleaf.fit_leaves(xn, yfix, spans)
     B = spans.B
     patch = ~spans.nonempty & (torch.arange(B, device=w.device) < B - 1)
     const_rows = mleaf.constant_params(next_idx.double())
@@ -142,10 +142,12 @@ def _error_between(pred, target, n: int):
 
 
 def sweep_body(keys, xn, yfix, spans: seg.Spans, leaf_w, next_idx, next_key,
-               prev_key, kminf: float, s: float, key_type: KeyType):
+               prev_key, kminf: float, s: float, key_type: KeyType, *,
+               leaf_type: str):
     """Stage C: per-leaf errors [B] int64 and the metrics dict."""
     n, B = spans.n, spans.B
-    err = sweep_kernel.sweep_errors(xn, yfix, spans.t, leaf_w, n)
+    err = sweep_kernel.sweep_errors(xn, yfix, spans.t, leaf_w, n,
+                                    leaf_type=leaf_type)
     max_err = seg.range_max(err, spans, 0).long()
     del err
 
@@ -154,7 +156,8 @@ def sweep_body(keys, xn, yfix, spans: seg.Spans, leaf_w, next_idx, next_key,
 
     def probe(probe_keys):
         return eval_kernel.leaf_eval_clamped(
-            normalize(probe_keys, kminf, s), leaf_w, leaf_ids, n).long()
+            normalize(probe_keys, kminf, s), leaf_w, leaf_ids, n,
+            leaf_type=leaf_type).long()
 
     pred_up = probe(keymod.minus_epsilon(next_key, key_type))
     pred_lo = probe(keymod.plus_epsilon(prev_key, key_type))
@@ -219,6 +222,6 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
     with record_function("rmi.build.sweep"):
         leaf_errors, metrics = sweep_body(keys, xn, yfix, spans, leaf_w,
                                           next_idx, next_key, prev_key, kminf,
-                                          s, key_type)
+                                          s, key_type, leaf_type=leaf_type)
     return {"top_w": top_w, "leaf_w": leaf_w, "leaf_errors": leaf_errors,
             "metrics": metrics, "norm_offset": kminf, "norm_scale": s}

@@ -95,13 +95,52 @@ def _row_scan(v: torch.Tensor) -> torch.Tensor:
 
 def range_sum(values: torch.Tensor, starts: torch.Tensor,
               ends: torch.Tensor) -> torch.Tensor:
-    """Sum of values[starts[j]:ends[j]] per j: a direct reduction for a
+    """Sum of values[starts[j]:ends[j]] per j: whole_array_sum for a
     single range (the top fits), prefix-sum differences otherwise."""
     if starts.shape[0] == 1:
-        s0, e0 = int(starts[0]), int(ends[0])
-        return values[s0:e0].double().sum().reshape(1)
+        return whole_array_sum(values.double(), int(starts[0]), int(ends[0]))
     c = prefix_sum_exclusive(values)
     return c[ends] - c[starts]
+
+
+_XLA_WINDOW = 32
+
+
+def whole_array_sum(values: torch.Tensor, lo: int, hi: int,
+                    times: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[1] f64: the sum of values[lo:hi] (of values * times when given).
+
+    On the CPU it adds in the order in which XLA adds rmi_tpu's masked
+    whole-array reductions under jit, so that the top fits equal
+    rmi_tpu's bit for bit: XLA rewrites a reduction longer than 32 as
+    windows of 32 summed in sequence, with the padding split between the
+    two ends, then reduces the window sums the same way, and the
+    masked-out elements keep their places as zeros.  A product is rounded
+    before it is summed, except in a reduction of 32 or fewer, one loop
+    in which XLA fuses it into the sum as an FMA; of such tiny masked
+    sums (a trimmed container of 11 to 32) a few round otherwise in
+    rmi_tpu.  The card has no reference order to follow and takes one
+    reduction in torch's own fixed order."""
+    n = values.shape[0]
+    if times is not None and n <= _XLA_WINDOW:
+        acc = values.new_zeros(())
+        for a, b in zip(values[lo:hi], times[lo:hi]):
+            acc = torch.addcmul(acc, a, b)
+        return acc.reshape(1)
+    if not values.is_cpu:
+        v = values[lo:hi] if times is None else values[lo:hi] * times[lo:hi]
+        return v.sum().reshape(1)
+    v = values if times is None else values * times
+    if not (lo == 0 and hi == n):
+        masked = torch.zeros_like(v)
+        masked[lo:hi] = v[lo:hi]
+        v = masked
+    while v.shape[0] > _XLA_WINDOW:
+        pad = -v.shape[0] % _XLA_WINDOW
+        rows = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        # a row's cumsum adds in sequence, as XLA's window loop does
+        v = rows.view(-1, _XLA_WINDOW).cumsum(1)[:, -1].contiguous()
+    return v.cumsum(0)[-1:] if v.shape[0] else v.new_zeros(1)
 
 
 def aug_count(spans: Spans) -> torch.Tensor:
@@ -112,12 +151,13 @@ def aug_count(spans: Spans) -> torch.Tensor:
 def aug_centered_moments(spans: Spans, x, y, mean_x, mean_y):
     """(m2, c): per-leaf sum (x-mx)^2 and sum (x-mx)(y-my) over the
     augmented ranges.  One whole-array span reduces directly, as the
-    JAX package does for top fits; leaf fits run kernel K2."""
+    JAX package does for top fits (whole_array_sum); leaf fits run
+    kernel K2."""
     if spans.B == 1:
         s0, e0 = int(spans.aug_starts[0]), int(spans.aug_ends[0])
-        dx = x[s0:e0] - mean_x[0]
-        return ((dx * dx).sum().reshape(1),
-                (dx * (y[s0:e0] - mean_y[0])).sum().reshape(1))
+        dx = x - mean_x[0]
+        return (whole_array_sum(dx, s0, e0, times=dx),
+                whole_array_sum(dx, s0, e0, times=y - mean_y[0]))
     return select_kernel.aug_centered_moments(
         x, y, mean_x, mean_y, spans.aug_starts, spans.aug_ends)
 

@@ -7,12 +7,14 @@ runs on a machine without it:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: K1, K3 and K4 bit-equal (max/min never round; K3 and K4 are
-compared with the plain version on CPU copies, where torch.addcmul is an
-exact FMA); K2 within rtol 1e-9 (summation order) plus 1e-12 of the
-Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its
-plain version on the card and to np.searchsorted (int64 compares never
-round).
+Tolerances: K1, K3 and K4 (linear and cubic leaves) bit-equal (max/min
+never round; K3 and K4 are compared with the plain version on CPU
+copies, where torch.addcmul is an exact FMA); K2 within rtol 1e-9
+(summation order) plus 1e-12 of the Cauchy-Schwarz bound
+sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its plain version on the
+card and to np.searchsorted (int64 compares never round); K6 within
+cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
+when run again.
 """
 
 import numpy as np
@@ -24,8 +26,10 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.ops import (_build, eval_kernel, scan_kernel, select_kernel,
-                               sorted_serve_kernel as ssk, sweep_kernel)
+from rmi_tpu_torch.models import cubic
+from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, scan_kernel,
+                               select_kernel, sorted_serve_kernel as ssk,
+                               sweep_kernel)
 from rmi_tpu_torch.utils import segments as seg
 
 pytestmark = pytest.mark.cuda
@@ -87,9 +91,11 @@ def test_k2_moments(dev):
 def test_k3_sweep(dev):
     x, y, t, w = _leaf_inputs(500_009, 2048, 2)
     n = x.shape[0]
-    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n)
+    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
+                                    leaf_type="linear")
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), sweep_kernel.sweep_errors_plain(x, y, t, w, n))
+    assert torch.equal(got.cpu(), sweep_kernel.sweep_errors_plain(x, y, t, w, n,
+                                                                  leaf_type="linear"))
 
 
 @pytest.mark.parametrize("bound", [0, 1000, 499_999])
@@ -97,9 +103,93 @@ def test_k4_leaf_eval(dev, bound):
     x, _, t, w = _leaf_inputs(500_009, 2048, 3)
     x = torch.cat([x, torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0])])
     leaf = torch.cat([t, t[:4]]).long()
-    got = eval_kernel.leaf_eval_clamped(x.to(dev), w.to(dev), leaf.to(dev), bound)
+    got = eval_kernel.leaf_eval_clamped(x.to(dev), w.to(dev), leaf.to(dev), bound,
+                                        leaf_type="linear")
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), eval_kernel.leaf_eval_clamped_plain(x, w, leaf, bound))
+    assert torch.equal(got.cpu(), eval_kernel.leaf_eval_clamped_plain(
+        x, w, leaf, bound, leaf_type="linear"))
+
+
+def _cubic_rows(B, seed):
+    """[B, 4] cubic rows with random coefficients of the sizes leaf fits
+    give; callers set c = n, so that the rows follow y ~ n x."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(1000.0, 10.0, B)
+    a = rng.normal(0.0, 1e3, B)
+    b = rng.normal(0.0, 1e2, B)
+    d = rng.normal(0.0, 5.0, B)
+    return torch.from_numpy(np.stack([a, b, c, d], axis=1))
+
+
+def test_k3_sweep_cubic(dev):
+    x, y, t, _ = _leaf_inputs(500_009, 2048, 4)
+    w = _cubic_rows(2048, 4)
+    w[:, 2] = float(x.shape[0])            # rows that track y ~ n x
+    n = x.shape[0]
+    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
+                                    leaf_type="cubic")
+    torch.cuda.synchronize()
+    want = sweep_kernel.sweep_errors_plain(x, y, t, w, n, leaf_type="cubic")
+    assert torch.equal(got.cpu(), want)
+    assert int((want > 0).sum()) > n // 2
+
+
+@pytest.mark.parametrize("bound", [0, 499_999])
+def test_k4_leaf_eval_cubic(dev, bound):
+    x, _, t, _ = _leaf_inputs(500_009, 2048, 5)
+    w = _cubic_rows(2048, 5)
+    w[:, 2] = float(x.shape[0])
+    x = torch.cat([x, torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0])])
+    leaf = torch.cat([t, t[:4]]).long()
+    got = eval_kernel.leaf_eval_clamped(x.to(dev), w.to(dev), leaf.to(dev), bound,
+                                        leaf_type="cubic")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), eval_kernel.leaf_eval_clamped_plain(
+        x, w, leaf, bound, leaf_type="cubic"))
+
+
+def test_k6_cubic_l1(dev):
+    """K6 against its plain version on CPU copies: empty leaves, one-key
+    leaves and one leaf of 10^5 keys, with the leaf fit's own candidates."""
+    n, B = 1_000_003, 4096
+    x, y, t, _ = _leaf_inputs(n, B, 6)
+    t = t.numpy().astype(np.int64)
+    t[t >= 1000] += 5                        # leaves 1000-1004 empty
+    lo = n // 2                              # leaf t[lo] + 1 holds 10^5 keys
+    t[lo:lo + 100_000] = t[lo - 1] + 1
+    t[lo + 100_000:] = np.maximum(t[lo + 100_000:], t[lo] + 1)
+    k = n // 5                               # a one-key leaf
+    t[k] = t[k - 1] + 1
+    t[k + 1:] = np.maximum(t[k + 1:], t[k] + 1)
+    t = torch.from_numpy(np.minimum(t, B - 1).astype(np.int32))
+    spans = seg.make_spans(t, B)
+    assert int((spans.ends - spans.starts).max()) >= 100_000
+    cubic_w, lin_w, _ = cubic._candidates(x, y, spans)
+    before = _build.launches["rmi_cubic_l1"]
+    dspans = seg.make_spans(t.to(dev), B)
+    got = cubic_l1_kernel.cubic_l1_sums(x.to(dev), y.to(dev), cubic_w.to(dev),
+                                        lin_w.to(dev), dspans)
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_cubic_l1"] == before + 1
+    want = cubic_l1_kernel.cubic_l1_sums_plain(x, y, cubic_w, lin_w, spans)
+    for g, w in zip(got, want):
+        assert ((g.cpu() - w).abs() <= cubic_l1_kernel.sum_tolerance(w)).all()
+    again = cubic_l1_kernel.cubic_l1_sums(x.to(dev), y.to(dev), cubic_w.to(dev),
+                                          lin_w.to(dev), dspans)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))   # a fixed order
+
+
+def test_card_build_cubic_leaves_matches_cpu_build(dev):
+    keys = rdata.books_like_on_device(1 << 18, 7, dev)
+    card = rt.train(rdata.RMIDataset(keys, KeyType.U64), "robust_linear,cubic", 256)
+    cpu = rt.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), "robust_linear,cubic", 256)
+    assert card.model_max_error == cpu.model_max_error
+    diff = (card.leaf_errors.cpu() - cpu.leaf_errors).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 8
+    lb = torch.searchsorted(keys, keys, side="left")
+    g, e = rt.lookup(card, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    assert torch.equal(rt.search(card, keys), lb)
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -109,7 +199,8 @@ def test_wrappers_refuse_bad_inputs(dev):
     x = torch.zeros(10, dtype=torch.float64, device=dev)
     w = torch.zeros(4, 2, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
-        eval_kernel.leaf_eval_clamped(x, w, torch.zeros(10, dtype=torch.int64), 5)
+        eval_kernel.leaf_eval_clamped(x, w, torch.zeros(10, dtype=torch.int64), 5,
+                                      leaf_type="linear")
 
 
 def test_card_build_matches_cpu_build(dev):

@@ -115,7 +115,8 @@ def _jax_sweep(xn, y, t, w, n):
 def test_k3_sweep_matches_jax(ref):
     x, y, t, w = _inputs(2)
     got = sweep_kernel.sweep_errors(torch.from_numpy(x), torch.from_numpy(y),
-                                    torch.from_numpy(t), torch.from_numpy(w), N)
+                                    torch.from_numpy(t), torch.from_numpy(w), N,
+                                    leaf_type="linear")
     got = got.numpy()
     if ref == "xla":
         want = jax.jit(_jax_sweep, static_argnums=4)(
@@ -143,7 +144,8 @@ def test_k4_leaf_eval_matches_jax(ref):
     leaf = np.concatenate([t[sel], t[sel]]).astype(np.int64)
     bound = N - 1
     got = eval_kernel.leaf_eval_clamped(torch.from_numpy(xq), torch.from_numpy(w),
-                                        torch.from_numpy(leaf), bound).numpy()
+                                        torch.from_numpy(leaf), bound,
+                                        leaf_type="linear").numpy()
     if ref == "xla":
         want = jax.jit(lambda w_, i_, x_: j_predict_clamped(
             j_linear_predict(w_, i_, x_), bound))(

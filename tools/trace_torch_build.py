@@ -1,11 +1,14 @@
 """Where the time goes in one rmi_tpu_torch build and search on a CUDA card.
 
-    python3 tools/trace_torch_build.py [--n 200000000] [--trace build_trace.json]
+    python3 tools/trace_torch_build.py [--n 200000000] [--spec cubic,linear]
+                                       [--B 262144] [--trace build_trace.json]
 
 Makes books-like keys on the card (as chip_smoke.py does), runs one
 untraced build and search to warm up, then traces with torch.profiler a
-warm ``cubic,linear 262144`` build, and apart from it SEARCH_BATCHES
-search batches of 2^22 random queries (sort -> K5 -> unsort).  For each
+warm build of ``--spec`` with ``--B`` leaves (chip_smoke.py's first path
+by default; its second is ``--spec robust_linear,cubic --B 65536``), and
+apart from it SEARCH_BATCHES search batches of 2^22 random queries
+(sort -> K5 -> unsort).  For each
 trace it prints the device time of the rmi.* ranges (the build stages of
 train/two_layer.py), the kernels by device time, and the device's busy
 share of the traced wall time.
@@ -28,7 +31,6 @@ import rmi_tpu_torch  # noqa: E402
 from rmi_tpu_torch import config, data as rdata  # noqa: E402
 from rmi_tpu_torch.keys import KeyType  # noqa: E402
 
-B = 262144
 QUERIES = 1 << 22
 SEARCH_BATCHES = 5
 
@@ -48,6 +50,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=200_000_000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--spec", default="cubic,linear")
+    ap.add_argument("--B", type=int, default=262144)
     ap.add_argument("--trace", default=None, help="chrome trace output path")
     args = ap.parse_args()
 
@@ -60,17 +64,17 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     q = torch.randint(int(keys[0]), int(keys[-1]), (QUERIES,),
                       generator=gen, device=dev)
-    rmi = rmi_tpu_torch.train(data, "cubic,linear", B)   # warm-up
+    rmi = rmi_tpu_torch.train(data, args.spec, args.B)   # warm-up
     rmi_tpu_torch.search(rmi, q)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        rmi = rmi_tpu_torch.train(data, "cubic,linear", B)
+        rmi = rmi_tpu_torch.train(data, args.spec, args.B)
         torch.cuda.synchronize()
         build_wall = time.perf_counter() - t0
-    _report(prof, build_wall, f"n={args.n} B={B}: build", 25)
+    _report(prof, build_wall, f"n={args.n} {args.spec} B={args.B}: build", 25)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
