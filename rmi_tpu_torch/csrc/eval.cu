@@ -1,4 +1,5 @@
-// K4: clamped integer leaf predictions for linear and cubic leaves,
+// K4: clamped integer leaf predictions for linear, cubic, loglinear and
+// normal leaves (lognormal leaves pass max(ln x, 0) as x),
 //   out[i] = clip(floor(leaf(w[leaf[i]], x[i])), 0, bound)
 // with NaN -> 0.  It serves the build's epsilon probes (bound n, one
 // element per leaf) and lookup (bound n - 1, one element per query).
@@ -10,7 +11,8 @@
 //
 // Bound on the H100: memory and, for random lookups, the row gather.
 // Per element it reads x (8 B) and a leaf id (8 B), gathers one 16-byte
-// linear or 32-byte cubic row and writes 4 B.  The tables (4 MB of
+// linear or loglinear, 24-byte normal or 32-byte cubic row and writes
+// 4 B.  The tables (4 MB of
 // linear rows at B = 262144, 2 MB of cubic rows at B = 65536) stay in
 // L2, so random rows cost L2 latency rather than HBM traffic.  The
 // evaluation is rmi_leaf from leaf_eval.cuh, the function the error
@@ -57,4 +59,16 @@ RMI_API int rmi_leaf_eval_cubic(const double* x, const double* w,
                                 const int64_t* leaf, int32_t* out, int64_t m,
                                 int64_t bound, void* stream) {
   return launch_leaf_eval<RmiLeaf::kCubic>(x, w, leaf, out, m, bound, stream);
+}
+
+RMI_API int rmi_leaf_eval_loglinear(const double* x, const double* w,
+                                    const int64_t* leaf, int32_t* out, int64_t m,
+                                    int64_t bound, void* stream) {
+  return launch_leaf_eval<RmiLeaf::kLoglinear>(x, w, leaf, out, m, bound, stream);
+}
+
+RMI_API int rmi_leaf_eval_normal(const double* x, const double* w,
+                                 const int64_t* leaf, int32_t* out, int64_t m,
+                                 int64_t bound, void* stream) {
+  return launch_leaf_eval<RmiLeaf::kNormal>(x, w, leaf, out, m, bound, stream);
 }

@@ -8,9 +8,16 @@
 // Linear leaf: fma(beta, x, alpha), one rounding, as the reference
 // (linear.rs:87-90) and as JAX computes it under jit on the CPU.  Cubic
 // leaf: three chained FMAs (cubic_spline.rs:140-150), the Horner chain
-// XLA contracts on the CPU.  The plain PyTorch versions use
-// torch.addcmul, which is the same FMA on the CPU
-// (rmi_tpu_torch/models/linear.py, models/cubic.py).
+// XLA contracts on the CPU.  Loglinear leaf: exp1 of the linear leaf
+// (linear.rs:177-180).  Normal leaf: phi((x - mean) / stdev) * scale
+// with the logistic phi (normal.rs:24-26), with the two FMAs XLA forms
+// under jit on the CPU; lognormal leaves run it on max(ln x, 0), which
+// their callers compute outside the kernels (models/normal.py).  These
+// replace the float-float leaf_eval_df64 and _exp1_df64 of
+// rmi_tpu/ops/sweep_kernel.py:80-128: the card has f64, so -1.65451 is
+// a plain f64 constant.  The plain PyTorch versions use torch.addcmul,
+// which is the same FMA on the CPU (rmi_tpu_torch/models/linear.py,
+// models/cubic.py, models/normal.py).
 #pragma once
 
 #include <math.h>
@@ -31,14 +38,48 @@ __device__ __forceinline__ double rmi_cubic_leaf(const double* __restrict__ w,
   return fma(fma(fma(r[0], x, r[1]), x, r[2]), x, r[3]);
 }
 
+// (1 + v/64)^64 by six squarings (linear.rs:156-166, stdlib.rs:17-33);
+// v / 64 is exact, so 1 + v / 64 rounds once, as the FMA XLA forms.
+__device__ __forceinline__ double rmi_exp1(double v) {
+  double b = 1.0 + v / 64.0;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) b = b * b;
+  return b;
+}
+
+// w is the [B, 2] f64 row-major table of (alpha, beta) rows.
+__device__ __forceinline__ double rmi_loglinear_leaf(const double* __restrict__ w,
+                                                     int64_t leaf, double x) {
+  return rmi_exp1(rmi_linear_leaf(w, leaf, x));
+}
+
+// w is the [B, 3] f64 row-major table of (mean, stdev, scale) rows.
+// phi(z) = 1 / (1 + exp1(-1.65451 z)): XLA folds -1.65451 z / 64 into
+// z * (-1.65451 / 64) and contracts both adds that follow a multiply, so
+// exp1's base is fma(z, -1.65451 / 64, 1) and 1 + exp1 is
+// fma(b5, b5, 1) with b5 the fifth square.
+__device__ __forceinline__ double rmi_normal_leaf(const double* __restrict__ w,
+                                                  int64_t leaf, double x) {
+  const double* r = w + 3 * leaf;
+  const double z = (x - r[0]) / r[1];
+  double b = fma(z, -1.65451 / 64.0, 1.0);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) b = b * b;
+  return (1.0 / fma(b, b, 1.0)) * r[2];
+}
+
 // The leaf families the kernels are instantiated for.
-enum class RmiLeaf { kLinear, kCubic };
+enum class RmiLeaf { kLinear, kCubic, kLoglinear, kNormal };
 
 template <RmiLeaf L>
 __device__ __forceinline__ double rmi_leaf(const double* __restrict__ w,
                                            int64_t leaf, double x) {
   if constexpr (L == RmiLeaf::kCubic) {
     return rmi_cubic_leaf(w, leaf, x);
+  } else if constexpr (L == RmiLeaf::kLoglinear) {
+    return rmi_loglinear_leaf(w, leaf, x);
+  } else if constexpr (L == RmiLeaf::kNormal) {
+    return rmi_normal_leaf(w, leaf, x);
   } else {
     return rmi_linear_leaf(w, leaf, x);
   }

@@ -1,8 +1,10 @@
-// K3: the build's error sweep for linear and cubic leaves.  Per key i,
+// K3: the build's error sweep.  Per key i,
 //   err[i] = | clip(floor(leaf(w[t[i]], xn[i])), 0, n) - min(yfix[i], n) |
 // with NaN -> 0 (rmi_tpu/train/two_layer.py:135-140, 269-280), where
-// leaf is fma(beta, x, alpha) for linear rows and the three chained FMAs
-// for cubic rows.
+// leaf is fma(beta, x, alpha) for linear rows, the three chained FMAs
+// for cubic rows, exp1 of the linear leaf for loglinear rows and the
+// logistic phi for normal rows (lognormal leaves pass max(ln x, 0) as
+// xn); one C entry point per family.
 //
 // Replaces rmi_tpu/ops/sweep_kernel.py:_sweep_kernel (sweep_errors).
 // The TPU kernel avoids per-key HBM gathers by DMAing each block's
@@ -13,10 +15,15 @@
 //
 // Bound on the H100: memory.  Per key it reads xn (8 B), yfix (4 B),
 // t (4 B) and writes err (4 B): 20 B/key, 4 GB at n = 200M, about
-// 1.2 ms at 3.35 TB/s.  The leaf rows are gathered directly; leaf ids
-// are non-decreasing, so neighbouring threads read the same or the
-// next row, and the table (4 MB of linear rows at B = 262144, 2 MB of
-// cubic rows at B = 65536) stays in L2.  No window, no flag, no retry.
+// 1.2 ms at 3.35 TB/s.  The squarings and divisions of the loglinear
+// and normal leaves (some 10 and 40 f64 operations per key, a division
+// being a short Newton sequence) stay under that time: at the data
+// sheet's 34 TFLOP/s of f64 outside the tensor cores the card does
+// about 200 f64 operations in the time one key's 20 bytes take.  The
+// leaf rows are gathered directly; leaf ids are non-decreasing, so
+// neighbouring threads read the same or the next row, and the table
+// (4 MB of linear rows at B = 262144, 2 MB of cubic rows and 1.5 MB of
+// normal rows at B = 65536) stays in L2.  No window, no flag, no retry.
 // The evaluation is rmi_leaf from leaf_eval.cuh, the function eval.cu
 // serves with.
 #include "common.cuh"
@@ -65,4 +72,17 @@ RMI_API int rmi_sweep_cubic(const double* xn, const int32_t* yfix,
                             const int32_t* t, const double* w, int32_t* err,
                             int64_t n_keys, int64_t bound, void* stream) {
   return launch_sweep<RmiLeaf::kCubic>(xn, yfix, t, w, err, n_keys, bound, stream);
+}
+
+RMI_API int rmi_sweep_loglinear(const double* xn, const int32_t* yfix,
+                                const int32_t* t, const double* w, int32_t* err,
+                                int64_t n_keys, int64_t bound, void* stream) {
+  return launch_sweep<RmiLeaf::kLoglinear>(xn, yfix, t, w, err, n_keys, bound,
+                                           stream);
+}
+
+RMI_API int rmi_sweep_normal(const double* xn, const int32_t* yfix,
+                             const int32_t* t, const double* w, int32_t* err,
+                             int64_t n_keys, int64_t bound, void* stream) {
+  return launch_sweep<RmiLeaf::kNormal>(xn, yfix, t, w, err, n_keys, bound, stream);
 }

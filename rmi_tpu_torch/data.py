@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rmi_tpu_torch import keys as keymod
+from rmi_tpu_torch import config, keys as keymod
 from rmi_tpu_torch.keys import KeyType
 
 
@@ -34,15 +34,15 @@ class RMIDataset:
     @classmethod
     def from_numpy(cls, arr: np.ndarray, key_type: Optional[KeyType] = None,
                    device=None) -> "RMIDataset":
+        """Sorted unsigned keys as images on ``device``: the card when
+        None (no card raises); the CPU only when asked for."""
         if key_type is None:
             key_type = {np.dtype(np.uint32): KeyType.U32,
                         np.dtype(np.uint64): KeyType.U64,
                         np.dtype(np.float64): KeyType.F64}[arr.dtype]
         keymod._integer_only(key_type)
-        img = keymod.to_image(arr)
-        if device is not None:
-            img = img.to(device)
-        return cls(keys=img, key_type=key_type)
+        dev = config.require_cuda() if device is None else torch.device(device)
+        return cls(keys=keymod.to_image(arr).to(dev), key_type=key_type)
 
     def to_numpy(self) -> np.ndarray:
         return keymod.from_image(self.keys, self.key_type)
@@ -50,7 +50,8 @@ class RMIDataset:
 
 def load_data(path: str, key_type: Optional[KeyType] = None,
               device=None) -> RMIDataset:
-    """Read an SOSD binary file (src/load.rs:132-157) onto ``device``."""
+    """Read an SOSD binary file (src/load.rs:132-157) onto ``device``, the
+    card when None."""
     if key_type is None:
         key_type = KeyType.from_filename(os.path.basename(path))
     with open(path, "rb") as f:

@@ -6,10 +6,11 @@ rmi_tpu/lookup.py:39-94, 143-159, 223-305).
   idx = search_sorted(rmi, queries)   # exact lower bounds, sorted batch
 
 Queries are int64 key images (rmi_tpu_torch.keys.to_image) on the
-index's device.  ``lookup`` evaluates in the normalized key domain with
-the top function the build assigned leaves with and the leaf function
-the build measured errors with, so |guess - lower_bound| <= err holds
-for every key.  ``search`` routes as rmi_tpu's does for an index without
+index's device.  ``lookup`` feeds the top and the leaf their model
+inputs (the normalized keys, or a "raw" model's f64 keys), the top
+function the build assigned leaves with and the leaf kernel and kernel
+input the build measured errors with, so |guess - lower_bound| <= err
+holds for every key.  ``search`` routes as rmi_tpu's does for an index without
 cache fix: batches of SORT_SERVE_MIN or more go through sort -> K5 ->
 unsort (lookup_fast.fast_search_via_sort), smaller ones through the
 packed plan's two counts (lookup_fast.fast_search); an index whose
@@ -28,6 +29,7 @@ import torch
 
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.models import get_model
+from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel
 from rmi_tpu_torch.train import two_layer
 
@@ -40,12 +42,17 @@ SORT_SERVE_MIN = 1 << 20
 def lookup(rmi, queries: torch.Tensor):
     """Batched lookup(key, &err): (guess, err) as int64 tensors."""
     n, B = rmi.num_rmi_rows, rmi.branching_factor
-    xn = two_layer.normalize(queries, rmi.norm_offset, rmi.norm_scale)
-    midx = two_layer.predict_top_assignment(
-        get_model(rmi.top_type), rmi.device_top_params, xn, B - 1)
+    mtop, mleaf = get_model(rmi.top_type), get_model(rmi.leaf_type)
+    off, s = rmi.norm_offset, rmi.norm_scale
+    x_top = two_layer.model_float_input(mtop, queries, off, s)
+    midx = two_layer.predict_top_assignment(mtop, rmi.device_top_params, x_top,
+                                            B - 1)
+    x_leaf = (x_top if mleaf.input_domain == mtop.input_domain
+              else two_layer.model_float_input(mleaf, queries, off, s))
     # final clamp to n - 1 (codegen.rs:713-717)
-    guess = eval_kernel.leaf_eval_clamped(xn, rmi.device_leaf_params, midx,
-                                          n - 1, leaf_type=rmi.leaf_type).long()
+    guess = eval_kernel.leaf_eval_clamped(kernel_input(mleaf, x_leaf),
+                                          rmi.device_leaf_params, midx, n - 1,
+                                          leaf_type=rmi.leaf_type).long()
     return guess, rmi.leaf_errors[midx]
 
 

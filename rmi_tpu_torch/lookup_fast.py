@@ -2,7 +2,9 @@
 kernel K5 (counterpart of rmi_tpu/lookup_fast.py, ported as far as the
 main path needs).
 
-The packed plan.  For a top model MONOTONE over the key domain, every
+The packed plan.  For a top model MONOTONE over the key domain (the
+linear family and cubic always; a loglinear, normal or lognormal top when
+_scalar_top_monotone finds its fitted row monotone there), every
 key with a smaller leaf id precedes q and every key with a larger one
 follows it, so lb(q) lies in [start_j, next_idx_j] for the leaf j that
 q routes to.  Each leaf's row holds its stripe base start_j // 64 and S
@@ -35,10 +37,12 @@ where it lies instead of copied into [n / 64, 256] u32 rows.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
+from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.ops import sorted_serve_kernel
 from rmi_tpu_torch.train import two_layer
@@ -53,7 +57,16 @@ _PACKED_MAX_LANES = 256
 # the wide plan's mid-level count covers lb1 while F + 63 < WIDTH
 _WIDE_MAX_STRIDE = 64
 # the port's tops that are monotone on the key domain
-_MONOTONE_TOPS = ("linear", "robust_linear", "cubic")
+_MONOTONE_TOPS = ("linear", "robust_linear", "linear_spline", "cubic")
+# tops that are monotone there when their fitted row is (_scalar_top_monotone)
+_SCALAR_TOPS = ("loglinear", "normal", "lognormal")
+
+# exp1's monotone region is v >= -64; phi(u) = 1/(1+exp1(-1.65451 u))
+# feeds it w = -1.65451 u, so u must stay <= 64/1.65451 ~ 38.68.
+# Margins absorb f64 rounding in the host-side endpoint evaluation
+# (rmi_tpu/lookup_fast.py:192-196).
+_EXP1_V_MIN = -63.9
+_PHI_U_MAX = 38.6
 
 SORTED_MIN = 1 << 14    # smallest batch fast_search_sorted sends to K5
 MAX_CHUNK = 1 << 21     # queries per packed-search step: ~1 GB of [., 64] rows
@@ -84,10 +97,9 @@ def leaf_spans(rmi):
     assignment of the keys.  Made once and kept on the index."""
     if rmi.leaf_spans_cache is None:
         B = rmi.branching_factor
-        xn = two_layer.normalize(rmi.keys, rmi.norm_offset, rmi.norm_scale)
-        t = two_layer.predict_top_assignment(
-            get_model(rmi.top_type), rmi.device_top_params, xn, B - 1)
-        del xn
+        t = two_layer.top_assignment(get_model(rmi.top_type),
+                                     rmi.device_top_params, rmi.keys,
+                                     rmi.norm_offset, rmi.norm_scale, B - 1)
         spans = seg.make_spans(t.to(torch.int32), B)
         next_idx = two_layer.lower_bound_fills(spans, rmi.keys,
                                                rmi.key_type)[0]
@@ -141,10 +153,48 @@ def get_plan(rmi) -> Plan:
     return rmi.plan_cache
 
 
+def _scalar_top_monotone(rmi) -> bool:
+    """Is this loglinear, normal or lognormal top non-decreasing over the
+    domain-clipped query range?  (rmi_tpu/lookup_fast.py:199-234.)  Every
+    floating-point step of these evaluations is weakly monotone inside
+    the region, so endpoint conditions on the fitted row suffice:
+      * loglinear, exp1(beta x + alpha): beta >= 0 and v >= -64 at the
+        domain's low end;
+      * normal and lognormal, phi((x - mean) / stdev) * scale: stdev > 0,
+        scale >= 0 (NaN and -inf rows exist), and u <= 64 / 1.65451 at
+        the domain's high end, so exp1's argument stays in its monotone
+        region."""
+    w = rmi.device_top_params[0].tolist()
+    kminf, kmaxf = keymod.as_float(rmi.keys[[0, -1]]).tolist()
+    if rmi.top_type == "loglinear":
+        alpha, beta = w
+        if not (math.isfinite(alpha) and math.isfinite(beta) and beta >= 0):
+            return False
+        x_lo = (kminf - rmi.norm_offset) * rmi.norm_scale
+        return beta * x_lo + alpha >= _EXP1_V_MIN
+    mean, stdev, scale = w
+    if not (math.isfinite(mean) and math.isfinite(stdev) and stdev > 0.0
+            and math.isfinite(scale) and scale >= 0.0):
+        return False
+    if rmi.top_type == "lognormal":
+        # the raw-domain input max(0, ln x), itself non-decreasing in q
+        x_hi = max(0.0, math.log(kmaxf)) if kmaxf > 0 else 0.0
+    else:
+        x_hi = (kmaxf - rmi.norm_offset) * rmi.norm_scale
+    return (x_hi - mean) / stdev <= _PHI_U_MAX
+
+
+def _monotone_top(rmi) -> bool:
+    """Does the top take the packed plan's routing argument (rmi_tpu
+    lookup_fast.py:587-591)?"""
+    if rmi.top_type in _MONOTONE_TOPS:
+        return True
+    return rmi.top_type in _SCALAR_TOPS and _scalar_top_monotone(rmi)
+
+
 def _make_plan(rmi) -> Plan:
     n = rmi.keys.shape[0]
-    shape = (packed_plan_shape(rmi) if rmi.top_type in _MONOTONE_TOPS
-             else None)
+    shape = packed_plan_shape(rmi) if _monotone_top(rmi) else None
     if shape is None:
         return Plan("bounded", n)
     S, F = shape
@@ -158,10 +208,9 @@ def stripe_lower_limits(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
     """LB1 per query, with LB1 <= lb1(q) <= LB1 + F: route the clipped
     query to its leaf row and count the row's samples below q."""
     qr = q.clamp(plan.kmin, plan.kmax)
-    xn = two_layer.normalize(qr, rmi.norm_offset, rmi.norm_scale)
-    midx = two_layer.predict_top_assignment(
-        get_model(rmi.top_type), rmi.device_top_params, xn,
-        rmi.branching_factor - 1)
+    midx = two_layer.top_assignment(get_model(rmi.top_type),
+                                    rmi.device_top_params, qr, rmi.norm_offset,
+                                    rmi.norm_scale, rmi.branching_factor - 1)
     rows = plan.rows[midx]
     c1 = (rows[:, 1:] < q[:, None]).sum(1)
     return rows[:, 0] + (c1 - 1) * plan.F

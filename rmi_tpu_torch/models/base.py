@@ -47,10 +47,19 @@ class ModelDef:
     predict(w [B, ppm], leaf_ids, x) -> f64 predictions, each element
         through its row w[leaf_ids]; leaf_ids None evaluates the top row
         (rmi_tpu's predict(params, leaf_idx, keys_f)).
-    constant_params(value_f [B]) -> [B, ppm]
-        set_to_constant_model (models/mod.rs:761-763).
+    constant_params(value_f [B]) -> [B, ppm], or None
+        set_to_constant_model (models/mod.rs:761-763); None for the
+        models whose empty leaves stay unpatched (loglinear, normal,
+        lognormal; rmi_tpu two_layer.py:235-243).
     leaf_kernel: the leaf evaluation of csrc/leaf_eval.cuh that kernels
-        K3 and K4 run for this model as a leaf ("linear" or "cubic").
+        K3 and K4 run for this model as a leaf ("linear", "cubic",
+        "loglinear" or "normal"), itself the name of the model whose
+        ``predict`` is that evaluation's plain version.
+    input_domain: "affine" models fit and predict on the normalized keys
+        x' = (x - offset) * scale; "raw" ones (lognormal, whose log is
+        not affine-covariant) on the keys' f64 values (rmi_tpu
+        models/base.py:81-85), and their leaf kernel on log_input of
+        them (kernel_input).
     """
 
     name: str
@@ -58,8 +67,9 @@ class ModelDef:
     fit_top: Callable
     fit_leaves: Callable
     predict: Callable
-    constant_params: Callable
+    constant_params: Optional[Callable]
     leaf_kernel: str
+    input_domain: str = "affine"
 
 
 REGISTRY: Dict[str, ModelDef] = {}
@@ -79,12 +89,29 @@ def get_model(name: str) -> ModelDef:
     return REGISTRY[name]
 
 
+def log_input(x: torch.Tensor) -> torch.Tensor:
+    """max(ln x, 0) with NaN -> 0: lognormal's prediction input (Rust's
+    f64::max maps NaN to 0, normal.rs:166), on which the "normal" leaf
+    kernel serves it."""
+    raw = torch.log(x)
+    return torch.where(torch.isnan(raw), 0.0, raw.clamp(min=0.0))
+
+
+def kernel_input(mdef: ModelDef, x: torch.Tensor) -> torch.Tensor:
+    """The input of model ``mdef``'s leaf kernel for its model input
+    ``x``: x itself, or log_input(x) for a "raw" model, applied outside
+    K3 and K4.  The build's sweep, its probes and lookup all take it from
+    here, so build and serve compute the same bits on one device."""
+    return log_input(x) if mdef.input_domain == "raw" else x
+
+
 def leaf_predict(leaf_type: str, w: torch.Tensor, leaf_ids: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """f64 predictions of leaf model ``leaf_type``, each element x[i]
-    through its row w[leaf_ids[i]]: the leaf evaluation of every plain
-    path (the kernels' is csrc/leaf_eval.cuh)."""
-    return get_model(leaf_type).predict(w, leaf_ids, x)
+    """f64 predictions of the leaf kernel of model ``leaf_type`` on its
+    kernel input ``x`` (kernel_input), each element x[i] through its row
+    w[leaf_ids[i]]: the leaf evaluation of every plain path (the
+    kernels' is csrc/leaf_eval.cuh)."""
+    return get_model(get_model(leaf_type).leaf_kernel).predict(w, leaf_ids, x)
 
 
 def validate_spec(spec_list) -> None:

@@ -113,9 +113,7 @@ def _fit_cubic_ranges(xf, yf, spans: seg.Spans, ep_y=None):
 def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
     """(cubic_w [B, 4], lin_w [B, 2], empty [B]): each container's cubic
     with its special cases, and the linear spline through its endpoints."""
-    n = spans.n
-    first = spans.aug_starts.clamp(0, max(n - 1, 0))
-    last = (spans.aug_ends - 1).clamp(0, max(n - 1, 0))
+    first, last = seg.aug_first_last(spans)
     cnt = seg.aug_count(spans)
     xmin, xmax = xf[first], xf[last]
     if ep_y is None:

@@ -111,10 +111,16 @@ _I32 = ctypes.c_int32
 SIGNATURES = {
     "rmi_scan_i32": (_P, _P, _I64, _I32, _I32, _I32, _P, _P),
     "rmi_aug_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    "rmi_aug_moments_weighted": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    "rmi_aug_moments_xx": (_P, _P, _P, _P, _P, _I64, _P),
     "rmi_sweep_linear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "rmi_sweep_cubic": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_sweep_loglinear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_sweep_normal": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_linear": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_cubic": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_leaf_eval_loglinear": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_leaf_eval_normal": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_cubic_l1": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P),
 }

@@ -1,11 +1,12 @@
-"""K4: clamped integer leaf predictions for linear and cubic leaves
-(csrc/eval.cu).
+"""K4: clamped integer leaf predictions (csrc/eval.cu), one C entry
+point per leaf kernel: linear, cubic, loglinear and normal.
 
 Counterpart of rmi_tpu/ops/eval_kernel.py:leaf_eval_clamped.  Serves the
 build's epsilon probes (bound n) and lookup (bound n - 1).  Its leaf
 evaluation is the one the error sweep (K3) measured the bounds with
 (csrc/leaf_eval.cuh; models.base.leaf_predict in the plain version),
-which is what makes |guess - lower_bound| <= err hold.
+which is what makes |guess - lower_bound| <= err hold.  ``x`` is the
+leaf kernel's input (models.base.kernel_input).
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""K3: the build's per-key error sweep for linear and cubic leaves
-(csrc/sweep.cu).
+"""K3: the build's per-key error sweep (csrc/sweep.cu), one C entry
+point per leaf kernel: linear, cubic, loglinear and normal.
 
 Counterpart of rmi_tpu/ops/sweep_kernel.py:sweep_errors.  The kernel
 and K4 (ops/eval_kernel.py) evaluate leaves with the device functions of
 csrc/leaf_eval.cuh; their plain versions share models.base.leaf_predict.
-The leaf type is passed, never read off the row width: loglinear rows
-are [B, 2] as linear ones are.
+Both take the leaf kernel's input (models.base.kernel_input: for
+lognormal leaves max(ln x, 0), computed by the caller).  The leaf type
+is passed, never read off the row width: loglinear rows are [B, 2] as
+linear ones are.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ def sweep_errors_plain(xn, yfix, t, w, n: int, *, leaf_type: str) -> torch.Tenso
 
 def sweep_errors(xn, yfix, t, w, n: int, *, leaf_type: str) -> torch.Tensor:
     """err [n] int32: |clip(floor(leaf_t(x)), 0, n) - min(y, n)| per key,
-    for rows ``w`` [B, ppm] of leaf model ``leaf_type``."""
+    for rows ``w`` [B, ppm] of leaf model ``leaf_type`` and its kernel
+    input ``xn``."""
     mdef = get_model(leaf_type)
     _check(xn, yfix, t, w, mdef.ppm)
     if xn.device.type == "cpu":

@@ -10,7 +10,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from rmi_tpu_torch import keys as keymod
+from rmi_tpu_torch import config, keys as keymod
 from rmi_tpu_torch.data import RMIDataset
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, validate_spec
@@ -90,14 +90,15 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     """A port TrainedRMI serving an index built elsewhere, from numpy
     arrays: the JAX build's ``device_top_params["w"]`` [1, ppm],
     ``device_leaf_params["w"]`` [B, ppm], ``leaf_errors`` [B] and
-    normalization constants, over the unsigned ``keys`` it was built on.
-    Only the rows ``"w"`` cross over (cubic leaves: [B, 4]); rmi_tpu's
-    generator aux waits for the artifacts (ROADMAP item 10).  The metrics
-    are recomputed from the leaf errors and the leaf counts that the top
-    model assigns."""
+    normalization constants, over the unsigned ``keys`` it was built on,
+    on ``device`` (the card when None; the CPU only when asked for).
+    Only the rows ``"w"`` cross over (cubic leaves: [B, 4], normal and
+    lognormal: [B, 3]); rmi_tpu's generator aux waits for the artifacts
+    (ROADMAP item 10).  The metrics are recomputed from the leaf errors
+    and the leaf counts that the top model assigns."""
     top_type, leaf_type = models.split(",")
     validate_spec([top_type, leaf_type])
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = config.require_cuda() if device is None else torch.device(device)
     keys_img = keymod.to_image(keys).to(dev)
     top = torch.tensor(np.asarray(top_w, np.float64), device=dev).reshape(1, -1)
     leaf = torch.tensor(np.asarray(leaf_w, np.float64), device=dev)
@@ -106,9 +107,8 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
         raise ValueError(f"leaf_w must be [B, {ppm}] for {leaf_type} leaves, "
                          f"not {list(leaf.shape)}")
     errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
-    xn = two_layer.normalize(keys_img, norm_offset, norm_scale)
-    t = two_layer.predict_top_assignment(get_model(top_type), top, xn,
-                                         B - 1).to(torch.int32)
+    t = two_layer.top_assignment(get_model(top_type), top, keys_img, norm_offset,
+                                 norm_scale, B - 1).to(torch.int32)
     spans = seg.make_spans(t, B)
     metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
                                       keys_img.shape[0])

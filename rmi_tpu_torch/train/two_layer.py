@@ -7,13 +7,15 @@ device, in three stages whose per-key temporaries are freed before the
 next stage allocates:
 
   A  FixDups (kernel K1) + top fit + leaf assignment;
-  B  per-leaf fits over overlap-augmented spans (kernel K2 for linear
-     leaves, K6 for cubic ones) + lower-bound fills + empty-leaf patch;
+  B  per-leaf fits over overlap-augmented spans (kernel K2 for linear,
+     loglinear and normal leaves, K6 for cubic ones) + lower-bound fills
+     + empty-leaf patch;
   C  error sweep (K3) + epsilon probes (K4) + duplicate-run inflation
      (K1) + the reference's error metrics.
 
 There is one build path: native f64 in the normalized key domain
-x' = (x - key_min) * (1 / key_span), with no staged, B-generic, df64 or
+x' = (x - key_min) * (1 / key_span) (the keys' raw f64 values for a
+"raw" model, lognormal), with no staged, B-generic, df64 or
 window-overflow variants.  The quirks of the JAX build are kept: the
 array's final duplicate run is never flushed (lower_bound_correction.rs:
 104-125) and the final leaf is never constant-patched
@@ -31,6 +33,7 @@ from torch.profiler import record_function
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, predict_clamped, validate_spec
+from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel, sweep_kernel
 from rmi_tpu_torch.utils import segments as seg
 
@@ -50,10 +53,27 @@ def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
     return keymod.as_float(keys).sub_(kminf).mul_(s)
 
 
-def predict_top_assignment(mtop, top_w, xn, bound: int) -> torch.Tensor:
-    """min(bound, predict_to_int(top(x'))) as int64 (two_layer.rs:49).
-    The build's leaf assignment and serving's top eval both call this."""
-    return predict_clamped(mtop.predict(top_w, None, xn), bound)
+def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
+    """The f64 input model ``mdef`` fits and predicts on: the normalized
+    keys, or the keys' raw values for a "raw" model (rmi_tpu
+    two_layer.py:63-66)."""
+    if mdef.input_domain == "raw":
+        return keymod.as_float(keys)
+    return normalize(keys, kminf, s)
+
+
+def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:
+    """min(bound, predict_to_int(top(x))) as int64 (two_layer.rs:49),
+    ``x`` the top's model_float_input."""
+    return predict_clamped(mtop.predict(top_w, None, x), bound)
+
+
+def top_assignment(mtop, top_w, keys: torch.Tensor, kminf: float, s: float,
+                   bound: int) -> torch.Tensor:
+    """predict_top_assignment of key images: the build's leaf assignment
+    and serving's top eval both come here."""
+    return predict_top_assignment(mtop, top_w,
+                                  model_float_input(mtop, keys, kminf, s), bound)
 
 
 def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
@@ -88,15 +108,17 @@ def _scale(v, sf: float):
     return v
 
 
-def _assign_body(xn, yfix, *, top_type: str, B: int):
-    """Stage A after FixDups: top fit + leaf ids t (int32, non-decreasing)."""
-    n = xn.shape[0]
+def _assign_body(top_in, yfix, *, top_type: str, B: int):
+    """Stage A after FixDups: top fit + leaf ids t (int32, non-decreasing),
+    ``top_in`` the top's model_float_input."""
+    n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
     ys_scaled = _scale(yfix.double(), sf)
-    top_w = mtop.fit_top(xn, ys_scaled, _scale(0.0, sf), _scale(float(n - 1), sf))
+    top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
+                         _scale(float(n - 1), sf))
     del ys_scaled
-    t = predict_top_assignment(mtop, top_w, xn, B - 1).to(torch.int32)
+    t = predict_top_assignment(mtop, top_w, top_in, B - 1).to(torch.int32)
     return top_w, t
 
 
@@ -125,11 +147,15 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
     return next_idx, next_key, prev_key
 
 
-def _fit_body(xn, yfix, spans: seg.Spans, next_idx, *, leaf_type: str):
-    """Stage B: leaf rows [B, ppm], constant-patched where a leaf is
-    empty, except the final leaf (the reference's loop stops at B-1)."""
+def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str):
+    """Stage B: leaf rows [B, ppm] fitted on the leaf's model_float_input,
+    constant-patched where a leaf is empty, except the final leaf (the
+    reference's loop stops at B-1) and the models without a constant
+    form (loglinear, normal, lognormal)."""
     mleaf = get_model(leaf_type)
-    w = mleaf.fit_leaves(xn, yfix, spans)
+    w = mleaf.fit_leaves(leaf_in, yfix, spans)
+    if mleaf.constant_params is None:
+        return w
     B = spans.B
     patch = ~spans.nonempty & (torch.arange(B, device=w.device) < B - 1)
     const_rows = mleaf.constant_params(next_idx.double())
@@ -141,13 +167,15 @@ def _error_between(pred, target, n: int):
     return (pred.clamp(max=n) - target.clamp(max=n)).abs()
 
 
-def sweep_body(keys, xn, yfix, spans: seg.Spans, leaf_w, next_idx, next_key,
-               prev_key, kminf: float, s: float, key_type: KeyType, *,
+def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
+               next_key, prev_key, kminf: float, s: float, key_type: KeyType, *,
                leaf_type: str):
-    """Stage C: per-leaf errors [B] int64 and the metrics dict."""
+    """Stage C: per-leaf errors [B] int64 and the metrics dict, from the
+    leaf's model_float_input ``leaf_in``."""
     n, B = spans.n, spans.B
-    err = sweep_kernel.sweep_errors(xn, yfix, spans.t, leaf_w, n,
-                                    leaf_type=leaf_type)
+    mleaf = get_model(leaf_type)
+    err = sweep_kernel.sweep_errors(kernel_input(mleaf, leaf_in), yfix, spans.t,
+                                    leaf_w, n, leaf_type=leaf_type)
     max_err = seg.range_max(err, spans, 0).long()
     del err
 
@@ -155,9 +183,9 @@ def sweep_body(keys, xn, yfix, spans: seg.Spans, leaf_w, next_idx, next_key,
     leaf_ids = torch.arange(B, device=leaf_w.device)
 
     def probe(probe_keys):
-        return eval_kernel.leaf_eval_clamped(
-            normalize(probe_keys, kminf, s), leaf_w, leaf_ids, n,
-            leaf_type=leaf_type).long()
+        x = kernel_input(mleaf, model_float_input(mleaf, probe_keys, kminf, s))
+        return eval_kernel.leaf_eval_clamped(x, leaf_w, leaf_ids, n,
+                                             leaf_type=leaf_type).long()
 
     pred_up = probe(keymod.minus_epsilon(next_key, key_type))
     pred_lo = probe(keymod.plus_epsilon(prev_key, key_type))
@@ -210,17 +238,21 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
         raise ValueError("single-device builds support < 2^31 rows")
     B = int(B)
     # the record_function ranges name the stages in a torch.profiler trace
+    mtop, mleaf = get_model(top_type), get_model(leaf_type)
     with record_function("rmi.build.assign"):
         kminf, s = norm_constants(keys)
-        xn = normalize(keys, kminf, s)
+        top_in = model_float_input(mtop, keys, kminf, s)
         yfix = fixdups_i32(keys)
-        top_w, t = _assign_body(xn, yfix, top_type=top_type, B=B)
+        top_w, t = _assign_body(top_in, yfix, top_type=top_type, B=B)
     with record_function("rmi.build.fit"):
+        leaf_in = (top_in if mleaf.input_domain == mtop.input_domain
+                   else model_float_input(mleaf, keys, kminf, s))
+        del top_in
         spans = seg.make_spans(t, B)
         next_idx, next_key, prev_key = lower_bound_fills(spans, keys, key_type)
-        leaf_w = _fit_body(xn, yfix, spans, next_idx, leaf_type=leaf_type)
+        leaf_w = _fit_body(leaf_in, yfix, spans, next_idx, leaf_type=leaf_type)
     with record_function("rmi.build.sweep"):
-        leaf_errors, metrics = sweep_body(keys, xn, yfix, spans, leaf_w,
+        leaf_errors, metrics = sweep_body(keys, leaf_in, yfix, spans, leaf_w,
                                           next_idx, next_key, prev_key, kminf,
                                           s, key_type, leaf_type=leaf_type)
     return {"top_w": top_w, "leaf_w": leaf_w, "leaf_errors": leaf_errors,

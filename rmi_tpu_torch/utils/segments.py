@@ -8,7 +8,7 @@ operations serve instead: ``torch.searchsorted`` in place of
 sorted_starts (make_spans) and hier_count (models/cubic.py),
 ``scatter_reduce`` for the segmented max; kernel K1 (ops/scan_kernel.py)
 runs the two n-scale monotone scans and kernel K2 (ops/select_kernel.py)
-the per-leaf moments.
+the per-leaf moments: plain, 0/1-weighted and variance-only.
 
 Leaf-overlap semantics (two_layer.rs:52-82): a non-empty leaf j with
 span [s_j, e_j) trains on the augmented range [s_j - (s_j>0),
@@ -148,18 +148,62 @@ def aug_count(spans: Spans) -> torch.Tensor:
     return (spans.aug_ends - spans.aug_starts).double()
 
 
-def aug_centered_moments(spans: Spans, x, y, mean_x, mean_y):
+def aug_sum(spans: Spans, values: torch.Tensor) -> torch.Tensor:
+    """Per-leaf sum of ``values`` over the augmented ranges (f64 [B])."""
+    return range_sum(values, spans.aug_starts, spans.aug_ends)
+
+
+def aug_first_last(spans: Spans):
+    """Indices of the first and last element of each augmented range,
+    clipped to the array: arbitrary for empty leaves, which every fit
+    special-cases."""
+    n = spans.n
+    return (spans.aug_starts.clamp(0, max(n - 1, 0)),
+            (spans.aug_ends - 1).clamp(0, max(n - 1, 0)))
+
+
+def aug_masked_stats(spans: Spans, weights, *values):
+    """(count, sum, ...): the sum of the 0/1 ``weights`` and of each of
+    ``values`` times them over the augmented ranges, the reference's
+    item dropping (loglinear skips non-finite logs, linear.rs:63-67)."""
+    if spans.B == 1:
+        s0, e0 = int(spans.aug_starts[0]), int(spans.aug_ends[0])
+        return (whole_array_sum(weights, s0, e0),
+                *(whole_array_sum(v, s0, e0, times=weights) for v in values))
+    return (range_sum(weights, spans.aug_starts, spans.aug_ends),
+            *(range_sum(v * weights, spans.aug_starts, spans.aug_ends)
+              for v in values))
+
+
+def aug_centered_moments(spans: Spans, x, y, mean_x, mean_y, weights=None):
     """(m2, c): per-leaf sum (x-mx)^2 and sum (x-mx)(y-my) over the
-    augmented ranges.  One whole-array span reduces directly, as the
-    JAX package does for top fits (whole_array_sum); leaf fits run
-    kernel K2."""
+    augmented ranges, each term times its 0/1 weight when ``weights`` is
+    given.  One whole-array span reduces directly, as the JAX package
+    does for top fits (whole_array_sum), with each product rounded
+    before it is weighted (segments.py:415-420 of rmi_tpu); leaf fits
+    run kernel K2."""
     if spans.B == 1:
         s0, e0 = int(spans.aug_starts[0]), int(spans.aug_ends[0])
         dx = x - mean_x[0]
-        return (whole_array_sum(dx, s0, e0, times=dx),
-                whole_array_sum(dx, s0, e0, times=y - mean_y[0]))
+        dy = y - mean_y[0]
+        if weights is None:
+            return (whole_array_sum(dx, s0, e0, times=dx),
+                    whole_array_sum(dx, s0, e0, times=dy))
+        return (whole_array_sum(dx * dx, s0, e0, times=weights),
+                whole_array_sum(dx * dy, s0, e0, times=weights))
     return select_kernel.aug_centered_moments(
-        x, y, mean_x, mean_y, spans.aug_starts, spans.aug_ends)
+        x, y, mean_x, mean_y, spans.aug_starts, spans.aug_ends, weights=weights)
+
+
+def aug_centered_dot(spans: Spans, x, mean_x):
+    """Per-leaf sum (x - mx)^2 over the augmented ranges: rmi_tpu's
+    aug_centered_dot with x as y, the one form the normal models use
+    (models/normal.py).  Leaf fits run K2's variance-only variant."""
+    if spans.B == 1:
+        s0, e0 = int(spans.aug_starts[0]), int(spans.aug_ends[0])
+        dx = x - mean_x[0]
+        return whole_array_sum(dx, s0, e0, times=dx)
+    return select_kernel.aug_centered_xx(x, mean_x, spans.aug_starts, spans.aug_ends)
 
 
 def range_max(values: torch.Tensor, spans: Spans, fill) -> torch.Tensor:

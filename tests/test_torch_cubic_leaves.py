@@ -84,7 +84,7 @@ def _keys(kind, n=N):
 def _builds(kind, spec, B):
     keys = _keys(kind)
     rj = rmi_tpu.train(JDataset.from_numpy(keys, jkeys.KeyType.U64), spec, B)
-    rp = rt.train(rt.RMIDataset.from_numpy(keys), spec, B)
+    rp = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), spec, B)
     return keys, rj, rp
 
 
@@ -93,7 +93,7 @@ def _carried(kind, spec, B):
     return rt.trained_from_numpy(
         spec, B, tkeys.KeyType.U64, keys, np.asarray(rj.device_top_params["w"]),
         np.asarray(rj.device_leaf_params["w"]), np.asarray(rj.leaf_errors),
-        rj.norm_offset, rj.norm_scale)
+        rj.norm_offset, rj.norm_scale, device="cpu")
 
 
 def _stage_inputs(rc):

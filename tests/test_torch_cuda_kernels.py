@@ -7,11 +7,12 @@ runs on a machine without it:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: K1, K3 and K4 (linear and cubic leaves) bit-equal (max/min
-never round; K3 and K4 are compared with the plain version on CPU
-copies, where torch.addcmul is an exact FMA); K2 within rtol 1e-9
-(summation order) plus 1e-12 of the Cauchy-Schwarz bound
-sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its plain version on the
+Tolerances: K1, K3 and K4 (linear, cubic, loglinear and normal leaves,
+lognormal through the normal kernel) bit-equal (max/min never round; K3
+and K4 are compared with the plain version on CPU copies, where
+torch.addcmul is an exact FMA); K2 and its weighted and variance-only
+variants within rtol 1e-9 (summation order) plus 1e-12 of the
+Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its plain version on the
 card and to np.searchsorted (int64 compares never round); K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
 when run again.
@@ -26,7 +27,9 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.models import cubic
+from rmi_tpu_torch.models import cubic, get_model
+from rmi_tpu_torch.models.base import kernel_input
+from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, scan_kernel,
                                select_kernel, sorted_serve_kernel as ssk,
                                sweep_kernel)
@@ -86,6 +89,114 @@ def test_k2_moments(dev):
     assert ((m2.cpu() - wm2).abs() <= 1e-9 * wm2.abs()).all()
     assert ((c.cpu() - wc).abs()
             <= 1e-9 * wc.abs() + 1e-12 * torch.sqrt(wm2 * syy)).all()
+
+
+def _k2_close(got, want, syy):
+    (m2, c), (wm2, wc) = [[t.cpu() for t in r] for r in (got, want)]
+    assert ((m2 - wm2).abs() <= 1e-9 * wm2.abs()).all()
+    assert ((c - wc).abs() <= 1e-9 * wc.abs() + 1e-12 * torch.sqrt(wm2 * syy)).all()
+
+
+def test_k2_moments_weighted(dev):
+    """Loglinear's inputs: ln of FixDups positions, weight 0 where the
+    log is -inf (the first duplicate run, a whole leaf)."""
+    x, y, t, _ = _leaf_inputs(300_001, 4096, 7)
+    y[:2000] = 0
+    ln, w = log_targets(y.double())
+    spans = seg.make_spans(t, 4096)
+    cnt, sx, sy = seg.aug_masked_stats(spans, w, x, ln)
+    assert float(cnt[0]) == 0.0
+    mx, my = sx / cnt.clamp(min=1), sy / cnt.clamp(min=1)
+    args = (x, ln, mx, my, spans.aug_starts, spans.aug_ends)
+    before = _build.launches["rmi_aug_moments_weighted"]
+    got = select_kernel.aug_centered_moments(*[a.to(dev) for a in args], weights=w.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_aug_moments_weighted"] == before + 1
+    want = select_kernel.aug_centered_moments_plain(*args, weights=w)
+    syy = select_kernel.aug_centered_moments_plain(ln, ln, my, my, *args[4:], weights=w)[0]
+    _k2_close(got, want, syy)
+
+
+def test_k2_moments_xx(dev):
+    x, _, t, _ = _leaf_inputs(300_001, 4096, 8)
+    spans = seg.make_spans(t, 4096)
+    mx = seg.aug_sum(spans, x) / seg.aug_count(spans).clamp(min=1)
+    before = _build.launches["rmi_aug_moments_xx"]
+    got = select_kernel.aug_centered_xx(x.to(dev), mx.to(dev), spans.aug_starts.to(dev),
+                                        spans.aug_ends.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_aug_moments_xx"] == before + 1
+    want = select_kernel.aug_centered_xx_plain(x, mx, spans.aug_starts, spans.aug_ends)
+    assert ((got.cpu() - want).abs() <= 1e-9 * want.abs()).all()
+
+
+def _zoo_rows(leaf, n, B, seed):
+    """(kernel input, y, t, rows) with rows from the port's fit of leaf
+    model ``leaf`` on the CPU; lognormal's model input is raw key values."""
+    x, y, t, _ = _leaf_inputs(n, B, seed)
+    mdef = get_model(leaf)
+    if mdef.input_domain == "raw":
+        x = x * 2.0 ** 50 + 1.0
+    w = mdef.fit_leaves(x, y, seg.make_spans(t, B))
+    return kernel_input(mdef, x), y, t, w
+
+
+@pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
+def test_k3_sweep_zoo(dev, leaf):
+    x, y, t, w = _zoo_rows(leaf, 500_009, 2048, 9)
+    n = x.shape[0]
+    entry = f"rmi_sweep_{get_model(leaf).leaf_kernel}"
+    before = _build.launches[entry]
+    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
+                                    leaf_type=leaf)
+    torch.cuda.synchronize()
+    assert _build.launches[entry] == before + 1
+    want = sweep_kernel.sweep_errors_plain(x, y, t, w, n, leaf_type=leaf)
+    assert torch.equal(got.cpu(), want)
+    assert int((want > 0).sum()) > n // 10
+
+
+@pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
+@pytest.mark.parametrize("bound", [0, 499_999])
+def test_k4_leaf_eval_zoo(dev, leaf, bound):
+    x, _, t, w = _zoo_rows(leaf, 500_009, 2048, 10)
+    x = torch.cat([x, torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0])])
+    w[5] = torch.tensor([0.0, float("nan"), -float("inf")])[:w.shape[1]]  # an empty leaf
+    leaf_ids = torch.cat([t, t[:4]]).long()
+    got = eval_kernel.leaf_eval_clamped(x.to(dev), w.to(dev), leaf_ids.to(dev), bound,
+                                        leaf_type=leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), eval_kernel.leaf_eval_clamped_plain(
+        x, w, leaf_ids, bound, leaf_type=leaf))
+
+
+def test_entry_points_default_to_the_card(dev, tmp_path):
+    keys = np.sort(np.random.default_rng(3).integers(0, 2 ** 50, 5000, dtype=np.uint64))
+    assert rt.RMIDataset.from_numpy(keys).keys.device.type == "cuda"
+    path = str(tmp_path / "keys_uint64")
+    rt.write_sosd_file(path, keys)
+    assert rt.load_data(path).keys.device.type == "cuda"
+    cpu = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), "linear,linear", 16)
+    rc = rt.trained_from_numpy("linear,linear", 16, KeyType.U64, keys,
+                               cpu.device_top_params.numpy(),
+                               cpu.device_leaf_params.numpy(),
+                               cpu.leaf_errors.numpy(), cpu.norm_offset, cpu.norm_scale)
+    assert rc.keys.device.type == rc.device_leaf_params.device.type == "cuda"
+
+
+@pytest.mark.parametrize("spec", ["cubic,loglinear", "cubic,normal", "cubic,lognormal",
+                                  "lognormal,linear"])
+def test_card_build_zoo_matches_cpu_build(dev, spec):
+    keys = rdata.books_like_on_device(1 << 18, 8, dev)
+    card = rt.train(rdata.RMIDataset(keys, KeyType.U64), spec, 256)
+    cpu = rt.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), spec, 256)
+    assert card.model_max_error == cpu.model_max_error
+    diff = (card.leaf_errors.cpu() - cpu.leaf_errors).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 8
+    lb = torch.searchsorted(keys, keys, side="left")
+    g, e = rt.lookup(card, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    assert torch.equal(rt.search(card, keys), lb)
 
 
 def test_k3_sweep(dev):

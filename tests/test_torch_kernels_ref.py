@@ -15,6 +15,10 @@ JAX functions on the same numpy inputs:
     which XLA computes as fma(beta, x, alpha); against the Pallas
     float-float kernels in interpret mode, integer outputs may differ by
     1 on at most 0.1% of elements.
+  * K3 and K4 for loglinear, normal and lognormal rows (the port's own
+    leaf fits of the same keys) bit-equal to rmi_tpu's jitted predict:
+    exp1 of the FMA, and phi with the two FMAs XLA forms; lognormal
+    through the lognormal input transform, applied before the kernel.
 """
 
 import numpy as np
@@ -23,12 +27,15 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from rmi_tpu.models import get_model as j_get_model
 from rmi_tpu.models.base import predict_clamped as j_predict_clamped
 from rmi_tpu.models.linear import _linear_predict as j_linear_predict
 from rmi_tpu.ops import eval_kernel as j_eval
 from rmi_tpu.ops import scan_kernel as j_scan
 from rmi_tpu.ops import sweep_kernel as j_sweep
 from rmi_tpu.utils import segments as j_seg
+from rmi_tpu_torch.models import get_model
+from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel, scan_kernel, select_kernel, sweep_kernel
 from rmi_tpu_torch.utils import segments as t_seg
 
@@ -157,3 +164,50 @@ def test_k4_leaf_eval_matches_jax(ref):
                                     ppm=2, n=bound)
     diff = np.abs(got.astype(np.int64) - np.asarray(want).astype(np.int64))
     assert diff.max() <= 1 and np.count_nonzero(diff) <= xq.size // 1000
+
+
+def _zoo_inputs(leaf, seed):
+    """(model input x, y, t, rows) of _inputs with rows from the port's
+    own fit of leaf model ``leaf``; lognormal's x are raw key values."""
+    x, y, t, _ = _inputs(seed)
+    if get_model(leaf).input_domain == "raw":
+        x = x * 2.0 ** 50 + 1.0
+    tt = torch.from_numpy(t)
+    w = get_model(leaf).fit_leaves(torch.from_numpy(x), torch.from_numpy(y),
+                                   t_seg.make_spans(tt, B))
+    return x, y, t, w.numpy()
+
+
+@pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
+def test_k3_sweep_zoo_matches_jax(leaf):
+    x, y, t, w = _zoo_inputs(leaf, 5)
+    xin = kernel_input(get_model(leaf), torch.from_numpy(x))
+    got = sweep_kernel.sweep_errors(xin, torch.from_numpy(y), torch.from_numpy(t),
+                                    torch.from_numpy(w), N, leaf_type=leaf).numpy()
+
+    def jax_sweep(x_, y_, t_, w_):
+        p = jnp.floor(j_get_model(leaf).predict({"w": w_}, t_, x_))
+        p = jnp.where(jnp.isnan(p), 0.0, jnp.clip(p, 0.0, jnp.float64(N)))
+        return jnp.abs(p.astype(jnp.int32) - jnp.minimum(y_, N))
+    want = jax.jit(jax_sweep)(*map(jnp.asarray, (x, y, t, w)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert np.count_nonzero(got) > N // 10
+
+
+@pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
+def test_k4_leaf_eval_zoo_matches_jax(leaf):
+    x, _, t, w = _zoo_inputs(leaf, 6)
+    rng = np.random.default_rng(7)
+    sel = rng.integers(0, N, 20_000)
+    span = x[-1] - x[0]
+    xq = np.concatenate([x[sel], x[sel] + rng.normal(0, 1e-5 * span, sel.size),
+                         [np.nan, np.inf, -np.inf, -1.0, 0.0]])
+    leaf_ids = np.concatenate([t[sel], t[sel], t[:5]]).astype(np.int64)
+    bound = N - 1
+    got = eval_kernel.leaf_eval_clamped(
+        kernel_input(get_model(leaf), torch.from_numpy(xq)), torch.from_numpy(w),
+        torch.from_numpy(leaf_ids), bound, leaf_type=leaf).numpy()
+    want = jax.jit(lambda w_, i_, x_: j_predict_clamped(
+        j_get_model(leaf).predict({"w": w_}, i_, x_), bound))(
+        *map(jnp.asarray, (w, leaf_ids, xq)))
+    np.testing.assert_array_equal(got, np.asarray(want))

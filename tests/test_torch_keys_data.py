@@ -69,7 +69,7 @@ def test_sosd_file_cross_load(tmp_path, rng, writer):
     path = str(tmp_path / "keys_uint64")
     (jdata if writer == "jax" else tdata).write_sosd_file(path, keys)
     via_jax = np.asarray(jdata.load_data(path).keys)
-    ds = tdata.load_data(path)
+    ds = tdata.load_data(path, device="cpu")
     assert ds.key_type is tkeys.KeyType.U64 and ds.n == keys.size
     np.testing.assert_array_equal(ds.to_numpy(), via_jax)
     np.testing.assert_array_equal(via_jax, keys)

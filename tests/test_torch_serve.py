@@ -69,7 +69,7 @@ def _indexes(kind, spec, B):
         spec, B, tkeys.KeyType.U64, keys, np.asarray(rj.device_top_params["w"]),
         np.asarray(rj.device_leaf_params["w"]),
         np.asarray(rj.leaf_errors).astype(np.int64), rj.norm_offset,
-        rj.norm_scale)
+        rj.norm_scale, device="cpu")
     return keys, rj, rc
 
 
@@ -238,7 +238,7 @@ def test_bounded_plan_serves_exactly():
     the plan is "bounded" (lookup + bounded binary search) on every route."""
     rng = np.random.default_rng(12)
     keys = np.sort(rng.integers(0, 2 ** 50, 1 << 20, dtype=np.uint64))
-    rc = rt.train(rt.RMIDataset.from_numpy(keys), "linear,linear", 1)
+    rc = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), "linear,linear", 1)
     assert lf.packed_plan_shape(rc) is None
     assert lf.get_plan(rc).kind == "bounded"
     q = np.concatenate([rng.integers(0, 2 ** 51, NQ_SORTED - 4, dtype=np.uint64),

@@ -63,7 +63,7 @@ def _keys(kind):
 def _builds(kind, spec, B):
     keys = _keys(kind)
     rj = rmi_tpu.train(JDataset.from_numpy(keys, jkeys.KeyType.U64), spec, B)
-    rp = rt.train(rt.RMIDataset.from_numpy(keys), spec, B)
+    rp = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), spec, B)
     return keys, rj, rp
 
 
@@ -94,7 +94,7 @@ def test_carried_params_bit_equal(kind, spec, B):
     leaf_w = np.asarray(rj.device_leaf_params["w"])
     errs_j = np.asarray(rj.leaf_errors).astype(np.int64)
     rc = rt.trained_from_numpy(spec, B, tkeys.KeyType.U64, keys, top_w, leaf_w,
-                               errs_j, rj.norm_offset, rj.norm_scale)
+                               errs_j, rj.norm_offset, rj.norm_scale, device="cpu")
     assert rc.model_max_error == rj.model_max_error
     assert rc.model_max_error_idx == rj.model_max_error_idx
 
@@ -217,10 +217,10 @@ def test_search_is_exact(kind, spec, B):
         np.testing.assert_array_equal(got, np.searchsorted(keys, q, side="left"))
 
 
-@pytest.mark.parametrize("spec", ["cubic,normal", "linear,loglinear",
+@pytest.mark.parametrize("spec", ["cubic,radix22", "bradix,linear",
                                   "radix,linear", "linear,linear,linear"])
 def test_unported_specs_raise(spec):
-    data = rt.RMIDataset.from_numpy(_keys("books"))
+    data = rt.RMIDataset.from_numpy(_keys("books"), device="cpu")
     err = ValueError if spec.count(",") != 1 else NotImplementedError
     with pytest.raises(err):
         rt.train(data, spec, 64)

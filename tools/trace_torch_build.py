@@ -6,7 +6,9 @@
 Makes books-like keys on the card (as chip_smoke.py does), runs one
 untraced build and search to warm up, then traces with torch.profiler a
 warm build of ``--spec`` with ``--B`` leaves (chip_smoke.py's first path
-by default; its second is ``--spec robust_linear,cubic --B 65536``), and
+by default; its others are ``--spec robust_linear,cubic``,
+``--spec cubic,loglinear`` and ``--spec cubic,normal``, each with
+``--B 65536``), and
 apart from it SEARCH_BATCHES search batches of 2^22 random queries
 (sort -> K5 -> unsort).  For each
 trace it prints the device time of the rmi.* ranges (the build stages of
