@@ -8,20 +8,25 @@ Phases (any failure raises and exits non-zero):
   2. the kernels: built from csrc/ with nvcc, build time printed;
   3. path 1 on books-like u64 keys made on the card from a seed:
      ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup,
-     search of 2^22 random queries (sort -> K5 -> unsort at the default
-     size) and search_sorted of the same queries sorted (K5); every
-     kernel of the path must have launched in that run, and the keys made
-     twice and the two builds must be bit-equal;
+     search of 2^22 random queries (torch.sort, then K5's scatter entry,
+     at the default size) and search_sorted of the same queries sorted
+     (K5); every kernel of the path must have launched in that run, and
+     the keys made twice and the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys;
   5. exact search against torch.searchsorted: search and search_sorted
      of the path, then search, search_sorted and fast_search on 2^16
      queries (the packed plan); the search rate;
+  5b. K5 on that batch (k5_phase): the share of blocks whose window
+     exceeds the shared-memory stage, search's device time split into
+     the sort and K5 with its scatter, and K5 at sample levels 8 and 16
+     timed in turns, both checked against torch.searchsorted;
   6. the serving curve: lookups/s at 2^14 ... 2^22 queries for the
      bounded path, the packed plan, sort -> K5 -> unsort without the
      density gate, and search_sorted on sorted batches;
   7. each kernel of the path replayed on the inputs the path gave it,
-     against its plain PyTorch version: K1, K2 and K5 on the card, K3
-     and K4 on CPU copies (CPU torch.addcmul is an exact FMA);
+     against its plain PyTorch version: K1, K2, K5 and K5's scatter
+     entry on the card, K3 and K4 on CPU copies (CPU torch.addcmul is an
+     exact FMA);
   8. a build on the card against the plain build on the CPU;
   9. path 2 on the same keys, once path 1's index is freed:
      ``train(data, "robust_linear,cubic", 65536)`` cold and warm (bit-
@@ -43,7 +48,8 @@ computes the same function, that call's (library_ms), and the least time
 the card could take for the call (bound_ms): the bytes its tensors hold,
 each input read once and each output written once (K5: the queries, the
 answers, and the 32-byte sectors of keys that decide each answer and
-each block's binary search), at 3.35 TB/s, or its operations at the
+each block's binary search over its stripes; the scatter entry adds its
+order), at 3.35 TB/s, or its operations at the
 peak rate of their type, whichever is larger.
 The last line is the device JSON; the line before it lists the kernels,
 one row per C entry point.
@@ -116,30 +122,36 @@ KERNELS = [
     ("rmi_serve_sorted", sorted_serve_kernel, "serve_sorted", "serve_sorted_plain",
      None, "rmi_tpu_torch/csrc/sorted_serve.cu",
      "rmi_tpu/ops/sorted_serve_kernel.py:88"),
+    ("rmi_serve_sorted_scatter", sorted_serve_kernel, "serve_sorted_scatter",
+     "serve_sorted_scatter_plain", None, "rmi_tpu_torch/csrc/sorted_serve.cu",
+     "rmi_tpu/ops/sorted_serve_kernel.py:88"),
     ("rmi_cubic_l1", cubic_l1_kernel, "cubic_l1_sums", "cubic_l1_sums_plain", None,
      "rmi_tpu_torch/csrc/cubic_l1.cu", "rmi_tpu/ops/select_kernel.py:30"),
 ]
 # (spec, B, the C entry points the path launches, those it replays)
+# search launches K5's scatter entry, search_sorted K5 itself
+K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
 PATH1 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
-          "rmi_leaf_eval_linear", "rmi_serve_sorted"),
+          "rmi_leaf_eval_linear", *K5),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
-          "rmi_leaf_eval_linear", "rmi_serve_sorted"))
+          "rmi_leaf_eval_linear", *K5))
 PATH2 = ("robust_linear,cubic", 65536,
-         ("rmi_scan_i32", "rmi_sweep_cubic", "rmi_leaf_eval_cubic",
-          "rmi_serve_sorted", "rmi_cubic_l1"),
+         ("rmi_scan_i32", "rmi_sweep_cubic", "rmi_leaf_eval_cubic", *K5,
+          "rmi_cubic_l1"),
          ("rmi_sweep_cubic", "rmi_leaf_eval_cubic", "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_loglinear",
-          "rmi_leaf_eval_loglinear", "rmi_serve_sorted"),
+          "rmi_leaf_eval_loglinear", *K5),
          ("rmi_aug_moments_weighted", "rmi_sweep_loglinear", "rmi_leaf_eval_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_normal",
-          "rmi_leaf_eval_normal", "rmi_serve_sorted"),
+          "rmi_leaf_eval_normal", *K5),
          ("rmi_aug_moments_xx", "rmi_sweep_normal", "rmi_leaf_eval_normal"))
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (), ("rmi_sweep_normal", "rmi_leaf_eval_normal"))
 CURVE = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22]   # serving curve batch sizes
+SEARCH_TRACED = 5         # search batches the K5 phase traces
 
 
 def log(*a):
@@ -329,18 +341,21 @@ def work(name, args, kw, out):
         elems = int((spans.aug_ends - spans.aug_starts).sum())
         return (_nbytes(x, y, cubic_w, lin_w, spans.aug_starts, spans.aug_ends, *outs),
                 elems * 12, F64_OPS_PER_S)
-    if name == "serve_sorted":
+    if name in ("serve_sorted", "serve_sorted_scatter"):
         # what the answers need, not what K5 reads: each query, window
-        # bound and answer once; per answer lb the sectors that hold
-        # keys[lb - 1] and keys[lb], each sector once; per block a binary
-        # search of its window of stripe-first keys, a sector per probe
-        q, stripe_first, keys, lo, hi = args
+        # bound and answer once (and the scatter's order); per answer lb
+        # the sectors that hold keys[lb - 1] and keys[lb], each sector
+        # once; per block a binary search of its window of stripe-first
+        # keys (keys[::64], between its bounds), a sector per probe
+        q, *rest = args
+        order = rest.pop(0) if name == "serve_sorted_scatter" else None
+        _, keys, lo, hi = rest
         n = keys.shape[0]
         near = torch.cat([(out - 1).clamp(0, n - 1), out.clamp(0, n - 1)])
         sectors = torch.unique(near // (SECTOR_BYTES // keys.element_size())).numel()
         window = (hi - lo + 1).clamp(min=1).double()
         probes = int(torch.log2(window).ceil().sum())
-        nbytes = _nbytes(q, lo, hi, out) + SECTOR_BYTES * (sectors + probes)
+        nbytes = _nbytes(q, order, lo, hi, out) + SECTOR_BYTES * (sectors + probes)
         steps = math.log2(max(2.0, float(window.mean()))) + math.log2(sorted_serve_kernel.STRIPE)
         return nbytes, q.shape[0] * steps * 3, INT_OPS_PER_S      # int64 compare ~ 3 ops
     raise KeyError(name)
@@ -354,7 +369,7 @@ def library_call(name, args, kw):
             (lambda: torch.cummin(args[0], 0))
     if name == "serve_sorted":
         return lambda: torch.searchsorted(args[2], args[0])
-    return None
+    return None         # the scatter entry: no one call both searches and scatters
 
 
 def bound_violations(rmi, keys, sample, gen):
@@ -424,6 +439,71 @@ def serving_curve(rmi, keys, gen):
     log(f"serving curve (plan {plan.kind}, S={plan.S}, F={plan.F}): sort -> K5 "
         f"-> unsort beats the packed plan at nq in {over}")
     log("serving curve " + json.dumps(rows))
+
+
+def _device_us(evt):
+    """Self device time of a profiler event, 0 for a host-side op."""
+    if not getattr(evt.device_type, "name", str(evt.device_type)).endswith("CUDA"):
+        return 0.0
+    return (getattr(evt, "self_device_time_total", None)
+            or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def k5_phase(rmi, keys, queries):
+    """K5 on the main path's batch: the share of blocks whose window
+    exceeds the shared-memory stage; search's device time per batch split
+    into the sort, K5 with its scatter and the rest (a profiler trace of
+    SEARCH_TRACED batches) beside each part timed alone; K5 at the sample
+    levels 8 and 16 in turns (8, 16, 16, 8), both exact."""
+    ssk = sorted_serve_kernel
+    plan = lookup_fast.get_plan(rmi)
+    n, nq = keys.shape[0], queries.shape[0]
+    qs, order = torch.sort(queries)
+    lo, hi = lookup_fast.sorted_bounds(rmi, plan, qs)
+    glo, ghi = ssk.group_bounds(lo, hi, n)
+    staged = ghi - (glo & ~1)
+    over = int((staged > ssk.WINDOW_CAP).sum())
+    log(f"K5 windows, {nq} queries over {n} keys: {over} of {lo.shape[0]} blocks "
+        f"over the stage cap of {ssk.WINDOW_CAP} group-first keys (share "
+        f"{over / lo.shape[0]!r}); staged keys per block mean "
+        f"{float(staged.double().mean())!r}, max {int(staged.max())}")
+
+    search(rmi, queries)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(SEARCH_TRACED):
+            search(rmi, queries)
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(("sort", "k5_scatter", "other"), 0.0)
+    for e in prof.key_averages():
+        name = e.key.lower()
+        part = ("k5_scatter" if "serve_sorted" in name
+                else "sort" if "sort" in name else "other")
+        parts[part] += _device_us(e) / 1e3 / SEARCH_TRACED
+    alone = {"sort": cuda_ms(lambda: torch.sort(queries), 10),
+             "bounds": cuda_ms(lambda: lookup_fast.sorted_bounds(rmi, plan, qs), 10),
+             "k5_scatter": cuda_ms(lambda: ssk.serve_sorted_scatter(
+                 qs, order, plan.group_first, keys, lo, hi), 10),
+             "search": cuda_ms(lambda: search(rmi, queries), 10)}
+    log(f"search device time per batch of {nq} (profiler, {SEARCH_TRACED} batches): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f", busy {sum(parts.values()):.4f} ms; timed alone (CUDA events): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+
+    want = torch.searchsorted(keys, qs)
+    firsts = {g: keys[::g].contiguous() for g in ssk.LEVELS}
+    for g, gf in firsts.items():
+        if not torch.equal(ssk.serve_sorted_level(qs, gf, keys, lo, hi, g), want):
+            raise RuntimeError(f"K5 at sample level {g} disagrees with torch.searchsorted")
+    times = {g: [] for g in ssk.LEVELS}
+    for g in (8, 16, 16, 8):
+        times[g].append(cuda_ms(lambda: ssk.serve_sorted_level(
+            qs, firsts[g], keys, lo, hi, g), 10))
+    library = cuda_ms(lambda: torch.searchsorted(keys, qs), 10)
+    log(f"K5 sample levels, {nq} sorted queries over {n} keys, in turns 8, 16, 16, 8: "
+        + ", ".join(f"level {g}: {t[0]:.4f}, {t[1]:.4f} ms" for g, t in times.items())
+        + f"; torch.searchsorted {library:.4f} ms; serving uses level {ssk.GROUP}")
 
 
 def same_build(a, b):
@@ -631,6 +711,7 @@ def main():
     # 3-8. path 1
     spec, B, _, replayed = PATH1
     rmi, rec, counts = drive(PATH1, data, queries, gen)
+    k5_phase(rmi, keys, queries)
     serving_curve(rmi, keys, gen)
     del rmi
     rows.update(check_kernels(rec, counts, replayed))

@@ -26,8 +26,10 @@ which is not ported yet (ROADMAP.md Queue 1, item 8).
 Sorted serving.  Over a non-decreasing batch lb1 is non-decreasing, so
 the leaf rows of a block's first and last query bound lb1 for every
 query between them; K5 (ops/sorted_serve_kernel.py) counts inside that
-window of stripe_first = keys[::64].  A batch in any order is sorted,
-served by K5 and scattered back (fast_search_via_sort).
+window of the sample level group_first = keys[::8], then in one 8-key
+group.  A batch in any order is sorted and served by K5's scatter
+entry, which writes each answer back to the query's place
+(fast_search_via_sort).
 
 Keys and queries are int64 images (rmi_tpu_torch.keys), so int64
 compares replace rmi_tpu's u32 hi/lo words, and the key array is read
@@ -82,7 +84,8 @@ class Plan:
     F: int = 1                     # stripes between samples
     rows: Optional[torch.Tensor] = None          # [B, 1 + S] int64
     stripe_first: Optional[torch.Tensor] = None  # keys[::64], [ceil(n / 64)]
-    kmin: int = 0                  # keys[0], keys[-1]: the routing domain
+    group_first: Optional[torch.Tensor] = None   # keys[::8], K5's sample level: n bytes
+    kmin: int = 0                 # keys[0], keys[-1]: the routing domain
     kmax: int = 0
 
 
@@ -201,7 +204,7 @@ def _make_plan(rmi) -> Plan:
     kmin, kmax = rmi.keys[[0, -1]].tolist()
     return Plan("packed" if F == 1 else "packed_wide", n, S, F,
                 leaf_rows(rmi, S, F), rmi.keys[::STRIDE].contiguous(),
-                kmin, kmax)
+                rmi.keys[::sorted_serve_kernel.GROUP].contiguous(), kmin, kmax)
 
 
 def stripe_lower_limits(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
@@ -287,7 +290,7 @@ def sorted_search(rmi, plan: Plan, qs: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of a non-decreasing batch through K5."""
     qs = qs.contiguous()
     lo, hi = sorted_bounds(rmi, plan, qs)
-    return sorted_serve_kernel.serve_sorted(qs, plan.stripe_first, rmi.keys,
+    return sorted_serve_kernel.serve_sorted(qs, plan.group_first, rmi.keys,
                                             lo, hi)
 
 
@@ -301,12 +304,13 @@ def fast_search_sorted(rmi, queries: torch.Tensor) -> torch.Tensor:
 
 
 def serve_via_sort(rmi, plan: Plan, queries: torch.Tensor) -> torch.Tensor:
-    """Sort, serve the sorted batch with K5, and scatter the answers back
-    to the input order (out[order] = lb), with no density gate."""
+    """Sort and serve the sorted batch with K5's scatter entry, which
+    writes each answer to its query's place in the input (out[order] =
+    lb), with no density gate."""
     qs, order = torch.sort(queries)
-    out = torch.empty_like(queries)
-    out[order] = sorted_search(rmi, plan, qs)
-    return out
+    lo, hi = sorted_bounds(rmi, plan, qs)
+    return sorted_serve_kernel.serve_sorted_scatter(qs, order, plan.group_first,
+                                                    rmi.keys, lo, hi)
 
 
 def fast_search_via_sort(rmi, queries: torch.Tensor) -> torch.Tensor:

@@ -122,7 +122,9 @@ SIGNATURES = {
     "rmi_leaf_eval_loglinear": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_normal": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_cubic_l1": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
-    "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P),
+    "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _P, _P),
+    "rmi_serve_sorted_scatter": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
+                                 _P, _P),
 }
 
 # successful launches per C entry point since the process started

@@ -12,7 +12,8 @@ lognormal through the normal kernel) bit-equal (max/min never round; K3
 and K4 are compared with the plain version on CPU copies, where
 torch.addcmul is an exact FMA); K2 and its weighted and variance-only
 variants within rtol 1e-9 (summation order) plus 1e-12 of the
-Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 bit-equal to its plain version on the
+Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 and its scatter
+entry, at both sample levels, bit-equal to their plain versions on the
 card and to np.searchsorted (int64 compares never round); K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
 when run again.
@@ -336,6 +337,11 @@ def _k5_case(case):
         q = np.concatenate([keys[rng.integers(0, keys.size, 1 << 16)],
                             rng.integers(-(1 << 41), 1 << 41, 1 << 14)])
         return keys, np.sort(q)
+    if case == "straddle":             # blocks ~100 stripes wide (bounds widened later)
+        keys = np.sort(rng.integers(-(1 << 62), 1 << 62, 1 << 20))
+        nq = 12 * ssk.KQ + 77
+        q = np.sort(rng.integers(keys[64 * 2000], keys[64 * 3300], nq))
+        return keys, q
     n = {"dense": 1 << 20, "sparse": 1 << 22, "extremes": 1 << 16,
          "ragged": 1 << 18}[case]
     keys = np.sort(rng.integers(-(1 << 62), 1 << 62, n))
@@ -360,27 +366,72 @@ def _tight_bounds(stripe_first, q):
     return np.maximum(blocks.min(1) - 1, 0), blocks.max(1)
 
 
-@pytest.mark.parametrize("case", ["dense", "sparse", "duplicates", "extremes", "ragged"])
+def _staged(lo, hi, n):
+    """Group-first keys each block stages: from its 16-byte aligned start."""
+    glo, ghi = ssk.group_bounds(torch.from_numpy(lo), torch.from_numpy(hi), n)
+    return (ghi - (glo & ~1)).numpy()
+
+
+# window widths hi - lo of the straddle case, cycled over its blocks: a
+# window of w + 1 stripes stages 8 (w + 1) group-first keys, so w = 767
+# stages exactly the cap of 6144
+STRADDLE_WIDTHS = [150, 766, 767, 768, 3000, 767]
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "duplicates", "extremes", "ragged",
+                                  "straddle"])
 def test_k5_serve_sorted(dev, case):
     keys, q = _k5_case(case)
     sf = keys[::64]
     lo, hi = _tight_bounds(sf, q)
-    if case == "sparse":     # every block's window exceeds the shared-memory window
-        assert (hi - lo).min() > 4096
-    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (q, sf, keys, lo, hi)]
-    before = _build.launches["rmi_serve_sorted"]
-    got = ssk.serve_sorted(*[a.to(dev) for a in args])
-    torch.cuda.synchronize()
-    assert _build.launches["rmi_serve_sorted"] == before + 1
+    if case == "straddle":   # widen each window to its width, lb1 still inside
+        w = np.resize(STRADDLE_WIDTHS, lo.size)
+        assert np.all(hi - lo <= w.min())
+        lo = lo - 10
+        hi = lo + w
+        assert lo.min() >= 1 and hi.max() <= sf.size
+        staged = _staged(lo, hi, keys.size)
+        cap = ssk.WINDOW_CAP
+        assert (staged > cap).any() and (staged < cap).any() and (staged == cap).any()
+    if case == "sparse":     # every block's window exceeds the shared-memory stage
+        assert _staged(lo, hi, keys.size).min() > ssk.WINDOW_CAP
     want = np.searchsorted(keys, q, side="left")
-    np.testing.assert_array_equal(got.cpu().numpy(), want)
-    plain = ssk.serve_sorted_plain(*[a.to(dev) for a in args])
-    assert torch.equal(got, plain)
-    # the whole stripe-first array as every block's window: still exact
-    wide = ssk.serve_sorted(args[0].to(dev), args[1].to(dev), args[2].to(dev),
-                            torch.zeros_like(args[3]).to(dev),
-                            torch.full_like(args[4], sf.size).to(dev))
-    np.testing.assert_array_equal(wide.cpu().numpy(), want)
+    for g in ssk.LEVELS:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (q, keys[::g], keys, lo, hi)]
+        before = _build.launches["rmi_serve_sorted"]
+        got = (ssk.serve_sorted(*args) if g == ssk.GROUP
+               else ssk.serve_sorted_level(*args, g))
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_serve_sorted"] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        plain = ssk.serve_sorted_plain(*args, g)
+        assert torch.equal(got, plain)
+    # the whole key range as every block's window: still exact
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (q, keys[::ssk.GROUP], keys, np.zeros_like(lo), np.full_like(hi, sf.size))]
+    np.testing.assert_array_equal(ssk.serve_sorted(*args).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "duplicates", "extremes", "ragged"])
+def test_k5_serve_sorted_scatter(dev, case):
+    """The scatter entry writes the answer of sorted query i to
+    out[order[i]]: bit-equal to its plain version and to np.searchsorted
+    of the batch in its own order."""
+    keys, q = _k5_case(case)
+    lo, hi = _tight_bounds(keys[::64], q)
+    order = np.random.default_rng(3).permutation(q.size)
+    unsorted = np.empty_like(q)
+    unsorted[order] = q
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (q, order, keys[::ssk.GROUP], keys, lo, hi)]
+    before = _build.launches["rmi_serve_sorted_scatter"]
+    got = ssk.serve_sorted_scatter(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_serve_sorted_scatter"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.searchsorted(keys, unsorted, side="left"))
+    assert torch.equal(got, ssk.serve_sorted_scatter_plain(*args))
 
 
 def test_k5_window_off_lb1_disagrees(dev):
@@ -388,7 +439,7 @@ def test_k5_window_off_lb1_disagrees(dev):
     sf = keys[::64]
     lo, hi = _tight_bounds(sf, q)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in (q, sf, keys, lo + 2, hi)]
+            for a in (q, keys[::ssk.GROUP], keys, lo + 2, hi)]
     got = ssk.serve_sorted(*args)
     assert torch.equal(got, ssk.serve_sorted_plain(*args))
     assert int((got.cpu().numpy() != np.searchsorted(keys, q)).sum()) > 0
@@ -396,23 +447,26 @@ def test_k5_window_off_lb1_disagrees(dev):
 
 def test_k5_refuses_bad_inputs(dev):
     keys = torch.arange(10_000, dtype=torch.int64, device=dev)
-    sf = keys[::64].contiguous()
-    q = torch.arange(0, 4000, 2, dtype=torch.int64, device=dev)
-    b = torch.zeros(2, dtype=torch.int64, device=dev)
+    gf = keys[::ssk.GROUP].contiguous()
+    q = torch.arange(0, 1000, 2, dtype=torch.int64, device=dev)
+    b = torch.zeros(1, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):                  # a bound on the CPU
-        ssk.serve_sorted(q, sf, keys, b.cpu(), b)
+        ssk.serve_sorted(q, gf, keys, b.cpu(), b)
     with pytest.raises(ValueError):                  # non-contiguous queries
-        ssk.serve_sorted(torch.arange(0, 8000, 2, dtype=torch.int64, device=dev)[::2],
-                         sf, keys, b, b)
+        ssk.serve_sorted(torch.arange(0, 2000, 2, dtype=torch.int64, device=dev)[::2],
+                         gf, keys, b, b)
     with pytest.raises(ValueError):                  # one bound per block
-        ssk.serve_sorted(q, sf, keys, b[:1], b[:1])
+        ssk.serve_sorted(q, gf, keys, torch.cat([b, b]), b)
     with pytest.raises(ValueError):                  # int64 only
-        ssk.serve_sorted(q.int(), sf, keys, b, b)
+        ssk.serve_sorted(q.int(), gf, keys, b, b)
+    with pytest.raises(ValueError, match="16-byte"):  # keys 8 bytes off
+        ssk.serve_sorted(q, keys[1:][::ssk.GROUP].contiguous(), keys[1:], b, b)
 
 
 def test_card_serving_routes(dev):
-    """search (2^20 random queries: sort -> K5 -> unsort), search_sorted
-    (K5) and fast_search (the packed plan) on the card, all exact."""
+    """search (2^20 random queries: sort, then K5's scatter entry),
+    search_sorted (K5) and fast_search (the packed plan) on the card, all
+    exact."""
     keys = rdata.books_like_on_device(1 << 20, 6, dev)
     rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), "cubic,linear", 1374)
     assert lookup_fast.get_plan(rmi).kind == "packed"
@@ -421,10 +475,11 @@ def test_card_serving_routes(dev):
                       generator=gen, device=dev)
     q[:1000] = keys[:1000]
     want = torch.searchsorted(keys, q)
-    before = _build.launches["rmi_serve_sorted"]
+    before = dict(_build.launches)
     assert torch.equal(rt.search(rmi, q), want)
     qs = torch.sort(q).values
     assert torch.equal(rt.search_sorted(rmi, qs), torch.searchsorted(keys, qs))
     torch.cuda.synchronize()
-    assert _build.launches["rmi_serve_sorted"] == before + 2
+    assert _build.launches["rmi_serve_sorted_scatter"] == before["rmi_serve_sorted_scatter"] + 1
+    assert _build.launches["rmi_serve_sorted"] == before["rmi_serve_sorted"] + 1
     assert torch.equal(lookup_fast.fast_search(rmi, q), want)
