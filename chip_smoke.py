@@ -24,9 +24,10 @@ Phases (any failure raises and exits non-zero):
      bounded path, the packed plan, sort -> K5 -> unsort without the
      density gate, and search_sorted on sorted batches;
   7. each kernel of the path replayed on the inputs the path gave it,
-     against its plain PyTorch version: K1, K2, K5 and K5's scatter
-     entry on the card, K3 and K4 on CPU copies (CPU torch.addcmul is an
-     exact FMA);
+     against its plain PyTorch version: K1, K2, the run-length pass, K5
+     and K5's scatter entry on the card, K3 (the per-leaf maxima, which
+     must be equal) and K4 on CPU copies (CPU torch.addcmul is an exact
+     FMA);
   8. a build on the card against the plain build on the CPU;
   9. path 2 on the same keys, once path 1's index is freed:
      ``train(data, "robust_linear,cubic", 65536)`` cold and warm (bit-
@@ -41,7 +42,11 @@ Phases (any failure raises and exits non-zero):
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
-     replayed against their plain versions.
+     replayed against their plain versions;
+ 13. the nine card probes (rmi_tpu_torch/ops/probe_kernels.py, the
+     kernels of tools/probe_torch_kernels.py), each run once on its
+     probe's inputs (D at widths 128 and 2048) with the launches counted
+     from 0, its output held equal to its plain version's on the card.
 Each row of the kernels line carries the kernel's time on its path's
 largest call beside the plain version's and, where one PyTorch call
 computes the same function, that call's (library_ms), and the least time
@@ -72,8 +77,9 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
 from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, scan_kernel,
-                               select_kernel, sorted_serve_kernel, sweep_kernel)
+from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
+                               scan_kernel, select_kernel, sorted_serve_kernel,
+                               sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -81,13 +87,14 @@ K2_RTOL = 1e-9            # summation order
 METRIC_RTOL = 1e-7
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 bandwidth
 F64_OPS_PER_S = 34e12         # NVIDIA's data sheet, f64 outside the tensor cores
+F32_OPS_PER_S = 67e12         # the same data sheet, f32 outside the tensor cores
 INT_OPS_PER_S = 33.5e12       # int32 lanes: half the H100 SXM's 67 TFLOP/s of f32 lanes
 SECTOR_BYTES = 32             # the least a load moves from device memory
 
 # one row per C entry point: (entry, module, wrapper name, plain version
 # name, device the plain version is compared on (None: the card), source,
-# TPU kernel replaced)
-KERNELS = [
+# TPU kernel replaced); first the kernels of the build and serving paths
+PATH_KERNELS = [
     ("rmi_scan_i32", scan_kernel, "scan_i32", "scan_i32_plain", None,
      "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
     ("rmi_aug_moments", select_kernel, "aug_centered_moments",
@@ -99,14 +106,17 @@ KERNELS = [
     ("rmi_aug_moments_xx", select_kernel, "aug_centered_xx", "aug_centered_xx_plain",
      None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
-    ("rmi_sweep_linear", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
-     "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
-    ("rmi_sweep_cubic", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
-     "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
-    ("rmi_sweep_loglinear", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
-     "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
-    ("rmi_sweep_normal", sweep_kernel, "sweep_errors", "sweep_errors_plain", "cpu",
-     "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    ("rmi_sweep_max_linear", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
+     "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    ("rmi_sweep_max_cubic", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
+     "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    ("rmi_sweep_max_loglinear", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
+     "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    ("rmi_sweep_max_normal", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
+     "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
+    # the reverse running min of _run_lengths_i32 and the max over it
+    ("rmi_span_run_max", sweep_kernel, "span_run_max", "span_run_max_plain", None,
+     "rmi_tpu_torch/csrc/run_max.cu", "rmi_tpu/ops/scan_kernel.py:35"),
     ("rmi_leaf_eval_linear", eval_kernel, "leaf_eval_clamped",
      "leaf_eval_clamped_plain", "cpu",
      "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
@@ -128,28 +138,36 @@ KERNELS = [
     ("rmi_cubic_l1", cubic_l1_kernel, "cubic_l1_sums", "cubic_l1_sums_plain", None,
      "rmi_tpu_torch/csrc/cubic_l1.cu", "rmi_tpu/ops/select_kernel.py:30"),
 ]
+# then the card probes, driven by their own phase
+PROBE_KERNELS = [
+    (p.entry, probe_kernels, p.wrapper.__name__, p.plain.__name__, None,
+     "rmi_tpu_torch/csrc/probes.cu", p.replaces) for p in probe_kernels.PROBES]
+KERNELS = PATH_KERNELS + PROBE_KERNELS
 # (spec, B, the C entry points the path launches, those it replays)
 # search launches K5's scatter entry, search_sorted K5 itself
 K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
+RUN_MAX = "rmi_span_run_max"
 PATH1 = ("cubic,linear", 262144,
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", *K5),
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_linear",
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", *K5))
 PATH2 = ("robust_linear,cubic", 65536,
-         ("rmi_scan_i32", "rmi_sweep_cubic", "rmi_leaf_eval_cubic", *K5,
+         ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", *K5,
           "rmi_cubic_l1"),
-         ("rmi_sweep_cubic", "rmi_leaf_eval_cubic", "rmi_cubic_l1"))
+         ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
-         ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_loglinear",
+         ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", *K5),
-         ("rmi_aug_moments_weighted", "rmi_sweep_loglinear", "rmi_leaf_eval_loglinear"))
+         ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
+          "rmi_leaf_eval_loglinear"))
 PATH4 = ("cubic,normal", 65536,
-         ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_normal",
+         ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX,
           "rmi_leaf_eval_normal", *K5),
-         ("rmi_aug_moments_xx", "rmi_sweep_normal", "rmi_leaf_eval_normal"))
+         ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
 # the lognormal cross-check's build, and the entries replayed from it
-LOGNORMAL = ("cubic,lognormal", 65536, (), ("rmi_sweep_normal", "rmi_leaf_eval_normal"))
+LOGNORMAL = ("cubic,lognormal", 65536, (),
+             ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
 CURVE = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22]   # serving curve batch sizes
 SEARCH_TRACED = 5         # search batches the K5 phase traces
 
@@ -163,7 +181,7 @@ class Recorder:
     installed, so each kernel can be replayed on a path's inputs."""
 
     def __init__(self):
-        self.wrappers = {(mod, name) for _, mod, name, *_ in KERNELS}
+        self.wrappers = {(mod, name) for _, mod, name, *_ in PATH_KERNELS}
         self.calls = {name: [] for _, name in self.wrappers}
         self._saved = []
 
@@ -197,7 +215,8 @@ def entry_of(name, kw):
     if name == "aug_centered_moments":
         return "rmi_aug_moments" if kw.get("weights") is None else "rmi_aug_moments_weighted"
     if "leaf_type" in kw:
-        prefix = {"sweep_errors": "rmi_sweep_", "leaf_eval_clamped": "rmi_leaf_eval_"}
+        prefix = {"sweep_leaf_max": "rmi_sweep_max_",
+                  "leaf_eval_clamped": "rmi_leaf_eval_"}
         return prefix[name] + get_model(kw["leaf_type"]).leaf_kernel
     return None
 
@@ -268,7 +287,7 @@ def check_kernels(rec, launches, entries):
     """Replay each of ``entries`` on its recorded calls against its plain
     version, and time its largest call beside the plain version."""
     rows = {}
-    for entry, mod, name, plain_name, where, source, replaces in KERNELS:
+    for entry, mod, name, plain_name, where, source, replaces in PATH_KERNELS:
         if entry not in entries:
             continue
         wrapper, plain = getattr(mod, name), getattr(mod, plain_name)
@@ -333,9 +352,13 @@ def work(name, args, kw, out):
         per += 0 if kw.get("weights") is None else 2
         return (_nbytes(*args, kw.get("weights"), *outs), int((hi - lo).sum()) * per,
                 F64_OPS_PER_S)
-    if name in ("sweep_errors", "leaf_eval_clamped"):
+    if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         per = LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + 4   # floor, clamps
-        return _nbytes(*args[:3], *outs), args[0].shape[0] * per, F64_OPS_PER_S
+        # K3: xn, yfix, the span bounds and the rows; K4: x, the rows, the leaf ids
+        return (_nbytes(*(a for a in args if torch.is_tensor(a)), *outs),
+                args[0].shape[0] * per, F64_OPS_PER_S)
+    if name == "span_run_max":       # a compare, a subtraction and a max per key
+        return _nbytes(*args, *outs), args[0].shape[0] * 3, INT_OPS_PER_S
     if name == "cubic_l1_sums":
         x, y, cubic_w, lin_w, spans = args
         elems = int((spans.aug_ends - spans.aug_starts).sum())
@@ -668,6 +691,75 @@ def drive(path, data, queries, gen):
     return rmi, rec, launches
 
 
+# D runs at its narrowest and widest rows only: the rate table over all
+# widths is tools/probe_torch_kernels.py's
+PROBE_RING_WIDTHS = (128, 2048)
+
+
+def probe_phase(dev):
+    """The card probes' own path: every probe run once on its probe's
+    inputs (D once per width of PROBE_RING_WIDTHS) with the launches
+    counted from 0; then each output held equal to its plain version's on
+    the card, and the kernel timed beside it.  Returns the kernels rows."""
+    probes = probe_kernels.PROBES
+    cases = [(p, w) for p in probes
+             for w in (PROBE_RING_WIDTHS if p.inputs is None else (None,))]
+    inputs = [probe_kernels.probe_inputs(p, dev, width=w or 128) for p, w in cases]
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    outputs = [p.wrapper(*args) for (p, _), args in zip(cases, inputs)]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    missing = [p.entry for p in probes if launches[p.entry] <= 0]
+    if missing:
+        raise RuntimeError(f"probes not launched: {missing}")
+
+    rows = {}
+    for (probe, width), args, got in zip(cases, inputs, outputs):
+        want = probe.plain(*args)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise RuntimeError(f"probe {probe.key} ({probe.entry}): kernel disagrees "
+                               f"with its plain version")
+        if probe.inputs is None:       # D also on the table that shows a stale slot
+            marked = probe_kernels.ring_table(width, dev, marked=True)
+            if not torch.equal(probe.wrapper(marked), probe.plain(marked)):
+                raise RuntimeError(f"probe D, width {width}: wrong sum on the marked table")
+            del marked
+        idx = [a.long() for a in args if a.dtype == torch.int32]
+        # one PyTorch call that computes the same, where there is one: the
+        # pair compare and the copy ring have none, and torch 2.11 has no
+        # uint64 compare on the card ("compare_cuda" not implemented)
+        lib = {"A": lambda: torch.mul(args[0], 2.0),
+               "B1": lambda: torch.lt(args[0], args[1]),
+               "C1": lambda: torch.index_select(args[0], 0, idx[0]),
+               "C2": lambda: torch.take(args[0], idx[0]),
+               "C3": lambda: torch.gather(args[0], 1, idx[0]),
+               "E": lambda: torch.index_select(args[1], 0, idx[0])}.get(probe.key)
+        ms = cuda_ms(lambda: probe.wrapper(*args), 20)
+        plain_ms = cuda_ms(lambda: probe.plain(*args), 20)
+        library_ms = None if lib is None else cuda_ms(lib, 20)
+        if probe.inputs is None:       # the rows D fetches, not its whole table
+            nbytes = probe_kernels.RING_ITERS * width * 4 + _nbytes(got)
+            elems = probe_kernels.RING_ITERS
+        else:
+            nbytes, elems = _nbytes(*args, got), got.numel()
+        peak = INT_OPS_PER_S if got.dtype == torch.int32 else F32_OPS_PER_S
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, elems / peak) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= elems / peak else "operations"
+        log(f"probe {probe.key} {probe.entry}"
+            + (f" width {width}" if width else "")
+            + f": equal to its plain version; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+            f"library {library_ms}, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B)")
+        # one row per entry: D's is its widest call, the last of its cases
+        rows[probe.entry] = {
+            "name": probe.entry, "route": "cuda",
+            "source": "rmi_tpu_torch/csrc/probes.cu", "replaces": probe.replaces,
+            "launches": launches[probe.entry], "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=200_000_000, help="keys")
@@ -744,6 +836,8 @@ def main():
 
     for entry, row in rows.items():
         row["launches"] = launches[entry]
+    # 13. the card probes
+    rows.update(probe_phase(dev))
     print(json.dumps({"kernels": [rows[entry] for entry, *_ in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

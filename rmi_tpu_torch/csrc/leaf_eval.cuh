@@ -71,6 +71,11 @@ __device__ __forceinline__ double rmi_normal_leaf(const double* __restrict__ w,
 // The leaf families the kernels are instantiated for.
 enum class RmiLeaf { kLinear, kCubic, kLoglinear, kNormal };
 
+// f64 values in one row of the family's table.
+__host__ __device__ constexpr int rmi_leaf_width(RmiLeaf L) {
+  return L == RmiLeaf::kCubic ? 4 : L == RmiLeaf::kNormal ? 3 : 2;
+}
+
 template <RmiLeaf L>
 __device__ __forceinline__ double rmi_leaf(const double* __restrict__ w,
                                            int64_t leaf, double x) {

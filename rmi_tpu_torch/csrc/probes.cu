@@ -1,0 +1,378 @@
+// Card probes: the nine feature and rate probes of
+// probes/probe_pallas.py, each one C entry point, run by
+// tools/probe_torch_kernels.py.  On the TPU they asked what Mosaic can
+// lower (64-bit compares, gathers from a VMEM table, index-driven row
+// DMAs) before the serving kernels were designed around the answers.
+// Here each computes what its TPU kernel computes with the card's own
+// means, and asks the matching question of this card:
+//
+//   A   rmi_probe_scale2         t_a   :53   o = 2 x: the source builds and launches
+//   B1  rmi_probe_lt_i64         t_b1  :67   int64 x < q in registers
+//   B2  rmi_probe_lt_u64         t_b2  :83   uint64 x < q on bits carried as int64
+//   B3  rmi_probe_lt_u32pair     t_b3  :105  u64 x < q as (hi, lo) u32 pairs
+//   C1  rmi_probe_gather_rows    t_c1  :120  tbl[idx, :] from a table in shared memory
+//   C2  rmi_probe_take           t_c2  :135  take(tbl, idx) from shared memory
+//   C3  rmi_probe_take_lanes     t_c3  :150  take_along_axis over a row's lanes
+//   D   rmi_probe_row_ring       _dma_rate :194  pipelined random-row bulk copies
+//   E   rmi_probe_row_copy       t_e   :261  index-driven double-buffered row copies
+//
+// None is bound by device memory at the probe's shapes (a few KB to
+// 256 KB): A-C and E take a launch's latency.  D is the measurement: the
+// rate at which one block, and one block per SM, fetches random rows
+// with cp.async.bulk onto mbarriers, which is how sorted_serve.cu stages
+// its windows.  B2 against B3 over a large array asks whether comparing
+// u64 keys as u32 pairs costs anything here.
+//
+// Measured by tools/probe_torch_kernels.py on an NVIDIA H100 80GB HBM3
+// at its 700 W limit.  D: one block fetches a row in 279-283 ns whatever
+// its width (512 B to 8 KB): with 16 copies in flight the one copying
+// thread's wait, fence and next start bound it, not the copy's latency.
+// 132 blocks together take 2.12-2.14 ns per row up to 4 KB rows and
+// 2.75 ns per 8 KB row, 2.97 TB/s, where device memory bounds it.  B2
+// over 2^26 random elements takes 0.445 ms (20 B per element, 3.0 TB/s);
+// B3 0.281 ms: it reads the low halves only where the high halves tie,
+// 12 B per element on random keys (2.9 TB/s).  Both run at the memory
+// rate: the pair compare costs no time, and nothing is gained by it
+// unless the halves are stored apart.  PERF.md has the runs.
+//
+// The (8, 128) tile of the TPU probes is a shape here, not a unit: the
+// elementwise probes run a grid-stride loop over any n.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kSliceCols = 32;           // C1: table columns staged per block
+constexpr int kMaxSlots = 16;            // D, E: mbarriers per block
+constexpr int kMaxDynamicShared = 232448;   // 227 KB, the most a block may ask for
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- A, B1-B3: elementwise ------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+scale2(const float* __restrict__ x, float* __restrict__ out, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    out[i] = x[i] * 2.0f;
+  }
+}
+
+// T = int64_t: the signed compare; T = uint64_t: the same bits unsigned
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+less_than(const T* __restrict__ x, const T* __restrict__ q,
+          int32_t* __restrict__ out, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    out[i] = x[i] < q[i] ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+less_than_pair(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+               const uint32_t* __restrict__ qh, const uint32_t* __restrict__ ql,
+               int32_t* __restrict__ out, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const uint32_t h = hi[i], g = qh[i];
+    out[i] = (h < g || (h == g && lo[i] < ql[i])) ? 1 : 0;
+  }
+}
+
+// --- C1-C3: gathers from a table held on chip ------------------------------
+
+// C1.  The TPU table of [512, 128] f32 is 256 KB, more than the 227 KB
+// one block may hold, so block b stages columns [32 b, 32 b + 32) of
+// every row (64 KB at 512 rows) and gathers its slice of each output row.
+__global__ void __launch_bounds__(kThreads)
+gather_rows(const float* __restrict__ tbl, const int32_t* __restrict__ idx,
+            float* __restrict__ out, int nrows, int width, int nq) {
+  extern __shared__ __align__(16) float slice[];       // [nrows, kSliceCols]
+  const int c0 = blockIdx.x * kSliceCols;
+  const int cols = min(kSliceCols, width - c0);
+  for (int e = threadIdx.x; e < nrows * kSliceCols; e += blockDim.x) {
+    const int r = e / kSliceCols, c = e % kSliceCols;
+    if (c < cols) slice[e] = tbl[(int64_t)r * width + c0 + c];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nq * kSliceCols; e += blockDim.x) {
+    const int i = e / kSliceCols, c = e % kSliceCols;
+    if (c < cols) out[(int64_t)i * width + c0 + c] = slice[idx[i] * kSliceCols + c];
+  }
+}
+
+// C2.  Every block stages the whole 1-D table and gathers its queries.
+__global__ void __launch_bounds__(kThreads)
+take(const float* __restrict__ tbl, const int32_t* __restrict__ idx,
+     float* __restrict__ out, int ntbl, int nq) {
+  extern __shared__ __align__(16) float table[];       // [ntbl]
+  for (int e = threadIdx.x; e < ntbl; e += blockDim.x) table[e] = tbl[e];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nq) out[i] = table[idx[i]];
+}
+
+// C3.  The gather runs across the 128 lanes of a row; a warp has 32.  No
+// shared memory: every warp of a row's block holds the whole row, four
+// values per lane (v[k] = row[32 k + lane]), and the thread of output
+// column c fetches row[idx[c]] with four __shfl_sync from lane
+// idx & 31, keeping the one of k = idx >> 5.  One block of 128 threads
+// per row; width is fixed at 128.
+__global__ void __launch_bounds__(128)
+take_lanes(const float* __restrict__ tbl, const int32_t* __restrict__ idx,
+           float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const float* row = tbl + (int64_t)blockIdx.x * 128;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = row[32 * k + lane];
+  const int64_t o = (int64_t)blockIdx.x * 128 + threadIdx.x;
+  const int j = idx[o];
+  float got = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float s = __shfl_sync(RMI_FULL_MASK, v[k], j & 31);
+    if ((j >> 5) == k) got = s;
+  }
+  out[o] = got;
+}
+
+// --- D, E: rows copied by cp.async.bulk onto mbarriers ---------------------
+
+__device__ __forceinline__ void barrier_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+// one thread: expect `bytes` on the barrier's current phase and start the
+// copy of `bytes` (a multiple of 16) from global `src` to shared `dst`,
+// both 16-byte aligned
+__device__ __forceinline__ void row_copy_start(void* dst, const void* src,
+                                               uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+        "r"(bar)
+      : "memory");
+}
+
+// wait until the barrier's phase of the given parity has completed
+__device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// order this thread's generic reads of shared memory before the bulk
+// copy (async proxy) that overwrites it
+__device__ __forceinline__ void fence_before_bulk_copy() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// D.  One thread per block keeps `slots` row copies in flight: copy
+// i goes to slot i % slots on that slot's own mbarrier, whose phase
+// parity is (i / slots) & 1.  Block b of nb walks rows
+// ((i nb + b) * 7919) mod nrows for i < iters (one block: the TPU
+// probe's walk; several: no two blocks fetch one row at one time, and a
+// row comes round again only after nrows other fetches), waits for each
+// in turn, reads its first value, adds it up and starts copy i + slots
+// into the slot just read.  out[b] is the block's sum.
+__global__ void __launch_bounds__(32)
+row_ring(const float* __restrict__ tbl, int64_t nrows, int width, int iters,
+         int slots, float* __restrict__ out) {
+  extern __shared__ __align__(128) float ring[];        // [slots, width]
+  __shared__ __align__(8) uint64_t bars[kMaxSlots];
+  if (threadIdx.x != 0) return;
+  const uint32_t bytes = (uint32_t)width * 4u;
+  const int64_t nb = gridDim.x, b = blockIdx.x;
+  for (int s = 0; s < slots; ++s) barrier_init(smem_addr(&bars[s]));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const int ahead = min(slots, iters);
+  for (int i = 0; i < ahead; ++i) {
+    const int64_t row = ((i * nb + b) * 7919) % nrows;
+    row_copy_start(ring + (int64_t)i * width, tbl + row * width, bytes,
+                   smem_addr(&bars[i]));
+  }
+  float acc = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const int slot = i % slots;
+    const uint32_t bar = smem_addr(&bars[slot]);
+    float* dst = ring + (int64_t)slot * width;
+    barrier_wait(bar, (uint32_t)(i / slots) & 1u);
+    acc += *reinterpret_cast<volatile float*>(dst);
+    if (i + slots < iters) {
+      fence_before_bulk_copy();
+      const int64_t row = (((int64_t)(i + slots) * nb + b) * 7919) % nrows;
+      row_copy_start(dst, tbl + row * width, bytes, bar);
+    }
+  }
+  out[blockIdx.x] = acc;
+}
+
+// E.  One block: the row indices go to shared memory first, then thread
+// 0 keeps two row copies in flight (slot i % 2, parity (i / 2) & 1); the
+// block waits for row i, writes it to out[i], and once all have read the
+// slot thread 0 starts copy i + 2 into it.
+__global__ void __launch_bounds__(128)
+row_copy(const int32_t* __restrict__ idx, const float* __restrict__ x,
+         float* __restrict__ out, int width, int nq) {
+  extern __shared__ __align__(128) float stage[];       // [2, width], then idx [nq]
+  __shared__ __align__(8) uint64_t bars[2];
+  int32_t* sidx = reinterpret_cast<int32_t*>(stage + 2 * width);
+  const uint32_t bytes = (uint32_t)width * 4u;
+  for (int e = threadIdx.x; e < nq; e += blockDim.x) sidx[e] = idx[e];
+  if (threadIdx.x == 0) {
+    barrier_init(smem_addr(&bars[0]));
+    barrier_init(smem_addr(&bars[1]));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < min(2, nq); ++i) {
+      row_copy_start(stage + i * width, x + (int64_t)sidx[i] * width, bytes,
+                     smem_addr(&bars[i]));
+    }
+  }
+  for (int i = 0; i < nq; ++i) {
+    const int slot = i & 1;
+    const float* src = stage + slot * width;
+    barrier_wait(smem_addr(&bars[slot]), (uint32_t)(i >> 1) & 1u);
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      out[(int64_t)i * width + c] = src[c];
+    }
+    __syncthreads();                                   // all have read the slot
+    if (threadIdx.x == 0 && i + 2 < nq) {
+      fence_before_bulk_copy();
+      row_copy_start(stage + slot * width, x + (int64_t)sidx[i + 2] * width,
+                     bytes, smem_addr(&bars[slot]));
+    }
+  }
+}
+
+// Let `kernel` ask for `bytes` of dynamic shared memory (above the 48 KB
+// a kernel gets unasked).
+template <class K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+  if (bytes > (size_t)kMaxDynamicShared) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+
+RMI_API int rmi_probe_scale2(const float* x, float* out, int64_t n, void* stream) {
+  if (n > 0) {
+    scale2<<<rmi_grid(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(x, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+RMI_API int rmi_probe_lt_i64(const int64_t* x, const int64_t* q, int32_t* out,
+                             int64_t n, void* stream) {
+  if (n > 0) {
+    less_than<int64_t><<<rmi_grid(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        x, q, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x and q hold uint64 values in int64 storage
+RMI_API int rmi_probe_lt_u64(const int64_t* x, const int64_t* q, int32_t* out,
+                             int64_t n, void* stream) {
+  if (n > 0) {
+    less_than<uint64_t><<<rmi_grid(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const uint64_t*>(x), reinterpret_cast<const uint64_t*>(q),
+        out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// hi, lo, qh and ql hold uint32 values in int32 storage
+RMI_API int rmi_probe_lt_u32pair(const int32_t* hi, const int32_t* lo,
+                                 const int32_t* qh, const int32_t* ql,
+                                 int32_t* out, int64_t n, void* stream) {
+  if (n > 0) {
+    less_than_pair<<<rmi_grid(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const uint32_t*>(hi), reinterpret_cast<const uint32_t*>(lo),
+        reinterpret_cast<const uint32_t*>(qh), reinterpret_cast<const uint32_t*>(ql),
+        out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[i, :] = tbl[idx[i], :]; tbl [nrows, width], 0 <= idx[i] < nrows
+RMI_API int rmi_probe_gather_rows(const float* tbl, const int32_t* idx, float* out,
+                                  int64_t nrows, int64_t width, int64_t nq,
+                                  void* stream) {
+  if (nrows <= 0 || width <= 0 || nq <= 0) return (int)cudaGetLastError();
+  const size_t bytes = (size_t)nrows * kSliceCols * sizeof(float);
+  const cudaError_t err = allow_shared(gather_rows, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int blocks = (unsigned int)((width + kSliceCols - 1) / kSliceCols);
+  gather_rows<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      tbl, idx, out, (int)nrows, (int)width, (int)nq);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = tbl[idx[i]]; tbl [ntbl], 0 <= idx[i] < ntbl
+RMI_API int rmi_probe_take(const float* tbl, const int32_t* idx, float* out,
+                           int64_t ntbl, int64_t nq, void* stream) {
+  if (ntbl <= 0 || nq <= 0) return (int)cudaGetLastError();
+  const size_t bytes = (size_t)ntbl * sizeof(float);
+  const cudaError_t err = allow_shared(take, bytes);
+  if (err != cudaSuccess) return (int)err;
+  take<<<rmi_grid(nq, kThreads), kThreads, bytes, (cudaStream_t)stream>>>(
+      tbl, idx, out, (int)ntbl, (int)nq);
+  return (int)cudaGetLastError();
+}
+
+// out[r, c] = tbl[r, idx[r, c]]; tbl, idx and out [rows, 128], 0 <= idx < 128
+RMI_API int rmi_probe_take_lanes(const float* tbl, const int32_t* idx, float* out,
+                                 int64_t rows, int64_t width, void* stream) {
+  if (width != 128) return (int)cudaErrorInvalidValue;
+  if (rows > 0) {
+    take_lanes<<<(unsigned int)rows, 128, 0, (cudaStream_t)stream>>>(tbl, idx, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[b] = sum of tbl[((i blocks + b) * 7919) mod nrows, 0] for i < iters,
+// each row fetched whole; tbl [nrows, width] f32 on a 16-byte boundary,
+// width a multiple of 4, 1 <= slots <= 16
+RMI_API int rmi_probe_row_ring(const float* tbl, int64_t nrows, int64_t width,
+                               int64_t iters, int64_t slots, int64_t blocks,
+                               float* out, void* stream) {
+  if (nrows <= 0 || width <= 0 || width % 4 || iters < 0 || slots < 1 ||
+      slots > kMaxSlots || blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = (size_t)slots * width * sizeof(float);
+  const cudaError_t err = allow_shared(row_ring, bytes);
+  if (err != cudaSuccess) return (int)err;
+  row_ring<<<(unsigned int)blocks, 32, bytes, (cudaStream_t)stream>>>(
+      tbl, nrows, (int)width, (int)iters, (int)slots, out);
+  return (int)cudaGetLastError();
+}
+
+// out[i, :] = x[idx[i], :]; x [nrows, width] f32 on a 16-byte boundary,
+// width a multiple of 4, 0 <= idx[i] < nrows
+RMI_API int rmi_probe_row_copy(const int32_t* idx, const float* x, float* out,
+                               int64_t width, int64_t nq, void* stream) {
+  if (width <= 0 || width % 4 || nq < 0) return (int)cudaErrorInvalidValue;
+  if (nq == 0) return (int)cudaGetLastError();
+  const size_t bytes = (size_t)2 * width * sizeof(float) + (size_t)nq * sizeof(int32_t);
+  const cudaError_t err = allow_shared(row_copy, bytes);
+  if (err != cudaSuccess) return (int)err;
+  row_copy<<<1, 128, bytes, (cudaStream_t)stream>>>(idx, x, out, (int)width, (int)nq);
+  return (int)cudaGetLastError();
+}

@@ -113,10 +113,11 @@ SIGNATURES = {
     "rmi_aug_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_aug_moments_weighted": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_aug_moments_xx": (_P, _P, _P, _P, _P, _I64, _P),
-    "rmi_sweep_linear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_sweep_cubic": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_sweep_loglinear": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_sweep_normal": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_sweep_max_linear": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "rmi_sweep_max_cubic": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "rmi_sweep_max_loglinear": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "rmi_sweep_max_normal": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "rmi_span_run_max": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_linear": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_cubic": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_loglinear": (_P, _P, _P, _P, _I64, _I64, _P),
@@ -125,6 +126,15 @@ SIGNATURES = {
     "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _P, _P),
     "rmi_serve_sorted_scatter": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
                                  _P, _P),
+    "rmi_probe_scale2": (_P, _P, _I64, _P),
+    "rmi_probe_lt_i64": (_P, _P, _P, _I64, _P),
+    "rmi_probe_lt_u64": (_P, _P, _P, _I64, _P),
+    "rmi_probe_lt_u32pair": (_P, _P, _P, _P, _P, _I64, _P),
+    "rmi_probe_gather_rows": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "rmi_probe_take": (_P, _P, _P, _I64, _I64, _P),
+    "rmi_probe_take_lanes": (_P, _P, _P, _I64, _I64, _P),
+    "rmi_probe_row_ring": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P),
+    "rmi_probe_row_copy": (_P, _P, _P, _I64, _I64, _P),
 }
 
 # successful launches per C entry point since the process started

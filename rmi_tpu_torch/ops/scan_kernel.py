@@ -1,8 +1,10 @@
 """K1: inclusive running max/min over an int32 vector (csrc/scan.cu).
 
-Counterpart of rmi_tpu/ops/scan_kernel.py.  Serves the build's two
-n-scale monotone scans: the FixDups first-occurrence cummax and the
-run-length reverse cummin (train/two_layer.py).
+Counterpart of rmi_tpu/ops/scan_kernel.py.  Serves the build's n-scale
+monotone scan, the FixDups first-occurrence cummax (train/two_layer.py);
+the run lengths' reverse cummin is taken per leaf off each run's last
+key instead (ops/sweep_kernel.py:span_run_max), with this kernel's plain
+version in that pass's plain version.
 """
 
 from __future__ import annotations

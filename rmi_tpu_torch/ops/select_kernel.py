@@ -37,15 +37,15 @@ def _check(name, tensors, per_leaf):
 _PER_LEAF = ("mean_x", "mean_y", "aug_starts", "aug_ends")
 
 
-def _elements(mean_x, aug_starts, aug_ends):
-    """(leaf, elem): every element index of every augmented range and the
-    leaf it belongs to, leaf by leaf."""
-    B = mean_x.shape[0]
-    lengths = aug_ends - aug_starts
-    leaf = torch.repeat_interleave(torch.arange(B, device=mean_x.device), lengths)
+def span_elements(starts, ends):
+    """(leaf, elem): every element index of every range
+    [starts[j], ends[j]) and the leaf j it belongs to, leaf by leaf."""
+    B = starts.shape[0]
+    lengths = ends - starts
+    leaf = torch.repeat_interleave(torch.arange(B, device=starts.device), lengths)
     first = torch.cumsum(lengths, 0) - lengths
-    elem = (torch.arange(leaf.shape[0], device=mean_x.device) - first[leaf]
-            + aug_starts[leaf])
+    elem = (torch.arange(leaf.shape[0], device=starts.device) - first[leaf]
+            + starts[leaf])
     return leaf, elem
 
 
@@ -54,7 +54,7 @@ def aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
     """The plain PyTorch version of K2 and K2 weighted: the same terms,
     expanded per element of each augmented range and summed per leaf
     with index_add_; a weighted term is the product times its weight."""
-    leaf, elem = _elements(mean_x, aug_starts, aug_ends)
+    leaf, elem = span_elements(aug_starts, aug_ends)
     dx = x[elem] - mean_x[leaf]
     xx, xy = dx * dx, dx * (y[elem] - mean_y[leaf])
     if weights is not None:
@@ -94,7 +94,7 @@ def aug_centered_moments(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
 
 def aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends):
     """The plain PyTorch version of K2 xx."""
-    leaf, elem = _elements(mean_x, aug_starts, aug_ends)
+    leaf, elem = span_elements(aug_starts, aug_ends)
     dx = x[elem] - mean_x[leaf]
     return torch.zeros_like(mean_x).index_add_(0, leaf, dx * dx)
 

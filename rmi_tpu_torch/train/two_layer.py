@@ -10,8 +10,9 @@ next stage allocates:
   B  per-leaf fits over overlap-augmented spans (kernel K2 for linear,
      loglinear and normal leaves, K6 for cubic ones) + lower-bound fills
      + empty-leaf patch;
-  C  error sweep (K3) + epsilon probes (K4) + duplicate-run inflation
-     (K1) + the reference's error metrics.
+  C  per-leaf error sweep (K3) + epsilon probes (K4) + the longest
+     duplicate run per leaf (the run-length pass) + the reference's error
+     metrics.
 
 There is one build path: native f64 in the normalized key domain
 x' = (x - key_min) * (1 / key_span) (the keys' raw f64 values for a
@@ -84,20 +85,6 @@ def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
     changed = torch.ones(n, dtype=torch.bool, device=keys.device)
     torch.ne(keys[1:], keys[:-1], out=changed[1:])
     return seg.blocked_cummax(torch.where(changed, idx, 0))
-
-
-def run_lengths_i32(keys: torch.Tensor, run_start: torch.Tensor) -> torch.Tensor:
-    """Per-key duplicate-run length, 0 for the array's FINAL run (the
-    reference never flushes it).  ``run_start`` is FixDups' output."""
-    n = keys.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
-    ends_run = torch.ones(n, dtype=torch.bool, device=keys.device)
-    torch.ne(keys[1:], keys[:-1], out=ends_run[:-1])
-    run_end = seg.blocked_cummin(torch.where(ends_run, idx, n - 1),
-                                 reverse=True)
-    del idx, ends_run
-    run_len = run_end - run_start + 1
-    return torch.where(run_end < n - 1, run_len, 0)
 
 
 def _scale(v, sf: float):
@@ -174,10 +161,9 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     leaf's model_float_input ``leaf_in``."""
     n, B = spans.n, spans.B
     mleaf = get_model(leaf_type)
-    err = sweep_kernel.sweep_errors(kernel_input(mleaf, leaf_in), yfix, spans.t,
-                                    leaf_w, n, leaf_type=leaf_type)
-    max_err = seg.range_max(err, spans, 0).long()
-    del err
+    max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix,
+                                          spans.starts, spans.ends, leaf_w, n,
+                                          leaf_type=leaf_type).long()
 
     # epsilon probes (two_layer.rs:226-259)
     leaf_ids = torch.arange(B, device=leaf_w.device)
@@ -190,7 +176,8 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     pred_up = probe(keymod.minus_epsilon(next_key, key_type))
     pred_lo = probe(keymod.plus_epsilon(prev_key, key_type))
 
-    longest_run = seg.range_max(run_lengths_i32(keys, yfix), spans, 0).long()
+    longest_run = sweep_kernel.span_run_max(keys, yfix, spans.starts,
+                                            spans.ends).long()
     upper_err = _error_between(pred_up, next_idx + 1, n)
     first_idx = next_idx[(leaf_ids - 1).clamp(min=0)]
     lower_err = _error_between(pred_lo, first_idx, n)

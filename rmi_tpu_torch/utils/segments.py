@@ -5,10 +5,12 @@ NON-DECREASING and every per-leaf reduction is a reduction over a
 contiguous range.  The JAX package rewrote searchsorted, the scans and
 the segmented max into TPU-friendly forms.  On the card the plain
 operations serve instead: ``torch.searchsorted`` in place of
-sorted_starts (make_spans) and hier_count (models/cubic.py),
-``scatter_reduce`` for the segmented max; kernel K1 (ops/scan_kernel.py)
-runs the two n-scale monotone scans and kernel K2 (ops/select_kernel.py)
-the per-leaf moments: plain, 0/1-weighted and variance-only.
+sorted_starts (make_spans) and hier_count (models/cubic.py); kernel K1
+(ops/scan_kernel.py) runs the n-scale running max, kernel K2
+(ops/select_kernel.py) the per-leaf moments (plain, 0/1-weighted and
+variance-only), and the per-leaf maxima are taken inside kernel K3 and
+the run-length pass (ops/sweep_kernel.py), with ``range_max`` here as
+their plain form.
 
 Leaf-overlap semantics (two_layer.rs:52-82): a non-empty leaf j with
 span [s_j, e_j) trains on the augmented range [s_j - (s_j>0),
@@ -206,21 +208,20 @@ def aug_centered_dot(spans: Spans, x, mean_x):
     return select_kernel.aug_centered_xx(x, mean_x, spans.aug_starts, spans.aug_ends)
 
 
-def range_max(values: torch.Tensor, spans: Spans, fill) -> torch.Tensor:
-    """max(values[starts[j]:ends[j]]) per leaf, ``fill`` for empty
-    leaves: a segmented max over the leaf ids, which are sorted."""
-    out = torch.full((spans.B,), fill, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce_(0, spans.t.long(), values, "amax",
-                               include_self=True)
+def range_max(values: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+              fill) -> torch.Tensor:
+    """max(values[starts[j]:ends[j]]) per range, ``fill`` for an empty
+    one: the plain segmented max, each range's elements expanded and
+    scattered to its slot.  It serves the CPU and the plain versions of
+    the per-leaf maxima; on the card the build takes them inside the
+    kernels (ops/sweep_kernel.py)."""
+    leaf, elem = select_kernel.span_elements(starts, ends)
+    out = torch.full((starts.shape[0],), fill, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce_(0, leaf, values[elem], "amax", include_self=True)
 
 
 def blocked_cummax(v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive running max of int32 ``v`` (kernel K1)."""
     return scan_kernel.scan_i32(v, is_max=True, fill=INT32_MIN,
-                                reverse=reverse)
-
-
-def blocked_cummin(v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """Inclusive running min of int32 ``v`` (kernel K1)."""
-    return scan_kernel.scan_i32(v, is_max=False, fill=INT32_MAX,
                                 reverse=reverse)

@@ -8,9 +8,11 @@ runs on a machine without it:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: K1, K3 and K4 (linear, cubic, loglinear and normal leaves,
-lognormal through the normal kernel) bit-equal (max/min never round; K3
-and K4 are compared with the plain version on CPU copies, where
-torch.addcmul is an exact FMA); K2 and its weighted and variance-only
+lognormal through the normal kernel) bit-equal (max/min never round; K3,
+the per-leaf maximum of the sweep, and K4 are compared with the plain
+version on CPU copies, where torch.addcmul is an exact FMA); the
+run-length pass and the nine card probes equal to their plain versions;
+K2 and its weighted and variance-only
 variants within rtol 1e-9 (summation order) plus 1e-12 of the
 Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 and its scatter
 entry, at both sample levels, bit-equal to their plain versions on the
@@ -31,8 +33,8 @@ from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import cubic, get_model
 from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.models.linear import log_targets
-from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, scan_kernel,
-                               select_kernel, sorted_serve_kernel as ssk,
+from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
+                               scan_kernel, select_kernel, sorted_serve_kernel as ssk,
                                sweep_kernel)
 from rmi_tpu_torch.utils import segments as seg
 
@@ -142,19 +144,30 @@ def _zoo_rows(leaf, n, B, seed):
     return kernel_input(mdef, x), y, t, w
 
 
+def _leaf_max_on_card(dev, x, y, t, w, leaf, B):
+    """K3 on the card for the spans of leaf ids ``t``, counted as one
+    launch of its entry; (per-leaf maxima on the CPU, per-key plain errors)."""
+    n = x.shape[0]
+    spans = seg.make_spans(t, B)
+    entry = f"rmi_sweep_max_{get_model(leaf).leaf_kernel}"
+    before = _build.launches[entry]
+    got = sweep_kernel.sweep_leaf_max(x.to(dev), y.to(dev), spans.starts.to(dev),
+                                      spans.ends.to(dev), w.to(dev), n, leaf_type=leaf)
+    torch.cuda.synchronize()
+    assert _build.launches[entry] == before + 1
+    want = sweep_kernel.sweep_leaf_max_plain(x, y, spans.starts, spans.ends, w, n,
+                                             leaf_type=leaf)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    err = sweep_kernel.sweep_errors_plain(x, y, t, w, n, leaf_type=leaf)
+    assert torch.equal(want, seg.range_max(err, spans.starts, spans.ends, 0))
+    return want, err
+
+
 @pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
 def test_k3_sweep_zoo(dev, leaf):
     x, y, t, w = _zoo_rows(leaf, 500_009, 2048, 9)
-    n = x.shape[0]
-    entry = f"rmi_sweep_{get_model(leaf).leaf_kernel}"
-    before = _build.launches[entry]
-    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
-                                    leaf_type=leaf)
-    torch.cuda.synchronize()
-    assert _build.launches[entry] == before + 1
-    want = sweep_kernel.sweep_errors_plain(x, y, t, w, n, leaf_type=leaf)
-    assert torch.equal(got.cpu(), want)
-    assert int((want > 0).sum()) > n // 10
+    _, err = _leaf_max_on_card(dev, x, y, t, w, leaf, 2048)
+    assert int((err > 0).sum()) > x.shape[0] // 10
 
 
 @pytest.mark.parametrize("leaf", ["loglinear", "normal", "lognormal"])
@@ -202,12 +215,7 @@ def test_card_build_zoo_matches_cpu_build(dev, spec):
 
 def test_k3_sweep(dev):
     x, y, t, w = _leaf_inputs(500_009, 2048, 2)
-    n = x.shape[0]
-    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
-                                    leaf_type="linear")
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), sweep_kernel.sweep_errors_plain(x, y, t, w, n,
-                                                                  leaf_type="linear"))
+    _leaf_max_on_card(dev, x, y, t, w, "linear", 2048)
 
 
 @pytest.mark.parametrize("bound", [0, 1000, 499_999])
@@ -237,13 +245,90 @@ def test_k3_sweep_cubic(dev):
     x, y, t, _ = _leaf_inputs(500_009, 2048, 4)
     w = _cubic_rows(2048, 4)
     w[:, 2] = float(x.shape[0])            # rows that track y ~ n x
+    _, err = _leaf_max_on_card(dev, x, y, t, w, "cubic", 2048)
+    assert int((err > 0).sum()) > x.shape[0] // 2
+
+
+def _span_case(case):
+    """(x f64, int64 keys, yfix, starts, ends, w) of one span shape for K3
+    and the run-length pass; every span boundary is the first key of a
+    duplicate run, as leaf ids computed from the keys give."""
+    n = {"huge": (1 << 22) + (1 << 18), "one_nonempty": 300_007, "B1": 70_001,
+         "n0": 0}[case]
+    B = {"huge": 2048, "one_nonempty": 262144, "B1": 1, "n0": 16}[case]
+    x, y, _, w = _leaf_inputs(max(n, 2), 512, len(case))
+    x, y = x[:n], y[:n]
+    keys = (x * 2.0 ** 50).long()
+    assert n == 0 or bool(((keys[1:] == keys[:-1]) == (x[1:] == x[:-1])).all())
+    if case == "huge":       # 1000 small leaves, one of ~2^22 keys, 1047 small ones
+        cuts = np.concatenate([np.linspace(0, 1 << 17, 1001)[:-1],
+                               [1 << 17], np.linspace((1 << 17) + (1 << 22), n, 1048)[:-1]])
+        starts = y[torch.from_numpy(cuts.astype(np.int64))].long()
+    elif case == "one_nonempty":
+        starts = torch.zeros(B, dtype=torch.int64)
+        starts[77_778:] = n
+    else:
+        starts = torch.zeros(B, dtype=torch.int64)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    return x, keys, y, starts, ends, w[torch.arange(B) % w.shape[0]].contiguous()
+
+
+@pytest.mark.parametrize("case", ["huge", "one_nonempty", "B1", "n0"])
+def test_k3_and_run_max_span_shapes(dev, case):
+    """One leaf of 2^22 keys among small ones, every leaf empty but one
+    (262143 empty leaves), B = 1 and n = 0: both per-leaf maxima equal
+    their plain versions on CPU copies."""
+    x, keys, y, starts, ends, w = _span_case(case)
     n = x.shape[0]
-    got = sweep_kernel.sweep_errors(x.to(dev), y.to(dev), t.to(dev), w.to(dev), n,
-                                    leaf_type="cubic")
-    torch.cuda.synchronize()
-    want = sweep_kernel.sweep_errors_plain(x, y, t, w, n, leaf_type="cubic")
+    d = [a.to(dev) for a in (x, keys, y, starts, ends, w)]
+    got = sweep_kernel.sweep_leaf_max(d[0], d[2], d[3], d[4], d[5], n, leaf_type="linear")
+    want = sweep_kernel.sweep_leaf_max_plain(x, y, starts, ends, w, n, leaf_type="linear")
     assert torch.equal(got.cpu(), want)
-    assert int((want > 0).sum()) > n // 2
+    before = _build.launches["rmi_span_run_max"]
+    runs = sweep_kernel.span_run_max(d[1], d[2], d[3], d[4])
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_span_run_max"] == before + 1
+    want_runs = sweep_kernel.span_run_max_plain(keys, y, starts, ends)
+    assert runs.dtype == torch.int32 and torch.equal(runs.cpu(), want_runs)
+    if case in ("huge", "one_nonempty"):
+        assert int((ends - starts).max()) >= 300_007 and int(want_runs.max()) >= 2
+        assert int((want > 0).sum()) >= 1
+
+
+def _events_ms(fn, iters=10):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def test_k3_huge_leaf_is_not_one_warps_work(dev):
+    """The same keys as one leaf of ~2^22 among small ones and as 2048
+    even leaves: a long span is cut into chunks, so its keys cost about
+    what the even leaves' keys cost (printed; run pytest with -rP)."""
+    x, keys, y, starts, ends, w = _span_case("huge")
+    n = x.shape[0]
+    even = torch.from_numpy(np.linspace(0, n, 2049)[:-1].astype(np.int64))
+    even = y[even].long()
+    even_ends = torch.cat([even[1:], even.new_full((1,), n)])
+    d = [a.to(dev) for a in (x, keys, y, starts, ends, w, even, even_ends)]
+    times = {}
+    for name, s, e in (("huge", d[3], d[4]), ("even", d[6], d[7])):
+        times[name] = (
+            _events_ms(lambda: sweep_kernel.sweep_leaf_max(d[0], d[2], s, e, d[5], n,
+                                                           leaf_type="linear")),
+            _events_ms(lambda: sweep_kernel.span_run_max(d[1], d[2], s, e)))
+    for name, (k3, run) in times.items():
+        print(f"span maxima over n={n} keys, {name} leaves: K3 {k3:.4f} ms "
+              f"({k3 * 1e6 / n:.4f} ns/key), run max {run:.4f} ms "
+              f"({run * 1e6 / n:.4f} ns/key)")
+    assert times["huge"][0] <= 3 * times["even"][0] + 0.05
+    assert times["huge"][1] <= 3 * times["even"][1] + 0.05
 
 
 @pytest.mark.parametrize("bound", [0, 499_999])
@@ -483,3 +568,49 @@ def test_card_serving_routes(dev):
     assert _build.launches["rmi_serve_sorted_scatter"] == before["rmi_serve_sorted_scatter"] + 1
     assert _build.launches["rmi_serve_sorted"] == before["rmi_serve_sorted"] + 1
     assert torch.equal(lookup_fast.fast_search(rmi, q), want)
+
+
+@pytest.mark.parametrize("key", [p.key for p in probe_kernels.PROBES])
+def test_probe_kernel(dev, key):
+    """Each card probe on probes/probe_pallas.py's inputs (D at width 128
+    and 2048, one block and 132): equal to its plain version."""
+    probe = next(p for p in probe_kernels.PROBES if p.key == key)
+    for width, blocks in ((128, 1), (2048, 132)) if key == "D" else ((128, None),):
+        args = probe_kernels.probe_inputs(probe, dev, width=width)
+        kw = {} if blocks is None else {"blocks": blocks}
+        before = _build.launches[probe.entry]
+        got = probe.wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches[probe.entry] == before + 1
+        want = probe.plain(*args, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert torch.equal(got.cpu(), probe.plain(*[a.cpu() for a in args], **kw))
+        if key == "D":
+            assert bool((got == 4096.0).all())
+
+
+@pytest.mark.parametrize("width", [128, 1024])
+@pytest.mark.parametrize("iters,slots", [(4096, 16), (37, 16), (5, 16), (4096, 3)])
+def test_probe_ring_marked_table(dev, width, iters, slots):
+    """D on a table whose rows differ (x[r, 0] = r mod 251): a copy that
+    lands in the wrong slot, or a slot read before its copy or after the
+    next one, cannot give the plain version's sums."""
+    tbl = probe_kernels.ring_table(width, dev, marked=True)
+    got = probe_kernels.row_ring(tbl, iters=iters, slots=slots, blocks=7)
+    torch.cuda.synchronize()
+    want = probe_kernels.row_ring_plain(tbl, iters=iters, blocks=7)
+    assert torch.equal(got, want) and len(set(want.tolist())) > 1
+
+
+def test_probe_compares_on_random_bits(dev):
+    """B2 and B3 on 2^20 random 64-bit patterns: equal to numpy's uint64 <."""
+    rng = np.random.default_rng(11)
+    x, q = (rng.integers(0, 2**64, 1 << 20, dtype=np.uint64) for _ in range(2))
+    q[:1000] = x[:1000]
+    q[1000:2000] = x[1000:2000] ^ np.uint64(1 << 63)
+    want = torch.from_numpy((x < q).astype(np.int32))
+    tx, tq = (torch.from_numpy(a.view(np.int64)).to(dev) for a in (x, q))
+    assert torch.equal(probe_kernels.less_than_u64(tx, tq).cpu(), want)
+    halves = [torch.from_numpy((a >> np.uint64(s)).astype(np.uint32).view(np.int32)).to(dev)
+              for a in (x, q) for s in (32, 0)]
+    assert torch.equal(probe_kernels.less_than_u32pair(*halves).cpu(), want)

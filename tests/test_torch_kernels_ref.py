@@ -19,6 +19,14 @@ JAX functions on the same numpy inputs:
     leaf fits of the same keys) bit-equal to rmi_tpu's jitted predict:
     exp1 of the FMA, and phi with the two FMAs XLA forms; lognormal
     through the lognormal input transform, applied before the kernel.
+  * The per-leaf maxima of stage C, which the card takes inside K3 and
+    the run-length pass: their plain versions equal rmi_tpu's
+    seg.range_max over its per-key errors and over _run_lengths_i32
+    (integer maxima, no tolerance), with empty leaves, B = 1, keys that
+    end in a duplicate run and a leaf that holds only that run; the
+    run-length kernel's own formula (a run's length read off its last
+    key) equals them too, because a run never straddles two leaves
+    under any ported top.
 """
 
 import numpy as np
@@ -26,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from rmi_tpu.models import get_model as j_get_model
 from rmi_tpu.models.base import predict_clamped as j_predict_clamped
@@ -33,10 +42,12 @@ from rmi_tpu.models.linear import _linear_predict as j_linear_predict
 from rmi_tpu.ops import eval_kernel as j_eval
 from rmi_tpu.ops import scan_kernel as j_scan
 from rmi_tpu.ops import sweep_kernel as j_sweep
+from rmi_tpu.train import two_layer as j_two_layer
 from rmi_tpu.utils import segments as j_seg
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel, scan_kernel, select_kernel, sweep_kernel
+from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as t_seg
 
 N = (1 << 15) + 517          # not a multiple of any kernel block
@@ -211,3 +222,162 @@ def test_k4_leaf_eval_zoo_matches_jax(leaf):
         j_get_model(leaf).predict({"w": w_}, i_, x_), bound))(
         *map(jnp.asarray, (w, leaf_ids, xq)))
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def _with_empty_leaves(t):
+    """Leaf ids of _inputs with leaves 300-304 and the last three empty."""
+    t = t.astype(np.int64)
+    t[t >= 300] += 5
+    return np.minimum(t, B - 4).astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", ["spread", "empty_leaves", "B1"])
+@pytest.mark.parametrize("leaf", ["linear", "cubic", "loglinear", "normal"])
+def test_k3_leaf_max_matches_jax(leaf, shape):
+    """K3's plain version against rmi_tpu: its jitted per-key errors, then
+    its scatter-free seg.range_max over the spans."""
+    x, y, t, w = _zoo_inputs(leaf, 8)
+    nb = B
+    if shape == "empty_leaves":
+        t = _with_empty_leaves(t)
+    if shape == "B1":
+        nb, t, w = 1, np.zeros_like(t), w[B // 2:B // 2 + 1]
+    spans = t_seg.make_spans(torch.from_numpy(t), nb)
+    got = sweep_kernel.sweep_leaf_max(torch.from_numpy(x), torch.from_numpy(y),
+                                      spans.starts, spans.ends, torch.from_numpy(w),
+                                      N, leaf_type=leaf)
+    assert got.dtype == torch.int32 and got.shape == (nb,)
+
+    def jax_leaf_max(x_, y_, t_, w_):
+        p = jnp.floor(j_get_model(leaf).predict({"w": w_}, t_, x_))
+        p = jnp.where(jnp.isnan(p), 0.0, jnp.clip(p, 0.0, jnp.float64(N)))
+        err = jnp.abs(p.astype(jnp.int32) - jnp.minimum(y_, N))
+        jspans = j_seg.make_spans(t_, nb)
+        return j_seg.range_max(err, jspans.starts, jspans.ends, 0), err
+    want, err = jax.jit(jax_leaf_max)(*map(jnp.asarray, (x, y, t, w)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # and the port's own plain segmented max over its per-key errors
+    np.testing.assert_array_equal(
+        t_seg.range_max(torch.from_numpy(np.array(err)), spans.starts, spans.ends,
+                        0).numpy(), got.numpy())
+    empty = (spans.ends == spans.starts).numpy()
+    assert not got.numpy()[empty].any()
+    if shape == "empty_leaves":
+        assert empty.sum() >= 8
+    assert np.count_nonzero(got.numpy()) > (0 if shape == "B1" else nb // 4)
+
+
+def test_k3_leaf_max_gaps_and_refusals():
+    """Keys that lie in no span count for no leaf; a bound past the int32
+    errors' range, or rows that do not match the spans, are refused."""
+    x, y, _, w = _zoo_inputs("linear", 8)
+    tx, ty, tw = (torch.from_numpy(a) for a in (x, y, w[:2]))
+    starts, ends = torch.tensor([10, 500]), torch.tensor([200, 500])
+    got = sweep_kernel.sweep_leaf_max(tx, ty, starts, ends, tw, N, leaf_type="linear")
+    err = sweep_kernel.sweep_errors(tx, ty, torch.zeros(N, dtype=torch.int32), tw, N,
+                                    leaf_type="linear")
+    assert got.tolist() == [int(err[10:200].max()), 0]
+    with pytest.raises(ValueError):
+        sweep_kernel.sweep_leaf_max(tx, ty, starts, ends, tw, 2**31, leaf_type="linear")
+    with pytest.raises(ValueError):
+        sweep_kernel.sweep_leaf_max(tx, ty, starts, ends, tw[:1], N, leaf_type="linear")
+    with pytest.raises(ValueError):
+        sweep_kernel.sweep_leaf_max(tx, ty, starts.int(), ends, tw, N, leaf_type="linear")
+
+
+def _run_keys(case):
+    """Sorted int64 keys with duplicate runs, [n], and leaf ids that are
+    a function of the key."""
+    rng = np.random.default_rng(len(case))
+    n, nb = 40_003, 256
+    base = np.sort(rng.integers(0, 1 << 40, n // 3))
+    keys = np.repeat(base, rng.integers(1, 9, base.size))[:n]
+    if case == "ends_in_run":
+        keys[-37:] = keys[-1]
+    t = np.minimum(keys * nb >> 40, nb - 1)
+    if case == "final_run_alone":        # the last leaf holds the final run only
+        keys[-50:] = keys[-1]
+        t = np.minimum(t, nb - 2)
+        t[-50:] = nb - 1
+    return keys, t.astype(np.int32), nb
+
+
+def _run_end_max(keys, yfix, starts, ends):
+    """csrc/run_max.cu's formula in numpy: a run's length read off its
+    last key, i - yfix[i] + 1, where the next key differs."""
+    n = keys.size
+    i = np.arange(n)
+    ends_run = np.zeros(n, bool)
+    ends_run[:-1] = keys[1:] != keys[:-1]
+    val = np.where(ends_run, i - yfix + 1, 0)
+    return np.array([val[a:b].max() if b > a else 0 for a, b in zip(starts, ends)])
+
+
+@pytest.mark.parametrize("case", ["dups", "ends_in_run", "final_run_alone"])
+def test_run_max_matches_jax(case):
+    keys, t, nb = _run_keys(case)
+    n = keys.size
+    tk = torch.from_numpy(keys)
+    yfix = two_layer.fixdups_i32(tk)
+    spans = t_seg.make_spans(torch.from_numpy(t), nb)
+    got = sweep_kernel.span_run_max(tk, yfix, spans.starts, spans.ends)
+    assert got.dtype == torch.int32
+
+    jk = jnp.asarray(keys)
+    jspans = j_seg.make_spans(jnp.asarray(t), nb)
+    runs = j_two_layer._run_lengths_i32(jk, n, run_start=jnp.asarray(yfix.numpy()))
+    want = j_seg.range_max(runs, jspans.starts, jspans.ends, 0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        sweep_kernel.run_lengths_plain(tk, yfix).numpy(), np.asarray(runs))
+    np.testing.assert_array_equal(
+        _run_end_max(keys, yfix.numpy(), spans.starts.numpy(), spans.ends.numpy()),
+        got.numpy())
+    assert got.max() >= 8
+    if case == "final_run_alone":
+        assert int(got[-1]) == 0 and int(spans.ends[-1] - spans.starts[-1]) == 50
+
+
+def test_run_max_edge_sizes():
+    """n = 0, n = 1 and all keys equal: every run is the final run."""
+    z = torch.zeros(3, dtype=torch.int64)
+    for keys in (torch.zeros(0, dtype=torch.int64), torch.tensor([7]),
+                 torch.full((100,), 5)):
+        n = keys.shape[0]
+        yfix = torch.zeros(n, dtype=torch.int32)
+        ends = torch.tensor([0, n, n])
+        assert not sweep_kernel.span_run_max(keys, yfix, z, ends).any()
+        assert not _run_end_max(keys.numpy(), yfix.numpy(), z.numpy(), ends.numpy()).any()
+
+
+TOPS = ["linear", "robust_linear", "loglinear", "linear_spline", "cubic", "normal",
+        "lognormal"]
+
+
+@pytest.mark.parametrize("top", TOPS)
+@settings(max_examples=12, deadline=None)
+@given(seed=st.integers(0, 2 ** 31), log_n=st.integers(6, 11),
+       max_run=st.integers(1, 40), nb=st.sampled_from([1, 7, 64, 1000]))
+def test_runs_never_straddle_leaves(top, seed, log_n, max_run, nb):
+    """Equal keys get one leaf id under every ported top, so a duplicate
+    run lies in one leaf's span and the run-length kernel may read each
+    run's length off its last key: its formula equals the plain version
+    on the build's own spans."""
+    rng = np.random.default_rng(seed)
+    n = 1 << log_n
+    base = np.sort(rng.integers(1, 1 << 50, n).astype(np.uint64))
+    keys = np.repeat(base, rng.integers(1, max_run + 1, n))[:n]
+    img = torch.from_numpy((keys ^ np.uint64(1 << 63)).view(np.int64))
+    mtop = get_model(top)
+    kminf, s = two_layer.norm_constants(img)
+    top_in = two_layer.model_float_input(mtop, img, kminf, s)
+    yfix = two_layer.fixdups_i32(img)
+    _, t = two_layer._assign_body(top_in, yfix, top_type=top, B=nb)
+    same = img[1:] == img[:-1]
+    assert bool((t[1:][same] == t[:-1][same]).all())
+    assert bool((t[1:] >= t[:-1]).all())
+    spans = t_seg.make_spans(t, nb)
+    want = sweep_kernel.span_run_max_plain(img, yfix, spans.starts, spans.ends)
+    np.testing.assert_array_equal(
+        _run_end_max(img.numpy(), yfix.numpy(), spans.starts.numpy(), spans.ends.numpy()),
+        want.numpy())

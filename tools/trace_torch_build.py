@@ -12,8 +12,9 @@ by default; its others are ``--spec robust_linear,cubic``,
 apart from it SEARCH_BATCHES search batches of 2^22 random queries
 (sort -> K5 -> unsort).  For each
 trace it prints the device time of the rmi.* ranges (the build stages of
-train/two_layer.py), the kernels by device time, and the device's busy
-share of the traced wall time.
+train/two_layer.py), the kernels by device time, the device's busy
+share of the traced wall time, and any scatter operation it saw (the
+build takes its per-leaf maxima inside kernels and should show none).
 """
 
 from __future__ import annotations
@@ -108,6 +109,8 @@ def _report(prof, wall_s, label, top):
     wall = wall_s * 1e3
     print(f"  device busy {busy:.3f} ms of {wall:.3f} ms traced wall "
           f"(idle share {1 - busy / wall:.3f})")
+    scatters = sorted({e.key for e in evts if "scatter" in e.key.lower()})
+    print(f"  scatter operations traced: {scatters or 'none'}")
     for e in sorted(kernels, key=lambda e: -_dev_us(e, True))[:top]:
         print(f"  {_dev_us(e, True) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
 
