@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero):
      at the default size) and search_sorted of the same queries sorted
      (K5); every kernel of the path must have launched in that run, and
      the keys made twice and the two builds must be bit-equal;
-  4. the bound |guess - lower_bound| <= err on sampled keys;
+  4. the bound |guess - lower_bound| <= err on sampled keys, whose
+     lookup must launch K4's fused entry (rmi_lookup_<leaf>) and nothing
+     else; lookup of the random queries too, both replayed in phase 7;
   5. exact search against torch.searchsorted: search and search_sorted
      of the path, then search, search_sorted and fast_search on 2^16
      queries (the packed plan); the search rate;
@@ -24,10 +26,13 @@ Phases (any failure raises and exits non-zero):
      bounded path, the packed plan, sort -> K5 -> unsort without the
      density gate, and search_sorted on sorted batches;
   7. each kernel of the path replayed on the inputs the path gave it,
-     against its plain PyTorch version: K1, K2, the run-length pass, K5
-     and K5's scatter entry on the card, K3 (the per-leaf maxima, which
-     must be equal) and K4 on CPU copies (CPU torch.addcmul is an exact
-     FMA);
+     against its plain PyTorch version: K1, K2, the run-length pass, K5,
+     K5's scatter entry and K4's fused lookup entry on the card (guess and
+     err bit-equal; lookup also timed against the two-step route it
+     replaced), K3 (the per-leaf maxima, which must be equal) and K4's
+     per-element entry on CPU copies (CPU torch.addcmul is an exact FMA),
+     the latter also on lookup's own x and leaf ids at 2^22 queries,
+     where it is timed;
   8. a build on the card against the plain build on the CPU;
   9. path 2 on the same keys, once path 1's index is freed:
      ``train(data, "robust_linear,cubic", 65536)`` cold and warm (bit-
@@ -48,7 +53,9 @@ Phases (any failure raises and exits non-zero):
      probe's inputs (D at widths 128 and 2048) with the launches counted
      from 0, its output held equal to its plain version's on the card.
 Each row of the kernels line carries the kernel's time on its path's
-largest call beside the plain version's and, where one PyTorch call
+largest call (a call under 0.1 ms: the median of five runs of at least
+5 ms of calls, logged with their spread) beside the plain version's and,
+where one PyTorch call
 computes the same function, that call's (library_ms), and the least time
 the card could take for the call (bound_ms): the bytes its tensors hold,
 each input read once and each output written once (K5: the queries, the
@@ -77,6 +84,7 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
 from rmi_tpu_torch.models import get_model
+from rmi_tpu_torch.models.base import kernel_input, model_float_input, predict_top_assignment
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel,
                                sweep_kernel)
@@ -129,6 +137,10 @@ PATH_KERNELS = [
     ("rmi_leaf_eval_normal", eval_kernel, "leaf_eval_clamped",
      "leaf_eval_clamped_plain", "cpu",
      "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
+    # lookup whole in one launch, held to its plain route on the card
+    *[(f"rmi_lookup_{k}", eval_kernel, "lookup_clamped", "lookup_clamped_plain", None,
+       "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39")
+      for k in eval_kernel.LEAF_KERNELS],
     ("rmi_serve_sorted", sorted_serve_kernel, "serve_sorted", "serve_sorted_plain",
      None, "rmi_tpu_torch/csrc/sorted_serve.cu",
      "rmi_tpu/ops/sorted_serve_kernel.py:88"),
@@ -147,24 +159,27 @@ KERNELS = PATH_KERNELS + PROBE_KERNELS
 # search launches K5's scatter entry, search_sorted K5 itself
 K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
 RUN_MAX = "rmi_span_run_max"
+# K4: the build's epsilon probes launch the per-element entry, lookup the fused one
 PATH1 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", *K5),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", *K5))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
 PATH2 = ("robust_linear,cubic", 65536,
-         ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", *K5,
-          "rmi_cubic_l1"),
-         ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_cubic_l1"))
+         ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
+          "rmi_lookup_cubic", *K5, "rmi_cubic_l1"),
+         ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
+          "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
-          "rmi_leaf_eval_loglinear", *K5),
+          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5),
          ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
-          "rmi_leaf_eval_loglinear"))
+          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX,
-          "rmi_leaf_eval_normal", *K5),
-         ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
+          "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5),
+         ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
+          "rmi_lookup_normal"))
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (),
              ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
@@ -214,6 +229,11 @@ def entry_of(name, kw):
     launches, where the wrapper has more than one."""
     if name == "aug_centered_moments":
         return "rmi_aug_moments" if kw.get("weights") is None else "rmi_aug_moments_weighted"
+    if name == "lookup_clamped":       # a lognormal top or leaf: the two-step route
+        kernel = get_model(kw["leaf_type"]).leaf_kernel
+        return (f"rmi_lookup_{kernel}" if eval_kernel.fused_lookup(kw["top_type"],
+                                                                    kw["leaf_type"])
+                else f"rmi_leaf_eval_{kernel}")
     if "leaf_type" in kw:
         prefix = {"sweep_leaf_max": "rmi_sweep_max_",
                   "leaf_eval_clamped": "rmi_leaf_eval_"}
@@ -233,14 +253,36 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+SHORT_MS = 0.1            # calls shorter than this are timed in runs of RUN_MS
+RUN_MS = 5.0
+RUNS = 5
+
+
+def row_ms(fn, iters):
+    """(ms per call, (least, most)): over ``iters`` calls, or for a call
+    under SHORT_MS the median of RUNS runs of at least RUN_MS of calls
+    each, with the runs' spread."""
+    ms = cuda_ms(fn, iters)
+    if ms >= SHORT_MS:
+        return ms, (ms, ms)
+    reps = max(iters, math.ceil(RUN_MS / max(ms, 1e-4)))
+    runs = sorted(cuda_ms(fn, reps) for _ in range(RUNS))
+    return runs[RUNS // 2], (runs[0], runs[-1])
+
+
+def spread(t):
+    return f"{t[0]:.4f} ms ({t[1][0]:.4f}-{t[1][1]:.4f})"
+
+
 def plain_args(name, args, kw, where):
     """Arguments of the plain version on ``where`` (None: where they
-    are); K1's plain version takes no fill."""
+    are); K1's plain version takes no fill, lookup's none of the kernel's
+    lookup table."""
     def move(a):
         return a.to(where or a.device) if torch.is_tensor(a) else a
     args = [move(a) for a in args]
     kw = {k: move(v) for k, v in kw.items()
-          if not (name == "scan_i32" and k == "fill")}
+          if (name, k) not in (("scan_i32", "fill"), ("lookup_clamped", "table"))}
     return args, kw
 
 
@@ -263,6 +305,9 @@ def compare(name, got, want, args, kw):
                 bool(((m2 - wm2).abs() <= K2_RTOL * wm2.abs()).all()))
     if name == "cubic_l1_sums":
         return compare_l1(got, want)
+    if name == "lookup_clamped":      # (guess, err), both bit-equal
+        diffs = [compare(None, g, w, args, kw) for g, w in zip(got, want)]
+        return max(d[0] for d in diffs), all(d[1] for d in diffs)
     got, want = got.cpu().long(), want.cpu().long()
     err = int((got - want).abs().max()) if got.numel() else 0
     return err, bool(torch.equal(got, want))
@@ -285,7 +330,8 @@ def compare_l1(got, want):
 
 def check_kernels(rec, launches, entries):
     """Replay each of ``entries`` on its recorded calls against its plain
-    version, and time its largest call beside the plain version."""
+    version, and time its largest call (K4's per-element entries: on
+    lookup's own inputs) beside the plain version."""
     rows = {}
     for entry, mod, name, plain_name, where, source, replaces in PATH_KERNELS:
         if entry not in entries:
@@ -296,38 +342,71 @@ def check_kernels(rec, launches, entries):
             raise RuntimeError(f"{entry}: no call recorded on the path")
         worst = 0
         for args, kw in calls:
-            got = wrapper(*args, **kw)
-            pa, pk = plain_args(name, args, kw, where)
-            want = plain(*pa, **pk)
-            err, ok = compare(name, got, want, args, kw)
-            if not ok:
-                raise RuntimeError(f"{entry}: kernel disagrees with its plain "
-                                   f"version (max abs err {err})")
-            worst = max(worst, err)
-            del got, want, pa
+            worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
         # time the largest call: kernel, plain version and library call
         # on the card, and its bound
         args, kw = max(calls, key=lambda c: c[0][0].shape[0])
+        if name == "leaf_eval_clamped":
+            lookups = [c for c in rec.calls["lookup_clamped"]
+                       if get_model(c[1]["leaf_type"]).leaf_kernel
+                       == get_model(kw["leaf_type"]).leaf_kernel]
+            if lookups:
+                out = wrapper(*args, **kw)
+                log(f"kernel {entry} at {list(args[0].shape)} (the build's epsilon "
+                    f"probes): {spread(row_ms(lambda: wrapper(*args, **kw), 10))}")
+                del out
+                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: c[0][0].shape[0]))
+                worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
         pa, pk = plain_args(name, args, kw, args[0].device)
         out = wrapper(*args, **kw)
-        ms = cuda_ms(lambda: wrapper(*args, **kw), 10)
-        plain_ms = cuda_ms(lambda: plain(*pa, **pk), 3)
+        ms = row_ms(lambda: wrapper(*args, **kw), 10)
+        plain_ms = row_ms(lambda: plain(*pa, **pk), 3)
         lib = library_call(name, args, kw)
-        library_ms = None if lib is None else cuda_ms(lib, 10)
+        library_ms = None if lib is None else row_ms(lib, 10)
         nbytes, ops, peak = work(name, args, kw, out)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
         del out
         rows[entry] = {"name": entry, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches[entry],
-                       "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                       "max_abs_err": worst, "ms": ms[0], "plain_ms": plain_ms[0],
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": library_ms}
+                       "library_ms": None if library_ms is None else library_ms[0]}
         log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
-            f"version (max abs err {worst}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-            f"library {library_ms}, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {list(args[0].shape)}")
+            f"version (max abs err {worst}); {spread(ms)} vs plain {spread(plain_ms)}, "
+            f"library {library_ms and spread(library_ms)}, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {list(args[0].shape)}")
+        if name == "lookup_clamped":
+            steps = row_ms(lambda: eval_kernel.lookup_steps(
+                *args, kw["top_type"], kw["leaf_type"], eval_kernel.leaf_eval_clamped), 10)
+            log(f"lookup {kw['top_type']},{kw['leaf_type']} at {list(args[0].shape)}: "
+                f"fused {spread(ms)}, two steps (torch top eval, then "
+                f"rmi_leaf_eval_*: the route before the fused entry) {spread(steps)}, "
+                f"plain {spread(plain_ms)}; bound {bound_ms:.4f} ms")
     return rows
+
+
+def replay(entry, name, wrapper, plain, where, args, kw):
+    """A wrapper call against its plain version; its max abs error."""
+    got = wrapper(*args, **kw)
+    pa, pk = plain_args(name, args, kw, where)
+    want = plain(*pa, **pk)
+    err, ok = compare(name, got, want, args, kw)
+    if not ok:
+        raise RuntimeError(f"{entry}: kernel disagrees with its plain version "
+                           f"(max abs err {err})")
+    return err
+
+
+def lookup_leaf_call(args, kw):
+    """The per-element K4 call a lookup's leaf step makes: lookup's kernel
+    input and leaf ids, bound n - 1 (eval_kernel.lookup_steps)."""
+    queries, top_w, leaf_w, _, n, kminf, s = args
+    mtop, mleaf = get_model(kw["top_type"]), get_model(kw["leaf_type"])
+    x = kernel_input(mleaf, model_float_input(mleaf, queries, kminf, s))
+    ids = predict_top_assignment(mtop, top_w, model_float_input(mtop, queries, kminf, s),
+                                 leaf_w.shape[0] - 1)
+    return (x, leaf_w, ids, n - 1), {"leaf_type": kw["leaf_type"]}
 
 
 def _nbytes(*tensors):
@@ -352,6 +431,17 @@ def work(name, args, kw, out):
         per += 0 if kw.get("weights") is None else 2
         return (_nbytes(*args, kw.get("weights"), *outs), int((hi - lo).sum()) * per,
                 F64_OPS_PER_S)
+    if name == "lookup_clamped":
+        # the keys, the top row and the lookup table (each leaf's row and
+        # error) read once, guess and err written once; per query the
+        # key's conversion and normalization (5), both models and their
+        # floors and clamps (8)
+        q, top_w, leaf_w, leaf_errors = args[:4]
+        table = kw.get("table")
+        per = 13 + sum(LEAF_OPS[get_model(kw[k]).leaf_kernel]
+                       for k in ("top_type", "leaf_type"))
+        return (_nbytes(q, top_w, *((table,) if table is not None else (leaf_w, leaf_errors)),
+                        *outs), q.shape[0] * per, F64_OPS_PER_S)
     if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         per = LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + 4   # floor, clamps
         # K3: xn, yfix, the span bounds and the rows; K4: x, the rows, the leaf ids
@@ -652,11 +742,18 @@ def drive(path, data, queries, gen):
     warm_rmi = rmi_tpu_torch.train(data, spec, B)
     warm = time.perf_counter() - t0
     with rec:
+        before = dict(_build.launches)
         viol = bound_violations(rmi, keys, nq, gen)
+        by_lookup = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+        lookup(rmi, queries)         # replayed with the sampled keys' lookup
         idx = search(rmi, queries)
         idx_sorted = search_sorted(rmi, queries_sorted)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
+    fused = f"rmi_lookup_{get_model(rmi.leaf_type).leaf_kernel}"
+    log(f"{spec} lookup launches: {json.dumps(by_lookup)}")
+    if by_lookup != {fused: 1}:
+        raise RuntimeError(f"{spec}: lookup launched {by_lookup}, not {fused} alone")
     log(f"build {spec} {B}: cold {cold:.4f} s, warm {warm:.4f} s, peak device "
         f"memory {peak / 2**30:.2f} GiB; model_max_error {rmi.model_max_error} "
         f"at leaf {rmi.model_max_error_idx}, "
@@ -735,9 +832,9 @@ def probe_phase(dev):
                "C2": lambda: torch.take(args[0], idx[0]),
                "C3": lambda: torch.gather(args[0], 1, idx[0]),
                "E": lambda: torch.index_select(args[1], 0, idx[0])}.get(probe.key)
-        ms = cuda_ms(lambda: probe.wrapper(*args), 20)
-        plain_ms = cuda_ms(lambda: probe.plain(*args), 20)
-        library_ms = None if lib is None else cuda_ms(lib, 20)
+        ms = row_ms(lambda: probe.wrapper(*args), 20)
+        plain_ms = row_ms(lambda: probe.plain(*args), 20)
+        library_ms = None if lib is None else row_ms(lib, 20)
         if probe.inputs is None:       # the rows D fetches, not its whole table
             nbytes = probe_kernels.RING_ITERS * width * 4 + _nbytes(got)
             elems = probe_kernels.RING_ITERS
@@ -748,15 +845,16 @@ def probe_phase(dev):
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= elems / peak else "operations"
         log(f"probe {probe.key} {probe.entry}"
             + (f" width {width}" if width else "")
-            + f": equal to its plain version; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-            f"library {library_ms}, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B)")
+            + f": equal to its plain version; {spread(ms)} vs plain {spread(plain_ms)}, "
+            f"library {library_ms and spread(library_ms)}, bound {bound_ms:.6f} ms "
+            f"({bound_by}: {nbytes} B)")
         # one row per entry: D's is its widest call, the last of its cases
         rows[probe.entry] = {
             "name": probe.entry, "route": "cuda",
             "source": "rmi_tpu_torch/csrc/probes.cu", "replaces": probe.replaces,
-            "launches": launches[probe.entry], "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "launches": launches[probe.entry], "max_abs_err": 0, "ms": ms[0],
+            "plain_ms": plain_ms[0], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if library_ms is None else library_ms[0]}
     return rows
 
 

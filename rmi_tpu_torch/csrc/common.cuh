@@ -15,6 +15,10 @@
 
 #define RMI_FULL_MASK 0xffffffffu
 
+// devices whose launch settings (shared memory granted, SM count) a
+// kernel caches
+constexpr int kMaxDevices = 64;
+
 // Blocks for a grid-stride loop over `work` items.
 static inline unsigned int rmi_grid(int64_t work, int per_block) {
   int64_t b = (work + per_block - 1) / per_block;

@@ -1,74 +1,368 @@
 // K4: clamped integer leaf predictions for linear, cubic, loglinear and
-// normal leaves (lognormal leaves pass max(ln x, 0) as x),
-//   out[i] = clip(floor(leaf(w[leaf[i]], x[i])), 0, bound)
-// with NaN -> 0.  It serves the build's epsilon probes (bound n, one
-// element per leaf) and lookup (bound n - 1, one element per query).
+// normal leaves, in two forms.
+//
+//   rmi_leaf_eval_*   out[i] = clip(floor(leaf(w[leaf[i]], x[i])), 0, bound)
+//                     with NaN -> 0: the build's epsilon probes (bound n,
+//                     one element per leaf) and lookup's leaf step where
+//                     the leaves are lognormal (x = max(ln x, 0)).
+//   rmi_lookup_*      lookup(key, &err) whole: from the int64 key image,
+//                     the normalized key, the top's leaf (its prediction
+//                     clamped to [0, B - 1]), the leaf's prediction
+//                     clamped to [0, n - 1] and the leaf's error, for
+//                     every affine top and leaf (all but lognormal).
 //
 // Replaces rmi_tpu/ops/eval_kernel.py:_eval_kernel (leaf_eval_clamped),
 // which takes parameter columns that XLA gathered beforehand and
 // evaluates them in float-float.  Here the row gather, the evaluation
-// and the clamp are one pass.
+// and the clamp are one pass, and in rmi_lookup_* the key conversion and
+// the top's evaluation too: the eight elementwise passes of as_float, the
+// normalization, the top's FMAs and predict_clamped no longer write [m]
+// tensors between them.
 //
-// Bound on the H100: memory and, for random lookups, the row gather.
-// Per element it reads x (8 B) and a leaf id (8 B), gathers one 16-byte
-// linear or loglinear, 24-byte normal or 32-byte cubic row and writes
-// 4 B.  The tables (4 MB of
-// linear rows at B = 262144, 2 MB of cubic rows at B = 65536) stay in
-// L2, so random rows cost L2 latency rather than HBM traffic.  The
-// evaluation is rmi_leaf from leaf_eval.cuh, the function the error
-// sweep (sweep.cu) measured the bounds with.
+// Bound on the H100: device memory, at 24 bytes a lookup (an 8-byte key
+// in, an 8-byte guess and error out) and 20 an element of the per-element
+// form (x and a leaf id in, 4 bytes out).  What binds first is L2: each
+// random row gather moves whole 32-byte sectors, and random gathers
+// through L2 run at 4.7-4.9 TB/s of sectors on an H100 whatever the
+// family (tools/tune_torch_eval.py: 0.044-0.060 ms at 2^22 random leaf
+// ids, 0.031 with the same ids sorted, 0.030 with one row; PERF.md).
+// So the per-element form costs 8 + 8 + 4 streamed bytes plus the
+// sectors of its row (one for linear, loglinear and cubic rows, one or
+// two for a 24-byte normal row), and lookup gathers each leaf's row and
+// error from one row of a table packed for it (lookup_table: the row,
+// the error's bits, padding, 32 bytes and one sector for all but cubic
+// leaves, whose 48 bytes take two), not from two tables.  Each thread
+// takes kPairs 16-byte pairs of consecutive elements, which a warp reads
+// and writes coalesced through the read-only path, and starts every
+// gather of its elements before any leaf arithmetic, so that the
+// gathers' latencies, and normal's two f64 divisions, overlap; one pair
+// a thread measured as fast as two and faster than four (registers).  A
+// head element before the first 16-byte boundary and an odd last
+// element go through the same code one at a time.
+//
+// Every value keeps the bits of the plain PyTorch chain: the key image
+// converts as keys.as_float does (hi * 2^32 is exact, one rounding in the
+// add), then (f - offset) * scale, as two_layer.normalize; the top and
+// the leaf are rmi_leaf from leaf_eval.cuh, the function the error sweep
+// (sweep.cu) measured the bounds with, and the clamps rmi_clamp_floor.
+// The top's row is row 0 of its own table: every affine top model's
+// prediction is its leaf kernel's (tests/test_torch_lookup_kernel.py).
 #include "common.cuh"
 #include "leaf_eval.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+#ifndef RMI_EVAL_PAIRS
+#define RMI_EVAL_PAIRS 1
+#endif
+constexpr int kPairs = RMI_EVAL_PAIRS;   // 16-byte pairs per thread and pass
+constexpr int kPer = 2 * kPairs;         // elements per thread and pass
+
+template <RmiLeaf L>
+using Row = double[rmi_leaf_width(L)];
+
+// f64 values of one lookup row: the leaf's row, the bits of its int64
+// error, and padding to a 16-byte multiple (ops/eval_kernel.lookup_table):
+// 4 values, one 32-byte sector, for every leaf family but cubic (6)
+__host__ __device__ constexpr int lookup_width(RmiLeaf L) {
+  return (rmi_leaf_width(L) + 2) & ~1;
+}
+
+template <RmiLeaf L>
+using LookupRow = double[lookup_width(L)];
+
+// kW consecutive f64 from p: two per 16-byte load where kW is even (p on
+// a 16-byte boundary), else one by one
+template <int kW>
+__device__ __forceinline__ void load_f64(const double* __restrict__ p, double (&r)[kW]) {
+  if constexpr (kW % 2 == 0) {
+    const double2* v = reinterpret_cast<const double2*>(p);
+#pragma unroll
+    for (int h = 0; h < kW / 2; ++h) {
+      const double2 a = __ldg(v + h);
+      r[2 * h] = a.x;
+      r[2 * h + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kW; ++h) r[h] = __ldg(p + h);
+  }
+}
+
+// leaf `leaf`'s row of table w
+template <RmiLeaf L>
+__device__ __forceinline__ void load_row(const double* __restrict__ w,
+                                         int64_t leaf, Row<L>& r) {
+  load_f64<rmi_leaf_width(L)>(w + rmi_leaf_width(L) * leaf, r);
+}
+
+// K elements: every row gathered, then every leaf evaluated and clamped
+template <RmiLeaf L, int K>
+__device__ __forceinline__ void eval_elems(const double* __restrict__ w,
+                                           const double (&x)[K],
+                                           const int64_t (&leaf)[K],
+                                           double bound, int32_t (&out)[K]) {
+  Row<L> r[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) load_row<L>(w, leaf[k], r[k]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), bound);
+}
+
+// keys.as_float then two_layer.normalize, on one int64 key image
+__device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
+  const uint64_t u = (uint64_t)image ^ 0x8000000000000000ull;
+  const double f = (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
+  return (f - offset) * scale;
+}
+
+// The scalar ends and the 16-byte pairs between them.  Elements [0, head)
+// lie before the first 16-byte boundary (head is 0 or 1); pairs
+// p < npairs hold elements head + 2p and head + 2p + 1; an odd last
+// element follows them.  Block 0's threads 0 and 1 take the two ends;
+// every thread takes kPairs pairs per pass, a warp's pairs adjacent.
+template <class Op>
+__device__ __forceinline__ void walk(const Op& op, int64_t m, int head) {
+  const int64_t npairs = (m - head) >> 1;
+  if (blockIdx.x == 0 && threadIdx.x < 2) {
+    const int64_t i = threadIdx.x == 0 ? (head ? 0 : m) : head + 2 * npairs;
+    if (i < m) op.one(i);
+  }
+  const int64_t tile = (int64_t)kThreads * kPairs;
+  for (int64_t base = (int64_t)blockIdx.x * tile; base < npairs;
+       base += (int64_t)gridDim.x * tile) {
+    int64_t p[kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) p[j] = base + j * kThreads + threadIdx.x;
+    op.pairs(p, npairs);
+  }
+}
+
+// --- the per-element form ----------------------------------------------------
+
+template <RmiLeaf L>
+struct LeafEvalOp {
+  const double* x;
+  const double* w;
+  const int64_t* leaf;
+  int32_t* out;
+  double bound;
+  int head;
+
+  __device__ __forceinline__ void one(int64_t i) const {
+    const double xi[1] = {__ldg(x + i)};
+    const int64_t li[1] = {__ldg(leaf + i)};
+    int32_t o[1];
+    eval_elems<L, 1>(w, xi, li, bound, o);
+    out[i] = o[0];
+  }
+
+  __device__ __forceinline__ void pairs(const int64_t (&p)[kPairs], int64_t npairs) const {
+    const double2* xv = reinterpret_cast<const double2*>(x + head);
+    const longlong2* lv = reinterpret_cast<const longlong2*>(leaf + head);
+    double xs[kPer];
+    int64_t ls[kPer];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const bool ok = p[j] < npairs;
+      const double2 a = ok ? __ldg(xv + p[j]) : make_double2(0.0, 0.0);
+      const longlong2 b = ok ? __ldg(lv + p[j]) : make_longlong2(0, 0);
+      xs[2 * j] = a.x;
+      xs[2 * j + 1] = a.y;
+      ls[2 * j] = b.x;
+      ls[2 * j + 1] = b.y;
+    }
+    int32_t o[kPer];
+    eval_elems<L, kPer>(w, xs, ls, bound, o);
+    int2* ov = reinterpret_cast<int2*>(out + head);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      if (p[j] < npairs) ov[p[j]] = make_int2(o[2 * j], o[2 * j + 1]);
+    }
+  }
+};
 
 template <RmiLeaf L>
 __global__ void __launch_bounds__(kThreads)
-leaf_eval(const double* __restrict__ x, const double* __restrict__ w,
-          const int64_t* __restrict__ leaf, int32_t* __restrict__ out,
-          int64_t m, int64_t bound) {
-  const double bound_f = (double)bound;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += stride) {
-    out[i] = rmi_clamp_floor(rmi_leaf<L>(w, leaf[i], x[i]), bound_f);
+leaf_eval(const LeafEvalOp<L> op, int64_t m) {
+  walk(op, m, op.head);
+}
+
+// --- lookup --------------------------------------------------------------------
+
+// T: the top's leaf kernel, whose rmi_leaf evaluates the top on its row
+template <RmiLeaf T, RmiLeaf L>
+struct LookupOp {
+  const int64_t* keys;
+  const double* top_w;
+  const double* rows;     // [B, lookup_width(L)]: row and error of each leaf
+  int64_t* guess;
+  int64_t* err;
+  double offset, scale;
+  double top_bound;       // B - 1
+  double guess_bound;     // n - 1
+  int head;
+
+  // K keys: leaves from the top, then every leaf's row and error gathered
+  // (one 32-byte sector each but for cubic rows), then the leaves
+  // evaluated
+  template <int K>
+  __device__ __forceinline__ void run(const Row<T>& top, const int64_t (&key)[K],
+                                     int64_t (&g)[K], int64_t (&e)[K]) const {
+    constexpr int kW = lookup_width(L);
+    double x[K];
+    int64_t leaf[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x[k] = normalized(key[k], offset, scale);
+      leaf[k] = rmi_clamp_floor(rmi_leaf<T>(top, 0, x[k]), top_bound);
+    }
+    LookupRow<L> r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) load_f64<kW>(rows + kW * leaf[k], r[k]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[k] = __double_as_longlong(r[k][rmi_leaf_width(L)]);
+      g[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), guess_bound);
+    }
   }
+
+  __device__ __forceinline__ void one(int64_t i) const {
+    Row<T> top;
+    load_f64<rmi_leaf_width(T)>(top_w, top);
+    const int64_t key[1] = {__ldg(keys + i)};
+    int64_t g[1], e[1];
+    run<1>(top, key, g, e);
+    guess[i] = g[0];
+    err[i] = e[0];
+  }
+
+  __device__ __forceinline__ void pairs(const int64_t (&p)[kPairs], int64_t npairs) const {
+    Row<T> top;
+    load_f64<rmi_leaf_width(T)>(top_w, top);
+    const longlong2* kv = reinterpret_cast<const longlong2*>(keys + head);
+    int64_t key[kPer];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const longlong2 v = p[j] < npairs ? __ldg(kv + p[j]) : make_longlong2(0, 0);
+      key[2 * j] = v.x;
+      key[2 * j + 1] = v.y;
+    }
+    int64_t g[kPer], e[kPer];
+    run<kPer>(top, key, g, e);
+    longlong2* gv = reinterpret_cast<longlong2*>(guess + head);
+    longlong2* ev = reinterpret_cast<longlong2*>(err + head);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      if (p[j] < npairs) {
+        gv[p[j]] = make_longlong2(g[2 * j], g[2 * j + 1]);
+        ev[p[j]] = make_longlong2(e[2 * j], e[2 * j + 1]);
+      }
+    }
+  }
+};
+
+template <RmiLeaf T, RmiLeaf L>
+__global__ void __launch_bounds__(kThreads)
+lookup(const LookupOp<T, L> op, int64_t m) {
+  walk(op, m, op.head);
+}
+
+// 0 or 1: elements of 8 bytes before the first 16-byte boundary
+inline int head_of(const void* p) { return ((uintptr_t)p & 15) ? 1 : 0; }
+
+inline unsigned int blocks_for(int64_t m) {
+  return rmi_grid(m / 2 + 1, kThreads * kPairs);
 }
 
 template <RmiLeaf L>
 int launch_leaf_eval(const double* x, const double* w, const int64_t* leaf,
                      int32_t* out, int64_t m, int64_t bound, void* stream) {
+  const int head = head_of(x);
+  // x and leaf on one 16-byte phase, out + head on an 8-byte boundary, the
+  // table on a 16-byte boundary (ops/eval_kernel.py allocates out so)
+  if (head_of(leaf) != head || ((uintptr_t)(out + head) & 7) || ((uintptr_t)w & 15)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   if (m > 0) {
-    leaf_eval<L><<<rmi_grid(m, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        x, w, leaf, out, m, bound);
+    const LeafEvalOp<L> op{x, w, leaf, out, (double)bound, head};
+    leaf_eval<L><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
   }
   return (int)cudaGetLastError();
 }
 
+template <RmiLeaf T, RmiLeaf L>
+int launch_lookup_top(const int64_t* keys, const double* top_w, const double* rows,
+                      int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
+                      double offset, double scale, int head, cudaStream_t stream) {
+  const LookupOp<T, L> op{keys, top_w, rows, guess, err, offset, scale,
+                          (double)(B - 1), (double)(n - 1), head};
+  lookup<T, L><<<blocks_for(m), kThreads, 0, stream>>>(op, m);
+  return (int)cudaGetLastError();
+}
+
+// one kernel per top kind: the top's evaluation compiled in, not a
+// branch over the four kinds in every thread
+template <RmiLeaf L>
+int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
+                  const double* rows, int64_t* guess, int64_t* err, int64_t m,
+                  int64_t B, int64_t n, double offset, double scale, void* stream) {
+  if (top_kind < 0 || top_kind > (int64_t)RmiLeaf::kNormal || B < 1 || n < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int head = head_of(keys);
+  // guess and err on the keys' 16-byte phase, the rows and the top's row
+  // on 16-byte boundaries
+  if (head_of(guess) != head || head_of(err) != head || ((uintptr_t)rows & 15) ||
+      ((uintptr_t)top_w & 15)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (m <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch ((RmiLeaf)top_kind) {
+    case RmiLeaf::kCubic:
+      return launch_lookup_top<RmiLeaf::kCubic, L>(keys, top_w, rows, guess, err, m, B, n,
+                                                   offset, scale, head, s);
+    case RmiLeaf::kLoglinear:
+      return launch_lookup_top<RmiLeaf::kLoglinear, L>(keys, top_w, rows, guess, err, m, B,
+                                                       n, offset, scale, head, s);
+    case RmiLeaf::kNormal:
+      return launch_lookup_top<RmiLeaf::kNormal, L>(keys, top_w, rows, guess, err, m, B, n,
+                                                    offset, scale, head, s);
+    default:
+      return launch_lookup_top<RmiLeaf::kLinear, L>(keys, top_w, rows, guess, err, m, B, n,
+                                                    offset, scale, head, s);
+  }
+}
+
 }  // namespace
 
-RMI_API int rmi_leaf_eval_linear(const double* x, const double* w,
-                                 const int64_t* leaf, int32_t* out, int64_t m,
-                                 int64_t bound, void* stream) {
-  return launch_leaf_eval<RmiLeaf::kLinear>(x, w, leaf, out, m, bound, stream);
-}
+#define RMI_LEAF_EVAL_ENTRY(name, L)                                                  \
+  RMI_API int rmi_leaf_eval_##name(const double* x, const double* w,                  \
+                                   const int64_t* leaf, int32_t* out, int64_t m,      \
+                                   int64_t bound, void* stream) {                     \
+    return launch_leaf_eval<L>(x, w, leaf, out, m, bound, stream);                    \
+  }
 
-RMI_API int rmi_leaf_eval_cubic(const double* x, const double* w,
-                                const int64_t* leaf, int32_t* out, int64_t m,
-                                int64_t bound, void* stream) {
-  return launch_leaf_eval<RmiLeaf::kCubic>(x, w, leaf, out, m, bound, stream);
-}
+// guess[i], err[i] of key image keys[i]; top_kind the RmiLeaf of the top's
+// leaf kernel, top_w its [1, width] row; rows the [B, lookup_width] lookup
+// rows of the leaves; offset and scale the normalization, n the keys
+// indexed
+#define RMI_LOOKUP_ENTRY(name, L)                                                     \
+  RMI_API int rmi_lookup_##name(const int64_t* keys, const double* top_w,             \
+                                int64_t top_kind, const double* rows, int64_t* guess, \
+                                int64_t* err, int64_t m, int64_t B, int64_t n,        \
+                                double offset, double scale, void* stream) {          \
+    return launch_lookup<L>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset, \
+                            scale, stream);                                           \
+  }
 
-RMI_API int rmi_leaf_eval_loglinear(const double* x, const double* w,
-                                    const int64_t* leaf, int32_t* out, int64_t m,
-                                    int64_t bound, void* stream) {
-  return launch_leaf_eval<RmiLeaf::kLoglinear>(x, w, leaf, out, m, bound, stream);
-}
-
-RMI_API int rmi_leaf_eval_normal(const double* x, const double* w,
-                                 const int64_t* leaf, int32_t* out, int64_t m,
-                                 int64_t bound, void* stream) {
-  return launch_leaf_eval<RmiLeaf::kNormal>(x, w, leaf, out, m, bound, stream);
-}
+RMI_LEAF_EVAL_ENTRY(linear, RmiLeaf::kLinear)
+RMI_LEAF_EVAL_ENTRY(cubic, RmiLeaf::kCubic)
+RMI_LEAF_EVAL_ENTRY(loglinear, RmiLeaf::kLoglinear)
+RMI_LEAF_EVAL_ENTRY(normal, RmiLeaf::kNormal)
+RMI_LOOKUP_ENTRY(linear, RmiLeaf::kLinear)
+RMI_LOOKUP_ENTRY(cubic, RmiLeaf::kCubic)
+RMI_LOOKUP_ENTRY(loglinear, RmiLeaf::kLoglinear)
+RMI_LOOKUP_ENTRY(normal, RmiLeaf::kNormal)

@@ -14,7 +14,7 @@
 //   C2  rmi_probe_take           t_c2  :135  take(tbl, idx) from shared memory
 //   C3  rmi_probe_take_lanes     t_c3  :150  take_along_axis over a row's lanes
 //   D   rmi_probe_row_ring       _dma_rate :194  pipelined random-row bulk copies
-//   E   rmi_probe_row_copy       t_e   :261  index-driven double-buffered row copies
+//   E   rmi_probe_row_copy       t_e   :261  index-driven row copies, spread over the card
 //
 // None is bound by device memory at the probe's shapes (a few KB to
 // 256 KB): A-C and E take a launch's latency.  D is the measurement: the
@@ -39,12 +39,19 @@
 // elementwise probes run a grid-stride loop over any n.
 #include "common.cuh"
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSliceCols = 32;           // C1: table columns staged per block
-constexpr int kMaxSlots = 16;            // D, E: mbarriers per block
+constexpr int kMaxSlots = 16;            // D: mbarriers per block
 constexpr int kMaxDynamicShared = 232448;   // 227 KB, the most a block may ask for
+constexpr int kSharedPerSM = 233472;        // 228 KB of shared memory on each SM
+constexpr int kCopyWarps = 4;               // E: warps per block
+constexpr int kCopyThreads = 32 * kCopyWarps;
+constexpr int kMaxRing = 4;                 // E: slots per warp
+constexpr int kMaxShare = 8192;             // E: rows (indices staged) per block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -219,53 +226,88 @@ row_ring(const float* __restrict__ tbl, int64_t nrows, int width, int iters,
   out[blockIdx.x] = acc;
 }
 
-// E.  One block: the row indices go to shared memory first, then thread
-// 0 keeps two row copies in flight (slot i % 2, parity (i / 2) & 1); the
-// block waits for row i, writes it to out[i], and once all have read the
-// slot thread 0 starts copy i + 2 into it.
-__global__ void __launch_bounds__(128)
+// E.  The rows spread over the card.  Block b copies the rows
+// [b share, (b + 1) share) of idx, whose indices it stages in shared
+// memory first.  Each of its warps owns `ring` slots, each on its own
+// mbarrier, and takes the block's rows warp, warp + kCopyWarps, ...: its
+// lane 0 keeps `ring` bulk copies in flight (the warp's copy k in slot
+// k % ring, parity (k / ring) & 1); the warp waits for a row, writes it
+// out with 16-byte stores from all lanes, and once every lane has read
+// the slot (__syncwarp) lane 0 starts the warp's copy k + ring into it.
+// No block-wide barrier follows the staging of the indices.
+__global__ void __launch_bounds__(kCopyThreads)
 row_copy(const int32_t* __restrict__ idx, const float* __restrict__ x,
-         float* __restrict__ out, int width, int nq) {
-  extern __shared__ __align__(128) float stage[];       // [2, width], then idx [nq]
-  __shared__ __align__(8) uint64_t bars[2];
-  int32_t* sidx = reinterpret_cast<int32_t*>(stage + 2 * width);
-  const uint32_t bytes = (uint32_t)width * 4u;
-  for (int e = threadIdx.x; e < nq; e += blockDim.x) sidx[e] = idx[e];
-  if (threadIdx.x == 0) {
-    barrier_init(smem_addr(&bars[0]));
-    barrier_init(smem_addr(&bars[1]));
+         float* __restrict__ out, int width, int64_t nq, int share, int ring) {
+  extern __shared__ __align__(128) float stage[];   // [warps, ring, width], then idx [share]
+  __shared__ __align__(8) uint64_t bars[kCopyWarps * kMaxRing];
+  const int64_t r0 = (int64_t)blockIdx.x * share;
+  const int cnt = (int)min((int64_t)share, nq - r0);
+  int32_t* sidx = reinterpret_cast<int32_t*>(stage + (int64_t)kCopyWarps * ring * width);
+  for (int e = threadIdx.x; e < cnt; e += blockDim.x) sidx[e] = idx[r0 + e];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t* wbars = bars + warp * kMaxRing;
+  float* slots = stage + (int64_t)warp * ring * width;
+  if (lane == 0) {
+    for (int k = 0; k < ring; ++k) barrier_init(smem_addr(&wbars[k]));
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < min(2, nq); ++i) {
-      row_copy_start(stage + i * width, x + (int64_t)sidx[i] * width, bytes,
-                     smem_addr(&bars[i]));
+  const uint32_t bytes = (uint32_t)width * 4u;
+  const int nk = cnt > warp ? (cnt - warp + kCopyWarps - 1) / kCopyWarps : 0;
+  if (lane == 0) {
+    for (int k = 0; k < min(ring, nk); ++k) {
+      row_copy_start(slots + (int64_t)k * width,
+                     x + (int64_t)sidx[warp + k * kCopyWarps] * width, bytes,
+                     smem_addr(&wbars[k]));
     }
   }
-  for (int i = 0; i < nq; ++i) {
-    const int slot = i & 1;
-    const float* src = stage + slot * width;
-    barrier_wait(smem_addr(&bars[slot]), (uint32_t)(i >> 1) & 1u);
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      out[(int64_t)i * width + c] = src[c];
-    }
-    __syncthreads();                                   // all have read the slot
-    if (threadIdx.x == 0 && i + 2 < nq) {
+  const int vecs = width / 4;
+  for (int k = 0; k < nk; ++k) {
+    const int slot = k % ring;
+    float* src = slots + (int64_t)slot * width;
+    barrier_wait(smem_addr(&wbars[slot]), (uint32_t)(k / ring) & 1u);
+    const float4* from = reinterpret_cast<const float4*>(src);
+    float4* to = reinterpret_cast<float4*>(out + (r0 + warp + (int64_t)k * kCopyWarps) * width);
+    for (int c = lane; c < vecs; c += 32) to[c] = from[c];
+    __syncwarp();
+    if (lane == 0 && k + ring < nk) {
       fence_before_bulk_copy();
-      row_copy_start(stage + slot * width, x + (int64_t)sidx[i + 2] * width,
-                     bytes, smem_addr(&bars[slot]));
+      row_copy_start(src, x + (int64_t)sidx[warp + (k + ring) * kCopyWarps] * width,
+                     bytes, smem_addr(&wbars[slot]));
     }
   }
 }
 
 // Let `kernel` ask for `bytes` of dynamic shared memory (above the 48 KB
-// a kernel gets unasked).
+// a kernel gets unasked).  `allowed` holds, per device, what the kernel
+// was granted, so the attribute is set only when a launch needs more.
 template <class K>
-cudaError_t allow_shared(K kernel, size_t bytes) {
+cudaError_t allow_shared(K kernel, size_t bytes, size_t (&allowed)[kMaxDevices]) {
   if (bytes > (size_t)kMaxDynamicShared) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
+}
+
+// the current device's SM count, asked once per device
+cudaError_t sm_count(int* sms) {
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = counts[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -316,7 +358,8 @@ RMI_API int rmi_probe_gather_rows(const float* tbl, const int32_t* idx, float* o
                                   void* stream) {
   if (nrows <= 0 || width <= 0 || nq <= 0) return (int)cudaGetLastError();
   const size_t bytes = (size_t)nrows * kSliceCols * sizeof(float);
-  const cudaError_t err = allow_shared(gather_rows, bytes);
+  static size_t allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_shared(gather_rows, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
   const unsigned int blocks = (unsigned int)((width + kSliceCols - 1) / kSliceCols);
   gather_rows<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
@@ -329,7 +372,8 @@ RMI_API int rmi_probe_take(const float* tbl, const int32_t* idx, float* out,
                            int64_t ntbl, int64_t nq, void* stream) {
   if (ntbl <= 0 || nq <= 0) return (int)cudaGetLastError();
   const size_t bytes = (size_t)ntbl * sizeof(float);
-  const cudaError_t err = allow_shared(take, bytes);
+  static size_t allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_shared(take, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
   take<<<rmi_grid(nq, kThreads), kThreads, bytes, (cudaStream_t)stream>>>(
       tbl, idx, out, (int)ntbl, (int)nq);
@@ -357,7 +401,8 @@ RMI_API int rmi_probe_row_ring(const float* tbl, int64_t nrows, int64_t width,
     return (int)cudaErrorInvalidValue;
   }
   const size_t bytes = (size_t)slots * width * sizeof(float);
-  const cudaError_t err = allow_shared(row_ring, bytes);
+  static size_t allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_shared(row_ring, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
   row_ring<<<(unsigned int)blocks, 32, bytes, (cudaStream_t)stream>>>(
       tbl, nrows, (int)width, (int)iters, (int)slots, out);
@@ -365,14 +410,38 @@ RMI_API int rmi_probe_row_ring(const float* tbl, int64_t nrows, int64_t width,
 }
 
 // out[i, :] = x[idx[i], :]; x [nrows, width] f32 on a 16-byte boundary,
-// width a multiple of 4, 0 <= idx[i] < nrows
+// width a multiple of 4, 0 <= idx[i] < nrows.  Blocks of kCopyWarps
+// warps, enough for a row per warp up to what the SMs hold at once, each
+// with at most kMaxShare rows; rings as deep as shared memory allows,
+// up to kMaxRing slots per warp.
 RMI_API int rmi_probe_row_copy(const int32_t* idx, const float* x, float* out,
                                int64_t width, int64_t nq, void* stream) {
   if (width <= 0 || width % 4 || nq < 0) return (int)cudaErrorInvalidValue;
   if (nq == 0) return (int)cudaGetLastError();
-  const size_t bytes = (size_t)2 * width * sizeof(float) + (size_t)nq * sizeof(int32_t);
-  const cudaError_t err = allow_shared(row_copy, bytes);
+  const size_t row = (size_t)width * sizeof(float);
+  int ring = kMaxRing;
+  while (ring > 1 && kCopyWarps * ring * row + kMaxShare * sizeof(int32_t) >
+                         (size_t)kMaxDynamicShared) {
+    --ring;
+  }
+  const size_t slot_bytes = kCopyWarps * ring * row;
+  if (slot_bytes + kMaxShare * sizeof(int32_t) > (size_t)kMaxDynamicShared) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  row_copy<<<1, 128, bytes, (cudaStream_t)stream>>>(idx, x, out, (int)width, (int)nq);
+  const int64_t per_sm = std::max<int64_t>(
+      1, std::min<int64_t>(16, kSharedPerSM / (slot_bytes + 1024)));
+  int64_t blocks = std::min<int64_t>((nq + kCopyWarps - 1) / kCopyWarps, sms * per_sm);
+  blocks = std::max<int64_t>(blocks, (nq + kMaxShare - 1) / kMaxShare);
+  const int64_t share = (nq + blocks - 1) / blocks;
+  blocks = (nq + share - 1) / share;
+  const size_t bytes = slot_bytes + (size_t)share * sizeof(int32_t);
+  static size_t allowed[kMaxDevices] = {};
+  err = allow_shared(row_copy, bytes, allowed);
+  if (err != cudaSuccess) return (int)err;
+  row_copy<<<(unsigned int)blocks, kCopyThreads, bytes, (cudaStream_t)stream>>>(
+      idx, x, out, (int)width, nq, (int)share, ring);
   return (int)cudaGetLastError();
 }

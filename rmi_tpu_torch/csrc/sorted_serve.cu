@@ -67,7 +67,6 @@ constexpr int kThreads = 512;            // queries per block, one per thread
 constexpr int kStageCap = 6144;          // staged int64 group-first keys, 48 KB
 constexpr int kStageBytes = kStageCap * 8;
 constexpr int64_t kStripe = 64;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

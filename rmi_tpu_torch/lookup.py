@@ -1,7 +1,7 @@
 """Batched serving: lookup and exact search (counterpart of
 rmi_tpu/lookup.py:39-94, 143-159, 223-305).
 
-  guess, err = lookup(rmi, queries)   # top eval -> leaf eval (K4) -> err
+  guess, err = lookup(rmi, queries)   # key -> top eval -> leaf eval -> err (K4)
   idx = search(rmi, queries)          # exact lower bounds, any order
   idx = search_sorted(rmi, queries)   # exact lower bounds, sorted batch
 
@@ -28,10 +28,7 @@ import math
 import torch
 
 from rmi_tpu_torch import lookup_fast
-from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel
-from rmi_tpu_torch.train import two_layer
 
 # Batch size from which search sorts and serves through K5: rmi_tpu's
 # value, calibrated on the TPU v5e (rmi_tpu/lookup.py:242-245); the
@@ -40,20 +37,17 @@ SORT_SERVE_MIN = 1 << 20
 
 
 def lookup(rmi, queries: torch.Tensor):
-    """Batched lookup(key, &err): (guess, err) as int64 tensors."""
-    n, B = rmi.num_rmi_rows, rmi.branching_factor
-    mtop, mleaf = get_model(rmi.top_type), get_model(rmi.leaf_type)
-    off, s = rmi.norm_offset, rmi.norm_scale
-    x_top = two_layer.model_float_input(mtop, queries, off, s)
-    midx = two_layer.predict_top_assignment(mtop, rmi.device_top_params, x_top,
-                                            B - 1)
-    x_leaf = (x_top if mleaf.input_domain == mtop.input_domain
-              else two_layer.model_float_input(mleaf, queries, off, s))
-    # final clamp to n - 1 (codegen.rs:713-717)
-    guess = eval_kernel.leaf_eval_clamped(kernel_input(mleaf, x_leaf),
-                                          rmi.device_leaf_params, midx, n - 1,
-                                          leaf_type=rmi.leaf_type).long()
-    return guess, rmi.leaf_errors[midx]
+    """Batched lookup(key, &err): (guess, err) as int64 tensors, from one
+    launch of K4's fused entry over the index's lookup table (made on
+    first use), or for a lognormal top or leaf from the top eval in torch
+    and K4's per-element entry (eval_kernel.lookup_clamped)."""
+    if rmi.lookup_table_cache is None and not queries.is_cpu:
+        rmi.lookup_table_cache = eval_kernel.lookup_table(rmi.device_leaf_params,
+                                                          rmi.leaf_errors)
+    return eval_kernel.lookup_clamped(
+        queries, rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors,
+        rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale,
+        top_type=rmi.top_type, leaf_type=rmi.leaf_type, table=rmi.lookup_table_cache)
 
 
 def bounded_lower_bound(keys, queries, guess, err, n: int, iters: int):

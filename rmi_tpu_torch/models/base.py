@@ -13,6 +13,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from rmi_tpu_torch import keys as keymod
+
 
 def predict_clamped(pred_f: torch.Tensor, bound) -> torch.Tensor:
     """min(bound, predict_to_int(pred)) as int64: max(0, floor(f)) with
@@ -103,6 +105,26 @@ def kernel_input(mdef: ModelDef, x: torch.Tensor) -> torch.Tensor:
     K3 and K4.  The build's sweep, its probes and lookup all take it from
     here, so build and serve compute the same bits on one device."""
     return log_input(x) if mdef.input_domain == "raw" else x
+
+
+def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
+    """x' = (as_float(key) - offset) * scale, f64."""
+    return keymod.as_float(keys).sub_(kminf).mul_(s)
+
+
+def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
+    """The f64 input model ``mdef`` fits and predicts on: the normalized
+    keys, or the keys' raw values for a "raw" model (rmi_tpu
+    two_layer.py:63-66)."""
+    if mdef.input_domain == "raw":
+        return keymod.as_float(keys)
+    return normalize(keys, kminf, s)
+
+
+def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:
+    """min(bound, predict_to_int(top(x))) as int64 (two_layer.rs:49),
+    ``x`` the top's model_float_input."""
+    return predict_clamped(mtop.predict(top_w, None, x), bound)
 
 
 def leaf_predict(leaf_type: str, w: torch.Tensor, leaf_ids: torch.Tensor,

@@ -11,7 +11,11 @@ fused multiply-add in the kernels is an explicit ``fma()``
 
 The C entry points launch on the stream they are given and return
 ``cudaGetLastError()``; ``launch`` raises if it is not 0, and otherwise
-adds one to the entry's count in ``launches``.
+adds one to the entry's count in ``launches``.  Each entry's ctypes
+function is resolved once, with its argument types, and a launch enters
+the tensors' device only when it is not the current one: the host cost
+of a launch is what a kernel of a few microseconds is timed at
+(PERF.md section 6, the probes).
 """
 
 from __future__ import annotations
@@ -106,6 +110,7 @@ def _compile(so) -> str:
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
+_F64 = ctypes.c_double
 
 # argtypes of every C entry point (csrc/*.cu)
 SIGNATURES = {
@@ -122,6 +127,10 @@ SIGNATURES = {
     "rmi_leaf_eval_cubic": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_loglinear": (_P, _P, _P, _P, _I64, _I64, _P),
     "rmi_leaf_eval_normal": (_P, _P, _P, _P, _I64, _I64, _P),
+    "rmi_lookup_linear": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
+    "rmi_lookup_cubic": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
+    "rmi_lookup_loglinear": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
+    "rmi_lookup_normal": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
     "rmi_cubic_l1": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _P, _P),
     "rmi_serve_sorted_scatter": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
@@ -141,16 +150,33 @@ SIGNATURES = {
 launches = dict.fromkeys(SIGNATURES, 0)
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream and count it; raise on
-    a launch error.  Tensor arguments pass their device pointers."""
+_entries = {}         # entry name -> its ctypes function, argtypes set
+_C = torch._C
+
+
+def _entry(name: str):
     fn = getattr(library(), name)
     fn.argtypes = list(SIGNATURES[name])
     fn.restype = ctypes.c_int
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    _entries[name] = fn
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` on the current stream of the card that its
+    first argument, a tensor, lies on, and count it; raise on a launch
+    error.  Tensor arguments pass their device pointers."""
+    fn = _entries.get(name) or _entry(name)
+    dev = args[0].get_device()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        rc = fn(*conv, torch.cuda.current_stream(dev).cuda_stream)
+    # the current stream's handle and device, as torch's generated kernels
+    # fetch them
+    stream = _C._cuda_getCurrentRawStream(dev)
+    if dev == _C._cuda_getDevice():
+        rc = fn(*conv, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     launches[name] += 1
@@ -158,9 +184,9 @@ def launch(name: str, *args) -> None:
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """All ``tensors`` contiguous and on one CUDA device."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input")

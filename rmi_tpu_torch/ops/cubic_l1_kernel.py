@@ -82,7 +82,7 @@ def cubic_l1_sums(x, y, cubic_w, lin_w, spans: seg.Spans):
         l_err[j] = sum |fma(lb, x, la) - y|
     with (a, b, c, d) = cubic_w[j] and (la, lb) = lin_w[j]."""
     _check(x, y, cubic_w, lin_w, spans)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return cubic_l1_sums_plain(x, y, cubic_w, lin_w, spans)
     _build.check_cuda("cubic_l1_sums", x, y, cubic_w, lin_w, spans.aug_starts,
                       spans.aug_ends)

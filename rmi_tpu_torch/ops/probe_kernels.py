@@ -11,7 +11,7 @@ numpy seeds).  tools/probe_torch_kernels.py runs them.
   C2  take               tbl[idx] from a 1-D table in shared memory
   C3  take_lanes         take_along_axis(tbl, idx, 1) by warp shuffles
   D   row_ring           pipelined random-row bulk copies, 16 in flight
-  E   row_copy           index-driven double-buffered row copies
+  E   row_copy           index-driven row copies, spread over the card
 
 torch has no ``<`` on uint64 on the CPU, so B2's plain version compares
 the order-preserving int64 images x ^ 2^63 (rmi_tpu_torch/keys.py): the
@@ -38,6 +38,8 @@ RING_STEP = 7919             # D's pseudo-random walk: row i is (i * 7919) mod r
 RING_WIDTHS = (128, 256, 512, 1024, 2048)
 MAX_SHARED_BYTES = 232448    # dynamic shared memory one block may ask for
 SLICE_COLS = 32              # C1: table columns a block stages
+COPY_WARPS = 4              # E: warps per block, each with its own ring
+COPY_SHARE = 8192           # E: most indices a block stages
 
 
 def _check(name, dtype, *tensors):
@@ -69,7 +71,7 @@ def scale2_plain(x):
 def scale2(x):
     """A: 2 x for f32 ``x`` of any shape."""
     _check("scale2", torch.float32, x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return scale2_plain(x)
     _build.check_cuda("scale2", x)
     out = torch.empty_like(x)
@@ -84,7 +86,7 @@ def less_than_i64_plain(x, q):
 def less_than_i64(x, q):
     """B1: x < q as int32 for int64 ``x`` and ``q`` of one shape."""
     _check("less_than_i64", torch.int64, x, q)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return less_than_i64_plain(x, q)
     _build.check_cuda("less_than_i64", x, q)
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
@@ -101,7 +103,7 @@ def less_than_u64(x, q):
     """B2: x < q as int32 for uint64 values whose bits ``x`` and ``q``
     carry as int64."""
     _check("less_than_u64", torch.int64, x, q)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return less_than_u64_plain(x, q)
     _build.check_cuda("less_than_u64", x, q)
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
@@ -122,7 +124,7 @@ def less_than_u32pair(hi, lo, qh, ql):
     """B3: (hi, lo) < (qh, ql) in lexicographic order as int32, for
     uint32 halves whose bits the four int32 tensors carry."""
     _check("less_than_u32pair", torch.int32, hi, lo, qh, ql)
-    if hi.device.type == "cpu":
+    if hi.is_cpu:
         return less_than_u32pair_plain(hi, lo, qh, ql)
     _build.check_cuda("less_than_u32pair", hi, lo, qh, ql)
     out = torch.empty(hi.shape, dtype=torch.int32, device=hi.device)
@@ -144,7 +146,7 @@ def gather_rows(tbl, idx):
     _check_index("gather_rows", idx)
     if tbl.dim() != 2 or idx.dim() != 1:
         raise ValueError("gather_rows: tbl must be 2-D and idx 1-D")
-    if tbl.device.type == "cpu":
+    if tbl.is_cpu:
         return gather_rows_plain(tbl, idx)
     _build.check_cuda("gather_rows", tbl, idx)
     rows, width = tbl.shape
@@ -166,7 +168,7 @@ def take(tbl, idx):
     _check_index("take", idx)
     if tbl.dim() != 1 or idx.dim() != 1:
         raise ValueError("take: tbl and idx must be 1-D")
-    if tbl.device.type == "cpu":
+    if tbl.is_cpu:
         return take_plain(tbl, idx)
     _build.check_cuda("take", tbl, idx)
     if tbl.shape[0] * 4 > MAX_SHARED_BYTES:
@@ -187,7 +189,7 @@ def take_lanes(tbl, idx):
     _check_index("take_lanes", idx)
     if tbl.dim() != 2 or tbl.shape[1] != 128 or idx.shape != tbl.shape:
         raise ValueError("take_lanes: tbl and idx must be [rows, 128]")
-    if tbl.device.type == "cpu":
+    if tbl.is_cpu:
         return take_lanes_plain(tbl, idx)
     _build.check_cuda("take_lanes", tbl, idx)
     out = torch.empty_like(tbl)
@@ -224,7 +226,7 @@ def row_ring(tbl, *, iters: int = RING_ITERS, slots: int = RING_SLOTS,
     _check("row_ring", torch.float32, tbl)
     if tbl.dim() != 2 or not 1 <= slots <= 16 or blocks < 1 or iters < 0:
         raise ValueError("row_ring: want a 2-D table, 1-16 slots, blocks >= 1")
-    if tbl.device.type == "cpu":
+    if tbl.is_cpu:
         return row_ring_plain(tbl, iters=iters, blocks=blocks)
     _build.check_cuda("row_ring", tbl)
     rows, width = tbl.shape
@@ -242,20 +244,21 @@ def row_copy_plain(idx, x):
 
 def row_copy(idx, x):
     """E: x[idx, :] for f32 ``x`` [rows, width] and int32 ``idx`` [nq] in
-    [0, rows): one block loads the indices into shared memory, then
-    copies row after row through two shared-memory slots."""
-    _check("row_copy", torch.float32, x)
-    _check_index("row_copy", idx)
-    if x.dim() != 2 or idx.dim() != 1:
-        raise ValueError("row_copy: x must be 2-D and idx 1-D")
-    if x.device.type == "cpu":
+    [0, rows).  Each block stages a contiguous share of the indices in
+    shared memory; each of its warps keeps a ring of bulk row copies in
+    flight and writes the rows out with 16-byte stores.  A row may take
+    at most a quarter of a block's shared memory beside the indices."""
+    if (x.dtype != torch.float32 or idx.dtype != torch.int32 or x.dim() != 2
+            or idx.dim() != 1):
+        raise ValueError("row_copy: want f32 x [rows, width] and int32 idx [nq]")
+    if x.is_cpu:
         return row_copy_plain(idx, x)
     _build.check_cuda("row_copy", idx, x)
-    width, nq = x.shape[1], idx.shape[0]
+    nq, width = idx.shape[0], x.shape[1]
     _check_bulk("row_copy", x, width)
-    if 2 * width * 4 + nq * 4 > MAX_SHARED_BYTES:
-        raise ValueError("row_copy: slots and indices exceed a block's shared memory")
-    out = torch.empty(nq, width, dtype=torch.float32, device=x.device)
+    if COPY_WARPS * width * 4 + COPY_SHARE * 4 > MAX_SHARED_BYTES:
+        raise ValueError("row_copy: a row per warp exceeds a block's shared memory")
+    out = torch.empty((nq, width), dtype=torch.float32, device=x.device)
     _build.launch("rmi_probe_row_copy", idx, x, out, width, nq)
     return out
 

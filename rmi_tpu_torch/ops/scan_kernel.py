@@ -32,7 +32,7 @@ def scan_i32(v: torch.Tensor, *, is_max: bool, fill: int,
     Bit-equal to the plain version: max and min never round."""
     if v.dtype != torch.int32 or v.dim() != 1:
         raise ValueError(f"scan_i32: want a 1-D int32 tensor, got {v.dtype} {tuple(v.shape)}")
-    if v.device.type == "cpu":
+    if v.is_cpu:
         return scan_i32_plain(v, is_max=is_max, reverse=reverse)
     _build.check_cuda("scan_i32", v)
     n = v.shape[0]

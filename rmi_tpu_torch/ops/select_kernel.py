@@ -76,7 +76,7 @@ def aug_centered_moments(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
     if weights is not None:
         named.append(("weights", weights))
     _check("aug_centered_moments", named, _PER_LEAF)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts,
                                           aug_ends, weights=weights)
     _build.check_cuda("aug_centered_moments", *(a for _, a in named))
@@ -105,7 +105,7 @@ def aug_centered_xx(x, mean_x, aug_starts, aug_ends):
     named = [("x", x), ("mean_x", mean_x), ("aug_starts", aug_starts),
              ("aug_ends", aug_ends)]
     _check("aug_centered_xx", named, _PER_LEAF)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends)
     _build.check_cuda("aug_centered_xx", x, mean_x, aug_starts, aug_ends)
     B = mean_x.shape[0]

@@ -92,7 +92,7 @@ def serve_sorted_scatter_plain(q, order, group_first, keys, lo, hi):
 
 def _serve(q, order, group_first, keys, lo, hi, group):
     _check(q, order, group_first, keys, lo, hi, group)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         if order is None:
             return serve_sorted_plain(q, group_first, keys, lo, hi, group)
         return serve_sorted_scatter_plain(q, order, group_first, keys, lo, hi)

@@ -96,7 +96,7 @@ def sweep_leaf_max(xn, yfix, starts, ends, w, n: int, *,
         raise ValueError("sweep_leaf_max: one row of w per span")
     if max(int(n), xn.shape[0]) >= 2**31:
         raise ValueError("sweep_leaf_max: n must be below 2^31")
-    if xn.device.type == "cpu":
+    if xn.is_cpu:
         return sweep_leaf_max_plain(xn, yfix, starts, ends, w, n,
                                     leaf_type=leaf_type)
     _build.check_cuda("sweep_leaf_max", xn, yfix, starts, ends, w)
@@ -138,7 +138,7 @@ def span_run_max(keys, yfix, starts, ends) -> torch.Tensor:
     one span: equal keys get one leaf id."""
     _check_keys("span_run_max", keys, yfix, torch.int64)
     _check_spans("span_run_max", starts, ends)
-    if keys.device.type == "cpu":
+    if keys.is_cpu:
         return span_run_max_plain(keys, yfix, starts, ends)
     _build.check_cuda("span_run_max", keys, yfix, starts, ends)
     B = starts.shape[0]

@@ -44,11 +44,14 @@ class TrainedRMI:
     norm_scale: float
     keys: torch.Tensor                 # [n] int64 images served over
     build_time: int = 0                # ns
-    # serving state that lookup_fast makes on first use: the per-leaf
-    # (starts, next_idx) and the search plan built from them
+    # serving state made on first use: lookup_fast's per-leaf (starts,
+    # next_idx) and the search plan built from them, and lookup's table
+    # of each leaf's row beside its error (eval_kernel.lookup_table)
     leaf_spans_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default=None, init=False, repr=False, compare=False)
     plan_cache: Optional[Any] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    lookup_table_cache: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     @property

@@ -34,7 +34,10 @@ from torch.profiler import record_function
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, predict_clamped, validate_spec
-from rmi_tpu_torch.models.base import kernel_input
+# normalize, model_float_input and predict_top_assignment live with the
+# models, where lookup's kernel wrapper (ops/eval_kernel.py) reaches them
+from rmi_tpu_torch.models.base import (kernel_input, model_float_input,  # noqa: F401
+                                       normalize, predict_top_assignment)
 from rmi_tpu_torch.ops import eval_kernel, sweep_kernel
 from rmi_tpu_torch.utils import segments as seg
 
@@ -47,26 +50,6 @@ def norm_constants(keys: torch.Tensor):
     kmin, kmax = keymod.as_float(keys[[0, -1]]).tolist()
     span = kmax - kmin
     return kmin, (1.0 / span if span > 0 else 1.0)
-
-
-def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
-    """x' = (as_float(key) - offset) * scale, f64."""
-    return keymod.as_float(keys).sub_(kminf).mul_(s)
-
-
-def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
-    """The f64 input model ``mdef`` fits and predicts on: the normalized
-    keys, or the keys' raw values for a "raw" model (rmi_tpu
-    two_layer.py:63-66)."""
-    if mdef.input_domain == "raw":
-        return keymod.as_float(keys)
-    return normalize(keys, kminf, s)
-
-
-def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:
-    """min(bound, predict_to_int(top(x))) as int64 (two_layer.rs:49),
-    ``x`` the top's model_float_input."""
-    return predict_clamped(mtop.predict(top_w, None, x), bound)
 
 
 def top_assignment(mtop, top_w, keys: torch.Tensor, kminf: float, s: float,

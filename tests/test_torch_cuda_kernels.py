@@ -8,7 +8,9 @@ runs on a machine without it:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: K1, K3 and K4 (linear, cubic, loglinear and normal leaves,
-lognormal through the normal kernel) bit-equal (max/min never round; K3,
+lognormal through the normal kernel; lookup's fused entry for every
+affine top and leaf kernel, against its plain version on the card and on
+the CPU, on test_torch_lookup_kernel.py's inputs) bit-equal (max/min never round; K3,
 the per-leaf maximum of the sweep, and K4 are compared with the plain
 version on CPU copies, where torch.addcmul is an exact FMA); the
 run-length pass and the nine card probes equal to their plain versions;
@@ -31,12 +33,13 @@ from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import cubic, get_model
-from rmi_tpu_torch.models.base import kernel_input
+from rmi_tpu_torch.models.base import kernel_input, model_float_input, predict_top_assignment
 from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel as ssk,
                                sweep_kernel)
 from rmi_tpu_torch.utils import segments as seg
+from test_torch_lookup_kernel import LEAVES, lookup_case
 
 pytestmark = pytest.mark.cuda
 
@@ -389,6 +392,94 @@ def test_card_build_cubic_leaves_matches_cpu_build(dev):
     assert torch.equal(rt.search(card, keys), lb)
 
 
+# batch sizes of the K4 tail tests: none, a lone head, ends on both sides
+LOOKUP_SIZES = [0, 1, 5, (1 << 16) + 3]
+
+
+def _lookup_on_card(dev, case, top, leaf, sliced=False):
+    """K4's fused entry on ``case`` against its plain version on the card
+    and on the CPU, counted as one launch of rmi_lookup_<leaf kernel> and
+    none of the per-element entries; ``sliced`` serves the queries from
+    one past a 16-byte boundary."""
+    q, *rest = case
+    qd = q.to(dev)
+    if sliced:
+        qd, q = qd[1:], q[1:]
+        assert qd.data_ptr() % 16 == 8
+    card = [qd] + [a.to(dev) if torch.is_tensor(a) else a for a in rest]
+    kw = {"top_type": top, "leaf_type": leaf}
+    entry = f"rmi_lookup_{get_model(leaf).leaf_kernel}"
+    before = dict(_build.launches)
+    g, e = eval_kernel.lookup_clamped(*card, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches[entry] == before[entry] + 1
+    assert all(_build.launches[k] == before[k] for k in before if k.startswith("rmi_leaf_eval"))
+    table = eval_kernel.lookup_table(card[2], card[3])       # as lookup keeps it
+    g2, e2 = eval_kernel.lookup_clamped(*card, **kw, table=table)
+    assert torch.equal(g2, g) and torch.equal(e2, e)
+    pg, pe = eval_kernel.lookup_clamped_plain(*card, **kw)
+    cg, ce = eval_kernel.lookup_clamped_plain(q, *rest, **kw)
+    assert g.dtype == e.dtype == torch.int64 and g.shape == e.shape == q.shape
+    assert torch.equal(g, pg) and torch.equal(e, pe)
+    assert torch.equal(g.cpu(), cg) and torch.equal(e.cpu(), ce)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("top", LEAVES)
+def test_k4_lookup_fused(dev, top, leaf):
+    """Each top kind (the four leaf kernels, which the six affine tops
+    share) with each leaf kernel, at the tail sizes."""
+    for m in LOOKUP_SIZES:
+        _lookup_on_card(dev, lookup_case(top, leaf, m, 20 + m), top, leaf)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+def test_k4_lookup_misaligned_keys(dev, leaf):
+    for m in (2, 6, (1 << 16) + 4):
+        _lookup_on_card(dev, lookup_case("cubic", leaf, m, 30 + m), "cubic", leaf,
+                        sliced=True)
+
+
+@pytest.mark.parametrize("leaf", ["linear", "cubic", "loglinear", "normal", "lognormal"])
+def test_k4_leaf_eval_tails(dev, leaf):
+    """The per-element entries on lookup's x and leaf ids at the tail
+    sizes: both from a 16-byte boundary, both one past it, and on two
+    phases (the wrapper copies them onto one)."""
+    mleaf = get_model(leaf)
+    for m in LOOKUP_SIZES:
+        q, top_w, leaf_w, _, n, kminf, s = lookup_case("cubic", leaf, m, 40 + m)
+        x = kernel_input(mleaf, model_float_input(mleaf, q, kminf, s))
+        ids = predict_top_assignment(get_model("cubic"), top_w, model_float_input(
+            get_model("cubic"), q, kminf, s), leaf_w.shape[0] - 1)
+        xd, idd, wd = x.to(dev), ids.to(dev), leaf_w.to(dev)
+        for xs, ls, cx, cl in ((xd, idd, x, ids), (xd[1:], idd[1:], x[1:], ids[1:]),
+                               (xd[1:], idd[:-1], x[1:], ids[:-1])):
+            got = eval_kernel.leaf_eval_clamped(xs, wd, ls, n - 1, leaf_type=leaf)
+            torch.cuda.synchronize()
+            want = eval_kernel.leaf_eval_clamped_plain(cx, leaf_w, cl, n - 1, leaf_type=leaf)
+            assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+            assert torch.equal(got, eval_kernel.leaf_eval_clamped_plain(
+                xs, wd, ls, n - 1, leaf_type=leaf))
+
+
+def test_k4_lookup_refuses_bad_inputs(dev):
+    q, top_w, leaf_w, errs, n, kminf, s = [a.to(dev) if torch.is_tensor(a) else a
+                                           for a in lookup_case("cubic", "normal", 64, 3)]
+    kw = {"top_type": "cubic", "leaf_type": "normal"}
+    with pytest.raises(ValueError):
+        eval_kernel.lookup_clamped(q.int(), top_w, leaf_w, errs, n, kminf, s, **kw)
+    with pytest.raises(ValueError):
+        eval_kernel.lookup_clamped(q, top_w, leaf_w, errs[1:], n, kminf, s, **kw)
+    table = eval_kernel.lookup_table(leaf_w, errs)
+    with pytest.raises(ValueError):                      # a table of other rows
+        eval_kernel.lookup_clamped(q, top_w, leaf_w, errs, n, kminf, s, **kw,
+                                   table=table[:, :3].contiguous())
+    B = leaf_w.shape[0] - 1
+    with pytest.raises(ValueError, match="16-byte"):     # 8 bytes off
+        eval_kernel.lookup_clamped(q, top_w, leaf_w[1:], errs[1:], n, kminf, s, **kw,
+                                   table=table.view(-1)[1:1 + 4 * B].view(B, 4))
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     v = torch.zeros(10, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
@@ -614,3 +705,20 @@ def test_probe_compares_on_random_bits(dev):
     halves = [torch.from_numpy((a >> np.uint64(s)).astype(np.uint32).view(np.int32)).to(dev)
               for a in (x, q) for s in (32, 0)]
     assert torch.equal(probe_kernels.less_than_u32pair(*halves).cpu(), want)
+
+
+@pytest.mark.parametrize("width", [4, 128, 2048])
+def test_probe_row_copy_spread(dev, width):
+    """E over the card: nq from none to 70000 rows (above the ~57K one
+    block held), rows of 16 B to 8 KB, indices repeated, equal to x[idx]."""
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(size=(4099, width)).astype(np.float32)).to(dev)
+    for nq in (0, 1, 2, 257, 70_000):
+        idx = rng.integers(0, 4099, nq, dtype=np.int32)
+        idx[: nq // 3] = idx[nq // 2] if nq else 0
+        idx_d = torch.from_numpy(idx).to(dev)
+        before = _build.launches["rmi_probe_row_copy"]
+        got = probe_kernels.row_copy(idx_d, x)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_probe_row_copy"] == before + 1
+        assert got.shape == (nq, width) and torch.equal(got, x[idx_d.long()])
