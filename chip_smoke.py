@@ -432,16 +432,16 @@ def work(name, args, kw, out):
         return (_nbytes(*args, kw.get("weights"), *outs), int((hi - lo).sum()) * per,
                 F64_OPS_PER_S)
     if name == "lookup_clamped":
-        # the keys, the top row and the lookup table (each leaf's row and
-        # error) read once, guess and err written once; per query the
+        # the keys, the top row, each leaf's row and error read once (not
+        # the lookup table's padding: what the function needs, not what
+        # the kernel reads), guess and err written once; per query the
         # key's conversion and normalization (5), both models and their
         # floors and clamps (8)
         q, top_w, leaf_w, leaf_errors = args[:4]
-        table = kw.get("table")
         per = 13 + sum(LEAF_OPS[get_model(kw[k]).leaf_kernel]
                        for k in ("top_type", "leaf_type"))
-        return (_nbytes(q, top_w, *((table,) if table is not None else (leaf_w, leaf_errors)),
-                        *outs), q.shape[0] * per, F64_OPS_PER_S)
+        return (_nbytes(q, top_w, leaf_w, leaf_errors, *outs), q.shape[0] * per,
+                F64_OPS_PER_S)
     if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         per = LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + 4   # floor, clamps
         # K3: xn, yfix, the span bounds and the rows; K4: x, the rows, the leaf ids

@@ -23,22 +23,26 @@
 // in, an 8-byte guess and error out) and 20 an element of the per-element
 // form (x and a leaf id in, 4 bytes out).  What binds first is L2: each
 // random row gather moves whole 32-byte sectors, and random gathers
-// through L2 run at 4.7-4.9 TB/s of sectors on an H100 whatever the
-// family (tools/tune_torch_eval.py: 0.044-0.060 ms at 2^22 random leaf
-// ids, 0.031 with the same ids sorted, 0.030 with one row; PERF.md).
-// So the per-element form costs 8 + 8 + 4 streamed bytes plus the
-// sectors of its row (one for linear, loglinear and cubic rows, one or
-// two for a 24-byte normal row), and lookup gathers each leaf's row and
-// error from one row of a table packed for it (lookup_table: the row,
-// the error's bits, padding, 32 bytes and one sector for all but cubic
-// leaves, whose 48 bytes take two), not from two tables.  Each thread
-// takes kPairs 16-byte pairs of consecutive elements, which a warp reads
-// and writes coalesced through the read-only path, and starts every
-// gather of its elements before any leaf arithmetic, so that the
-// gathers' latencies, and normal's two f64 divisions, overlap; one pair
-// a thread measured as fast as two and faster than four (registers).  A
-// head element before the first 16-byte boundary and an odd last
-// element go through the same code one at a time.
+// through L2 run at 4.6-4.9 TB/s of sectors on an H100 whatever the
+// family (tools/tune_torch_eval.py; PERF.md).  So the per-element form
+// costs 8 + 8 + 4 streamed bytes plus the sectors of its row (one for
+// linear, loglinear and cubic rows, one or two for a 24-byte normal row),
+// and lookup gathers each leaf's row and error from one row of a table
+// packed for it (lookup_table: the row, the error's bits, padding to
+// whole 32-byte sectors: one for all but cubic leaves, two for those).
+// Two 16-byte loads of one sector from two instructions may each move
+// the sector from L2, depending on how far apart the compiler puts them;
+// so lookup reads every sector of a row with ONE instruction: the two
+// lanes of a pair (lane, lane ^ 1) each load one 16-byte half of the
+// same sector for the pair's four rows, and swap halves with a shuffle.
+//
+// Each thread takes one 16-byte pair of consecutive elements, which a
+// warp reads and writes coalesced through the read-only path, and starts
+// the gathers of both elements before any leaf arithmetic, so that their
+// latencies, and normal's two f64 divisions, overlap.  A head element
+// before the first 16-byte boundary and an odd last element go through
+// the same arithmetic one at a time.  The top kind is a kernel argument:
+// the branch on it is the same in every thread.
 //
 // Every value keeps the bits of the plain PyTorch chain: the key image
 // converts as keys.as_float does (hi * 2^32 is exact, one rounding in the
@@ -53,20 +57,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-#ifndef RMI_EVAL_PAIRS
-#define RMI_EVAL_PAIRS 1
-#endif
-constexpr int kPairs = RMI_EVAL_PAIRS;   // 16-byte pairs per thread and pass
-constexpr int kPer = 2 * kPairs;         // elements per thread and pass
 
 template <RmiLeaf L>
 using Row = double[rmi_leaf_width(L)];
 
 // f64 values of one lookup row: the leaf's row, the bits of its int64
-// error, and padding to a 16-byte multiple (ops/eval_kernel.lookup_table):
-// 4 values, one 32-byte sector, for every leaf family but cubic (6)
+// error, and padding to whole 32-byte sectors (ops/eval_kernel.lookup_table):
+// 4 values, one sector, for every leaf family but cubic (8, two sectors)
 __host__ __device__ constexpr int lookup_width(RmiLeaf L) {
-  return (rmi_leaf_width(L) + 2) & ~1;
+  return (rmi_leaf_width(L) + 1 + 3) & ~3;
 }
 
 template <RmiLeaf L>
@@ -90,13 +89,6 @@ __device__ __forceinline__ void load_f64(const double* __restrict__ p, double (&
   }
 }
 
-// leaf `leaf`'s row of table w
-template <RmiLeaf L>
-__device__ __forceinline__ void load_row(const double* __restrict__ w,
-                                         int64_t leaf, Row<L>& r) {
-  load_f64<rmi_leaf_width(L)>(w + rmi_leaf_width(L) * leaf, r);
-}
-
 // K elements: every row gathered, then every leaf evaluated and clamped
 template <RmiLeaf L, int K>
 __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
@@ -105,7 +97,9 @@ __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
                                            double bound, int32_t (&out)[K]) {
   Row<L> r[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) load_row<L>(w, leaf[k], r[k]);
+  for (int k = 0; k < K; ++k) {
+    load_f64<rmi_leaf_width(L)>(w + rmi_leaf_width(L) * leaf[k], r[k]);
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k) out[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), bound);
 }
@@ -118,10 +112,12 @@ __device__ __forceinline__ double normalized(int64_t image, double offset, doubl
 }
 
 // The scalar ends and the 16-byte pairs between them.  Elements [0, head)
-// lie before the first 16-byte boundary (head is 0 or 1); pairs
-// p < npairs hold elements head + 2p and head + 2p + 1; an odd last
-// element follows them.  Block 0's threads 0 and 1 take the two ends;
-// every thread takes kPairs pairs per pass, a warp's pairs adjacent.
+// lie before the first 16-byte boundary (head is 0 or 1); pair p < npairs
+// holds elements head + 2p and head + 2p + 1; an odd last element follows
+// them.  Block 0's threads 0 and 1 take the two ends; thread t of block b
+// takes pair b * kThreads + t, and a block's threads all run the same
+// passes, those past npairs too (op.pair stores nothing for them), so
+// that every lane of a warp reaches op.pair's shuffles.
 template <class Op>
 __device__ __forceinline__ void walk(const Op& op, int64_t m, int head) {
   const int64_t npairs = (m - head) >> 1;
@@ -129,13 +125,9 @@ __device__ __forceinline__ void walk(const Op& op, int64_t m, int head) {
     const int64_t i = threadIdx.x == 0 ? (head ? 0 : m) : head + 2 * npairs;
     if (i < m) op.one(i);
   }
-  const int64_t tile = (int64_t)kThreads * kPairs;
-  for (int64_t base = (int64_t)blockIdx.x * tile; base < npairs;
-       base += (int64_t)gridDim.x * tile) {
-    int64_t p[kPairs];
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) p[j] = base + j * kThreads + threadIdx.x;
-    op.pairs(p, npairs);
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < npairs;
+       base += (int64_t)gridDim.x * kThreads) {
+    op.pair(base + threadIdx.x, npairs);
   }
 }
 
@@ -158,28 +150,17 @@ struct LeafEvalOp {
     out[i] = o[0];
   }
 
-  __device__ __forceinline__ void pairs(const int64_t (&p)[kPairs], int64_t npairs) const {
-    const double2* xv = reinterpret_cast<const double2*>(x + head);
-    const longlong2* lv = reinterpret_cast<const longlong2*>(leaf + head);
-    double xs[kPer];
-    int64_t ls[kPer];
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const bool ok = p[j] < npairs;
-      const double2 a = ok ? __ldg(xv + p[j]) : make_double2(0.0, 0.0);
-      const longlong2 b = ok ? __ldg(lv + p[j]) : make_longlong2(0, 0);
-      xs[2 * j] = a.x;
-      xs[2 * j + 1] = a.y;
-      ls[2 * j] = b.x;
-      ls[2 * j + 1] = b.y;
-    }
-    int32_t o[kPer];
-    eval_elems<L, kPer>(w, xs, ls, bound, o);
-    int2* ov = reinterpret_cast<int2*>(out + head);
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      if (p[j] < npairs) ov[p[j]] = make_int2(o[2 * j], o[2 * j + 1]);
-    }
+  __device__ __forceinline__ void pair(int64_t p, int64_t npairs) const {
+    const bool ok = p < npairs;
+    const double2 a = ok ? __ldg(reinterpret_cast<const double2*>(x + head) + p)
+                         : make_double2(0.0, 0.0);
+    const longlong2 b = ok ? __ldg(reinterpret_cast<const longlong2*>(leaf + head) + p)
+                           : make_longlong2(0, 0);
+    const double xs[2] = {a.x, a.y};
+    const int64_t ls[2] = {b.x, b.y};
+    int32_t o[2];
+    eval_elems<L, 2>(w, xs, ls, bound, o);
+    if (ok) reinterpret_cast<int2*>(out + head)[p] = make_int2(o[0], o[1]);
   }
 };
 
@@ -191,36 +172,45 @@ leaf_eval(const LeafEvalOp<L> op, int64_t m) {
 
 // --- lookup --------------------------------------------------------------------
 
-// T: the top's leaf kernel, whose rmi_leaf evaluates the top on its row
-template <RmiLeaf T, RmiLeaf L>
+template <RmiLeaf L>
 struct LookupOp {
+  static constexpr int kW = lookup_width(L);
+  static constexpr int kS = kW / 4;        // 32-byte sectors a lookup row
+
   const int64_t* keys;
-  const double* top_w;
-  const double* rows;     // [B, lookup_width(L)]: row and error of each leaf
+  const double* top_w;    // [1, width]: the top's row
+  const double* rows;     // [B, kW]: row and error of each leaf
   int64_t* guess;
   int64_t* err;
   double offset, scale;
   double top_bound;       // B - 1
   double guess_bound;     // n - 1
+  RmiLeaf top;            // the top's leaf kernel, whose rmi_leaf evaluates it
   int head;
 
-  // K keys: leaves from the top, then every leaf's row and error gathered
-  // (one 32-byte sector each but for cubic rows), then the leaves
-  // evaluated
+  // the leaves of K normalized keys under a top of kind T
+  template <RmiLeaf T, int K>
+  __device__ __forceinline__ void leaves_of(const double (&x)[K], int64_t (&leaf)[K]) const {
+    Row<T> r;
+    load_f64<rmi_leaf_width(T)>(top_w, r);
+#pragma unroll
+    for (int k = 0; k < K; ++k) leaf[k] = rmi_clamp_floor(rmi_leaf<T>(r, 0, x[k]), top_bound);
+  }
+
   template <int K>
-  __device__ __forceinline__ void run(const Row<T>& top, const int64_t (&key)[K],
-                                     int64_t (&g)[K], int64_t (&e)[K]) const {
-    constexpr int kW = lookup_width(L);
-    double x[K];
-    int64_t leaf[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      x[k] = normalized(key[k], offset, scale);
-      leaf[k] = rmi_clamp_floor(rmi_leaf<T>(top, 0, x[k]), top_bound);
+  __device__ __forceinline__ void leaves(const double (&x)[K], int64_t (&leaf)[K]) const {
+    switch (top) {
+      case RmiLeaf::kCubic: leaves_of<RmiLeaf::kCubic>(x, leaf); break;
+      case RmiLeaf::kLoglinear: leaves_of<RmiLeaf::kLoglinear>(x, leaf); break;
+      case RmiLeaf::kNormal: leaves_of<RmiLeaf::kNormal>(x, leaf); break;
+      default: leaves_of<RmiLeaf::kLinear>(x, leaf); break;
     }
-    LookupRow<L> r[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) load_f64<kW>(rows + kW * leaf[k], r[k]);
+  }
+
+  // K leaves evaluated on their rows: guesses and errors
+  template <int K>
+  __device__ __forceinline__ void finish(LookupRow<L> (&r)[K], const double (&x)[K],
+                                         int64_t (&g)[K], int64_t (&e)[K]) const {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       e[k] = __double_as_longlong(r[k][rmi_leaf_width(L)]);
@@ -229,43 +219,78 @@ struct LookupOp {
   }
 
   __device__ __forceinline__ void one(int64_t i) const {
-    Row<T> top;
-    load_f64<rmi_leaf_width(T)>(top_w, top);
-    const int64_t key[1] = {__ldg(keys + i)};
+    const double x[1] = {normalized(__ldg(keys + i), offset, scale)};
+    int64_t leaf[1];
+    leaves(x, leaf);
+    LookupRow<L> r[1];
+    load_f64<kW>(rows + kW * leaf[0], r[0]);
     int64_t g[1], e[1];
-    run<1>(top, key, g, e);
+    finish(r, x, g, e);
     guess[i] = g[0];
     err[i] = e[0];
   }
 
-  __device__ __forceinline__ void pairs(const int64_t (&p)[kPairs], int64_t npairs) const {
-    Row<T> top;
-    load_f64<rmi_leaf_width(T)>(top_w, top);
-    const longlong2* kv = reinterpret_cast<const longlong2*>(keys + head);
-    int64_t key[kPer];
+  // This lane's two rows, with one instruction per sector: the pair's
+  // four rows are the even lane's two leaves, then the odd lane's; for
+  // each row and sector the even lane loads the sector's first 16 bytes
+  // and the odd lane its second, and each lane then sends the partner the
+  // halves of the partner's rows.  Every lane of the warp takes part.
+  __device__ __forceinline__ void load_rows(const int64_t (&leaf)[2],
+                                            LookupRow<L> (&r)[2]) const {
+    const int odd = threadIdx.x & 1;
+    int64_t four[4];
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const longlong2 v = p[j] < npairs ? __ldg(kv + p[j]) : make_longlong2(0, 0);
-      key[2 * j] = v.x;
-      key[2 * j + 1] = v.y;
+    for (int k = 0; k < 2; ++k) {
+      const int64_t other = __shfl_xor_sync(RMI_FULL_MASK, leaf[k], 1);
+      four[k] = odd ? other : leaf[k];
+      four[2 + k] = odd ? leaf[k] : other;
     }
-    int64_t g[kPer], e[kPer];
-    run<kPer>(top, key, g, e);
-    longlong2* gv = reinterpret_cast<longlong2*>(guess + head);
-    longlong2* ev = reinterpret_cast<longlong2*>(err + head);
+    double2 h[4][kS];
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      if (p[j] < npairs) {
-        gv[p[j]] = make_longlong2(g[2 * j], g[2 * j + 1]);
-        ev[p[j]] = make_longlong2(e[2 * j], e[2 * j + 1]);
+    for (int q = 0; q < 4; ++q) {
+      const double2* row = reinterpret_cast<const double2*>(rows + kW * four[q]);
+#pragma unroll
+      for (int s = 0; s < kS; ++s) h[q][s] = __ldg(row + 2 * s + odd);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        const double2 mine = odd ? h[2 + k][s] : h[k][s];
+        const double2 send = odd ? h[k][s] : h[2 + k][s];
+        double2 got;
+        got.x = __shfl_xor_sync(RMI_FULL_MASK, send.x, 1);
+        got.y = __shfl_xor_sync(RMI_FULL_MASK, send.y, 1);
+        const double2 lo = odd ? got : mine, hi = odd ? mine : got;
+        r[k][4 * s] = lo.x;
+        r[k][4 * s + 1] = lo.y;
+        r[k][4 * s + 2] = hi.x;
+        r[k][4 * s + 3] = hi.y;
       }
+    }
+  }
+
+  __device__ __forceinline__ void pair(int64_t p, int64_t npairs) const {
+    const bool ok = p < npairs;
+    const longlong2 v = ok ? __ldg(reinterpret_cast<const longlong2*>(keys + head) + p)
+                           : make_longlong2(0, 0);
+    const double x[2] = {normalized(v.x, offset, scale), normalized(v.y, offset, scale)};
+    int64_t leaf[2];
+    leaves(x, leaf);
+    LookupRow<L> r[2];
+    load_rows(leaf, r);
+    int64_t g[2], e[2];
+    finish(r, x, g, e);
+    if (ok) {
+      reinterpret_cast<longlong2*>(guess + head)[p] = make_longlong2(g[0], g[1]);
+      reinterpret_cast<longlong2*>(err + head)[p] = make_longlong2(e[0], e[1]);
     }
   }
 };
 
-template <RmiLeaf T, RmiLeaf L>
+template <RmiLeaf L>
 __global__ void __launch_bounds__(kThreads)
-lookup(const LookupOp<T, L> op, int64_t m) {
+lookup(const LookupOp<L> op, int64_t m) {
   walk(op, m, op.head);
 }
 
@@ -273,7 +298,7 @@ lookup(const LookupOp<T, L> op, int64_t m) {
 inline int head_of(const void* p) { return ((uintptr_t)p & 15) ? 1 : 0; }
 
 inline unsigned int blocks_for(int64_t m) {
-  return rmi_grid(m / 2 + 1, kThreads * kPairs);
+  return rmi_grid(m / 2 + 1, kThreads);
 }
 
 template <RmiLeaf L>
@@ -292,18 +317,6 @@ int launch_leaf_eval(const double* x, const double* w, const int64_t* leaf,
   return (int)cudaGetLastError();
 }
 
-template <RmiLeaf T, RmiLeaf L>
-int launch_lookup_top(const int64_t* keys, const double* top_w, const double* rows,
-                      int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
-                      double offset, double scale, int head, cudaStream_t stream) {
-  const LookupOp<T, L> op{keys, top_w, rows, guess, err, offset, scale,
-                          (double)(B - 1), (double)(n - 1), head};
-  lookup<T, L><<<blocks_for(m), kThreads, 0, stream>>>(op, m);
-  return (int)cudaGetLastError();
-}
-
-// one kernel per top kind: the top's evaluation compiled in, not a
-// branch over the four kinds in every thread
 template <RmiLeaf L>
 int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
                   const double* rows, int64_t* guess, int64_t* err, int64_t m,
@@ -318,22 +331,12 @@ int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
       ((uintptr_t)top_w & 15)) {
     return (int)cudaErrorMisalignedAddress;
   }
-  if (m <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch ((RmiLeaf)top_kind) {
-    case RmiLeaf::kCubic:
-      return launch_lookup_top<RmiLeaf::kCubic, L>(keys, top_w, rows, guess, err, m, B, n,
-                                                   offset, scale, head, s);
-    case RmiLeaf::kLoglinear:
-      return launch_lookup_top<RmiLeaf::kLoglinear, L>(keys, top_w, rows, guess, err, m, B,
-                                                       n, offset, scale, head, s);
-    case RmiLeaf::kNormal:
-      return launch_lookup_top<RmiLeaf::kNormal, L>(keys, top_w, rows, guess, err, m, B, n,
-                                                    offset, scale, head, s);
-    default:
-      return launch_lookup_top<RmiLeaf::kLinear, L>(keys, top_w, rows, guess, err, m, B, n,
-                                                    offset, scale, head, s);
+  if (m > 0) {
+    const LookupOp<L> op{keys, top_w, rows, guess, err, offset, scale, (double)(B - 1),
+                         (double)(n - 1), (RmiLeaf)top_kind, head};
+    lookup<L><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -38,10 +38,12 @@ SORT_SERVE_MIN = 1 << 20
 
 def lookup(rmi, queries: torch.Tensor):
     """Batched lookup(key, &err): (guess, err) as int64 tensors, from one
-    launch of K4's fused entry over the index's lookup table (made on
-    first use), or for a lognormal top or leaf from the top eval in torch
-    and K4's per-element entry (eval_kernel.lookup_clamped)."""
-    if rmi.lookup_table_cache is None and not queries.is_cpu:
+    launch of K4's fused entry over the index's lookup table (made on its
+    first use on the card), or for a lognormal top or leaf, which has no
+    lookup table, from the top eval in torch and K4's per-element entry
+    (eval_kernel.lookup_clamped)."""
+    if (rmi.lookup_table_cache is None and not queries.is_cpu
+            and eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)):
         rmi.lookup_table_cache = eval_kernel.lookup_table(rmi.device_leaf_params,
                                                           rmi.leaf_errors)
     return eval_kernel.lookup_clamped(

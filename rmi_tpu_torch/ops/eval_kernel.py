@@ -123,17 +123,18 @@ def lookup_clamped_plain(queries, top_w, leaf_w, leaf_errors, n: int, kminf: flo
 
 def lookup_width(ppm: int) -> int:
     """f64 values of a lookup row for leaves of ``ppm`` parameters: the
-    row, the error's bits, padding to a 16-byte multiple (csrc/eval.cu
+    row, the error's bits, padding to whole 32-byte sectors (csrc/eval.cu
     lookup_width)."""
-    return (ppm + 2) & ~1
+    return (ppm + 1 + 3) & ~3
 
 
 def lookup_table(leaf_w, leaf_errors) -> torch.Tensor:
     """[B, lookup_width(ppm)] float64: row j holds leaf_w[j], then the
     bits of leaf_errors[j] (int64), then zeros.  rmi_lookup_* gathers a
     leaf's row and error in one 32-byte sector (two for cubic leaves)
-    where two tables cost two sectors.  Made from the bits, so every
-    value and error crosses unchanged."""
+    where two tables cost two sectors, each sector with one load
+    instruction.  Made from the bits, so every value and error crosses
+    unchanged."""
     B, ppm = leaf_w.shape
     rows = torch.zeros(B, lookup_width(ppm), dtype=torch.int64, device=leaf_w.device)
     rows[:, :ppm] = leaf_w.view(torch.int64)
@@ -151,10 +152,11 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
 
     Route, by the models' types: where fused_lookup holds, one launch of
     rmi_lookup_<leaf kernel>, which makes the top's input from the key,
-    evaluates the top (its kernel's rmi_leaf on row 0), clamps the leaf
-    id, gathers the leaf's row and error and evaluates the leaf; with a
-    lognormal top or leaf, the two steps, the top and the kernel inputs
-    in torch and the leaf in rmi_leaf_eval_<leaf kernel>."""
+    evaluates the top (its kernel's rmi_leaf on row 0, the top kind a
+    kernel argument), clamps the leaf id, gathers the leaf's row and
+    error and evaluates the leaf; with a lognormal top or leaf, the two
+    steps, the top and the kernel inputs in torch and the leaf in
+    rmi_leaf_eval_<leaf kernel>, and ``table`` is not read."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     if queries.dtype != torch.int64 or queries.dim() != 1:
         raise ValueError("lookup_clamped: queries must be 1-D int64 key images")

@@ -462,6 +462,18 @@ def test_k4_leaf_eval_tails(dev, leaf):
                 xs, wd, ls, n - 1, leaf_type=leaf))
 
 
+@pytest.mark.parametrize("spec", ["cubic,linear", "cubic,lognormal"])
+def test_lookup_table_only_for_the_fused_route(dev, spec):
+    """An index keeps a lookup table only where lookup reads one; its
+    guesses hold the bound on every key either way."""
+    keys = rdata.books_like_on_device(1 << 16, 6, dev)
+    rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), spec, 256)
+    guess, err = rt.lookup(rmi, keys)
+    assert (rmi.lookup_table_cache is not None) == eval_kernel.fused_lookup(*spec.split(","))
+    lb = torch.searchsorted(keys, keys)
+    assert bool(((guess - lb).abs() <= err).all())
+
+
 def test_k4_lookup_refuses_bad_inputs(dev):
     q, top_w, leaf_w, errs, n, kminf, s = [a.to(dev) if torch.is_tensor(a) else a
                                            for a in lookup_case("cubic", "normal", 64, 3)]

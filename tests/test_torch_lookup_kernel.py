@@ -174,15 +174,15 @@ def test_lognormal_keeps_the_two_step_route(spec):
 @pytest.mark.parametrize("leaf", LEAVES)
 def test_lookup_table_holds_rows_and_errors_bit_for_bit(leaf):
     """Row j of lookup_table: leaf_w[j], the bits of leaf_errors[j], zeros,
-    a 16-byte multiple wide; NaN rows and the largest errors cross
-    unchanged."""
+    whole 32-byte sectors wide (one, two for cubic leaves); NaN rows and
+    the largest errors cross unchanged."""
     _, _, leaf_w, errors, *_ = lookup_case("linear", leaf, 8, 9)
     errors[0], errors[1] = (1 << 63) - 1, -1
     table = eval_kernel.lookup_table(leaf_w, errors)
     ppm = leaf_w.shape[1]
     assert table.dtype == torch.float64 and table.shape == (leaf_w.shape[0],
                                                            eval_kernel.lookup_width(ppm))
-    assert (table.shape[1] * 8) % 16 == 0 and table.shape[1] * 8 <= (48 if ppm == 4 else 32)
+    assert table.shape[1] * 8 == (64 if ppm == 4 else 32)
     bits = table.view(torch.int64)
     assert torch.equal(bits[:, :ppm], leaf_w.view(torch.int64))
     assert torch.equal(bits[:, ppm], errors)
