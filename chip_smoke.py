@@ -51,7 +51,9 @@ Phases (any failure raises and exits non-zero):
  13. the nine card probes (rmi_tpu_torch/ops/probe_kernels.py, the
      kernels of tools/probe_torch_kernels.py), each run once on its
      probe's inputs (D at widths 128 and 2048) with the launches counted
-     from 0, its output held equal to its plain version's on the card.
+     from 0, its output held equal to its plain version's on the card;
+     each probe's device time per call (a profiler trace of 200 calls)
+     logged beside its library call's.
 Each row of the kernels line carries the kernel's time on its path's
 largest call (a call under 0.1 ms: the median of five runs of at least
 5 ms of calls, logged with their spread) beside the plain version's and,
@@ -791,6 +793,20 @@ def drive(path, data, queries, gen):
 # D runs at its narrowest and widest rows only: the rate table over all
 # widths is tools/probe_torch_kernels.py's
 PROBE_RING_WIDTHS = (128, 2048)
+PROBE_TRACED = 200        # calls per probe in its device-time trace
+
+
+def device_us(fn, calls=PROBE_TRACED):
+    """Device microseconds per call of ``fn``: its CUDA kernels' time in
+    a profiler trace of ``calls`` calls, as tools/time_torch_launch.py
+    measures it."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / calls
 
 
 def probe_phase(dev):
@@ -843,11 +859,13 @@ def probe_phase(dev):
         peak = INT_OPS_PER_S if got.dtype == torch.int32 else F32_OPS_PER_S
         bound_ms = max(nbytes / HBM_BYTES_PER_S, elems / peak) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= elems / peak else "operations"
-        log(f"probe {probe.key} {probe.entry}"
-            + (f" width {width}" if width else "")
-            + f": equal to its plain version; {spread(ms)} vs plain {spread(plain_ms)}, "
+        name = f"probe {probe.key} {probe.entry}" + (f" width {width}" if width else "")
+        log(f"{name}: equal to its plain version; {spread(ms)} vs plain {spread(plain_ms)}, "
             f"library {library_ms and spread(library_ms)}, bound {bound_ms:.6f} ms "
             f"({bound_by}: {nbytes} B)")
+        lib_us = None if lib is None else f"{device_us(lib):.4f} us"
+        log(f"{name}: device time per call (profiler, {PROBE_TRACED} calls) "
+            f"{device_us(lambda: probe.wrapper(*args)):.4f} us vs library {lib_us}")
         # one row per entry: D's is its widest call, the last of its cases
         rows[probe.entry] = {
             "name": probe.entry, "route": "cuda",

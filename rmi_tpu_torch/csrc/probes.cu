@@ -10,14 +10,20 @@
 //   B1  rmi_probe_lt_i64         t_b1  :67   int64 x < q in registers
 //   B2  rmi_probe_lt_u64         t_b2  :83   uint64 x < q on bits carried as int64
 //   B3  rmi_probe_lt_u32pair     t_b3  :105  u64 x < q as (hi, lo) u32 pairs
-//   C1  rmi_probe_gather_rows    t_c1  :120  tbl[idx, :] from a table in shared memory
-//   C2  rmi_probe_take           t_c2  :135  take(tbl, idx) from shared memory
+//   C1  rmi_probe_gather_rows    t_c1  :120  tbl[idx, :] gathered through L2, a group of lanes a row
+//   C2  rmi_probe_take           t_c2  :135  take(tbl, idx) through L2, one output a thread
 //   C3  rmi_probe_take_lanes     t_c3  :150  take_along_axis over a row's lanes
 //   D   rmi_probe_row_ring       _dma_rate :194  pipelined random-row bulk copies
 //   E   rmi_probe_row_copy       t_e   :261  index-driven row copies, spread over the card
 //
 // None is bound by device memory at the probe's shapes (a few KB to
-// 256 KB): A-C and E take a launch's latency.  D is the measurement: the
+// 256 KB): A-C and E take a launch's latency.  C1 and C2 ask whether a
+// gather should first stage its table in fast memory, as the TPU's must
+// in VMEM.  Here it should not: a table that is read once is gathered
+// where it lies, through the 50 MB L2, with wide read-only loads, and
+// staging it in shared memory costs more than it saves (a block would
+// read the whole table to use a part, and the table's size would be
+// bounded by a block's shared memory).  D is the measurement: the
 // rate at which one block, and one block per SM, fetches random rows
 // with cp.async.bulk onto mbarriers, which is how sorted_serve.cu stages
 // its windows.  B2 against B3 over a large array asks whether comparing
@@ -33,7 +39,13 @@
 // B3 0.281 ms: it reads the low halves only where the high halves tie,
 // 12 B per element on random keys (2.9 TB/s).  Both run at the memory
 // rate: the pair compare costs no time, and nothing is gained by it
-// unless the halves are stored apart.  PERF.md has the runs.
+// unless the halves are stored apart.  C1 and C2 at the probes' shapes
+// (tools/time_torch_launch.py): 1.35 and 1.27 us of device time against
+// 1.44 for torch.index_select and 2.79 for torch.take.  At scale: 2^18
+// random 512-byte rows of a 128 MB table at 2.6 TB/s (index_select 1.6);
+// 8 KB rows at 2.8 (2.9); 2^24 random entries of a 16 MB table in 0.149
+// ms (take 0.159-0.168), of a 256 MB one in 0.549-0.552 (0.570).  PERF.md
+// has the runs.
 //
 // The (8, 128) tile of the TPU probes is a shape here, not a unit: the
 // elementwise probes run a grid-stride loop over any n.
@@ -44,7 +56,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSliceCols = 32;           // C1: table columns staged per block
 constexpr int kMaxSlots = 16;            // D: mbarriers per block
 constexpr int kMaxDynamicShared = 232448;   // 227 KB, the most a block may ask for
 constexpr int kSharedPerSM = 233472;        // 228 KB of shared memory on each SM
@@ -89,37 +100,53 @@ less_than_pair(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
   }
 }
 
-// --- C1-C3: gathers from a table held on chip ------------------------------
+// --- C1-C3: gathers -------------------------------------------------------
 
-// C1.  The TPU table of [512, 128] f32 is 256 KB, more than the 227 KB
-// one block may hold, so block b stages columns [32 b, 32 b + 32) of
-// every row (64 KB at 512 rows) and gathers its slice of each output row.
+// C1.  out[i, :] = tbl[idx[i], :] straight from where the table lies: a
+// gathered row is read once, so it comes through L2 to the registers and
+// is stored, with no stage in shared memory.  A group of G = 2^lg lanes
+// (G <= 32, one warp for rows of 32 units or more) takes a row: its
+// lanes read the row's index with one load instruction, then move the
+// row in units of V (float4 where the rows and both pointers allow it,
+// else float), lane c units c, c + G, ..., four loads issued before
+// their stores while four remain, then one at a time.  Groups walk the
+// rows grid-stride.
+template <class V>
 __global__ void __launch_bounds__(kThreads)
-gather_rows(const float* __restrict__ tbl, const int32_t* __restrict__ idx,
-            float* __restrict__ out, int nrows, int width, int nq) {
-  extern __shared__ __align__(16) float slice[];       // [nrows, kSliceCols]
-  const int c0 = blockIdx.x * kSliceCols;
-  const int cols = min(kSliceCols, width - c0);
-  for (int e = threadIdx.x; e < nrows * kSliceCols; e += blockDim.x) {
-    const int r = e / kSliceCols, c = e % kSliceCols;
-    if (c < cols) slice[e] = tbl[(int64_t)r * width + c0 + c];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nq * kSliceCols; e += blockDim.x) {
-    const int i = e / kSliceCols, c = e % kSliceCols;
-    if (c < cols) out[(int64_t)i * width + c0 + c] = slice[idx[i] * kSliceCols + c];
+gather_rows(const V* __restrict__ tbl, const int32_t* __restrict__ idx,
+            V* __restrict__ out, int64_t units, int64_t nq, int lg) {
+  const int G = 1 << lg;
+  const int lane = threadIdx.x & (G - 1);
+  const int64_t stride = ((int64_t)gridDim.x * blockDim.x) >> lg;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg; i < nq;
+       i += stride) {
+    const V* src = tbl + (int64_t)__ldg(idx + i) * units;
+    V* dst = out + i * units;
+    int64_t c = lane;
+    for (; c + 3 * G < units; c += 4 * G) {
+      const V a = __ldg(src + c), b = __ldg(src + c + G), d = __ldg(src + c + 2 * G),
+              e = __ldg(src + c + 3 * G);
+      dst[c] = a;
+      dst[c + G] = b;
+      dst[c + 2 * G] = d;
+      dst[c + 3 * G] = e;
+    }
+    for (; c < units; c += G) dst[c] = __ldg(src + c);
   }
 }
 
-// C2.  Every block stages the whole 1-D table and gathers its queries.
+// C2.  out[i] = tbl[idx[i]], the table read where it lies, one output a
+// thread: at the probe's 1024 outputs that spreads the random reads over
+// four SMs where four outputs a thread (a 16-byte load of indices, four
+// reads, a 16-byte store) put them on one and took longer; at 2^24
+// outputs the two forms tie.
 __global__ void __launch_bounds__(kThreads)
 take(const float* __restrict__ tbl, const int32_t* __restrict__ idx,
-     float* __restrict__ out, int ntbl, int nq) {
-  extern __shared__ __align__(16) float table[];       // [ntbl]
-  for (int e = threadIdx.x; e < ntbl; e += blockDim.x) table[e] = tbl[e];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < nq) out[i] = table[idx[i]];
+     float* __restrict__ out, int64_t nq) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nq; i += stride) {
+    out[i] = __ldg(tbl + __ldg(idx + i));
+  }
 }
 
 // C3.  The gather runs across the 128 lanes of a row; a warp has 32.  No
@@ -353,30 +380,35 @@ RMI_API int rmi_probe_lt_u32pair(const int32_t* hi, const int32_t* lo,
 }
 
 // out[i, :] = tbl[idx[i], :]; tbl [nrows, width], 0 <= idx[i] < nrows
+// (not checked).  16-byte units where width is a multiple of 4 and tbl
+// and out start on 16-byte boundaries, else 4-byte units; lanes per row
+// the least power of two that covers a row's units, at most 32.
 RMI_API int rmi_probe_gather_rows(const float* tbl, const int32_t* idx, float* out,
                                   int64_t nrows, int64_t width, int64_t nq,
                                   void* stream) {
   if (nrows <= 0 || width <= 0 || nq <= 0) return (int)cudaGetLastError();
-  const size_t bytes = (size_t)nrows * kSliceCols * sizeof(float);
-  static size_t allowed[kMaxDevices] = {};
-  const cudaError_t err = allow_shared(gather_rows, bytes, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned int blocks = (unsigned int)((width + kSliceCols - 1) / kSliceCols);
-  gather_rows<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      tbl, idx, out, (int)nrows, (int)width, (int)nq);
+  const bool vec = width % 4 == 0 && ((uintptr_t)tbl & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  const int64_t units = vec ? width / 4 : width;
+  int lg = 0;
+  while (lg < 5 && ((int64_t)1 << lg) < units) ++lg;
+  const unsigned int blocks = rmi_grid(nq << lg, kThreads);
+  if (vec) {
+    gather_rows<float4><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(tbl), idx, reinterpret_cast<float4*>(out), units,
+        nq, lg);
+  } else {
+    gather_rows<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(tbl, idx, out, units,
+                                                                      nq, lg);
+  }
   return (int)cudaGetLastError();
 }
 
-// out[i] = tbl[idx[i]]; tbl [ntbl], 0 <= idx[i] < ntbl
+// out[i] = tbl[idx[i]]; tbl [ntbl], 0 <= idx[i] < ntbl (not checked)
 RMI_API int rmi_probe_take(const float* tbl, const int32_t* idx, float* out,
                            int64_t ntbl, int64_t nq, void* stream) {
-  if (ntbl <= 0 || nq <= 0) return (int)cudaGetLastError();
-  const size_t bytes = (size_t)ntbl * sizeof(float);
-  static size_t allowed[kMaxDevices] = {};
-  const cudaError_t err = allow_shared(take, bytes, allowed);
-  if (err != cudaSuccess) return (int)err;
-  take<<<rmi_grid(nq, kThreads), kThreads, bytes, (cudaStream_t)stream>>>(
-      tbl, idx, out, (int)ntbl, (int)nq);
+  if (ntbl > 0 && nq > 0) {
+    take<<<rmi_grid(nq, kThreads), kThreads, 0, (cudaStream_t)stream>>>(tbl, idx, out, nq);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,8 @@ numpy seeds).  tools/probe_torch_kernels.py runs them.
   B1  less_than_i64      x < q, int64
   B2  less_than_u64      x < q, uint64 bits carried as int64
   B3  less_than_u32pair  u64 x < q as (hi, lo) u32 pairs carried as int32
-  C1  gather_rows        tbl[idx, :] from a table staged in shared memory
-  C2  take               tbl[idx] from a 1-D table in shared memory
+  C1  gather_rows        tbl[idx, :], each row read through L2, no stage
+  C2  take               tbl[idx] from a 1-D table read through L2
   C3  take_lanes         take_along_axis(tbl, idx, 1) by warp shuffles
   D   row_ring           pipelined random-row bulk copies, 16 in flight
   E   row_copy           index-driven row copies, spread over the card
@@ -37,7 +37,6 @@ RING_SLOTS = 16              # D's copies in flight
 RING_STEP = 7919             # D's pseudo-random walk: row i is (i * 7919) mod rows
 RING_WIDTHS = (128, 256, 512, 1024, 2048)
 MAX_SHARED_BYTES = 232448    # dynamic shared memory one block may ask for
-SLICE_COLS = 32              # C1: table columns a block stages
 COPY_WARPS = 4              # E: warps per block, each with its own ring
 COPY_SHARE = 8192           # E: most indices a block stages
 
@@ -140,8 +139,12 @@ def gather_rows_plain(tbl, idx):
 
 def gather_rows(tbl, idx):
     """C1: tbl[idx, :] for f32 ``tbl`` [rows, width] and int32 ``idx``
-    [nq] in [0, rows).  Each block stages a 32-column slice of the table
-    in shared memory, so rows * 128 bytes must fit a block."""
+    [nq] in [0, rows), for a table of any size.  No shared memory: a
+    group of lanes takes a row and moves it from where it lies with
+    16-byte loads and stores (4-byte ones where the width is not a
+    multiple of 4 or ``tbl`` does not start on a 16-byte boundary).
+    Indices are not range-checked, since that would synchronise: on the
+    card one out of range is undefined (a stray read or a fault)."""
     _check("gather_rows", torch.float32, tbl)
     _check_index("gather_rows", idx)
     if tbl.dim() != 2 or idx.dim() != 1:
@@ -150,8 +153,6 @@ def gather_rows(tbl, idx):
         return gather_rows_plain(tbl, idx)
     _build.check_cuda("gather_rows", tbl, idx)
     rows, width = tbl.shape
-    if rows * SLICE_COLS * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"gather_rows: {rows} rows exceed a block's shared memory")
     out = torch.empty(idx.shape[0], width, dtype=torch.float32, device=tbl.device)
     _build.launch("rmi_probe_gather_rows", tbl, idx, out, rows, width, idx.shape[0])
     return out
@@ -162,8 +163,11 @@ def take_plain(tbl, idx):
 
 
 def take(tbl, idx):
-    """C2: tbl[idx] for 1-D f32 ``tbl`` and int32 ``idx`` in [0, len(tbl)).
-    Every block stages the table in shared memory."""
+    """C2: tbl[idx] for 1-D f32 ``tbl`` of any size and int32 ``idx`` in
+    [0, len(tbl)).  No shared memory: one thread an output reads its
+    index and the table entry where it lies.  Indices are not
+    range-checked, since that would synchronise: on the card one out of
+    range is undefined (a stray read or a fault)."""
     _check("take", torch.float32, tbl)
     _check_index("take", idx)
     if tbl.dim() != 1 or idx.dim() != 1:
@@ -171,8 +175,6 @@ def take(tbl, idx):
     if tbl.is_cpu:
         return take_plain(tbl, idx)
     _build.check_cuda("take", tbl, idx)
-    if tbl.shape[0] * 4 > MAX_SHARED_BYTES:
-        raise ValueError("take: the table exceeds a block's shared memory")
     out = torch.empty(idx.shape[0], dtype=torch.float32, device=tbl.device)
     _build.launch("rmi_probe_take", tbl, idx, out, tbl.shape[0], idx.shape[0])
     return out

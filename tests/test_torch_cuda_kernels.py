@@ -13,7 +13,9 @@ affine top and leaf kernel, against its plain version on the card and on
 the CPU, on test_torch_lookup_kernel.py's inputs) bit-equal (max/min never round; K3,
 the per-leaf maximum of the sweep, and K4 are compared with the plain
 version on CPU copies, where torch.addcmul is an exact FMA); the
-run-length pass and the nine card probes equal to their plain versions;
+run-length pass and the nine card probes equal to their plain versions
+(C1 and C2 also bit-equal to tbl[idx] on tables beyond a block's shared
+memory, odd widths and offset views);
 K2 and its weighted and variance-only
 variants within rtol 1e-9 (summation order) plus 1e-12 of the
 Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 and its scatter
@@ -734,3 +736,82 @@ def test_probe_row_copy_spread(dev, width):
         torch.cuda.synchronize()
         assert _build.launches["rmi_probe_row_copy"] == before + 1
         assert got.shape == (nq, width) and torch.equal(got, x[idx_d.long()])
+
+
+GATHER_NQS = [0, 1, 2, 257, 70_000]
+# C1's tables: odd and narrow widths take the 4-byte path, a row of 2048
+# loops within its warp, and 70000 rows of 36 are more than a block's
+# shared memory held before C1 read rows through L2
+GATHER_TABLES = [(4099, 1), (4099, 3), (4099, 4), (4099, 128), (4099, 2048), (70_000, 36)]
+TAKE_TABLES = [4096, 1 << 22]          # 16 KB, and 16 MB
+
+
+def _gather_indices(rng, rows, nq):
+    """nq int32 indices in [0, rows), the first third one repeated row."""
+    idx = rng.integers(0, rows, nq, dtype=np.int32)
+    idx[: nq // 3] = idx[nq // 2] if nq else 0
+    return idx
+
+
+def _offset_view(a, dev, offset):
+    """``a`` on the card starting ``offset`` elements past an allocation,
+    so off a 16-byte boundary for offset 1-3 of 4-byte elements."""
+    buf = torch.empty(a.size + offset, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+def _check_gather(fn, entry, tbl, idx):
+    """One wrapper call: one launch counted, bit-equal to tbl[idx]."""
+    before = _build.launches[entry]
+    got = fn(tbl, idx)
+    torch.cuda.synchronize()
+    assert _build.launches[entry] == before + 1
+    want = tbl[idx.long()]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("nq", GATHER_NQS)
+@pytest.mark.parametrize("rows,width", GATHER_TABLES)
+def test_probe_gather_rows_direct(dev, rows, width, nq):
+    """C1 read through L2: any table, any nq, bit-equal to tbl[idx]."""
+    rng = np.random.default_rng(rows + width + nq)
+    tbl = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(_gather_indices(rng, rows, nq)).to(dev)
+    _check_gather(probe_kernels.gather_rows, "rmi_probe_gather_rows", tbl, idx)
+
+
+@pytest.mark.parametrize("rows,width", GATHER_TABLES)
+def test_probe_gather_rows_offset_views(dev, rows, width):
+    """C1 on views of idx and tbl one element past a 16-byte boundary:
+    the table's rows take the 4-byte path."""
+    rng = np.random.default_rng(width)
+    tbl = _offset_view(rng.normal(size=(rows, width)).astype(np.float32), dev, 1)
+    idx = _offset_view(_gather_indices(rng, rows, 257), dev, 1)
+    assert tbl.data_ptr() % 16 and idx.data_ptr() % 16
+    _check_gather(probe_kernels.gather_rows, "rmi_probe_gather_rows", tbl, idx)
+
+
+@pytest.mark.parametrize("nq", GATHER_NQS)
+@pytest.mark.parametrize("ntbl", TAKE_TABLES)
+def test_probe_take_direct(dev, ntbl, nq):
+    """C2 read through L2: a table of 16 KB or 16 MB, any nq, bit-equal
+    to tbl[idx]."""
+    rng = np.random.default_rng(ntbl + nq)
+    tbl = torch.from_numpy(rng.normal(size=ntbl).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(_gather_indices(rng, ntbl, nq)).to(dev)
+    _check_gather(probe_kernels.take, "rmi_probe_take", tbl, idx)
+
+
+@pytest.mark.parametrize("ntbl", TAKE_TABLES)
+def test_probe_take_offset_views(dev, ntbl):
+    """C2 on views of idx and tbl one element past a 16-byte boundary,
+    nq from 1 to 70000."""
+    rng = np.random.default_rng(ntbl)
+    tbl = _offset_view(rng.normal(size=ntbl).astype(np.float32), dev, 1)
+    for nq in (1, 2, 3, 257, 70_000):
+        idx = _offset_view(_gather_indices(rng, ntbl, nq), dev, 1)
+        assert tbl.data_ptr() % 16 and idx.data_ptr() % 16
+        _check_gather(probe_kernels.take, "rmi_probe_take", tbl, idx)

@@ -171,6 +171,47 @@ def test_unsigned_compares_near_the_sign_bit():
     np.testing.assert_array_equal(pk.less_than_u32pair(*halves).numpy(), want)
 
 
+def _indices(rng, n, nq, offset=0):
+    """nq int32 indices in [0, n), the first third one repeated value,
+    as a view ``offset`` elements into its array."""
+    idx = rng.integers(0, n, nq + offset, dtype=np.int32)[offset:]
+    idx[: nq // 3] = idx[nq // 2] if nq else 0
+    return idx
+
+
+# rows of 36 at 70000 rows, and 2^22- or 60000-entry tables, are more than
+# a block's shared memory holds (the old C1 and C2 limits); widths 1 and 3
+# are not 16-byte multiples
+@pytest.mark.parametrize("rows,width,nq,offset", [
+    (70_000, 36, 257, 0), (4099, 3, 257, 1), (4099, 1, 70_000, 0), (512, 128, 0, 0),
+    (4099, 2048, 2, 3)])
+def test_gather_rows_is_fancy_indexing(rows, width, nq, offset):
+    """C1's contract, through its wrapper on the CPU: numpy's tbl[idx],
+    bit for bit, at any size, width and nq, on offset views too."""
+    rng = np.random.default_rng(rows + width + nq)
+    tbl = rng.normal(size=(rows * width + offset,)).astype(np.float32)[offset:]
+    tbl = tbl.reshape(rows, width)
+    idx = _indices(rng, rows, nq, offset)
+    got = pk.gather_rows(torch.from_numpy(tbl), torch.from_numpy(idx)).numpy()
+    want = tbl[idx]
+    assert got.dtype == want.dtype and got.shape == want.shape == (nq, width)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("ntbl,nq,offset", [
+    (1 << 22, 70_000, 0), (60_000, 257, 1), (4096, 0, 0), (4096, 1, 2), (4096, 6, 3)])
+def test_take_is_fancy_indexing(ntbl, nq, offset):
+    """C2's contract, through its wrapper on the CPU: numpy's tbl[idx],
+    bit for bit, at any table size and nq, on offset views too."""
+    rng = np.random.default_rng(ntbl + nq)
+    tbl = rng.normal(size=ntbl + offset).astype(np.float32)[offset:]
+    idx = _indices(rng, ntbl, nq, offset)
+    got = pk.take(torch.from_numpy(tbl), torch.from_numpy(idx)).numpy()
+    want = tbl[idx]
+    assert got.dtype == want.dtype and got.shape == want.shape == (nq,)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_probe_wrappers_refuse_bad_inputs():
     f = torch.zeros(8, 128)
     i = torch.zeros(8, 128, dtype=torch.int32)

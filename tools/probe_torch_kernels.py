@@ -16,7 +16,11 @@ PyTorch version, and prints one ``[OK]`` or ``[FAIL]`` line.  Beside them:
   * B2 against B3 over 2^26 random elements: whether comparing u64 keys
     as (hi, lo) u32 pairs costs anything on this card (B3 reads the low
     halves only where the high halves tie, so its bytes depend on the
-    data).
+    data);
+  * C1 and C2 at sizes where the card and not a launch sets the time,
+    each in turns with its library call: C1 gathers as many random rows
+    as its 128 MB table has, of 512 B and of 8 KB; C2 takes 2^24 random
+    entries of a 16 MB table (held in L2) and of a 256 MB one.
 
 The first line is the card's name and power limit.  Exits non-zero if
 any probe failed.
@@ -37,6 +41,9 @@ from rmi_tpu_torch.ops import probe_kernels as pk  # noqa: E402
 
 REPS = 5                     # timed launches after one warm-up
 COMPARE_N = 1 << 26          # elements of the B2-against-B3 timing
+GATHER_TABLES = ((1 << 18, 128), (1 << 14, 2048))   # C1's large cases, 128 MB each
+TAKE_N = 1 << 24             # C2's large cases: indices, into 16 MB and 256 MB
+TAKE_TABLES = (1 << 22, 1 << 26)
 
 
 def log(*a):
@@ -119,6 +126,41 @@ def compare_rates(dev):
             + ", ".join(f"{t:.4f} ms ({nbytes[name] / t / 1e6:.1f} GB/s)" for t in ts))
 
 
+def in_turns(what, names, nbytes, kernel, library, want):
+    """Hold ``kernel()`` to ``want``, then log its ms per call and
+    ``library``'s in turns kernel, library, library, kernel, with the
+    GB/s of ``nbytes``."""
+    if not torch.equal(kernel(), want):
+        raise RuntimeError(f"{what}: the kernel disagrees with tbl[idx]")
+    times = {names[0]: [], names[1]: []}
+    for k in (0, 1, 1, 0):
+        times[names[k]].append(cuda_ms((kernel, library)[k]))
+    log(f"     {what}, in turns {names[0]}, {names[1]}, {names[1]}, {names[0]}: "
+        + "; ".join(f"{name} " + ", ".join(f"{t:.4f} ms ({nbytes / t / 1e6:.1f} GB/s)"
+                                           for t in ts) for name, ts in times.items()))
+
+
+def gather_rates(dev):
+    """C1 and C2 at sizes where the card sets the time, in turns with the
+    library call of each; GB/s count the indices, the rows or entries
+    read and the output once."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rows, width in GATHER_TABLES:
+        tbl = torch.rand(rows, width, generator=gen, device=dev)
+        idx = torch.randint(0, rows, (rows,), generator=gen, device=dev, dtype=torch.int32)
+        il = idx.long()
+        in_turns(f"C1: {rows} random rows of {width * 4} B from [{rows}, {width}] f32",
+                 ("C1", "index_select"), rows * (4 + 8 * width),
+                 lambda: pk.gather_rows(tbl, idx), lambda: torch.index_select(tbl, 0, il),
+                 tbl[il])
+    for ntbl in TAKE_TABLES:
+        tbl = torch.rand(ntbl, generator=gen, device=dev)
+        idx = torch.randint(0, ntbl, (TAKE_N,), generator=gen, device=dev, dtype=torch.int32)
+        il = idx.long()
+        in_turns(f"C2: {TAKE_N} random entries of {ntbl} f32", ("C2", "take"), TAKE_N * 12,
+                 lambda: pk.take(tbl, idx), lambda: torch.take(tbl, il), tbl[il])
+
+
 def main():
     dev = config.require_cuda()
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,6 +180,7 @@ def main():
         log(f"[OK]   {probe.key} {probe.title}" if why is None
             else f"[FAIL] {probe.key} {probe.title}: {why}")
     compare_rates(dev)
+    gather_rates(dev)
     if failed:
         raise SystemExit(f"{failed} of {len(pk.PROBES)} probes failed")
 
