@@ -5,7 +5,8 @@
 
 Phases (any failure raises and exits non-zero):
   1. the card: name and power limit as nvidia-smi reports them;
-  2. the kernels: built from csrc/ with nvcc, build time printed;
+  2. the kernels: built from csrc/ with nvcc and, for the binding,
+     the host compiler, each step's build time printed;
   3. path 1 on books-like u64 keys made on the card from a seed:
      ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup,
      search of 2^22 random queries (torch.sort, then K5's scatter entry,
@@ -50,9 +51,13 @@ Phases (any failure raises and exits non-zero):
      replayed against their plain versions;
  13. the nine card probes (rmi_tpu_torch/ops/probe_kernels.py, the
      kernels of tools/probe_torch_kernels.py), each run once on its
-     probe's inputs (D at widths 128 and 2048) with the launches counted
-     from 0, its output held equal to its plain version's on the card;
-     each probe's device time per call (a profiler trace of 200 calls)
+     probe's inputs (D at widths 128 and 2048, in its whole-card form,
+     the TPU probe's walk spread over the card) with the launches counted
+     from 0, its output held equal to its plain version's on the card
+     (D's totals also to the TPU probe's sums, on the table of ones and
+     the marked one); D's one-block ns per row logged at 1 and 8
+     issuing warps; each probe's ms per call (with spreads), device time
+     per call (a profiler trace of 200 calls) and host time per call
      logged beside its library call's.
 Each row of the kernels line carries the kernel's time on its path's
 largest call (a call under 0.1 ms: the median of five runs of at least
@@ -794,6 +799,7 @@ def drive(path, data, queries, gen):
 # widths is tools/probe_torch_kernels.py's
 PROBE_RING_WIDTHS = (128, 2048)
 PROBE_TRACED = 200        # calls per probe in its device-time trace
+HOST_CALLS = 2000         # calls per host-time measurement
 
 
 def device_us(fn, calls=PROBE_TRACED):
@@ -809,18 +815,50 @@ def device_us(fn, calls=PROBE_TRACED):
     return sum(_device_us(e) for e in prof.key_averages()) / calls
 
 
+def host_us(fn, calls=HOST_CALLS):
+    """Host microseconds per call of ``fn``, unsynchronized, after a
+    warm-up, as tools/time_torch_launch.py measures it."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ring_walk_total(nrows, marked):
+    """The TPU probe's sum over its walk: 4096.0 on the table of ones,
+    sum of ((j * 7919) mod 2^17) mod 251 on the marked one."""
+    if not marked:
+        return float(probe_kernels.RING_ITERS)
+    return float(sum((j * probe_kernels.RING_STEP) % nrows % 251
+                     for j in range(probe_kernels.RING_ITERS)))
+
+
 def probe_phase(dev):
     """The card probes' own path: every probe run once on its probe's
-    inputs (D once per width of PROBE_RING_WIDTHS) with the launches
-    counted from 0; then each output held equal to its plain version's on
-    the card, and the kernel timed beside it.  Returns the kernels rows."""
+    inputs (D once per width of PROBE_RING_WIDTHS, in its whole-card
+    form) with the launches counted from 0; then each output held equal
+    to its plain version's on the card, and the kernel timed beside it.
+    D's one-block rate, the per-SM question, is logged beside its row.
+    Returns the kernels rows."""
     probes = probe_kernels.PROBES
     cases = [(p, w) for p in probes
              for w in (PROBE_RING_WIDTHS if p.inputs is None else (None,))]
     inputs = [probe_kernels.probe_inputs(p, dev, width=w or 128) for p, w in cases]
+
+    def kernel(probe):
+        return probe_kernels.row_ring_card if probe.key == "D" else probe.wrapper
+
+    def plain(probe):
+        return probe_kernels.row_ring_card_plain if probe.key == "D" else probe.plain
+
     for entry in _build.launches:
         _build.launches[entry] = 0
-    outputs = [p.wrapper(*args) for (p, _), args in zip(cases, inputs)]
+    outputs = [kernel(p)(*args) for (p, _), args in zip(cases, inputs)]
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     missing = [p.entry for p in probes if launches[p.entry] <= 0]
@@ -829,15 +867,25 @@ def probe_phase(dev):
 
     rows = {}
     for (probe, width), args, got in zip(cases, inputs, outputs):
-        want = probe.plain(*args)
+        want = plain(probe)(*args)
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise RuntimeError(f"probe {probe.key} ({probe.entry}): kernel disagrees "
                                f"with its plain version")
-        if probe.inputs is None:       # D also on the table that shows a stale slot
+        if probe.inputs is None:       # D: the walk's total, and the marked table
+            nrows = args[0].shape[0]
             marked = probe_kernels.ring_table(width, dev, marked=True)
-            if not torch.equal(probe.wrapper(marked), probe.plain(marked)):
-                raise RuntimeError(f"probe D, width {width}: wrong sum on the marked table")
+            card = probe_kernels.row_ring_card(marked)
+            totals = (float(got.double().sum()), float(card.double().sum()))
+            if (not torch.equal(card, probe_kernels.row_ring_card_plain(marked))
+                    or totals != (ring_walk_total(nrows, False), ring_walk_total(nrows, True))
+                    or not torch.equal(probe.wrapper(marked), probe.plain(marked))):
+                raise RuntimeError(f"probe D, width {width}: wrong sums {totals}")
             del marked
+            for warps in (1, probe_kernels.RING_WARPS):
+                ns = cuda_ms(lambda: probe.wrapper(args[0], warps=warps), 3) * 1e6 / (
+                    probe_kernels.RING_ITERS * warps)
+                log(f"probe D width {width}: one block, {warps} issuing warp"
+                    f"{'s' if warps > 1 else ''}: {ns:.2f} ns a row")
         idx = [a.long() for a in args if a.dtype == torch.int32]
         # one PyTorch call that computes the same, where there is one: the
         # pair compare and the copy ring have none, and torch 2.11 has no
@@ -848,8 +896,8 @@ def probe_phase(dev):
                "C2": lambda: torch.take(args[0], idx[0]),
                "C3": lambda: torch.gather(args[0], 1, idx[0]),
                "E": lambda: torch.index_select(args[1], 0, idx[0])}.get(probe.key)
-        ms = row_ms(lambda: probe.wrapper(*args), 20)
-        plain_ms = row_ms(lambda: probe.plain(*args), 20)
+        ms = row_ms(lambda: kernel(probe)(*args), 20)
+        plain_ms = row_ms(lambda: plain(probe)(*args), 20)
         library_ms = None if lib is None else row_ms(lib, 20)
         if probe.inputs is None:       # the rows D fetches, not its whole table
             nbytes = probe_kernels.RING_ITERS * width * 4 + _nbytes(got)
@@ -865,7 +913,10 @@ def probe_phase(dev):
             f"({bound_by}: {nbytes} B)")
         lib_us = None if lib is None else f"{device_us(lib):.4f} us"
         log(f"{name}: device time per call (profiler, {PROBE_TRACED} calls) "
-            f"{device_us(lambda: probe.wrapper(*args)):.4f} us vs library {lib_us}")
+            f"{device_us(lambda: kernel(probe)(*args)):.4f} us vs library {lib_us}")
+        lib_host = None if lib is None else f"{host_us(lib):.3f} us"
+        log(f"{name}: host time per call ({HOST_CALLS} calls) "
+            f"{host_us(lambda: kernel(probe)(*args)):.3f} us vs library {lib_host}")
         # one row per entry: D's is its widest call, the last of its cases
         rows[probe.entry] = {
             "name": probe.entry, "route": "cuda",
@@ -896,11 +947,13 @@ def main():
     # 2. the kernels
     t0 = time.perf_counter()
     _build.library()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc "
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, compile and link "
         f"{_build.build_info['seconds']:.2f} s ({_build.build_info['path']})")
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+        elif line.endswith(" s") and ": " in line:      # each step's wall time
+            log("  build " + line)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)

@@ -36,3 +36,12 @@ def nvcc_path() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def cxx_path() -> str:
+    """The host compiler the kernel binding is built with: $CXX, else
+    ``c++`` on PATH."""
+    found = shutil.which(os.environ.get("CXX") or "c++")
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler found (set CXX or put c++ on PATH)")

@@ -1,9 +1,9 @@
 // Shared definitions of the rmi_tpu_torch kernels.
 //
-// Every kernel is reached through a plain C entry point (RMI_API) that
-// launches on the stream it is handed and returns cudaGetLastError(),
-// so a refused launch reaches the Python wrapper as a nonzero code
-// (rmi_tpu_torch/ops/_build.py).  The library is compiled with
+// Every kernel is reached through a plain C entry point (RMI_API, listed
+// in entries.h) that launches on the stream it is handed and returns
+// cudaGetLastError(), so a refused launch reaches the Python wrapper as a
+// nonzero code (csrc/binding.cpp raises it).  The library is compiled with
 // -fmad=false: a multiply and an add fuse only where the source says
 // fma().
 #pragma once
@@ -12,6 +12,10 @@
 #include <stdint.h>
 
 #define RMI_API extern "C" __attribute__((visibility("default")))
+
+#define RMI_ENTRY(name, params) RMI_API int name params;
+#include "entries.h"
+#undef RMI_ENTRY
 
 #define RMI_FULL_MASK 0xffffffffu
 

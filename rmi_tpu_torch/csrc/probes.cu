@@ -24,17 +24,28 @@
 // staging it in shared memory costs more than it saves (a block would
 // read the whole table to use a part, and the table's size would be
 // bounded by a block's shared memory).  D is the measurement: the
-// rate at which one block, and one block per SM, fetches random rows
-// with cp.async.bulk onto mbarriers, which is how sorted_serve.cu stages
-// its windows.  B2 against B3 over a large array asks whether comparing
-// u64 keys as u32 pairs costs anything here.
+// rate at which one SM, with one to sixteen issuing warps, and the whole
+// card fetch random rows with cp.async.bulk onto mbarriers, which is how
+// sorted_serve.cu stages its windows.  B2 against B3 over a large array
+// asks whether comparing u64 keys as u32 pairs costs anything here.
 //
 // Measured by tools/probe_torch_kernels.py on an NVIDIA H100 80GB HBM3
-// at its 700 W limit.  D: one block fetches a row in 279-283 ns whatever
-// its width (512 B to 8 KB): with 16 copies in flight the one copying
-// thread's wait, fence and next start bound it, not the copy's latency.
-// 132 blocks together take 2.12-2.14 ns per row up to 4 KB rows and
-// 2.75 ns per 8 KB row, 2.97 TB/s, where device memory bounds it.  B2
+// at its 700 W limit.  D: one issuing warp fetches a row in 170 ns
+// whatever its width (512 B to 8 KB; 280 ns while its loop divided by
+// nrows and by the ring's depth): its own wait, read, fence and next
+// start bound it, not the copy.  One block's rate grows with its issuing
+// warps, 85 / 43 / 23 ns a row at 2 / 4 / 8, and stops rising at 8 warps
+// for 1-4 KB rows (45-179 GB/s for the SM) and at 4 for 8 KB rows (192
+// GB/s, ~200 KB in flight); at 512 B 16 warps still gain (13 ns), at
+// 2-4 KB they lose (62-75 ns) with rings half as deep.  132 blocks of one
+// warp take 1.29 ns a row up to 4 KB rows and 2.61 ns per 8 KB row (3.1
+// TB/s).  The whole-card form, the probe's 4096 fetches over 128 blocks
+// of 8 warps, takes 2.5-2.6 us of device time at 512 B rows and 6.3-6.9
+// us at 8 KB (profiler) with the walk's 33.5 MB left in L2 by the call
+// before; with L2 flushed before each call, CUDA events around it read
+// 22.4 us (1.5 TB/s), where they read 10.8 warm.  No other split of the
+// walk (1-4 fetches a warp, 2-16 warps a block) was faster by more than
+// 0.12 us.  B2
 // over 2^26 random elements takes 0.445 ms (20 B per element, 3.0 TB/s);
 // B3 0.281 ms: it reads the low halves only where the high halves tie,
 // 12 B per element on random keys (2.9 TB/s).  Both run at the memory
@@ -56,7 +67,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSlots = 16;            // D: mbarriers per block
+constexpr int kMaxSlots = 16;            // D: most slots per issuing warp
+constexpr int kRingMaxWarps = 16;        // D: most issuing warps per block
+constexpr int64_t kRingStep = 7919;      // D's walk: row j is (j * 7919) mod nrows
 constexpr int kMaxDynamicShared = 232448;   // 227 KB, the most a block may ask for
 constexpr int kSharedPerSM = 233472;        // 228 KB of shared memory on each SM
 constexpr int kCopyWarps = 4;               // E: warps per block
@@ -213,44 +226,75 @@ __device__ __forceinline__ void fence_before_bulk_copy() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// D.  One thread per block keeps `slots` row copies in flight: copy
-// i goes to slot i % slots on that slot's own mbarrier, whose phase
-// parity is (i / slots) & 1.  Block b of nb walks rows
-// ((i nb + b) * 7919) mod nrows for i < iters (one block: the TPU
-// probe's walk; several: no two blocks fetch one row at one time, and a
-// row comes round again only after nrows other fetches), waits for each
-// in turn, reads its first value, adds it up and starts copy i + slots
-// into the slot just read.  out[b] is the block's sum.
-__global__ void __launch_bounds__(32)
-row_ring(const float* __restrict__ tbl, int64_t nrows, int width, int iters,
-         int slots, float* __restrict__ out) {
-  extern __shared__ __align__(128) float ring[];        // [slots, width]
-  __shared__ __align__(8) uint64_t bars[kMaxSlots];
-  if (threadIdx.x != 0) return;
+// D's shared memory: each warp's `depth` mbarriers, rounded up to 128
+// bytes, then each warp's ring of `depth` rows
+__host__ __device__ __forceinline__ size_t ring_bars_bytes(int warps, int depth) {
+  return ((size_t)warps * depth * sizeof(uint64_t) + 127) / 128 * 128;
+}
+
+// D.  Streams of bulk row copies, one per issuing warp.  The walk is
+// rows (j * 7919) mod nrows for j < fetches; with S = gridDim.x * warps
+// streams, stream s = blockIdx.x * warps + warp takes j = s, s + S, ...
+// (one stream: the TPU probe's walk in order; several: no two fetch one
+// row at one time, and a row comes round again only after nrows other
+// fetches).  Lane 0 of each warp keeps `depth` copies in flight in the
+// warp's own ring: its copy k goes to slot k mod depth on that slot's
+// own mbarrier, phase parity (k / depth) & 1; it waits for each copy in
+// turn, reads the row's first value, adds it up and starts copy
+// k + depth into the slot just read.  The issuing loop does no division:
+// slot and parity wrap by compare, and the next row is the last plus
+// (S * 7919) mod nrows, less nrows if that passes it.  out[s] is stream
+// s's f32 running sum, in its order.
+//
+// What bounds it: one issuing thread's loop (wait, read, fence, start)
+// took ~280 ns a row whatever the width, so the design puts up to 16
+// issuing warps on an SM, each its own loop and ring, and spreads the
+// walk over the card in the whole-card form.
+__global__ void __launch_bounds__(32 * kRingMaxWarps)
+row_ring(const float* __restrict__ tbl, int64_t nrows, int width, int64_t fetches,
+         int depth, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (threadIdx.x & 31) return;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + warp * depth;
+  float* ring = reinterpret_cast<float*>(smem + ring_bars_bytes(warps, depth)) +
+                (int64_t)warp * depth * width;
+  const int64_t S = (int64_t)gridDim.x * warps;
+  const int64_t s = (int64_t)blockIdx.x * warps + warp;
+  const int64_t n = s < fetches ? (fetches - 1 - s) / S + 1 : 0;
+  const int64_t step = (S % nrows) * kRingStep % nrows;
   const uint32_t bytes = (uint32_t)width * 4u;
-  const int64_t nb = gridDim.x, b = blockIdx.x;
-  for (int s = 0; s < slots; ++s) barrier_init(smem_addr(&bars[s]));
+  for (int k = 0; k < depth; ++k) barrier_init(smem_addr(&bars[k]));
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  const int ahead = min(slots, iters);
-  for (int i = 0; i < ahead; ++i) {
-    const int64_t row = ((i * nb + b) * 7919) % nrows;
-    row_copy_start(ring + (int64_t)i * width, tbl + row * width, bytes,
-                   smem_addr(&bars[i]));
+  int64_t row = s % nrows * kRingStep % nrows;   // of the next copy to start
+  int64_t started = 0;
+  for (; started < n && started < depth; ++started) {
+    row_copy_start(ring + started * width, tbl + row * width, bytes,
+                   smem_addr(&bars[started]));
+    row += step;
+    if (row >= nrows) row -= nrows;
   }
   float acc = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const int slot = i % slots;
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int64_t k = 0; k < n; ++k) {
     const uint32_t bar = smem_addr(&bars[slot]);
     float* dst = ring + (int64_t)slot * width;
-    barrier_wait(bar, (uint32_t)(i / slots) & 1u);
+    barrier_wait(bar, parity);
     acc += *reinterpret_cast<volatile float*>(dst);
-    if (i + slots < iters) {
+    if (started < n) {
       fence_before_bulk_copy();
-      const int64_t row = (((int64_t)(i + slots) * nb + b) * 7919) % nrows;
       row_copy_start(dst, tbl + row * width, bytes, bar);
+      ++started;
+      row += step;
+      if (row >= nrows) row -= nrows;
+    }
+    if (++slot == depth) {
+      slot = 0;
+      parity ^= 1u;
     }
   }
-  out[blockIdx.x] = acc;
+  out[s] = acc;
 }
 
 // E.  The rows spread over the card.  Block b copies the rows
@@ -422,22 +466,32 @@ RMI_API int rmi_probe_take_lanes(const float* tbl, const int32_t* idx, float* ou
   return (int)cudaGetLastError();
 }
 
-// out[b] = sum of tbl[((i blocks + b) * 7919) mod nrows, 0] for i < iters,
-// each row fetched whole; tbl [nrows, width] f32 on a 16-byte boundary,
-// width a multiple of 4, 1 <= slots <= 16
+// out[s] = sum of tbl[(j * 7919) mod nrows, 0] over j = s, s + S, ...
+// below fetches, S = blocks * warps, each row fetched whole; tbl
+// [nrows, width] f32 on a 16-byte boundary, width a multiple of 4,
+// 1 <= slots <= 16, 1 <= warps <= 16, out [S].  Each warp's ring is
+// min(slots, ceil(fetches / S), what 227 KB of shared memory holds for
+// `warps` rings) deep: at 8 KB rows and 8 warps, 3.
 RMI_API int rmi_probe_row_ring(const float* tbl, int64_t nrows, int64_t width,
-                               int64_t iters, int64_t slots, int64_t blocks,
-                               float* out, void* stream) {
-  if (nrows <= 0 || width <= 0 || width % 4 || iters < 0 || slots < 1 ||
-      slots > kMaxSlots || blocks < 1) {
+                               int64_t fetches, int64_t slots, int64_t blocks,
+                               int64_t warps, float* out, void* stream) {
+  if (nrows <= 0 || width <= 0 || width % 4 || width > (1 << 20) || fetches < 0 ||
+      slots < 1 || slots > kMaxSlots || blocks < 1 || blocks > INT32_MAX || warps < 1 ||
+      warps > kRingMaxWarps) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t bytes = (size_t)slots * width * sizeof(float);
+  const size_t row = (size_t)width * sizeof(float);
+  const int64_t per = (fetches + blocks * warps - 1) / (blocks * warps);
+  int depth = (int)std::max<int64_t>(1, std::min<int64_t>(slots, per));
+  const auto need = [&](int d) { return ring_bars_bytes((int)warps, d) + warps * d * row; };
+  while (depth > 1 && need(depth) > (size_t)kMaxDynamicShared) --depth;
+  const size_t bytes = need(depth);
+  if (bytes > (size_t)kMaxDynamicShared) return (int)cudaErrorInvalidValue;
   static size_t allowed[kMaxDevices] = {};
   const cudaError_t err = allow_shared(row_ring, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
-  row_ring<<<(unsigned int)blocks, 32, bytes, (cudaStream_t)stream>>>(
-      tbl, nrows, (int)width, (int)iters, (int)slots, out);
+  row_ring<<<(unsigned int)blocks, (unsigned int)(32 * warps), bytes, (cudaStream_t)stream>>>(
+      tbl, nrows, (int)width, fetches, depth, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,30 +1,39 @@
-"""nvcc build and ctypes binding of the CUDA kernels in ``csrc/``.
+"""Build and binding of the CUDA kernels in ``csrc/``.
 
-Every ``.cu`` file compiles to an object with its own ``nvcc``, all
-started together, and the objects link into ONE shared library with a
-plain C interface, built on first use into ``rmi_tpu_torch/_build/`` and
-keyed by a hash of the sources and flags, so a fresh checkout builds
-once and an edited kernel rebuilds.  ``-fmad=false`` stops nvcc from
-contracting a multiply and an add that the source leaves apart: every
-fused multiply-add in the kernels is an explicit ``fma()``
-(csrc/leaf_eval.cuh).
+Every ``.cu`` file compiles to an object with its own ``nvcc`` and the
+binding (``csrc/binding.cpp``) with the host compiler against torch's
+headers, all started together; the objects link into ONE Python
+extension module, built on first use into ``rmi_tpu_torch/_build/`` and
+keyed by a hash of the sources, the flags and the torch and Python it
+was built for, so a fresh checkout builds once and an edited kernel
+rebuilds.  ``-fmad=false`` stops nvcc from contracting a multiply and an
+add that the source leaves apart: every fused multiply-add in the
+kernels is an explicit ``fma()`` (csrc/leaf_eval.cuh).
 
-The C entry points launch on the stream they are given and return
-``cudaGetLastError()``; ``launch`` raises if it is not 0, and otherwise
-adds one to the entry's count in ``launches``.  Each entry's ctypes
-function is resolved once, with its argument types, and a launch enters
-the tensors' device only when it is not the current one: the host cost
-of a launch is what a kernel of a few microseconds is timed at
-(PERF.md section 6, the probes).
+The C entry points (``csrc/entries.h``; ``SIGNATURES`` here) launch on
+the stream they are given and return ``cudaGetLastError()``.
+``launch(name, *args)`` is the binding's: one call from Python per
+launch, which converts each argument by its C parameter's type, checks
+that every tensor is contiguous and on one CUDA device (ValueError),
+allocates the outputs given as shapes, launches on that device's current
+stream, raises if the entry returns nonzero and otherwise adds one to
+the entry's count in ``launches`` (csrc/binding.cpp says how).  The
+binding needs the host compiler, torch's headers and libraries and
+Python's ``Python.h``; a build that fails raises, and nothing falls back
+to another binding.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
+import sys
+import sysconfig
 import time
 
 import torch
@@ -34,159 +43,153 @@ from rmi_tpu_torch import config
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC")
+BINDING = "binding.cpp"
+MODULE = "rmi_kernels"            # the extension's name (PyInit_rmi_kernels)
+TORCH_LIBS = ("c10", "c10_cuda", "torch", "torch_cpu", "torch_cuda", "torch_python")
 
-_lib = None
+_ext = None
 build_info = {}      # path, seconds (0.0 when loaded from an earlier build), log
+
+
+def _signatures() -> dict:
+    """name -> parameter types of every C entry, read from entries.h."""
+    text = (config.CSRC_DIR / "entries.h").read_text()
+    return {name: tuple(" ".join(p.split()[:-1]) for p in params.split(","))
+            for name, params in re.findall(r"^RMI_ENTRY\((\w+),\s*\(([^)]*)\)\)", text,
+                                           re.MULTILINE)}
+
+
+# parameter types of every C entry point, in entries.h's order
+SIGNATURES = _signatures()
+
+# successful launches per C entry point since the process started
+launches = dict.fromkeys(SIGNATURES, 0)
 
 
 def _sources():
     return sorted(p for p in config.CSRC_DIR.iterdir()
-                  if p.suffix in (".cu", ".cuh"))
+                  if p.suffix in (".cu", ".cuh", ".h", ".cpp"))
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *CXX_FLAGS, torch.__version__,
+                                 sys.version)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, compiled first if this source hash has no
-    build yet."""
-    global _lib
-    if _lib is None:
-        _lib = _load()
-    return _lib
+def library():
+    """The kernels' extension module, compiled first if this source hash
+    has no build yet."""
+    global _ext, launch
+    if _ext is None:
+        _ext = _load()
+        _ext.set_counts(launches)
+        launch = _ext.launch
+    return _ext
 
 
-def _load() -> ctypes.CDLL:
+def launch(name: str, *args):
+    """Call C entry ``name`` (module docstring).  This Python function
+    stands in until the first call, which builds the library and puts the
+    binding's own ``launch`` in its place."""
+    if name not in SIGNATURES:
+        raise ValueError(f"unknown C entry point {name!r}")
+    return library().launch(name, *args)
+
+
+def _load():
     config.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = config.BUILD_DIR / f"librmi_kernels_{_digest()}.so"
+    so = config.BUILD_DIR / f"{MODULE}_{_digest()}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         t0 = time.perf_counter()
         log = _compile(so)
         seconds = time.perf_counter() - t0
     build_info.update(path=str(so), seconds=seconds, log=log)
-    return ctypes.CDLL(str(so))
+    loader = importlib.machinery.ExtensionFileLoader(MODULE, str(so))
+    spec = importlib.util.spec_from_file_location(MODULE, str(so), loader=loader)
+    module = importlib.util.module_from_spec(spec)
+    loader.exec_module(module)
+    return module
+
+
+def python_include() -> str:
+    """The directory of Python.h, which the binding compiles against."""
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError(f"Python.h not found in {inc}: the kernel binding "
+                           f"needs Python's development headers")
+    return inc
+
+
+def commands(nvcc: str, cxx: str, obj_dir, out) -> tuple:
+    """([(source, compile command)], link command): one nvcc per .cu file
+    and one host compiler run for the binding, their objects in
+    ``obj_dir``, then one link into the extension ``out``."""
+    from torch.utils import cpp_extension
+    cuda_inc = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(nvcc))),
+                            "include")
+    torch_lib = cpp_extension.library_paths()[0]
+    compiles, objs = [], []
+    for src in _sources():
+        obj = os.path.join(obj_dir, f"{src.stem}.o")
+        if src.suffix == ".cu":
+            compiles.append((src.name, [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]))
+        elif src.name == BINDING:
+            abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+            compiles.append((src.name, [
+                cxx, *CXX_FLAGS, "-c", "-o", obj, str(src), f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+                *(f"-I{p}" for p in cpp_extension.include_paths()),
+                f"-I{python_include()}", f"-I{cuda_inc}"]))
+        else:
+            continue
+        objs.append(obj)
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *objs, f"-L{torch_lib}",
+            *(f"-l{lib}" for lib in TORCH_LIBS), "-Xlinker", "-rpath", "-Xlinker", torch_lib]
+    return compiles, link
 
 
 def _compile(so) -> str:
-    """One nvcc per .cu file, all running at once, then one link into
-    ``so``; returns the compilers' output.  Raises if any step fails."""
-    nvcc = config.nvcc_path()
+    """The compile commands all running at once, then the link into
+    ``so``; returns the compilers' output with each step's wall time.
+    Raises if any step fails."""
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     obj_dir = so.with_name(f"{so.stem}.{os.getpid()}.obj")
     obj_dir.mkdir()
     try:
-        jobs = []
-        for cu in (p for p in _sources() if p.suffix == ".cu"):
-            obj = obj_dir / f"{cu.stem}.o"
-            jobs.append((cu.name, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        compiles, link = commands(config.nvcc_path(), config.cxx_path(), str(obj_dir), tmp)
+        t0 = time.perf_counter()
+        jobs = {}
+        for name, cmd in compiles:
+            out = open(obj_dir / f"{name}.log", "w+")
+            jobs[name] = (out, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT))
+        ends = {}
+        while len(ends) < len(jobs):
+            for name, (_, proc) in jobs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.05)
         log, failed = "", []
-        for name, _, proc in jobs:
-            out = proc.communicate()[0]
-            log += out
+        for name, (out, proc) in jobs.items():
+            out.seek(0)
+            log += out.read() + f"{name}: {ends[name]:.2f} s\n"
+            out.close()
             if proc.returncode != 0:
                 failed.append(f"{name} ({proc.returncode})")
         if failed:
-            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                               *(str(obj) for _, obj, _ in jobs)],
-                              capture_output=True, text=True)
-        log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+            raise RuntimeError(f"compile failed for {', '.join(failed)}:\n{log}")
+        t1 = time.perf_counter()
+        done = subprocess.run(link, capture_output=True, text=True)
+        log += done.stdout + done.stderr + f"link: {time.perf_counter() - t1:.2f} s\n"
+        if done.returncode != 0:
+            raise RuntimeError(f"link failed ({done.returncode}):\n{log}")
         os.replace(tmp, so)          # atomic: concurrent builders agree
     finally:
         shutil.rmtree(obj_dir, ignore_errors=True)
+        if tmp.exists():
+            tmp.unlink()
     return log
-
-
-_P = ctypes.c_void_p
-_I64 = ctypes.c_int64
-_I32 = ctypes.c_int32
-_F64 = ctypes.c_double
-
-# argtypes of every C entry point (csrc/*.cu)
-SIGNATURES = {
-    "rmi_scan_i32": (_P, _P, _I64, _I32, _I32, _I32, _P, _P),
-    "rmi_aug_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
-    "rmi_aug_moments_weighted": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
-    "rmi_aug_moments_xx": (_P, _P, _P, _P, _P, _I64, _P),
-    "rmi_sweep_max_linear": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "rmi_sweep_max_cubic": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "rmi_sweep_max_loglinear": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "rmi_sweep_max_normal": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "rmi_span_run_max": (_P, _P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_leaf_eval_linear": (_P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_leaf_eval_cubic": (_P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_leaf_eval_loglinear": (_P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_leaf_eval_normal": (_P, _P, _P, _P, _I64, _I64, _P),
-    "rmi_lookup_linear": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
-    "rmi_lookup_cubic": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
-    "rmi_lookup_loglinear": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
-    "rmi_lookup_normal": (_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _F64, _F64, _P),
-    "rmi_cubic_l1": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
-    "rmi_serve_sorted": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _P, _P),
-    "rmi_serve_sorted_scatter": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
-                                 _P, _P),
-    "rmi_probe_scale2": (_P, _P, _I64, _P),
-    "rmi_probe_lt_i64": (_P, _P, _P, _I64, _P),
-    "rmi_probe_lt_u64": (_P, _P, _P, _I64, _P),
-    "rmi_probe_lt_u32pair": (_P, _P, _P, _P, _P, _I64, _P),
-    "rmi_probe_gather_rows": (_P, _P, _P, _I64, _I64, _I64, _P),
-    "rmi_probe_take": (_P, _P, _P, _I64, _I64, _P),
-    "rmi_probe_take_lanes": (_P, _P, _P, _I64, _I64, _P),
-    "rmi_probe_row_ring": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P),
-    "rmi_probe_row_copy": (_P, _P, _P, _I64, _I64, _P),
-}
-
-# successful launches per C entry point since the process started
-launches = dict.fromkeys(SIGNATURES, 0)
-
-
-_entries = {}         # entry name -> its ctypes function, argtypes set
-_C = torch._C
-
-
-def _entry(name: str):
-    fn = getattr(library(), name)
-    fn.argtypes = list(SIGNATURES[name])
-    fn.restype = ctypes.c_int
-    _entries[name] = fn
-    return fn
-
-
-def launch(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream of the card that its
-    first argument, a tensor, lies on, and count it; raise on a launch
-    error.  Tensor arguments pass their device pointers."""
-    fn = _entries.get(name) or _entry(name)
-    dev = args[0].get_device()
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    # the current stream's handle and device, as torch's generated kernels
-    # fetch them
-    stream = _C._cuda_getCurrentRawStream(dev)
-    if dev == _C._cuda_getDevice():
-        rc = fn(*conv, stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = fn(*conv, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    launches[name] += 1
-
-
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """All ``tensors`` contiguous and on one CUDA device."""
-    dev = tensors[0].get_device()
-    for t in tensors:
-        if t.get_device() != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {tensors[0].device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: non-contiguous input")

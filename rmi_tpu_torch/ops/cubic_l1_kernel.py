@@ -84,11 +84,6 @@ def cubic_l1_sums(x, y, cubic_w, lin_w, spans: seg.Spans):
     _check(x, y, cubic_w, lin_w, spans)
     if x.is_cpu:
         return cubic_l1_sums_plain(x, y, cubic_w, lin_w, spans)
-    _build.check_cuda("cubic_l1_sums", x, y, cubic_w, lin_w, spans.aug_starts,
-                      spans.aug_ends)
     B = spans.B
-    c_err = torch.empty(B, dtype=torch.float64, device=x.device)
-    l_err = torch.empty(B, dtype=torch.float64, device=x.device)
-    _build.launch("rmi_cubic_l1", x, y, cubic_w, lin_w, spans.aug_starts,
-                  spans.aug_ends, c_err, l_err, B)
-    return c_err, l_err
+    return _build.launch("rmi_cubic_l1", x, y, cubic_w, lin_w, spans.aug_starts,
+                         spans.aug_ends, B, B, B)

@@ -77,7 +77,6 @@ def leaf_eval_clamped(x, w, leaf_ids, bound: int, *, leaf_type: str) -> torch.Te
     _check(x, w, leaf_ids, mdef.ppm)
     if x.is_cpu:
         return leaf_eval_clamped_plain(x, w, leaf_ids, bound, leaf_type=leaf_type)
-    _build.check_cuda("leaf_eval_clamped", x, w, leaf_ids)
     _check_card_table("leaf_eval_clamped", w)
     if not 0 <= bound <= MAX_BOUND:
         raise ValueError(f"leaf_eval_clamped: bound {bound} outside [0, 2^31)")
@@ -174,7 +173,6 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     if table is None:
         table = lookup_table(leaf_w, leaf_errors)
     _check_table("lookup_clamped", table, lookup_width(mleaf.ppm), rows=B)
-    _build.check_cuda("lookup_clamped", queries, top_w, table)
     _check_card_table("lookup_clamped", table)
     _check_card_table("lookup_clamped", top_w)
     if not 1 <= n <= MAX_BOUND + 1 or B > MAX_BOUND + 1:

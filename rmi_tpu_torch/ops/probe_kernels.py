@@ -10,7 +10,9 @@ numpy seeds).  tools/probe_torch_kernels.py runs them.
   C1  gather_rows        tbl[idx, :], each row read through L2, no stage
   C2  take               tbl[idx] from a 1-D table read through L2
   C3  take_lanes         take_along_axis(tbl, idx, 1) by warp shuffles
-  D   row_ring           pipelined random-row bulk copies, 16 in flight
+  D   row_ring           pipelined random-row bulk copies, rings of up to 16
+                         in flight per issuing warp; row_ring_card spreads
+                         the probe's walk over the card
   E   row_copy           index-driven row copies, spread over the card
 
 torch has no ``<`` on uint64 on the CPU, so B2's plain version compares
@@ -18,7 +20,13 @@ the order-preserving int64 images x ^ 2^63 (rmi_tpu_torch/keys.py): the
 probe holds the kernel's unsigned compare to the signed compare of the
 images that the port's keys rest on.  Every probe's output equals its
 plain version's exactly; D's sum is exact because its tables hold small
-integers.  On CPU tensors a wrapper runs the plain version.
+integers.  On CPU tensors a wrapper checks the types and runs the plain
+version; on a CUDA tensor it launches its kernel through _build.launch,
+which checks the tensors' types against the C entry's prototype and
+their device and layout, and allocates the outputs given as shapes.
+Shapes every wrapper checks itself, on either device.  A probe's call is
+a few microseconds of host time, so the card path does no more Python
+than that.
 """
 
 from __future__ import annotations
@@ -32,10 +40,13 @@ from rmi_tpu_torch.ops import _build
 
 INT64_MIN = -(1 << 63)
 RING_ROWS = 1 << 17          # D's table rows
-RING_ITERS = 4096            # D's copies per block
-RING_SLOTS = 16              # D's copies in flight
-RING_STEP = 7919             # D's pseudo-random walk: row i is (i * 7919) mod rows
+RING_ITERS = 4096            # D's copies: the TPU probe's walk, and per issuing warp
+RING_SLOTS = 16              # D's most copies in flight per issuing warp
+RING_STEP = 7919             # D's pseudo-random walk: row j is (j * 7919) mod rows
 RING_WIDTHS = (128, 256, 512, 1024, 2048)
+RING_MAX_WARPS = 16          # D: most issuing warps per block
+RING_WARPS = 8               # D's whole-card form: issuing warps per block
+RING_PER_WARP = 4            # D's whole-card form: fetches per issuing warp
 MAX_SHARED_BYTES = 232448    # dynamic shared memory one block may ask for
 COPY_WARPS = 4              # E: warps per block, each with its own ring
 COPY_SHARE = 8192           # E: most indices a block stages
@@ -69,13 +80,10 @@ def scale2_plain(x):
 
 def scale2(x):
     """A: 2 x for f32 ``x`` of any shape."""
-    _check("scale2", torch.float32, x)
     if x.is_cpu:
+        _check("scale2", torch.float32, x)
         return scale2_plain(x)
-    _build.check_cuda("scale2", x)
-    out = torch.empty_like(x)
-    _build.launch("rmi_probe_scale2", x, out, x.numel())
-    return out
+    return _build.launch("rmi_probe_scale2", x, x.shape, x.numel())
 
 
 def less_than_i64_plain(x, q):
@@ -84,13 +92,13 @@ def less_than_i64_plain(x, q):
 
 def less_than_i64(x, q):
     """B1: x < q as int32 for int64 ``x`` and ``q`` of one shape."""
-    _check("less_than_i64", torch.int64, x, q)
     if x.is_cpu:
+        _check("less_than_i64", torch.int64, x, q)
         return less_than_i64_plain(x, q)
-    _build.check_cuda("less_than_i64", x, q)
-    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    _build.launch("rmi_probe_lt_i64", x, q, out, x.numel())
-    return out
+    shape = x.shape
+    if q.shape != shape:
+        raise ValueError("less_than_i64: shapes differ")
+    return _build.launch("rmi_probe_lt_i64", x, q, shape, x.numel())
 
 
 def less_than_u64_plain(x, q):
@@ -101,13 +109,13 @@ def less_than_u64_plain(x, q):
 def less_than_u64(x, q):
     """B2: x < q as int32 for uint64 values whose bits ``x`` and ``q``
     carry as int64."""
-    _check("less_than_u64", torch.int64, x, q)
     if x.is_cpu:
+        _check("less_than_u64", torch.int64, x, q)
         return less_than_u64_plain(x, q)
-    _build.check_cuda("less_than_u64", x, q)
-    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    _build.launch("rmi_probe_lt_u64", x, q, out, x.numel())
-    return out
+    shape = x.shape
+    if q.shape != shape:
+        raise ValueError("less_than_u64: shapes differ")
+    return _build.launch("rmi_probe_lt_u64", x, q, shape, x.numel())
 
 
 def _u32(a):
@@ -122,13 +130,12 @@ def less_than_u32pair_plain(hi, lo, qh, ql):
 def less_than_u32pair(hi, lo, qh, ql):
     """B3: (hi, lo) < (qh, ql) in lexicographic order as int32, for
     uint32 halves whose bits the four int32 tensors carry."""
-    _check("less_than_u32pair", torch.int32, hi, lo, qh, ql)
     if hi.is_cpu:
+        _check("less_than_u32pair", torch.int32, hi, lo, qh, ql)
         return less_than_u32pair_plain(hi, lo, qh, ql)
-    _build.check_cuda("less_than_u32pair", hi, lo, qh, ql)
-    out = torch.empty(hi.shape, dtype=torch.int32, device=hi.device)
-    _build.launch("rmi_probe_lt_u32pair", hi, lo, qh, ql, out, hi.numel())
-    return out
+    if not hi.shape == lo.shape == qh.shape == ql.shape:
+        raise ValueError("less_than_u32pair: shapes differ")
+    return _build.launch("rmi_probe_lt_u32pair", hi, lo, qh, ql, hi.shape, hi.numel())
 
 
 # --- C1-C3 ------------------------------------------------------------------
@@ -145,17 +152,15 @@ def gather_rows(tbl, idx):
     multiple of 4 or ``tbl`` does not start on a 16-byte boundary).
     Indices are not range-checked, since that would synchronise: on the
     card one out of range is undefined (a stray read or a fault)."""
-    _check("gather_rows", torch.float32, tbl)
-    _check_index("gather_rows", idx)
     if tbl.dim() != 2 or idx.dim() != 1:
         raise ValueError("gather_rows: tbl must be 2-D and idx 1-D")
     if tbl.is_cpu:
+        _check("gather_rows", torch.float32, tbl)
+        _check_index("gather_rows", idx)
         return gather_rows_plain(tbl, idx)
-    _build.check_cuda("gather_rows", tbl, idx)
     rows, width = tbl.shape
-    out = torch.empty(idx.shape[0], width, dtype=torch.float32, device=tbl.device)
-    _build.launch("rmi_probe_gather_rows", tbl, idx, out, rows, width, idx.shape[0])
-    return out
+    nq = idx.shape[0]
+    return _build.launch("rmi_probe_gather_rows", tbl, idx, (nq, width), rows, width, nq)
 
 
 def take_plain(tbl, idx):
@@ -168,16 +173,14 @@ def take(tbl, idx):
     index and the table entry where it lies.  Indices are not
     range-checked, since that would synchronise: on the card one out of
     range is undefined (a stray read or a fault)."""
-    _check("take", torch.float32, tbl)
-    _check_index("take", idx)
     if tbl.dim() != 1 or idx.dim() != 1:
         raise ValueError("take: tbl and idx must be 1-D")
     if tbl.is_cpu:
+        _check("take", torch.float32, tbl)
+        _check_index("take", idx)
         return take_plain(tbl, idx)
-    _build.check_cuda("take", tbl, idx)
-    out = torch.empty(idx.shape[0], dtype=torch.float32, device=tbl.device)
-    _build.launch("rmi_probe_take", tbl, idx, out, tbl.shape[0], idx.shape[0])
-    return out
+    nq = idx.shape[0]
+    return _build.launch("rmi_probe_take", tbl, idx, nq, tbl.shape[0], nq)
 
 
 def take_lanes_plain(tbl, idx):
@@ -187,57 +190,101 @@ def take_lanes_plain(tbl, idx):
 def take_lanes(tbl, idx):
     """C3: out[r, c] = tbl[r, idx[r, c]] for f32 ``tbl`` and int32 ``idx``,
     both [rows, 128], idx in [0, 128): warp shuffles, no shared memory."""
-    _check("take_lanes", torch.float32, tbl)
-    _check_index("take_lanes", idx)
-    if tbl.dim() != 2 or tbl.shape[1] != 128 or idx.shape != tbl.shape:
+    shape = tbl.shape
+    if len(shape) != 2 or shape[1] != 128 or idx.shape != shape:
         raise ValueError("take_lanes: tbl and idx must be [rows, 128]")
     if tbl.is_cpu:
+        _check("take_lanes", torch.float32, tbl)
+        _check_index("take_lanes", idx)
         return take_lanes_plain(tbl, idx)
-    _build.check_cuda("take_lanes", tbl, idx)
-    out = torch.empty_like(tbl)
-    _build.launch("rmi_probe_take_lanes", tbl, idx, out, tbl.shape[0], 128)
-    return out
+    return _build.launch("rmi_probe_take_lanes", tbl, idx, shape, shape[0], 128)
 
 
 # --- D, E -------------------------------------------------------------------
 
 def ring_rows(rows: int, iters: int = RING_ITERS, blocks: int = 1) -> torch.Tensor:
-    """[blocks, iters] int64: the rows D's block b fetches, in order:
-    ((i blocks + b) * 7919) mod rows, so that one block walks as the TPU
-    probe does and several fetch no row twice at one time."""
+    """[blocks, iters] int64: the rows D's stream b of ``blocks`` fetches,
+    in order: ((i blocks + b) * 7919) mod rows, so that one stream walks
+    as the TPU probe does and several fetch no row twice at one time."""
     g = torch.arange(blocks * iters, dtype=torch.int64).view(iters, blocks).t()
     return (g * RING_STEP) % rows
 
 
-def row_ring_plain(tbl, *, iters: int = RING_ITERS, blocks: int = 1):
-    """The sum of the first value of each fetched row, per block; summed
+def row_ring_plain(tbl, *, iters: int = RING_ITERS, blocks: int = 1, warps: int = 1):
+    """The sum of the first value of each fetched row, per stream; summed
     in f64, which equals the kernel's f32 running sum wherever that is
     exact (small integers, as in the probe's tables)."""
-    rows = ring_rows(tbl.shape[0], iters, blocks).to(tbl.device)
+    rows = ring_rows(tbl.shape[0], iters, blocks * warps).to(tbl.device)
     return tbl[:, 0][rows].double().sum(1).float()
 
 
-def row_ring(tbl, *, iters: int = RING_ITERS, slots: int = RING_SLOTS,
-             blocks: int = 1):
-    """D: [blocks] f32.  Block b fetches rows ((i blocks + b) * 7919) mod
-    rows of f32 ``tbl`` [rows, width] for i < iters, each whole row with
-    one cp.async.bulk into a ring of ``slots`` shared-memory slots, and
-    sums the rows' first values.  The probe runs 4096 copies through 16
-    slots; ``iters`` and ``slots`` are there for the tests, which also
-    drive a short walk and a ring that wraps more often."""
-    _check("row_ring", torch.float32, tbl)
-    if tbl.dim() != 2 or not 1 <= slots <= 16 or blocks < 1 or iters < 0:
-        raise ValueError("row_ring: want a 2-D table, 1-16 slots, blocks >= 1")
+def _check_ring(tbl, slots, blocks, warps, count):
+    if (tbl.dim() != 2 or not 1 <= slots <= RING_SLOTS or blocks < 1
+            or not 1 <= warps <= RING_MAX_WARPS or count < 0):
+        raise ValueError(f"row_ring: want a 2-D table, 1-{RING_SLOTS} slots, blocks >= 1, "
+                         f"1-{RING_MAX_WARPS} warps and a count >= 0")
     if tbl.is_cpu:
-        return row_ring_plain(tbl, iters=iters, blocks=blocks)
-    _build.check_cuda("row_ring", tbl)
+        _check("row_ring", torch.float32, tbl)
+
+
+def _ring(tbl, fetches, slots, blocks, warps):
+    """The kernel: [blocks * warps] f32, stream s = b * warps + w fetching
+    rows (j * 7919) mod rows for j = s, s + S, ... below ``fetches``,
+    S = blocks * warps."""
     rows, width = tbl.shape
     _check_bulk("row_ring", tbl, width)
-    if slots * width * 4 > MAX_SHARED_BYTES:
-        raise ValueError("row_ring: the ring exceeds a block's shared memory")
-    out = torch.empty(blocks, dtype=torch.float32, device=tbl.device)
-    _build.launch("rmi_probe_row_ring", tbl, rows, width, iters, slots, blocks, out)
-    return out
+    if -(-warps * 8 // 128) * 128 + warps * width * 4 > MAX_SHARED_BYTES:
+        raise ValueError("row_ring: a slot per warp exceeds a block's shared memory")
+    return _build.launch("rmi_probe_row_ring", tbl, rows, width, fetches, slots, blocks,
+                         warps, blocks * warps)
+
+
+def row_ring(tbl, *, iters: int = RING_ITERS, slots: int = RING_SLOTS,
+             blocks: int = 1, warps: int = 1):
+    """D: [blocks * warps] f32.  Each of ``blocks`` blocks has ``warps``
+    issuing warps, each a stream: stream s = b * warps + w of S fetches
+    rows ((i S + s) * 7919) mod rows of f32 ``tbl`` [rows, width] for
+    i < iters, each whole row with one cp.async.bulk into the warp's own
+    ring of shared-memory slots, and sums the rows' first values.  A
+    ring holds min(``slots``, what shared memory allows) copies in
+    flight.  One block of one warp walks as the TPU probe does, 4096
+    copies through 16 slots: the per-SM question, asked again with more
+    issuing warps; ``iters`` and ``slots`` are there for the tests, which
+    also drive a short walk and a ring that wraps more often."""
+    _check_ring(tbl, slots, blocks, warps, iters)
+    if tbl.is_cpu:
+        return row_ring_plain(tbl, iters=iters, blocks=blocks, warps=warps)
+    return _ring(tbl, iters * blocks * warps, slots, blocks, warps)
+
+
+def ring_card_blocks(warps: int = RING_WARPS) -> int:
+    """Blocks of D's whole-card form: RING_PER_WARP fetches per warp."""
+    return -(-RING_ITERS // (RING_PER_WARP * warps))
+
+
+def row_ring_card_plain(tbl, *, warps: int = RING_WARPS):
+    """The partial sums of the whole-card form: stream s sums the first
+    values of rows (j * 7919) mod rows for j = s (mod S) below
+    RING_ITERS; in f64, exact where the kernel's f32 sums are."""
+    streams = ring_card_blocks(warps) * warps
+    j = torch.arange(RING_ITERS, dtype=torch.int64, device=tbl.device)
+    vals = tbl[:, 0][(j * RING_STEP) % tbl.shape[0]].double()
+    return torch.zeros(streams, dtype=torch.float64,
+                       device=tbl.device).index_add_(0, j % streams, vals).float()
+
+
+def row_ring_card(tbl, *, warps: int = RING_WARPS):
+    """D over the whole card: [S] f32 partial sums, S = blocks * warps,
+    whose total is the TPU probe's own sum.  The probe's walk, rows
+    (j * 7919) mod rows for j < RING_ITERS, is split over
+    ring_card_blocks(warps) blocks of ``warps`` issuing warps,
+    stream s taking j = s, s + S, ... (about RING_PER_WARP fetches each,
+    all in flight at once where shared memory holds them); the partial
+    sums come in that fixed order, each exact on the probe's tables."""
+    _check_ring(tbl, RING_SLOTS, 1, warps, 0)
+    if tbl.is_cpu:
+        return row_ring_card_plain(tbl, warps=warps)
+    return _ring(tbl, RING_ITERS, RING_SLOTS, ring_card_blocks(warps), warps)
 
 
 def row_copy_plain(idx, x):
@@ -255,14 +302,11 @@ def row_copy(idx, x):
         raise ValueError("row_copy: want f32 x [rows, width] and int32 idx [nq]")
     if x.is_cpu:
         return row_copy_plain(idx, x)
-    _build.check_cuda("row_copy", idx, x)
     nq, width = idx.shape[0], x.shape[1]
     _check_bulk("row_copy", x, width)
     if COPY_WARPS * width * 4 + COPY_SHARE * 4 > MAX_SHARED_BYTES:
         raise ValueError("row_copy: a row per warp exceeds a block's shared memory")
-    out = torch.empty((nq, width), dtype=torch.float32, device=x.device)
-    _build.launch("rmi_probe_row_copy", idx, x, out, width, nq)
-    return out
+    return _build.launch("rmi_probe_row_copy", idx, x, (nq, width), width, nq)
 
 
 # --- the probes' inputs, as probes/probe_pallas.py makes them ----------------

@@ -34,11 +34,7 @@ def scan_i32(v: torch.Tensor, *, is_max: bool, fill: int,
         raise ValueError(f"scan_i32: want a 1-D int32 tensor, got {v.dtype} {tuple(v.shape)}")
     if v.is_cpu:
         return scan_i32_plain(v, is_max=is_max, reverse=reverse)
-    _build.check_cuda("scan_i32", v)
     n = v.shape[0]
-    out = torch.empty_like(v)
-    scratch = torch.empty(max(1, -(-n // TILE)), dtype=torch.int32,
-                          device=v.device)
-    _build.launch("rmi_scan_i32", v, out, n, int(is_max), int(fill),
-                  int(reverse), scratch)
+    out, _ = _build.launch("rmi_scan_i32", v, n, n, int(is_max), int(fill), int(reverse),
+                           max(1, -(-n // TILE)))      # the output and a scratch
     return out

@@ -79,17 +79,12 @@ def aug_centered_moments(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
     if x.is_cpu:
         return aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts,
                                           aug_ends, weights=weights)
-    _build.check_cuda("aug_centered_moments", *(a for _, a in named))
     B = mean_x.shape[0]
-    m2 = torch.empty(B, dtype=torch.float64, device=x.device)
-    c = torch.empty(B, dtype=torch.float64, device=x.device)
     if weights is None:
-        _build.launch("rmi_aug_moments", x, y, mean_x, mean_y, aug_starts,
-                      aug_ends, m2, c, B)
-    else:
-        _build.launch("rmi_aug_moments_weighted", x, y, weights, mean_x, mean_y,
-                      aug_starts, aug_ends, m2, c, B)
-    return m2, c
+        return _build.launch("rmi_aug_moments", x, y, mean_x, mean_y, aug_starts,
+                             aug_ends, B, B, B)
+    return _build.launch("rmi_aug_moments_weighted", x, y, weights, mean_x, mean_y,
+                         aug_starts, aug_ends, B, B, B)
 
 
 def aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends):
@@ -107,8 +102,5 @@ def aug_centered_xx(x, mean_x, aug_starts, aug_ends):
     _check("aug_centered_xx", named, _PER_LEAF)
     if x.is_cpu:
         return aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends)
-    _build.check_cuda("aug_centered_xx", x, mean_x, aug_starts, aug_ends)
     B = mean_x.shape[0]
-    m2 = torch.empty(B, dtype=torch.float64, device=x.device)
-    _build.launch("rmi_aug_moments_xx", x, mean_x, aug_starts, aug_ends, m2, B)
-    return m2
+    return _build.launch("rmi_aug_moments_xx", x, mean_x, aug_starts, aug_ends, B, B)

@@ -96,17 +96,12 @@ def _serve(q, order, group_first, keys, lo, hi, group):
         if order is None:
             return serve_sorted_plain(q, group_first, keys, lo, hi, group)
         return serve_sorted_scatter_plain(q, order, group_first, keys, lo, hi)
-    tensors = [t for t in (q, order, group_first, keys, lo, hi) if t is not None]
-    _build.check_cuda("serve_sorted", *tensors)
-    out = torch.empty_like(q)
-    if q.shape[0]:
-        common = (q.shape[0], group_first, group_first.shape[0], keys, keys.shape[0],
-                  lo, hi, KQ, group, out)
-        if order is None:
-            _build.launch("rmi_serve_sorted", q, *common)
-        else:
-            _build.launch("rmi_serve_sorted_scatter", q, order, *common)
-    return out
+    nq = q.shape[0]
+    common = (nq, group_first, group_first.shape[0], keys, keys.shape[0], lo, hi, KQ, group,
+              nq)
+    if order is None:
+        return _build.launch("rmi_serve_sorted", q, *common)
+    return _build.launch("rmi_serve_sorted_scatter", q, order, *common)
 
 
 def serve_sorted(q, group_first, keys, lo, hi) -> torch.Tensor:

@@ -99,7 +99,6 @@ def sweep_leaf_max(xn, yfix, starts, ends, w, n: int, *,
     if xn.is_cpu:
         return sweep_leaf_max_plain(xn, yfix, starts, ends, w, n,
                                     leaf_type=leaf_type)
-    _build.check_cuda("sweep_leaf_max", xn, yfix, starts, ends, w)
     B = starts.shape[0]
     max_err = torch.zeros(B, dtype=torch.int32, device=xn.device)
     _build.launch(f"rmi_sweep_max_{mdef.leaf_kernel}", xn, yfix, starts, ends, w,
@@ -140,7 +139,6 @@ def span_run_max(keys, yfix, starts, ends) -> torch.Tensor:
     _check_spans("span_run_max", starts, ends)
     if keys.is_cpu:
         return span_run_max_plain(keys, yfix, starts, ends)
-    _build.check_cuda("span_run_max", keys, yfix, starts, ends)
     B = starts.shape[0]
     longest_run = torch.zeros(B, dtype=torch.int32, device=keys.device)
     _build.launch("rmi_span_run_max", keys, yfix, starts, ends, longest_run, B,

@@ -15,7 +15,10 @@ the per-leaf maximum of the sweep, and K4 are compared with the plain
 version on CPU copies, where torch.addcmul is an exact FMA); the
 run-length pass and the nine card probes equal to their plain versions
 (C1 and C2 also bit-equal to tbl[idx] on tables beyond a block's shared
-memory, odd widths and offset views);
+memory, odd widths and offset views; D also with 1 and 16 issuing warps
+a block and in its whole-card form); every C entry's wrapper counts
+exactly one launch through the compiled binding, which refuses tensors
+off the card, non-contiguous or of the wrong type;
 K2 and its weighted and variance-only
 variants within rtol 1e-9 (summation order) plus 1e-12 of the
 Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 and its scatter
@@ -815,3 +818,125 @@ def test_probe_take_offset_views(dev, ntbl):
         idx = _offset_view(_gather_indices(rng, ntbl, nq), dev, 1)
         assert tbl.data_ptr() % 16 and idx.data_ptr() % 16
         _check_gather(probe_kernels.take, "rmi_probe_take", tbl, idx)
+
+
+@pytest.mark.parametrize("width", [128, 512, 2048])
+@pytest.mark.parametrize("warps", [1, 16])
+def test_probe_ring_warps_and_card_form(dev, width, warps):
+    """D with ``warps`` issuing warps a block, each its own stream and
+    ring, on the marked table: one block (the probe's 4096 copies per
+    warp; 37 copies through 3 slots, a ring that wraps), five blocks, and
+    the whole-card form, each equal to its plain version; the whole-card
+    form's partial sums add up to the TPU probe's own sum of its walk."""
+    tbl = probe_kernels.ring_table(width, dev, marked=True)
+    for kw in ({}, {"iters": 37, "slots": 3}, {"iters": 300, "slots": 3, "blocks": 5}):
+        before = _build.launches["rmi_probe_row_ring"]
+        got = probe_kernels.row_ring(tbl, warps=warps, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_probe_row_ring"] == before + 1
+        want = probe_kernels.row_ring_plain(tbl, warps=warps, **{
+            k: v for k, v in kw.items() if k != "slots"})
+        assert got.shape == (kw.get("blocks", 1) * warps,) and torch.equal(got, want)
+    got = probe_kernels.row_ring_card(tbl, warps=warps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe_kernels.row_ring_card_plain(tbl, warps=warps))
+    j = np.arange(probe_kernels.RING_ITERS)
+    assert float(got.double().sum()) == float(((j * 7919) % (1 << 17) % 251).sum())
+
+
+def _entry_calls(dev):
+    """C entry -> one call of the wrapper that launches it, on small
+    inputs (whose values do not matter here)."""
+    n, B = 5000, 64
+    x, y, t, _ = (a.to(dev) for a in _leaf_inputs(n, B, 12))
+    spans = seg.make_spans(t, B)
+    yf = y.double()
+    mx = torch.zeros(B, dtype=torch.float64, device=dev)
+    keys = torch.arange(0, 2 * n, 2, dtype=torch.int64, device=dev)
+    q = torch.arange(0, 1000, 2, dtype=torch.int64, device=dev)
+    lo = torch.zeros(1, dtype=torch.int64, device=dev)
+    hi = torch.full((1,), -(-n // 64), dtype=torch.int64, device=dev)
+    gf = keys[::ssk.GROUP].contiguous()
+    zeros = torch.zeros(B, 4, dtype=torch.float64, device=dev)
+    calls = {
+        "rmi_scan_i32": lambda: scan_kernel.scan_i32(y, is_max=True, fill=seg.INT32_MIN),
+        "rmi_aug_moments": lambda: select_kernel.aug_centered_moments(
+            x, yf, mx, mx, spans.aug_starts, spans.aug_ends),
+        "rmi_aug_moments_weighted": lambda: select_kernel.aug_centered_moments(
+            x, yf, mx, mx, spans.aug_starts, spans.aug_ends, weights=torch.ones_like(x)),
+        "rmi_aug_moments_xx": lambda: select_kernel.aug_centered_xx(
+            x, mx, spans.aug_starts, spans.aug_ends),
+        "rmi_span_run_max": lambda: sweep_kernel.span_run_max(
+            keys, torch.arange(n, dtype=torch.int32, device=dev), spans.starts, spans.ends),
+        "rmi_cubic_l1": lambda: cubic_l1_kernel.cubic_l1_sums(
+            x, y, zeros, zeros[:, :2].contiguous(), spans),
+        "rmi_serve_sorted": lambda: ssk.serve_sorted(q, gf, keys, lo, hi),
+        "rmi_serve_sorted_scatter": lambda: ssk.serve_sorted_scatter(
+            q, torch.arange(q.shape[0], device=dev), gf, keys, lo, hi),
+    }
+    for leaf in LEAVES:
+        kernel = get_model(leaf).leaf_kernel
+        w = torch.zeros(B, get_model(leaf).ppm, dtype=torch.float64, device=dev)
+        case = [a.to(dev) if torch.is_tensor(a) else a for a in lookup_case(leaf, leaf, 100, 3)]
+        calls[f"rmi_sweep_max_{kernel}"] = lambda w=w, leaf=leaf: sweep_kernel.sweep_leaf_max(
+            x, y, spans.starts, spans.ends, w, n, leaf_type=leaf)
+        calls[f"rmi_leaf_eval_{kernel}"] = lambda w=w, leaf=leaf: (
+            eval_kernel.leaf_eval_clamped(x, w, t.long(), n - 1, leaf_type=leaf))
+        calls[f"rmi_lookup_{kernel}"] = lambda case=case, leaf=leaf: (
+            eval_kernel.lookup_clamped(*case, top_type=leaf, leaf_type=leaf))
+    for probe in probe_kernels.PROBES:
+        args = probe_kernels.probe_inputs(probe, dev)
+        calls[probe.entry] = lambda probe=probe, args=args: probe.wrapper(*args)
+    return calls
+
+
+@pytest.mark.parametrize("entry", list(_build.SIGNATURES))
+def test_every_wrapper_counts_one_launch(dev, entry):
+    """Each C entry's wrapper, called once through the compiled binding,
+    adds one to its entry's count and nothing to any other."""
+    call = _entry_calls(dev)[entry]
+    before = dict(_build.launches)
+    call()
+    torch.cuda.synchronize()
+    moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+    assert moved == {entry: 1}
+
+
+def test_binding_refuses_bad_tensors(dev):
+    """The compiled binding raises, launches nothing and counts nothing
+    for a tensor off the card or on another card, a non-contiguous
+    tensor, a tensor of the wrong type, a wrong argument count and an
+    unknown entry; a tensor given for an output is written in place."""
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).view(8, 128)
+    before = dict(_build.launches)
+    bad = [((x.cpu(), x.shape, x.numel()), ValueError, "not on a CUDA device"),
+           ((x, x.cpu(), x.numel()), ValueError, "not on a CUDA device"),
+           ((x.t(), (128, 8), x.numel()), ValueError, "non-contiguous"),
+           ((x, torch.empty(128, 8, device=dev).t(), x.numel()), ValueError,
+            "non-contiguous"),
+           ((x.double(), x.shape, x.numel()), ValueError, "want"),
+           ((x, x.shape), TypeError, "takes 3 arguments"),
+           ((x, x.shape, 1.5), TypeError, "want an int")]
+    if torch.cuda.device_count() > 1:
+        bad.append(((x, torch.empty_like(x, device="cuda:1"), x.numel()), ValueError,
+                    "tensors on"))
+    for args, err, match in bad:
+        with pytest.raises(err, match=match):
+            _build.launch("rmi_probe_scale2", *args)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        probe_kernels.scale2(x.t())
+    i32 = torch.zeros(8, 128, dtype=torch.int32, device=dev)
+    for call in (lambda: probe_kernels.scale2(x.double()),           # the wrappers' types,
+                 lambda: probe_kernels.less_than_i64(i32, i32),       # checked on the card
+                 lambda: probe_kernels.take_lanes(x, i32.long()),     # by the binding
+                 lambda: probe_kernels.gather_rows(x, i32[0].long())):
+        with pytest.raises(ValueError, match="want"):
+            call()
+    with pytest.raises(ValueError, match="unknown C entry point"):
+        _build.launch("rmi_no_such_entry", x)
+    assert _build.launches == before
+    out = torch.empty_like(x)
+    assert _build.launch("rmi_probe_scale2", x, out, x.numel()) is None
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2 * x) and _build.launches["rmi_probe_scale2"] == before[
+        "rmi_probe_scale2"] + 1

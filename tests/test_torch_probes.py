@@ -155,6 +155,41 @@ def test_ring_walk_and_marked_table(probe_pallas, monkeypatch):
         (k * 7919) % (1 << 17) % 251 for k in range(40)))
 
 
+@pytest.mark.parametrize("warps", [1, 2, 3, 8, 16])
+def test_ring_card_form_splits_the_probe_walk(probe_pallas, monkeypatch, warps):
+    """D's whole-card form on the CPU (its plain version): the probe's
+    walk, rows (j * 7919) mod 2^17 for j < 4096, split over S = blocks *
+    warps streams (3 warps: streams of 3 and 4 fetches), stream s summing
+    j = s (mod S) in order; its partial sums add up to the JAX probe's
+    own sum of the marked table."""
+    marked = pk.ring_table(128, "cpu", marked=True)
+    got = pk.row_ring_card(marked, warps=warps).numpy()
+    streams = pk.ring_card_blocks(warps) * warps
+    assert got.shape == (streams,) and streams >= pk.RING_ITERS // pk.RING_PER_WARP
+    rows = (np.arange(pk.RING_ITERS) * 7919) % (1 << 17)
+    want = np.zeros(streams, np.float32)
+    for j, r in enumerate(rows):
+        want[j % streams] += np.float32(r % 251)
+    np.testing.assert_array_equal(got, want)
+    ones = pk.row_ring_card(pk.ring_table(128, "cpu"), warps=warps)
+    assert float(ones.double().sum()) == pk.RING_ITERS
+    kernel, kw, _, _ = _run_recorded(probe_pallas, monkeypatch, "_dma_rate", 128)[0]
+    jax_sum = np.asarray(probe_pallas.pl.pallas_call(kernel, **kw)(marked.numpy()))
+    assert float(jax_sum.reshape(())) == float(got.astype(np.float64).sum())
+
+
+@pytest.mark.parametrize("blocks,warps", [(1, 4), (3, 2)])
+def test_ring_warps_are_streams(blocks, warps):
+    """With several issuing warps a block, D's streams are blocks * warps
+    walks of ring_rows, stream s = b * warps + w, as with one warp a
+    block of blocks * warps blocks."""
+    tbl = pk.ring_table(128, "cpu", marked=True)
+    got = pk.row_ring(tbl, iters=50, blocks=blocks, warps=warps)
+    assert torch.equal(got, pk.row_ring(tbl, iters=50, blocks=blocks * warps))
+    with pytest.raises(ValueError):
+        pk.row_ring(tbl, warps=17)
+
+
 def test_unsigned_compares_near_the_sign_bit():
     """B2's image compare and B3's pair compare equal numpy's uint64 <
     on values around 2^63, 2^32 and 0, where a signed compare of the raw

@@ -12,7 +12,10 @@ PyTorch version, and prints one ``[OK]`` or ``[FAIL]`` line.  Beside them:
     launches after a warm-up, for one block and for one block per SM
     (what a kernel such as K5, which stages its windows the same way,
     sees); checked on a table of ones (each block sums 4096.0) and on a
-    marked table that a stale or misplaced slot cannot sum right;
+    marked table that a stale or misplaced slot cannot sum right; then
+    one SM's rate against its issuing warps (one block of 1-16 warps,
+    each its own ring), and the whole-card form's TB/s, warm and with L2
+    flushed;
   * B2 against B3 over 2^26 random elements: whether comparing u64 keys
     as (hi, lo) u32 pairs costs anything on this card (B3 reads the low
     halves only where the high halves tie, so its bytes depend on the
@@ -40,6 +43,11 @@ from rmi_tpu_torch import config  # noqa: E402
 from rmi_tpu_torch.ops import probe_kernels as pk  # noqa: E402
 
 REPS = 5                     # timed launches after one warm-up
+SWEEP_WARPS = (1, 2, 4, 8, 16)   # D: issuing warps of one block
+CARD_CALLS = 21              # D's whole-card form: launches timed alone
+FLUSH_BYTES = 100 << 20      # twice the 50 MB L2
+SLEEP_CYCLES = 200_000       # ~0.1 ms of card time that hides a launch's host cost
+CARD_GEOMETRIES = ((8, 4), (8, 2), (8, 1), (4, 4), (4, 2), (16, 2), (16, 1), (2, 4))  # (W, F)
 COMPARE_N = 1 << 26          # elements of the B2-against-B3 timing
 GATHER_TABLES = ((1 << 18, 128), (1 << 14, 2048))   # C1's large cases, 128 MB each
 TAKE_N = 1 << 24             # C2's large cases: indices, into 16 MB and 256 MB
@@ -51,6 +59,7 @@ def log(*a):
 
 
 def cuda_ms(fn, reps=REPS):
+    """ms per call over ``reps`` calls after one."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -77,7 +86,8 @@ def check(probe, dev):
 
 def ring_rates(dev, sms):
     """D at every width: the sums checked on both tables, then ns per
-    row for one block and for one block per SM.  Returns what failed."""
+    row for one block and for one block per SM, one issuing warp each.
+    Returns what failed."""
     failures = []
     for width in pk.RING_WIDTHS:
         tbl = pk.ring_table(width, dev)
@@ -99,6 +109,106 @@ def ring_rates(dev, sms):
                          f"{ns:8.2f} ns/row {1e3 / ns:8.1f} M rows/s "
                          f"{width * 4 / ns:7.1f} GB/s")
         log(f"     width={width:5d}: " + "   ".join(rates))
+        del tbl
+    return failures
+
+
+def ring_warp_sweep(dev):
+    """One SM's rate: one block with 1-16 issuing warps, each warp a
+    stream of 4096 fetches through its own ring, at rows of 512 B to
+    8 KB; the sums checked on the marked table.  Logs ns per row and the
+    warp count from which the next doubling gains under 10%.  Returns
+    what failed."""
+    failures = []
+    for width in pk.RING_WIDTHS:
+        tbl = pk.ring_table(width, dev, marked=True)
+        ns = {}
+        for warps in SWEEP_WARPS:
+            got = pk.row_ring(tbl, warps=warps)
+            if not torch.equal(got, pk.row_ring_plain(tbl, warps=warps)):
+                failures.append(f"width {width}, one block of {warps} warps: sums differ")
+            ns[warps] = cuda_ms(lambda: pk.row_ring(tbl, warps=warps)) * 1e6 / (
+                pk.RING_ITERS * warps)
+        flat = next((w for w, nxt in zip(SWEEP_WARPS, SWEEP_WARPS[1:])
+                     if ns[nxt] > 0.9 * ns[w]), SWEEP_WARPS[-1])
+        log(f"     width={width:5d} ({width * 4} B rows), one block: "
+            + ", ".join(f"{w} warps {v:.2f} ns/row" for w, v in ns.items())
+            + f"; the rate stops rising at {flat} warps "
+            f"({width * 4 / ns[flat]:.1f} GB/s for the SM)")
+        del tbl
+    return failures
+
+
+def ring_card_rates(dev):
+    """D's whole-card form (the probe's 4096 fetches over the card) at
+    every width: partial sums checked on the marked table, then the
+    kernel's device time and the TB/s of the rows it fetches, warm (the
+    same walk again, its rows left in L2 by the call before) and cold
+    (L2 flushed before each call by writing a buffer twice its size).
+    Each call is timed alone by CUDA events around it, queued behind a
+    wait on the card so that the host's launch is not in the span; the
+    median of CARD_CALLS.  Returns what failed."""
+    failures = []
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def alone_us(fn, cold):
+        times = []
+        for _ in range(CARD_CALLS):
+            if cold:
+                flush.fill_(1.0)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop) * 1e3)
+        return sorted(times)[CARD_CALLS // 2]
+
+    for width in pk.RING_WIDTHS:
+        tbl = pk.ring_table(width, dev, marked=True)
+        got = pk.row_ring_card(tbl)
+        if not torch.equal(got, pk.row_ring_card_plain(tbl)):
+            failures.append(f"width {width}, whole-card form: partial sums differ")
+        nbytes = pk.RING_ITERS * width * 4
+        us = {cold: alone_us(lambda: pk.row_ring_card(tbl), cold) for cold in (False, True)}
+        log(f"     width={width:5d}: whole card ({pk.ring_card_blocks()} blocks "
+            f"of {pk.RING_WARPS} warps): "
+            + ", ".join(f"{'cold' if cold else 'warm'} {t:.3f} us ({nbytes / t / 1e6:.3f} TB/s)"
+                        for cold, t in us.items()))
+        del tbl
+    return failures
+
+
+def device_us(fn, calls=100):
+    """Device us per call of ``fn``: its kernels' time in a profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                if getattr(e.device_type, "name", str(e.device_type)).endswith("CUDA"))
+    return total / calls
+
+
+def ring_card_geometry(dev):
+    """The whole-card form's split of the probe's walk, against others:
+    blocks of W issuing warps, F fetches a warp, at the narrowest and
+    widest rows; each checked by its total on the table of ones, timed by
+    the profiler's device time.  Returns what failed."""
+    failures = []
+    for width in (pk.RING_WIDTHS[0], pk.RING_WIDTHS[-1]):
+        tbl = pk.ring_table(width, dev)
+        times = []
+        for warps, per in CARD_GEOMETRIES:
+            blocks = -(-pk.RING_ITERS // (warps * per))
+            run = lambda: pk._ring(tbl, pk.RING_ITERS, pk.RING_SLOTS, blocks, warps)  # noqa: E731
+            if float(run().double().sum()) != pk.RING_ITERS:
+                failures.append(f"width {width}, {blocks} blocks of {warps} warps: wrong total")
+            times.append(f"{blocks}x{warps} warps ({per} a warp) {device_us(run):.3f} us")
+        log(f"     width={width:5d}, whole-card splits, device time: " + ", ".join(times))
         del tbl
     return failures
 
@@ -170,9 +280,11 @@ def main():
     failed = 0
     for probe in pk.PROBES:
         if probe.key == "D":
-            log(f"     D: {pk.RING_ITERS} rows of [{pk.RING_ROWS}, width] f32, "
-                f"{pk.RING_SLOTS} copies in flight, {REPS} launches after a warm-up")
-            failures = ring_rates(dev, sms)
+            log(f"     D: {pk.RING_ITERS} rows of [{pk.RING_ROWS}, width] f32 per issuing "
+                f"warp, up to {pk.RING_SLOTS} copies in flight each, {REPS} launches "
+                f"after a warm-up")
+            failures = (ring_rates(dev, sms) + ring_warp_sweep(dev) + ring_card_rates(dev)
+                        + ring_card_geometry(dev))
             why = "; ".join(failures) or None
         else:
             why = check(probe, dev)
