@@ -16,13 +16,13 @@
 // counts the launch and returns what it allocated: None, a tensor, or a
 // tuple of them in parameter order.
 //
-// This file replaces, per launch, what ctypes and Python did around each
-// entry (argument conversion, the device and contiguity checks, the
-// stream and device lookups, the output's torch.empty): those were most
-// of a wrapper call's host time (PERF.md section 6).  It is compiled by
-// the host compiler against torch's headers, in parallel with the
-// kernels' nvcc, and linked with them into one extension module
-// (ops/_build.py).
+// Argument conversion, the checks, the stream and device lookups and
+// the outputs' allocation are done here, in one call, because done in
+// Python around a C call they were most of a kernel call's host time,
+// more than a PyTorch operator's (PERF.md section 6).  The file is
+// compiled by the host compiler against torch's headers, in parallel
+// with the kernels' nvcc, and linked with them into one extension
+// module (ops/_build.py).
 #include <torch/csrc/autograd/python_variable.h>
 
 #include <ATen/cuda/EmptyTensor.h>

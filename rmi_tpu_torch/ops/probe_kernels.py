@@ -210,12 +210,20 @@ def ring_rows(rows: int, iters: int = RING_ITERS, blocks: int = 1) -> torch.Tens
     return (g * RING_STEP) % rows
 
 
+def _ring_plain(tbl, fetches, streams):
+    """Per stream s, the sum of the first values of rows (j * 7919) mod
+    rows for j = s, s + streams, ... below ``fetches``; summed in f64,
+    which equals the kernel's f32 running sum wherever that is exact
+    (small integers, as in the probe's tables)."""
+    j = torch.arange(fetches, dtype=torch.int64, device=tbl.device)
+    vals = tbl[:, 0][(j * RING_STEP) % tbl.shape[0]].double()
+    return torch.zeros(streams, dtype=torch.float64,
+                       device=tbl.device).index_add_(0, j % streams, vals).float()
+
+
 def row_ring_plain(tbl, *, iters: int = RING_ITERS, blocks: int = 1, warps: int = 1):
-    """The sum of the first value of each fetched row, per stream; summed
-    in f64, which equals the kernel's f32 running sum wherever that is
-    exact (small integers, as in the probe's tables)."""
-    rows = ring_rows(tbl.shape[0], iters, blocks * warps).to(tbl.device)
-    return tbl[:, 0][rows].double().sum(1).float()
+    """The plain version of row_ring: each stream's sum (ring_rows)."""
+    return _ring_plain(tbl, iters * blocks * warps, blocks * warps)
 
 
 def _check_ring(tbl, slots, blocks, warps, count):
@@ -263,14 +271,8 @@ def ring_card_blocks(warps: int = RING_WARPS) -> int:
 
 
 def row_ring_card_plain(tbl, *, warps: int = RING_WARPS):
-    """The partial sums of the whole-card form: stream s sums the first
-    values of rows (j * 7919) mod rows for j = s (mod S) below
-    RING_ITERS; in f64, exact where the kernel's f32 sums are."""
-    streams = ring_card_blocks(warps) * warps
-    j = torch.arange(RING_ITERS, dtype=torch.int64, device=tbl.device)
-    vals = tbl[:, 0][(j * RING_STEP) % tbl.shape[0]].double()
-    return torch.zeros(streams, dtype=torch.float64,
-                       device=tbl.device).index_add_(0, j % streams, vals).float()
+    """The plain version of row_ring_card: its partial sums."""
+    return _ring_plain(tbl, RING_ITERS, ring_card_blocks(warps) * warps)
 
 
 def row_ring_card(tbl, *, warps: int = RING_WARPS):
