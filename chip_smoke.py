@@ -58,7 +58,9 @@ Phases (any failure raises and exits non-zero):
      the marked one); D's one-block ns per row logged at 1 and 8
      issuing warps; each probe's ms per call (with spreads), device time
      per call (a profiler trace of 200 calls) and host time per call
-     logged beside its library call's.
+     logged beside its library call's.  D is timed cold: each call
+     walks the next of several views of one table, whose rows the calls
+     before did not leave in L2 (probe_kernels.ring_cold_views).
 Each row of the kernels line carries the kernel's time on its path's
 largest call (a call under 0.1 ms: the median of five runs of at least
 5 ms of calls, logged with their spread) beside the plain version's and,
@@ -77,6 +79,7 @@ one row per C entry point.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -839,26 +842,22 @@ def ring_walk_total(nrows, marked):
 
 
 def probe_phase(dev):
-    """The card probes' own path: every probe run once on its probe's
-    inputs (D once per width of PROBE_RING_WIDTHS, in its whole-card
-    form) with the launches counted from 0; then each output held equal
-    to its plain version's on the card, and the kernel timed beside it.
-    D's one-block rate, the per-SM question, is logged beside its row.
-    Returns the kernels rows."""
+    """The card probes' own path: every probe's main call (probe.main: D's
+    whole-card form, once per width of PROBE_RING_WIDTHS) run once on its
+    probe's inputs with the launches counted from 0; then each output
+    held equal to its plain version's on the card, and the kernel timed
+    beside it.  D is timed cold, on views of a table whose rows are not
+    in L2 (probe_kernels.ring_cold_views), as a walk of a table that is
+    read once finds them; its one-block rate, the per-SM question, is
+    logged beside its row.  Returns the kernels rows."""
     probes = probe_kernels.PROBES
     cases = [(p, w) for p in probes
              for w in (PROBE_RING_WIDTHS if p.inputs is None else (None,))]
     inputs = [probe_kernels.probe_inputs(p, dev, width=w or 128) for p, w in cases]
 
-    def kernel(probe):
-        return probe_kernels.row_ring_card if probe.key == "D" else probe.wrapper
-
-    def plain(probe):
-        return probe_kernels.row_ring_card_plain if probe.key == "D" else probe.plain
-
     for entry in _build.launches:
         _build.launches[entry] = 0
-    outputs = [kernel(p)(*args) for (p, _), args in zip(cases, inputs)]
+    outputs = [p.main(*args) for (p, _), args in zip(cases, inputs)]
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     missing = [p.entry for p in probes if launches[p.entry] <= 0]
@@ -867,16 +866,17 @@ def probe_phase(dev):
 
     rows = {}
     for (probe, width), args, got in zip(cases, inputs, outputs):
-        want = plain(probe)(*args)
+        want = probe.main_plain(*args)
+        run, run_plain = (lambda: probe.main(*args)), (lambda: probe.main_plain(*args))
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise RuntimeError(f"probe {probe.key} ({probe.entry}): kernel disagrees "
                                f"with its plain version")
         if probe.inputs is None:       # D: the walk's total, and the marked table
             nrows = args[0].shape[0]
             marked = probe_kernels.ring_table(width, dev, marked=True)
-            card = probe_kernels.row_ring_card(marked)
+            card = probe.main(marked)
             totals = (float(got.double().sum()), float(card.double().sum()))
-            if (not torch.equal(card, probe_kernels.row_ring_card_plain(marked))
+            if (not torch.equal(card, probe.main_plain(marked))
                     or totals != (ring_walk_total(nrows, False), ring_walk_total(nrows, True))
                     or not torch.equal(probe.wrapper(marked), probe.plain(marked))):
                 raise RuntimeError(f"probe D, width {width}: wrong sums {totals}")
@@ -886,6 +886,9 @@ def probe_phase(dev):
                     probe_kernels.RING_ITERS * warps)
                 log(f"probe D width {width}: one block, {warps} issuing warp"
                     f"{'s' if warps > 1 else ''}: {ns:.2f} ns a row")
+            views = itertools.cycle(probe_kernels.ring_cold_views(width, dev))
+            run = lambda: probe.main(next(views))                 # noqa: E731
+            run_plain = lambda: probe.main_plain(next(views))     # noqa: E731
         idx = [a.long() for a in args if a.dtype == torch.int32]
         # one PyTorch call that computes the same, where there is one: the
         # pair compare and the copy ring have none, and torch 2.11 has no
@@ -896,8 +899,8 @@ def probe_phase(dev):
                "C2": lambda: torch.take(args[0], idx[0]),
                "C3": lambda: torch.gather(args[0], 1, idx[0]),
                "E": lambda: torch.index_select(args[1], 0, idx[0])}.get(probe.key)
-        ms = row_ms(lambda: kernel(probe)(*args), 20)
-        plain_ms = row_ms(lambda: plain(probe)(*args), 20)
+        ms = row_ms(run, 20)
+        plain_ms = row_ms(run_plain, 20)
         library_ms = None if lib is None else row_ms(lib, 20)
         if probe.inputs is None:       # the rows D fetches, not its whole table
             nbytes = probe_kernels.RING_ITERS * width * 4 + _nbytes(got)
@@ -913,10 +916,10 @@ def probe_phase(dev):
             f"({bound_by}: {nbytes} B)")
         lib_us = None if lib is None else f"{device_us(lib):.4f} us"
         log(f"{name}: device time per call (profiler, {PROBE_TRACED} calls) "
-            f"{device_us(lambda: kernel(probe)(*args)):.4f} us vs library {lib_us}")
+            f"{device_us(run):.4f} us vs library {lib_us}")
         lib_host = None if lib is None else f"{host_us(lib):.3f} us"
         log(f"{name}: host time per call ({HOST_CALLS} calls) "
-            f"{host_us(lambda: kernel(probe)(*args)):.3f} us vs library {lib_host}")
+            f"{host_us(run):.3f} us vs library {lib_host}")
         # one row per entry: D's is its widest call, the last of its cases
         rows[probe.entry] = {
             "name": probe.entry, "route": "cuda",

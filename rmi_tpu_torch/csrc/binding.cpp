@@ -23,11 +23,20 @@
 // compiled by the host compiler against torch's headers, in parallel
 // with the kernels' nvcc, and linked with them into one extension
 // module (ops/_build.py).
-#include <torch/csrc/autograd/python_variable.h>
+//
+// Its compile is the longest step of the kernel build, so it is kept
+// small.  It includes no torch Python or autograd header
+// (torch/csrc/autograd/python_variable.h alone took 8.9 s): a tensor
+// argument is reached through its public `_cdata` attribute, the
+// address of its TensorImpl, and a new output is wrapped by torch's
+// exported THPVariable_Wrap, declared here.  And one function, not one
+// per entry, converts the arguments, launches and counts: each entry
+// adds only a table of its parameters' kinds and a call that unpacks
+// them (tools/time_torch_binding_build.py times the parts).
+#include <Python.h>
 
 #include <ATen/cuda/EmptyTensor.h>
 #include <c10/cuda/CUDAFunctions.h>
-#include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
 #include <cstdint>
@@ -41,13 +50,35 @@
 #include "entries.h"
 #undef RMI_ENTRY
 
+// libtorch_python: the Python tensor of `var`
+PyObject* THPVariable_Wrap(const at::TensorBase& var);
+
 namespace {
 
+constexpr int kMaxParams = 16;
 constexpr int kMaxOutputs = 4;
 constexpr int kMaxDims = 8;
 
 // the dict each launch is counted in (ops/_build.launches)
 PyObject* g_counts = nullptr;
+PyObject* g_tensor_type = nullptr;   // torch.Tensor
+PyObject* g_cdata = nullptr;         // "_cdata": a tensor's TensorImpl address
+
+// what a C parameter takes from Python
+enum class Kind : uint8_t { kInput, kOutput, kInt64, kInt32, kDouble, kStream };
+
+struct Param {
+  Kind kind;
+  c10::ScalarType dtype;     // of a tensor's elements
+};
+
+// one converted argument, as the entry's parameter takes it
+union Slot {
+  void* ptr;
+  int64_t i64;
+  int32_t i32;
+  double f64;
+};
 
 template <class T>
 constexpr c10::ScalarType kDtype = c10::ScalarType::Undefined;
@@ -59,6 +90,69 @@ template <>
 constexpr c10::ScalarType kDtype<int32_t> = c10::ScalarType::Int;
 template <>
 constexpr c10::ScalarType kDtype<int64_t> = c10::ScalarType::Long;
+
+template <class P>
+constexpr Param param_of() {
+  if constexpr (std::is_same_v<P, void*>) {
+    return {Kind::kStream, c10::ScalarType::Undefined};
+  } else if constexpr (std::is_pointer_v<P>) {
+    using E = std::remove_const_t<std::remove_pointer_t<P>>;
+    static_assert(kDtype<E> != c10::ScalarType::Undefined, "no torch type for this pointer");
+    return {std::is_const_v<std::remove_pointer_t<P>> ? Kind::kInput : Kind::kOutput,
+            kDtype<E>};
+  } else if constexpr (std::is_same_v<P, int64_t>) {
+    return {Kind::kInt64, c10::ScalarType::Undefined};
+  } else if constexpr (std::is_same_v<P, int32_t>) {
+    return {Kind::kInt32, c10::ScalarType::Undefined};
+  } else {
+    static_assert(std::is_same_v<P, double>, "a parameter type the binding cannot convert");
+    return {Kind::kDouble, c10::ScalarType::Undefined};
+  }
+}
+
+template <class P>
+P from_slot(const Slot& s) {
+  if constexpr (std::is_pointer_v<P>) {
+    return static_cast<P>(s.ptr);
+  } else if constexpr (std::is_same_v<P, int64_t>) {
+    return s.i64;
+  } else if constexpr (std::is_same_v<P, int32_t>) {
+    return s.i32;
+  } else {
+    return s.f64;
+  }
+}
+
+// an entry's parameter table and the call that unpacks its slots
+template <class F>
+struct Sig;
+
+template <class... P>
+struct Sig<int (*)(P...)> {
+  static constexpr int N = sizeof...(P);
+  static_assert(N <= kMaxParams, "too many parameters");
+  static_assert(std::is_same_v<std::tuple_element_t<N - 1, std::tuple<P...>>, void*>,
+                "an entry's last parameter is its stream");
+  static constexpr Param params[N] = {param_of<P>()...};
+
+  template <auto Fn, size_t... I>
+  static int unpack(const Slot* s, std::index_sequence<I...>) {
+    return Fn(from_slot<P>(s[I])...);
+  }
+
+  template <auto Fn>
+  static int call(const Slot* s) {
+    return unpack<Fn>(s, std::index_sequence_for<P...>());
+  }
+};
+
+struct Entry {
+  const char* name;
+  const Param* params;
+  int nparams;            // the stream, the last, included
+  int (*call)(const Slot*);
+  PyObject* key;          // the name as a Python str, made at import
+};
 
 // one launch's state: the entry, the tensors' device, what it allocated
 struct Call {
@@ -75,18 +169,20 @@ bool fail(PyObject* type, const Call& c, const char* what) {
   return false;
 }
 
-// a tensor argument: on the call's one CUDA device, contiguous, of T's type
-template <class T>
-bool tensor_arg(PyObject* o, Call& c, T*& v) {
-  using E = std::remove_const_t<T>;
-  static_assert(kDtype<E> != c10::ScalarType::Undefined, "no torch type for this pointer");
-  const at::Tensor& t = THPVariable_Unpack(o);
-  if (!t.is_cuda()) {
+// a tensor argument: on the call's one CUDA device, contiguous, of the
+// parameter's type
+bool tensor_arg(PyObject* o, Call& c, const Param& p, Slot& v) {
+  PyObject* addr = PyObject_GetAttr(o, g_cdata);
+  if (addr == nullptr) return false;
+  auto* t = static_cast<c10::TensorImpl*>(PyLong_AsVoidPtr(addr));
+  Py_DECREF(addr);
+  if (t == nullptr) return false;
+  if (!t->is_cuda()) {
     PyErr_Format(PyExc_ValueError, "%s: argument %d: a tensor on %s, not on a CUDA device",
-                 c.name, c.index, t.device().str().c_str());
+                 c.name, c.index, t->device().str().c_str());
     return false;
   }
-  const int dev = t.get_device();
+  const int dev = t->device().index();
   if (c.device < 0) {
     c.device = dev;
   } else if (dev != c.device) {
@@ -94,19 +190,20 @@ bool tensor_arg(PyObject* o, Call& c, T*& v) {
                  dev);
     return false;
   }
-  if (!t.is_contiguous()) return fail(PyExc_ValueError, c, "non-contiguous input");
-  if (t.scalar_type() != kDtype<E>) {
+  if (!t->is_contiguous()) return fail(PyExc_ValueError, c, "non-contiguous input");
+  const c10::ScalarType type = c10::typeMetaToScalarType(t->dtype());
+  if (type != p.dtype) {
     PyErr_Format(PyExc_ValueError, "%s: argument %d: want %s, got %s", c.name, c.index,
-                 c10::toString(kDtype<E>), c10::toString(t.scalar_type()));
+                 c10::toString(p.dtype), c10::toString(type));
     return false;
   }
-  v = static_cast<T*>(t.data_ptr());
+  v.ptr = p.kind == Kind::kInput ? const_cast<void*>(t->data()) : t->mutable_data();
   return true;
 }
 
-// an output given as a shape: a new tensor of T's type on the call's device
-template <class T>
-bool new_output(PyObject* o, Call& c, T*& v) {
+// an output given as a shape: a new tensor of the parameter's type on
+// the call's device
+bool new_output(PyObject* o, Call& c, const Param& p, Slot& v) {
   int64_t dims[kMaxDims];
   Py_ssize_t nd = 1;
   if (PyTuple_Check(o)) {
@@ -129,53 +226,55 @@ bool new_output(PyObject* o, Call& c, T*& v) {
   if (c.nouts == kMaxOutputs) return fail(PyExc_ValueError, c, "too many outputs");
   // as torch's own operators make their outputs, past the dispatcher
   at::TensorBase t = at::detail::empty_cuda(
-      c10::IntArrayRef(dims, (size_t)nd), kDtype<std::remove_const_t<T>>,
+      c10::IntArrayRef(dims, (size_t)nd), p.dtype,
       c10::Device(c10::kCUDA, (c10::DeviceIndex)c.device), std::nullopt);
-  v = static_cast<T*>(t.data_ptr());
+  v.ptr = t.data_ptr();
   c.outs[c.nouts++] = std::move(t);
   return true;
 }
 
-template <class T>
-bool convert(PyObject* o, Call& c, T*& v) {
-  if (THPVariable_Check(o)) return tensor_arg(o, c, v);
-  if constexpr (!std::is_const_v<T>) return new_output(o, c, v);
-  return fail(PyExc_TypeError, c, "want a tensor");
-}
-
-bool convert(PyObject* o, Call& c, int64_t& v) {
+bool int_arg(PyObject* o, Call& c, int64_t& v) {
   if (!PyLong_Check(o)) return fail(PyExc_TypeError, c, "want an int");
   v = PyLong_AsLongLong(o);
   return !(v == -1 && PyErr_Occurred());
 }
 
-bool convert(PyObject* o, Call& c, int32_t& v) {
-  int64_t w = 0;
-  if (!convert(o, c, w)) return false;
-  if (w < INT32_MIN || w > INT32_MAX) return fail(PyExc_OverflowError, c, "outside int32");
-  v = (int32_t)w;
-  return true;
-}
-
-bool convert(PyObject* o, Call& c, double& v) {
-  if (!PyFloat_Check(o) && !PyLong_Check(o)) return fail(PyExc_TypeError, c, "want a float");
-  v = PyFloat_AsDouble(o);
-  return !(v == -1.0 && PyErr_Occurred());
-}
-
-template <class Args, size_t... I>
-bool convert_all(PyObject* const* args, Call& c, Args& vals, std::index_sequence<I...>) {
-  // in parameter order, stopping at the first refusal
-  return ((c.index = (int)I + 1, convert(args[I], c, std::get<I>(vals))) && ...);
+// argument c.index, for parameter p
+bool convert(PyObject* o, Call& c, const Param& p, Slot& v) {
+  switch (p.kind) {
+    case Kind::kInput:
+    case Kind::kOutput:
+      if (PyObject_TypeCheck(o, reinterpret_cast<PyTypeObject*>(g_tensor_type))) {
+        return tensor_arg(o, c, p, v);
+      }
+      if (p.kind == Kind::kOutput) return new_output(o, c, p, v);
+      return fail(PyExc_TypeError, c, "want a tensor");
+    case Kind::kInt64:
+      return int_arg(o, c, v.i64);
+    case Kind::kInt32: {
+      int64_t w = 0;
+      if (!int_arg(o, c, w)) return false;
+      if (w < INT32_MIN || w > INT32_MAX) return fail(PyExc_OverflowError, c, "outside int32");
+      v.i32 = (int32_t)w;
+      return true;
+    }
+    case Kind::kDouble:
+      if (!PyFloat_Check(o) && !PyLong_Check(o)) return fail(PyExc_TypeError, c, "want a float");
+      v.f64 = PyFloat_AsDouble(o);
+      return !(v.f64 == -1.0 && PyErr_Occurred());
+    case Kind::kStream:
+      break;
+  }
+  return fail(PyExc_TypeError, c, "no argument for the stream");
 }
 
 PyObject* outputs(Call& c) {
   if (c.nouts == 0) Py_RETURN_NONE;
-  if (c.nouts == 1) return THPVariable_Wrap(std::move(c.outs[0]));
+  if (c.nouts == 1) return THPVariable_Wrap(c.outs[0]);
   PyObject* tup = PyTuple_New(c.nouts);
   if (tup == nullptr) return nullptr;
   for (int i = 0; i < c.nouts; ++i) {
-    PyObject* t = THPVariable_Wrap(std::move(c.outs[i]));
+    PyObject* t = THPVariable_Wrap(c.outs[i]);
     if (t == nullptr) {
       Py_DECREF(tup);
       return nullptr;
@@ -198,54 +297,54 @@ bool count(PyObject* key) {
   return rc == 0;
 }
 
-template <class F>
-struct Invoke;
-
-template <class... P>
-struct Invoke<int (*)(P...)> {
-  static constexpr size_t N = sizeof...(P) - 1;     // the last parameter is the stream
-  static_assert(std::is_same_v<std::tuple_element_t<N, std::tuple<P...>>, void*>,
-                "an entry's last parameter is its stream");
-
-  template <auto Fn>
-  static PyObject* run(const char* name, PyObject* key, PyObject* const* args,
-                       Py_ssize_t nargs) {
-    if (nargs != (Py_ssize_t)N) {
-      return PyErr_Format(PyExc_TypeError, "%s takes %d arguments, %zd given", name, (int)N,
-                          nargs);
+// the tensors' card made current for the launch, and the one before
+// made current again after it
+struct OnDevice {
+  explicit OnDevice(c10::DeviceIndex dev) {
+    const c10::DeviceIndex cur = c10::cuda::current_device();
+    if (cur != dev) {
+      c10::cuda::set_device(dev);
+      before = cur;
     }
-    Call c(name);
-    std::tuple<P...> vals{};
-    try {
-      if (!convert_all(args, c, vals, std::make_index_sequence<N>())) return nullptr;
-      if (c.device < 0) return PyErr_Format(PyExc_ValueError, "%s: no tensor", name);
-      const auto dev = (c10::DeviceIndex)c.device;
-      std::optional<c10::cuda::CUDAGuard> guard;     // entered only off the current card
-      if (c10::cuda::current_device() != dev) guard.emplace(dev);
-      std::get<N>(vals) = c10::cuda::getCurrentCUDAStream(dev).stream();
-      const int rc = std::apply(Fn, vals);
-      if (rc != 0) return PyErr_Format(PyExc_RuntimeError, "%s: CUDA error %d at launch", name, rc);
-    } catch (const c10::Error& e) {
-      PyErr_SetString(PyExc_RuntimeError, e.what_without_backtrace());
-      return nullptr;
-    } catch (const std::exception& e) {
-      PyErr_SetString(PyExc_RuntimeError, e.what());
-      return nullptr;
-    }
-    if (!count(key)) return nullptr;
-    return outputs(c);
   }
+  ~OnDevice() {
+    if (before >= 0) c10::cuda::set_device(before);
+  }
+  c10::DeviceIndex before = -1;
 };
 
-using Caller = PyObject* (*)(const char*, PyObject*, PyObject* const*, Py_ssize_t);
+PyObject* run(const Entry& e, PyObject* const* args, Py_ssize_t nargs) {
+  const int n = e.nparams - 1;      // the stream is the binding's
+  if (nargs != n) {
+    return PyErr_Format(PyExc_TypeError, "%s takes %d arguments, %zd given", e.name, n, nargs);
+  }
+  Call c(e.name);
+  Slot slots[kMaxParams];
+  try {
+    for (int i = 0; i < n; ++i) {      // in parameter order, stopping at the first refusal
+      c.index = i + 1;
+      if (!convert(args[i], c, e.params[i], slots[i])) return nullptr;
+    }
+    if (c.device < 0) return PyErr_Format(PyExc_ValueError, "%s: no tensor", e.name);
+    const auto dev = (c10::DeviceIndex)c.device;
+    OnDevice on(dev);
+    slots[n].ptr = c10::cuda::getCurrentCUDAStream(dev).stream();
+    const int rc = e.call(slots);
+    if (rc != 0) return PyErr_Format(PyExc_RuntimeError, "%s: CUDA error %d at launch", e.name, rc);
+  } catch (const c10::Error& err) {
+    PyErr_SetString(PyExc_RuntimeError, err.what_without_backtrace());
+    return nullptr;
+  } catch (const std::exception& err) {
+    PyErr_SetString(PyExc_RuntimeError, err.what());
+    return nullptr;
+  }
+  if (!count(e.key)) return nullptr;
+  return outputs(c);
+}
 
-struct Entry {
-  const char* name;
-  Caller call;
-  PyObject* key;          // the name as a Python str, made at import
-};
-
-#define RMI_ENTRY(name, params) {#name, &Invoke<decltype(&name)>::run<&name>, nullptr},
+#define RMI_ENTRY(name, proto)                                                      \
+  {#name, Sig<decltype(&name)>::params, Sig<decltype(&name)>::N,                   \
+   &Sig<decltype(&name)>::call<&name>, nullptr},
 Entry g_entries[] = {
 #include "entries.h"
 };
@@ -265,8 +364,7 @@ PyObject* launch(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     if (!PyErr_Occurred()) PyErr_Format(PyExc_ValueError, "unknown C entry point %R", args[0]);
     return nullptr;
   }
-  const Entry& e = g_entries[PyLong_AsSsize_t(at)];
-  return e.call(e.name, e.key, args + 1, nargs - 1);
+  return run(g_entries[PyLong_AsSsize_t(at)], args + 1, nargs - 1);
 }
 
 PyObject* set_counts(PyObject*, PyObject* d) {
@@ -291,8 +389,18 @@ PyModuleDef g_module = {PyModuleDef_HEAD_INIT, "rmi_kernels", nullptr, -1, g_met
 }  // namespace
 
 PyMODINIT_FUNC PyInit_rmi_kernels() {
+  PyObject* torch = PyImport_ImportModule("torch");
+  if (torch == nullptr) return nullptr;
+  g_tensor_type = PyObject_GetAttrString(torch, "Tensor");
+  Py_DECREF(torch);
+  if (g_tensor_type == nullptr) return nullptr;
+  if (!PyType_Check(g_tensor_type)) {
+    PyErr_SetString(PyExc_TypeError, "torch.Tensor is not a type");
+    return nullptr;
+  }
+  g_cdata = PyUnicode_InternFromString("_cdata");
   g_index = PyDict_New();
-  if (g_index == nullptr) return nullptr;
+  if (g_cdata == nullptr || g_index == nullptr) return nullptr;
   for (Py_ssize_t i = 0; i < kEntries; ++i) {
     g_entries[i].key = PyUnicode_InternFromString(g_entries[i].name);
     PyObject* at = PyLong_FromSsize_t(i);

@@ -40,12 +40,14 @@
 // 2-4 KB they lose (62-75 ns) with rings half as deep.  132 blocks of one
 // warp take 1.29 ns a row up to 4 KB rows and 2.61 ns per 8 KB row (3.1
 // TB/s).  The whole-card form, the probe's 4096 fetches over 128 blocks
-// of 8 warps, takes 2.5-2.6 us of device time at 512 B rows and 6.3-6.9
+// of 8 warps, takes 2.5-2.6 us of device time at 512 B rows and 6.2-6.7
 // us at 8 KB (profiler) with the walk's 33.5 MB left in L2 by the call
-// before; with L2 flushed before each call, CUDA events around it read
-// 22.4 us (1.5 TB/s), where they read 10.8 warm.  No other split of the
-// walk (1-4 fetches a warp, 2-16 warps a block) was faster by more than
-// 0.12 us.  B2
+// before, and 3.3-3.5 and 12.9-13.5 us cold, each call walking rows that
+// are not in L2 (0.0150 ms a call at 8 KB, 2.6 TB/s); a call timed alone
+// by CUDA events reads 10.7-10.8 us warm, 17.5 cold and 22.3-22.9 after
+// L2 was filled with dirty lines.  No other split of the walk (1-4
+// fetches a warp, 2-16 warps a block) was faster warm by more than 0.12
+// us.  B2
 // over 2^26 random elements takes 0.445 ms (20 B per element, 3.0 TB/s);
 // B3 0.281 ms: it reads the low halves only where the high halves tie,
 // 12 B per element on random keys (2.9 TB/s).  Both run at the memory

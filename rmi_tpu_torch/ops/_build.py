@@ -35,6 +35,7 @@ import subprocess
 import sys
 import sysconfig
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -153,6 +154,15 @@ def commands(nvcc: str, cxx: str, obj_dir, out) -> tuple:
     return compiles, link
 
 
+def _run(step):
+    """(name, return code, output with the step's wall time) of one
+    build step (name, command)."""
+    name, cmd = step
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return name, done.returncode, done.stdout + f"{name}: {time.perf_counter() - t0:.2f} s\n"
+
+
 def _compile(so) -> str:
     """The compile commands all running at once, then the link into
     ``so``; returns the compilers' output with each step's wall time.
@@ -162,31 +172,16 @@ def _compile(so) -> str:
     obj_dir.mkdir()
     try:
         compiles, link = commands(config.nvcc_path(), config.cxx_path(), str(obj_dir), tmp)
-        t0 = time.perf_counter()
-        jobs = {}
-        for name, cmd in compiles:
-            out = open(obj_dir / f"{name}.log", "w+")
-            jobs[name] = (out, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT))
-        ends = {}
-        while len(ends) < len(jobs):
-            for name, (_, proc) in jobs.items():
-                if name not in ends and proc.poll() is not None:
-                    ends[name] = time.perf_counter() - t0
-            time.sleep(0.05)
-        log, failed = "", []
-        for name, (out, proc) in jobs.items():
-            out.seek(0)
-            log += out.read() + f"{name}: {ends[name]:.2f} s\n"
-            out.close()
-            if proc.returncode != 0:
-                failed.append(f"{name} ({proc.returncode})")
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            done = list(pool.map(_run, compiles))
+        log = "".join(out for _, _, out in done)
+        failed = [f"{name} ({rc})" for name, rc, _ in done if rc != 0]
         if failed:
             raise RuntimeError(f"compile failed for {', '.join(failed)}:\n{log}")
-        t1 = time.perf_counter()
-        done = subprocess.run(link, capture_output=True, text=True)
-        log += done.stdout + done.stderr + f"link: {time.perf_counter() - t1:.2f} s\n"
-        if done.returncode != 0:
-            raise RuntimeError(f"link failed ({done.returncode}):\n{log}")
+        _, rc, out = _run(("link", link))
+        log += out
+        if rc != 0:
+            raise RuntimeError(f"link failed ({rc}):\n{log}")
         os.replace(tmp, so)          # atomic: concurrent builders agree
     finally:
         shutil.rmtree(obj_dir, ignore_errors=True)

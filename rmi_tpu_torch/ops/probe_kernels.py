@@ -47,6 +47,8 @@ RING_WIDTHS = (128, 256, 512, 1024, 2048)
 RING_MAX_WARPS = 16          # D: most issuing warps per block
 RING_WARPS = 8               # D's whole-card form: issuing warps per block
 RING_PER_WARP = 4            # D's whole-card form: fetches per issuing warp
+RING_SHIFT = 4096            # D's cold views: rows between two, whose walks share no row
+L2_BYTES = 50 << 20          # the H100's L2 cache
 MAX_SHARED_BYTES = 232448    # dynamic shared memory one block may ask for
 COPY_WARPS = 4              # E: warps per block, each with its own ring
 COPY_SHARE = 8192           # E: most indices a block stages
@@ -360,6 +362,20 @@ def _inputs_e():
     return np.random.default_rng(3).integers(0, 4096, (256,), dtype=np.int32), x
 
 
+def ring_cold_views(width: int, device) -> list:
+    """Views [2^17, width] f32 of one table of ones, each RING_SHIFT rows
+    past the one before, so many that the walks of all but one of them
+    fetch twice L2_BYTES: called on them in turn, D finds none of its
+    rows in L2, as it does when a table is walked once (the probe's walk
+    repeated on one table stays in the 50 MB L2 at 8 KB rows, 33.5 MB).
+    The walks of two views share no row for up to 52 views, as many as
+    width 128 takes."""
+    count = -(-2 * L2_BYTES // (RING_ITERS * width * 4)) + 1
+    tbl = torch.ones(RING_ROWS + (count - 1) * RING_SHIFT, width, dtype=torch.float32,
+                     device=device)
+    return [tbl[k * RING_SHIFT:k * RING_SHIFT + RING_ROWS] for k in range(count)]
+
+
 def ring_table(width: int, device, *, marked: bool = False) -> torch.Tensor:
     """D's table [2^17, width] f32, made on ``device``: all ones, as the
     TPU probe's, or ``marked``, with x[r, 0] = r mod 251, which a copy
@@ -378,6 +394,19 @@ class Probe(NamedTuple):
     plain: Callable
     inputs: Callable         # () -> numpy arrays, None for D (ring_table)
     replaces: str            # file:line of the TPU kernel's pallas_call
+    card: Callable = None    # D: its whole-card form, and that form's plain version
+    card_plain: Callable = None
+
+    @property
+    def main(self) -> Callable:
+        """The call chip_smoke.py drives and times: D's whole-card form,
+        every other probe's wrapper."""
+        return self.card or self.wrapper
+
+    @property
+    def main_plain(self) -> Callable:
+        """The plain version of ``main``."""
+        return self.card_plain or self.plain
 
 
 _SRC = "probes/probe_pallas.py"
@@ -397,7 +426,7 @@ PROBES = (
     Probe("C3", "take_along_axis lanes (warp shuffles)", "rmi_probe_take_lanes",
           take_lanes, take_lanes_plain, _inputs_c3, f"{_SRC}:150"),
     Probe("D", "pipelined random-row bulk-copy rate", "rmi_probe_row_ring", row_ring,
-          row_ring_plain, None, f"{_SRC}:194"),
+          row_ring_plain, None, f"{_SRC}:194", row_ring_card, row_ring_card_plain),
     Probe("E", "shared-memory index-driven row copies", "rmi_probe_row_copy",
           row_copy, row_copy_plain, _inputs_e, f"{_SRC}:261"),
 )

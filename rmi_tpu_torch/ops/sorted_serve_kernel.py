@@ -97,6 +97,12 @@ def _serve(q, order, group_first, keys, lo, hi, group):
             return serve_sorted_plain(q, group_first, keys, lo, hi, group)
         return serve_sorted_scatter_plain(q, order, group_first, keys, lo, hi)
     nq = q.shape[0]
+    if nq == 0:       # nothing to launch, so no call of the binding, which counts one
+        for t in (q, order, group_first, keys, lo, hi):
+            if t is not None and (t.device != q.device or not t.is_contiguous()):
+                raise ValueError("serve_sorted: every tensor must be contiguous and on "
+                                 "the queries' CUDA device")
+        return torch.empty_like(q)
     common = (nq, group_first, group_first.shape[0], keys, keys.shape[0], lo, hi, KQ, group,
               nq)
     if order is None:

@@ -902,6 +902,30 @@ def test_every_wrapper_counts_one_launch(dev, entry):
     assert moved == {entry: 1}
 
 
+@pytest.mark.parametrize("scatter", [False, True])
+def test_k5_empty_batch_counts_no_launch(dev, scatter):
+    """K5's wrappers on an empty batch return an empty answer without a
+    launch and count none, and still refuse a tensor off the queries'
+    card or a non-contiguous one."""
+    q = torch.empty(0, dtype=torch.int64, device=dev)
+
+    def serve(keys, lo):
+        gf = keys[::ssk.GROUP].contiguous()
+        if scatter:
+            return ssk.serve_sorted_scatter(q, q, gf, keys, lo, q)
+        return ssk.serve_sorted(q, gf, keys, lo, q)
+    keys = torch.arange(0, 20_000, 2, dtype=torch.int64, device=dev)
+    before = dict(_build.launches)
+    out = serve(keys, q)
+    torch.cuda.synchronize()
+    assert out.shape == (0,) and out.dtype == torch.int64 and out.is_cuda
+    assert _build.launches == before
+    with pytest.raises(ValueError, match="contiguous"):       # a bound on the CPU
+        serve(keys, q.cpu())
+    with pytest.raises(ValueError, match="contiguous"):       # non-contiguous keys
+        serve(keys[::2], q)
+
+
 def test_binding_refuses_bad_tensors(dev):
     """The compiled binding raises, launches nothing and counts nothing
     for a tensor off the card or on another card, a non-contiguous

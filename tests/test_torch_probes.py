@@ -178,6 +178,38 @@ def test_ring_card_form_splits_the_probe_walk(probe_pallas, monkeypatch, warps):
     assert float(jax_sum.reshape(())) == float(got.astype(np.float64).sum())
 
 
+@pytest.mark.parametrize("width", pk.RING_WIDTHS)
+def test_ring_cold_views_share_no_row(width):
+    """D's cold views (made on the meta device: shapes and offsets, no
+    memory): [2^17, width] views of one table, enough that the walks of
+    all but one of them fetch twice the L2 cache, and no row is fetched
+    by the walks of two of them, so a view's rows are never in L2 from
+    the calls on the others."""
+    views = pk.ring_cold_views(width, "meta")
+    walk_bytes = pk.RING_ITERS * width * 4
+    assert all(v.shape == (pk.RING_ROWS, width) and v.is_contiguous() for v in views)
+    assert (len(views) - 1) * walk_bytes >= 2 * pk.L2_BYTES
+    walk = pk.ring_rows(pk.RING_ROWS)[0].numpy()
+    rows = np.concatenate([v.storage_offset() // width + walk for v in views])
+    assert len(np.unique(rows)) == len(rows)
+    assert all(v.storage_offset() * 4 % 16 == 0 for v in views)   # bulk-copy aligned
+
+
+def test_probe_main_is_the_card_form_for_d():
+    """chip_smoke drives each probe's ``main``: D's whole-card form, every
+    other probe's wrapper, each beside its own plain version, which it
+    equals on the CPU."""
+    for probe in pk.PROBES:
+        if probe.key == "D":
+            assert (probe.main, probe.main_plain) == (pk.row_ring_card,
+                                                      pk.row_ring_card_plain)
+            args = (pk.ring_table(128, "cpu", marked=True),)
+        else:
+            assert (probe.main, probe.main_plain) == (probe.wrapper, probe.plain)
+            args = pk.probe_inputs(probe, "cpu")
+        assert torch.equal(probe.main(*args), probe.main_plain(*args))
+
+
 @pytest.mark.parametrize("blocks,warps", [(1, 4), (3, 2)])
 def test_ring_warps_are_streams(blocks, warps):
     """With several issuing warps a block, D's streams are blocks * warps

@@ -14,8 +14,9 @@ PyTorch version, and prints one ``[OK]`` or ``[FAIL]`` line.  Beside them:
     sees); checked on a table of ones (each block sums 4096.0) and on a
     marked table that a stale or misplaced slot cannot sum right; then
     one SM's rate against its issuing warps (one block of 1-16 warps,
-    each its own ring), and the whole-card form's TB/s, warm and with L2
-    flushed;
+    each its own ring), and the whole-card form's TB/s: warm, cold (on
+    views whose rows are not in L2, as chip_smoke.py times it) and with
+    L2 flushed by a write;
   * B2 against B3 over 2^26 random elements: whether comparing u64 keys
     as (hi, lo) u32 pairs costs anything on this card (B3 reads the low
     halves only where the high halves tie, so its bytes depend on the
@@ -31,6 +32,7 @@ any probe failed.
 
 from __future__ import annotations
 
+import itertools
 import os
 import subprocess
 import sys
@@ -143,8 +145,10 @@ def ring_card_rates(dev):
     """D's whole-card form (the probe's 4096 fetches over the card) at
     every width: partial sums checked on the marked table, then the
     kernel's device time and the TB/s of the rows it fetches, warm (the
-    same walk again, its rows left in L2 by the call before) and cold
-    (L2 flushed before each call by writing a buffer twice its size).
+    same walk again, its rows left in L2 by the call before), cold (each
+    call on the next of pk.ring_cold_views, whose rows the calls before
+    did not fetch) and flushed (L2 filled before each call by writing a
+    buffer twice its size, whose dirty lines the walk must write back).
     Each call is timed alone by CUDA events around it, queued behind a
     wait on the card so that the host's launch is not in the span; the
     median of CARD_CALLS.  Returns what failed."""
@@ -152,10 +156,10 @@ def ring_card_rates(dev):
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def alone_us(fn, cold):
+    def alone_us(fn, flushed=False):
         times = []
         for _ in range(CARD_CALLS):
-            if cold:
+            if flushed:
                 flush.fill_(1.0)
             torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
@@ -171,12 +175,14 @@ def ring_card_rates(dev):
         if not torch.equal(got, pk.row_ring_card_plain(tbl)):
             failures.append(f"width {width}, whole-card form: partial sums differ")
         nbytes = pk.RING_ITERS * width * 4
-        us = {cold: alone_us(lambda: pk.row_ring_card(tbl), cold) for cold in (False, True)}
+        views = itertools.cycle(pk.ring_cold_views(width, dev))
+        us = {"warm": alone_us(lambda: pk.row_ring_card(tbl)),
+              "cold": alone_us(lambda: pk.row_ring_card(next(views))),
+              "flushed": alone_us(lambda: pk.row_ring_card(tbl), flushed=True)}
         log(f"     width={width:5d}: whole card ({pk.ring_card_blocks()} blocks "
             f"of {pk.RING_WARPS} warps): "
-            + ", ".join(f"{'cold' if cold else 'warm'} {t:.3f} us ({nbytes / t / 1e6:.3f} TB/s)"
-                        for cold, t in us.items()))
-        del tbl
+            + ", ".join(f"{k} {t:.3f} us ({nbytes / t / 1e6:.3f} TB/s)" for k, t in us.items()))
+        del tbl, views
     return failures
 
 

@@ -10,23 +10,16 @@ checkout of rmi_tpu_torch on one CUDA card.
    one PyTorch call of the same function.
 2. The split of one wrapper call of A, B1 and C3 into its parts, each
    timed alone as in 1 on the probe's inputs: the wrapper's Python
-   checks on the card path (types and shapes with ctypes; shapes alone
-   with the compiled binding, which checks the types), the output's
-   allocation, and the binding's own parts.  For a
-   ctypes binding (an ``_build.check_cuda``): check_cuda, the pointer
-   and stream lookups of ``_build.launch``, the ctypes call with no
-   launch behind it (the entry's count argument 0, for which the C entry
-   returns before it launches), and the ctypes call that launches.  For
-   the compiled binding, which allocates the output itself: its call
-   with the count 0 given the output made before ("call, no launch, no
+   checks on the card path (shapes; the binding checks the types), and
+   the binding's parts: its call with the count 0 (for which the C entry
+   launches nothing) given the output made before ("call, no launch, no
    allocation") and given its shape, as the wrapper calls it ("call, no
    launch"; the difference is "allocation"), and its call that launches.
-   "launch" is the difference of the last two of either binding: what
-   the launch itself adds.  "loop" is an empty call, which every part's
-   time includes.
+   "launch" is the difference of the last two: what the launch itself
+   adds.  "loop" is an empty call, which every part's time includes.
 3. Each probe on its probe's inputs (D at widths 128 and 2048, one
-   block, and in its whole-card form where the checkout has one) and its
-   library call where one exists (as chip_smoke.py
+   block, and in its whole-card form, that one cold as chip_smoke.py
+   times it) and its library call where one exists (as chip_smoke.py
    chooses them): ms per call with CUDA events, for a call under 0.1 ms
    the median of 5 runs of at least 5 ms of calls, with the runs' spread
    (at these sizes what the host takes to launch a call); and the device
@@ -34,13 +27,15 @@ checkout of rmi_tpu_torch on one CUDA card.
    DEVICE_CALLS calls.
 
 --root DIR imports rmi_tpu_torch from DIR, a checkout of another commit:
-run both in one command, in turns, to compare them on one card.  Prints
+run both in one command, in turns, to compare them on one card (a
+checkout with the compiled binding, csrc/binding.cpp).  Prints
 the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -108,31 +103,24 @@ def host_us(fn, calls):
     return us
 
 
-def _split_cases(pk, ctypes_binding):
+def _split_cases():
     """Per probe of the split: (C entry, the wrapper's Python checks on
     the card path, the output's allocation, its shape, the entry's
-    arguments given the output or its shape and the count).  With the
-    compiled binding the wrapper checks on the card only what the
-    binding cannot (shapes); the types are the binding's."""
+    arguments given the output or its shape and the count).  The wrapper
+    checks on the card only what the binding cannot (shapes); the types
+    are the binding's."""
     def checks_c3(tbl, idx):
-        if ctypes_binding:
-            pk._check("take_lanes", torch.float32, tbl)
-            pk._check_index("take_lanes", idx)
         shape = tbl.shape
         if len(shape) != 2 or shape[1] != 128 or idx.shape != shape:
             raise ValueError("take_lanes: tbl and idx must be [rows, 128]")
         return tbl.is_cpu
 
     def checks_b1(x, q):
-        if ctypes_binding:
-            pk._check("less_than_i64", torch.int64, x, q)
-        elif q.shape != x.shape:
+        if q.shape != x.shape:
             raise ValueError("less_than_i64: shapes differ")
         return x.is_cpu
 
     def checks_a(x):
-        if ctypes_binding:
-            pk._check("scale2", torch.float32, x)
         return x.is_cpu
     return {
         "A": ("rmi_probe_scale2", checks_a, lambda x: torch.empty_like(x), lambda x: x.shape,
@@ -150,42 +138,22 @@ SPLIT = ("A", "B1", "C3")
 
 def host_split(_build, pk, dev, key, calls):
     """Host us per call of each part of one wrapper call of probe
-    ``key`` (module docstring, 2), for the binding ``_build`` has."""
+    ``key`` (module docstring, 2)."""
     probe = next(p for p in pk.PROBES if p.key == key)
-    ctypes_binding = hasattr(_build, "check_cuda")
-    entry, checks, alloc, shape, entry_args = _split_cases(pk, ctypes_binding)[key]
+    entry, checks, alloc, shape, entry_args = _split_cases()[key]
     a = pk.probe_inputs(probe, dev)
     out, n = alloc(*a), a[0].shape[0] if key == "C3" else a[0].numel()
     parts = {"loop": host_us(lambda: None, calls),
              "wrapper": host_us(lambda: probe.wrapper(*a), calls),
              "checks": host_us(lambda: checks(*a), calls)}
-    if ctypes_binding:
-        C = torch._C
-        largs, zargs = entry_args(*a, out, n), entry_args(*a, out, 0)
-        tensors = [t for t in largs if isinstance(t, torch.Tensor)]
-        fn = _build._entries.get(entry) or _build._entry(entry)
-
-        def lookups():
-            d = largs[0].get_device()
-            conv = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in largs]
-            return conv, C._cuda_getCurrentRawStream(d), d == C._cuda_getDevice()
-        conv, stream, _ = lookups()
-        zconv = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in zargs]
-        parts.update({
-            "allocation": host_us(lambda: alloc(*a), calls),
-            "check_cuda": host_us(lambda: _build.check_cuda(entry, *tensors), calls),
-            "lookups": host_us(lookups, calls),
-            "call, no launch": host_us(lambda: fn(*zconv, stream), calls),
-            "call and launch": host_us(lambda: fn(*conv, stream), calls)})
-    else:                                      # the compiled binding
-        given, sized = entry_args(*a, out, 0), entry_args(*a, shape(*a), 0)
-        largs = entry_args(*a, shape(*a), n)
-        parts.update({
-            "call, no launch, no allocation": host_us(lambda: _build.launch(entry, *given),
-                                                      calls),
-            "call, no launch": host_us(lambda: _build.launch(entry, *sized), calls),
-            "call and launch": host_us(lambda: _build.launch(entry, *largs), calls)})
-        parts["allocation"] = parts["call, no launch"] - parts["call, no launch, no allocation"]
+    given, sized = entry_args(*a, out, 0), entry_args(*a, shape(*a), 0)
+    largs = entry_args(*a, shape(*a), n)
+    parts.update({
+        "call, no launch, no allocation": host_us(lambda: _build.launch(entry, *given),
+                                                  calls),
+        "call, no launch": host_us(lambda: _build.launch(entry, *sized), calls),
+        "call and launch": host_us(lambda: _build.launch(entry, *largs), calls)})
+    parts["allocation"] = parts["call, no launch"] - parts["call, no launch, no allocation"]
     parts["launch"] = parts["call and launch"] - parts["call, no launch"]
     return parts
 
@@ -218,14 +186,15 @@ def main():
               flush=True)
 
     probes = {}
-    card = getattr(pk, "row_ring_card", None)      # D's whole-card form, where it exists
     for probe in pk.PROBES:
         for width in ((128, 2048) if probe.inputs is None else (None,)):
             a = pk.probe_inputs(probe, dev, width=width or 128)
-            if probe.inputs is None and card is not None:
+            if probe.inputs is None:               # D's whole-card form, cold
+                views = itertools.cycle(pk.ring_cold_views(width, dev))
                 probes[f"D card width {width}"] = {
-                    "entry": probe.entry, "ms": row_ms(lambda: card(*a)),
-                    "device_us": device_us(lambda: card(*a))}
+                    "entry": probe.entry, "ms": row_ms(lambda: probe.main(next(views))),
+                    "device_us": device_us(lambda: probe.main(next(views)))}
+                del views
             idx = [t.long() for t in a if t.dtype == torch.int32]
             lib = {"A": lambda: torch.mul(a[0], 2.0),
                    "B1": lambda: torch.lt(a[0], a[1]),
