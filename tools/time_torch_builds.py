@@ -1,0 +1,77 @@
+"""Warm build times of chip_smoke.py's four paths, many builds each, for
+one checkout of rmi_tpu_torch on one CUDA card.
+
+    python3 tools/time_torch_builds.py [--root DIR] [--n 200000000] [--reps 15]
+
+Makes books-like keys on the card (as chip_smoke.py does), then for each
+path builds once to warm up and REPS times more, each build timed by the
+host clock around ``train`` and a synchronize.  Prints per path the
+median, quartiles, least and most seconds, and the kernel calls a build
+makes through the binding (``_build.launches``).  chip_smoke times one
+warm build a path; this gives the spread that one build hides.
+
+--root DIR imports rmi_tpu_torch from DIR, a checkout of another commit:
+run both in one command, in turns, to compare them on one card.  Prints
+the card's name and power limit first, then a line per path and one
+JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PATHS = (("cubic,linear", 262144), ("robust_linear,cubic", 65536),
+         ("cubic,loglinear", 65536), ("cubic,normal", 65536))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=REPO, help="checkout to import rmi_tpu_torch from")
+    ap.add_argument("--n", type=int, default=200_000_000)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--reps", type=int, default=15)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import rmi_tpu_torch
+    from rmi_tpu_torch import config, data as rdata
+    from rmi_tpu_torch.keys import KeyType
+    from rmi_tpu_torch.ops import _build
+
+    dev = config.require_cuda()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0], flush=True)
+    data = rdata.RMIDataset(rdata.books_like_on_device(args.n, args.seed, dev), KeyType.U64)
+    out = {}
+    for spec, B in PATHS:
+        rmi_tpu_torch.train(data, spec, B)          # warm-up, kernels built
+        torch.cuda.synchronize()
+        before = sum(_build.launches.values())
+        times = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            rmi_tpu_torch.train(data, spec, B)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        calls = (sum(_build.launches.values()) - before) / args.reps
+        times.sort()
+        q = [times[int(f * (len(times) - 1))] for f in (0.25, 0.5, 0.75)]
+        out[spec] = {"median_s": q[1], "quartiles_s": [q[0], q[2]], "least_s": times[0],
+                     "most_s": times[-1], "binding_calls": calls}
+        print(f"{spec} {B}: warm build median {q[1]:.4f} s (quartiles {q[0]:.4f}-{q[2]:.4f}, "
+              f"{times[0]:.4f}-{times[-1]:.4f}, {args.reps} builds), {calls:g} kernel calls "
+              f"through the binding a build", flush=True)
+    print(json.dumps({"root": os.path.abspath(args.root), "reps": args.reps, "paths": out}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
