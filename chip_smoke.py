@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all four paths
+    python3 chip_smoke.py              # 200M keys, all five paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -15,7 +15,9 @@ Phases (any failure raises and exits non-zero):
      the keys made twice and the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys, whose
      lookup must launch K4's fused entry (rmi_lookup_<leaf>) and nothing
-     else; lookup of the random queries too, both replayed in phase 7;
+     else (path 5, whose integer top has no fused form: K4's per-element
+     entry rmi_leaf_eval_<leaf> after the top in torch); lookup of the
+     random queries too, both replayed in phase 7;
   5. exact search against torch.searchsorted: search and search_sorted
      of the path, then search, search_sorted and fast_search on 2^16
      queries (the packed plan); the search rate;
@@ -45,6 +47,20 @@ Phases (any failure raises and exits non-zero):
      loglinear leaves on CPU copies;
  11. path 4, ``train(data, "cubic,normal", 65536)``, the same way,
      replaying K2's variance-only variant and K3 and K4 for normal leaves;
+ 11b. path 5, ``train(data, "radix18,linear", 65536)``, a 2^18-entry
+     hint-table top (plain torch, as rmi_tpu computes it in XLA) over
+     linear leaves, phases 3-6 and 8 for it and its lookup timed, its
+     kernels (K1, K2, K3 and K4 linear, the run-length pass, both K5
+     entries) replayed against their plain versions; their times stay
+     path 1's;
+ 11c. the zoo: the other integer-model rows of FAMILIES_200M.json
+     (``radix,linear 1024``, ``bradix,linear 1024``, ``histogram,linear
+     4096``, ``radix22,cubic 65536`` and ``cubic,radix8 4096``, the last
+     with hint-table leaves, swept and served in plain torch) built once
+     each on the same keys, with max_err, avg_log2 and the build time
+     logged, 0 bound violations on 2^22 sampled keys, 0 search
+     mismatches on 2^16 queries, K6 replayed for ``radix22,cubic``, and
+     each one's card-vs-CPU cross-check;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
@@ -94,7 +110,8 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
 from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.models.base import kernel_input, model_float_input, predict_top_assignment
+from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
+                                       params_to, predict_top_assignment)
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel,
                                sweep_kernel)
@@ -190,6 +207,18 @@ PATH4 = ("cubic,normal", 65536,
           "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5),
          ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
           "rmi_lookup_normal"))
+# an integer (hint-table) top over linear leaves: lookup's two steps
+# launch K4's per-element entry
+PATH5 = ("radix18,linear", 65536,
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", *K5),
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", *K5))
+# the other integer-model rows of FAMILIES_200M.json, and the entry each
+# replays
+ZOO = [("radix,linear", 1024, ()), ("bradix,linear", 1024, ()),
+       ("histogram,linear", 4096, ()), ("radix22,cubic", 65536, ("rmi_cubic_l1",)),
+       ("cubic,radix8", 4096, ())]
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (),
              ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
@@ -239,8 +268,10 @@ def entry_of(name, kw):
     launches, where the wrapper has more than one."""
     if name == "aug_centered_moments":
         return "rmi_aug_moments" if kw.get("weights") is None else "rmi_aug_moments_weighted"
-    if name == "lookup_clamped":       # a lognormal top or leaf: the two-step route
+    if name == "lookup_clamped":       # a lognormal or integer model: the two-step route
         kernel = get_model(kw["leaf_type"]).leaf_kernel
+        if kernel is None:             # hint-table leaves: plain torch, no launch
+            return ""
         return (f"rmi_lookup_{kernel}" if eval_kernel.fused_lookup(kw["top_type"],
                                                                     kw["leaf_type"])
                 else f"rmi_leaf_eval_{kernel}")
@@ -338,10 +369,11 @@ def compare_l1(got, want):
                      and same_choice.all())
 
 
-def check_kernels(rec, launches, entries):
+def check_kernels(rec, launches, entries, timed=True):
     """Replay each of ``entries`` on its recorded calls against its plain
     version, and time its largest call (K4's per-element entries: on
-    lookup's own inputs) beside the plain version."""
+    lookup's own inputs) beside the plain version; without ``timed``
+    only replay, each row holding its max abs error."""
     rows = {}
     for entry, mod, name, plain_name, where, source, replaces in PATH_KERNELS:
         if entry not in entries:
@@ -360,13 +392,21 @@ def check_kernels(rec, launches, entries):
             lookups = [c for c in rec.calls["lookup_clamped"]
                        if get_model(c[1]["leaf_type"]).leaf_kernel
                        == get_model(kw["leaf_type"]).leaf_kernel]
-            if lookups:
+            if lookups and not timed:
+                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: c[0][0].shape[0]))
+                worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
+            elif lookups:
                 out = wrapper(*args, **kw)
                 log(f"kernel {entry} at {list(args[0].shape)} (the build's epsilon "
                     f"probes): {spread(row_ms(lambda: wrapper(*args, **kw), 10))}")
                 del out
                 args, kw = lookup_leaf_call(*max(lookups, key=lambda c: c[0][0].shape[0]))
                 worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
+        if not timed:
+            rows[entry] = {"max_abs_err": worst}
+            log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
+                f"version (max abs err {worst})")
+            continue
         pa, pk = plain_args(name, args, kw, args[0].device)
         out = wrapper(*args, **kw)
         ms = row_ms(lambda: wrapper(*args, **kw), 10)
@@ -411,11 +451,11 @@ def replay(entry, name, wrapper, plain, where, args, kw):
 def lookup_leaf_call(args, kw):
     """The per-element K4 call a lookup's leaf step makes: lookup's kernel
     input and leaf ids, bound n - 1 (eval_kernel.lookup_steps)."""
-    queries, top_w, leaf_w, _, n, kminf, s = args
+    queries, top_w, leaf_w, leaf_errors, n, kminf, s = args
     mtop, mleaf = get_model(kw["top_type"]), get_model(kw["leaf_type"])
     x = kernel_input(mleaf, model_float_input(mleaf, queries, kminf, s))
     ids = predict_top_assignment(mtop, top_w, model_float_input(mtop, queries, kminf, s),
-                                 leaf_w.shape[0] - 1)
+                                 leaf_errors.shape[0] - 1)
     return (x, leaf_w, ids, n - 1), {"leaf_type": kw["leaf_type"]}
 
 
@@ -631,8 +671,8 @@ def k5_phase(rmi, keys, queries):
 
 def same_build(a, b):
     """Two TrainedRMIs with bit-equal parameters, errors and metrics."""
-    return (torch.equal(a.device_top_params, b.device_top_params)
-            and torch.equal(a.device_leaf_params, b.device_leaf_params)
+    return (params_equal(a.device_top_params, b.device_top_params)
+            and params_equal(a.device_leaf_params, b.device_leaf_params)
             and torch.equal(a.leaf_errors, b.leaf_errors)
             and (a.model_avg_log2_error, a.model_avg_error, a.model_max_error)
             == (b.model_avg_log2_error, b.model_avg_error, b.model_max_error))
@@ -709,8 +749,8 @@ def cross_check(spec, n, B, seed, dev, rec=None):
            "leaf_ids_max_diff": int(id_diff.max()),
            "leaf_errors_differing": int((err_diff > 0).sum()),
            "leaf_errors_max_diff": int(err_diff.max()),
-           "top_params_equal": bool(torch.equal(card.device_top_params.cpu(),
-                                                cpu.device_top_params))}
+           "top_params_equal": params_equal(params_to(card.device_top_params, "cpu"),
+                                            cpu.device_top_params)}
     if get_model(cpu.leaf_type).input_domain == "raw":
         res["keys_log_differs"], direct = log_readers(keys, t_cpu, B)
         a, b = card.device_leaf_params.cpu(), cpu.device_leaf_params
@@ -760,7 +800,10 @@ def drive(path, data, queries, gen):
         idx_sorted = search_sorted(rmi, queries_sorted)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    fused = f"rmi_lookup_{get_model(rmi.leaf_type).leaf_kernel}"
+    kernel = get_model(rmi.leaf_type).leaf_kernel
+    # the fused entry, or for an integer top the per-element one
+    fused = (f"rmi_lookup_{kernel}" if eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)
+             else f"rmi_leaf_eval_{kernel}")
     log(f"{spec} lookup launches: {json.dumps(by_lookup)}")
     if by_lookup != {fused: 1}:
         raise RuntimeError(f"{spec}: lookup launched {by_lookup}, not {fused} alone")
@@ -796,6 +839,38 @@ def drive(path, data, queries, gen):
     log(f"{spec} search: {nq / (ms / 1e3):.6g} lookups/s ({ms:.4f} ms per batch "
         f"of {nq})")
     return rmi, rec, launches
+
+
+def zoo_phase(data, gen, nq, cross_n, seed, dev):
+    """The ZOO rows on the main path's keys: one build each (the kernels
+    long built), its metrics and build time, the bound on nq sampled keys,
+    search on 2^16 queries, the kernels it replays, then its card-vs-CPU
+    cross-check.  max_err near n is the models' own (rmi_tpu finds it on
+    the TPU too), not a failure."""
+    keys = data.keys
+    n = keys.shape[0]
+    for i, (spec, B, replayed) in enumerate(ZOO):
+        torch.cuda.synchronize()
+        with Recorder() as rec:
+            t0 = time.perf_counter()
+            rmi = rmi_tpu_torch.train(data, spec, B)
+            secs = time.perf_counter() - t0
+        plan = lookup_fast.get_plan(rmi)
+        log(f"zoo {spec} {B}: build {secs:.4f} s; model_max_error {rmi.model_max_error} "
+            f"at leaf {rmi.model_max_error_idx}, model_avg_log2_error "
+            f"{rmi.model_avg_log2_error!r}; plan {plan.kind} S={plan.S} F={plan.F}")
+        if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
+            raise RuntimeError(f"{spec}: build produced malformed metrics")
+        viol = bound_violations(rmi, keys, nq, gen)
+        log(f"zoo {spec} bound check: {viol} violations on {nq} sampled keys")
+        if viol:
+            raise RuntimeError(f"{spec}: bound |guess - lb| <= err violated")
+        check_search(rmi, keys, gen)
+        del rmi
+        check_kernels(rec, {}, replayed, timed=False)
+        del rec
+        torch.cuda.empty_cache()
+        cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed + i, dev)
 
 
 # D runs at its narrowest and widest rows only: the rate table over all
@@ -994,6 +1069,22 @@ def main():
         del rec
         torch.cuda.empty_cache()
         cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev)
+
+    # 11b. path 5: an integer top; its kernels replayed, their rows path 1's
+    rmi, rec, counts = drive(PATH5, data, queries, gen)
+    serving_curve(rmi, keys, gen)
+    steps = row_ms(lambda: lookup(rmi, queries), 10)
+    log(f"lookup {PATH5[0]} at {list(queries.shape)}: two steps (torch top eval, then "
+        f"rmi_leaf_eval_linear) {spread(steps)}")
+    del rmi
+    check_kernels(rec, counts, PATH5[3], timed=False)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    del rec
+    torch.cuda.empty_cache()
+    cross_check(PATH5[0], cross_n, max(64, (PATH5[1] * cross_n) // n), args.seed + 7, dev)
+
+    # 11c. the rest of the integer models
+    zoo_phase(data, gen, nq, cross_n, args.seed + 8, dev)
 
     # 12. lognormal leaves: the card against the CPU, and their K3 and K4
     # calls replayed; these launches are not the main path's

@@ -10,6 +10,15 @@ runs on the image directly.
 reference, models/mod.rs:421-426) computed from the image by a 32-bit
 split: both halves convert exactly and the single add rounds once, so
 the result is the correctly rounded cast, bit-equal to numpy's.
+
+The integer models (radix, bradix, the radix hint tables, histogram)
+compute on the key's u64 BITS, ``u64_bits(image)``: the same 64 bits as
+the unsigned key, held in an int64.  Adds, subtracts and bitwise
+operations on them are the u64 ones; torch's int64 ``>>`` is
+arithmetic and its compares are signed, so ``shr``, ``shl``, ``ult``,
+``umin`` and ``clz64`` here give the unsigned shift, compare, minimum
+and leading-zero count (counterparts of rmi_tpu/models/radix.py:52-63
+and ``jax.lax.clz``).
 """
 
 from __future__ import annotations
@@ -89,6 +98,63 @@ def as_float(v: torch.Tensor) -> torch.Tensor:
     hi = ((v >> 32) & _LOW32) ^ 0x80000000
     lo = v & _LOW32
     return hi.double() * 4294967296.0 + lo.double()
+
+
+def u64_bits(v: torch.Tensor) -> torch.Tensor:
+    """The unsigned keys' bits, as int64, of int64 images (and back: the
+    map is its own inverse)."""
+    return v ^ IMAGE_MIN
+
+
+def _amount(a, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.int64, device=like.device)
+
+
+def _below_64(a: torch.Tensor) -> torch.Tensor:
+    """All ones where the shift amount a < 64, else 0: the mask that
+    zeroes a shift of 64 or more."""
+    return -(a < 64).long()
+
+
+def shr(x: torch.Tensor, a) -> torch.Tensor:
+    """Logical x >> a of u64 bits in int64, 0 for a shift of 64 or more:
+    the arithmetic shift with the bits it fills from the sign cleared."""
+    a = _amount(a, x)
+    ac = a.clamp(0, 63)
+    mask = ~((torch.full_like(ac, -1) << (63 - ac)) << 1) & _below_64(a)
+    return (x >> ac) & mask
+
+
+def shl(x: torch.Tensor, a) -> torch.Tensor:
+    """x << a of u64 bits in int64, 0 for a shift of 64 or more (rmi_tpu
+    radix.py:52-56: release Rust's shift, with its undefined case
+    pinned)."""
+    a = _amount(a, x)
+    return (x << a.clamp(0, 63)) & _below_64(a)
+
+
+def ult(a, b) -> torch.Tensor:
+    """Unsigned a < b of u64 bits in int64: the signed compare of their
+    images."""
+    return (a ^ IMAGE_MIN) < (b ^ IMAGE_MIN)
+
+
+def umin(a: torch.Tensor, b) -> torch.Tensor:
+    """Unsigned min(a, b) of u64 bits in int64."""
+    b = _amount(b, a)
+    return torch.where(ult(b, a), b, a)
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """Leading zero bits of u64 bits in int64, 64 for 0: a six-step
+    search of the top half, quarter, ... that is zero (torch has no clz,
+    and log2 of a float is inexact above 2^53)."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        zero = (x & -(1 << (64 - s))) == 0       # the top s bits
+        n = n + torch.where(zero, s, 0)
+        x = torch.where(zero, x << s, x)
+    return torch.where(x == 0, 64, n)
 
 
 def minus_epsilon(v: torch.Tensor, key_type: KeyType) -> torch.Tensor:

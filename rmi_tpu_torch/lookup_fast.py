@@ -3,8 +3,9 @@ kernel K5 (counterpart of rmi_tpu/lookup_fast.py, ported as far as the
 main path needs).
 
 The packed plan.  For a top model MONOTONE over the key domain (the
-linear family and cubic always; a loglinear, normal or lognormal top when
-_scalar_top_monotone finds its fitted row monotone there), every
+linear family, cubic and the integer-output tops always; a loglinear,
+normal or lognormal top when _scalar_top_monotone finds its fitted row
+monotone there), every
 key with a smaller leaf id precedes q and every key with a larger one
 follows it, so lb(q) lies in [start_j, next_idx_j] for the leaf j that
 q routes to.  Each leaf's row holds its stripe base start_j // 64 and S
@@ -58,8 +59,16 @@ WIDTH = 128                           # stripe-first keys of one mid-level count
 _PACKED_MAX_LANES = 256
 # the wide plan's mid-level count covers lb1 while F + 63 < WIDTH
 _WIDE_MAX_STRIDE = 64
-# the port's tops that are monotone on the key domain
-_MONOTONE_TOPS = ("linear", "robust_linear", "linear_spline", "cubic")
+# the tops that are monotone on the key domain (rmi_tpu lookup_fast.py:
+# 178-190): the linear family on sorted data; the cubic on its interval
+# (cubic_spline.rs:67-72); radix and bradix on the keys' common prefix,
+# which the domain-clipped routing query keeps; the hint tables, built
+# from non-decreasing targets with the trailing fill only clamping up
+# (radix.rs:94-113); the histogram, an upper_bound over pivots whose
+# first is keys[0], so a clipped query never takes its underflow wrap
+_MONOTONE_TOPS = ("linear", "robust_linear", "linear_spline", "cubic", "radix",
+                  "bradix", "radix8", "radix18", "radix22", "radix26", "radix28",
+                  "histogram")
 # tops that are monotone there when their fitted row is (_scalar_top_monotone)
 _SCALAR_TOPS = ("loglinear", "normal", "lognormal")
 

@@ -1,19 +1,33 @@
 """Model registry: the contract every RMI layer model satisfies
 (counterpart of rmi_tpu/models/base.py).
 
-A model is a definition whose fit produces parameter rows for all of a
-layer's models at once ([B, ppm] f64 in the normalized key domain) and
-whose predict evaluates a batch of keys.
+A model is a definition whose fit produces the parameters of all of a
+layer's models at once and whose predict evaluates a batch of keys.  A
+float model's parameters are rows ([B, ppm] f64 in the normalized key
+domain); an integer-output model's (radix, bradix, the radix hint
+tables, histogram) a dict of int tensors, named as rmi_tpu names them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import enum
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from rmi_tpu_torch import keys as keymod
+
+
+class Restriction(enum.Enum):
+    """Where in the layers a model may stand (models/mod.rs:724-728)."""
+
+    NONE = "none"
+    MUST_BE_TOP = "top"
+    MUST_BE_BOTTOM = "bottom"
+
+
+Params = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 def predict_clamped(pred_f: torch.Tensor, bound) -> torch.Tensor:
@@ -23,6 +37,28 @@ def predict_clamped(pred_f: torch.Tensor, bound) -> torch.Tensor:
     p = torch.where(torch.isnan(p), torch.zeros_like(p),
                     p.clamp(0.0, float(bound)))
     return p.to(torch.int64)
+
+
+def clamp_int(pred: torch.Tensor, bound) -> torch.Tensor:
+    """min(bound, pred) in the u64 domain for an integer-output model's
+    predictions (u64 bits in int64): a wrapped -1, histogram's underflow,
+    clamps to ``bound``, not to 0."""
+    return keymod.umin(pred, bound)
+
+
+def params_to(p: Params, device) -> Params:
+    """A model layer's parameters on ``device``."""
+    if isinstance(p, dict):
+        return {k: v.to(device) for k, v in p.items()}
+    return p.to(device)
+
+
+def params_equal(a: Params, b: Params) -> bool:
+    """Two layers' parameters bit-equal (on one device)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(torch.equal(a[k], b[k]) for k in a))
+    return torch.equal(a, b)
 
 
 def leaf_columns(w: torch.Tensor, leaf_ids: Optional[torch.Tensor]):
@@ -43,35 +79,49 @@ class ModelDef:
         FixDups positions scaled by B/n and truncated; ``ep_y_*`` the
         scaled raw indices of the container's first and last rows
         (RMITrainingData::get bypasses FixDups, models/mod.rs:268-274).
-    fit_leaves(xf, yfix, spans) -> [B, ppm]
+        An integer-output model: fit_top(keys, yf, B, scale) -> dict,
+        ``keys`` the sorted key images and ``scale`` = B / n.
+    fit_leaves(xf, yfix, spans) -> [B, ppm], or None for a top-only model
         Batched per-leaf fit over overlap-augmented spans, ``yfix`` the
-        int32 FixDups positions.
-    predict(w [B, ppm], leaf_ids, x) -> f64 predictions, each element
-        through its row w[leaf_ids]; leaf_ids None evaluates the top row
-        (rmi_tpu's predict(params, leaf_idx, keys_f)).
+        int32 FixDups positions; an integer-output model takes the key
+        images for xf and returns a dict.
+    predict(w, leaf_ids, x) -> the predictions of each element through
+        its leaf's parameters (row w[leaf_ids]); leaf_ids None evaluates
+        the top (rmi_tpu's predict(params, leaf_idx, keys_f)).  f64 for
+        a float model; u64 bits in int64 for an integer-output one, which
+        takes the key images for x.
     constant_params(value_f [B]) -> [B, ppm], or None
         set_to_constant_model (models/mod.rs:761-763); None for the
         models whose empty leaves stay unpatched (loglinear, normal,
-        lognormal; rmi_tpu two_layer.py:235-243).
+        lognormal and the integer-output ones; rmi_tpu
+        two_layer.py:222-243).
     leaf_kernel: the leaf evaluation of csrc/leaf_eval.cuh that kernels
         K3 and K4 run for this model as a leaf ("linear", "cubic",
         "loglinear" or "normal"), itself the name of the model whose
-        ``predict`` is that evaluation's plain version.
+        ``predict`` is that evaluation's plain version; None for the
+        integer-output models, which no kernel evaluates (rmi_tpu
+        computes them outside Pallas, two_layer.py:382-400).
     input_domain: "affine" models fit and predict on the normalized keys
         x' = (x - offset) * scale; "raw" ones (lognormal, whose log is
         not affine-covariant) on the keys' f64 values (rmi_tpu
         models/base.py:81-85), and their leaf kernel on log_input of
-        them (kernel_input).
+        them (kernel_input); "int" ones, the integer-output models, on
+        the key images themselves.
+    output_int, restriction, leaf_capable: as rmi_tpu's
+        (models/base.py:44-116).
     """
 
     name: str
     ppm: int
     fit_top: Callable
-    fit_leaves: Callable
+    fit_leaves: Optional[Callable]
     predict: Callable
     constant_params: Optional[Callable]
-    leaf_kernel: str
+    leaf_kernel: Optional[str]
     input_domain: str = "affine"
+    output_int: bool = False
+    restriction: Restriction = Restriction.NONE
+    leaf_capable: bool = True
 
 
 REGISTRY: Dict[str, ModelDef] = {}
@@ -84,10 +134,7 @@ def register(model: ModelDef) -> ModelDef:
 
 def get_model(name: str) -> ModelDef:
     if name not in REGISTRY:
-        raise NotImplementedError(
-            f"model type {name!r} is not in rmi_tpu_torch, which carries "
-            f"{sorted(REGISTRY)}; the rest of the reference's model zoo is "
-            f"ROADMAP.md Queue 1, item 7")
+        raise ValueError(f"Unknown model type: {name}")  # train/mod.rs:53
     return REGISTRY[name]
 
 
@@ -113,9 +160,12 @@ def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
 
 
 def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
-    """The f64 input model ``mdef`` fits and predicts on: the normalized
-    keys, or the keys' raw values for a "raw" model (rmi_tpu
-    two_layer.py:63-66)."""
+    """The input model ``mdef`` fits and predicts on: the normalized keys,
+    the keys' raw f64 values for a "raw" model (rmi_tpu
+    two_layer.py:63-66), or for an integer-output model the key images
+    themselves."""
+    if mdef.input_domain == "int":
+        return keys
     if mdef.input_domain == "raw":
         return keymod.as_float(keys)
     return normalize(keys, kminf, s)
@@ -123,7 +173,10 @@ def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch
 
 def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:
     """min(bound, predict_to_int(top(x))) as int64 (two_layer.rs:49),
-    ``x`` the top's model_float_input."""
+    ``x`` the top's model_float_input; clamp_int of an integer-output
+    top's prediction (rmi_tpu two_layer.py:68-73)."""
+    if mtop.output_int:
+        return clamp_int(mtop.predict(top_w, None, x), bound)
     return predict_clamped(mtop.predict(top_w, None, x), bound)
 
 
@@ -137,11 +190,21 @@ def leaf_predict(leaf_type: str, w: torch.Tensor, leaf_ids: torch.Tensor,
 
 
 def validate_spec(spec_list) -> None:
-    """Two layers, every name known."""
+    """Two layers, every name known, and the layer restrictions
+    (train/mod.rs:59-85; rmi_tpu models/base.py:103-116)."""
     if len(spec_list) != 2:
         raise ValueError(
             "rmi_tpu_torch supports exactly two model layers (the "
             "reference's multi-layer trainer is disabled upstream, "
             "train/mod.rs:125)")
-    for name in spec_list:
-        get_model(name)
+    last = len(spec_list) - 1
+    for idx, name in enumerate(spec_list):
+        m = get_model(name)
+        if m.restriction is Restriction.MUST_BE_TOP and idx != 0:
+            raise ValueError(f"if used, model type {name} must be the root model")
+        if m.restriction is Restriction.MUST_BE_BOTTOM and idx != last:
+            raise ValueError(
+                f"if used, model type {name} must be the bottommost model")
+        if idx == last and not m.leaf_capable:
+            raise NotImplementedError(
+                f"model type {name} is not supported as a leaf layer")

@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from rmi_tpu_torch.models.base import (get_model, kernel_input, leaf_predict,
-                                       model_float_input, predict_clamped,
-                                       predict_top_assignment)
+from rmi_tpu_torch.models.base import (clamp_int, get_model, kernel_input,
+                                       leaf_predict, model_float_input,
+                                       predict_clamped, predict_top_assignment)
 from rmi_tpu_torch.ops import _build
 
 # csrc/leaf_eval.cuh's RmiLeaf, in its order: the top kind rmi_lookup_* takes
@@ -43,6 +43,15 @@ def _check_table(name, w, ppm, rows=None):
         raise ValueError(f"{name}: w must be a [B, {ppm}] float64 table")
     if rows is not None and w.shape[0] != rows:
         raise ValueError(f"{name}: want {rows} rows, got {w.shape[0]}")
+
+
+def _check_params(name, mdef, p, rows=None):
+    """A layer's parameters: a float model's [rows, ppm] f64 table, an
+    integer-output model's dict of tensors."""
+    if not mdef.output_int:
+        _check_table(name, p, mdef.ppm, rows)
+    elif not isinstance(p, dict):
+        raise ValueError(f"{name}: {mdef.name} parameters must be a dict of tensors")
 
 
 def _check_card_table(name, w):
@@ -93,7 +102,9 @@ def fused_lookup(top_type: str, leaf_type: str) -> bool:
     models "affine".  A "raw" model (lognormal) takes max(ln x, 0) of the
     keys' raw values, which stays one torch function outside the kernels
     (CUDA's log differs from glibc's on a few keys; the build computed it
-    so), so a lognormal top or leaf keeps the two-step route."""
+    so), so a lognormal top or leaf keeps the two-step route; so does an
+    integer-output top or leaf (radix, bradix, the hint tables,
+    histogram), which rmi_lookup_*'s top branch does not evaluate."""
     return get_model(top_type).input_domain == get_model(leaf_type).input_domain == "affine"
 
 
@@ -102,10 +113,14 @@ def lookup_steps(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     """lookup as separate steps: the top's model input and its leaf (the
     build's leaf assignment), the leaf's kernel input, ``leaf_eval`` (K4's
     per-element wrapper or its plain version) clamped to n - 1
-    (codegen.rs:713-717), and the leaf's error."""
+    (codegen.rs:713-717), and the leaf's error.  A hint-table leaf has no
+    kernel: its prediction, clamp_int to n - 1 (rmi_tpu lookup.py:52-54),
+    is plain torch on every device."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     x_top = model_float_input(mtop, queries, kminf, s)
-    midx = predict_top_assignment(mtop, top_w, x_top, leaf_w.shape[0] - 1)
+    midx = predict_top_assignment(mtop, top_w, x_top, leaf_errors.shape[0] - 1)
+    if mleaf.output_int:
+        return clamp_int(mleaf.predict(leaf_w, midx, queries), n - 1), leaf_errors[midx]
     x_leaf = (x_top if mleaf.input_domain == mtop.input_domain
               else model_float_input(mleaf, queries, kminf, s))
     guess = leaf_eval(kernel_input(mleaf, x_leaf), leaf_w, midx, n - 1,
@@ -145,7 +160,8 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
                    s: float, *, top_type: str, leaf_type: str, table=None):
     """(guess, err), both [m] int64, of int64 key images ``queries`` under
     the index of ``n`` keys with top row ``top_w`` [1, ppm], leaf rows
-    ``leaf_w`` [B, ppm], per-leaf errors ``leaf_errors`` [B] int64 and
+    ``leaf_w`` [B, ppm] (an integer-output model's parameter dict
+    instead), per-leaf errors ``leaf_errors`` [B] int64 and
     normalization (kminf, s).  ``table`` is lookup_table(leaf_w,
     leaf_errors) where the caller keeps one; else it is made here.
 
@@ -155,15 +171,17 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     kernel argument), clamps the leaf id, gathers the leaf's row and
     error and evaluates the leaf; with a lognormal top or leaf, the two
     steps, the top and the kernel inputs in torch and the leaf in
-    rmi_leaf_eval_<leaf kernel>, and ``table`` is not read."""
+    rmi_leaf_eval_<leaf kernel>, and ``table`` is not read; so with an
+    integer-output top, and with a hint-table leaf, whose step is
+    plain torch (lookup_steps)."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     if queries.dtype != torch.int64 or queries.dim() != 1:
         raise ValueError("lookup_clamped: queries must be 1-D int64 key images")
-    _check_table("lookup_clamped", top_w, mtop.ppm, rows=1)
-    _check_table("lookup_clamped", leaf_w, mleaf.ppm)
-    B = leaf_w.shape[0]
-    if leaf_errors.dtype != torch.int64 or leaf_errors.shape != (B,):
-        raise ValueError(f"lookup_clamped: leaf_errors must be [{B}] int64")
+    if leaf_errors.dtype != torch.int64 or leaf_errors.dim() != 1:
+        raise ValueError("lookup_clamped: leaf_errors must be [B] int64")
+    B = leaf_errors.shape[0]
+    _check_params("lookup_clamped", mtop, top_w, rows=1)
+    _check_params("lookup_clamped", mleaf, leaf_w, rows=B)
     if queries.is_cpu:
         return lookup_clamped_plain(queries, top_w, leaf_w, leaf_errors, n, kminf, s,
                                     top_type=top_type, leaf_type=leaf_type)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -14,6 +14,7 @@ from rmi_tpu_torch import config, keys as keymod
 from rmi_tpu_torch.data import RMIDataset
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, validate_spec
+from rmi_tpu_torch.models.base import Params
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -24,6 +25,11 @@ class TrainedRMI:
 
     ``device_top_params`` [1, ppm] and ``device_leaf_params`` [B, ppm]
     are in the normalized key domain x' = (x - norm_offset) * norm_scale;
+    an integer-output model's are a dict of tensors named as rmi_tpu's
+    (radix and bradix ``w_int``, bradix ``high``, a hint-table top
+    ``w_int`` and ``table``, hint-table leaves ``tables``, ``prefixes``
+    and ``shifts``, histogram ``count``, ``pivots`` as key images and
+    ``radix_index``), u64 values as int64 bits and tables as int32.
     ``leaf_errors`` [B] int64 bound |guess - lower_bound| per leaf.
     """
 
@@ -31,8 +37,8 @@ class TrainedRMI:
     branching_factor: int
     key_type: KeyType
     num_rmi_rows: int
-    device_top_params: torch.Tensor
-    device_leaf_params: torch.Tensor
+    device_top_params: Params
+    device_leaf_params: Params
     leaf_errors: torch.Tensor
     model_avg_error: float
     model_avg_l2_error: float
@@ -86,8 +92,26 @@ def train(data: RMIDataset, model_spec: str, branch_factor: int) -> TrainedRMI:
                     time.monotonic_ns() - start)
 
 
+def _int_params_from_numpy(p: Dict[str, Any], dev) -> Dict[str, torch.Tensor]:
+    """rmi_tpu's parameter dict of an integer-output model, numpy arrays,
+    in the port's form: pivots as key images, u32 tables as int32, every
+    other (u64) value's bits as int64."""
+    out = {}
+    for name, v in p.items():
+        v = np.asarray(v)
+        if name == "pivots":
+            out[name] = keymod.to_image(v).to(dev)
+        elif v.dtype == np.uint32:
+            out[name] = torch.from_numpy(v.astype(np.int32)).to(dev)
+        else:
+            out[name] = torch.from_numpy(
+                np.ascontiguousarray(v.astype(np.uint64).view(np.int64))).to(dev)
+    return out
+
+
 def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
-                       keys: np.ndarray, top_w: np.ndarray, leaf_w: np.ndarray,
+                       keys: np.ndarray, top_w: Union[np.ndarray, Dict[str, Any]],
+                       leaf_w: Union[np.ndarray, Dict[str, Any]],
                        leaf_errors: np.ndarray, norm_offset: float,
                        norm_scale: float, device=None) -> TrainedRMI:
     """A port TrainedRMI serving an index built elsewhere, from numpy
@@ -95,22 +119,33 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     ``device_leaf_params["w"]`` [B, ppm], ``leaf_errors`` [B] and
     normalization constants, over the unsigned ``keys`` it was built on,
     on ``device`` (the card when None; the CPU only when asked for).
-    Only the rows ``"w"`` cross over (cubic leaves: [B, 4], normal and
-    lognormal: [B, 3]); rmi_tpu's generator aux waits for the artifacts
-    (ROADMAP item 10).  The metrics are recomputed from the leaf errors
-    and the leaf counts that the top model assigns."""
+    Of a float model only the rows ``"w"`` cross over (cubic leaves:
+    [B, 4], normal and lognormal: [B, 3]); rmi_tpu's generator aux waits
+    for the artifacts (ROADMAP item 10).  An integer-output model's
+    parameters cross over whole: pass rmi_tpu's parameter dict, its
+    values as numpy arrays.  The metrics are recomputed from the leaf
+    errors and the leaf counts that the top model assigns."""
     top_type, leaf_type = models.split(",")
     validate_spec([top_type, leaf_type])
     dev = config.require_cuda() if device is None else torch.device(device)
     keys_img = keymod.to_image(keys).to(dev)
-    top = torch.tensor(np.asarray(top_w, np.float64), device=dev).reshape(1, -1)
-    leaf = torch.tensor(np.asarray(leaf_w, np.float64), device=dev)
-    B, ppm = int(branching_factor), get_model(leaf_type).ppm
-    if leaf.shape != (B, ppm):
-        raise ValueError(f"leaf_w must be [B, {ppm}] for {leaf_type} leaves, "
-                         f"not {list(leaf.shape)}")
+    mtop, mleaf = get_model(top_type), get_model(leaf_type)
+    B = int(branching_factor)
+    if mtop.output_int:
+        top = _int_params_from_numpy(top_w, dev)
+    else:
+        top = torch.tensor(np.asarray(top_w, np.float64), device=dev).reshape(1, -1)
+    if mleaf.output_int:
+        leaf = _int_params_from_numpy(leaf_w, dev)
+        if leaf["tables"].shape[0] != B:
+            raise ValueError(f"leaf_w['tables'] must have {B} rows")
+    else:
+        leaf = torch.tensor(np.asarray(leaf_w, np.float64), device=dev)
+        if leaf.shape != (B, mleaf.ppm):
+            raise ValueError(f"leaf_w must be [B, {mleaf.ppm}] for {leaf_type} "
+                             f"leaves, not {list(leaf.shape)}")
     errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
-    t = two_layer.top_assignment(get_model(top_type), top, keys_img, norm_offset,
+    t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
                                  norm_scale, B - 1).to(torch.int32)
     spans = seg.make_spans(t, B)
     metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,

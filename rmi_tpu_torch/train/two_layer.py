@@ -14,6 +14,13 @@ next stage allocates:
      duplicate run per leaf (the run-length pass) + the reference's error
      metrics.
 
+The integer-output models (radix, bradix, the radix hint tables,
+histogram) fit and predict on the keys' bits in plain torch, as rmi_tpu
+computes them in XLA outside its kernels: their top assignment, the
+hint-table leaf fit, and for hint-table leaves the per-key sweep and the
+probes (int_sweep_leaf_max).  Float leaves under an integer top run the
+kernels as under any other top.
+
 There is one build path: native f64 in the normalized key domain
 x' = (x - key_min) * (1 / key_span) (the keys' raw f64 values for a
 "raw" model, lognormal), with no staged, B-generic, df64 or
@@ -33,7 +40,7 @@ from torch.profiler import record_function
 
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.models import get_model, predict_clamped, validate_spec
+from rmi_tpu_torch.models import clamp_int, get_model, predict_clamped, validate_spec
 # normalize, model_float_input and predict_top_assignment live with the
 # models, where lookup's kernel wrapper (ops/eval_kernel.py) reaches them
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input,  # noqa: F401
@@ -80,13 +87,17 @@ def _scale(v, sf: float):
 
 def _assign_body(top_in, yfix, *, top_type: str, B: int):
     """Stage A after FixDups: top fit + leaf ids t (int32, non-decreasing),
-    ``top_in`` the top's model_float_input."""
+    ``top_in`` the top's model_float_input (an integer-output top's: the
+    key images)."""
     n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
     ys_scaled = _scale(yfix.double(), sf)
-    top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
-                         _scale(float(n - 1), sf))
+    if mtop.output_int:
+        top_w = mtop.fit_top(top_in, ys_scaled, B, sf)
+    else:
+        top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
+                             _scale(float(n - 1), sf))
     del ys_scaled
     t = predict_top_assignment(mtop, top_w, top_in, B - 1).to(torch.int32)
     return top_w, t
@@ -121,7 +132,8 @@ def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str):
     """Stage B: leaf rows [B, ppm] fitted on the leaf's model_float_input,
     constant-patched where a leaf is empty, except the final leaf (the
     reference's loop stops at B-1) and the models without a constant
-    form (loglinear, normal, lognormal)."""
+    form (loglinear, normal, lognormal, and the hint tables, whose fit
+    reads the exact key bits and returns a dict)."""
     mleaf = get_model(leaf_type)
     w = mleaf.fit_leaves(leaf_in, yfix, spans)
     if mleaf.constant_params is None:
@@ -137,6 +149,33 @@ def _error_between(pred, target, n: int):
     return (pred.clamp(max=n) - target.clamp(max=n)).abs()
 
 
+# keys per step of an integer leaf layer's sweep: bounds its per-key
+# temporaries (rmi_tpu two_layer.py:257, its _SWEEP_CHUNK)
+INT_SWEEP_CHUNK = 1 << 25
+
+
+def int_sweep_errors(keys, yfix, t, leaf_p, n: int, *, leaf_type: str):
+    """Per-key |min(leaf(key), n) - min(yfix, n)| of an integer-output
+    leaf layer (rmi_tpu two_layer.py:270-274), int64, each key through
+    its leaf t."""
+    pred = clamp_int(get_model(leaf_type).predict(leaf_p, t, keys), n)
+    return _error_between(pred, yfix.long(), n)
+
+
+def int_sweep_leaf_max(keys, yfix, spans: seg.Spans, leaf_p, *, leaf_type: str):
+    """[B] int64: the per-leaf maximum of int_sweep_errors (0 for an
+    empty leaf), INT_SWEEP_CHUNK keys at a time: plain torch on every
+    device, as rmi_tpu sweeps these leaves in XLA."""
+    n = spans.n
+    out = torch.zeros(spans.B, dtype=torch.int64, device=keys.device)
+    for i in range(0, n, INT_SWEEP_CHUNK):
+        t = spans.t[i:i + INT_SWEEP_CHUNK]
+        err = int_sweep_errors(keys[i:i + INT_SWEEP_CHUNK], yfix[i:i + INT_SWEEP_CHUNK],
+                               t, leaf_p, n, leaf_type=leaf_type)
+        out.scatter_reduce_(0, t.long(), err, "amax")
+    return out
+
+
 def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
                next_key, prev_key, kminf: float, s: float, key_type: KeyType, *,
                leaf_type: str):
@@ -144,14 +183,19 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     leaf's model_float_input ``leaf_in``."""
     n, B = spans.n, spans.B
     mleaf = get_model(leaf_type)
-    max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix,
-                                          spans.starts, spans.ends, leaf_w, n,
-                                          leaf_type=leaf_type).long()
+    if mleaf.output_int:
+        max_err = int_sweep_leaf_max(keys, yfix, spans, leaf_w, leaf_type=leaf_type)
+    else:
+        max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix,
+                                              spans.starts, spans.ends, leaf_w, n,
+                                              leaf_type=leaf_type).long()
 
     # epsilon probes (two_layer.rs:226-259)
-    leaf_ids = torch.arange(B, device=leaf_w.device)
+    leaf_ids = torch.arange(B, device=keys.device)
 
     def probe(probe_keys):
+        if mleaf.output_int:
+            return clamp_int(mleaf.predict(leaf_w, leaf_ids, probe_keys), n)
         x = kernel_input(mleaf, model_float_input(mleaf, probe_keys, kminf, s))
         return eval_kernel.leaf_eval_clamped(x, leaf_w, leaf_ids, n,
                                              leaf_type=leaf_type).long()
@@ -199,8 +243,9 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
                     leaf_type: str, B: int) -> dict:
     """Build a two-layer RMI over sorted key images on their device.
 
-    Returns top_w [1, ppm] and leaf_w [B, ppm] (normalized domain),
-    leaf_errors [B] int64, the metrics dict, and norm_offset/norm_scale.
+    Returns top_w [1, ppm] and leaf_w [B, ppm] (normalized domain; an
+    integer-output model's parameter dict instead), leaf_errors [B]
+    int64, the metrics dict, and norm_offset/norm_scale.
     """
     validate_spec([top_type, leaf_type])
     n = keys.shape[0]

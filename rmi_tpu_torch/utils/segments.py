@@ -5,7 +5,8 @@ NON-DECREASING and every per-leaf reduction is a reduction over a
 contiguous range.  The JAX package rewrote searchsorted, the scans and
 the segmented max into TPU-friendly forms.  On the card the plain
 operations serve instead: ``torch.searchsorted`` in place of
-sorted_starts (make_spans) and hier_count (models/cubic.py); kernel K1
+sorted_starts (below) and hier_count (models/cubic.py, the integer
+models); kernel K1
 (ops/scan_kernel.py) runs the n-scale running max, kernel K2
 (ops/select_kernel.py) the per-leaf moments (plain, 0/1-weighted and
 variance-only), and the per-leaf maxima are taken inside kernel K3 and
@@ -44,10 +45,17 @@ class Spans:
     B: int
 
 
+def sorted_starts(t: torch.Tensor, B: int) -> torch.Tensor:
+    """starts[j] = #{i : t[i] < j} for j < B and NON-DECREASING integer t
+    (rmi_tpu segments.py:260, whose blocked compare-reduce form is a TPU
+    workaround)."""
+    return torch.searchsorted(t, torch.arange(B, dtype=t.dtype, device=t.device))
+
+
 def make_spans(t: torch.Tensor, B: int) -> Spans:
     """Leaf spans of non-decreasing leaf ids t: starts[j] = #{i : t[i] < j}."""
     n = t.shape[0]
-    starts = torch.searchsorted(t, torch.arange(B, dtype=t.dtype, device=t.device))
+    starts = sorted_starts(t, B)
     ends = torch.cat([starts[1:], starts.new_full((1,), n)])
     nonempty = starts < ends
     has_prev = nonempty & (starts > 0)

@@ -21,7 +21,9 @@ exactly one launch through the compiled binding, which refuses tensors
 off the card, non-contiguous or of the wrong type;
 K2 and its weighted and variance-only
 variants within rtol 1e-9 (summation order) plus 1e-12 of the
-Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; K5 and its scatter
+Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; the integer models'
+builds on the card against the CPU build (hint tables bit-equal) with the
+kernels they launched replayed as above; K5 and its scatter
 entry, at both sample levels, bit-equal to their plain versions on the
 card and to np.searchsorted (int64 compares never round); K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
@@ -38,7 +40,8 @@ from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import cubic, get_model
-from rmi_tpu_torch.models.base import kernel_input, model_float_input, predict_top_assignment
+from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
+                                       params_to, predict_top_assignment)
 from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel as ssk,
@@ -506,6 +509,96 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):
         eval_kernel.leaf_eval_clamped(x, w, torch.zeros(10, dtype=torch.int64), 5,
                                       leaf_type="linear")
+
+
+# the kernel wrappers a build calls, with their plain versions
+BUILD_WRAPPERS = [(scan_kernel, "scan_i32"), (select_kernel, "aug_centered_moments"),
+                  (sweep_kernel, "sweep_leaf_max"), (sweep_kernel, "span_run_max"),
+                  (eval_kernel, "leaf_eval_clamped"), (cubic_l1_kernel, "cubic_l1_sums")]
+
+
+def _record_build(monkeypatch, fn):
+    """fn()'s result, and the (wrapper name, args, kwargs) of every kernel
+    wrapper call it made."""
+    calls = []
+    for mod, name in BUILD_WRAPPERS:
+        def rec(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls.append((_name, a, kw))
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, rec)
+    out = fn()
+    monkeypatch.undo()
+    return out, calls
+
+
+def _replay_on_plain(name, args, kw):
+    """A recorded wrapper call against its plain version: K2 and K6 on the
+    card within their tolerances, the others bit-equal (K3 and K4 on CPU
+    copies, where torch.addcmul is an exact FMA)."""
+    mod = dict((n, m) for m, n in BUILD_WRAPPERS)[name]
+    got = getattr(mod, name)(*args, **kw)
+    if name in ("sweep_leaf_max", "leaf_eval_clamped"):
+        args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    kw = {k: v for k, v in kw.items() if (name, k) != ("scan_i32", "fill")}
+    want = getattr(mod, name + "_plain")(*args, **kw)
+    if name == "aug_centered_moments":
+        x, y, mean_x, mean_y, lo, hi = args
+        syy = select_kernel.aug_centered_moments_plain(y, y, mean_y, mean_y, lo, hi)[0]
+        _k2_close(got, want, syy.cpu())
+    elif name == "cubic_l1_sums":
+        for g, w in zip(got, want):
+            assert ((g.cpu() - w.cpu()).abs() <= cubic_l1_kernel.sum_tolerance(w.cpu())).all()
+    else:
+        assert torch.equal(got.cpu().long(), want.cpu().long()), name
+
+
+@pytest.mark.parametrize("spec", ["radix18,linear", "cubic,radix8"])
+def test_card_build_integer_models_matches_cpu_build(dev, spec, monkeypatch):
+    """A hint-table top (radix18) and hint-table leaves (radix8) built on
+    the card at n = 2^16 against the CPU build: max_err equal, leaf errors
+    within 1 in at most 8 leaves (the linear leaves' sums), and where the
+    tops agree the hint tables and their leaf errors bit-equal; the
+    kernels the card build launched replayed against their plain
+    versions."""
+    keys = rdata.books_like_on_device(1 << 16, 9, dev)
+    B = 256
+    card, calls = _record_build(monkeypatch, lambda: rt.train(
+        rdata.RMIDataset(keys, KeyType.U64), spec, B))
+    cpu = rt.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), spec, B)
+    assert card.model_max_error == cpu.model_max_error
+    diff = (card.leaf_errors.cpu() - cpu.leaf_errors).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 8
+    top_int = get_model(card.top_type).output_int
+    same_top = params_equal(params_to(card.device_top_params, "cpu"), cpu.device_top_params)
+    assert same_top or not top_int
+    if same_top and get_model(card.leaf_type).output_int:
+        assert params_equal(params_to(card.device_leaf_params, "cpu"), cpu.device_leaf_params)
+        assert torch.equal(card.leaf_errors.cpu(), cpu.leaf_errors)
+    names = {name for name, _, _ in calls}
+    assert {"scan_i32", "span_run_max"} <= names
+    assert ("sweep_leaf_max" in names) == (not get_model(card.leaf_type).output_int)
+    for name, args, kw in calls:
+        _replay_on_plain(name, args, kw)
+    lb = torch.searchsorted(keys, keys, side="left")
+    g, e = rt.lookup(card, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    assert torch.equal(rt.search(card, keys), lb)
+
+
+@pytest.mark.parametrize("spec,B", [
+    ("radix,linear", 1024), ("bradix,linear", 1024), ("histogram,linear", 1024),
+    *[(f"radix{b},linear", 1024) for b in (8, 18, 22, 26, 28)],
+    ("linear,radix8", 1024), ("linear,radix18", 64), ("linear,radix22", 16)])
+def test_card_trains_every_integer_model(dev, spec, B):
+    """Every integer model as a top, and each hint table as a leaf layer
+    within its cap, trains on the card (radix26 and radix28 tops: 256 MB
+    and 1 GB tables) with the bound holding and search exact."""
+    keys = rdata.books_like_on_device(1 << 16, 10, dev)
+    rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), spec, B)
+    lb = torch.searchsorted(keys, keys, side="left")
+    g, e = rt.lookup(rmi, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    assert torch.equal(rt.search(rmi, keys), lb)
 
 
 def test_card_build_matches_cpu_build(dev):

@@ -217,12 +217,15 @@ def test_search_is_exact(kind, spec, B):
         np.testing.assert_array_equal(got, np.searchsorted(keys, q, side="left"))
 
 
-@pytest.mark.parametrize("spec", ["cubic,radix22", "bradix,linear",
-                                  "radix,linear", "linear,linear,linear"])
-def test_unported_specs_raise(spec):
-    data = rt.RMIDataset.from_numpy(_keys("books"), device="cpu")
-    err = ValueError if spec.count(",") != 1 else NotImplementedError
+@pytest.mark.parametrize("keys_dtype,spec,err", [
+    (np.float64, "linear,linear", NotImplementedError),   # f64 keys: not ported
+    (np.uint64, "cubic,bradix", ValueError),              # a top-only model as leaf
+    (np.uint64, "cubic,histogram", ValueError),
+    (np.uint64, "linear,linear,linear", ValueError),      # two layers only
+], ids=["f64-keys", "cubic,bradix", "cubic,histogram", "linear,linear,linear"])
+def test_unported_specs_raise(keys_dtype, spec, err):
     with pytest.raises(err):
+        data = rt.RMIDataset.from_numpy(_keys("books").astype(keys_dtype), device="cpu")
         rt.train(data, spec, 64)
 
 

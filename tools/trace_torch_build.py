@@ -7,14 +7,15 @@ Makes books-like keys on the card (as chip_smoke.py does), runs one
 untraced build and search to warm up, then traces with torch.profiler a
 warm build of ``--spec`` with ``--B`` leaves (chip_smoke.py's first path
 by default; its others are ``--spec robust_linear,cubic``,
-``--spec cubic,loglinear`` and ``--spec cubic,normal``, each with
-``--B 65536``), and
+``--spec cubic,loglinear``, ``--spec cubic,normal`` and
+``--spec radix18,linear``, each with ``--B 65536``), and
 apart from it SEARCH_BATCHES search batches of 2^22 random queries
 (sort -> K5 -> unsort).  For each
 trace it prints the device time of the rmi.* ranges (the build stages of
 train/two_layer.py), the kernels by device time, the device's busy
 share of the traced wall time, and any scatter operation it saw (the
-build takes its per-leaf maxima inside kernels and should show none).
+build takes its per-leaf maxima inside kernels and should show none,
+but for hint-table leaves, which are swept in torch).
 """
 
 from __future__ import annotations
