@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all five paths
+    python3 chip_smoke.py              # 200M keys, all six paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
   2. the kernels: built from csrc/ with nvcc and, for the binding,
      the host compiler, each step's build time printed;
   3. path 1 on books-like u64 keys made on the card from a seed:
-     ``train(data, "cubic,linear", 262144)`` cold and warm, then lookup,
+     ``train(data, "cubic,linear", 262144)`` cold and warm (each path's
+     and zoo row's RMI_SIZE logged beside its max_err), then lookup,
      search of 2^22 random queries (torch.sort, then K5's scatter entry,
      at the default size) and search_sorted of the same queries sorted
      (K5); every kernel of the path must have launched in that run, and
@@ -53,7 +54,26 @@ Phases (any failure raises and exits non-zero):
      kernels (K1, K2, K3 and K4 linear, the run-length pass, both K5
      entries) replayed against their plain versions; their times stay
      path 1's;
- 11c. the zoo: the other integer-model rows of FAMILIES_200M.json
+ 11c. path 6, the compile path through the CLI (rmi_tpu_torch.cli.main,
+     in a temporary directory deleted at the end), the launches counted
+     from 0: the keys written to an SOSD file; 6a ``cubic,linear
+     262144`` (path 1's spec) with --stats-file and --zero-build-time:
+     RMI_SIZE 6291488 (SOSD_SYNTH.json's simple_model_wiki row), max_err,
+     its leaf and avg_log2 equal to path 1's, the artifact loaded back
+     onto the card (load_artifact) and its lookup of the path's queries
+     bit-equal to path 1's wherever the loaded top keeps the query's
+     leaf, search and search_sorted exact; the native server
+     (native/rmi_native.cpp, built on first use) and the generated
+     books.cpp compiled with g++ -O3 on 2^16 sampled keys and 2^16
+     queries: 0 bound violations, exact search, the guesses that differ
+     from the card's counted; 6b ``linear_spline,linear 4194304
+     --bounded 8`` on the same file: RMI_SIZE 16 + 24 B + 16 knots,
+     |pos - lb| <= 8 on 2^22 sampled keys, search with the original keys
+     exact, the native server's positions equal to the card's but for a
+     lerp within eps of a line boundary (one line up); each step timed;
+     the kernels of 6a's serving and of 6b replayed against their plain
+     versions;
+ 11d. the zoo: the other integer-model rows of FAMILIES_200M.json
      (``radix,linear 1024``, ``bradix,linear 1024``, ``histogram,linear
      4096``, ``radix22,cubic 65536`` and ``cubic,radix8 4096``, the last
      with hint-table leaves, swept and served in plain torch) built once
@@ -95,16 +115,22 @@ one row per C entry point.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
+import tempfile
+import textwrap
 import time
 
+import numpy as np
 import torch
 
 import rmi_tpu_torch
-from rmi_tpu_torch import config, lookup_fast
+from rmi_tpu_torch import cli, codegen, config, lookup_fast, native, serialize
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
@@ -115,6 +141,8 @@ from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_e
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel,
                                sweep_kernel)
+from rmi_tpu_torch.serialize import rmi_size
+from rmi_tpu_torch.train import api as train_api
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -809,7 +837,7 @@ def drive(path, data, queries, gen):
         raise RuntimeError(f"{spec}: lookup launched {by_lookup}, not {fused} alone")
     log(f"build {spec} {B}: cold {cold:.4f} s, warm {warm:.4f} s, peak device "
         f"memory {peak / 2**30:.2f} GiB; model_max_error {rmi.model_max_error} "
-        f"at leaf {rmi.model_max_error_idx}, "
+        f"at leaf {rmi.model_max_error_idx}, RMI_SIZE {rmi_size(rmi)}, "
         f"model_avg_log2_error {rmi.model_avg_log2_error!r}, "
         f"model_avg_error {rmi.model_avg_error!r}")
     log(f"{spec} launches: {json.dumps(launches)}")
@@ -857,7 +885,8 @@ def zoo_phase(data, gen, nq, cross_n, seed, dev):
             secs = time.perf_counter() - t0
         plan = lookup_fast.get_plan(rmi)
         log(f"zoo {spec} {B}: build {secs:.4f} s; model_max_error {rmi.model_max_error} "
-            f"at leaf {rmi.model_max_error_idx}, model_avg_log2_error "
+            f"at leaf {rmi.model_max_error_idx}, RMI_SIZE {rmi_size(rmi)}, "
+            f"model_avg_log2_error "
             f"{rmi.model_avg_log2_error!r}; plan {plan.kind} S={plan.S} F={plan.F}")
         if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
             raise RuntimeError(f"{spec}: build produced malformed metrics")
@@ -871,6 +900,326 @@ def zoo_phase(data, gen, nq, cross_n, seed, dev):
         del rec
         torch.cuda.empty_cache()
         cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed + i, dev)
+
+
+# path 6: the compile path through the CLI on the paths' keys
+PATH6A = ("cubic,linear", 262144)
+PATH6B = ("linear_spline,linear", 4194304, 8)
+# SOSD_SYNTH.json's simple_model_wiki row: the size does not follow the keys
+PATH6A_RMI_SIZE = 6291488
+PATH6_SAMPLE = 1 << 16            # keys and queries each for the native and C++ checks
+# every entry path 6 launches: the train (6a and 6b), lookup and search
+# on the loaded artifact (6a), lookup over the knots (6b); and the ones
+# replayed on 6a's serving calls and 6b's calls
+PATH6 = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5)
+PATH6B_LAUNCHES = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+                   "rmi_leaf_eval_linear", "rmi_lookup_linear")
+
+CPP_HARNESS = textwrap.dedent("""
+    #include "{ns}.h"
+    #include <algorithm>
+    #include <cstdio>
+    #include <cstdint>
+    #include <vector>
+
+    static std::vector<uint64_t> read_sosd(const char* path) {{
+      FILE* f = fopen(path, "rb");
+      uint64_t n = 0;
+      if (f == nullptr || fread(&n, 8, 1, f) != 1) return {{}};
+      std::vector<uint64_t> v(n);
+      if (fread(v.data(), 8, n, f) != n) v.clear();
+      fclose(f);
+      return v;
+    }}
+
+    int main(int argc, char** argv) {{
+      // argv: data_dir keys_file queries_file out_file
+      if (!{ns}::load(argv[1])) {{ printf("LOAD FAIL\\n"); return 2; }}
+      std::vector<uint64_t> keys = read_sosd(argv[2]), q = read_sosd(argv[3]);
+      if (keys.empty() || q.empty()) return 3;
+      FILE* out = fopen(argv[4], "wb");
+      for (uint64_t x : q) {{
+        size_t err;
+        uint64_t guess = {ns}::lookup(x, &err);
+        uint64_t lo = guess > err ? guess - err : 0;
+        uint64_t hi = std::min<uint64_t>(guess + err + 1, keys.size());
+        uint64_t lb = std::lower_bound(keys.begin() + std::min<uint64_t>(lo, hi),
+                                       keys.begin() + hi, x) - keys.begin();
+        uint64_t row[3] = {{guess, (uint64_t)err, lb}};
+        fwrite(row, 8, 3, out);
+      }}
+      fclose(out);
+      {ns}::cleanup();
+      printf("RMI_SIZE=%zu\\n", {ns}::RMI_SIZE);
+      return 0;
+    }}
+""")
+
+
+class Timers:
+    """Wall seconds of named calls, timed by wrapping the functions the
+    CLI reaches (restored on exit); ``last`` keeps each one's last
+    result."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.last, self._saved = targets, {}, {}, []
+
+    def __enter__(self):
+        for label, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds[_label] = self.seconds.get(_label, 0.0) + \
+                    time.perf_counter() - t0
+                self.last[_label] = out
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+    def line(self):
+        return ", ".join(f"{k} {v:.3f} s" for k, v in self.seconds.items())
+
+
+def sample_keys_and_queries(keys, count, gen):
+    """``count`` keys drawn from ``keys`` and ``count`` uniform queries over
+    their range, as one batch of images."""
+    lo, hi = int(keys[0]), int(keys[-1])
+    k = keys[torch.randint(0, keys.shape[0], (count,), generator=gen, device=keys.device)]
+    q = torch.randint(lo, hi, (count,), generator=gen, device=keys.device,
+                      dtype=torch.int64)
+    return torch.cat([k, q])
+
+
+def run_cli(workdir, argv, timers):
+    """rmi_tpu_torch.cli.main(argv) in ``workdir`` on the card, timed."""
+    with contextlib.chdir(workdir), Timers(timers) as t:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        total = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main({argv}) returned {rc}")
+    return total, t
+
+
+def compiled_cpp(workdir, ns, meta_dir, keys_file, queries, n):
+    """The generated ``ns.cpp`` built with g++ -O3 beside the harness above,
+    run over ``queries`` (u64 numpy) and the keys file: (guess, err, lb)
+    and the seconds of the build and the run."""
+    with open(os.path.join(workdir, "harness.cpp"), "w") as f:
+        f.write(CPP_HARNESS.format(ns=ns))
+    exe = os.path.join(workdir, "harness")
+    t0 = time.perf_counter()
+    subprocess.run([shutil.which("g++") or "g++", "-O3", "-std=c++17", "-o", exe,
+                    os.path.join(workdir, "harness.cpp"),
+                    os.path.join(workdir, f"{ns}.cpp"), "-I", workdir],
+                   check=True, capture_output=True)
+    built = time.perf_counter() - t0
+    qf, of = os.path.join(workdir, "queries_uint64"), os.path.join(workdir, "out.bin")
+    rdata.write_sosd_file(qf, queries)
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, meta_dir, keys_file, qf, of], check=True,
+                       capture_output=True, text=True)
+    ran = time.perf_counter() - t0
+    size = int(next(ln for ln in r.stdout.splitlines() if "RMI_SIZE" in ln).split("=")[1])
+    out = np.fromfile(of, dtype="<u8").reshape(-1, 3).astype(np.int64)
+    return out[:, 0], out[:, 1], out[:, 2], size, built, ran
+
+
+def host_checks(label, guess, err, idx, q_img, keys, card_guess):
+    """Bound violations and search mismatches of a host server's answers
+    (numpy) for queries ``q_img`` (their lower bounds from the card), and
+    how many guesses differ from the card's: the count is logged, the
+    violations and mismatches must be 0."""
+    lb = torch.searchsorted(keys, q_img, side="left").cpu().numpy()
+    viol = int((np.abs(guess - lb) > err).sum())
+    mism = int((idx != lb).sum())
+    differ = int((guess != card_guess).sum())
+    log(f"path 6a {label}: {viol} bound violations, {mism} search mismatches on "
+        f"{lb.shape[0]} keys and queries; {differ} guesses differ from the card's")
+    if viol or mism:
+        raise RuntimeError(f"path 6a {label}: bound or search broken")
+    return differ
+
+
+def compile_phase(data, queries, gen, p1):
+    """Path 6 on the paths' keys through the CLI, in a temporary directory
+    deleted at the end; returns its recorder and launches (6a and 6b)."""
+    keys = data.keys
+    n = keys.shape[0]
+    spec, B = PATH6A
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    rec = Recorder()
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        keys_np = data.to_numpy()
+        path = os.path.join(tmp, f"books_{n}_uint64")
+        rdata.write_sosd_file(path, keys_np)
+        log(f"path 6: {n} keys written to an SOSD file in "
+            f"{time.perf_counter() - t0:.3f} s (the card-to-host copy included)")
+
+        # 6a: cubic,linear 262144, as path 1, through the CLI
+        total, t = run_cli(tmp, [path, "books", spec, str(B), "--stats-file",
+                                 "stats.json", "--data-path", "rmi_data",
+                                 "--zero-build-time"], {
+            "load": (rmi_tpu_torch, "load_data"), "train": (rmi_tpu_torch, "train"),
+            "output_rmi": (rmi_tpu_torch, "output_rmi"),
+            "transfer and raw conversion": (train_api, "_raw_params"),
+            "blobs and metadata (the transfer included)": (serialize, "save_artifact"),
+            "codegen": (codegen, "generate_cpp")})
+        stats = json.load(open(os.path.join(tmp, "stats.json")))
+        meta_path = os.path.join(tmp, "rmi_data", "books.json")
+        meta = json.load(open(meta_path))
+        log(f"path 6a cli {spec} {B}: {total:.3f} s ({t.line()}); RMI_SIZE "
+            f"{stats['size binary search']}, max error {stats['max error']} at leaf "
+            f"{meta['metrics']['model_max_error_idx']}, average log2 error "
+            f"{stats['average log2 error']!r}; files "
+            f"{sorted(os.listdir(tmp))} rmi_data {sorted(os.listdir(os.path.join(tmp, 'rmi_data')))}")
+        if stats["size binary search"] != PATH6A_RMI_SIZE:
+            raise RuntimeError(f"path 6a: RMI_SIZE {stats['size binary search']}, not "
+                               f"{PATH6A_RMI_SIZE}")
+        got = (stats["max error"], meta["metrics"]["model_max_error_idx"],
+               stats["average log2 error"])
+        if got != p1["metrics"]:
+            raise RuntimeError(f"path 6a: metrics {got} differ from path 1's {p1['metrics']}")
+        del t
+
+        with rec:
+            t0 = time.perf_counter()
+            loaded = rmi_tpu_torch.load_artifact(meta_path, keys=keys)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            g, e = lookup(loaded, queries)
+            idx = search(loaded, queries)
+            qs = torch.sort(queries).values
+            idx_sorted = search_sorted(loaded, qs)
+        # bit-equal to path 1's index wherever the loaded top routes the
+        # query to the same leaf; the raw round trip may move a query that
+        # lies on a leaf boundary (tests/test_torch_artifacts.py)
+        moved = p1["leaf"] != top_leaf(loaded, queries)
+        same = ~moved
+        differ = int(((g != p1["lookup"][0]) | (e != p1["lookup"][1]))[same].sum())
+        mism = mismatches(keys, queries, idx) + mismatches(keys, qs, idx_sorted)
+        log(f"path 6a load_artifact onto the card {load_s:.3f} s; lookup of the "
+            f"{queries.shape[0]} queries: {differ} differ from path 1's index where the "
+            f"leaf is the same, {int(moved.sum())} queries moved to another leaf by the "
+            f"round trip; search and search_sorted {mism} mismatches")
+        if differ or mism:
+            raise RuntimeError("path 6a: the loaded artifact serves otherwise than path 1")
+
+        sample = sample_keys_and_queries(keys, PATH6_SAMPLE, gen)
+        q_np = keymod.from_image(sample)
+        card_g = lookup(loaded, sample)[0].cpu().numpy()
+        t0 = time.perf_counter()
+        built_before = os.path.exists(native.library_path())
+        native.build()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv = native.NativeRMI(meta_path)
+        native_s = time.perf_counter() - t0
+        with srv:
+            ng, ne = srv.lookup(q_np)
+            nidx = srv.search(q_np, keys_np)
+        log(f"path 6a native server: library {native.library_path()} "
+            f"{'found' if built_before else 'built'} in {build_s:.3f} s, the artifact "
+            f"loaded in {native_s:.3f} s")
+        host_checks("native server", ng.astype(np.int64), ne.astype(np.int64),
+                    nidx.astype(np.int64), sample, keys, card_g)
+        cg, ce, cidx, csize, built, ran = compiled_cpp(tmp, "books",
+                                                       os.path.join(tmp, "rmi_data"),
+                                                       path, q_np, n)
+        log(f"path 6a books.cpp: g++ -O3 {built:.3f} s, run {ran:.3f} s, RMI_SIZE {csize}; "
+            f"{int((cg != ng.astype(np.int64)).sum())} guesses differ from the native "
+            f"server's")
+        host_checks("compiled C++", cg, ce, cidx, sample, keys, card_g)
+        if csize != PATH6A_RMI_SIZE:
+            raise RuntimeError(f"path 6a: books.cpp's RMI_SIZE {csize}")
+        del loaded, g, e, idx, idx_sorted, qs, srv
+        torch.cuda.empty_cache()
+
+        # 6b: linear_spline,linear 4194304 --bounded 8 on the same file
+        spec_b, B_b, line = PATH6B
+        with rec:
+            before_b = dict(_build.launches)
+            total, t = run_cli(tmp, [path, "cfw", spec_b, str(B_b), "--bounded", str(line),
+                                     "--stats-file", "stats_b.json", "--data-path",
+                                     "rmi_data", "--zero-build-time"], {
+                "load": (rmi_tpu_torch, "load_data"),
+                "unique (run starts on the card, then to the host)":
+                    (rdata.RMIDataset, "unique"),
+                "spline (native, host)": (native, "cache_fix"),
+                "train over the knots": (train_api, "train"),
+                "train_bounded": (rmi_tpu_torch, "train_bounded"),
+                "output_rmi": (rmi_tpu_torch, "output_rmi")})
+            stats_b = json.load(open(os.path.join(tmp, "stats_b.json")))
+            meta_b_path = os.path.join(tmp, "rmi_data", "cfw.json")
+            knots = json.load(open(meta_b_path))["cache_fix"]["num_points"]
+            want_size = 16 + 24 * B_b + 16 * knots
+            log(f"path 6b cli {spec_b} {B_b} --bounded {line}: {total:.3f} s ({t.line()}); "
+                f"{knots} knots, RMI_SIZE {stats_b['size binary search']} (want "
+                f"{want_size}), max error over the knots {stats_b['max error']}")
+            if stats_b["size binary search"] != want_size:
+                raise RuntimeError("path 6b: RMI_SIZE is not 16 + 24 B + 16 knots")
+            del t
+            bounded = rmi_tpu_torch.load_artifact(meta_b_path)
+            idx = torch.randint(0, n, (queries.shape[0],), generator=gen, device=keys.device)
+            sk = keys[idx]
+            pos, err = lookup(bounded, sk)
+            found = search(bounded, sk, keys=keys)
+        torch.cuda.synchronize()
+        missing = [e for e in PATH6B_LAUNCHES if _build.launches[e] <= before_b[e]]
+        if missing:
+            raise RuntimeError(f"path 6b: kernels not launched: {missing}")
+        lb = torch.searchsorted(keys, sk, side="left")
+        viol = int(((pos - lb).abs() > line).sum())
+        mism = int((found != lb).sum())
+        log(f"path 6b on the card: lookup of {sk.shape[0]} sampled keys: "
+            f"{viol} keys with |pos - lb| > {line}, err {int(err.min())}..{int(err.max())}; "
+            f"search with the original keys {mism} mismatches")
+        if viol or mism or int(err.min()) != line or int(err.max()) != line:
+            raise RuntimeError("path 6b: the cachefix bound or search is broken")
+        ks = sample[:PATH6_SAMPLE]
+        card_pos = lookup(bounded, ks)[0].cpu().numpy()
+        with native.NativeRMI(meta_b_path) as srv:
+            npos, nerr = srv.lookup(keymod.from_image(ks))
+            nidx = srv.search(keymod.from_image(ks), keys_np)
+        npos = npos.astype(np.int64)
+        lb = torch.searchsorted(keys, ks, side="left").cpu().numpy()
+        diff = card_pos - npos
+        log(f"path 6b native server on {PATH6_SAMPLE} keys: {int((diff != 0).sum())} "
+            f"positions differ from the card's ({int((diff == line).sum())} one line up: "
+            f"a lerp within eps of a line boundary), {int((np.abs(npos - lb) > line).sum())} "
+            f"bound violations, {int((nidx.astype(np.int64) != lb).sum())} search mismatches")
+        if (np.any((diff != 0) & (diff != line)) or np.any(np.abs(npos - lb) > line)
+                or np.any(nidx.astype(np.int64) != lb) or np.any(nerr != line)):
+            raise RuntimeError("path 6b: the native server disagrees with the card")
+        del pos, err, found, idx
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"path 6 launches: {json.dumps(launches)}")
+    missing = [e for e in PATH6 if launches[e] <= 0]
+    if missing:
+        raise RuntimeError(f"path 6: kernels not launched on the path: {missing}")
+    log(f"path 6b lookup of {sk.shape[0]} sampled keys on the card: "
+        f"{cuda_ms(lambda: lookup(bounded, sk), 5):.4f} ms (CUDA events, 5 calls)")
+    return rec, launches
+
+
+def top_leaf(rmi, q):
+    """The leaf the index's top sends each query to."""
+    return two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, q,
+                                    rmi.norm_offset, rmi.norm_scale,
+                                    rmi.branching_factor - 1)
 
 
 # D runs at its narrowest and widest rows only: the rate table over all
@@ -1052,6 +1401,10 @@ def main():
     rmi, rec, counts = drive(PATH1, data, queries, gen)
     k5_phase(rmi, keys, queries)
     serving_curve(rmi, keys, gen)
+    # what path 6a's artifact must reproduce
+    p1 = {"metrics": (rmi.model_max_error, rmi.model_max_error_idx,
+                      rmi.model_avg_log2_error),
+          "lookup": lookup(rmi, queries), "leaf": top_leaf(rmi, queries)}
     del rmi
     rows.update(check_kernels(rec, counts, replayed))
     launches = {e: launches[e] + counts[e] for e in launches}
@@ -1083,7 +1436,15 @@ def main():
     torch.cuda.empty_cache()
     cross_check(PATH5[0], cross_n, max(64, (PATH5[1] * cross_n) // n), args.seed + 7, dev)
 
-    # 11c. the rest of the integer models
+    # 11c. path 6: the compile path through the CLI, its kernels replayed
+    rec, counts = compile_phase(data, queries, gen, p1)
+    del p1
+    check_kernels(rec, counts, PATH6, timed=False)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    del rec
+    torch.cuda.empty_cache()
+
+    # 11d. the rest of the integer models
     zoo_phase(data, gen, nq, cross_n, args.seed + 8, dev)
 
     # 12. lognormal leaves: the card against the CPU, and their K3 and K4

@@ -10,6 +10,10 @@ against.  This package imports torch and numpy, never jax.
     guess, err = rmi_tpu_torch.lookup(rmi, queries)   # |guess - lb| <= err
     idx = rmi_tpu_torch.search(rmi, queries)          # exact lower bounds
     idx = rmi_tpu_torch.search_sorted(rmi, sorted_queries)   # the same, sorted
+    rmi_tpu_torch.output_rmi("books", rmi)   # rmi_data/ blobs, books.{h,cpp}
+    rmi = rmi_tpu_torch.load_artifact("rmi_data/books.json", keys=data.keys)
+
+    python -m rmi_tpu_torch books_200M_uint64 books cubic,linear 262144
 
 Queries and keys travel as int64 order-preserving images
 (``rmi_tpu_torch.keys.to_image``).
@@ -17,9 +21,12 @@ Queries and keys travel as int64 order-preserving images
 
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.data import RMIDataset, load_data, write_sosd_file
-from rmi_tpu_torch.train.api import TrainedRMI, train, trained_from_numpy
-from rmi_tpu_torch.lookup import lookup, search, search_sorted
+from rmi_tpu_torch.train.api import (TrainedRMI, train, train_bounded,
+                                     trained_from_numpy)
+from rmi_tpu_torch.lookup import lookup, lookup_and_search, search, search_sorted
+from rmi_tpu_torch.serialize import load_artifact, output_rmi, rmi_size
 
 __all__ = ["KeyType", "RMIDataset", "load_data", "write_sosd_file",
-           "TrainedRMI", "train", "trained_from_numpy", "lookup", "search",
-           "search_sorted"]
+           "TrainedRMI", "train", "train_bounded", "trained_from_numpy", "lookup",
+           "search", "search_sorted", "lookup_and_search", "output_rmi",
+           "load_artifact", "rmi_size"]

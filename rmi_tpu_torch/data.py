@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,30 @@ class RMIDataset:
 
     def to_numpy(self) -> np.ndarray:
         return keymod.from_image(self.keys, self.key_type)
+
+    def unique(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, first offsets) of each duplicate run, DedupIter's
+        semantics (models/mod.rs:198-231): the keys in their own type
+        and the offsets as u64, on the host, for the cache_fix spline.
+        The run starts are found on the keys' device and only they move."""
+        k = self.keys
+        changed = torch.ones(k.shape[0], dtype=torch.bool, device=k.device)
+        torch.ne(k[1:], k[:-1], out=changed[1:])
+        idx = torch.nonzero(changed).squeeze(1)
+        del changed
+        return (keymod.from_image(k[idx], self.key_type),
+                idx.cpu().numpy().view(np.uint64))
+
+    def as_u64(self) -> "RMIDataset":
+        """RMIMMap::into_u64 (src/load.rs:123-128): cache_fix (--bounded)
+        needs u64 keys.  A u32 key's image is its u64 image, so only the
+        type changes."""
+        if self.key_type is KeyType.U64:
+            return self
+        if self.key_type is KeyType.U32:
+            return RMIDataset(keys=self.keys, key_type=KeyType.U64,
+                              source_path=self.source_path)
+        raise ValueError("Can only construct a bounded RMI on integer data.")
 
 
 def load_data(path: str, key_type: Optional[KeyType] = None,

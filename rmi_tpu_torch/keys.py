@@ -49,6 +49,16 @@ class KeyType(enum.Enum):
                 KeyType.F64: np.float64}[self]
 
     @property
+    def c_type(self) -> str:
+        """The key's type in generated C++ (models/mod.rs:46-53)."""
+        return {KeyType.U32: "uint32_t", KeyType.U64: "uint64_t",
+                KeyType.F64: "double"}[self]
+
+    @property
+    def itemsize(self) -> int:
+        return 4 if self is KeyType.U32 else 8
+
+    @property
     def max_value(self) -> int:
         """T::max_value() of an integer key type (models/mod.rs:81,93)."""
         _integer_only(self)
@@ -73,7 +83,8 @@ class KeyType(enum.Enum):
 def _integer_only(key_type: KeyType) -> None:
     if key_type is KeyType.F64:
         raise NotImplementedError(
-            "f64 keys are not ported yet (ROADMAP.md Queue 1, item 8)")
+            "f64 keys are not ported yet (ROADMAP.md Queue 1, item 1: "
+            "serving breadth)")
 
 
 def image_of(u: int) -> int:

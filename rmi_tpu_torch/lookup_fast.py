@@ -22,7 +22,7 @@ through the boundary leaf.
 Where no sample spacing F <= 64 covers the widest leaf, the plan is
 "bounded": lookup (top eval, K4) and the bounded binary search of
 lookup.bounded_search.  rmi_tpu builds its hierarchical plan there,
-which is not ported yet (ROADMAP.md Queue 1, item 8).
+which is not ported yet (ROADMAP.md Queue 1, item 1: serving breadth).
 
 Sorted serving.  Over a non-decreasing batch lb1 is non-decreasing, so
 the leaf rows of a block's first and last query bound lb1 for every

@@ -101,14 +101,23 @@ class ModelDef:
         ``predict`` is that evaluation's plain version; None for the
         integer-output models, which no kernel evaluates (rmi_tpu
         computes them outside Pallas, two_layer.py:382-400).
+    fit_aux: None, or for cubic fit_aux(xf, yf, spans, ep_y, keys) ->
+        (rows, aux): the fit that fit_top (spans over the whole array,
+        ep_y its endpoint targets) and fit_leaves (ep_y None) return the
+        rows of, with the generator statistics from which convert.py
+        recomputes the raw coefficients (rmi_tpu models/cubic.py:183-194;
+        ``keys`` the key images, whose raw floats give xmin and xmax).
+    bytes_per_model: the artifact bytes of one model's parameters
+        (codegen.rs:375-394); None where they follow the data (histogram).
+    function_name: the model's function in the reference's generated code.
     input_domain: "affine" models fit and predict on the normalized keys
         x' = (x - offset) * scale; "raw" ones (lognormal, whose log is
         not affine-covariant) on the keys' f64 values (rmi_tpu
         models/base.py:81-85), and their leaf kernel on log_input of
         them (kernel_input); "int" ones, the integer-output models, on
         the key images themselves.
-    output_int, restriction, leaf_capable: as rmi_tpu's
-        (models/base.py:44-116).
+    output_int, restriction, leaf_capable, needs_bounds_check: as
+        rmi_tpu's (models/base.py:44-116).
     """
 
     name: str
@@ -118,10 +127,14 @@ class ModelDef:
     predict: Callable
     constant_params: Optional[Callable]
     leaf_kernel: Optional[str]
+    bytes_per_model: Optional[int]
+    function_name: str
+    fit_aux: Optional[Callable] = None
     input_domain: str = "affine"
     output_int: bool = False
     restriction: Restriction = Restriction.NONE
     leaf_capable: bool = True
+    needs_bounds_check: bool = True
 
 
 REGISTRY: Dict[str, ModelDef] = {}

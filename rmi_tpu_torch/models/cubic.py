@@ -8,6 +8,8 @@ coefficients, and a fallback to the linear spline through the endpoints
 whenever that has the lower total L1 error (cubic_spline.rs:18-136).
 For leaves the L1 sums run in kernel K6 (ops/cubic_l1_kernel.py); the
 top's are whole-array sums in XLA's order (segments.whole_array_sum).
+``fit_cubic_aux`` also returns rmi_tpu's generator statistics (aux),
+from which convert.py recomputes the artifact's raw coefficients.
 
 Prediction is three chained FMAs (cubic_spline.rs:140-150), as JAX
 computes the Horner chain under jit on the CPU.
@@ -31,6 +33,9 @@ from __future__ import annotations
 
 import torch
 
+from rmi_tpu_torch import keys as keymod
+from rmi_tpu_torch.convert import (CUBIC_CASE_CONST, CUBIC_CASE_CUBIC,
+                                   CUBIC_CASE_EMPTY, CUBIC_CASE_LINEAR)
 from rmi_tpu_torch.models.base import ModelDef, leaf_columns, register
 from rmi_tpu_torch.models.linear import linear_predict, spline_from_endpoints
 from rmi_tpu_torch.ops import cubic_l1_kernel
@@ -97,7 +102,17 @@ def _fit_cubic_ranges(xf, yf, spans: seg.Spans, ep_y=None):
     endpoints, which bypass FixDups (cubic_spline.rs:38-41,
     models/mod.rs:268-274).  Each row is the cubic candidate, or the
     linear spline where its L1 error is lower (cubic_spline.rs:113-135)."""
-    cubic_w, lin_w, empty = _candidates(xf, yf, spans, ep_y)
+    return fit_cubic_aux(xf, yf, spans, ep_y)[0]
+
+
+def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None):
+    """(rows [B, 4], aux): _fit_cubic_ranges's rows and the generator
+    statistics the raw conversion reads (rmi_tpu models/cubic.py:183-194):
+    the endpoints xmin and xmax (the raw key floats of ``keys``, the key
+    images, when given; the fit's inputs otherwise), ymin, ymax, the
+    clamped slopes m1 and m2, and each row's case."""
+    cubic_w, lin_w, st = _candidates(xf, yf, spans, ep_y)
+    empty = st["empty"]
     if spans.B == 1:
         yd = yf.double()
         c_err = seg.whole_array_sum((cubic_predict(cubic_w, None, xf) - yd).abs_(), 0, spans.n)
@@ -107,12 +122,27 @@ def _fit_cubic_ranges(xf, yf, spans: seg.Spans, ep_y=None):
     use_lin = (l_err < c_err) & ~empty
     zero = torch.zeros_like(lin_w[:, 0])
     lin_as_cubic = torch.stack([zero, zero, lin_w[:, 1], lin_w[:, 0]], dim=-1)
-    return torch.where(use_lin[:, None], lin_as_cubic, cubic_w)
+    w = torch.where(use_lin[:, None], lin_as_cubic, cubic_w)
+
+    case = torch.full_like(st["first"], CUBIC_CASE_CUBIC, dtype=torch.int32)
+    case = torch.where(use_lin, CUBIC_CASE_LINEAR, case)
+    case = torch.where(st["const_case"], CUBIC_CASE_CONST, case)
+    case = torch.where(empty, CUBIC_CASE_EMPTY, case).to(torch.int32)
+    first, last = st["first"], st["last"]
+    if keys is None:
+        xmin, xmax = xf[first], xf[last]
+    else:
+        xmin, xmax = keymod.as_float(keys[first]), keymod.as_float(keys[last])
+    aux = {"xmin": xmin, "xmax": xmax, "ymin": st["ymin"], "ymax": st["ymax"],
+           "m1": st["m1"], "m2": st["m2"], "case": case}
+    return w, aux
 
 
 def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
-    """(cubic_w [B, 4], lin_w [B, 2], empty [B]): each container's cubic
-    with its special cases, and the linear spline through its endpoints."""
+    """(cubic_w [B, 4], lin_w [B, 2], stats): each container's cubic with
+    its special cases, the linear spline through its endpoints, and the
+    statistics the fit's aux keeps ([B] each: the first and last indices,
+    ymin, ymax, m1, m2, empty and const_case)."""
     first, last = seg.aug_first_last(spans)
     cnt = seg.aug_count(spans)
     xmin, xmax = xf[first], xf[last]
@@ -135,7 +165,9 @@ def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
         torch.where(empty, 1.0, torch.where(const_case, zero, c)),
         torch.where(empty, zero, torch.where(const_case, ymin, d))], dim=-1)
     lin_w = torch.stack(spline_from_endpoints(xmin, ymin, xmax, ymax, cnt), dim=-1)
-    return cubic_w, lin_w, empty
+    return cubic_w, lin_w, {"first": first, "last": last, "ymin": ymin, "ymax": ymax,
+                            "m1": m1, "m2": m2, "empty": empty,
+                            "const_case": const_case}
 
 
 def _const_cubic(value_f):
@@ -150,4 +182,5 @@ register(ModelDef(
         xf, yf, seg.whole_array_spans(xf.shape[0], xf.device),
         (ep_first, ep_last)),
     fit_leaves=_fit_cubic_ranges, predict=cubic_predict,
-    constant_params=_const_cubic, leaf_kernel="cubic"))
+    constant_params=_const_cubic, leaf_kernel="cubic", bytes_per_model=32,
+    function_name="cubic", fit_aux=fit_cubic_aux, needs_bounds_check=False))

@@ -53,5 +53,6 @@ def _histogram_predict(params, leaf_ids, keys):
 register(ModelDef(
     name="histogram", ppm=3, fit_top=_histogram_fit_top, fit_leaves=None,
     predict=_histogram_predict, constant_params=None, leaf_kernel=None,
-    input_domain="int", output_int=True, restriction=Restriction.MUST_BE_TOP,
-    leaf_capable=False))
+    bytes_per_model=None, function_name="ed_histogram", input_domain="int",
+    output_int=True, restriction=Restriction.MUST_BE_TOP, leaf_capable=False,
+    needs_bounds_check=False))

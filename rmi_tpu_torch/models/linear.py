@@ -131,7 +131,7 @@ for _name, _trim in (("linear", False), ("robust_linear", True)):
         fit_leaves=lambda xf, yfix, spans, _trim=_trim: _slr_ranges(
             xf, yfix.double(), spans, _trim),
         predict=linear_predict, constant_params=_const_linear,
-        leaf_kernel="linear"))
+        leaf_kernel="linear", bytes_per_model=16, function_name="linear"))
 
 
 def log_targets(yf):
@@ -154,7 +154,8 @@ register(ModelDef(
     fit_top=lambda xf, yf, ep_first, ep_last: _loglinear_fit(
         xf, yf, seg.whole_array_spans(xf.shape[0], xf.device)),
     fit_leaves=lambda xf, yfix, spans: _loglinear_fit(xf, yfix.double(), spans),
-    predict=loglinear_predict, constant_params=None, leaf_kernel="loglinear"))
+    predict=loglinear_predict, constant_params=None, leaf_kernel="loglinear",
+    bytes_per_model=16, function_name="loglinear"))
 
 
 def _linear_spline_top(xf, yf, ep_first, ep_last):
@@ -179,4 +180,5 @@ def _linear_spline_leaves(xf, yfix, spans):
 register(ModelDef(
     name="linear_spline", ppm=2, fit_top=_linear_spline_top,
     fit_leaves=_linear_spline_leaves, predict=linear_predict,
-    constant_params=_const_linear, leaf_kernel="linear"))
+    constant_params=_const_linear, leaf_kernel="linear", bytes_per_model=16,
+    function_name="linear"))

@@ -85,7 +85,7 @@ register(ModelDef(
     name="normal", ppm=3,
     fit_top=lambda xf, yf, ep_first, ep_last: _ncdf_ranges(xf, yf, _whole(xf)),
     fit_leaves=_ncdf_ranges, predict=normal_predict, constant_params=None,
-    leaf_kernel="normal"))
+    leaf_kernel="normal", bytes_per_model=24, function_name="ncdf"))
 
 register(ModelDef(
     name="lognormal", ppm=3,
@@ -93,4 +93,4 @@ register(ModelDef(
         _ln_or_zero(xf), yf, _whole(xf)),
     fit_leaves=lambda xf, yfix, spans: _ncdf_ranges(_ln_or_zero(xf), yfix, spans),
     predict=lognormal_predict, constant_params=None, leaf_kernel="normal",
-    input_domain="raw"))
+    bytes_per_model=24, function_name="lncdf", input_domain="raw"))

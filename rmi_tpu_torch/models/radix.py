@@ -60,8 +60,9 @@ def _radix_predict(params, leaf_ids, keys):
 register(ModelDef(
     name="radix", ppm=2, fit_top=_radix_fit_top, fit_leaves=None,
     predict=_radix_predict, constant_params=None, leaf_kernel=None,
-    input_domain="int", output_int=True, restriction=Restriction.MUST_BE_TOP,
-    leaf_capable=False))
+    bytes_per_model=16, function_name="radix", input_domain="int",
+    output_int=True, restriction=Restriction.MUST_BE_TOP, leaf_capable=False,
+    needs_bounds_check=False))
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +123,9 @@ def _bradix_predict(params, leaf_ids, keys):
 register(ModelDef(
     name="bradix", ppm=3, fit_top=_bradix_fit_top, fit_leaves=None,
     predict=_bradix_predict, constant_params=None, leaf_kernel=None,
-    input_domain="int", output_int=True, restriction=Restriction.MUST_BE_TOP,
-    leaf_capable=False))
+    bytes_per_model=24, function_name="bradix", input_domain="int",
+    output_int=True, restriction=Restriction.MUST_BE_TOP, leaf_capable=False,
+    needs_bounds_check=False))
 
 
 # ---------------------------------------------------------------------------
@@ -227,5 +229,6 @@ for _bits in TABLE_BITS:
     register(ModelDef(
         name=f"radix{_bits}", ppm=1, fit_top=_make_table_fit_top(_bits),
         fit_leaves=_make_table_fit_leaves(_bits), predict=_table_predict,
-        constant_params=None, leaf_kernel=None, input_domain="int",
-        output_int=True))
+        constant_params=None, leaf_kernel=None, bytes_per_model=4 * (1 << _bits),
+        function_name="radix_table", input_domain="int", output_int=True,
+        needs_bounds_check=False))

@@ -1,5 +1,5 @@
-"""Training facade: ``train`` and the TrainedRMI result (counterpart of
-rmi_tpu/train/api.py:19-253)."""
+"""Training facade: ``train``, ``train_bounded`` and the TrainedRMI
+result (counterpart of rmi_tpu/train/api.py:19-253, 272-287)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from rmi_tpu_torch import config, keys as keymod
+from rmi_tpu_torch import config, convert, keys as keymod
 from rmi_tpu_torch.data import RMIDataset
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, validate_spec
@@ -30,7 +30,19 @@ class TrainedRMI:
     ``w_int`` and ``table``, hint-table leaves ``tables``, ``prefixes``
     and ``shifts``, histogram ``count``, ``pivots`` as key images and
     ``radix_index``), u64 values as int64 bits and tables as int32.
-    ``leaf_errors`` [B] int64 bound |guess - lower_bound| per leaf.
+    ``leaf_errors`` [B] int64 bound |guess - lower_bound| per leaf (None
+    for an artifact saved without them).
+
+    ``raw_top`` and ``raw_leaf`` are the parameters in the reference's
+    raw key domain and layout, numpy on the host, as the artifact, the
+    generated C++ and the native server read them (rmi_tpu's
+    ``top_params`` and ``leaf_params``): made on first use from the
+    device parameters and ``raw_inputs`` (the cubic fits' generator
+    statistics, the empty-leaf patch mask and its values next_idx) in
+    one device-to-host transfer, with the leaf errors (``host_leaf_errors``).
+    ``cache_fix`` is (line_size, knot keys, knot values) of a
+    ``train_bounded`` index, whose RMI is built over the knots:
+    ``num_rmi_rows`` counts the knots, ``num_data_rows`` the keys.
     """
 
     models: str
@@ -48,8 +60,15 @@ class TrainedRMI:
     model_max_log2_error: float
     norm_offset: float
     norm_scale: float
-    keys: torch.Tensor                 # [n] int64 images served over
+    keys: Optional[torch.Tensor]       # [n] int64 images served over
     build_time: int = 0                # ns
+    num_data_rows: Optional[int] = None    # num_rmi_rows unless cache_fix
+    cache_fix: Optional[Tuple[int, np.ndarray, np.ndarray]] = None
+    raw_inputs: Optional[Dict[str, Any]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # (raw_top, raw_leaf, host_leaf_errors), made on first use
+    host_cache: Optional[Tuple[Any, Any, Optional[np.ndarray]]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
     # serving state made on first use: lookup_fast's per-leaf (starts,
     # next_idx) and the search plan built from them, and lookup's table
     # of each leaf's row beside its error (eval_kernel.lookup_table)
@@ -59,6 +78,13 @@ class TrainedRMI:
         default=None, init=False, repr=False, compare=False)
     lookup_table_cache: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # a cache_fix index's knot values on its device
+    spline_vals_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.num_data_rows is None:
+            self.num_data_rows = self.num_rmi_rows
 
     @property
     def top_type(self) -> str:
@@ -68,6 +94,111 @@ class TrainedRMI:
     def leaf_type(self) -> str:
         return self.models.split(",")[1]
 
+    @property
+    def raw_top(self) -> Dict[str, np.ndarray]:
+        return self._host()[0]
+
+    @property
+    def raw_leaf(self):
+        return self._host()[1]
+
+    @property
+    def host_leaf_errors(self) -> Optional[np.ndarray]:
+        return self._host()[2]
+
+    def _host(self):
+        if self.host_cache is None:
+            self.host_cache = _raw_params(self)
+        return self.host_cache
+
+
+def to_host(tree):
+    """``tree`` (tensors in nested dicts, lists and tuples) with every
+    tensor as a numpy array, through ONE device-to-host copy: the tensors'
+    bytes are packed into one buffer on their device."""
+    flat = []
+
+    def collect(x):
+        if torch.is_tensor(x):
+            flat.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                collect(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                collect(v)
+
+    collect(tree)
+    if not flat:
+        return tree
+    buf = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                     for t in flat]).cpu().numpy()
+    arrays, at = [], 0
+    for t in flat:
+        nbytes = t.numel() * t.element_size()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        # a copy: aligned, and free of the shared buffer
+        arrays.append(buf[at:at + nbytes].view(dtype).reshape(tuple(t.shape)).copy())
+        at += nbytes
+    it = iter(arrays)
+
+    def rebuild(x):
+        if torch.is_tensor(x):
+            return next(it)
+        if isinstance(x, dict):
+            return {k: rebuild(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(rebuild(v) for v in x)
+        return x
+
+    return rebuild(tree)
+
+
+def numpy_int_params(p: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An integer-output model's parameter dict, host copies of the port's
+    tensors, in rmi_tpu's form: pivots from key images to u64 keys, int32
+    tables as u32, every other value's int64 bits as u64 (the inverse of
+    _int_params_from_numpy)."""
+    out = {}
+    for name, v in p.items():
+        if name == "pivots":
+            out[name] = v.view(np.uint64) ^ np.uint64(1 << 63)
+        elif v.dtype == np.int32:
+            out[name] = v.view(np.uint32)
+        else:
+            out[name] = v.view(np.uint64)
+    return out
+
+
+def _raw_params(rmi: "TrainedRMI"):
+    """(raw_top, raw_leaf, leaf errors) on the host: rmi_tpu's raw_thunk
+    (rmi_tpu/train/api.py:207-226) over one transfer of the device
+    parameters, the raw inputs and the leaf errors."""
+    top_type, leaf_type = rmi.top_type, rmi.leaf_type
+    mtop, mleaf = get_model(top_type), get_model(leaf_type)
+    inp = rmi.raw_inputs or {}
+    for name, m in (("top_aux", mtop), ("leaf_aux", mleaf)):
+        if m.fit_aux is not None and inp.get(name) is None:
+            raise ValueError(f"{m.name}'s raw parameters need its fit's generator "
+                             f"statistics ({name}), which this index does not carry")
+    h = to_host((rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors, inp))
+    top_np, leaf_np, errs, inp = h
+    kmin, s = rmi.norm_offset, rmi.norm_scale
+    if mleaf.output_int:
+        raw_leaf = numpy_int_params(leaf_np)
+    else:
+        patch = inp.get("patch")
+        next_idx = inp.get("next_idx")
+        raw_leaf = convert.raw_leaf_params(
+            leaf_type, leaf_np, inp.get("leaf_aux"), patch,
+            None if patch is None else next_idx.astype(np.float64), kmin, s)
+    if mtop.output_int:
+        raw_top = numpy_int_params(top_np)
+    else:
+        raw_top = convert.raw_top_params(top_type, {"w": top_np}, inp.get("top_aux"),
+                                         kmin, s)
+    return raw_top, raw_leaf, None if errs is None else errs.astype(np.uint64)
+
 
 def _trained(data_keys, key_type, model_spec, B, out, build_time=0):
     return TrainedRMI(
@@ -76,6 +207,7 @@ def _trained(data_keys, key_type, model_spec, B, out, build_time=0):
         device_top_params=out["top_w"], device_leaf_params=out["leaf_w"],
         leaf_errors=out["leaf_errors"], norm_offset=out["norm_offset"],
         norm_scale=out["norm_scale"], keys=data_keys, build_time=build_time,
+        raw_inputs={k: out.get(k) for k in ("top_aux", "leaf_aux", "patch", "next_idx")},
         **out["metrics"])
 
 
@@ -90,6 +222,24 @@ def train(data: RMIDataset, model_spec: str, branch_factor: int) -> TrainedRMI:
     # the metrics transfer in train_two_layer has synchronized the device
     return _trained(data.keys, data.key_type, model_spec, branch_factor, out,
                     time.monotonic_ns() - start)
+
+
+def train_bounded(data: RMIDataset, model_spec: str, branch_factor: int,
+                  line_size: int) -> TrainedRMI:
+    """--bounded: the cachefix spline over the keys (u32 keys promoted to
+    u64), then an RMI trained over its knots on the keys' device
+    (train/mod.rs:156-184)."""
+    from rmi_tpu_torch.cache_fix import cache_fix
+
+    start = time.monotonic_ns()
+    spline_keys, spline_vals = cache_fix(data.as_u64(), line_size)
+    spline_ds = RMIDataset.from_numpy(spline_keys, KeyType.U64,
+                                      device=data.keys.device)
+    res = train(spline_ds, model_spec, branch_factor)
+    res.cache_fix = (int(line_size), spline_keys, spline_vals)
+    res.num_data_rows = data.n
+    res.build_time = time.monotonic_ns() - start
+    return res
 
 
 def _int_params_from_numpy(p: Dict[str, Any], dev) -> Dict[str, torch.Tensor]:
@@ -113,18 +263,24 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
                        keys: np.ndarray, top_w: Union[np.ndarray, Dict[str, Any]],
                        leaf_w: Union[np.ndarray, Dict[str, Any]],
                        leaf_errors: np.ndarray, norm_offset: float,
-                       norm_scale: float, device=None) -> TrainedRMI:
+                       norm_scale: float, device=None, top_aux=None,
+                       leaf_aux=None, patch=None, next_idx=None,
+                       metrics: Optional[Dict[str, Any]] = None) -> TrainedRMI:
     """A port TrainedRMI serving an index built elsewhere, from numpy
     arrays: the JAX build's ``device_top_params["w"]`` [1, ppm],
     ``device_leaf_params["w"]`` [B, ppm], ``leaf_errors`` [B] and
     normalization constants, over the unsigned ``keys`` it was built on,
     on ``device`` (the card when None; the CPU only when asked for).
-    Of a float model only the rows ``"w"`` cross over (cubic leaves:
-    [B, 4], normal and lognormal: [B, 3]); rmi_tpu's generator aux waits
-    for the artifacts (ROADMAP item 10).  An integer-output model's
-    parameters cross over whole: pass rmi_tpu's parameter dict, its
-    values as numpy arrays.  The metrics are recomputed from the leaf
-    errors and the leaf counts that the top model assigns."""
+    Of a float model the rows ``"w"`` cross over (cubic leaves: [B, 4],
+    normal and lognormal: [B, 3]), and for its raw parameters (the
+    artifacts) what rmi_tpu's raw conversion reads: a cubic top's or
+    leaves' generator statistics ``top_aux`` / ``leaf_aux`` (rmi_tpu's
+    ``params["aux"]``), and the empty-leaf ``patch`` mask [B] with its
+    values ``next_idx`` [B].  An integer-output model's parameters cross
+    over whole: pass rmi_tpu's parameter dict, its values as numpy
+    arrays.  The metrics (the keys of error_metrics) are recomputed from
+    the leaf errors and the leaf counts that the top model assigns, unless
+    given."""
     top_type, leaf_type = models.split(",")
     validate_spec([top_type, leaf_type])
     dev = config.require_cuda() if device is None else torch.device(device)
@@ -145,12 +301,23 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
             raise ValueError(f"leaf_w must be [B, {mleaf.ppm}] for {leaf_type} "
                              f"leaves, not {list(leaf.shape)}")
     errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
-    t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
-                                 norm_scale, B - 1).to(torch.int32)
-    spans = seg.make_spans(t, B)
-    metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
-                                      keys_img.shape[0])
+    if metrics is None:
+        t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
+                                     norm_scale, B - 1).to(torch.int32)
+        spans = seg.make_spans(t, B)
+        metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
+                                          keys_img.shape[0])
+
+    def tensors(a):
+        if a is None:
+            return None
+        if isinstance(a, dict):
+            return {k: tensors(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(a)).to(dev)
+
     out = {"top_w": top, "leaf_w": leaf, "leaf_errors": errs,
-           "metrics": metrics, "norm_offset": float(norm_offset),
-           "norm_scale": float(norm_scale)}
+           "metrics": dict(metrics), "norm_offset": float(norm_offset),
+           "norm_scale": float(norm_scale), "top_aux": tensors(top_aux),
+           "leaf_aux": tensors(leaf_aux), "patch": tensors(patch),
+           "next_idx": tensors(next_idx)}
     return _trained(keys_img, key_type, models, B, out)

@@ -85,22 +85,29 @@ def _scale(v, sf: float):
     return v
 
 
-def _assign_body(top_in, yfix, *, top_type: str, B: int):
+def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None):
     """Stage A after FixDups: top fit + leaf ids t (int32, non-decreasing),
     ``top_in`` the top's model_float_input (an integer-output top's: the
-    key images)."""
+    key images).  Returns (top_w, t, top_aux), top_aux the fit's generator
+    statistics (fit_aux; xmin and xmax from the key images ``keys``), or
+    None for a model without them."""
     n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
     ys_scaled = _scale(yfix.double(), sf)
+    top_aux = None
     if mtop.output_int:
         top_w = mtop.fit_top(top_in, ys_scaled, B, sf)
+    elif mtop.fit_aux is not None:
+        top_w, top_aux = mtop.fit_aux(
+            top_in, ys_scaled, seg.whole_array_spans(n, top_in.device),
+            (_scale(0.0, sf), _scale(float(n - 1), sf)), keys)
     else:
         top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
                              _scale(float(n - 1), sf))
     del ys_scaled
     t = predict_top_assignment(mtop, top_w, top_in, B - 1).to(torch.int32)
-    return top_w, t
+    return top_w, t, top_aux
 
 
 def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
@@ -128,20 +135,28 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
     return next_idx, next_key, prev_key
 
 
-def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str):
+def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str,
+              keys=None):
     """Stage B: leaf rows [B, ppm] fitted on the leaf's model_float_input,
     constant-patched where a leaf is empty, except the final leaf (the
     reference's loop stops at B-1) and the models without a constant
     form (loglinear, normal, lognormal, and the hint tables, whose fit
-    reads the exact key bits and returns a dict)."""
+    reads the exact key bits and returns a dict).  Returns (rows, aux,
+    patch): the fit's generator statistics (fit_aux, or None) and the
+    [B] mask of patched leaves (None where nothing is patched), which
+    the raw conversion reads."""
     mleaf = get_model(leaf_type)
-    w = mleaf.fit_leaves(leaf_in, yfix, spans)
+    aux = None
+    if mleaf.fit_aux is not None:
+        w, aux = mleaf.fit_aux(leaf_in, yfix, spans, None, keys)
+    else:
+        w = mleaf.fit_leaves(leaf_in, yfix, spans)
     if mleaf.constant_params is None:
-        return w
+        return w, aux, None
     B = spans.B
     patch = ~spans.nonempty & (torch.arange(B, device=w.device) < B - 1)
     const_rows = mleaf.constant_params(next_idx.double())
-    return torch.where(patch[:, None], const_rows, w)
+    return torch.where(patch[:, None], const_rows, w), aux, patch
 
 
 def _error_between(pred, target, n: int):
@@ -245,7 +260,10 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
 
     Returns top_w [1, ppm] and leaf_w [B, ppm] (normalized domain; an
     integer-output model's parameter dict instead), leaf_errors [B]
-    int64, the metrics dict, and norm_offset/norm_scale.
+    int64, the metrics dict, norm_offset/norm_scale, and what the raw
+    conversion reads: top_aux and leaf_aux (a cubic fit's generator
+    statistics, else None), the patch mask (None where nothing is
+    patched) and next_idx, the patched leaves' values.
     """
     validate_spec([top_type, leaf_type])
     n = keys.shape[0]
@@ -258,17 +276,21 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
         kminf, s = norm_constants(keys)
         top_in = model_float_input(mtop, keys, kminf, s)
         yfix = fixdups_i32(keys)
-        top_w, t = _assign_body(top_in, yfix, top_type=top_type, B=B)
+        top_w, t, top_aux = _assign_body(top_in, yfix, top_type=top_type, B=B,
+                                         keys=keys)
     with record_function("rmi.build.fit"):
         leaf_in = (top_in if mleaf.input_domain == mtop.input_domain
                    else model_float_input(mleaf, keys, kminf, s))
         del top_in
         spans = seg.make_spans(t, B)
         next_idx, next_key, prev_key = lower_bound_fills(spans, keys, key_type)
-        leaf_w = _fit_body(leaf_in, yfix, spans, next_idx, leaf_type=leaf_type)
+        leaf_w, leaf_aux, patch = _fit_body(leaf_in, yfix, spans, next_idx,
+                                            leaf_type=leaf_type, keys=keys)
     with record_function("rmi.build.sweep"):
         leaf_errors, metrics = sweep_body(keys, leaf_in, yfix, spans, leaf_w,
                                           next_idx, next_key, prev_key, kminf,
                                           s, key_type, leaf_type=leaf_type)
     return {"top_w": top_w, "leaf_w": leaf_w, "leaf_errors": leaf_errors,
-            "metrics": metrics, "norm_offset": kminf, "norm_scale": s}
+            "metrics": metrics, "norm_offset": kminf, "norm_scale": s,
+            "top_aux": top_aux, "leaf_aux": leaf_aux, "patch": patch,
+            "next_idx": next_idx}

@@ -1057,3 +1057,77 @@ def test_binding_refuses_bad_tensors(dev):
     torch.cuda.synchronize()
     assert torch.equal(out, 2 * x) and _build.launches["rmi_probe_scale2"] == before[
         "rmi_probe_scale2"] + 1
+
+
+# --------------------------------------------------------------------------
+# the compile path on the card: artifacts, cachefix, the CLI
+# --------------------------------------------------------------------------
+
+def _compile_keys(n=1 << 14, seed=12):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(10, 2 ** 40, n, dtype=np.uint64))
+    keys[500:540] = keys[500]
+    return keys
+
+
+@pytest.mark.parametrize("spec,B", [("cubic,linear", 256), ("radix18,linear", 64),
+                                    ("linear,cubic", 128), ("histogram,linear", 32)])
+def test_load_artifact_onto_the_card(dev, tmp_path, spec, B):
+    """An artifact written from a CPU build loads onto the card (the
+    default device) and serves as it serves loaded on the CPU."""
+    from rmi_tpu_torch import native
+    keys = _compile_keys()
+    rp = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), spec, B)
+    meta = rt.output_rmi("c", rp, data_dir=str(tmp_path), emit_cpp=False)
+    on_cpu = rt.load_artifact(meta, keys=rp.keys, device="cpu")
+    on_card = rt.load_artifact(meta, keys=rp.keys.to(dev))
+    assert on_card.keys.is_cuda and on_card.device_leaf_params.is_cuda
+    q = np.concatenate([keys[::3], np.random.default_rng(1).integers(
+        0, 2 ** 40, 5000, dtype=np.uint64)])
+    qi = tkeys.to_image(q)
+    g, e = rt.lookup(on_card, qi.to(dev))
+    gc, ec = rt.lookup(on_cpu, qi)
+    assert torch.equal(g.cpu(), gc) and torch.equal(e.cpu(), ec)
+    lb = np.searchsorted(keys, q)
+    np.testing.assert_array_equal(rt.search(on_card, qi.to(dev)).cpu().numpy(), lb)
+    with native.NativeRMI(meta) as srv:
+        np.testing.assert_array_equal(srv.search(q, keys), lb)
+
+
+def test_train_bounded_on_the_card(dev):
+    keys = _compile_keys()
+    cpu = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device="cpu"),
+                           "linear_spline,linear", 256, 8)
+    card = rt.train_bounded(rt.RMIDataset.from_numpy(keys), "linear_spline,linear", 256, 8)
+    assert card.keys.is_cuda
+    np.testing.assert_array_equal(card.cache_fix[1], cpu.cache_fix[1])
+    np.testing.assert_array_equal(card.cache_fix[2], cpu.cache_fix[2])
+    img = tkeys.to_image(keys)
+    pos, err = rt.lookup(card, img.to(dev))
+    lb = np.searchsorted(keys, keys)
+    assert (np.abs(pos.cpu().numpy() - lb) <= 8).all() and (err.cpu() == 8).all()
+    np.testing.assert_array_equal(
+        rt.search(card, img.to(dev), keys=img.to(dev)).cpu().numpy(), lb)
+    assert rt.rmi_size(card) == rt.rmi_size(cpu)
+
+
+def test_cli_on_the_card_writes_the_cpu_files(dev, tmp_path, monkeypatch):
+    """cli.main trains on the card by default; a sum-free configuration
+    builds bit-equal there and on the CPU, so the files are the same."""
+    import filecmp
+    import os
+    from rmi_tpu_torch import cli
+    keys = _compile_keys()
+    path = str(tmp_path / "keys_uint64")
+    rt.write_sosd_file(path, keys)
+    outs = []
+    for name, device in (("card", None), ("cpu", "cpu")):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert cli.main([path, "ns", "linear_spline,linear_spline", "128",
+                         "--zero-build-time"], device=device) == 0
+        outs.append(d)
+    for f in ("ns.h", "ns.cpp", "ns_data.h", "rmi_data/ns_L1_PARAMETERS"):
+        assert filecmp.cmp(outs[0] / f, outs[1] / f, shallow=False), f
+    assert os.path.exists(outs[0] / "rmi_data" / "ns.json")

@@ -372,7 +372,7 @@ def test_runs_never_straddle_leaves(top, seed, log_n, max_run, nb):
     kminf, s = two_layer.norm_constants(img)
     top_in = two_layer.model_float_input(mtop, img, kminf, s)
     yfix = two_layer.fixdups_i32(img)
-    _, t = two_layer._assign_body(top_in, yfix, top_type=top, B=nb)
+    _, t, _ = two_layer._assign_body(top_in, yfix, top_type=top, B=nb)
     same = img[1:] == img[:-1]
     assert bool((t[1:][same] == t[:-1][same]).all())
     assert bool((t[1:] >= t[:-1]).all())
