@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all six paths
+    python3 chip_smoke.py              # 200M keys, all eight paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -81,6 +81,27 @@ Phases (any failure raises and exits non-zero):
      logged, 0 bound violations on 2^22 sampled keys, 0 search
      mismatches on 2^16 queries, K6 replayed for ``radix22,cubic``, and
      each one's card-vs-CPU cross-check;
+ 11e. path 7, ``cubic,linear 262144`` on f64 keys: path 1's keys cast to
+     f64 and scaled by 2^-32 (exactly; keys in [0, 2^30]), as images with
+     a sign fix: phases 3-5 for it (cold and warm builds bit-equal, the
+     bound on 2^22 sampled keys, search of 2^22 random queries with -0.0,
+     +-inf and NaN through sort -> K5's scatter entry, search_sorted
+     through K5, all against torch.searchsorted on the images), the
+     packed plan, rmi_lookup_linear with the f64 key kind timed beside
+     path 1's, rmi_lookup_<leaf> for all four leaf kernels on the path's
+     queries against the plain version; the CLI on the keys written to a
+     ``*_f64`` SOSD file (RMI_SIZE 6291488, the card build's metrics,
+     ``double`` keys in the header, load_artifact, the native server with
+     key_is_float and the compiled C++ on 2^16 keys and 2^16 queries: 0
+     bound violations, exact search); its kernels (K1, K2, K3 and K4
+     linear, the run-length pass, rmi_lookup_linear, both K5 entries)
+     replayed; the card-vs-CPU cross-check at n = 2^20;
+ 11f. path 8, ``linear,linear 100`` on u32 keys (path 1's keys shifted
+     right by 30, the books_200M_uint32 shape): phases 3-5 for it through
+     the hierarchical plan (asserted; no K5), its search of 2^22 queries
+     timed against bounded_search on the same batch (median of 7 runs,
+     CUDA events, both exact), lookup timed, its kernels replayed, the
+     card-vs-CPU cross-check;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
@@ -153,6 +174,7 @@ F64_OPS_PER_S = 34e12         # NVIDIA's data sheet, f64 outside the tensor core
 F32_OPS_PER_S = 67e12         # the same data sheet, f32 outside the tensor cores
 INT_OPS_PER_S = 33.5e12       # int32 lanes: half the H100 SXM's 67 TFLOP/s of f32 lanes
 SECTOR_BYTES = 32             # the least a load moves from device memory
+INF_IMAGE = 0x7FF0000000000000  # the image of f64 +inf: its bits
 
 # one row per C entry point: (entry, module, wrapper name, plain version
 # name, device the plain version is compared on (None: the card), source,
@@ -242,6 +264,22 @@ PATH5 = ("radix18,linear", 65536,
           "rmi_leaf_eval_linear", *K5),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", *K5))
+# path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
+# cubic,linear_f64_262144 row); the fused lookup decodes f64 images
+PATH7 = ("cubic,linear", 262144,
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
+# path 8: the reference's books-u32 CI config (FAMILIES_200M.json's
+# linear,linear_u32_100 row), whose ~2M-key leaves no packed plan covers:
+# the hierarchical plan, which never reaches K5
+PATH8 = ("linear,linear", 100,
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", "rmi_lookup_linear"),
+         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", "rmi_lookup_linear"))
+HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
 # the other integer-model rows of FAMILIES_200M.json, and the entry each
 # replays
 ZOO = [("radix,linear", 1024, ()), ("bradix,linear", 1024, ()),
@@ -456,7 +494,8 @@ def check_kernels(rec, launches, entries, timed=True):
             f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {list(args[0].shape)}")
         if name == "lookup_clamped":
             steps = row_ms(lambda: eval_kernel.lookup_steps(
-                *args, kw["top_type"], kw["leaf_type"], eval_kernel.leaf_eval_clamped), 10)
+                *args, kw["top_type"], kw["leaf_type"], eval_kernel.leaf_eval_clamped,
+                kw.get("key_type", KeyType.U64)), 10)
             log(f"lookup {kw['top_type']},{kw['leaf_type']} at {list(args[0].shape)}: "
                 f"fused {spread(ms)}, two steps (torch top eval, then "
                 f"rmi_leaf_eval_*: the route before the fused entry) {spread(steps)}, "
@@ -481,8 +520,10 @@ def lookup_leaf_call(args, kw):
     input and leaf ids, bound n - 1 (eval_kernel.lookup_steps)."""
     queries, top_w, leaf_w, leaf_errors, n, kminf, s = args
     mtop, mleaf = get_model(kw["top_type"]), get_model(kw["leaf_type"])
-    x = kernel_input(mleaf, model_float_input(mleaf, queries, kminf, s))
-    ids = predict_top_assignment(mtop, top_w, model_float_input(mtop, queries, kminf, s),
+    kt = kw.get("key_type", KeyType.U64)
+    x = kernel_input(mleaf, model_float_input(mleaf, queries, kminf, s, kt))
+    ids = predict_top_assignment(mtop, top_w,
+                                 model_float_input(mtop, queries, kminf, s, kt),
                                  leaf_errors.shape[0] - 1)
     return (x, leaf_w, ids, n - 1), {"leaf_type": kw["leaf_type"]}
 
@@ -571,17 +612,36 @@ def bound_violations(rmi, keys, sample, gen):
     return int(((guess - lb).abs() > err).sum())
 
 
-def make_queries(keys, nq, gen):
+def make_queries(keys, nq, gen, key_type=KeyType.U64):
     """Random images over the key range, plus out-of-range and existing
-    (duplicate) keys."""
+    (duplicate) keys, all images of ``key_type`` keys: u64 from key 0 to
+    2^64 - 1, u32 up to 2^32 - 1, f64 from NaN's image to +inf's."""
     dev = keys.device
     lo, hi = int(keys[0]), int(keys[-1])
+    top = INF_IMAGE if key_type is KeyType.F64 else key_type.max_image
     q = torch.randint(lo, hi, (nq,), generator=gen, device=dev, dtype=torch.int64)
     k = nq // 16
     q[:k] = keys[torch.randint(0, keys.shape[0], (k,), generator=gen, device=dev)]
     q[k:k + 8] = torch.tensor([-(1 << 63), max(lo - 1, -(1 << 63)), lo, hi,
-                               min(hi + 1, (1 << 63) - 1), (1 << 63) - 1,
-                               (1 << 63) - 2, 0], device=dev)
+                               min(hi + 1, top), top, top - 1, min(0, top)], device=dev)
+    return q
+
+
+def make_f64_queries(keys, nq, gen):
+    """Images of f64 values uniform over the range of the f64 keys whose
+    images ``keys`` holds, 1/16 of them existing keys, and -0.0, +0.0,
+    -1.0, +inf, -inf, NaN, the range's ends and the next value above it."""
+    dev = keys.device
+    kmin, kmax = keymod.as_float(keys[[0, -1]], KeyType.F64).tolist()
+    v = torch.rand(nq, generator=gen, device=dev, dtype=torch.float64)
+    q = keymod.f64_image(v.mul_(kmax - kmin).add_(kmin))
+    del v
+    k = nq // 16
+    q[:k] = keys[torch.randint(0, keys.shape[0], (k,), generator=gen, device=dev)]
+    edges = [-0.0, 0.0, -1.0, math.inf, -math.inf, math.nan, kmin, kmax,
+             math.nextafter(kmax, math.inf)]
+    q[k:k + len(edges)] = keymod.f64_image(torch.tensor(edges, dtype=torch.float64,
+                                                        device=dev))
     return q
 
 
@@ -590,9 +650,10 @@ def mismatches(keys, q, got):
 
 
 def check_search(rmi, keys, gen):
-    """search, search_sorted and fast_search on 2^16 queries (the packed
-    plan; search_sorted runs K5) against torch.searchsorted."""
-    q = make_queries(keys, min(1 << 16, keys.shape[0]), gen)
+    """search, search_sorted and fast_search on 2^16 queries (the index's
+    plan; search_sorted runs K5 for a packed one) against
+    torch.searchsorted."""
+    q = make_queries(keys, min(1 << 16, keys.shape[0]), gen, rmi.key_type)
     qs = torch.sort(q).values
     res = {"search": mismatches(keys, q, search(rmi, q)),
            "search_sorted": mismatches(keys, qs, search_sorted(rmi, qs)),
@@ -731,7 +792,20 @@ def log_readers(keys, t, B):
     return int(idx.numel()), direct
 
 
-def cross_check(spec, n, B, seed, dev, rec=None):
+def typed_keys(u, key_type):
+    """Sorted images of ``key_type`` keys made from books_like_on_device's
+    u64 images ``u``: the u64 keys themselves; as path 8's u32 keys, each
+    shifted right by 30 (the books_200M_uint32 shape); as path 7's f64
+    keys, each cast to f64 (one rounding, the same bits in every run) and
+    scaled by 2^-32, exactly, to [0, 2^30]."""
+    if key_type is KeyType.F64:
+        return keymod.f64_image(keymod.as_float(u).mul_(2.0 ** -32))
+    if key_type is KeyType.U32:
+        return (keymod.u64_bits(u) >> 30).add_(keymod.IMAGE_MIN)   # u >> 30 < 2^32
+    return u
+
+
+def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64):
     """A build on the card against the plain build on the CPU, same keys;
     the card build's kernel calls are recorded into ``rec`` if given.
     Leaf errors may differ by 1 from the order of sums in a few leaves.
@@ -741,17 +815,17 @@ def cross_check(spec, n, B, seed, dev, rec=None):
     (~43 per key), good to ~1e-10 against a stdev of ~1e-5 at 64 keys
     per leaf, so a leaf whose row the card's sums round otherwise may
     differ by 1 however few they are.  Such leaves are counted apart."""
-    keys = rdata.books_like_on_device(n, seed, dev)
+    keys = typed_keys(rdata.books_like_on_device(n, seed, dev), key_type)
     if rec is None:
-        card = rmi_tpu_torch.train(rdata.RMIDataset(keys, KeyType.U64), spec, B)
+        card = rmi_tpu_torch.train(rdata.RMIDataset(keys, key_type), spec, B)
     else:
         with rec:
-            card = rmi_tpu_torch.train(rdata.RMIDataset(keys, KeyType.U64), spec, B)
-    cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), KeyType.U64), spec, B)
+            card = rmi_tpu_torch.train(rdata.RMIDataset(keys, key_type), spec, B)
+    cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), key_type), spec, B)
 
     def ids_counts(r, k):
         t = two_layer.top_assignment(get_model(r.top_type), r.device_top_params, k,
-                                     r.norm_offset, r.norm_scale, B - 1)
+                                     r.norm_offset, r.norm_scale, B - 1, key_type)
         spans = seg.make_spans(t.to(torch.int32), B)
         return t.cpu(), (spans.ends - spans.starts).cpu()
 
@@ -768,7 +842,8 @@ def cross_check(spec, n, B, seed, dev, rec=None):
     explained = float((contrib(cnt_card, e_card) - contrib(cnt_cpu, e_cpu))[leaves]
                       .abs().sum()) / n
     d_log2 = abs(card.model_avg_log2_error - cpu.model_avg_log2_error)
-    res = {"spec": spec, "n": n, "B": B, "max_err_card": card.model_max_error,
+    res = {"spec": spec, "keys": key_type.value, "n": n, "B": B,
+           "max_err_card": card.model_max_error,
            "max_err_cpu": cpu.model_max_error,
            "avg_log2_card": card.model_avg_log2_error,
            "avg_log2_cpu": cpu.model_avg_log2_error,
@@ -923,12 +998,12 @@ CPP_HARNESS = textwrap.dedent("""
     #include <cstdint>
     #include <vector>
 
-    static std::vector<uint64_t> read_sosd(const char* path) {{
+    static std::vector<{key_c}> read_sosd(const char* path) {{
       FILE* f = fopen(path, "rb");
       uint64_t n = 0;
       if (f == nullptr || fread(&n, 8, 1, f) != 1) return {{}};
-      std::vector<uint64_t> v(n);
-      if (fread(v.data(), 8, n, f) != n) v.clear();
+      std::vector<{key_c}> v(n);
+      if (fread(v.data(), sizeof({key_c}), n, f) != n) v.clear();
       fclose(f);
       return v;
     }}
@@ -936,10 +1011,10 @@ CPP_HARNESS = textwrap.dedent("""
     int main(int argc, char** argv) {{
       // argv: data_dir keys_file queries_file out_file
       if (!{ns}::load(argv[1])) {{ printf("LOAD FAIL\\n"); return 2; }}
-      std::vector<uint64_t> keys = read_sosd(argv[2]), q = read_sosd(argv[3]);
+      std::vector<{key_c}> keys = read_sosd(argv[2]), q = read_sosd(argv[3]);
       if (keys.empty() || q.empty()) return 3;
       FILE* out = fopen(argv[4], "wb");
-      for (uint64_t x : q) {{
+      for ({key_c} x : q) {{
         size_t err;
         uint64_t guess = {ns}::lookup(x, &err);
         uint64_t lo = guess > err ? guess - err : 0;
@@ -1011,12 +1086,12 @@ def run_cli(workdir, argv, timers):
     return total, t
 
 
-def compiled_cpp(workdir, ns, meta_dir, keys_file, queries, n):
+def compiled_cpp(workdir, ns, meta_dir, keys_file, queries, key_type):
     """The generated ``ns.cpp`` built with g++ -O3 beside the harness above,
-    run over ``queries`` (u64 numpy) and the keys file: (guess, err, lb)
-    and the seconds of the build and the run."""
+    run over ``queries`` (numpy keys of ``key_type``) and the keys file:
+    (guess, err, lb), RMI_SIZE and the seconds of the build and the run."""
     with open(os.path.join(workdir, "harness.cpp"), "w") as f:
-        f.write(CPP_HARNESS.format(ns=ns))
+        f.write(CPP_HARNESS.format(ns=ns, key_c=key_type.c_type))
     exe = os.path.join(workdir, "harness")
     t0 = time.perf_counter()
     subprocess.run([shutil.which("g++") or "g++", "-O3", "-std=c++17", "-o", exe,
@@ -1024,7 +1099,7 @@ def compiled_cpp(workdir, ns, meta_dir, keys_file, queries, n):
                     os.path.join(workdir, f"{ns}.cpp"), "-I", workdir],
                    check=True, capture_output=True)
     built = time.perf_counter() - t0
-    qf, of = os.path.join(workdir, "queries_uint64"), os.path.join(workdir, "out.bin")
+    qf, of = os.path.join(workdir, f"queries_{ns}"), os.path.join(workdir, "out.bin")
     rdata.write_sosd_file(qf, queries)
     t0 = time.perf_counter()
     r = subprocess.run([exe, meta_dir, keys_file, qf, of], check=True,
@@ -1035,7 +1110,7 @@ def compiled_cpp(workdir, ns, meta_dir, keys_file, queries, n):
     return out[:, 0], out[:, 1], out[:, 2], size, built, ran
 
 
-def host_checks(label, guess, err, idx, q_img, keys, card_guess):
+def host_checks(path, label, guess, err, idx, q_img, keys, card_guess):
     """Bound violations and search mismatches of a host server's answers
     (numpy) for queries ``q_img`` (their lower bounds from the card), and
     how many guesses differ from the card's: the count is logged, the
@@ -1044,11 +1119,108 @@ def host_checks(label, guess, err, idx, q_img, keys, card_guess):
     viol = int((np.abs(guess - lb) > err).sum())
     mism = int((idx != lb).sum())
     differ = int((guess != card_guess).sum())
-    log(f"path 6a {label}: {viol} bound violations, {mism} search mismatches on "
+    log(f"{path} {label}: {viol} bound violations, {mism} search mismatches on "
         f"{lb.shape[0]} keys and queries; {differ} guesses differ from the card's")
     if viol or mism:
-        raise RuntimeError(f"path 6a {label}: bound or search broken")
+        raise RuntimeError(f"{path} {label}: bound or search broken")
     return differ
+
+
+def cli_path(label, tmp, path, ns, data, keys_np, queries, gen, ref, rec):
+    """``cubic,linear 262144`` (path 1's spec) through the CLI on the SOSD
+    file ``path`` of ``data``'s keys (``keys_np`` on the host): RMI_SIZE
+    6291488, the metrics ``ref["metrics"]`` of the card build of the same
+    keys, the artifact loaded back onto the card (its serving calls
+    recorded into ``rec``) serving ``queries`` as the card build's index
+    ``ref`` does where the query keeps its leaf, search and search_sorted
+    exact; the native server and the generated C++ (keys of the file's
+    type) on PATH6_SAMPLE sampled keys and as many queries: 0 bound
+    violations and exact search.  Returns the sampled keys and queries."""
+    keys, kt = data.keys, data.key_type
+    spec, B = PATH6A
+    total, t = run_cli(tmp, [path, ns, spec, str(B), "--stats-file", f"stats_{ns}.json",
+                             "--data-path", "rmi_data", "--zero-build-time"], {
+        "load": (rmi_tpu_torch, "load_data"), "train": (rmi_tpu_torch, "train"),
+        "output_rmi": (rmi_tpu_torch, "output_rmi"),
+        "transfer and raw conversion": (train_api, "_raw_params"),
+        "blobs and metadata (the transfer included)": (serialize, "save_artifact"),
+        "codegen": (codegen, "generate_cpp")})
+    stats = json.load(open(os.path.join(tmp, f"stats_{ns}.json")))
+    meta_path = os.path.join(tmp, "rmi_data", f"{ns}.json")
+    meta = json.load(open(meta_path))
+    log(f"{label} cli {spec} {B} ({meta['key_type']} keys): {total:.3f} s ({t.line()}); "
+        f"RMI_SIZE {stats['size binary search']}, max error {stats['max error']} at leaf "
+        f"{meta['metrics']['model_max_error_idx']}, average log2 error "
+        f"{stats['average log2 error']!r}; files "
+        f"{sorted(os.listdir(tmp))} rmi_data "
+        f"{sorted(os.listdir(os.path.join(tmp, 'rmi_data')))}")
+    if stats["size binary search"] != PATH6A_RMI_SIZE:
+        raise RuntimeError(f"{label}: RMI_SIZE {stats['size binary search']}, not "
+                           f"{PATH6A_RMI_SIZE}")
+    got = (stats["max error"], meta["metrics"]["model_max_error_idx"],
+           stats["average log2 error"])
+    if got != ref["metrics"]:
+        raise RuntimeError(f"{label}: metrics {got} differ from the card build's "
+                           f"{ref['metrics']}")
+    if meta["key_type"] != kt.value or f"lookup({kt.c_type} key" not in open(
+            os.path.join(tmp, f"{ns}.h")).read():
+        raise RuntimeError(f"{label}: the artifact or {ns}.h does not carry "
+                           f"{kt.value} keys")
+    del t
+
+    with rec:
+        t0 = time.perf_counter()
+        loaded = rmi_tpu_torch.load_artifact(meta_path, keys=keys)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        g, e = lookup(loaded, queries)
+        idx = search(loaded, queries)
+        qs = torch.sort(queries).values
+        idx_sorted = search_sorted(loaded, qs)
+    # bit-equal to the card build's index wherever the loaded top routes
+    # the query to the same leaf; the raw round trip may move a query that
+    # lies on a leaf boundary (tests/test_torch_artifacts.py)
+    moved = ref["leaf"] != top_leaf(loaded, queries)
+    same = ~moved
+    differ = int(((g != ref["lookup"][0]) | (e != ref["lookup"][1]))[same].sum())
+    mism = mismatches(keys, queries, idx) + mismatches(keys, qs, idx_sorted)
+    log(f"{label} load_artifact onto the card {load_s:.3f} s; lookup of the "
+        f"{queries.shape[0]} queries: {differ} differ from the card build's index where "
+        f"the leaf is the same, {int(moved.sum())} queries moved to another leaf by the "
+        f"round trip; search and search_sorted {mism} mismatches")
+    if differ or mism:
+        raise RuntimeError(f"{label}: the loaded artifact serves otherwise than the "
+                           f"card build")
+
+    sample = sample_keys_and_queries(keys, PATH6_SAMPLE, gen)
+    q_np = keymod.from_image(sample, kt)
+    card_g = lookup(loaded, sample)[0].cpu().numpy()
+    t0 = time.perf_counter()
+    built_before = os.path.exists(native.library_path())
+    native.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = native.NativeRMI(meta_path)
+    native_s = time.perf_counter() - t0
+    with srv:
+        ng, ne = srv.lookup(q_np)
+        nidx = srv.search(q_np, keys_np)
+    log(f"{label} native server: library {native.library_path()} "
+        f"{'found' if built_before else 'built'} in {build_s:.3f} s, the artifact "
+        f"loaded in {native_s:.3f} s")
+    host_checks(label, "native server", ng.astype(np.int64), ne.astype(np.int64),
+                nidx.astype(np.int64), sample, keys, card_g)
+    cg, ce, cidx, csize, built, ran = compiled_cpp(tmp, ns, os.path.join(tmp, "rmi_data"),
+                                                   path, q_np, kt)
+    log(f"{label} {ns}.cpp: g++ -O3 {built:.3f} s, run {ran:.3f} s, RMI_SIZE {csize}; "
+        f"{int((cg != ng.astype(np.int64)).sum())} guesses differ from the native "
+        f"server's")
+    host_checks(label, "compiled C++", cg, ce, cidx, sample, keys, card_g)
+    if csize != PATH6A_RMI_SIZE:
+        raise RuntimeError(f"{label}: {ns}.cpp's RMI_SIZE {csize}")
+    del loaded, g, e, idx, idx_sorted, qs, srv
+    torch.cuda.empty_cache()
+    return sample
 
 
 def compile_phase(data, queries, gen, p1):
@@ -1056,7 +1228,6 @@ def compile_phase(data, queries, gen, p1):
     deleted at the end; returns its recorder and launches (6a and 6b)."""
     keys = data.keys
     n = keys.shape[0]
-    spec, B = PATH6A
     for entry in _build.launches:
         _build.launches[entry] = 0
     rec = Recorder()
@@ -1069,83 +1240,8 @@ def compile_phase(data, queries, gen, p1):
             f"{time.perf_counter() - t0:.3f} s (the card-to-host copy included)")
 
         # 6a: cubic,linear 262144, as path 1, through the CLI
-        total, t = run_cli(tmp, [path, "books", spec, str(B), "--stats-file",
-                                 "stats.json", "--data-path", "rmi_data",
-                                 "--zero-build-time"], {
-            "load": (rmi_tpu_torch, "load_data"), "train": (rmi_tpu_torch, "train"),
-            "output_rmi": (rmi_tpu_torch, "output_rmi"),
-            "transfer and raw conversion": (train_api, "_raw_params"),
-            "blobs and metadata (the transfer included)": (serialize, "save_artifact"),
-            "codegen": (codegen, "generate_cpp")})
-        stats = json.load(open(os.path.join(tmp, "stats.json")))
-        meta_path = os.path.join(tmp, "rmi_data", "books.json")
-        meta = json.load(open(meta_path))
-        log(f"path 6a cli {spec} {B}: {total:.3f} s ({t.line()}); RMI_SIZE "
-            f"{stats['size binary search']}, max error {stats['max error']} at leaf "
-            f"{meta['metrics']['model_max_error_idx']}, average log2 error "
-            f"{stats['average log2 error']!r}; files "
-            f"{sorted(os.listdir(tmp))} rmi_data {sorted(os.listdir(os.path.join(tmp, 'rmi_data')))}")
-        if stats["size binary search"] != PATH6A_RMI_SIZE:
-            raise RuntimeError(f"path 6a: RMI_SIZE {stats['size binary search']}, not "
-                               f"{PATH6A_RMI_SIZE}")
-        got = (stats["max error"], meta["metrics"]["model_max_error_idx"],
-               stats["average log2 error"])
-        if got != p1["metrics"]:
-            raise RuntimeError(f"path 6a: metrics {got} differ from path 1's {p1['metrics']}")
-        del t
-
-        with rec:
-            t0 = time.perf_counter()
-            loaded = rmi_tpu_torch.load_artifact(meta_path, keys=keys)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            g, e = lookup(loaded, queries)
-            idx = search(loaded, queries)
-            qs = torch.sort(queries).values
-            idx_sorted = search_sorted(loaded, qs)
-        # bit-equal to path 1's index wherever the loaded top routes the
-        # query to the same leaf; the raw round trip may move a query that
-        # lies on a leaf boundary (tests/test_torch_artifacts.py)
-        moved = p1["leaf"] != top_leaf(loaded, queries)
-        same = ~moved
-        differ = int(((g != p1["lookup"][0]) | (e != p1["lookup"][1]))[same].sum())
-        mism = mismatches(keys, queries, idx) + mismatches(keys, qs, idx_sorted)
-        log(f"path 6a load_artifact onto the card {load_s:.3f} s; lookup of the "
-            f"{queries.shape[0]} queries: {differ} differ from path 1's index where the "
-            f"leaf is the same, {int(moved.sum())} queries moved to another leaf by the "
-            f"round trip; search and search_sorted {mism} mismatches")
-        if differ or mism:
-            raise RuntimeError("path 6a: the loaded artifact serves otherwise than path 1")
-
-        sample = sample_keys_and_queries(keys, PATH6_SAMPLE, gen)
-        q_np = keymod.from_image(sample)
-        card_g = lookup(loaded, sample)[0].cpu().numpy()
-        t0 = time.perf_counter()
-        built_before = os.path.exists(native.library_path())
-        native.build()
-        build_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        srv = native.NativeRMI(meta_path)
-        native_s = time.perf_counter() - t0
-        with srv:
-            ng, ne = srv.lookup(q_np)
-            nidx = srv.search(q_np, keys_np)
-        log(f"path 6a native server: library {native.library_path()} "
-            f"{'found' if built_before else 'built'} in {build_s:.3f} s, the artifact "
-            f"loaded in {native_s:.3f} s")
-        host_checks("native server", ng.astype(np.int64), ne.astype(np.int64),
-                    nidx.astype(np.int64), sample, keys, card_g)
-        cg, ce, cidx, csize, built, ran = compiled_cpp(tmp, "books",
-                                                       os.path.join(tmp, "rmi_data"),
-                                                       path, q_np, n)
-        log(f"path 6a books.cpp: g++ -O3 {built:.3f} s, run {ran:.3f} s, RMI_SIZE {csize}; "
-            f"{int((cg != ng.astype(np.int64)).sum())} guesses differ from the native "
-            f"server's")
-        host_checks("compiled C++", cg, ce, cidx, sample, keys, card_g)
-        if csize != PATH6A_RMI_SIZE:
-            raise RuntimeError(f"path 6a: books.cpp's RMI_SIZE {csize}")
-        del loaded, g, e, idx, idx_sorted, qs, srv
-        torch.cuda.empty_cache()
+        sample = cli_path("path 6a", tmp, path, "books", data, keys_np, queries, gen, p1,
+                          rec)
 
         # 6b: linear_spline,linear 4194304 --bounded 8 on the same file
         spec_b, B_b, line = PATH6B
@@ -1219,7 +1315,149 @@ def top_leaf(rmi, q):
     """The leaf the index's top sends each query to."""
     return two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, q,
                                     rmi.norm_offset, rmi.norm_scale,
-                                    rmi.branching_factor - 1)
+                                    rmi.branching_factor - 1, rmi.key_type)
+
+
+def f64_lookup_replays(rmi, queries):
+    """rmi_lookup_* for each leaf kernel with the f64 key kind on the path's
+    queries (f64 images: -0.0, +-inf and NaN among them), the path's top
+    row over leaf rows of that kernel made from its linear leaves (a, b):
+    (a, b) itself, the cubic (0, 0, b, a), the loglinear (ln(1 + |a|),
+    b / n) and the normal (a / n, 1/16, n); guess and err bit-equal to the
+    plain version on the card.  These launches are not the path's."""
+    a, b = rmi.device_leaf_params.unbind(1)
+    n = rmi.num_rmi_rows
+    z = torch.zeros_like(a)
+    tables = {"linear": rmi.device_leaf_params,
+              "cubic": torch.stack([z, z, b, a], 1),
+              "loglinear": torch.stack([a.abs().log1p(), b / n], 1),
+              "normal": torch.stack([a / n, z + 1.0 / 16, z + n], 1)}
+    for leaf, w in tables.items():
+        w = w.contiguous()
+        args = (queries, rmi.device_top_params, w, rmi.leaf_errors, n, rmi.norm_offset,
+                rmi.norm_scale)
+        kw = {"top_type": rmi.top_type, "leaf_type": leaf, "key_type": rmi.key_type}
+        got = eval_kernel.lookup_clamped(*args, **kw)
+        want = eval_kernel.lookup_clamped_plain(*args, **kw)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        log(f"path 7 rmi_lookup_{leaf} with the f64 key kind on {queries.shape[0]} "
+            f"queries: guess and err bit-equal to the plain version {same}")
+        if not same:
+            raise RuntimeError(f"rmi_lookup_{leaf}: f64 images decode otherwise than the "
+                               f"plain version")
+
+
+def path7_phase(u_keys, gen, nq, cross_n, seed, dev, p1_rows):
+    """Path 7: ``cubic,linear 262144`` on path 1's keys as f64 keys
+    (typed_keys): phases 3-5 (drive), the packed plan, the fused lookup's
+    time beside path 1's, its entry for every leaf kernel on f64 images
+    (f64_lookup_replays), the CLI on the keys written to a ``*_f64`` SOSD
+    file (cli_path: RMI_SIZE, the card build's metrics, ``double`` keys,
+    load_artifact, the native server with key_is_float and the compiled
+    C++), the kernels replayed against their plain versions, and the
+    card-vs-CPU cross-check.  Returns the path's launches: drive's and the
+    CLI's, each counted from 0."""
+    spec, B, _, replayed = PATH7
+    t0 = time.perf_counter()
+    data = rdata.RMIDataset(typed_keys(u_keys, KeyType.F64), KeyType.F64)
+    keys = data.keys
+    n = keys.shape[0]
+    queries = make_f64_queries(keys, nq, gen)
+    torch.cuda.synchronize()
+    kmin, kmax = keymod.as_float(keys[[0, -1]], KeyType.F64).tolist()
+    dups = int((keys[1:] == keys[:-1]).sum())
+    log(f"path 7 keys: {n} f64 keys in [{kmin!r}, {kmax!r}] ({dups} equal to the key "
+        f"before) made on the card in {time.perf_counter() - t0:.2f} s")
+    rmi, rec, counts = drive(PATH7, data, queries, gen)
+    plan = lookup_fast.get_plan(rmi)
+    if plan.kind != "packed":
+        raise RuntimeError(f"path 7: plan {plan.kind}, not the packed plan")
+    ref = {"metrics": (rmi.model_max_error, rmi.model_max_error_idx,
+                       rmi.model_avg_log2_error),
+           "lookup": lookup(rmi, queries), "leaf": top_leaf(rmi, queries)}
+    args, kw = max(rec.calls["lookup_clamped"], key=lambda c: c[0][0].shape[0])
+    ms = row_ms(lambda: eval_kernel.lookup_clamped(*args, **kw), 10)
+    p1 = p1_rows["rmi_lookup_linear"]
+    log(f"path 7 rmi_lookup_linear (f64 key kind) at {list(args[0].shape)}: {spread(ms)}; "
+        f"path 1's (u64) {p1['ms']:.4f} ms, bound {p1['bound_ms']:.4f} ms")
+    f64_lookup_replays(rmi, queries)
+    del rmi, args, kw
+    torch.cuda.empty_cache()
+
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_f64_") as tmp:
+        t0 = time.perf_counter()
+        keys_np = data.to_numpy()
+        path = os.path.join(tmp, f"books_{n}_f64")
+        rdata.write_sosd_file(path, keys_np)
+        log(f"path 7: {n} f64 keys written to an SOSD file in "
+            f"{time.perf_counter() - t0:.3f} s (the card-to-host copy included)")
+        cli_path("path 7", tmp, path, "books_f64", data, keys_np, queries, gen, ref, rec)
+        del keys_np
+    torch.cuda.synchronize()
+    cli_counts = dict(_build.launches)
+    log(f"path 7 cli launches: {json.dumps(cli_counts)}")
+    del ref, queries
+    check_kernels(rec, counts, replayed, timed=False)
+    del rec, data
+    torch.cuda.empty_cache()
+    cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
+                key_type=KeyType.F64)
+    return {e: counts[e] + cli_counts[e] for e in counts}
+
+
+def median_ms(fn, runs=HIER_RUNS):
+    """(median, every run) of ``runs`` single calls timed with CUDA events,
+    after one untimed call."""
+    t = [cuda_ms(fn, 1) for _ in range(runs)]
+    return sorted(t)[runs // 2], t
+
+
+def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
+    """Path 8: ``linear,linear 100`` on path 1's keys as u32 keys
+    (typed_keys), at ~2M keys a leaf (fewer leaves for a shorter --n):
+    phases 3-5 (drive), the hierarchical plan, its search
+    timed against bounded_search on the same batch (both exact), lookup
+    timed, the kernels replayed, and the card-vs-CPU cross-check.
+    Returns drive's launches."""
+    spec, B, launched, replayed = PATH8
+    t0 = time.perf_counter()
+    data = rdata.RMIDataset(typed_keys(u_keys, KeyType.U32), KeyType.U32)
+    keys = data.keys
+    n = keys.shape[0]
+    # B = 100 at 200M keys; a shorter run keeps the leaves' ~2M keys
+    B = max(2, B * n // 200_000_000)
+    queries = make_queries(keys, nq, gen, KeyType.U32)
+    torch.cuda.synchronize()
+    dups = int((keys[1:] == keys[:-1]).sum())
+    log(f"path 8 keys: {n} u32 keys ({dups} equal to the key before) made on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rmi, rec, counts = drive((spec, B, launched, replayed), data, queries, gen)
+    plan = lookup_fast.get_plan(rmi)
+    log(f"path 8 plan {plan.kind}: K={plan.K}, levels "
+        f"{[lv.shape[0] for lv in plan.levels or []]}, max_err {rmi.model_max_error}")
+    if plan.kind != "hier":
+        raise RuntimeError(f"path 8: plan {plan.kind}, not the hierarchical plan")
+    hier = median_ms(lambda: lookup_fast.fast_search(rmi, queries))
+    bounded = median_ms(lambda: bounded_search(rmi, queries))
+    mism = (mismatches(keys, queries, lookup_fast.fast_search(rmi, queries)),
+            mismatches(keys, queries, bounded_search(rmi, queries)))
+    look = row_ms(lambda: lookup(rmi, queries), 10)
+    log(f"path 8 search of {nq} queries, median of {HIER_RUNS} (CUDA events): hier "
+        f"{hier[0]:.4f} ms {[round(x, 4) for x in hier[1]]}, bounded_search "
+        f"{bounded[0]:.4f} ms {[round(x, 4) for x in bounded[1]]}; mismatches {mism}; "
+        f"lookup {spread(look)}")
+    if any(mism):
+        raise RuntimeError("path 8: hier or bounded search disagrees with "
+                           "torch.searchsorted")
+    del rmi
+    check_kernels(rec, counts, replayed, timed=False)
+    del rec, data, queries
+    torch.cuda.empty_cache()
+    cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
+                key_type=KeyType.U32)
+    return counts
 
 
 # D runs at its narrowest and widest rows only: the rate table over all
@@ -1446,6 +1684,14 @@ def main():
 
     # 11d. the rest of the integer models
     zoo_phase(data, gen, nq, cross_n, args.seed + 8, dev)
+
+    # 11e. path 7: f64 keys; 11f. path 8: u32 keys and the hier plan
+    counts = path7_phase(keys, gen, nq, cross_n, args.seed + 9, dev, rows)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    torch.cuda.empty_cache()
+    counts = path8_phase(keys, gen, nq, cross_n, args.seed + 10, dev)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    torch.cuda.empty_cache()
 
     # 12. lognormal leaves: the card against the CPU, and their K3 and K4
     # calls replayed; these launches are not the main path's

@@ -10,9 +10,12 @@ counterpart of rmi_tpu/cli.py):
 
 It trains on the card, then writes the artifact under ``--data-path``
 and the C++ sources into the working directory, as rmi_tpu's CLI writes
-them.  ``--param-grid`` trains its configurations one at a time on the
-card (``--disable-parallel-training`` is accepted and changes nothing:
-rmi_tpu's device pool, parallel/sweep.py, is not ported).
+them.  The key type follows the file name (``uint64``, ``uint32`` or
+``f64`` in it); ``--bounded`` on f64 keys raises ValueError, as
+rmi_tpu's does (RMIDataset.as_u64).  ``--param-grid`` trains its
+configurations one at a time on the card (``--disable-parallel-training``
+is accepted and changes nothing: rmi_tpu's device pool,
+parallel/sweep.py, is not ported).
 ``--threads`` is accepted for the reference's sake.  ``--optimize`` and
 ``--max-size`` need the optimizer, which is not ported: they exit with 1.
 ``main(argv, device="cpu")`` runs the same on the CPU, as the tests do.
@@ -124,7 +127,7 @@ def _dump_ll_model_data(trained, data, idx: int) -> None:
     from rmi_tpu_torch.train import two_layer
     t = two_layer.top_assignment(get_model(trained.top_type), trained.device_top_params,
                                  data.keys, trained.norm_offset, trained.norm_scale,
-                                 trained.branching_factor - 1)
+                                 trained.branching_factor - 1, data.key_type)
     mask = t == idx
     ks = keymod.from_image(data.keys[mask], data.key_type)
     ys = two_layer.fixdups_i32(data.keys)[mask].cpu().numpy()

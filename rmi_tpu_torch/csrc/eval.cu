@@ -42,11 +42,15 @@
 // latencies, and normal's two f64 divisions, overlap.  A head element
 // before the first 16-byte boundary and an odd last element go through
 // the same arithmetic one at a time.  The top kind is a kernel argument:
-// the branch on it is the same in every thread.
+// the branch on it is the same in every thread.  The key kind is a
+// template parameter, so the u64 instantiation is the decode it always
+// was and the f64 one adds no branch.
 //
 // Every value keeps the bits of the plain PyTorch chain: the key image
-// converts as keys.as_float does (hi * 2^32 is exact, one rounding in the
-// add), then (f - offset) * scale, as two_layer.normalize; the top and
+// converts as keys.as_float does (of a u64 key hi * 2^32 is exact, one
+// rounding in the add; of an f64 key the sign fix undone and the bits
+// reinterpreted, no arithmetic), then (f - offset) * scale, as
+// two_layer.normalize; the top and
 // the leaf are rmi_leaf from leaf_eval.cuh, the function the error sweep
 // (sweep.cu) measured the bounds with, and the clamps rmi_clamp_floor.
 // The top's row is row 0 of its own table: every affine top model's
@@ -104,10 +108,21 @@ __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
   for (int k = 0; k < K; ++k) out[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), bound);
 }
 
+// How an int64 image decodes (ops/eval_kernel.key_kind): a u64 key's image
+// is u ^ 2^63 (u32 keys too), an f64 key's its bits with a negative value's
+// low 63 bits complemented (keys.f64_image)
+enum class RmiKey : int64_t { kU64 = 0, kF64 = 1 };
+
 // keys.as_float then two_layer.normalize, on one int64 key image
+template <RmiKey K>
 __device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
-  const uint64_t u = (uint64_t)image ^ 0x8000000000000000ull;
-  const double f = (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
+  double f;
+  if constexpr (K == RmiKey::kF64) {
+    f = __longlong_as_double(image < 0 ? image ^ 0x7fffffffffffffffll : image);
+  } else {
+    const uint64_t u = (uint64_t)image ^ 0x8000000000000000ull;
+    f = (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
+  }
   return (f - offset) * scale;
 }
 
@@ -172,7 +187,7 @@ leaf_eval(const LeafEvalOp<L> op, int64_t m) {
 
 // --- lookup --------------------------------------------------------------------
 
-template <RmiLeaf L>
+template <RmiLeaf L, RmiKey KK>
 struct LookupOp {
   static constexpr int kW = lookup_width(L);
   static constexpr int kS = kW / 4;        // 32-byte sectors a lookup row
@@ -219,7 +234,7 @@ struct LookupOp {
   }
 
   __device__ __forceinline__ void one(int64_t i) const {
-    const double x[1] = {normalized(__ldg(keys + i), offset, scale)};
+    const double x[1] = {normalized<KK>(__ldg(keys + i), offset, scale)};
     int64_t leaf[1];
     leaves(x, leaf);
     LookupRow<L> r[1];
@@ -274,7 +289,8 @@ struct LookupOp {
     const bool ok = p < npairs;
     const longlong2 v = ok ? __ldg(reinterpret_cast<const longlong2*>(keys + head) + p)
                            : make_longlong2(0, 0);
-    const double x[2] = {normalized(v.x, offset, scale), normalized(v.y, offset, scale)};
+    const double x[2] = {normalized<KK>(v.x, offset, scale),
+                         normalized<KK>(v.y, offset, scale)};
     int64_t leaf[2];
     leaves(x, leaf);
     LookupRow<L> r[2];
@@ -288,9 +304,9 @@ struct LookupOp {
   }
 };
 
-template <RmiLeaf L>
+template <RmiLeaf L, RmiKey KK>
 __global__ void __launch_bounds__(kThreads)
-lookup(const LookupOp<L> op, int64_t m) {
+lookup(const LookupOp<L, KK> op, int64_t m) {
   walk(op, m, op.head);
 }
 
@@ -317,11 +333,23 @@ int launch_leaf_eval(const double* x, const double* w, const int64_t* leaf,
   return (int)cudaGetLastError();
 }
 
-template <RmiLeaf L>
-int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
+template <RmiLeaf L, RmiKey KK>
+void start_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
                   const double* rows, int64_t* guess, int64_t* err, int64_t m,
-                  int64_t B, int64_t n, double offset, double scale, void* stream) {
-  if (top_kind < 0 || top_kind > (int64_t)RmiLeaf::kNormal || B < 1 || n < 1) {
+                  int64_t B, int64_t n, double offset, double scale, int head,
+                  void* stream) {
+  const LookupOp<L, KK> op{keys, top_w, rows, guess, err, offset, scale, (double)(B - 1),
+                           (double)(n - 1), (RmiLeaf)top_kind, head};
+  lookup<L, KK><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
+}
+
+template <RmiLeaf L>
+int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
+                  int64_t top_kind, const double* rows, int64_t* guess, int64_t* err,
+                  int64_t m, int64_t B, int64_t n, double offset, double scale,
+                  void* stream) {
+  if (top_kind < 0 || top_kind > (int64_t)RmiLeaf::kNormal || B < 1 || n < 1 ||
+      (key_kind != (int64_t)RmiKey::kU64 && key_kind != (int64_t)RmiKey::kF64)) {
     return (int)cudaErrorInvalidValue;
   }
   const int head = head_of(keys);
@@ -331,10 +359,12 @@ int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
       ((uintptr_t)top_w & 15)) {
     return (int)cudaErrorMisalignedAddress;
   }
-  if (m > 0) {
-    const LookupOp<L> op{keys, top_w, rows, guess, err, offset, scale, (double)(B - 1),
-                         (double)(n - 1), (RmiLeaf)top_kind, head};
-    lookup<L><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
+  if (m > 0 && key_kind == (int64_t)RmiKey::kF64) {
+    start_lookup<L, RmiKey::kF64>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset,
+                                  scale, head, stream);
+  } else if (m > 0) {
+    start_lookup<L, RmiKey::kU64>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset,
+                                  scale, head, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -348,17 +378,19 @@ int launch_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
     return launch_leaf_eval<L>(x, w, leaf, out, m, bound, stream);                    \
   }
 
-// guess[i], err[i] of key image keys[i]; top_kind the RmiLeaf of the top's
-// leaf kernel, top_w its [1, width] row; rows the [B, lookup_width] lookup
-// rows of the leaves; offset and scale the normalization, n the keys
-// indexed
+// guess[i], err[i] of key image keys[i], decoded as key_kind (RmiKey) says;
+// top_kind the RmiLeaf of the top's leaf kernel, top_w its [1, width] row;
+// rows the [B, lookup_width] lookup rows of the leaves; offset and scale
+// the normalization, n the keys indexed.  An unknown key or top kind is
+// refused with cudaErrorInvalidValue.
 #define RMI_LOOKUP_ENTRY(name, L)                                                     \
-  RMI_API int rmi_lookup_##name(const int64_t* keys, const double* top_w,             \
-                                int64_t top_kind, const double* rows, int64_t* guess, \
-                                int64_t* err, int64_t m, int64_t B, int64_t n,        \
-                                double offset, double scale, void* stream) {          \
-    return launch_lookup<L>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset, \
-                            scale, stream);                                           \
+  RMI_API int rmi_lookup_##name(const int64_t* keys, int64_t key_kind,                \
+                                const double* top_w, int64_t top_kind,                \
+                                const double* rows, int64_t* guess, int64_t* err,     \
+                                int64_t m, int64_t B, int64_t n, double offset,       \
+                                double scale, void* stream) {                         \
+    return launch_lookup<L>(keys, key_kind, top_w, top_kind, rows, guess, err, m, B,  \
+                            n, offset, scale, stream);                                \
   }
 
 RMI_LEAF_EVAL_ENTRY(linear, RmiLeaf::kLinear)

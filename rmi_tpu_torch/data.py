@@ -34,13 +34,12 @@ class RMIDataset:
     @classmethod
     def from_numpy(cls, arr: np.ndarray, key_type: Optional[KeyType] = None,
                    device=None) -> "RMIDataset":
-        """Sorted unsigned keys as images on ``device``: the card when
-        None (no card raises); the CPU only when asked for."""
+        """Sorted keys (u32, u64 or f64) as images on ``device``: the card
+        when None (no card raises); the CPU only when asked for."""
         if key_type is None:
             key_type = {np.dtype(np.uint32): KeyType.U32,
                         np.dtype(np.uint64): KeyType.U64,
                         np.dtype(np.float64): KeyType.F64}[arr.dtype]
-        keymod._integer_only(key_type)
         dev = config.require_cuda() if device is None else torch.device(device)
         return cls(keys=keymod.to_image(arr).to(dev), key_type=key_type)
 
@@ -63,7 +62,7 @@ class RMIDataset:
     def as_u64(self) -> "RMIDataset":
         """RMIMMap::into_u64 (src/load.rs:123-128): cache_fix (--bounded)
         needs u64 keys.  A u32 key's image is its u64 image, so only the
-        type changes."""
+        type changes; f64 keys raise, as in the reference."""
         if self.key_type is KeyType.U64:
             return self
         if self.key_type is KeyType.U32:
@@ -102,17 +101,36 @@ def write_sosd_file(path: str, arr: np.ndarray) -> None:
 def synthetic_dataset(kind: str, n: int, key_type: KeyType = KeyType.U64,
                       seed: int = 0) -> np.ndarray:
     """Sorted keys shaped like an SOSD file, the same arrays as
-    rmi_tpu.data.synthetic_dataset for the same seed.  ``books``:
-    exponential gaps, roughly uniform with mild local clustering."""
-    if kind != "books":
-        raise NotImplementedError(
-            f"synthetic {kind!r} keys are not ported yet (ROADMAP.md Queue 1)")
-    keymod._integer_only(key_type)
+    rmi_tpu.data.synthetic_dataset (rmi_tpu/data.py:158-195) for the same
+    seed:
+      * ``books``: exponential gaps, roughly uniform with mild local
+        clustering;
+      * ``osm``: heavy-tailed cell ids, clustered round n / 4096 centres;
+      * ``fb``: lognormal ids, 5% rounded to thousands (duplicates);
+      * ``wiki``: near-linear timestamps with bursts and duplicates.
+    f64 keys are the sorted floats; integer keys are clipped to the type
+    (books u32 keys rescaled below its top) and truncated."""
     rng = np.random.default_rng(seed)
-    keys = np.sort(np.cumsum(rng.exponential(scale=float(2**63) / n, size=n)))
+    if kind == "books":
+        keys = np.cumsum(rng.exponential(scale=float(2**63) / n, size=n))
+    elif kind == "osm":
+        centers = rng.uniform(0, 2**62, size=max(n // 4096, 4))
+        which = rng.integers(0, len(centers), size=n)
+        keys = centers[which] + rng.exponential(2**34, size=n)
+    elif kind == "fb":
+        keys = np.minimum(rng.lognormal(mean=30.0, sigma=2.5, size=n), 1.8e18)
+        dup = rng.random(n) < 0.05
+        keys[dup] = np.round(keys[dup], -3)
+    elif kind == "wiki":
+        keys = np.floor(np.linspace(1.0e9, 1.7e9, n) + rng.exponential(50.0, size=n))
+    else:
+        raise ValueError(f"unknown synthetic dataset kind: {kind}")
+    keys = np.sort(keys)
+    if key_type is KeyType.F64:
+        return keys.astype(np.float64)
     hi = float(np.iinfo(key_type.np_dtype).max)
     keys = np.clip(keys, 0, hi)
-    if key_type is KeyType.U32:
+    if kind == "books" and key_type is KeyType.U32:
         keys = keys / keys[-1] * (hi - 1.0)
     return np.sort(keys.astype(key_type.np_dtype))
 

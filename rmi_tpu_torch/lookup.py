@@ -14,11 +14,11 @@ input the build measured errors with, so |guess - lower_bound| <= err
 holds for every key.  ``search`` routes as rmi_tpu's does for an index without
 cache fix: batches of SORT_SERVE_MIN or more go through sort -> K5 ->
 unsort (lookup_fast.fast_search_via_sort), smaller ones through the
-packed plan's two counts (lookup_fast.fast_search); an index whose
-leaves are too wide for a packed plan serves every batch through lookup
-and the bounded binary search (bounded_search).  ``search_sorted`` sends
-sorted batches straight to K5.  rmi_tpu keeps its sort route off where
-its kernel runs interpreted; here the route is the same on every device,
+packed plan's two counts (lookup_fast.fast_search); an index without a
+packed plan (a top that is not monotone, leaves too wide) serves every
+batch through lookup and the hierarchical plan's counts.
+``search_sorted`` sends sorted batches of a packed plan straight to K5.
+rmi_tpu keeps its sort route off where its kernel runs interpreted; here the route is the same on every device,
 since on the CPU each kernel wrapper runs its plain version.  ``search``
 given other ``keys`` than the index's searches them with lookup and the
 bounded binary search, as rmi_tpu does.
@@ -80,7 +80,8 @@ def _rmi_lookup(rmi, queries: torch.Tensor):
     return eval_kernel.lookup_clamped(
         queries, rmi.device_top_params, rmi.device_leaf_params, errors,
         rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale,
-        top_type=rmi.top_type, leaf_type=rmi.leaf_type, table=rmi.lookup_table_cache)
+        top_type=rmi.top_type, leaf_type=rmi.leaf_type, table=rmi.lookup_table_cache,
+        key_type=rmi.key_type)
 
 
 def cachefix_interp(spline_keys, spline_vals, queries, start, err_s,
@@ -135,8 +136,8 @@ def err_iters(max_err: int) -> int:
 
 def bounded_search(rmi, queries: torch.Tensor, keys=None) -> torch.Tensor:
     """Exact lower bounds in ``keys`` (the index's own when None) through
-    lookup and the bounded binary search: how a "bounded" plan
-    (lookup_fast.get_plan) serves.
+    lookup and the bounded binary search: how ``search`` serves keys
+    other than the index's (rmi_tpu/lookup.py:283-287).
 
     A query above the largest key has lower bound n, which the error
     bound does not cover when the keys end in a duplicate run: the

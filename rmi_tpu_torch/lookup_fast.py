@@ -1,6 +1,6 @@
-"""Exact search through the packed plan, and sorted-batch serving with
-kernel K5 (counterpart of rmi_tpu/lookup_fast.py, ported as far as the
-main path needs).
+"""Exact search through the packed and hierarchical plans, and
+sorted-batch serving with kernel K5 (counterpart of
+rmi_tpu/lookup_fast.py).
 
 The packed plan.  For a top model MONOTONE over the key domain (the
 linear family, cubic and the integer-output tops always; a loglinear,
@@ -17,12 +17,25 @@ stripe; with F > 1 ("packed_wide") one count over 128 stripe-first keys
 resolves lb1.  A count over the stripe's 64 keys finishes the search.
 Queries route clipped to [keys[0], keys[-1]] (the cubic top is monotone
 on that interval only) and count raw, so out-of-range queries resolve
-through the boundary leaf.
+through the boundary leaf.  An integer-output top on f64 keys routes
+truncated keys, so it takes no packed plan (rmi_tpu lookup_fast.py:
+592-595).
 
-Where no sample spacing F <= 64 covers the widest leaf, the plan is
-"bounded": lookup (top eval, K4) and the bounded binary search of
-lookup.bounded_search.  rmi_tpu builds its hierarchical plan there,
-which is not ported yet (ROADMAP.md Queue 1, item 1: serving breadth).
+The hierarchical plan ("hier", rmi_tpu's SearchPlan and resolve,
+lookup_fast.py:140-160, 388-413, 554-577) serves every other index: a
+top that is not monotone, or leaves wider than F = 64 covers.  lookup
+gives each query's guess and err (K4's fused entry where
+eval_kernel.fused_lookup holds, its two steps otherwise), so lb lies in
+[guess - err, guess + err].  Over the levels L_k = keys[::64^k],
+k = 0..K, with K the least k such that 2 err_max / 64^k + 2 <= 64,
+lb_k = #(L_k < q) is a count over the 128 entries of L_k from
+64 (LB_k >> 6), for any lower limit LB_k <= lb_k within 65 of it: the
+guess gives level K's limit, each level's count the next one's.  Level 0
+is the key array itself and the others strided copies of it (n / 63
+entries in all); rmi_tpu's overlapped [rows, 128] copies of each level
+are a TPU layout and have no counterpart.  The resolve is plain torch,
+as rmi_tpu computes it in XLA; a hierarchical plan never sorts or runs
+K5.
 
 Sorted serving.  Over a non-decreasing batch lb1 is non-decreasing, so
 the leaf rows of a block's first and last query bound lb1 for every
@@ -41,7 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -81,13 +94,15 @@ _PHI_U_MAX = 38.6
 
 SORTED_MIN = 1 << 14    # smallest batch fast_search_sorted sends to K5
 MAX_CHUNK = 1 << 21     # queries per packed-search step: ~1 GB of [., 64] rows
+HIER_CHUNK = 1 << 20    # queries per hierarchical step: ~1 GB of [., 128] counts
+LEVEL_FAN = 64          # the sampling factor between the hier plan's levels
 
 
 @dataclasses.dataclass
 class Plan:
     """How one index serves exact search."""
 
-    kind: str                      # "packed", "packed_wide" or "bounded"
+    kind: str                      # "packed", "packed_wide" or "hier"
     n: int
     S: int = 0                     # sample keys per leaf row
     F: int = 1                     # stripes between samples
@@ -96,6 +111,8 @@ class Plan:
     group_first: Optional[torch.Tensor] = None   # keys[::8], K5's sample level: n bytes
     kmin: int = 0                 # keys[0], keys[-1]: the routing domain
     kmax: int = 0
+    K: int = 0                    # hier: the level the guess starts at
+    levels: Optional[List[torch.Tensor]] = None  # hier: keys[::64^k], k = 0..K
 
 
 def supports_fast_path(rmi) -> bool:
@@ -111,7 +128,8 @@ def leaf_spans(rmi):
         B = rmi.branching_factor
         t = two_layer.top_assignment(get_model(rmi.top_type),
                                      rmi.device_top_params, rmi.keys,
-                                     rmi.norm_offset, rmi.norm_scale, B - 1)
+                                     rmi.norm_offset, rmi.norm_scale, B - 1,
+                                     rmi.key_type)
         spans = seg.make_spans(t.to(torch.int32), B)
         next_idx = two_layer.lower_bound_fills(spans, rmi.keys,
                                                rmi.key_type)[0]
@@ -146,15 +164,15 @@ def packed_plan_shape(rmi):
 def leaf_rows(rmi, S: int, F: int) -> torch.Tensor:
     """[B, 1 + S] int64: each leaf's stripe base start // 64, then the S
     sample keys keys[64 (base + i F)]; a sample at or past n reads as
-    the key type's largest image, which no query is below."""
+    the largest image, IMAGE_MAX, which no query is below (rmi_tpu's
+    all-ones u64; an f64 +inf's image lies above f64::MAX's)."""
     starts, _ = leaf_spans(rmi)
     keys = rmi.keys
     n = keys.shape[0]
     base = starts // STRIDE
     idx = (base[:, None]
            + torch.arange(S, device=keys.device) * F) * STRIDE
-    samples = torch.where(idx < n, keys[idx.clamp(max=n - 1)],
-                          rmi.key_type.max_image)
+    samples = torch.where(idx < n, keys[idx.clamp(max=n - 1)], keymod.IMAGE_MAX)
     return torch.cat([base[:, None], samples], 1)
 
 
@@ -177,7 +195,7 @@ def _scalar_top_monotone(rmi) -> bool:
         the domain's high end, so exp1's argument stays in its monotone
         region."""
     w = rmi.device_top_params[0].tolist()
-    kminf, kmaxf = keymod.as_float(rmi.keys[[0, -1]]).tolist()
+    kminf, kmaxf = keymod.as_float(rmi.keys[[0, -1]], rmi.key_type).tolist()
     if rmi.top_type == "loglinear":
         alpha, beta = w
         if not (math.isfinite(alpha) and math.isfinite(beta) and beta >= 0):
@@ -198,17 +216,39 @@ def _scalar_top_monotone(rmi) -> bool:
 
 def _monotone_top(rmi) -> bool:
     """Does the top take the packed plan's routing argument (rmi_tpu
-    lookup_fast.py:587-591)?"""
+    lookup_fast.py:587-595)?  An integer-output top routes f64 keys by
+    their truncated values, so it does not on f64 keys."""
+    if rmi.key_type.is_float and get_model(rmi.top_type).output_int:
+        return False
     if rmi.top_type in _MONOTONE_TOPS:
         return True
     return rmi.top_type in _SCALAR_TOPS and _scalar_top_monotone(rmi)
+
+
+def hier_start_level(max_err: int) -> int:
+    """K: the least k with 2 max_err / 64^k + 2 <= 64 (rmi_tpu
+    SearchPlan)."""
+    K = 0
+    while (2 * max_err) / (LEVEL_FAN ** K) + 2 > LEVEL_FAN:
+        K += 1
+    return K
+
+
+def hier_levels(keys: torch.Tensor, K: int) -> List[torch.Tensor]:
+    """The levels keys[::64^k], k = 0..K: the keys themselves, then
+    strided copies."""
+    levels = [keys]
+    for _ in range(K):
+        levels.append(levels[-1][::LEVEL_FAN].contiguous())
+    return levels
 
 
 def _make_plan(rmi) -> Plan:
     n = rmi.keys.shape[0]
     shape = packed_plan_shape(rmi) if _monotone_top(rmi) else None
     if shape is None:
-        return Plan("bounded", n)
+        K = hier_start_level(int(rmi.leaf_errors.max()))
+        return Plan("hier", n, K=K, levels=hier_levels(rmi.keys, K))
     S, F = shape
     kmin, kmax = rmi.keys[[0, -1]].tolist()
     return Plan("packed" if F == 1 else "packed_wide", n, S, F,
@@ -222,7 +262,8 @@ def stripe_lower_limits(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
     qr = q.clamp(plan.kmin, plan.kmax)
     midx = two_layer.top_assignment(get_model(rmi.top_type),
                                     rmi.device_top_params, qr, rmi.norm_offset,
-                                    rmi.norm_scale, rmi.branching_factor - 1)
+                                    rmi.norm_scale, rmi.branching_factor - 1,
+                                    rmi.key_type)
     rows = plan.rows[midx]
     c1 = (rows[:, 1:] < q[:, None]).sum(1)
     return rows[:, 0] + (c1 - 1) * plan.F
@@ -235,6 +276,34 @@ def _count_from(arr, start, q, width: int):
     idx = start[:, None] + torch.arange(width, device=q.device)
     below = (idx < m) & (arr[idx.clamp(max=m - 1)] < q[:, None])
     return start + below.sum(1)
+
+
+def _count_row(level, row, q):
+    """64 r + #(level[64 r : 64 r + 128] < q) with r = row clipped to the
+    level's rows (rmi_tpu's _count_row over its overlapped row r)."""
+    nrows = max(1, -(-level.shape[0] // LEVEL_FAN))
+    return _count_from(level, row.clamp(0, nrows - 1) * LEVEL_FAN, q, WIDTH)
+
+
+def resolve(levels, queries, guess, err, *, K: int, n: int) -> torch.Tensor:
+    """Exact lower bounds from lookup's (guess, err) through the levels'
+    row counts (rmi_tpu lookup_fast.py:396-413): level K's lower limit
+    from guess - err, each finer level's from the count above it."""
+    sK = LEVEL_FAN ** K
+    LB = ((guess - err).clamp(0, n) + sK - 1) // sK
+    lb = _count_row(levels[K], LB >> 6, queries).clamp(max=levels[K].shape[0])
+    for k in range(K - 1, -1, -1):
+        LB = (lb * LEVEL_FAN - LEVEL_FAN + 1).clamp(min=0)
+        lb = _count_row(levels[k], LB >> 6, queries).clamp(max=levels[k].shape[0])
+    return lb
+
+
+def _hier_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
+    """Exact lower bounds of one chunk through the hierarchical plan."""
+    # imported here: rmi_tpu_torch.lookup imports this module
+    from rmi_tpu_torch.lookup import lookup
+    guess, err = lookup(rmi, q)
+    return resolve(plan.levels, q, guess, err, K=plan.K, n=plan.n)
 
 
 def _packed_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
@@ -254,16 +323,14 @@ def _packed_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
 
 def fast_search(rmi, queries: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of int64 images in any order, through the
-    index's plan, MAX_CHUNK queries at a time."""
+    index's plan, MAX_CHUNK queries at a time (HIER_CHUNK for a
+    hierarchical plan)."""
     plan = get_plan(rmi)
-    if plan.kind == "bounded":
-        # imported here: rmi_tpu_torch.lookup imports this module
-        from rmi_tpu_torch.lookup import bounded_search
-        return bounded_search(rmi, queries)
+    step, chunk = ((_hier_search, HIER_CHUNK) if plan.kind == "hier"
+                   else (_packed_search, MAX_CHUNK))
     out = torch.empty_like(queries)
-    for i in range(0, queries.shape[0], MAX_CHUNK):
-        out[i:i + MAX_CHUNK] = _packed_search(rmi, plan,
-                                              queries[i:i + MAX_CHUNK])
+    for i in range(0, queries.shape[0], chunk):
+        out[i:i + chunk] = step(rmi, plan, queries[i:i + chunk])
     return out
 
 
@@ -307,7 +374,7 @@ def fast_search_sorted(rmi, queries: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of a NON-DECREASING batch: K5 for a packed plan
     and at least SORTED_MIN queries, fast_search otherwise."""
     plan = get_plan(rmi)
-    if plan.kind != "bounded" and queries.shape[0] >= SORTED_MIN:
+    if plan.kind != "hier" and queries.shape[0] >= SORTED_MIN:
         return sorted_search(rmi, plan, queries)
     return fast_search(rmi, queries)
 
@@ -326,11 +393,11 @@ def fast_search_via_sort(rmi, queries: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of a batch in any order through sort -> K5 ->
     unsort, when the batch is dense enough that its blocks' windows are
     short: 4 nq >= 3 ceil(n / 64), rmi_tpu's gate.  Sparser batches, and
-    bounded plans, take fast_search.  K5 never declines a batch, so
+    hierarchical plans, take fast_search.  K5 never declines a batch, so
     rmi_tpu's veto and re-probe of a declining kernel have no
     counterpart."""
     plan = get_plan(rmi)
     nrows0 = -(-plan.n // STRIDE)
-    if plan.kind == "bounded" or 4 * queries.shape[0] < 3 * nrows0:
+    if plan.kind == "hier" or 4 * queries.shape[0] < 3 * nrows0:
         return fast_search(rmi, queries)
     return serve_via_sort(rmi, plan, queries)

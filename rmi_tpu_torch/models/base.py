@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from rmi_tpu_torch import keys as keymod
+from rmi_tpu_torch.keys import KeyType
 
 
 class Restriction(enum.Enum):
@@ -101,12 +102,13 @@ class ModelDef:
         ``predict`` is that evaluation's plain version; None for the
         integer-output models, which no kernel evaluates (rmi_tpu
         computes them outside Pallas, two_layer.py:382-400).
-    fit_aux: None, or for cubic fit_aux(xf, yf, spans, ep_y, keys) ->
-        (rows, aux): the fit that fit_top (spans over the whole array,
+    fit_aux: None, or for cubic fit_aux(xf, yf, spans, ep_y, keys, key_type)
+        -> (rows, aux): the fit that fit_top (spans over the whole array,
         ep_y its endpoint targets) and fit_leaves (ep_y None) return the
         rows of, with the generator statistics from which convert.py
         recomputes the raw coefficients (rmi_tpu models/cubic.py:183-194;
-        ``keys`` the key images, whose raw floats give xmin and xmax).
+        ``keys`` the images of ``key_type`` keys, whose raw floats give
+        xmin and xmax).
     bytes_per_model: the artifact bytes of one model's parameters
         (codegen.rs:375-394); None where they follow the data (histogram).
     function_name: the model's function in the reference's generated code.
@@ -115,7 +117,8 @@ class ModelDef:
         not affine-covariant) on the keys' f64 values (rmi_tpu
         models/base.py:81-85), and their leaf kernel on log_input of
         them (kernel_input); "int" ones, the integer-output models, on
-        the key images themselves.
+        integer-key images: the key images themselves, or of f64 keys
+        the images of their as_int values (keys.int_image).
     output_int, restriction, leaf_capable, needs_bounds_check: as
         rmi_tpu's (models/base.py:44-116).
     """
@@ -167,21 +170,24 @@ def kernel_input(mdef: ModelDef, x: torch.Tensor) -> torch.Tensor:
     return log_input(x) if mdef.input_domain == "raw" else x
 
 
-def normalize(keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
-    """x' = (as_float(key) - offset) * scale, f64."""
-    return keymod.as_float(keys).sub_(kminf).mul_(s)
+def normalize(keys: torch.Tensor, kminf: float, s: float,
+              key_type: KeyType = KeyType.U64) -> torch.Tensor:
+    """x' = (as_float(key) - offset) * scale, f64, of images of
+    ``key_type`` keys."""
+    return keymod.as_float(keys, key_type).sub_(kminf).mul_(s)
 
 
-def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float) -> torch.Tensor:
-    """The input model ``mdef`` fits and predicts on: the normalized keys,
-    the keys' raw f64 values for a "raw" model (rmi_tpu
-    two_layer.py:63-66), or for an integer-output model the key images
-    themselves."""
+def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float,
+                      key_type: KeyType = KeyType.U64) -> torch.Tensor:
+    """The input model ``mdef`` fits and predicts on, from images of
+    ``key_type`` keys: the normalized keys, the keys' raw f64 values for
+    a "raw" model (rmi_tpu two_layer.py:63-66), or for an integer-output
+    model the integer-key images (keys.int_image)."""
     if mdef.input_domain == "int":
-        return keys
+        return keymod.int_image(keys, key_type)
     if mdef.input_domain == "raw":
-        return keymod.as_float(keys)
-    return normalize(keys, kminf, s)
+        return keymod.as_float(keys, key_type)
+    return normalize(keys, kminf, s, key_type)
 
 
 def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:

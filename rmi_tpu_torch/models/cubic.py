@@ -105,12 +105,13 @@ def _fit_cubic_ranges(xf, yf, spans: seg.Spans, ep_y=None):
     return fit_cubic_aux(xf, yf, spans, ep_y)[0]
 
 
-def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None):
+def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None,
+                  key_type: keymod.KeyType = keymod.KeyType.U64):
     """(rows [B, 4], aux): _fit_cubic_ranges's rows and the generator
     statistics the raw conversion reads (rmi_tpu models/cubic.py:183-194):
-    the endpoints xmin and xmax (the raw key floats of ``keys``, the key
-    images, when given; the fit's inputs otherwise), ymin, ymax, the
-    clamped slopes m1 and m2, and each row's case."""
+    the endpoints xmin and xmax (the raw key floats of ``keys``, images
+    of ``key_type`` keys, when given; the fit's inputs otherwise), ymin,
+    ymax, the clamped slopes m1 and m2, and each row's case."""
     cubic_w, lin_w, st = _candidates(xf, yf, spans, ep_y)
     empty = st["empty"]
     if spans.B == 1:
@@ -132,7 +133,8 @@ def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None):
     if keys is None:
         xmin, xmax = xf[first], xf[last]
     else:
-        xmin, xmax = keymod.as_float(keys[first]), keymod.as_float(keys[last])
+        xmin = keymod.as_float(keys[first], key_type)
+        xmax = keymod.as_float(keys[last], key_type)
     aux = {"xmin": xmin, "xmax": xmax, "ymin": st["ymin"], "ymax": st["ymax"],
            "m1": st["m1"], "m2": st["m2"], "case": case}
     return w, aux

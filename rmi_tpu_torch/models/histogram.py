@@ -6,9 +6,10 @@ trunc((n - 1) B / n) (histogram.rs:24); the pivots are the keys at
 multiples of n // num_bins, and a key's bin is upper_bound(pivots, key)
 - 1 (histogram.rs:57-61).  A key below the first pivot wraps to u64::MAX
 as the reference's usize underflow does, and clamp_int sends it to the
-last leaf.  The 20-bit radix index over the pivots (utils.rs:55-102) is
-built for the artifact, as rmi_tpu builds it; prediction does not read
-it.
+last leaf.  Pivots and keys are integer-key images (keys.int_image: of
+f64 keys their as_int values, as rmi_tpu's pivots are).  The 20-bit
+radix index over the pivots (utils.rs:55-102) is built for the artifact,
+as rmi_tpu builds it; prediction does not read it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 hint tables radix8/18/22/26/28 (counterpart of rmi_tpu/models/radix.py;
 radix.rs, balanced_radix.rs of the reference).
 
-They compute on the keys' u64 bits (keys.u64_bits of the images) and
+They compute on the keys' u64 bits (keys.u64_bits of the integer-key
+images they take: of f64 keys the images of their as_int values,
+keys.int_image, as rmi_tpu's compute on as_int of the raw float) and
 predict u64 values, held in int64.  Each one's bucket is non-decreasing
 over the sorted keys, so a histogram of the buckets or a table of the
 first key at or above each bucket is a searchsorted of the slots into

@@ -99,6 +99,16 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(_U64P)
 
 
+def _key_words(a: np.ndarray) -> np.ndarray:
+    """Keys as the 64-bit words the library reads: an integer key's value,
+    an f64 key's bits (rmi_native.cpp reinterprets them where the
+    artifact's key_type is f64, its key_is_float)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.float64:
+        return a.view(np.uint64)
+    return a.astype(np.uint64, copy=False)
+
+
 def cache_fix(keys: np.ndarray, offsets: np.ndarray,
               line_size: int) -> Tuple[np.ndarray, np.ndarray]:
     """The native greedy spline (cache_fix.rs:45-150) over unique u64 keys
@@ -118,7 +128,10 @@ def cache_fix(keys: np.ndarray, offsets: np.ndarray,
 
 class NativeRMI:
     """The native artifact server: loads an artifact's metadata JSON and
-    serves lookups and bounded searches on the host's CPU."""
+    serves lookups and bounded searches on the host's CPU, of u32, u64 or
+    f64 keys as the artifact's key type says.  Its search compares the
+    keys' 64-bit words, which order f64 keys as their values only where
+    none is negative."""
 
     def __init__(self, meta_path: str):
         self._lib = load()
@@ -138,8 +151,8 @@ class NativeRMI:
         self.close()
 
     def lookup(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """(guess, err) per unsigned query, u64."""
-        q = np.ascontiguousarray(queries, dtype=np.uint64)
+        """(guess, err) per query, u64."""
+        q = _key_words(queries)
         guess = np.empty(q.shape[0], dtype=np.uint64)
         err = np.empty(q.shape[0], dtype=np.uint64)
         self._lib.rmi_lookup_batch(self._h, _ptr(q), q.shape[0], _ptr(guess), _ptr(err))
@@ -148,8 +161,7 @@ class NativeRMI:
     def search(self, queries: np.ndarray, keys: np.ndarray) -> np.ndarray:
         """Lower bounds of the queries in ``keys`` (the original keys of a
         cachefix index), u64."""
-        q = np.ascontiguousarray(queries, dtype=np.uint64)
-        k = np.ascontiguousarray(keys, dtype=np.uint64)
+        q, k = _key_words(queries), _key_words(keys)
         out = np.empty(q.shape[0], dtype=np.uint64)
         self._lib.rmi_search_batch(self._h, _ptr(q), q.shape[0], _ptr(k), k.shape[0],
                                    _ptr(out))

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models.base import (clamp_int, get_model, kernel_input,
                                        leaf_predict, model_float_input,
                                        predict_clamped, predict_top_assignment)
@@ -27,6 +28,13 @@ from rmi_tpu_torch.ops import _build
 
 # csrc/leaf_eval.cuh's RmiLeaf, in its order: the top kind rmi_lookup_* takes
 LEAF_KERNELS = ("linear", "cubic", "loglinear", "normal")
+
+
+def key_kind(key_type: KeyType) -> int:
+    """csrc/eval.cu's RmiKey, the key_kind rmi_lookup_* takes: how the
+    kernel decodes an image, 0 as a u64 key's (u32 images are u64 ones),
+    1 as an f64 key's."""
+    return 1 if key_type is KeyType.F64 else 0
 MAX_BOUND = (1 << 31) - 1      # rmi_clamp_floor returns int32
 
 
@@ -109,30 +117,33 @@ def fused_lookup(top_type: str, leaf_type: str) -> bool:
 
 
 def lookup_steps(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
-                 s: float, top_type: str, leaf_type: str, leaf_eval):
+                 s: float, top_type: str, leaf_type: str, leaf_eval,
+                 key_type: KeyType = KeyType.U64):
     """lookup as separate steps: the top's model input and its leaf (the
     build's leaf assignment), the leaf's kernel input, ``leaf_eval`` (K4's
     per-element wrapper or its plain version) clamped to n - 1
-    (codegen.rs:713-717), and the leaf's error.  A hint-table leaf has no
-    kernel: its prediction, clamp_int to n - 1 (rmi_tpu lookup.py:52-54),
-    is plain torch on every device."""
+    (codegen.rs:713-717), and the leaf's error, for images of
+    ``key_type`` keys.  A hint-table leaf has no kernel: its prediction,
+    clamp_int to n - 1 (rmi_tpu lookup.py:52-54), is plain torch on every
+    device."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
-    x_top = model_float_input(mtop, queries, kminf, s)
+    x_top = model_float_input(mtop, queries, kminf, s, key_type)
     midx = predict_top_assignment(mtop, top_w, x_top, leaf_errors.shape[0] - 1)
-    if mleaf.output_int:
-        return clamp_int(mleaf.predict(leaf_w, midx, queries), n - 1), leaf_errors[midx]
     x_leaf = (x_top if mleaf.input_domain == mtop.input_domain
-              else model_float_input(mleaf, queries, kminf, s))
+              else model_float_input(mleaf, queries, kminf, s, key_type))
+    if mleaf.output_int:
+        return clamp_int(mleaf.predict(leaf_w, midx, x_leaf), n - 1), leaf_errors[midx]
     guess = leaf_eval(kernel_input(mleaf, x_leaf), leaf_w, midx, n - 1,
                       leaf_type=leaf_type).long()
     return guess, leaf_errors[midx]
 
 
 def lookup_clamped_plain(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
-                         s: float, *, top_type: str, leaf_type: str):
+                         s: float, *, top_type: str, leaf_type: str,
+                         key_type: KeyType = KeyType.U64):
     """The plain PyTorch version: lookup_steps with K4's plain version."""
     return lookup_steps(queries, top_w, leaf_w, leaf_errors, n, kminf, s,
-                        top_type, leaf_type, leaf_eval_clamped_plain)
+                        top_type, leaf_type, leaf_eval_clamped_plain, key_type)
 
 
 def lookup_width(ppm: int) -> int:
@@ -157,8 +168,10 @@ def lookup_table(leaf_w, leaf_errors) -> torch.Tensor:
 
 
 def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
-                   s: float, *, top_type: str, leaf_type: str, table=None):
-    """(guess, err), both [m] int64, of int64 key images ``queries`` under
+                   s: float, *, top_type: str, leaf_type: str, table=None,
+                   key_type: KeyType = KeyType.U64):
+    """(guess, err), both [m] int64, of int64 images ``queries`` of
+    ``key_type`` keys under
     the index of ``n`` keys with top row ``top_w`` [1, ppm], leaf rows
     ``leaf_w`` [B, ppm] (an integer-output model's parameter dict
     instead), per-leaf errors ``leaf_errors`` [B] int64 and
@@ -166,14 +179,14 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     leaf_errors) where the caller keeps one; else it is made here.
 
     Route, by the models' types: where fused_lookup holds, one launch of
-    rmi_lookup_<leaf kernel>, which makes the top's input from the key,
-    evaluates the top (its kernel's rmi_leaf on row 0, the top kind a
-    kernel argument), clamps the leaf id, gathers the leaf's row and
-    error and evaluates the leaf; with a lognormal top or leaf, the two
-    steps, the top and the kernel inputs in torch and the leaf in
-    rmi_leaf_eval_<leaf kernel>, and ``table`` is not read; so with an
-    integer-output top, and with a hint-table leaf, whose step is
-    plain torch (lookup_steps)."""
+    rmi_lookup_<leaf kernel>, which makes the top's input from the key
+    (decoded as key_kind(key_type) says), evaluates the top (its kernel's
+    rmi_leaf on row 0, the top kind a kernel argument), clamps the leaf
+    id, gathers the leaf's row and error and evaluates the leaf; with a
+    lognormal top or leaf, the two steps, the top and the kernel inputs
+    in torch and the leaf in rmi_leaf_eval_<leaf kernel>, and ``table``
+    is not read; so with an integer-output top, and with a hint-table
+    leaf, whose step is plain torch (lookup_steps)."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     if queries.dtype != torch.int64 or queries.dim() != 1:
         raise ValueError("lookup_clamped: queries must be 1-D int64 key images")
@@ -184,10 +197,11 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     _check_params("lookup_clamped", mleaf, leaf_w, rows=B)
     if queries.is_cpu:
         return lookup_clamped_plain(queries, top_w, leaf_w, leaf_errors, n, kminf, s,
-                                    top_type=top_type, leaf_type=leaf_type)
+                                    top_type=top_type, leaf_type=leaf_type,
+                                    key_type=key_type)
     if not fused_lookup(top_type, leaf_type):
         return lookup_steps(queries, top_w, leaf_w, leaf_errors, n, kminf, s,
-                            top_type, leaf_type, leaf_eval_clamped)
+                            top_type, leaf_type, leaf_eval_clamped, key_type)
     if table is None:
         table = lookup_table(leaf_w, leaf_errors)
     _check_table("lookup_clamped", table, lookup_width(mleaf.ppm), rows=B)
@@ -198,7 +212,7 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     m = queries.shape[0]
     guess = _empty_in_phase(m, torch.int64, queries)
     err = _empty_in_phase(m, torch.int64, queries)
-    _build.launch(f"rmi_lookup_{mleaf.leaf_kernel}", queries, top_w,
-                  LEAF_KERNELS.index(mtop.leaf_kernel), table, guess, err, m, B,
-                  int(n), float(kminf), float(s))
+    _build.launch(f"rmi_lookup_{mleaf.leaf_kernel}", queries, key_kind(key_type),
+                  top_w, LEAF_KERNELS.index(mtop.leaf_kernel), table, guess, err, m,
+                  B, int(n), float(kminf), float(s))
     return guess, err

@@ -269,8 +269,9 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     """A port TrainedRMI serving an index built elsewhere, from numpy
     arrays: the JAX build's ``device_top_params["w"]`` [1, ppm],
     ``device_leaf_params["w"]`` [B, ppm], ``leaf_errors`` [B] and
-    normalization constants, over the unsigned ``keys`` it was built on,
-    on ``device`` (the card when None; the CPU only when asked for).
+    normalization constants, over the ``keys`` it was built on (u32, u64
+    or f64, of ``key_type``), on ``device`` (the card when None; the CPU
+    only when asked for).
     Of a float model the rows ``"w"`` cross over (cubic leaves: [B, 4],
     normal and lognormal: [B, 3]), and for its raw parameters (the
     artifacts) what rmi_tpu's raw conversion reads: a cubic top's or
@@ -278,9 +279,10 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     ``params["aux"]``), and the empty-leaf ``patch`` mask [B] with its
     values ``next_idx`` [B].  An integer-output model's parameters cross
     over whole: pass rmi_tpu's parameter dict, its values as numpy
-    arrays.  The metrics (the keys of error_metrics) are recomputed from
-    the leaf errors and the leaf counts that the top model assigns, unless
-    given."""
+    arrays (a histogram's pivots as rmi_tpu holds them: u64, of f64 keys
+    their as_int values).  The metrics (the keys of error_metrics) are
+    recomputed from the leaf errors and the leaf counts that the top model
+    assigns, unless given."""
     top_type, leaf_type = models.split(",")
     validate_spec([top_type, leaf_type])
     dev = config.require_cuda() if device is None else torch.device(device)
@@ -303,7 +305,7 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
     if metrics is None:
         t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
-                                     norm_scale, B - 1).to(torch.int32)
+                                     norm_scale, B - 1, key_type).to(torch.int32)
         spans = seg.make_spans(t, B)
         metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
                                           keys_img.shape[0])

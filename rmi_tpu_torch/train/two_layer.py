@@ -51,20 +51,21 @@ from rmi_tpu_torch.utils import segments as seg
 _F64_EPS = sys.float_info.epsilon
 
 
-def norm_constants(keys: torch.Tensor):
-    """(offset, scale) of the normalized key domain for sorted key images:
-    x' = (x - offset) * scale maps [min, max] onto [0, 1]."""
-    kmin, kmax = keymod.as_float(keys[[0, -1]]).tolist()
+def norm_constants(keys: torch.Tensor, key_type: KeyType = KeyType.U64):
+    """(offset, scale) of the normalized key domain for sorted images of
+    ``key_type`` keys: x' = (x - offset) * scale maps [min, max] onto
+    [0, 1]."""
+    kmin, kmax = keymod.as_float(keys[[0, -1]], key_type).tolist()
     span = kmax - kmin
     return kmin, (1.0 / span if span > 0 else 1.0)
 
 
 def top_assignment(mtop, top_w, keys: torch.Tensor, kminf: float, s: float,
-                   bound: int) -> torch.Tensor:
-    """predict_top_assignment of key images: the build's leaf assignment
-    and serving's top eval both come here."""
-    return predict_top_assignment(mtop, top_w,
-                                  model_float_input(mtop, keys, kminf, s), bound)
+                   bound: int, key_type: KeyType = KeyType.U64) -> torch.Tensor:
+    """predict_top_assignment of images of ``key_type`` keys: the build's
+    leaf assignment and serving's top eval both come here."""
+    return predict_top_assignment(
+        mtop, top_w, model_float_input(mtop, keys, kminf, s, key_type), bound)
 
 
 def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
@@ -85,12 +86,13 @@ def _scale(v, sf: float):
     return v
 
 
-def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None):
+def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
+                 key_type: KeyType = KeyType.U64):
     """Stage A after FixDups: top fit + leaf ids t (int32, non-decreasing),
     ``top_in`` the top's model_float_input (an integer-output top's: the
-    key images).  Returns (top_w, t, top_aux), top_aux the fit's generator
-    statistics (fit_aux; xmin and xmax from the key images ``keys``), or
-    None for a model without them."""
+    integer-key images).  Returns (top_w, t, top_aux), top_aux the fit's
+    generator statistics (fit_aux; xmin and xmax from ``keys``, images of
+    ``key_type`` keys), or None for a model without them."""
     n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
@@ -101,7 +103,7 @@ def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None):
     elif mtop.fit_aux is not None:
         top_w, top_aux = mtop.fit_aux(
             top_in, ys_scaled, seg.whole_array_spans(n, top_in.device),
-            (_scale(0.0, sf), _scale(float(n - 1), sf)), keys)
+            (_scale(0.0, sf), _scale(float(n - 1), sf)), keys, key_type)
     else:
         top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
                              _scale(float(n - 1), sf))
@@ -114,8 +116,9 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
                       key_type: KeyType):
     """next/prev-leaf fills of LowerBoundCorrection
     (lower_bound_correction.rs:30-80), all [B]-sized: the index and key
-    of the next non-empty leaf's first row, and the key of the previous
-    non-empty leaf's last row."""
+    of the next non-empty leaf's first row (T::max_value() past the
+    last), and the key of the previous non-empty leaf's last row
+    (T::zero_value() before the first), as images of ``key_type`` keys."""
     n = spans.n
     big = n + 1
     first_val = torch.where(spans.nonempty, spans.starts, big)
@@ -131,12 +134,12 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
     prev_last = torch.cat([prefix_max.new_full((1,), -1), prefix_max[:-1]])
     has_prev_leaf = prev_last >= 0
     prev_key = torch.where(has_prev_leaf, keys[prev_last.clamp(min=0)],
-                           keymod.IMAGE_MIN)
+                           key_type.zero_image)
     return next_idx, next_key, prev_key
 
 
 def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str,
-              keys=None):
+              keys=None, key_type: KeyType = KeyType.U64):
     """Stage B: leaf rows [B, ppm] fitted on the leaf's model_float_input,
     constant-patched where a leaf is empty, except the final leaf (the
     reference's loop stops at B-1) and the models without a constant
@@ -148,7 +151,7 @@ def _fit_body(leaf_in, yfix, spans: seg.Spans, next_idx, *, leaf_type: str,
     mleaf = get_model(leaf_type)
     aux = None
     if mleaf.fit_aux is not None:
-        w, aux = mleaf.fit_aux(leaf_in, yfix, spans, None, keys)
+        w, aux = mleaf.fit_aux(leaf_in, yfix, spans, None, keys, key_type)
     else:
         w = mleaf.fit_leaves(leaf_in, yfix, spans)
     if mleaf.constant_params is None:
@@ -171,16 +174,17 @@ INT_SWEEP_CHUNK = 1 << 25
 
 def int_sweep_errors(keys, yfix, t, leaf_p, n: int, *, leaf_type: str):
     """Per-key |min(leaf(key), n) - min(yfix, n)| of an integer-output
-    leaf layer (rmi_tpu two_layer.py:270-274), int64, each key through
-    its leaf t."""
+    leaf layer (rmi_tpu two_layer.py:270-274), int64, each key (its
+    integer-key image, keys.int_image) through its leaf t."""
     pred = clamp_int(get_model(leaf_type).predict(leaf_p, t, keys), n)
     return _error_between(pred, yfix.long(), n)
 
 
 def int_sweep_leaf_max(keys, yfix, spans: seg.Spans, leaf_p, *, leaf_type: str):
     """[B] int64: the per-leaf maximum of int_sweep_errors (0 for an
-    empty leaf), INT_SWEEP_CHUNK keys at a time: plain torch on every
-    device, as rmi_tpu sweeps these leaves in XLA."""
+    empty leaf) of integer-key images ``keys``, INT_SWEEP_CHUNK keys at
+    a time: plain torch on every device, as rmi_tpu sweeps these leaves
+    in XLA."""
     n = spans.n
     out = torch.zeros(spans.B, dtype=torch.int64, device=keys.device)
     for i in range(0, n, INT_SWEEP_CHUNK):
@@ -195,11 +199,14 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
                next_key, prev_key, kminf: float, s: float, key_type: KeyType, *,
                leaf_type: str):
     """Stage C: per-leaf errors [B] int64 and the metrics dict, from the
-    leaf's model_float_input ``leaf_in``."""
+    leaf's model_float_input ``leaf_in`` and the images ``keys`` of
+    ``key_type`` keys.  The epsilon probes move an f64 key by the
+    absolute f64::EPSILON (keys.minus_epsilon), as rmi_tpu's do
+    (two_layer.py:300-322), not its image by 1."""
     n, B = spans.n, spans.B
     mleaf = get_model(leaf_type)
     if mleaf.output_int:
-        max_err = int_sweep_leaf_max(keys, yfix, spans, leaf_w, leaf_type=leaf_type)
+        max_err = int_sweep_leaf_max(leaf_in, yfix, spans, leaf_w, leaf_type=leaf_type)
     else:
         max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix,
                                               spans.starts, spans.ends, leaf_w, n,
@@ -209,9 +216,10 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     leaf_ids = torch.arange(B, device=keys.device)
 
     def probe(probe_keys):
+        x = model_float_input(mleaf, probe_keys, kminf, s, key_type)
         if mleaf.output_int:
-            return clamp_int(mleaf.predict(leaf_w, leaf_ids, probe_keys), n)
-        x = kernel_input(mleaf, model_float_input(mleaf, probe_keys, kminf, s))
+            return clamp_int(mleaf.predict(leaf_w, leaf_ids, x), n)
+        x = kernel_input(mleaf, x)
         return eval_kernel.leaf_eval_clamped(x, leaf_w, leaf_ids, n,
                                              leaf_type=leaf_type).long()
 
@@ -273,19 +281,20 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
     # the record_function ranges name the stages in a torch.profiler trace
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     with record_function("rmi.build.assign"):
-        kminf, s = norm_constants(keys)
-        top_in = model_float_input(mtop, keys, kminf, s)
+        kminf, s = norm_constants(keys, key_type)
+        top_in = model_float_input(mtop, keys, kminf, s, key_type)
         yfix = fixdups_i32(keys)
         top_w, t, top_aux = _assign_body(top_in, yfix, top_type=top_type, B=B,
-                                         keys=keys)
+                                         keys=keys, key_type=key_type)
     with record_function("rmi.build.fit"):
         leaf_in = (top_in if mleaf.input_domain == mtop.input_domain
-                   else model_float_input(mleaf, keys, kminf, s))
+                   else model_float_input(mleaf, keys, kminf, s, key_type))
         del top_in
         spans = seg.make_spans(t, B)
         next_idx, next_key, prev_key = lower_bound_fills(spans, keys, key_type)
         leaf_w, leaf_aux, patch = _fit_body(leaf_in, yfix, spans, next_idx,
-                                            leaf_type=leaf_type, keys=keys)
+                                            leaf_type=leaf_type, keys=keys,
+                                            key_type=key_type)
     with record_function("rmi.build.sweep"):
         leaf_errors, metrics = sweep_body(keys, leaf_in, yfix, spans, leaf_w,
                                           next_idx, next_key, prev_key, kminf,

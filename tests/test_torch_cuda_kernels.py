@@ -25,7 +25,10 @@ Cauchy-Schwarz bound sqrt(m2 * sum (y-my)^2) for c; the integer models'
 builds on the card against the CPU build (hint tables bit-equal) with the
 kernels they launched replayed as above; K5 and its scatter
 entry, at both sample levels, bit-equal to their plain versions on the
-card and to np.searchsorted (int64 compares never round); K6 within
+card and to np.searchsorted (int64 compares never round), on f64 key
+images too; lookup's fused entry with the f64 key kind bit-equal to its
+plain version for every top and leaf kernel, an unknown key kind
+refused; an f64 and a u32 build on the card against the CPU build; K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
 when run again.
 """
@@ -46,8 +49,9 @@ from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel as ssk,
                                sweep_kernel)
+from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_lookup_kernel import LEAVES, lookup_case
+from test_torch_lookup_kernel import LEAVES, leaf_table, lookup_case, top_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -404,18 +408,18 @@ def test_card_build_cubic_leaves_matches_cpu_build(dev):
 LOOKUP_SIZES = [0, 1, 5, (1 << 16) + 3]
 
 
-def _lookup_on_card(dev, case, top, leaf, sliced=False):
-    """K4's fused entry on ``case`` against its plain version on the card
-    and on the CPU, counted as one launch of rmi_lookup_<leaf kernel> and
-    none of the per-element entries; ``sliced`` serves the queries from
-    one past a 16-byte boundary."""
+def _lookup_on_card(dev, case, top, leaf, sliced=False, key_type=KeyType.U64):
+    """K4's fused entry on ``case`` (images of ``key_type`` keys) against
+    its plain version on the card and on the CPU, counted as one launch of
+    rmi_lookup_<leaf kernel> and none of the per-element entries;
+    ``sliced`` serves the queries from one past a 16-byte boundary."""
     q, *rest = case
     qd = q.to(dev)
     if sliced:
         qd, q = qd[1:], q[1:]
         assert qd.data_ptr() % 16 == 8
     card = [qd] + [a.to(dev) if torch.is_tensor(a) else a for a in rest]
-    kw = {"top_type": top, "leaf_type": leaf}
+    kw = {"top_type": top, "leaf_type": leaf, "key_type": key_type}
     entry = f"rmi_lookup_{get_model(leaf).leaf_kernel}"
     before = dict(_build.launches)
     g, e = eval_kernel.lookup_clamped(*card, **kw)
@@ -1131,3 +1135,136 @@ def test_cli_on_the_card_writes_the_cpu_files(dev, tmp_path, monkeypatch):
     for f in ("ns.h", "ns.cpp", "ns_data.h", "rmi_data/ns_L1_PARAMETERS"):
         assert filecmp.cmp(outs[0] / f, outs[1] / f, shallow=False), f
     assert os.path.exists(outs[0] / "rmi_data" / "ns.json")
+
+
+# ---------------------------------------------------------------------------
+# f64 keys: K4's fused entry with the f64 key kind, K5 and the run-length
+# pass on f64 images, and card builds of f64 and u32 keys
+# ---------------------------------------------------------------------------
+
+def f64_lookup_case(top, leaf, m, seed, *, B=512, n=1 << 20):
+    """lookup_case's inputs for f64 keys: an index over [1e6, 2e9], the
+    queries f64 images of values below, inside and above it, negative
+    ones, subnormals, +-0.0, +-inf and NaN."""
+    rng = np.random.default_rng(seed)
+    lo, hi = 1e6, 2e9
+    v = np.concatenate([rng.uniform(lo - (hi - lo) / 4, hi + (hi - lo) / 4, m),
+                        -rng.uniform(0.0, 1e300, m // 8 + 1),
+                        rng.integers(1, 2 ** 52, m // 8 + 1) * 5e-324,
+                        [0.0, -0.0, np.inf, -np.inf, np.nan, lo, hi, 1.7e308]])
+    v = v[rng.permutation(v.size)[:m]]
+    v[:min(m, 5)] = [np.nan, -0.0, np.inf, -np.inf, lo][:min(m, 5)]
+    top_w = top_rows(top, seed)[0]
+    leaf_w = leaf_table(get_model(leaf).leaf_kernel, B, n, seed + 1)
+    errors = torch.from_numpy(rng.integers(0, 1000, B, dtype=np.int64))
+    return tkeys.to_image(v), top_w, leaf_w, errors, n, lo, 1.0 / (hi - lo)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("top", LEAVES)
+def test_k4_lookup_fused_f64(dev, top, leaf):
+    """The f64 key kind for each top kind and leaf kernel, at the tail
+    sizes: guess and err bit-equal to the plain version, which decodes
+    the images (keys.f64_of_image)."""
+    for m in LOOKUP_SIZES:
+        _lookup_on_card(dev, f64_lookup_case(top, leaf, m, 50 + m), top, leaf,
+                        key_type=KeyType.F64)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+def test_k4_lookup_f64_misaligned_keys(dev, leaf):
+    for m in (2, 6, (1 << 16) + 4):
+        _lookup_on_card(dev, f64_lookup_case("cubic", leaf, m, 60 + m), "cubic", leaf,
+                        sliced=True, key_type=KeyType.F64)
+
+
+@pytest.mark.parametrize("kind", [-1, 2, 7])
+def test_k4_lookup_refuses_an_unknown_key_kind(dev, kind):
+    q, top_w, leaf_w, errs, n, kminf, s = [a.to(dev) if torch.is_tensor(a) else a
+                                           for a in f64_lookup_case("cubic", "linear", 64, 3)]
+    table = eval_kernel.lookup_table(leaf_w, errs)
+    guess, err = torch.empty_like(q), torch.empty_like(q)
+    before = _build.launches["rmi_lookup_linear"]
+    with pytest.raises(RuntimeError):
+        _build.launch("rmi_lookup_linear", q, kind, top_w, 1, table, guess, err,
+                      q.shape[0], leaf_w.shape[0], n, kminf, s)
+    assert _build.launches["rmi_lookup_linear"] == before
+
+
+def _f64_keys_and_queries(n, nq, seed):
+    """Sorted f64 keys with duplicate runs (-0.0 among the zeros) and a
+    sorted batch of queries with -0.0, +-inf, NaN and the keys' ends, as
+    int64 images."""
+    rng = np.random.default_rng(seed)
+    v = np.repeat(rng.uniform(-1e9, 1e9, n // 4), rng.integers(1, 8, n // 4))[:n]
+    v[:40] = -0.0
+    v[40:80] = 0.0
+    keys = np.sort(tkeys.to_image(v).numpy())
+    q = np.concatenate([rng.uniform(-2e9, 2e9, nq - 8),
+                        [np.nan, -0.0, 0.0, np.inf, -np.inf, -1e9, 1e9, 5e-324]])
+    return keys, np.sort(tkeys.to_image(q).numpy())
+
+
+@pytest.mark.parametrize("scatter", [False, True])
+def test_k5_on_f64_images(dev, scatter):
+    keys, q = _f64_keys_and_queries(1 << 18, 1 << 16, 8)
+    lo, hi = _tight_bounds(keys[::64], q)
+    want = np.searchsorted(keys, q, side="left")
+    if scatter:
+        order = np.random.default_rng(9).permutation(q.size)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (q, order, keys[::ssk.GROUP], keys, lo, hi)]
+        got = ssk.serve_sorted_scatter(*args)
+        unsorted = np.empty_like(q)
+        unsorted[order] = q
+        want = np.searchsorted(keys, unsorted, side="left")
+        assert torch.equal(got, ssk.serve_sorted_scatter_plain(*args))
+    else:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (q, keys[::ssk.GROUP], keys, lo, hi)]
+        got = ssk.serve_sorted(*args)
+        assert torch.equal(got, ssk.serve_sorted_plain(*args))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_run_max_on_f64_images(dev):
+    """The run-length pass compares images for equality: -0.0 and +0.0 are
+    one run, as the reference's f64 compare makes them."""
+    keys, _ = _f64_keys_and_queries(1 << 18, 16, 10)
+    k = torch.from_numpy(keys)
+    yfix = two_layer.fixdups_i32(k)
+    # leaf ids from the keys' values, so that no leaf boundary splits a run
+    x = tkeys.as_float(k, KeyType.F64)
+    t = ((x - x[0]) / (x[-1] - x[0]) * 1023).floor().to(torch.int32)
+    spans = seg.make_spans(t, 1024)
+    d = [a.to(dev) for a in (k, yfix, spans.starts, spans.ends)]
+    got = sweep_kernel.span_run_max(*d)
+    want = sweep_kernel.span_run_max_plain(k, yfix, spans.starts, spans.ends)
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) >= 80
+
+
+@pytest.mark.parametrize("key_type,spec,B", [(KeyType.F64, "cubic,linear", 1024),
+                                             (KeyType.F64, "radix,linear", 256),
+                                             (KeyType.U32, "linear,linear", 100)])
+def test_card_build_of_other_key_types(dev, key_type, spec, B):
+    """An f64 (path 7's keys, scaled) and a u32 (path 8's) build on the
+    card against the CPU build; bound on every key and exact search through
+    the plan both packages pick (hier for radix on f64 keys)."""
+    u = rdata.books_like_on_device(1 << 18, 11, dev)
+    if key_type is KeyType.F64:
+        keys = tkeys.f64_image(tkeys.as_float(u) * 2.0 ** -32)
+    else:
+        keys = (tkeys.u64_bits(u) >> 30) ^ tkeys.IMAGE_MIN
+    card = rt.train(rdata.RMIDataset(keys, key_type), spec, B)
+    cpu = rt.train(rdata.RMIDataset(keys.cpu(), key_type), spec, B)
+    assert card.model_max_error == cpu.model_max_error
+    diff = (card.leaf_errors.cpu() - cpu.leaf_errors).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+    lb = torch.searchsorted(keys, keys, side="left")
+    g, e = rt.lookup(card, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    q = torch.cat([keys[::7], torch.randint(int(keys[0]), int(keys[-1]), (1 << 15,),
+                                            device=dev)])
+    assert torch.equal(rt.search(card, q), torch.searchsorted(keys, q))
+    assert lookup_fast.get_plan(card).kind == lookup_fast.get_plan(cpu).kind

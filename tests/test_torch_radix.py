@@ -214,7 +214,7 @@ def test_carried_params_bit_equal(kind, spec, B):
         np.testing.assert_array_equal(rt.search(rc, tkeys.to_image(qs)).numpy(),
                                       np.asarray(rmi_tpu.search(rj, jnp.asarray(qs))))
     kind_j = jlf.get_plan(rj).kind
-    assert lf.get_plan(rc).kind == (kind_j if kind_j != "hier" else "bounded")
+    assert lf.get_plan(rc).kind == kind_j
 
 
 def _assert_params_equal(got, want):

@@ -249,12 +249,13 @@ def test_serve_sorted_refuses_bad_inputs():
 
 def test_bounded_plan_serves_exactly():
     """One leaf over 2^20 keys: no sample spacing F <= 64 covers it, so
-    the plan is "bounded" (lookup + bounded binary search) on every route."""
+    the plan is "hier" (lookup + the hierarchical resolve), as rmi_tpu's
+    is, on every route."""
     rng = np.random.default_rng(12)
     keys = np.sort(rng.integers(0, 2 ** 50, 1 << 20, dtype=np.uint64))
     rc = rt.train(rt.RMIDataset.from_numpy(keys, device="cpu"), "linear,linear", 1)
     assert lf.packed_plan_shape(rc) is None
-    assert lf.get_plan(rc).kind == "bounded"
+    assert lf.get_plan(rc).kind == "hier"
     q = np.concatenate([rng.integers(0, 2 ** 51, NQ_SORTED - 4, dtype=np.uint64),
                         np.array([0, keys[0], keys[-1], 2 ** 64 - 1], np.uint64)])
     want = np.searchsorted(keys, q, side="left")
@@ -305,7 +306,7 @@ def test_k5_sample_level_matches_rmi_tpu(kind, spec, B, cls):
     (serve_via_sort) on the same batch shuffled."""
     keys, rj, rc = _indexes(kind, spec, B)
     plan = lf.get_plan(rc)
-    assert plan.kind != "bounded"
+    assert plan.kind != "hier"
     qs = _k5_batch(keys, cls, 21)
     want = np.searchsorted(keys, qs, side="left")
     j_sorted = jlf._sorted_kernel_search_direct(rj, jlf.get_plan(rj), jnp.asarray(qs))

@@ -218,7 +218,7 @@ def test_search_is_exact(kind, spec, B):
 
 
 @pytest.mark.parametrize("keys_dtype,spec,err", [
-    (np.float64, "linear,linear", NotImplementedError),   # f64 keys: not ported
+    (np.float64, "linear,radix", ValueError),             # f64 keys, a top-only leaf
     (np.uint64, "cubic,bradix", ValueError),              # a top-only model as leaf
     (np.uint64, "cubic,histogram", ValueError),
     (np.uint64, "linear,linear,linear", ValueError),      # two layers only

@@ -11,8 +11,7 @@ keys:
   (a) with rmi_tpu's parameters carried across (trained_from_numpy), leaf
       ids, per-key sweep errors, both epsilon probes, the whole stage C,
       max_err, lookup and search are bit-equal to rmi_tpu's, and the
-      search plan is rmi_tpu's (its "hier" plan is the port's "bounded"
-      one).  torch's log on the CPU (glibc's) and XLA's disagree in the
+      search plan is rmi_tpu's.  torch's log on the CPU (glibc's) and XLA's disagree in the
       last bit on 0 of the 2^16 test keys (so lognormal needs no
       allowance here), on 2 of the 2^15 FixDups positions and on about
       67 of 10^6 random values (test_log_disagreements);
@@ -190,7 +189,7 @@ def test_carried_params_bit_equal(kind, spec, B):
         np.testing.assert_array_equal(rt.search(rc, tkeys.to_image(qs)).numpy(),
                                       np.asarray(rmi_tpu.search(rj, jnp.asarray(qs))))
     kind_j = jlf.get_plan(rj).kind
-    assert lf.get_plan(rc).kind == (kind_j if kind_j != "hier" else "bounded")
+    assert lf.get_plan(rc).kind == kind_j
 
 
 def test_log_disagreements():
