@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all eight paths
+    python3 chip_smoke.py              # 200M keys, all nine paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -102,6 +102,34 @@ Phases (any failure raises and exits non-zero):
      timed against bounded_search on the same batch (median of 7 runs,
      CUDA events, both exact), lookup timed, its kernels replayed, the
      card-vs-CPU cross-check;
+ 11g. path 9, the optimizer (optimizer_phase), the launches counted from
+     0: one path-1 build under torch.cuda.set_sync_debug_mode("warn"),
+     its synchronizing calls counted with the shared inputs, without them
+     and in its fetch, then its stages under RMI_PROFILE_BUILD=1; 9a
+     ``max_size_wiki``: the wiki keys of SOSD_SYNTH.json (seed 7) made on
+     the host and written to ``wiki_ts_200M_uint64``, ``--max-size
+     50000000`` through the CLI under RMI_OPTIMIZER_PROFILE=fast: RMI_SIZE
+     < 50,000,000, the artifact loaded back onto the card with 0 bound
+     violations over every key (2^22 a lookup) and 0 search mismatches on
+     2^22 queries, the choice logged beside SOSD_SYNTH.json's TPU row,
+     each phase's builds, wall time and device ms a build (as the
+     optimizer's profiling.phase timed them: CUDA events around each
+     dispatch), the CLI's time split, the chosen configuration built
+     again on the wiki keys (its metrics the CLI's, where its max error
+     lies) and, with the lookups over every key, its kernels replayed
+     against their plain versions; 9b ``--optimize`` under the default
+     profile on the paths' keys written to an SOSD file, then
+     ``--param-grid`` of its front: each artifact's RMI_SIZE and avg_log2
+     equal to the front's; 9d ``robust_linear,cubic 134217728``, the disk
+     profile's largest point: its build time and peak device memory, then
+     built again (bit-equal) with the bound on 2^22 sampled keys, where
+     its max error lies, its kernels (K1, K6, K3 and K4 cubic, the
+     run-length pass, rmi_lookup_cubic) replayed against their plain
+     versions, and its card-vs-CPU cross-check at n = 2^20 with as many
+     leaves a key (replays and cross-checks uncounted); then 9c, the
+     front at n = 2^20 over branching factors 2^6, 2^10 and 2^14 on the
+     card and on the CPU: equal (models, B, size) lists, equal max errors
+     (log2 within an ulp) and avg_log2 within 1e-7 relative;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
@@ -146,25 +174,30 @@ import subprocess
 import tempfile
 import textwrap
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
 
 import rmi_tpu_torch
-from rmi_tpu_torch import cli, codegen, config, lookup_fast, native, serialize
+from rmi_tpu_torch import (cli, codegen, config, lookup_fast, native, optimizer,
+                           serialize)
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
 from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
-                                       params_to, predict_top_assignment)
+from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_input,
+                                       params_equal, params_to, predict_top_assignment)
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel,
                                sweep_kernel)
+from rmi_tpu_torch.parallel import sweep
 from rmi_tpu_torch.serialize import rmi_size
 from rmi_tpu_torch.train import api as train_api
 from rmi_tpu_torch.train import two_layer
+from rmi_tpu_torch.utils import profiling
 from rmi_tpu_torch.utils import segments as seg
 
 K2_RTOL = 1e-9            # summation order
@@ -805,7 +838,42 @@ def typed_keys(u, key_type):
     return u
 
 
-def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64):
+def floor_flips(card, cpu, keys, t, B, key_type):
+    """([B] mask, float): the leaves where the card's leaf rows and the
+    CPU's, run through the same plain K4 on the CPU, floor a key of the
+    leaf or one of its two epsilon probes to another position, where a
+    fit's last-bit rounding moves the leaf's error by 1; and the largest
+    gap between the two rows' unfloored predictions at the keys.  Where
+    leaves hold a key or two, a leaf's line runs through its keys'
+    positions, so its predictions sit on whole numbers and either rounding
+    may floor one below."""
+    mleaf = get_model(cpu.leaf_type)
+    n, keys, t = keys.shape[0], keys.cpu(), t.long()
+    spans = seg.make_spans(t.to(torch.int32), B)
+    _, next_key, prev_key = two_layer.lower_bound_fills(spans, keys, key_type)
+    builds = ((params_to(card.device_leaf_params, "cpu"), card), (cpu.device_leaf_params, cpu))
+
+    def floors(k, ids):
+        a, b = [eval_kernel.leaf_eval_clamped_plain(
+            kernel_input(mleaf, model_float_input(mleaf, k, r.norm_offset, r.norm_scale,
+                                                  key_type)),
+            w, ids, n, leaf_type=cpu.leaf_type) for w, r in builds]
+        return a != b
+
+    xs = [kernel_input(mleaf, model_float_input(mleaf, keys, r.norm_offset, r.norm_scale,
+                                                key_type)) for _, r in builds]
+    gap = float((leaf_predict(cpu.leaf_type, builds[0][0], t, xs[0])
+                 - leaf_predict(cpu.leaf_type, builds[1][0], t, xs[1])).abs().max())
+    flips = torch.zeros(B, dtype=torch.bool)
+    flips[t[floors(keys, t)]] = True
+    leaf_ids = torch.arange(B)
+    for probe in (keymod.minus_epsilon(next_key, key_type),
+                  keymod.plus_epsilon(prev_key, key_type)):
+        flips |= floors(probe, leaf_ids)
+    return flips, gap
+
+
+def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=False):
     """A build on the card against the plain build on the CPU, same keys;
     the card build's kernel calls are recorded into ``rec`` if given.
     Leaf errors may differ by 1 from the order of sums in a few leaves.
@@ -814,7 +882,9 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64):
     (log_readers); and its mean is a difference of prefix sums of ln x
     (~43 per key), good to ~1e-10 against a stdev of ~1e-5 at 64 keys
     per leaf, so a leaf whose row the card's sums round otherwise may
-    differ by 1 however few they are.  Such leaves are counted apart."""
+    differ by 1 however few they are.  With ``sparse`` (a key or two a
+    leaf), so may a leaf whose keys or probes the two builds' rows floor to
+    other positions (floor_flips).  Such leaves are counted apart."""
     keys = typed_keys(rdata.books_like_on_device(n, seed, dev), key_type)
     if rec is None:
         card = rmi_tpu_torch.train(rdata.RMIDataset(keys, key_type), spec, B)
@@ -835,7 +905,10 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64):
     id_diff = (t_card - t_cpu).abs()
     err_diff = (e_card - e_cpu).abs()
     leaves = (err_diff > 0) | (cnt_card != cnt_cpu)
-    reading = torch.zeros(B, dtype=torch.bool)
+    flips = torch.zeros(B, dtype=torch.bool)
+    if sparse:
+        flips, gap = floor_flips(card, cpu, keys, t_cpu, B, key_type)
+    reading = flips.clone()
 
     def contrib(cnt, e):
         return cnt.double() * torch.log2(2.0 * e.double() + 2.0)
@@ -858,11 +931,15 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64):
         res["keys_log_differs"], direct = log_readers(keys, t_cpu, B)
         a, b = card.device_leaf_params.cpu(), cpu.device_leaf_params
         refit = ~((a == b) | (a.isnan() & b.isnan())).all(1) & ~direct
-        reading = direct | refit
+        reading |= direct | refit
         res["leaves_reading_them"] = int(direct.sum())
         res["leaf_rows_differing_otherwise"] = int(refit.sum())
         res["differing_leaves_reading_them"] = int((direct & (err_diff > 0)).sum())
         res["differing_leaves_rows_differing"] = int((refit & (err_diff > 0)).sum())
+    if sparse:
+        res["leaves_flooring_otherwise"] = int(flips.sum())
+        res["differing_leaves_flooring_otherwise"] = int((flips & (err_diff > 0)).sum())
+        res["largest_prediction_gap"] = gap
     res["leaf_errors_differing_otherwise"] = int(((err_diff > 0) & ~reading).sum())
     few = max(8, B // 256)
     log("cross-check " + json.dumps(res))
@@ -1460,6 +1537,380 @@ def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
     return counts
 
 
+# path 9: the optimizer.  9a is the reference's max_size_wiki CI config
+# (tests/test_sosd.py), on SOSD_SYNTH.json's keys (tools/run_sosd_synth.py:
+# seed 7); its TPU row (df64 on the TPU, no gate) is logged beside the port's
+MAX_SIZE = 50_000_000
+WIKI_SEED = 7
+SOSD_SYNTH_WIKI = {"models": "linear,linear", "branching_factor": 1048576,
+                   "size_bytes": 25165840, "avg_log2": 4.322036503821778,
+                   "max_err": 200000003, "build_s": 2567.814}
+# 9c: the default profile's 21 pairs over three branching factors
+PATH9C_BFS = [1 << 6, 1 << 10, 1 << 14]
+# 9d: the disk profile's most memory-hungry point
+PATH9D = ("robust_linear,cubic", 1 << 27)
+PATH9_CHUNK = 1 << 22         # keys a step of 9a's bound check over every key
+# what path 9 launches: its sweeps' builds (linear and cubic leaves; K1 in
+# each dataset's shared inputs) and 9a's bound check (the fused lookup of
+# its chosen leaves); 9a's search logs the entries it launched
+PATH9 = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", "rmi_sweep_max_cubic",
+         RUN_MAX, "rmi_leaf_eval_linear", "rmi_leaf_eval_cubic", "rmi_cubic_l1")
+
+
+def leaf_path(leaf_type):
+    """The entries a build over ``leaf_type`` leaves (linear or cubic, the
+    optimizer's leaves) and its fused lookup launch: what path 9 replays
+    from 9a's final build and from 9d's build, each with its lookups."""
+    k = get_model(leaf_type).leaf_kernel
+    return ("rmi_scan_i32", "rmi_cubic_l1" if k == "cubic" else "rmi_aug_moments",
+            f"rmi_sweep_max_{k}", RUN_MAX, f"rmi_leaf_eval_{k}", f"rmi_lookup_{k}")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (a replay against the plain versions, a
+    card-vs-CPU cross-check) left out of the path's counts."""
+    saved = dict(_build.launches)
+    try:
+        yield
+    finally:
+        _build.launches.update(saved)
+
+
+def max_error_leaf(rmi):
+    """Where a build's max error lies: its leaf, the keys the top routes
+    there and to the final leaf, and the errors of the leaves around it."""
+    B, L = rmi.branching_factor, rmi.model_max_error_idx
+    t = two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, rmi.keys,
+                                 rmi.norm_offset, rmi.norm_scale, B - 1, rmi.key_type)
+    count = int((t == L).sum())
+    final = int((t == B - 1).sum())
+    near = rmi.leaf_errors[max(L - 2, 0):L + 3].tolist()
+    return (f"max error {rmi.model_max_error} at leaf {L} of {B} ({count} keys routed "
+            f"there; the final leaf {final}; leaves {max(L - 2, 0)}.. err {near})")
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with ``values`` set (None: unset), restored on exit."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_lines(label):
+    """The optimizer's two phases as profiling.phase timed them in the run
+    just made: builds, wall seconds, and each build's device ms (CUDA
+    events around its dispatch)."""
+    for name in ("phase1", "phase2"):
+        if name not in profiling.last_phase_builds:
+            raise RuntimeError(f"{label}: the optimizer did not time its {name}")
+        p, wall = profiling.last_phase_builds[name], profiling.last_phase_times[name]
+        ms = sorted(p["device_ms"])
+        if len(ms) != p["builds"] or not ms:
+            raise RuntimeError(f"{label}: {name} timed {len(ms)} of {p['builds']} builds")
+        log(f"{label} {name}: {p['builds']} builds, {wall:.3f} s wall, "
+            f"{wall / p['builds']:.4f} s a build; device ms a build (CUDA events around "
+            f"each dispatch) median {ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max "
+            f"{ms[-1]:.3f}")
+
+
+def clear_phase_times():
+    profiling.last_phase_times.clear()
+    profiling.last_phase_builds.clear()
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result, the
+    count of synchronizing calls and the line of this repo that made each
+    (the innermost frame under the port or this script when the warning
+    reaches Python: a warning raised where torch has no Python handler,
+    as in the kernels' binding, surfaces at the next torch call)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    where = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if os.path.abspath(f.filename).startswith(here)]
+        f = frames[-1] if frames else None
+        where.append(f"{os.path.relpath(f.filename, here)}:{f.lineno}" if f else filename)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, len(where), sorted(set(where))
+
+
+def build_syncs(data):
+    """Path 1's build under the sync debug mode: the synchronizing calls of
+    one dispatch with and without the shared inputs, and of its fetch; then
+    its three stages under RMI_PROFILE_BUILD=1."""
+    spec, B = PATH1[0], PATH1[1]
+    shared = two_layer.shared_inputs(data.keys, data.key_type)
+    torch.cuda.synchronize()
+    for label, sh in (("with the shared inputs", shared), ("without them", None)):
+        pending, count, where = count_syncs(
+            lambda: train_api.train_async(data, spec, B, shared=sh))
+        _, fetch, fetch_where = count_syncs(pending.result)
+        log(f"path 9 host syncs of one {spec} {B} build {label}: {count} in the "
+            f"dispatch at {where}, {fetch} in the fetch at {fetch_where}")
+        del pending
+    del shared
+    with environ(RMI_PROFILE_BUILD="1"):
+        profiling.last_phase_times.clear()
+        rmi_tpu_torch.train(data, spec, B)
+    log("path 9 RMI_PROFILE_BUILD=1, " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in profiling.last_phase_times.items())
+        + f" (host clock, each stage ending in a synchronize)")
+    torch.cuda.empty_cache()
+
+
+def max_size_wiki(tmp, n, gen):
+    """9a: ``--max-size 50000000`` on wiki keys under the fast profile,
+    through the CLI: the chosen configuration beside SOSD_SYNTH.json's TPU
+    row, RMI_SIZE < MAX_SIZE, 0 bound violations over every key of the
+    artifact loaded back onto the card, 0 search mismatches on 2^22
+    queries, the phases' builds and times, the CLI's time split."""
+    t0 = time.perf_counter()
+    keys_np = rdata.synthetic_dataset("wiki", n, KeyType.U64, seed=WIKI_SEED)
+    name = "wiki_ts_200M_uint64" if n == 200_000_000 else f"wiki_ts_{n}_uint64"
+    path = os.path.join(tmp, name)
+    rdata.write_sosd_file(path, keys_np)
+    log(f"path 9a: {n} wiki keys (seed {WIKI_SEED}) made on the host and written to "
+        f"{name} in {time.perf_counter() - t0:.3f} s")
+    del keys_np
+    clear_phase_times()
+    with environ(RMI_OPTIMIZER_PROFILE="fast"):
+        total, t = run_cli(tmp, [path, "wiki", "--max-size", str(MAX_SIZE),
+                                 "--stats-file", "stats_wiki.json"], {
+            "load": (rmi_tpu_torch, "load_data"),
+            "sweep": (optimizer, "find_pareto_efficient_configs"),
+            "final train": (train_api, "train"),
+            "artifact": (rmi_tpu_torch, "output_rmi")})
+    stats = json.load(open(os.path.join(tmp, "stats_wiki.json")))
+    meta_path = os.path.join(tmp, "rmi_data", "wiki.json")
+    size = stats["size binary search"]
+    ref = SOSD_SYNTH_WIKI
+    log(f"path 9a max_size_wiki: chose {stats['layers']} {stats['branching factor']}, "
+        f"max_err {stats['max error']}, avg_log2 {stats['average log2 error']!r}, "
+        f"RMI_SIZE {size} (< {MAX_SIZE}); SOSD_SYNTH.json's TPU row (rmi_tpu, df64, "
+        f"no gate): {ref['models']} {ref['branching_factor']}, max_err {ref['max_err']}, "
+        f"avg_log2 {ref['avg_log2']!r}, RMI_SIZE {ref['size_bytes']}, {ref['build_s']} s "
+        f"on the TPU")
+    phase_lines("path 9a")
+    log(f"path 9a cli: {total:.3f} s ({t.line()})")
+    del t
+    if not size < MAX_SIZE or json.load(open(meta_path))["rmi_size"] != size:
+        raise RuntimeError(f"path 9a: RMI_SIZE {size} is not under {MAX_SIZE}")
+
+    data = rmi_tpu_torch.load_data(path)
+    keys = data.keys
+    spec, B = stats["layers"], stats["branching factor"]
+    loaded = rmi_tpu_torch.load_artifact(meta_path, keys=keys)
+    viol = 0
+    with Recorder() as rec:
+        # the CLI's final build again, its kernel calls recorded
+        rmi = rmi_tpu_torch.train(data, spec, B)
+        for i in range(0, n, PATH9_CHUNK):
+            k = keys[i:i + PATH9_CHUNK]
+            g, e = lookup(loaded, k)
+            viol += int(((g - torch.searchsorted(keys, k, side="left")).abs() > e).sum())
+    got = (rmi.model_max_error, rmi.model_avg_log2_error, rmi_size(rmi))
+    want = (stats["max error"], stats["average log2 error"], size)
+    log(f"path 9a {spec} {B} built again on the card: max_err, avg_log2, RMI_SIZE {got} "
+        f"(the CLI's {want}); {max_error_leaf(rmi)}")
+    if got != want:
+        raise RuntimeError("path 9a: the same keys gave another build than the CLI's")
+    del rmi
+    q = make_queries(keys, min(1 << 22, n), gen)
+    before = dict(_build.launches)
+    got = search(loaded, q)
+    torch.cuda.synchronize()
+    route = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+    mism = mismatches(keys, q, got)
+    log(f"path 9a artifact on the card: {viol} bound violations over all {n} keys "
+        f"({PATH9_CHUNK} a lookup), search {mism} mismatches on {q.shape[0]} queries "
+        f"(plan {lookup_fast.get_plan(loaded).kind}, launches {json.dumps(route)})")
+    if viol or mism:
+        raise RuntimeError("path 9a: the bound or search is broken")
+    leaf = loaded.leaf_type
+    del loaded, data, keys, q, g, e, k, got
+    torch.cuda.empty_cache()
+    with uncounted():
+        check_kernels(rec, {}, leaf_path(leaf), timed=False)
+    del rec
+    torch.cuda.empty_cache()
+    return get_model(leaf).leaf_kernel
+
+
+def optimize_books(tmp, data):
+    """9b: ``--optimize front.json`` under the default profile on path 1's
+    keys written to an SOSD file, then ``--param-grid front.json``, which
+    builds every configuration of the front as an artifact: each one's
+    RMI_SIZE and avg_log2 equal to the front's."""
+    n = data.n
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"books_{n}_uint64")
+    rdata.write_sosd_file(path, data.to_numpy())
+    log(f"path 9b: {n} keys written to an SOSD file in {time.perf_counter() - t0:.3f} s")
+    clear_phase_times()
+    with environ(RMI_OPTIMIZER_PROFILE=None):
+        total, t = run_cli(tmp, [path, "--optimize", "front.json"], {
+            "load": (rmi_tpu_torch, "load_data"),
+            "sweep": (optimizer, "find_pareto_efficient_configs")})
+    phase_lines("path 9b")
+    log(f"path 9b --optimize: {total:.3f} s ({t.line()})")
+    front = json.load(open(os.path.join(tmp, "front.json")))["configs"]
+    total, t = run_cli(tmp, [path, "--param-grid", "front.json"], {
+        "load": (rmi_tpu_torch, "load_data"),
+        "builds (one fetch)": (sweep, "parallel_train_grid"),
+        "artifacts": (rmi_tpu_torch, "output_rmi")})
+    log(f"path 9b --param-grid front.json: {len(front)} artifacts in {total:.3f} s "
+        f"({t.line()})")
+    del t
+    results = json.load(open(os.path.join(tmp, "front.json_results")))["results"]
+    bad = []
+    for c, r in zip(front, results):
+        meta = json.load(open(os.path.join(tmp, "rmi_data", f"{c['namespace']}.json")))
+        got = (r["layers"], r["branching factor"], r["size binary search"], meta["rmi_size"],
+               r["average log2 error"])
+        want = (c["layers"], c["branching factor"], c["size"], c["size"],
+                c["average log2 error"])
+        if got != want:
+            bad.append((got, want))
+    if bad or len(results) != len(front) or not front:
+        raise RuntimeError(f"path 9b: the param grid's artifacts differ from the front: "
+                           f"{bad}")
+    log(f"path 9b: each of the {len(front)} artifacts' RMI_SIZE and avg_log2 equal the "
+        f"front's")
+
+
+def same_max_log2(a, b):
+    """Two max log2 errors of one max error: the card's log2 and the CPU's
+    may round its last bit otherwise (log2(120))."""
+    return round(2.0 ** a) == round(2.0 ** b) and abs(a - b) <= math.ulp(b)
+
+
+def front_card_vs_cpu(n, seed, dev):
+    """9c: the optimizer on the card and on the CPU over PATH9C_BFS on n
+    books-like keys: the same (models, B, size) list, the same max errors
+    (their log2 within an ulp: same_max_log2) and each avg_log2 within
+    METRIC_RTOL relative."""
+    keys = rdata.books_like_on_device(n, seed, dev)
+    fronts, secs = [], []
+    saved = optimizer.branching_factors
+    optimizer.branching_factors = lambda: list(PATH9C_BFS)
+    try:
+        with environ(RMI_OPTIMIZER_PROFILE=None):
+            for k in (keys, keys.cpu()):
+                t0 = time.perf_counter()
+                fronts.append(optimizer.find_pareto_efficient_configs(
+                    rdata.RMIDataset(k, KeyType.U64)))
+                secs.append(time.perf_counter() - t0)
+    finally:
+        optimizer.branching_factors = saved
+    card, cpu = fronts
+    rows = [[(s.models, s.branching_factor, s.size) for s in f] for f in fronts]
+    log(f"path 9c front at n={n}, branching factors {PATH9C_BFS}: card {secs[0]:.3f} s, "
+        f"CPU {secs[1]:.3f} s\n{optimizer.display_table(card)}")
+    if rows[0] != rows[1]:
+        raise RuntimeError(f"path 9c: the card's front {rows[0]} is not the CPU's {rows[1]}")
+    gaps = [abs(a.average_log2_error - b.average_log2_error) / abs(b.average_log2_error)
+            for a, b in zip(card, cpu)]
+    same_max = [same_max_log2(a.max_log2_error, b.max_log2_error) for a, b in zip(card, cpu)]
+    log(f"path 9c: card and CPU fronts equal; max log2 errors bit-equal "
+        f"{[a.max_log2_error == b.max_log2_error for a, b in zip(card, cpu)]}, within an "
+        f"ulp of one max error {same_max}; avg_log2 relative gaps {gaps} (limit "
+        f"{METRIC_RTOL})")
+    if not all(same_max) or max(gaps) > METRIC_RTOL:
+        raise RuntimeError("path 9c: the card's front measures otherwise than the CPU's")
+
+
+def largest_disk_point(data, gen, nq, cross_n, seed, dev):
+    """9d: the disk profile's most memory-hungry point at the paths' keys:
+    its wall time and peak device memory; then built again with its kernel
+    calls recorded (bit-equal leaf errors and metrics), the bound on nq
+    sampled keys, where its max error lies, its kernels replayed against
+    their plain versions at these shapes, and its card-vs-CPU cross-check
+    at cross_n keys with as many leaves a key."""
+    spec, B = PATH9D
+    n = data.n
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rmi = rmi_tpu_torch.train(data, spec, B)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    first = (rmi.model_max_error, rmi.model_max_error_idx, rmi.model_avg_log2_error)
+    errors = rmi.leaf_errors.cpu()
+    log(f"path 9d {spec} {B} at {n} keys: build {secs:.4f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; "
+        f"max_err {rmi.model_max_error}, avg_log2 {rmi.model_avg_log2_error!r}, RMI_SIZE "
+        f"{rmi_size(rmi)}")
+    del rmi
+    torch.cuda.empty_cache()
+    with Recorder() as rec:
+        rmi = rmi_tpu_torch.train(data, spec, B)
+        viol = bound_violations(rmi, data.keys, nq, gen)
+    again = (first == (rmi.model_max_error, rmi.model_max_error_idx,
+                       rmi.model_avg_log2_error)
+             and torch.equal(rmi.leaf_errors.cpu(), errors))
+    log(f"path 9d built again, its kernel calls recorded: bit-equal {again}; "
+        f"{max_error_leaf(rmi)}; {viol} bound violations on {nq} sampled keys")
+    if viol or not again or not math.isfinite(rmi.model_avg_log2_error):
+        raise RuntimeError("path 9d: the bound is broken or the build not reproducible")
+    del rmi, errors
+    torch.cuda.empty_cache()
+    with uncounted():
+        check_kernels(rec, {}, leaf_path("cubic"), timed=False)
+        del rec
+        torch.cuda.empty_cache()
+        cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev, sparse=True)
+
+
+def optimizer_phase(data, gen, nq, cross_n, seed, dev):
+    """Path 9, the launches counted from 0: the host syncs of one build,
+    9a max_size_wiki, 9b --optimize and --param-grid on the paths' keys, 9d
+    the largest disk-profile point (9a's final build and 9d's build
+    replayed against the plain versions, uncounted), then 9c the front on
+    the card against the CPU.  Returns the launches."""
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    build_syncs(data)
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_wiki_") as tmp:
+        kernel = max_size_wiki(tmp, data.n, gen)
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_front_") as tmp:
+        optimize_books(tmp, data)
+    torch.cuda.empty_cache()
+    largest_disk_point(data, gen, nq, cross_n, seed + 1, dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"path 9 launches: {json.dumps(launches)}")
+    missing = [e for e in (*PATH9, f"rmi_lookup_{kernel}") if launches[e] <= 0]
+    if missing:
+        raise RuntimeError(f"path 9: kernels not launched on the path: {missing}")
+    front_card_vs_cpu(cross_n, seed, dev)
+    return launches
+
+
 # D runs at its narrowest and widest rows only: the rate table over all
 # widths is tools/probe_torch_kernels.py's
 PROBE_RING_WIDTHS = (128, 2048)
@@ -1690,6 +2141,12 @@ def main():
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
     counts = path8_phase(keys, gen, nq, cross_n, args.seed + 10, dev)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    torch.cuda.empty_cache()
+
+    # 11g. path 9: the optimizer (max_size_wiki, --optimize, card against
+    # CPU, the largest disk-profile point)
+    counts = optimizer_phase(data, gen, nq, cross_n, args.seed + 11, dev)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
 

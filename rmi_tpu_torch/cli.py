@@ -12,12 +12,14 @@ It trains on the card, then writes the artifact under ``--data-path``
 and the C++ sources into the working directory, as rmi_tpu's CLI writes
 them.  The key type follows the file name (``uint64``, ``uint32`` or
 ``f64`` in it); ``--bounded`` on f64 keys raises ValueError, as
-rmi_tpu's does (RMIDataset.as_u64).  ``--param-grid`` trains its
-configurations one at a time on the card (``--disable-parallel-training``
-is accepted and changes nothing: rmi_tpu's device pool,
-parallel/sweep.py, is not ported).
-``--threads`` is accepted for the reference's sake.  ``--optimize`` and
-``--max-size`` need the optimizer, which is not ported: they exit with 1.
+rmi_tpu's does (RMIDataset.as_u64).  ``--optimize FILE`` runs the Pareto
+optimizer (optimizer.py, under RMI_OPTIMIZER_PROFILE), prints its table
+and writes the front as a param grid; ``--max-size BYTES`` builds the
+most accurate configuration of the front under that size
+(train_for_size).  ``--param-grid`` dispatches every configuration over
+the device pool before it waits (parallel/sweep.py), or with
+``--disable-parallel-training`` trains them one at a time.
+``--threads`` is accepted for the reference's sake.
 ``main(argv, device="cpu")`` runs the same on the CPU, as the tests do.
 """
 
@@ -30,10 +32,6 @@ import os
 import sys
 
 log = logging.getLogger("rmi_tpu_torch")
-
-OPTIMIZER_MISSING = ("needs the Pareto optimizer, which rmi_tpu_torch does not "
-                     "have yet (ROADMAP.md Queue 1, item 2: the optimizer)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -68,14 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bounded", metavar="line_size", type=int,
                    help="error-bounded RMI via cachefix for the line size")
     p.add_argument("--max-size", metavar="BYTES", type=int,
-                   help="optimizer-driven size-bounded RMI (not ported)")
+                   help="optimizer-driven size-bounded RMI")
     p.add_argument("--disable-parallel-training", action="store_true",
-                   help="train --param-grid configs one at a time (they "
-                        "always are)")
+                   help="train --param-grid configs one at a time "
+                        "instead of dispatching the whole grid across "
+                        "the device pool (main.rs:241-248)")
     p.add_argument("--zero-build-time", action="store_true",
                    help="zero the build-time field in artifacts")
     p.add_argument("--optimize", metavar="file",
-                   help="search Pareto-efficient configs (not ported)")
+                   help="search Pareto-efficient configs; write JSON")
     return p
 
 
@@ -100,15 +99,29 @@ def result_json(trained, num_rows, namespace):
 
 def _param_grid(args, data) -> int:
     from rmi_tpu_torch import output_rmi, train
+    from rmi_tpu_torch.parallel.sweep import parallel_train_grid
     with open(args.param_grid) as f:
         grid = json.load(f)["configs"]
     to_test = [(c["layers"], int(c["branching factor"]), c.get("namespace"))
                for c in grid]
     log.info("# RMIs to train: %d", len(to_test))
+    if args.disable_parallel_training:
+        trained_all = []
+        for i, (models, bf, _) in enumerate(to_test):
+            log.info("[%d/%d] training %s %d", i + 1, len(to_test), models, bf)
+            trained_all.append(train(data, models, bf))
+    else:
+        done = [0]
+
+        def progress(res):
+            done[0] += 1
+            log.info("[%d/%d] trained %s %d", done[0], len(to_test), res.models,
+                     res.branching_factor)
+
+        trained_all = parallel_train_grid(data, [(m, bf) for m, bf, _ in to_test],
+                                          progress=progress)
     results = []
-    for i, (models, bf, ns) in enumerate(to_test):
-        log.info("[%d/%d] training %s %d", i + 1, len(to_test), models, bf)
-        trained = train(data, models, bf)
+    for trained, (_, _, ns) in zip(trained_all, to_test):
         if args.zero_build_time:
             trained.build_time = 0
         results.append(result_json(trained, data.n, ns))
@@ -117,6 +130,28 @@ def _param_grid(args, data) -> int:
                        emit_cpp=not args.no_code)
     with open(f"{args.param_grid}_results", "w") as f:
         json.dump({"results": results}, f)
+    return 0
+
+
+def _optimize(args, data) -> int:
+    """--optimize: the front (at most 10 configurations) printed and
+    written as a param grid for --param-grid, its namespaces
+    ``<prefix>_<i>``, the prefix the namespace or the input's file name
+    (rmi_tpu/cli.py's --optimize)."""
+    from rmi_tpu_torch.optimizer import display_table, find_pareto_efficient_configs
+    done = [0]
+
+    def progress(stat):
+        done[0] += 1
+        log.info("measured %-24s B=%-8d avg_log2=%.4f  (%d done)", stat.models,
+                 stat.branching_factor, stat.average_log2_error, done[0])
+
+    results = find_pareto_efficient_configs(data, 10, progress=progress)
+    print(display_table(results))
+    prefix = args.namespace or os.path.basename(args.input)
+    with open(args.optimize, "w") as f:
+        json.dump({"configs": [r.to_grid_spec(f"{prefix}_{i}")
+                               for i, r in enumerate(results)]}, f)
     return 0
 
 
@@ -145,29 +180,30 @@ def main(argv=None, device=None) -> int:
         format="%(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
 
-    from rmi_tpu_torch import load_data, output_rmi, train, train_bounded
+    from rmi_tpu_torch import load_data, output_rmi, train, train_bounded, train_for_size
 
     if args.namespace and args.param_grid:
         log.error("Can only specify one of namespace or param-grid")
-        return 1
-    if args.optimize or args.max_size is not None:
-        log.error("--%s %s", "optimize" if args.optimize else "max-size",
-                  OPTIMIZER_MISSING)
         return 1
 
     log.info("Reading %s...", args.input)
     data = load_data(args.input, device=device)
     num_rows = data.n
+    if args.optimize:
+        return _optimize(args, data)
     os.makedirs(args.data_path, exist_ok=True)
     if args.param_grid:
         return _param_grid(args, data)
     if not args.namespace:
         log.error("Must specify either a namespace or a parameter grid.")
         return 1
-    if not args.models or args.branching_factor is None:
+    if args.max_size is not None:
+        log.info("Constructing RMI with size less than %d", args.max_size)
+        trained = train_for_size(data, args.max_size)
+    elif not args.models or args.branching_factor is None:
         log.error("namespace mode needs models and branching factor")
         return 1
-    if args.bounded is not None:
+    elif args.bounded is not None:
         trained = train_bounded(data, args.models, args.branching_factor, args.bounded)
     else:
         trained = train(data, args.models, args.branching_factor)

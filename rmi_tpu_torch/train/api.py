@@ -1,5 +1,6 @@
-"""Training facade: ``train``, ``train_bounded`` and the TrainedRMI
-result (counterpart of rmi_tpu/train/api.py:19-253, 272-287)."""
+"""Training facade: ``train``, ``train_async`` and its PendingRMI,
+``train_for_size``, ``train_bounded`` and the TrainedRMI result
+(counterpart of rmi_tpu/train/api.py)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model, validate_spec
 from rmi_tpu_torch.models.base import Params
 from rmi_tpu_torch.train import two_layer
-from rmi_tpu_torch.utils import segments as seg
+from rmi_tpu_torch.utils import profiling, segments as seg
 
 
 @dataclasses.dataclass
@@ -114,8 +115,8 @@ class TrainedRMI:
 
 def to_host(tree):
     """``tree`` (tensors in nested dicts, lists and tuples) with every
-    tensor as a numpy array, through ONE device-to-host copy: the tensors'
-    bytes are packed into one buffer on their device."""
+    tensor as a numpy array, through ONE device-to-host copy per device:
+    the tensors' bytes are packed into one buffer on their device."""
     flat = []
 
     def collect(x):
@@ -131,15 +132,21 @@ def to_host(tree):
     collect(tree)
     if not flat:
         return tree
-    buf = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
-                     for t in flat]).cpu().numpy()
-    arrays, at = [], 0
-    for t in flat:
-        nbytes = t.numel() * t.element_size()
-        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        # a copy: aligned, and free of the shared buffer
-        arrays.append(buf[at:at + nbytes].view(dtype).reshape(tuple(t.shape)).copy())
-        at += nbytes
+    by_device = {}
+    for i, t in enumerate(flat):
+        by_device.setdefault(t.device, []).append(i)
+    arrays = [None] * len(flat)
+    for ids in by_device.values():
+        buf = torch.cat([flat[i].detach().contiguous().reshape(-1).view(torch.uint8)
+                         for i in ids]).cpu().numpy()
+        at = 0
+        for i in ids:
+            t = flat[i]
+            nbytes = t.numel() * t.element_size()
+            dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+            # a copy: aligned, and free of the shared buffer
+            arrays[i] = buf[at:at + nbytes].view(dtype).reshape(tuple(t.shape)).copy()
+            at += nbytes
     it = iter(arrays)
 
     def rebuild(x):
@@ -152,6 +159,13 @@ def to_host(tree):
         return x
 
     return rebuild(tree)
+
+
+def fetch_host(tree):
+    """The one host-synchronizing transfer of a build's metrics, or of
+    many builds' at once (rmi_tpu's ``_fetch_host``): to_host.  A named
+    function so that tests can observe when the host waits."""
+    return to_host(tree)
 
 
 def numpy_int_params(p: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -201,6 +215,7 @@ def _raw_params(rmi: "TrainedRMI"):
 
 
 def _trained(data_keys, key_type, model_spec, B, out, build_time=0):
+    """A TrainedRMI from train_two_layer's outputs, their metrics a dict."""
     return TrainedRMI(
         models=model_spec, branching_factor=int(B), key_type=key_type,
         num_rmi_rows=int(data_keys.shape[0]),
@@ -211,17 +226,75 @@ def _trained(data_keys, key_type, model_spec, B, out, build_time=0):
         **out["metrics"])
 
 
-def train(data: RMIDataset, model_spec: str, branch_factor: int) -> TrainedRMI:
-    """Train a two-layer RMI (train/mod.rs:100-126) on ``data.keys.device``."""
+@dataclasses.dataclass
+class PendingRMI:
+    """A build dispatched to the keys' device whose metrics have not
+    reached the host (rmi_tpu's PendingRMI).
+
+    ``metrics`` is error_metrics' [6] tensor on the device; ``result``
+    fetches it (or takes ``prefetched``, its host copy from one
+    fetch_host of many builds' metrics) and makes the TrainedRMI.  The
+    build's parameters live as long as this object or its result."""
+
+    models: str
+    branching_factor: int
+    data: RMIDataset
+    start_ns: int
+    out: dict
+    _result: Optional[TrainedRMI] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def metrics(self) -> torch.Tensor:
+        return self.out["metrics"]
+
+    def result(self, prefetched=None) -> TrainedRMI:
+        if self._result is None:
+            vals = fetch_host(self.out["metrics"]) if prefetched is None else prefetched
+            out = dict(self.out, metrics=two_layer.metrics_dict(vals))
+            self._result = _trained(self.data.keys, self.data.key_type, self.models,
+                                    self.branching_factor, out,
+                                    time.monotonic_ns() - self.start_ns)
+        return self._result
+
+
+def train_async(data: RMIDataset, model_spec: str, branch_factor: int,
+                shared: Optional[dict] = None) -> PendingRMI:
+    """Dispatch a two-layer build (train/mod.rs:100-126) on
+    ``data.keys.device`` without waiting for its metrics.  ``shared`` is
+    two_layer.shared_inputs of the same keys on the same device, which a
+    sweep computes once for all its builds; the build is the same bits
+    without it."""
     start = time.monotonic_ns()
     layers = model_spec.split(",")
     validate_spec(layers)
     top_type, leaf_type = layers
-    out = two_layer.train_two_layer(data.keys, data.key_type, top_type,
-                                    leaf_type, branch_factor)
-    # the metrics transfer in train_two_layer has synchronized the device
-    return _trained(data.keys, data.key_type, model_spec, branch_factor, out,
-                    time.monotonic_ns() - start)
+    with profiling.build_span(data.keys.device):
+        out = two_layer.train_two_layer(data.keys, data.key_type, top_type, leaf_type,
+                                        branch_factor, **(shared or {}))
+    return PendingRMI(models=model_spec, branching_factor=int(branch_factor),
+                      data=data, start_ns=start, out=out)
+
+
+def train(data: RMIDataset, model_spec: str, branch_factor: int) -> TrainedRMI:
+    """Train a two-layer RMI (train/mod.rs:100-126) on ``data.keys.device``:
+    train_async, then its metrics' transfer."""
+    return train_async(data, model_spec, branch_factor).result()
+
+
+def train_for_size(data: RMIDataset, max_size: int) -> TrainedRMI:
+    """--max-size (train/mod.rs:128-154): the Pareto search, then a build
+    of the first configuration on its front (the most accurate first)
+    smaller than ``max_size`` bytes; ``build_time`` covers the search."""
+    from rmi_tpu_torch.optimizer import find_pareto_efficient_configs
+
+    start = time.monotonic_ns()
+    pareto = find_pareto_efficient_configs(data, restrict=1000)
+    chosen = next((c for c in pareto if c.size < max_size), None)
+    if chosen is None:
+        raise RuntimeError(f"Could not find any configurations smaller than {max_size}")
+    res = train(data, chosen.models, chosen.branching_factor)
+    res.build_time = time.monotonic_ns() - start
+    return res
 
 
 def train_bounded(data: RMIDataset, model_spec: str, branch_factor: int,
@@ -280,7 +353,7 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     values ``next_idx`` [B].  An integer-output model's parameters cross
     over whole: pass rmi_tpu's parameter dict, its values as numpy
     arrays (a histogram's pivots as rmi_tpu holds them: u64, of f64 keys
-    their as_int values).  The metrics (the keys of error_metrics) are
+    their as_int values).  The metrics (the keys of metrics_dict) are
     recomputed from the leaf errors and the leaf counts that the top model
     assigns, unless given."""
     top_type, leaf_type = models.split(",")
@@ -307,8 +380,8 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
         t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
                                      norm_scale, B - 1, key_type).to(torch.int32)
         spans = seg.make_spans(t, B)
-        metrics = two_layer.error_metrics(errs, spans.ends - spans.starts,
-                                          keys_img.shape[0])
+        metrics = two_layer.metrics_dict(fetch_host(two_layer.error_metrics(
+            errs, spans.ends - spans.starts, keys_img.shape[0])))
 
     def tensors(a):
         if a is None:

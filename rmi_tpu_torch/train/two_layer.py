@@ -46,6 +46,7 @@ from rmi_tpu_torch.models import clamp_int, get_model, predict_clamped, validate
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input,  # noqa: F401
                                        normalize, predict_top_assignment)
 from rmi_tpu_torch.ops import eval_kernel, sweep_kernel
+from rmi_tpu_torch.utils import profiling
 from rmi_tpu_torch.utils import segments as seg
 
 _F64_EPS = sys.float_info.epsilon
@@ -198,7 +199,7 @@ def int_sweep_leaf_max(keys, yfix, spans: seg.Spans, leaf_p, *, leaf_type: str):
 def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
                next_key, prev_key, kminf: float, s: float, key_type: KeyType, *,
                leaf_type: str):
-    """Stage C: per-leaf errors [B] int64 and the metrics dict, from the
+    """Stage C: per-leaf errors [B] int64 and error_metrics' [6] tensor, from the
     leaf's model_float_input ``leaf_in`` and the images ``keys`` of
     ``key_type`` keys.  The epsilon probes move an f64 key by the
     absolute f64::EPSILON (keys.minus_epsilon), as rmi_tpu's do
@@ -236,14 +237,19 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     return final_err, error_metrics(final_err, spans.ends - spans.starts, n)
 
 
-def error_metrics(final_err: torch.Tensor, cnt: torch.Tensor, n: int) -> dict:
+METRIC_NAMES = ("model_max_error", "model_max_error_idx", "model_avg_error",
+                "model_avg_l2_error", "model_avg_log2_error", "model_max_log2_error")
+
+
+def error_metrics(final_err: torch.Tensor, cnt: torch.Tensor, n: int) -> torch.Tensor:
     """The reference's metrics (two_layer.rs:266-287) from per-leaf
-    errors and per-leaf key counts, fetched in one transfer."""
+    errors and per-leaf key counts: one [6] f64 tensor on their device,
+    in METRIC_NAMES' order (metrics_dict reads its host copy)."""
     B = final_err.shape[0]
     cnt_f = cnt.double()
     err_f = final_err.double()
     mx = final_err.max()
-    vals = torch.stack([
+    return torch.stack([
         mx.double(),
         # Rust max_by_key returns the LAST maximal element
         ((B - 1) - torch.argmax(final_err.flip(0))).double(),
@@ -251,42 +257,60 @@ def error_metrics(final_err: torch.Tensor, cnt: torch.Tensor, n: int) -> dict:
         ((cnt_f * err_f) ** 2 / n).sum(),
         (cnt_f * torch.log2(2.0 * err_f + 2.0)).sum() / n,
         torch.log2(mx.double()),
-    ]).tolist()
-    return {
-        "model_max_error": int(vals[0]),
-        "model_max_error_idx": int(vals[1]),
-        "model_avg_error": vals[2],
-        "model_avg_l2_error": vals[3],
-        "model_avg_log2_error": vals[4],
-        "model_max_log2_error": vals[5],
-    }
+    ])
+
+
+def metrics_dict(vals) -> dict:
+    """error_metrics' values, on the host (a numpy array or a list), as
+    the dict TrainedRMI takes: the max error and its leaf as ints."""
+    vals = [float(v) for v in vals]
+    out = dict(zip(METRIC_NAMES, vals))
+    out["model_max_error"] = int(vals[0])
+    out["model_max_error_idx"] = int(vals[1])
+    return out
+
+
+def shared_inputs(keys: torch.Tensor, key_type: KeyType = KeyType.U64) -> dict:
+    """What every build over the same sorted key images computes alike,
+    for train_two_layer's keywords: ``norm`` (norm_constants, one host
+    transfer) and ``yfix`` (FixDups, int32 [n] on the keys' device: 4
+    bytes a key).  A sweep computes them once per dataset and device."""
+    return {"norm": norm_constants(keys, key_type), "yfix": fixdups_i32(keys)}
 
 
 def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
-                    leaf_type: str, B: int) -> dict:
+                    leaf_type: str, B: int, norm=None, yfix=None) -> dict:
     """Build a two-layer RMI over sorted key images on their device.
 
-    Returns top_w [1, ppm] and leaf_w [B, ppm] (normalized domain; an
+    ``norm`` and ``yfix`` are shared_inputs' of the same keys, computed
+    here when not given; the build is the same bits either way.  Returns
+    top_w [1, ppm] and leaf_w [B, ppm] (normalized domain; an
     integer-output model's parameter dict instead), leaf_errors [B]
-    int64, the metrics dict, norm_offset/norm_scale, and what the raw
-    conversion reads: top_aux and leaf_aux (a cubic fit's generator
+    int64, ``metrics`` (error_metrics' [6] tensor, on the device: the
+    build makes no transfer for it), norm_offset/norm_scale, and what the
+    raw conversion reads: top_aux and leaf_aux (a cubic fit's generator
     statistics, else None), the patch mask (None where nothing is
-    patched) and next_idx, the patched leaves' values.
+    patched) and next_idx, the patched leaves' values.  Under
+    RMI_PROFILE_BUILD=1 each stage is timed (utils/profiling.py).
     """
     validate_spec([top_type, leaf_type])
     n = keys.shape[0]
     if n >= 2**31:
         raise ValueError("single-device builds support < 2^31 rows")
+    if yfix is not None and (yfix.shape != keys.shape or yfix.device != keys.device):
+        raise ValueError("yfix must be FixDups of these keys, on their device")
     B = int(B)
     # the record_function ranges name the stages in a torch.profiler trace
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
-    with record_function("rmi.build.assign"):
-        kminf, s = norm_constants(keys, key_type)
+    timed = profiling.requested()
+    with record_function("rmi.build.assign"), profiling.phase("assign", timed, keys.device):
+        kminf, s = norm_constants(keys, key_type) if norm is None else norm
         top_in = model_float_input(mtop, keys, kminf, s, key_type)
-        yfix = fixdups_i32(keys)
+        if yfix is None:
+            yfix = fixdups_i32(keys)
         top_w, t, top_aux = _assign_body(top_in, yfix, top_type=top_type, B=B,
                                          keys=keys, key_type=key_type)
-    with record_function("rmi.build.fit"):
+    with record_function("rmi.build.fit"), profiling.phase("fit", timed, keys.device):
         leaf_in = (top_in if mleaf.input_domain == mtop.input_domain
                    else model_float_input(mleaf, keys, kminf, s, key_type))
         del top_in
@@ -295,7 +319,7 @@ def train_two_layer(keys: torch.Tensor, key_type: KeyType, top_type: str,
         leaf_w, leaf_aux, patch = _fit_body(leaf_in, yfix, spans, next_idx,
                                             leaf_type=leaf_type, keys=keys,
                                             key_type=key_type)
-    with record_function("rmi.build.sweep"):
+    with record_function("rmi.build.sweep"), profiling.phase("sweep", timed, keys.device):
         leaf_errors, metrics = sweep_body(keys, leaf_in, yfix, spans, leaf_w,
                                           next_idx, next_key, prev_key, kminf,
                                           s, key_type, leaf_type=leaf_type)

@@ -12,8 +12,17 @@ integers, and floats within 1e-7 relative (the average errors are sums
 in each package's order).  Covered: namespace mode with --stats-file and
 --zero-build-time, --no-code, --no-errors, --bounded 8, --param-grid
 (its _results file, --disable-parallel-training), --dump-ll-errors and
---dump-ll-model-data; --optimize and --max-size exit with 1; the module
-entry point defaults to the card.
+--dump-ll-model-data; the module entry point defaults to the card.
+
+The optimizer's flags run on OPT_N keys (tests/test_torch_optimizer.py's
+draw) under the fast profile over OPT_BFS (patched in both packages),
+rmi_tpu under RMI_OPT_BUCKETED=0, its per-build sweep, which the port's
+sweep is: --optimize writes the same configs file (layers, branching
+factor, namespace, size and binary equal, the average log2 error within
+1e-7 relative) and prints the same table; --max-size picks rmi_tpu's
+configuration and writes an artifact of the same RMI_SIZE, or raises
+rmi_tpu's error when nothing fits; --param-grid over the device pool
+writes the _results file and artifacts of the sequential run.
 """
 
 import json
@@ -25,9 +34,13 @@ import numpy as np
 import pytest
 
 import rmi_tpu.cli as j_cli
+import rmi_tpu.optimizer as j_opt
 from rmi_tpu_torch import cli, write_sosd_file
+from rmi_tpu_torch import optimizer as t_opt
 
 N = 6000
+OPT_N = 5000
+OPT_BFS = [16, 64, 256, 1024]
 
 
 @pytest.fixture(scope="module")
@@ -38,6 +51,26 @@ def sosd_file(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("data") / f"keys_{N}_uint64")
     write_sosd_file(path, keys)
     return path
+
+
+@pytest.fixture(scope="module")
+def opt_file(tmp_path_factory):
+    rng = np.random.default_rng(2024)
+    keys = np.sort(rng.integers(0, 2 ** 40, size=OPT_N, dtype=np.uint64))
+    keys[1000:1040] = keys[1000]
+    path = str(tmp_path_factory.mktemp("opt") / f"opt_{OPT_N}_uint64")
+    write_sosd_file(path, keys)
+    return path
+
+
+@pytest.fixture
+def small_grid(monkeypatch):
+    """The fast profile over OPT_BFS in both packages; rmi_tpu's per-build
+    sweep."""
+    monkeypatch.setenv("RMI_OPTIMIZER_PROFILE", "fast")
+    monkeypatch.setenv("RMI_OPT_BUCKETED", "0")
+    for mod in (j_opt, t_opt):
+        monkeypatch.setattr(mod, "branching_factors", lambda: list(OPT_BFS))
 
 
 def run_both(tmp_path, monkeypatch, argv):
@@ -169,12 +202,83 @@ def test_param_grid_results_equal(tmp_path, monkeypatch, sosd_file):
     _close(results[0], results[1], "results")
 
 
-@pytest.mark.parametrize("flag", [["--optimize", "out.json"], ["--max-size", "100000"]])
-def test_optimizer_flags_exit_1(tmp_path, monkeypatch, sosd_file, flag, caplog):
+@pytest.mark.parametrize("namespace", [[], ["front"]])
+def test_optimize_writes_rmi_tpus_configs(tmp_path, monkeypatch, capsys, opt_file,
+                                          small_grid, namespace):
+    """The configs file and the printed table; the prefix is the namespace
+    or the input's file name."""
+    configs, tables = [], []
+    for name, main in (("rmi_tpu", j_cli.main),
+                       ("port", lambda a: cli.main(a, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        capsys.readouterr()
+        assert main([opt_file, *namespace, "--optimize", "out.json"]) == 0
+        tables.append(capsys.readouterr().out)
+        configs.append(json.loads((d / "out.json").read_text())["configs"])
+        assert os.listdir(d) == ["out.json"]
+    want, got = configs
+    assert len(want) >= 3
+    exact = ("layers", "branching factor", "namespace", "size", "binary")
+    assert [[c[k] for k in exact] for c in got] == [[c[k] for k in exact] for c in want]
+    prefix = namespace[0] if namespace else os.path.basename(opt_file)
+    assert [c["namespace"] for c in got] == [f"{prefix}_{i}" for i in range(len(got))]
+    for a, b in zip(got, want):
+        assert a["average log2 error"] == pytest.approx(b["average log2 error"],
+                                                        rel=1e-7, abs=0)
+    assert tables[1] == tables[0] and tables[1].startswith("Models")
+
+
+@pytest.mark.parametrize("budget", [10 ** 8, 10000])
+def test_max_size_picks_rmi_tpus_config(tmp_path, monkeypatch, opt_file, small_grid,
+                                        budget):
+    (d1, r1), (d2, r2) = run_both(tmp_path, monkeypatch, [
+        opt_file, "sized", "--max-size", str(budget), "--stats-file", "stats.json",
+        "--zero-build-time"])
+    assert r1 == r2 == 0
+    want, got = (json.loads((d / "stats.json").read_text()) for d in (d1, d2))
+    assert (got["layers"], got["branching factor"], got["size binary search"]) == \
+        (want["layers"], want["branching factor"], want["size binary search"])
+    assert got["size binary search"] < budget
+    metas = [json.loads((d / "rmi_data" / "sized.json").read_text()) for d in (d1, d2)]
+    assert metas[1]["rmi_size"] == metas[0]["rmi_size"] == got["size binary search"]
+    assert sorted(os.listdir(d2)) == sorted(os.listdir(d1))
+
+
+def test_max_size_too_small_raises_as_rmi_tpu(tmp_path, monkeypatch, opt_file,
+                                              small_grid):
     monkeypatch.chdir(tmp_path)
-    assert cli.main([sosd_file, "ns", *flag], device="cpu") == 1
-    assert "ROADMAP.md Queue 1, item 2" in caplog.text
-    assert not (tmp_path / "out.json").exists()
+    msg = "Could not find any configurations smaller than 1000"
+    with pytest.raises(RuntimeError, match=msg):
+        j_cli.main([opt_file, "tiny", "--max-size", "1000"])
+    with pytest.raises(RuntimeError, match=msg):
+        cli.main([opt_file, "tiny", "--max-size", "1000"], device="cpu")
+
+
+def test_param_grid_parallel_equals_sequential(tmp_path, monkeypatch, sosd_file):
+    """--param-grid through the device pool (parallel/sweep.py) writes the
+    sequential run's _results file and artifacts, byte for byte."""
+    grid = {"configs": [
+        {"layers": "cubic,linear", "branching factor": 64, "namespace": "pa"},
+        {"layers": "linear,linear_spline", "branching factor": 16},
+        {"layers": "radix18,cubic", "branching factor": 32, "namespace": "pc"}]}
+    dirs = []
+    for flags in ([], ["--disable-parallel-training"]):
+        d = tmp_path / ("sequential" if flags else "pool")
+        d.mkdir()
+        monkeypatch.chdir(d)
+        (d / "grid.json").write_text(json.dumps(grid))
+        assert cli.main([sosd_file, "--param-grid", "grid.json", "--zero-build-time",
+                         *flags], device="cpu") == 0
+        dirs.append(d)
+    files = os.listdir(dirs[0])
+    assert {"grid.json_results", "pa.cpp", "pc.cpp", "rmi_data"} <= set(files)
+    for r, _, fs in os.walk(dirs[0]):
+        for f in fs:
+            a = os.path.join(r, f)
+            b = os.path.join(dirs[1], os.path.relpath(a, dirs[0]))
+            assert open(a, "rb").read() == open(b, "rb").read(), f
 
 
 def test_usage_errors(tmp_path, monkeypatch, sosd_file):

@@ -1268,3 +1268,84 @@ def test_card_build_of_other_key_types(dev, key_type, spec, B):
                                             device=dev)])
     assert torch.equal(rt.search(card, q), torch.searchsorted(keys, q))
     assert lookup_fast.get_plan(card).kind == lookup_fast.get_plan(cpu).kind
+
+
+def _same_build(a, b):
+    return (params_equal(a.device_top_params, b.device_top_params)
+            and params_equal(a.device_leaf_params, b.device_leaf_params)
+            and torch.equal(a.leaf_errors, b.leaf_errors)
+            and all(getattr(a, k) == getattr(b, k) for k in two_layer.METRIC_NAMES))
+
+
+@pytest.mark.parametrize("spec,B", [("cubic,linear", 1024), ("robust_linear,cubic", 512),
+                                    ("radix18,linear", 256), ("linear,linear_spline", 64)])
+def test_train_async_on_the_card(dev, monkeypatch, spec, B):
+    """train_async with the shared inputs, two builds in flight and one
+    fetch, is train bit for bit; so is a build under RMI_PROFILE_BUILD=1,
+    which times its three stages."""
+    from rmi_tpu_torch.train import api
+    from rmi_tpu_torch.utils import profiling
+    keys = rdata.books_like_on_device(1 << 18, 12, dev)
+    data = rdata.RMIDataset(keys, KeyType.U64)
+    shared = two_layer.shared_inputs(keys, KeyType.U64)
+    pend = [api.train_async(data, spec, B, shared=shared) for _ in range(2)]
+    assert pend[0].metrics.device == keys.device
+    host = api.fetch_host([p.metrics for p in pend])
+    plain = rt.train(data, spec, B)
+    assert all(_same_build(p.result(prefetched=h), plain) for p, h in zip(pend, host))
+    monkeypatch.setenv("RMI_PROFILE_BUILD", "1")
+    profiling.last_phase_times.clear()
+    assert _same_build(rt.train(data, spec, B), plain)
+    assert set(profiling.last_phase_times) == {"assign", "fit", "sweep"}
+
+
+def test_optimizer_on_the_card_against_the_cpu(dev, monkeypatch):
+    """The fast profile over 2^6 ... 2^14 on 2^16 books-like keys: the
+    card's front is the CPU's, as chip_smoke's cross-check holds builds:
+    equal (models, branching factor, size), equal max errors, the average
+    log2 error within 1e-7 relative or, where the order of sums moves a
+    few leaf errors by 1, by no more than those leaves explain.  Each
+    phase keeps its builds' device spans.  A pool of the card twice
+    measures as the card once."""
+    from rmi_tpu_torch import optimizer as t_opt
+    from rmi_tpu_torch.parallel import sweep
+    from rmi_tpu_torch.utils import profiling
+    monkeypatch.setenv("RMI_OPTIMIZER_PROFILE", "fast")
+    monkeypatch.setattr(t_opt, "branching_factors", lambda: [2 ** i for i in range(6, 15, 2)])
+    keys = rdata.books_like_on_device(1 << 16, 13, dev)
+    card_data = rdata.RMIDataset(keys, KeyType.U64)
+    cpu_data = rdata.RMIDataset(keys.cpu(), KeyType.U64)
+    card = t_opt.find_pareto_efficient_configs(card_data)
+    for name in ("phase1", "phase2"):     # each build's span on the card
+        spans = profiling.last_phase_builds[name]
+        assert len(spans["device_ms"]) == spans["builds"] > 0
+        assert all(ms > 0 for ms in spans["device_ms"])
+    cpu = t_opt.find_pareto_efficient_configs(cpu_data)
+    assert len(cpu) >= 3
+    assert [(s.models, s.branching_factor, s.size) for s in card] == \
+        [(s.models, s.branching_factor, s.size) for s in cpu]
+    n = keys.shape[0]
+    for a, b in zip(card, cpu):
+        assert round(2 ** a.max_log2_error) == round(2 ** b.max_log2_error)
+        if a.average_log2_error == pytest.approx(b.average_log2_error, rel=1e-7, abs=0):
+            continue
+        rc = rt.train(card_data, a.models, a.branching_factor)
+        rp = rt.train(cpu_data, a.models, a.branching_factor)
+        counts = []
+        for r, k in ((rc, keys), (rp, keys.cpu())):
+            t = two_layer.top_assignment(get_model(r.top_type), r.device_top_params, k,
+                                         r.norm_offset, r.norm_scale,
+                                         r.branching_factor - 1, KeyType.U64)
+            s = seg.make_spans(t.to(torch.int32), r.branching_factor)
+            counts.append((s.ends - s.starts).cpu().double())
+        ec, ep = rc.leaf_errors.cpu(), rp.leaf_errors
+        assert torch.equal(counts[0], counts[1])
+        assert int((ec - ep).abs().max()) <= 1 and int((ec != ep).sum()) <= 8
+        explained = float((counts[0] * (torch.log2(2.0 * ec + 2.0)
+                                        - torch.log2(2.0 * ep + 2.0))).abs().sum()) / n
+        assert abs(a.average_log2_error - b.average_log2_error) <= \
+            1e-7 * abs(b.average_log2_error) + explained
+    configs = [(s.models, s.branching_factor) for s in cpu]
+    assert t_opt.statistics(configs, sweep.parallel_measure_rmis(
+        sweep.device_pool(card_data, [dev, dev]), configs)) == \
+        t_opt.measure_rmis(card_data, configs)

@@ -313,9 +313,10 @@ def test_carried_build_bit_equal(spec, B):
         np.testing.assert_array_equal(err.numpy(), np.asarray(err_j))
     spans = seg.make_spans(t, B)
     next_idx, next_key, prev_key = two_layer.lower_bound_fills(spans, rc.keys, F64)
-    leaf_errors, metrics = two_layer.sweep_body(
+    leaf_errors, metrics_t = two_layer.sweep_body(
         rc.keys, x, yfix, spans, rc.device_leaf_params, next_idx, next_key, prev_key,
         kmin, s, F64, leaf_type=leaf)
+    metrics = two_layer.metrics_dict(metrics_t.tolist())
     np.testing.assert_array_equal(leaf_errors.numpy(),
                                   np.asarray(rj.leaf_errors).astype(np.int64))
     assert (metrics["model_max_error"], metrics["model_max_error_idx"]) == \

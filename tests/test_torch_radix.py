@@ -197,10 +197,11 @@ def test_carried_params_bit_equal(kind, spec, B):
                           leaf=rc.leaf_type, n=N, B=B)
         np.testing.assert_array_equal(_probe(rc, probe).numpy(), np.asarray(want))
 
-    leaf_errors, metrics = two_layer.sweep_body(
+    leaf_errors, metrics_t = two_layer.sweep_body(
         rc.keys, x, yfix, spans, rc.device_leaf_params, next_idx, next_key,
         prev_key, rc.norm_offset, rc.norm_scale, tkeys.KeyType.U64,
         leaf_type=rc.leaf_type)
+    metrics = two_layer.metrics_dict(metrics_t.tolist())
     np.testing.assert_array_equal(leaf_errors.numpy(),
                                   np.asarray(rj.leaf_errors).astype(np.int64))
     assert (metrics["model_max_error"], metrics["model_max_error_idx"]) == \

@@ -150,10 +150,11 @@ def test_carried_params_bit_equal(kind, spec, B):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     # the port's whole stage C on the carried parameters
-    leaf_errors, metrics = two_layer.sweep_body(
+    leaf_errors, metrics_t = two_layer.sweep_body(
         img, xn, yfix, spans, rc.device_leaf_params, next_idx, next_key,
         prev_key, rc.norm_offset, rc.norm_scale, tkeys.KeyType.U64,
         leaf_type="linear")
+    metrics = two_layer.metrics_dict(metrics_t.tolist())
     np.testing.assert_array_equal(leaf_errors.numpy(), errs_j)
     assert metrics["model_max_error"] == rj.model_max_error
 
