@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all nine paths
+    python3 chip_smoke.py              # 200M keys, all ten paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -130,6 +130,38 @@ Phases (any failure raises and exits non-zero):
      front at n = 2^20 over branching factors 2^6, 2^10 and 2^14 on the
      card and on the CPU: equal (models, B, size) lists, equal max errors
      (log2 within an ulp) and avg_log2 within 1e-7 relative;
+ 11h. path 10, the data-parallel build and sharded serving
+     (rmi_tpu_torch/parallel/, dp_phase), on path 1's keys written once to
+     an SOSD file, by ranks started with multihost.run_ranks (spawn) that
+     each load the file onto card 0 and take their shard: 10a
+     ``dp_train_two_layer`` of ``cubic,linear 262144`` by four gloo ranks
+     sharing card 0, cold and three warm builds (the first two bit-equal,
+     the warm median logged) and one more with the host time in
+     collectives clocked, held to path 1's index with rmi_tpu's dp
+     tolerance (leaf errors within 1 on at most B/20 leaves, leaf rows
+     within rtol 1e-6 and atol 1e-8 or, on at most B/20 leaves whose
+     intercepts cancel, predictions at their keys within DP_PRED_GAP,
+     floors at their epsilon probes at most 1 apart, and the dp row
+     within DP_PRED_GAP of the leaf's exact least-squares line, or no
+     farther from it than path 1's, avg_log2 within 1e-6 relative plus
+     what the differing leaves explain), the bound |guess - yfix| <= err
+     over every key (each rank its shard), then rank 0's index
+     replicated (``replicate_rmi``) and 2^22 queries served by
+     ``shard_queries`` (2^20 a rank, below search's density gate at 200M
+     keys: the packed plan) and
+     ``unshard``, 0 mismatches, timed; rank 0's K1, K2, K3 and K4
+     calls replayed against their plain versions (uncounted); each rank's
+     peak device memory and launches; 10b the same build by one NCCL rank,
+     held to path 1 the same way; 10c ``robust_linear,cubic 4096`` at 2^20
+     keys by four gloo ranks on the card against four on the CPU (K3
+     cubic and K6 per shard), held to the cross-check's tolerances; 10d
+     ``replicate_rmi_per_device`` and ``search_sharded`` over [cuda:0,
+     cuda:0] in this process on path 1's index (not built again) for
+     2^23 queries, 2^22 a copy, past the density gate: each copy's
+     ``search`` through the sort and K5's scatter entry (required, and
+     counted), 0 mismatches, its rate beside path 1's search of the same
+     batch and 10a's.  Four ranks on one card measure the
+     sharded algorithm and its gloo collectives, not scaling over cards;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
@@ -165,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -176,6 +209,7 @@ import textwrap
 import time
 import traceback
 import warnings
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -186,10 +220,12 @@ from rmi_tpu_torch import (cli, codegen, config, lookup_fast, native, optimizer,
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.lookup import bounded_search, lookup, search, search_sorted
+from rmi_tpu_torch.lookup import (bounded_search, lookup, search, search_route,
+                                  search_sorted)
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_input,
-                                       params_equal, params_to, predict_top_assignment)
+                                       params_equal, params_to, predict_clamped,
+                                       predict_top_assignment)
 from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
                                scan_kernel, select_kernel, sorted_serve_kernel,
                                sweep_kernel)
@@ -1911,6 +1947,492 @@ def optimizer_phase(data, gen, nq, cross_n, seed, dev):
     return launches
 
 
+# path 10: the data-parallel build and sharded serving (rmi_tpu_torch/parallel/)
+# on path 1's keys, by ranks that share card 0: 10a four gloo ranks, 10b one
+# NCCL rank (path 1's spec); 10c robust_linear,cubic on the card against the
+# CPU; 10d the per-device copies in this process
+# what 10a launches over its ranks: the dp build (K1, K2, K3, K4 per
+# element) and the bound check (K4's fused lookup); each rank's 2^20 queries
+# fall below search's density gate at 200M keys (4 nq < 3 ceil(n / 64),
+# lookup_fast.sorts), so they take the packed plan, in torch; 10d serves
+# twice as many queries over two copies, 2^22 a copy, past the gate: K5's
+# scatter entry
+PATH10 = ("cubic,linear", 262144,
+          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear",
+           "rmi_leaf_eval_linear", "rmi_lookup_linear"))
+PATH10D = ("rmi_serve_sorted_scatter",)
+PATH10_RANKS = 4
+PATH10_WARM = 3               # warm dp builds timed a run; the median is logged
+PATH10_SERVES = 3             # timed runs of the sharded search
+PATH10C = ("robust_linear,cubic", 4096)
+PATH10_TIMEOUT = 900
+DP_ROWS_RTOL, DP_ROWS_ATOL, DP_LOG2_RTOL = 1e-6, 1e-8, 1e-6   # tests/test_parallel.py:52-63
+# at 200M keys a leaf's line spans ~4e-6 of the normalized domain, so its
+# intercept cancels (alpha = mean_y - beta mean_x, |alpha| << mean_y) and
+# the order of the sums moves it by more than 1e-6 relative; such a leaf
+# passes, on at most B/20 leaves, if its two rows put each of its keys
+# within half a position of each other (a floor then moves by at most 1,
+# which the error tolerance allows), floor its two epsilon probes at most
+# 1 apart, and the dp row is within half a position of the leaf's exact
+# least-squares line (_exact_slr) at those keys and probes, or no farther
+# from it than path 1's row
+DP_PRED_GAP = 0.5
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _same_dp(a, b):
+    """Two dp builds' outputs (host or device) bit-equal."""
+    def eq(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        if torch.is_tensor(x):
+            return torch.equal(x, y)
+        return np.array_equal(x, y)
+    return all(eq(x, y) for x, y in zip(a[:3], b[:3])) and a[3] == b[3]
+
+
+def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
+    """One rank of path 10a (10b: without serving or replays): the shard of
+    the SOSD file's keys, loaded whole onto ``device``; a cold and
+    PATH10_WARM warm dp builds (the first two bit-equal), one more with the
+    time in collectives clocked; the bound |guess - yfix| <= err on every
+    key of the shard; then, with ``serve_queries``, rank 0's index
+    replicated to every rank and nq queries (the same on every rank, from
+    ``qseed``) served sharded, timed; the launches counted from the first
+    build to the last search; with ``replay``, the recorded calls replayed
+    against their plain versions on rank 0 (uncounted)."""
+    from rmi_tpu_torch.parallel import dp_trainer, serve
+    import torch.distributed as dist
+    dev = torch.device(device)
+    top, leaf = spec.split(",")
+    data = rdata.load_data(sosd_path, device=dev)
+    keys_local, n = dp_trainer.local_shard(data.keys, data.key_type)
+    comm = dp_trainer.DPGroup()
+    out = {"rank": rank, "world": comm.world}
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    replay = replay and rank == 0
+    rec = Recorder() if replay else contextlib.nullcontext()
+    walls, builds = [], []
+    for i in range(1 + PATH10_WARM):
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with rec if i == 0 else contextlib.nullcontext():
+            res = dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, top, leaf, B,
+                                                comm)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        builds.append(res if i < 2 else None)
+    out["same_build"] = _same_dp(builds[0], builds[1])
+    res = builds[0]
+    del builds
+    timed = dp_trainer.DPGroup(timed=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, top, leaf, B, timed)
+    out["timed_build_s"] = time.perf_counter() - t0
+    out["collective_s"], out["collectives"] = timed.seconds, timed.calls
+    out["walls"] = walls
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                       if dev.type == "cuda" else None)
+
+    # the bound on every key of the shard, against the build's own FixDups
+    rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
+    yfix = dp_trainer.dist_fixdups(keys_local, comm)
+    real = max(0, min(keys_local.shape[0], n - rank * keys_local.shape[0]))
+    with rec:
+        guess, err = lookup(rmi, keys_local[:real])
+    out["violations"] = int(((guess - yfix[:real].long()).abs() > err).sum())
+    out["checked_keys"] = real
+    del guess, err, yfix
+    if serve_queries:
+        replica = serve.replicate_rmi(rmi if rank == 0 else None, device=dev)
+        out["replica_equal"] = same_build(replica, rmi)
+        del rmi
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(qseed)
+        queries = make_queries(data.keys, nq, gen)
+        part, m = serve.shard_queries(queries)
+        with rec:
+            answers = serve.unshard(search(replica, part), m)
+        out["mismatches"] = mismatches(data.keys, queries, answers)
+        times, alone = [], []
+        for _ in range(PATH10_SERVES):
+            _sync(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = search(replica, part)
+            _sync(dev)
+            alone.append(time.perf_counter() - t0)
+            serve.unshard(got, m)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        out["serve_s"], out["search_alone_s"] = sorted(times), sorted(alone)
+        out["part"] = part.shape[0]
+        out["route"] = search_route(replica, part.shape[0])
+    _sync(dev)
+    out["launches"] = dict(_build.launches)
+    out["res"] = res
+    if replay:
+        with uncounted():
+            rows = check_kernels(rec, {}, PATH10[2], timed=False)
+        out["replays"] = {e: r["max_abs_err"] for e, r in rows.items()}
+    return out
+
+
+def dp_cross_rank(rank, keys_np, spec, B, device):
+    """One rank of 10c: the dp build of ``keys_np`` on ``device``, with the
+    top's leaf ids and each leaf's key count, and the launches."""
+    from rmi_tpu_torch.parallel import dp_trainer
+    data = rdata.RMIDataset.from_numpy(keys_np, device=device)
+    keys_local, n = dp_trainer.local_shard(data.keys, data.key_type)
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    top, leaf = spec.split(",")
+    res = dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, top, leaf, B)
+    rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
+    t = two_layer.top_assignment(get_model(top), rmi.device_top_params, data.keys,
+                                 rmi.norm_offset, rmi.norm_scale, B - 1)
+    spans = seg.make_spans(t.to(torch.int32), B)
+    return {"res": res, "t": t.to(torch.int32), "counts": spans.ends - spans.starts,
+            "launches": dict(_build.launches)}
+
+
+def _explained(counts, e1, e2):
+    """The avg_log2 share of the leaves whose errors differ."""
+    d = np.abs(np.log2(2.0 * e1 + 2.0) - np.log2(2.0 * e2 + 2.0))
+    return float((counts * d).sum()) / float(counts.sum())
+
+
+def dp_tolerance(label, res, want, data):
+    """rmi_tpu's dp tolerance (tests/test_parallel.py:52-63) of a dp
+    build's outputs against ``want`` (path1_host: a single-card build's
+    host copies) over ``data``'s keys: leaf errors within 1 on at most
+    B/20 leaves, leaf rows within rtol 1e-6 and atol 1e-8, avg_log2
+    within 1e-6 relative plus what the leaves whose errors differ
+    explain; a leaf whose rows fall outside passes as DP_PRED_GAP says,
+    on at most B/20 leaves.  Those leaves are logged with their key
+    counts, the gaps and each row's distance from the exact line."""
+    top_w, leaf_w, errs, metrics = res
+    e1, e2 = want["leaf_errors"].astype(np.int64), np.asarray(errs).astype(np.int64)
+    B = e1.shape[0]
+    differ = int((e1 != e2).sum())
+    leaf_w = np.asarray(leaf_w)
+    rows_gap = np.abs(leaf_w - want["leaf_w"])
+    outside = (rows_gap > DP_ROWS_ATOL + DP_ROWS_RTOL * np.abs(want["leaf_w"])).any(1)
+    d_log2 = abs(metrics["model_avg_log2_error"] - want["avg_log2"])
+    explained = _explained(want["counts"], e1, e2)
+    got = {"top_rows_equal": bool(np.array_equal(np.asarray(top_w), want["top_w"])),
+           "leaf_errors_differing": differ, "leaf_errors_max_diff": int(np.abs(e1 - e2).max()),
+           "leaf_rows_outside": int(outside.sum()), "leaf_rows_max_abs_gap": float(rows_gap.max()),
+           "max_err": metrics["model_max_error"], "avg_log2": metrics["model_avg_log2_error"],
+           "avg_log2_abs_diff": d_log2, "explained_by_differing_leaves": explained}
+    rows_ok = int(outside.sum()) <= max(1, B // 20)
+    if outside.any() and rows_ok:
+        cnt = want["counts"][outside]
+        got["outside_keys_a_leaf"] = [int(cnt.min()), int(np.median(cnt)), int(cnt.max())]
+        wit = _outside_witness(data, want, leaf_w, outside)
+        got.update({k: v for k, v in wit.items() if k != "ok"})
+        rows_ok = wit["ok"]
+    log(f"{label} against path 1's index: {json.dumps(got)}")
+    if not (got["leaf_errors_max_diff"] <= 1 and differ <= max(1, B // 20) and rows_ok
+            and d_log2 <= DP_LOG2_RTOL * abs(want["avg_log2"]) + explained):
+        raise RuntimeError(f"{label}: the dp build and path 1's disagree beyond tolerance")
+
+
+def _exact_slr(x, y):
+    """(alpha, beta) of the least-squares line through the f64 points x
+    and integer targets y, in exact rational arithmetic, with the f64
+    fit's degenerate cases (models/linear._slr_from_moments): a witness
+    independent of any order of summation."""
+    cnt = len(x)
+    if cnt == 0:
+        return Fraction(0), Fraction(0)
+    xs = [Fraction(v) for v in x.tolist()]
+    ys = y.tolist()
+    sx, sy = sum(xs), sum(ys)
+    sxx = sum(v * v for v in xs) - sx * sx / cnt
+    sxy = sum(v * w for v, w in zip(xs, ys)) - sx * sy / cnt
+    mean_y = Fraction(sy, cnt)
+    if cnt == 1 or sxx <= 0:
+        return mean_y, Fraction(0)
+    beta = sxy / sxx
+    return mean_y - beta * sx / cnt, beta
+
+
+def _outside_witness(data, want, leaf_w, leaves):
+    """The leaves of ``leaves`` (a [B] mask; linear leaves) whose dp and
+    path 1 rows fall outside rtol, each held to its exact least-squares
+    line over its augmented span (_exact_slr on the host): the largest
+    gap between the two rows' predictions at the keys path 1's top routes
+    to each leaf and at its two epsilon probes (two_layer.final_errors),
+    the largest gap between their floors at the probes, each row's
+    largest distance from the exact line's prediction at the keys and at
+    the probes, its slope's relative error, and the leaf farthest from
+    the exact line; ``ok`` when every leaf passes as DP_PRED_GAP says."""
+    if want["leaf_type"] != "linear":
+        raise NotImplementedError("the exact witness fits linear leaves")
+    dev, kt, n = data.keys.device, data.key_type, data.n
+    mleaf = get_model("linear")
+    ids = np.flatnonzero(leaves)
+    a0, a1 = want["aug"][0][ids], want["aug"][1][ids]
+    s0, s1 = want["starts"][ids], want["ends"][ids]
+    aug_idx = torch.from_numpy(np.concatenate([np.arange(a, b) for a, b in zip(a0, a1)]))
+    with uncounted():
+        x = model_float_input(mleaf, data.keys[aug_idx.to(dev)], *want["norm"], kt)
+        y = two_layer.fixdups_i32(data.keys)[aug_idx.to(dev)]
+        nxt, prv = (torch.from_numpy(want["probes"][i][ids]).to(dev) for i in (0, 1))
+        xp = model_float_input(mleaf, torch.cat([keymod.minus_epsilon(nxt, kt),
+                                                 keymod.plus_epsilon(prv, kt)]),
+                               *want["norm"], kt)
+        lid = torch.from_numpy(np.repeat(ids, a1 - a0)).to(dev)
+        pid = torch.from_numpy(np.concatenate([ids, ids])).to(dev)
+        pred = {}
+        for name, w in (("dp", leaf_w), ("p1", want["leaf_w"])):
+            w = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+            at_keys = leaf_predict("linear", w, lid, kernel_input(mleaf, x))
+            at_probes = leaf_predict("linear", w, pid, kernel_input(mleaf, xp))
+            pred[name] = (at_keys.cpu().numpy(), at_probes.cpu().numpy(),
+                          predict_clamped(at_probes, n).cpu().numpy())
+    x, y, xp = x.cpu().numpy(), y.cpu().numpy().astype(np.int64), xp.cpu().numpy()
+    k = len(ids)
+    st = {key: np.zeros(k) for key in ("keys", "probes", "floors", "distinct", "beta")
+          + tuple(f"{what}_{b}" for what in ("at_keys", "at_probes", "slope")
+                  for b in ("dp", "p1"))}
+    lo = 0
+    for j in range(k):
+        m = a1[j] - a0[j]
+        alpha, beta = _exact_slr(x[lo:lo + m], y[lo:lo + m])
+        on = slice(lo + s0[j] - a0[j], lo + s1[j] - a0[j])      # the leaf's own keys
+        probes = xp[[j, k + j]]
+        st["keys"][j] = np.abs(pred["dp"][0][on] - pred["p1"][0][on]).max(initial=0.0)
+        st["probes"][j] = np.abs(pred["dp"][1][[j, k + j]] - pred["p1"][1][[j, k + j]]).max()
+        st["floors"][j] = np.abs(pred["dp"][2][[j, k + j]] - pred["p1"][2][[j, k + j]]).max()
+        st["distinct"][j] = np.unique(x[lo:lo + m]).shape[0]
+        st["beta"][j] = float(beta)
+        for b, w in (("dp", leaf_w), ("p1", want["leaf_w"])):
+            for where, pts, got in (("at_keys", x[on], pred[b][0][on]),
+                                    ("at_probes", probes, pred[b][1][[j, k + j]])):
+                exact = np.array([float(alpha + beta * Fraction(v)) for v in pts.tolist()])
+                st[f"{where}_{b}"][j] = np.abs(got - exact).max(initial=0.0)
+            st[f"slope_{b}"][j] = (abs(Fraction(float(w[ids[j], 1])) - beta) / abs(beta)
+                                   if beta else abs(float(w[ids[j], 1])))
+        lo += m
+    far = {b: np.maximum(st[f"at_keys_{b}"], st[f"at_probes_{b}"]) for b in ("dp", "p1")}
+    ok = bool((st["keys"] <= DP_PRED_GAP).all() and (st["floors"] <= 1).all()
+              and (far["dp"] <= np.maximum(DP_PRED_GAP, far["p1"])).all())
+    worst = int(np.argmax(far["p1"]))
+
+    def both(key, f=float):
+        return {"dp": f(st[key + "_dp"].max()), "path1": f(st[key + "_p1"].max())}
+    return {"outside_prediction_gap": float(st["keys"].max()),
+            "outside_probe_gap": float(st["probes"].max()),
+            "outside_probe_floor_diff": int(st["floors"].max()),
+            "exact_line_max_dist_at_keys": both("at_keys"),
+            "exact_line_max_dist_at_probes": both("at_probes"),
+            "exact_slope_max_rel_err": both("slope"),
+            "leaves_over_half_from_exact": {"dp": int((far["dp"] > DP_PRED_GAP).sum()),
+                                            "path1": int((far["p1"] > DP_PRED_GAP).sum())},
+            "leaves_dp_closer_to_exact": int((far["dp"] < far["p1"]).sum()),
+            "leaves_path1_closer_to_exact": int((far["p1"] < far["dp"]).sum()),
+            "farthest_leaf": {"leaf": int(ids[worst]), "keys": int(s1[worst] - s0[worst]),
+                              "aug_points": int(a1[worst] - a0[worst]),
+                              "distinct_x": int(st["distinct"][worst]),
+                              "beta_exact": st["beta"][worst],
+                              "beta_dp": float(leaf_w[ids[worst], 1]),
+                              "beta_path1": float(want["leaf_w"][ids[worst], 1]),
+                              "dist_dp": float(far["dp"][worst]),
+                              "dist_path1": float(far["p1"][worst])},
+            "ok": ok}
+
+
+def dp_cross_check(keys_np, spec, B, rank_device, tmp):
+    """10c: the dp build by PATH10_RANKS gloo ranks on ``rank_device``
+    against the same by as many on the CPU, held to cross_check's
+    tolerances; the card's ranks must launch K3 cubic and K6."""
+    from rmi_tpu_torch.parallel import multihost
+    runs = {}
+    for device in (rank_device, "cpu"):
+        runs[device] = multihost.run_ranks(
+            dp_cross_rank, PATH10_RANKS, f"file://{tmp}/w10c_{device.replace(':', '')}",
+            backend="gloo", device=device, args=(keys_np, spec, B, device),
+            timeout=PATH10_TIMEOUT)
+    for ranks in runs.values():
+        if not all(_same_dp(ranks[0]["res"], r["res"]) for r in ranks[1:]):
+            raise RuntimeError("10c: the ranks' builds differ")
+    card, cpu = runs[rank_device][0], runs["cpu"][0]
+    launched = {e for r in runs[rank_device] for e, c in r["launches"].items() if c}
+    if rank_device != "cpu" and not {"rmi_sweep_max_cubic", "rmi_cubic_l1"} <= launched:
+        raise RuntimeError(f"10c: K3 cubic and K6 not both launched: {sorted(launched)}")
+    n = keys_np.shape[0]
+    e_card, e_cpu = card["res"][2].astype(np.int64), cpu["res"][2].astype(np.int64)
+    err_diff, id_diff = np.abs(e_card - e_cpu), np.abs(card["t"].astype(np.int64) - cpu["t"])
+    leaves = (err_diff > 0) | (card["counts"] != cpu["counts"])
+
+    def contrib(cnt, e):
+        return cnt * np.log2(2.0 * e + 2.0)
+    explained = float(np.abs(contrib(card["counts"], e_card)
+                             - contrib(cpu["counts"], e_cpu))[leaves].sum()) / n
+    m_card, m_cpu = card["res"][3], cpu["res"][3]
+    d_log2 = abs(m_card["model_avg_log2_error"] - m_cpu["model_avg_log2_error"])
+    res = {"spec": spec, "n": n, "B": B, "ranks": PATH10_RANKS,
+           "max_err_card": m_card["model_max_error"], "max_err_cpu": m_cpu["model_max_error"],
+           "avg_log2_card": m_card["model_avg_log2_error"],
+           "avg_log2_cpu": m_cpu["model_avg_log2_error"], "avg_log2_abs_diff": d_log2,
+           "explained_by_differing_leaves": explained,
+           "leaf_ids_differing": int((id_diff > 0).sum()), "leaf_ids_max_diff": int(id_diff.max()),
+           "leaf_errors_differing": int((err_diff > 0).sum()),
+           "leaf_errors_max_diff": int(err_diff.max())}
+    log("path 10c dp cross-check " + json.dumps(res))
+    few = max(8, B // 256)
+    if not (res["max_err_card"] == res["max_err_cpu"]
+            and d_log2 <= METRIC_RTOL * abs(m_cpu["model_avg_log2_error"]) + explained
+            and res["leaf_ids_max_diff"] <= 1 and res["leaf_errors_max_diff"] <= 1
+            and res["leaf_ids_differing"] <= few and res["leaf_errors_differing"] <= few):
+        raise RuntimeError("10c: dp build on the card and on the CPU disagree beyond tolerance")
+
+
+def path1_host(rmi):
+    """What path 10 holds its dp builds to: host copies of path 1's leaf
+    errors, rows, spans (plain and augmented) and key counts per leaf,
+    each leaf's epsilon-probe keys (the next leaf's first key, the
+    previous leaf's last), and its avg_log2."""
+    B = rmi.branching_factor
+    t = two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, rmi.keys,
+                                 rmi.norm_offset, rmi.norm_scale, B - 1)
+    spans = seg.make_spans(t.to(torch.int32), B)
+    del t
+    _, next_key, prev_key = two_layer.lower_bound_fills(spans, rmi.keys, rmi.key_type)
+    return {"leaf_errors": rmi.leaf_errors.cpu().numpy(),
+            "leaf_w": rmi.device_leaf_params.cpu().numpy(),
+            "top_w": rmi.device_top_params.cpu().numpy(),
+            "counts": (spans.ends - spans.starts).cpu().numpy(),
+            "starts": spans.starts.cpu().numpy(), "ends": spans.ends.cpu().numpy(),
+            "aug": (spans.aug_starts.cpu().numpy(), spans.aug_ends.cpu().numpy()),
+            "probes": (next_key.cpu().numpy(), prev_key.cpu().numpy()),
+            "avg_log2": rmi.model_avg_log2_error, "norm": (rmi.norm_offset, rmi.norm_scale),
+            "top_type": rmi.top_type, "leaf_type": rmi.leaf_type}
+
+
+def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:0",
+             nccl=True):
+    """Path 10: 10a the dp build of path 1's spec by PATH10_RANKS gloo ranks
+    sharing ``rank_device``, each loading the keys from an SOSD file,
+    checked against path 1 (``p1``, path1_host), bit-equal when built
+    again, the bound over every key, and the sharded search of
+    ``queries``' size; 10b the same build by one NCCL rank (``nccl``);
+    10c dp_cross_check at ``cross_n`` keys; 10d per-device copies of path
+    1's index (``p1_index``) over [dev, dev], serving twice ``queries``'
+    size, each copy's half through K5's scatter entry.  Returns the
+    launches of 10a's ranks, 10b's and 10d's search_sharded."""
+    from rmi_tpu_torch.parallel import multihost, serve
+    spec, B, entries = PATH10
+    nq = queries.shape[0]
+    launches = dict.fromkeys(_build.launches, 0)
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_dp_") as tmp:
+        path = os.path.join(tmp, "books_uint64")
+        t0 = time.perf_counter()
+        rdata.write_sosd_file(path, keymod.from_image(data.keys, data.key_type))
+        log(f"path 10: {data.n} keys written to an SOSD file in "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        ranks = multihost.run_ranks(
+            dp_rank, PATH10_RANKS, f"file://{tmp}/w10a", backend="gloo", device=rank_device,
+            args=(path, spec, B, nq, seed, rank_device, True, True), timeout=PATH10_TIMEOUT)
+        log(f"path 10a: {PATH10_RANKS} gloo ranks on {rank_device}, {spec} {B}, "
+            f"{time.perf_counter() - t0:.3f} s with their start")
+        r0 = ranks[0]
+        for r in ranks:
+            log(f"path 10a rank {r['rank']}: cold build {r['walls'][0]:.4f} s, warm "
+                f"{', '.join(f'{w:.4f}' for w in r['walls'][1:])} s; timed build "
+                f"{r['timed_build_s']:.4f} s of which {r['collective_s']:.4f} s in "
+                f"{r['collectives']} collectives (host clock, the card synchronized "
+                f"around each); peak device memory {r['peak_gib']} GiB; bound: "
+                f"{r['violations']} violations on {r['checked_keys']} keys; search of "
+                f"{r['part']} queries ({r['route']}) "
+                f"{r['search_alone_s'][PATH10_SERVES // 2]:.5f} s, with "
+                f"the all_gather {r['serve_s'][PATH10_SERVES // 2]:.5f} s (median of "
+                f"{PATH10_SERVES}); launches {json.dumps({e: c for e, c in r['launches'].items() if c})}")
+        warm = sorted(r0["walls"][1:])[PATH10_WARM // 2]
+        rate = nq / r0["serve_s"][PATH10_SERVES // 2]
+        log(f"path 10a: dp build warm {warm:.4f} s (rank 0, median of {PATH10_WARM}); "
+            f"sharded search {rate:.6g} lookups/s ({nq} queries, {PATH10_RANKS} ranks "
+            f"sharing one card, with the all_gather)")
+        log(f"path 10a replays (rank 0): {json.dumps(r0['replays'])}")
+        if not all(_same_dp(r0["res"], r["res"]) for r in ranks[1:]):
+            raise RuntimeError("10a: the ranks returned different builds")
+        if not all(r["same_build"] for r in ranks):
+            raise RuntimeError("10a: the same shards gave different dp builds")
+        if sum(r["checked_keys"] for r in ranks) != data.n or any(r["violations"]
+                                                                  for r in ranks):
+            raise RuntimeError("10a: bound |guess - yfix| <= err violated")
+        if any(r["mismatches"] for r in ranks) or not all(r["replica_equal"] for r in ranks):
+            raise RuntimeError("10a: sharded search disagrees with torch.searchsorted")
+        dp_tolerance("path 10a", r0["res"], p1, data)
+        for r in ranks:
+            launches = {e: launches[e] + r["launches"][e] for e in launches}
+        missing = [e for e in entries if launches[e] <= 0]
+        if missing:
+            raise RuntimeError(f"path 10a: kernels not launched on the path: {missing}")
+        rate10a = rate
+        if nccl:
+            (r,) = multihost.run_ranks(
+                dp_rank, 1, f"file://{tmp}/w10b", backend="nccl", device=rank_device,
+                args=(path, spec, B, nq, seed, rank_device, False, False),
+                timeout=PATH10_TIMEOUT)
+            log(f"path 10b: one NCCL rank, cold build {r['walls'][0]:.4f} s, warm "
+                f"{', '.join(f'{w:.4f}' for w in r['walls'][1:])} s, timed "
+                f"{r['timed_build_s']:.4f} s of which {r['collective_s']:.4f} s in "
+                f"{r['collectives']} collectives; peak {r['peak_gib']} GiB; "
+                f"{r['violations']} violations on {r['checked_keys']} keys")
+            if not r["same_build"] or r["violations"]:
+                raise RuntimeError("10b: the NCCL rank's build is not reproducible or wrong")
+            dp_tolerance("path 10b", r["res"], p1, data)
+            launches = {e: launches[e] + r["launches"][e] for e in launches}
+        del ranks, r0
+    cross_keys = keymod.from_image(rdata.books_like_on_device(cross_n, seed + 1, dev).cpu())
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_dpx_") as tmp:
+        dp_cross_check(cross_keys, PATH10C[0], PATH10C[1], rank_device, tmp)
+
+    # 10d: per-device copies of path 1's index in this process, each
+    # copy's half of the batch past search's density gate
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    q2 = make_queries(data.keys, 2 * nq, gen)
+    rmis = serve.replicate_rmi_per_device(p1_index, [dev, dev])
+    routes = [search_route(r, -(-q2.shape[0] // 2)) for r in rmis]
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    got = serve.search_sharded(rmis, q2)
+    _sync(dev)
+    counts = dict(_build.launches)
+    launches = {e: launches[e] + c for e, c in counts.items()}
+    mism = mismatches(data.keys, q2, got)
+    one = cuda_ms(lambda: search(p1_index, q2), 5)
+    two = cuda_ms(lambda: serve.search_sharded(rmis, q2), 5)
+    log(f"path 10d: search_sharded over [{dev}, {dev}], {q2.shape[0]} queries "
+        f"({routes} a copy; path 1's search: {search_route(p1_index, q2.shape[0])}): "
+        f"{mism} mismatches; {q2.shape[0] / (two / 1e3):.6g} lookups/s against path 1's "
+        f"search {q2.shape[0] / (one / 1e3):.6g} on the same batch, and 10a's four ranks "
+        f"{rate10a:.6g} on {nq} (one card each time); launches "
+        f"{json.dumps({e: c for e, c in counts.items() if c})}")
+    if mism:
+        raise RuntimeError("10d: search_sharded disagrees with torch.searchsorted")
+    missing = [e for e in PATH10D if counts[e] <= 0]
+    if routes != ["sort", "sort"] or missing:
+        raise RuntimeError(f"10d: the copies did not serve through K5's scatter entry: "
+                           f"routes {routes}, not launched {missing}")
+    return launches
+
+
+
 # D runs at its narrowest and widest rows only: the rate table over all
 # widths is tools/probe_torch_kernels.py's
 PROBE_RING_WIDTHS = (128, 2048)
@@ -2094,6 +2616,8 @@ def main():
     p1 = {"metrics": (rmi.model_max_error, rmi.model_max_error_idx,
                       rmi.model_avg_log2_error),
           "lookup": lookup(rmi, queries), "leaf": top_leaf(rmi, queries)}
+    p1_dp = path1_host(rmi)      # what path 10's dp builds are held to
+    p1_index = dataclasses.replace(rmi)     # path 10d's index, its caches dropped
     del rmi
     rows.update(check_kernels(rec, counts, replayed))
     launches = {e: launches[e] + counts[e] for e in launches}
@@ -2148,6 +2672,13 @@ def main():
     # CPU, the largest disk-profile point)
     counts = optimizer_phase(data, gen, nq, cross_n, args.seed + 11, dev)
     launches = {e: launches[e] + counts[e] for e in launches}
+    torch.cuda.empty_cache()
+
+    # 11h. path 10: the data-parallel build and sharded serving, by ranks
+    # that share the card
+    counts = dp_phase(data, queries, p1_dp, p1_index, cross_n, args.seed + 12, dev)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    del p1_dp, p1_index
     torch.cuda.empty_cache()
 
     # 12. lognormal leaves: the card against the CPU, and their K3 and K4

@@ -12,9 +12,10 @@ inputs (the normalized keys, or a "raw" model's f64 keys), the top
 function the build assigned leaves with and the leaf kernel and kernel
 input the build measured errors with, so |guess - lower_bound| <= err
 holds for every key.  ``search`` routes as rmi_tpu's does for an index without
-cache fix: batches of SORT_SERVE_MIN or more go through sort -> K5 ->
-unsort (lookup_fast.fast_search_via_sort), smaller ones through the
-packed plan's two counts (lookup_fast.fast_search); an index without a
+cache fix: batches of SORT_SERVE_MIN or more, dense enough for K5's
+windows (lookup_fast.sorts), go through sort -> K5 -> unsort, the rest
+through the packed plan's two counts (lookup_fast.fast_search);
+``search_route`` names the route a batch takes.  An index without a
 packed plan (a top that is not monotone, leaves too wide) serves every
 batch through lookup and the hierarchical plan's counts.
 ``search_sorted`` sends sorted batches of a packed plan straight to K5.
@@ -156,20 +157,37 @@ def search(rmi, queries: torch.Tensor, keys=None) -> torch.Tensor:
     """Exact lower-bound indices (searchsorted side='left') per query,
     in the index's keys, or in ``keys`` (images) when given: a cachefix
     index needs its ORIGINAL keys here (rmi_tpu/lookup.py:265-282)."""
-    if rmi.cache_fix is not None:
+    route = search_route(rmi, queries.shape[0], keys)
+    if route == "cachefix":
         if keys is None:
             raise ValueError("cache_fix search needs the original key array")
         pos, err = lookup(rmi, queries)
         iters = max(1, math.ceil(math.log2(2 * rmi.cache_fix[0] + 2)) + 2)
         return bounded_lower_bound(keys, queries, pos, err + 1, rmi.num_data_rows,
                                    iters)
-    if keys is None and lookup_fast.supports_fast_path(rmi):
-        if queries.shape[0] >= SORT_SERVE_MIN:
-            return lookup_fast.fast_search_via_sort(rmi, queries)
+    if route == "sort":
+        return lookup_fast.serve_via_sort(rmi, lookup_fast.get_plan(rmi), queries)
+    if route != "bounded":
         return lookup_fast.fast_search(rmi, queries)
     if keys is None and rmi.keys is None:
         raise ValueError("this index holds no keys: pass the keys it was built on")
     return bounded_search(rmi, queries, keys)
+
+
+def search_route(rmi, nq: int, keys=None) -> str:
+    """The route ``search`` takes for a batch of nq queries: "cachefix";
+    "sort" (sort -> K5's scatter entry -> unsort: SORT_SERVE_MIN queries
+    or more, dense enough for lookup_fast.sorts); the plan's kind
+    ("packed", "packed_wide" or "hier": its counts, fast_search); or
+    "bounded" (lookup and the bounded binary search)."""
+    if rmi.cache_fix is not None:
+        return "cachefix"
+    if keys is None and lookup_fast.supports_fast_path(rmi):
+        plan = lookup_fast.get_plan(rmi)
+        if nq >= SORT_SERVE_MIN and lookup_fast.sorts(plan, nq):
+            return "sort"
+        return plan.kind
+    return "bounded"
 
 
 def search_sorted(rmi, queries: torch.Tensor) -> torch.Tensor:

@@ -397,7 +397,13 @@ def fast_search_via_sort(rmi, queries: torch.Tensor) -> torch.Tensor:
     rmi_tpu's veto and re-probe of a declining kernel have no
     counterpart."""
     plan = get_plan(rmi)
-    nrows0 = -(-plan.n // STRIDE)
-    if plan.kind == "hier" or 4 * queries.shape[0] < 3 * nrows0:
+    if not sorts(plan, queries.shape[0]):
         return fast_search(rmi, queries)
     return serve_via_sort(rmi, plan, queries)
+
+
+def sorts(plan: Plan, nq: int) -> bool:
+    """Does fast_search_via_sort serve a batch of nq queries through sort
+    -> K5 (a packed plan, and 4 nq >= 3 ceil(n / 64)) rather than
+    fast_search?"""
+    return plan.kind != "hier" and 4 * nq >= 3 * -(-plan.n // STRIDE)

@@ -81,13 +81,21 @@ def _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate):
     n = xf.shape[0]
     i1 = torch.searchsorted(xf, xmin, right=True).clamp(0, n - 1)
     i2 = (torch.searchsorted(xf, xmax) - 1).clamp(0, n - 1)
+    return slopes_from_points(xf[i1], yf[i1].double(), xf[i2], yf[i2].double(),
+                              xmin, ymin, xmax, ymax, degenerate)
+
+
+def slopes_from_points(x1, y1, x2, y2, xmin, ymin, xmax, ymax, degenerate):
+    """_slopes' arithmetic from its two inner points (x1, y1), the first
+    with x > xmin, and (x2, y2), the last with x < xmax, however they
+    were found (parallel/dp_trainer.py gathers them across shards)."""
     safe_span = torch.where(degenerate, 1.0, xmax - xmin)
     safe_yspan = torch.where(ymax == ymin, 1.0, ymax - ymin)
-    sxn = (xf[i1] - xmin) / safe_span
-    sxp = (xf[i2] - xmin) / safe_span
-    syp = (yf[i2].double() - ymin) / safe_yspan
+    sxn = (x1 - xmin) / safe_span
+    sxp = (x2 - xmin) / safe_span
+    syp = (y2 - ymin) / safe_yspan
     # syn / sxn with syn = (y1 - ymin) / yspan, as XLA rewrites it
-    m1 = (yf[i1].double() - ymin) / (safe_yspan * torch.where(sxn == 0.0, 1.0, sxn))
+    m1 = (y1 - ymin) / (safe_yspan * torch.where(sxn == 0.0, 1.0, sxn))
     m2 = (1.0 - syp) / torch.where(sxp == 1.0, 1.0, 1.0 - sxp)
     norm2 = _fma(m1, m1, m2 * m2)          # m1 m1 + m2 m2, contracted
     tau = torch.where(norm2 > 9.0, 3.0 / torch.sqrt(norm2.clamp(min=1e-300)),
@@ -120,10 +128,7 @@ def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None,
         l_err = seg.whole_array_sum((linear_predict(lin_w, None, xf) - yd).abs_(), 0, spans.n)
     else:
         c_err, l_err = cubic_l1_kernel.cubic_l1_sums(xf, yf, cubic_w, lin_w, spans)
-    use_lin = (l_err < c_err) & ~empty
-    zero = torch.zeros_like(lin_w[:, 0])
-    lin_as_cubic = torch.stack([zero, zero, lin_w[:, 1], lin_w[:, 0]], dim=-1)
-    w = torch.where(use_lin[:, None], lin_as_cubic, cubic_w)
+    w, use_lin = choose_candidates(cubic_w, lin_w, c_err, l_err, empty)
 
     case = torch.full_like(st["first"], CUBIC_CASE_CUBIC, dtype=torch.int32)
     case = torch.where(use_lin, CUBIC_CASE_LINEAR, case)
@@ -146,7 +151,6 @@ def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
     statistics the fit's aux keeps ([B] each: the first and last indices,
     ymin, ymax, m1, m2, empty and const_case)."""
     first, last = seg.aug_first_last(spans)
-    cnt = seg.aug_count(spans)
     xmin, xmax = xf[first], xf[last]
     if ep_y is None:
         ymin, ymax = yf[first].double(), yf[last].double()
@@ -154,12 +158,19 @@ def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
         ymin, ymax = torch.full_like(xmin, ep_y[0]), torch.full_like(xmin, ep_y[1])
     degenerate = xmin == xmax              # all duplicates or a single point
     m1, m2 = _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate)
-    a, b, c, d = _coeffs(xmin, ymin, xmax, ymax, m1, m2)
+    cubic_w, lin_w, st = candidates_from_slopes(xmin, ymin, xmax, ymax, m1, m2,
+                                                seg.aug_count(spans))
+    return cubic_w, lin_w, dict(st, first=first, last=last)
 
+
+def candidates_from_slopes(xmin, ymin, xmax, ymax, m1, m2, cnt):
+    """_candidates from each container's endpoints, clamped slopes and
+    point count: (cubic_w, lin_w, the stats but the indices)."""
+    a, b, c, d = _coeffs(xmin, ymin, xmax, ymax, m1, m2)
     # empty -> (0, 0, 1, 0); one point or all duplicates -> (0, 0, 0, y)
     # (cubic_spline.rs:19-36)
     empty = cnt == 0
-    const_case = ~empty & ((cnt == 1) | degenerate)
+    const_case = ~empty & ((cnt == 1) | (xmin == xmax))
     flat = empty | const_case
     zero = torch.zeros_like(a)
     cubic_w = torch.stack([
@@ -167,9 +178,17 @@ def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
         torch.where(empty, 1.0, torch.where(const_case, zero, c)),
         torch.where(empty, zero, torch.where(const_case, ymin, d))], dim=-1)
     lin_w = torch.stack(spline_from_endpoints(xmin, ymin, xmax, ymax, cnt), dim=-1)
-    return cubic_w, lin_w, {"first": first, "last": last, "ymin": ymin, "ymax": ymax,
-                            "m1": m1, "m2": m2, "empty": empty,
-                            "const_case": const_case}
+    return cubic_w, lin_w, {"ymin": ymin, "ymax": ymax, "m1": m1, "m2": m2,
+                            "empty": empty, "const_case": const_case}
+
+
+def choose_candidates(cubic_w, lin_w, c_err, l_err, empty):
+    """Each row the cubic, or the linear spline as a cubic row where its
+    L1 error is lower (cubic_spline.rs:113-135); and that choice."""
+    use_lin = (l_err < c_err) & ~empty
+    zero = torch.zeros_like(lin_w[:, 0])
+    lin_as_cubic = torch.stack([zero, zero, lin_w[:, 1], lin_w[:, 0]], dim=-1)
+    return torch.where(use_lin[:, None], lin_as_cubic, cubic_w), use_lin
 
 
 def _const_cubic(value_f):

@@ -50,7 +50,7 @@ def loglinear_predict(w, leaf_ids, x):
     return exp1(linear_predict(w, leaf_ids, x))
 
 
-def _trimmed(spans: seg.Spans) -> seg.Spans:
+def trimmed(spans: seg.Spans) -> seg.Spans:
     """robust_linear's containers: each augmented span without its
     first and last bnd = max(1, trunc(len * 1e-4)) items
     (linear.rs:247-252).  The reference asserts 2 bnd + 1 < len and would
@@ -69,7 +69,7 @@ def _slr_ranges(xf, yf, spans, trim: bool = False, weights=None):
     """Per-leaf (alpha, beta) least squares over augmented spans, [B, 2];
     ``trim`` fits robust_linear's trimmed spans instead, and 0/1
     ``weights`` drop items (loglinear)."""
-    use = _trimmed(spans) if trim else spans
+    use = trimmed(spans) if trim else spans
     if weights is None:
         sx = seg.range_sum(xf, use.aug_starts, use.aug_ends)
         sy = seg.range_sum(yf, use.aug_starts, use.aug_ends)

@@ -78,24 +78,31 @@ def _shift_low(res, clamp):
 
 
 def _bradix_fit_top(keys, ys, B, scale):
+    """bradix_fit over the whole array."""
+    return bradix_fit(u64_bits(keys), _scaled_largest(ys), common_prefix_size(keys),
+                      keys.shape[0], B, lambda bucket: seg.sorted_starts(bucket, B + 1))
+
+
+def bradix_fit(ki, max_output, prefix, n: int, B: int, bucket_starts):
     """Try {bits, bits + 1} x {clamp high, shift low} and keep the
     candidate of least chi^2 against uniform bucket counts, the first of
-    equal ones (balanced_radix.rs:39-85).  Buckets past max_output - 1
-    are clipped into the last bin where the reference would index out of
-    its Vec (rmi_tpu's documented divergence).  The chi^2 sum adds as
-    rmi_tpu's does on the CPU (segments.whole_array_sum), so near ties
-    resolve as there."""
-    n = keys.shape[0]
-    ki = u64_bits(keys)
-    max_output = _scaled_largest(ys)           # < B
+    equal ones (balanced_radix.rs:39-85), for the u64 bits ``ki`` of n
+    sorted keys, their common prefix and the largest scaled target
+    ``max_output`` (< B).  ``bucket_starts(bucket)`` is [B + 1]
+    #{keys whose bucket < j} of all n keys, for the non-decreasing
+    buckets of ``ki``: a searchsorted of the slots into them (the
+    data-parallel build adds it up across shards).  Buckets past
+    max_output - 1 are clipped into the last bin where the reference would
+    index out of its Vec (rmi_tpu's documented divergence).  The chi^2 sum
+    adds as rmi_tpu's does on the CPU (segments.whole_array_sum), so near
+    ties resolve as there."""
     bits = num_bits(max_output)
-    prefix = common_prefix_size(keys)
-    live = keymod.ult(torch.arange(B, device=keys.device), max_output)
+    live = keymod.ult(torch.arange(B, device=ki.device), max_output)
     e = float(n) / max_output.double().clamp(min=1.0)
     last_bin = max_output.clamp(min=1) - 1
 
     def chi2(bucket):
-        bounds = seg.sorted_starts(keymod.umin(bucket, last_bin), B + 1)
+        bounds = bucket_starts(keymod.umin(bucket, last_bin))
         counts = (bounds[1:] - bounds[:B]).double()
         return seg.whole_array_sum(torch.where(live, (counts - e) ** 2 / e, 0.0), 0, B)[0]
 

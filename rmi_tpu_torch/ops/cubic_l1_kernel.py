@@ -58,7 +58,10 @@ def cubic_l1_sums_plain(x, y, cubic_w, lin_w, spans: seg.Spans):
     yf = y.double()
     t = spans.t.long()
     leaf_ids = torch.arange(spans.B, device=x.device)
-    nonempty = spans.starts < spans.ends
+    # an edge is a point of the augmented range outside [starts, ends);
+    # that range may be empty where a shard holds a leaf's edge alone
+    # (parallel/dp_trainer.py), never where the augmented range is
+    nonempty = spans.aug_starts < spans.aug_ends
     has_prev = nonempty & (spans.aug_starts < spans.starts)
     has_next = nonempty & (spans.aug_ends > spans.ends)
     ip = (spans.starts - 1).clamp(0, n - 1)

@@ -359,29 +359,15 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
     top_type, leaf_type = models.split(",")
     validate_spec([top_type, leaf_type])
     dev = config.require_cuda() if device is None else torch.device(device)
-    keys_img = keymod.to_image(keys).to(dev)
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
-    B = int(branching_factor)
     if mtop.output_int:
         top = _int_params_from_numpy(top_w, dev)
     else:
         top = torch.tensor(np.asarray(top_w, np.float64), device=dev).reshape(1, -1)
     if mleaf.output_int:
         leaf = _int_params_from_numpy(leaf_w, dev)
-        if leaf["tables"].shape[0] != B:
-            raise ValueError(f"leaf_w['tables'] must have {B} rows")
     else:
         leaf = torch.tensor(np.asarray(leaf_w, np.float64), device=dev)
-        if leaf.shape != (B, mleaf.ppm):
-            raise ValueError(f"leaf_w must be [B, {mleaf.ppm}] for {leaf_type} "
-                             f"leaves, not {list(leaf.shape)}")
-    errs = torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev)
-    if metrics is None:
-        t = two_layer.top_assignment(mtop, top, keys_img, norm_offset,
-                                     norm_scale, B - 1, key_type).to(torch.int32)
-        spans = seg.make_spans(t, B)
-        metrics = two_layer.metrics_dict(fetch_host(two_layer.error_metrics(
-            errs, spans.ends - spans.starts, keys_img.shape[0])))
 
     def tensors(a):
         if a is None:
@@ -390,9 +376,44 @@ def trained_from_numpy(models: str, branching_factor: int, key_type: KeyType,
             return {k: tensors(v) for k, v in a.items()}
         return torch.from_numpy(np.array(a)).to(dev)
 
-    out = {"top_w": top, "leaf_w": leaf, "leaf_errors": errs,
+    return trained_from_tensors(
+        models, branching_factor, key_type, keymod.to_image(keys).to(dev), top, leaf,
+        torch.tensor(np.asarray(leaf_errors).astype(np.int64), device=dev),
+        norm_offset, norm_scale, top_aux=tensors(top_aux), leaf_aux=tensors(leaf_aux),
+        patch=tensors(patch), next_idx=tensors(next_idx), metrics=metrics)
+
+
+def trained_from_tensors(models: str, branching_factor: int, key_type: KeyType,
+                         keys_img: torch.Tensor, top_w: Params, leaf_w: Params,
+                         leaf_errors: torch.Tensor, norm_offset: float,
+                         norm_scale: float, top_aux=None, leaf_aux=None, patch=None,
+                         next_idx=None, metrics: Optional[Dict[str, Any]] = None
+                         ) -> TrainedRMI:
+    """trained_from_numpy's tensor form: a TrainedRMI serving parameters
+    already in the port's form (a float model's [1, ppm] / [B, ppm] f64
+    rows, an integer-output model's dict of int64 bits and int32 tables)
+    over the sorted key images ``keys_img``, all on one device, as
+    parallel/dp_trainer.dp_train_two_layer returns them on each rank.
+    The metrics are recomputed as trained_from_numpy's are, unless given."""
+    top_type, leaf_type = models.split(",")
+    validate_spec([top_type, leaf_type])
+    mtop, mleaf = get_model(top_type), get_model(leaf_type)
+    B = int(branching_factor)
+    if mleaf.output_int:
+        if leaf_w["tables"].shape[0] != B:
+            raise ValueError(f"leaf_w['tables'] must have {B} rows")
+    elif leaf_w.shape != (B, mleaf.ppm):
+        raise ValueError(f"leaf_w must be [B, {mleaf.ppm}] for {leaf_type} "
+                         f"leaves, not {list(leaf_w.shape)}")
+    errs = leaf_errors.long()
+    if metrics is None:
+        t = two_layer.top_assignment(mtop, top_w, keys_img, norm_offset,
+                                     norm_scale, B - 1, key_type).to(torch.int32)
+        spans = seg.make_spans(t, B)
+        metrics = two_layer.metrics_dict(fetch_host(two_layer.error_metrics(
+            errs, spans.ends - spans.starts, keys_img.shape[0])))
+    out = {"top_w": top_w, "leaf_w": leaf_w, "leaf_errors": errs,
            "metrics": dict(metrics), "norm_offset": float(norm_offset),
-           "norm_scale": float(norm_scale), "top_aux": tensors(top_aux),
-           "leaf_aux": tensors(leaf_aux), "patch": tensors(patch),
-           "next_idx": tensors(next_idx)}
+           "norm_scale": float(norm_scale), "top_aux": top_aux,
+           "leaf_aux": leaf_aux, "patch": patch, "next_idx": next_idx}
     return _trained(keys_img, key_type, models, B, out)

@@ -56,7 +56,12 @@ def norm_constants(keys: torch.Tensor, key_type: KeyType = KeyType.U64):
     """(offset, scale) of the normalized key domain for sorted images of
     ``key_type`` keys: x' = (x - offset) * scale maps [min, max] onto
     [0, 1]."""
-    kmin, kmax = keymod.as_float(keys[[0, -1]], key_type).tolist()
+    return norm_from_ends(keys[[0, -1]], key_type)
+
+
+def norm_from_ends(ends: torch.Tensor, key_type: KeyType = KeyType.U64):
+    """norm_constants from the images [2] of the first and last key."""
+    kmin, kmax = keymod.as_float(ends, key_type).tolist()
     span = kmax - kmin
     return kmin, (1.0 / span if span > 0 else 1.0)
 
@@ -114,12 +119,16 @@ def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
 
 
 def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
-                      key_type: KeyType):
+                      key_type: KeyType, key_at=None):
     """next/prev-leaf fills of LowerBoundCorrection
     (lower_bound_correction.rs:30-80), all [B]-sized: the index and key
     of the next non-empty leaf's first row (T::max_value() past the
     last), and the key of the previous non-empty leaf's last row
-    (T::zero_value() before the first), as images of ``key_type`` keys."""
+    (T::zero_value() before the first), as images of ``key_type`` keys.
+    ``key_at(idx)`` reads the keys at global indices (``keys[idx]`` when
+    None; the data-parallel build gathers them across shards)."""
+    if key_at is None:
+        key_at = keys.__getitem__
     n = spans.n
     big = n + 1
     first_val = torch.where(spans.nonempty, spans.starts, big)
@@ -128,13 +137,13 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
     has_next_leaf = next_start < big
     next_idx = torch.where(has_next_leaf, next_start, n)
     safe = next_start.clamp(0, max(n - 1, 0))
-    next_key = torch.where(has_next_leaf, keys[safe], key_type.max_image)
+    next_key = torch.where(has_next_leaf, key_at(safe), key_type.max_image)
 
     last_val = torch.where(spans.nonempty, spans.ends - 1, -1)
     prefix_max = torch.cummax(last_val, 0).values
     prev_last = torch.cat([prefix_max.new_full((1,), -1), prefix_max[:-1]])
     has_prev_leaf = prev_last >= 0
-    prev_key = torch.where(has_prev_leaf, keys[prev_last.clamp(min=0)],
+    prev_key = torch.where(has_prev_leaf, key_at(prev_last.clamp(min=0)),
                            key_type.zero_image)
     return next_idx, next_key, prev_key
 
@@ -204,7 +213,7 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     ``key_type`` keys.  The epsilon probes move an f64 key by the
     absolute f64::EPSILON (keys.minus_epsilon), as rmi_tpu's do
     (two_layer.py:300-322), not its image by 1."""
-    n, B = spans.n, spans.B
+    n = spans.n
     mleaf = get_model(leaf_type)
     if mleaf.output_int:
         max_err = int_sweep_leaf_max(leaf_in, yfix, spans, leaf_w, leaf_type=leaf_type)
@@ -212,9 +221,22 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
         max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix,
                                               spans.starts, spans.ends, leaf_w, n,
                                               leaf_type=leaf_type).long()
+    longest_run = sweep_kernel.span_run_max(keys, yfix, spans.starts,
+                                            spans.ends).long()
+    return final_errors(max_err, longest_run, spans, leaf_w, next_idx, next_key,
+                        prev_key, kminf, s, key_type, leaf_type=leaf_type)
 
+
+def final_errors(max_err, longest_run, spans: seg.Spans, leaf_w, next_idx, next_key,
+                 prev_key, kminf: float, s: float, key_type: KeyType, *,
+                 leaf_type: str):
+    """Stage C's tail, from the per-leaf maxima of the sweep [B] and of
+    the counted duplicate runs [B] (int64): the epsilon probes, the
+    per-leaf errors [B] int64 and error_metrics' [6] tensor."""
+    n, B = spans.n, spans.B
+    mleaf = get_model(leaf_type)
     # epsilon probes (two_layer.rs:226-259)
-    leaf_ids = torch.arange(B, device=keys.device)
+    leaf_ids = torch.arange(B, device=max_err.device)
 
     def probe(probe_keys):
         x = model_float_input(mleaf, probe_keys, kminf, s, key_type)
@@ -227,8 +249,6 @@ def sweep_body(keys, leaf_in, yfix, spans: seg.Spans, leaf_w, next_idx,
     pred_up = probe(keymod.minus_epsilon(next_key, key_type))
     pred_lo = probe(keymod.plus_epsilon(prev_key, key_type))
 
-    longest_run = sweep_kernel.span_run_max(keys, yfix, spans.starts,
-                                            spans.ends).long()
     upper_err = _error_between(pred_up, next_idx + 1, n)
     first_idx = next_idx[(leaf_ids - 1).clamp(min=0)]
     lower_err = _error_between(pred_lo, first_idx, n)

@@ -54,8 +54,14 @@ def sorted_starts(t: torch.Tensor, B: int) -> torch.Tensor:
 
 def make_spans(t: torch.Tensor, B: int) -> Spans:
     """Leaf spans of non-decreasing leaf ids t: starts[j] = #{i : t[i] < j}."""
-    n = t.shape[0]
-    starts = sorted_starts(t, B)
+    return spans_from_starts(t, sorted_starts(t, B), t.shape[0])
+
+
+def spans_from_starts(t: Optional[torch.Tensor], starts: torch.Tensor, n: int) -> Spans:
+    """The Spans of leaves starting at ``starts`` [B] (int64,
+    non-decreasing) over n keys, ``t`` their leaf ids (kept as given:
+    the data-parallel build passes a shard's)."""
+    B = starts.shape[0]
     ends = torch.cat([starts[1:], starts.new_full((1,), n)])
     nonempty = starts < ends
     has_prev = nonempty & (starts > 0)

@@ -1349,3 +1349,71 @@ def test_optimizer_on_the_card_against_the_cpu(dev, monkeypatch):
     assert t_opt.statistics(configs, sweep.parallel_measure_rmis(
         sweep.device_pool(card_data, [dev, dev]), configs)) == \
         t_opt.measure_rmis(card_data, configs)
+
+
+def _dp_rank_build(rank, keys, spec, B, device):
+    """One rank of a dp build over ``keys`` (numpy) on ``device``: its
+    outputs and the launches it counted."""
+    from rmi_tpu_torch.parallel import dp_trainer
+    data = rt.RMIDataset.from_numpy(keys, device=device)
+    keys_local, n = dp_trainer.local_shard(data.keys, data.key_type)
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    out = dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, *spec.split(","), B)
+    return out, dict(_build.launches)
+
+
+def test_dp_build_of_two_gloo_ranks_sharing_the_card(dev, tmp_path):
+    """dp_train_two_layer of cubic,linear by two gloo ranks that share the
+    card, at 2^20 keys, against the same build by two gloo ranks on the
+    CPU: both ranks return the same bits, the card's ranks launch K1, K2,
+    K3 and K4, and card and CPU agree within rmi_tpu's dp tolerance
+    (tests/test_parallel.py:52-63: leaf errors within 1 on at most B/20
+    leaves, leaf rows within rtol 1e-6 and atol 1e-8, avg_log2 within
+    1e-6 relative)."""
+    from rmi_tpu_torch.parallel import multihost
+    _build.library()                   # built here once; the ranks load it
+    spec, B = "cubic,linear", 1024
+    keys = rdata.books_like_on_device(1 << 20, 14, dev).cpu()
+    keys = tkeys.from_image(keys)
+    runs = {}
+    for device in ("cuda:0", "cpu"):
+        runs[device] = multihost.run_ranks(
+            _dp_rank_build, 2, f"file://{tmp_path}/{device.replace(':', '')}",
+            backend="gloo", device=device, args=(keys, spec, B, device), timeout=600)
+    for ranks in runs.values():
+        (a, _), (b, _) = ranks
+        for x, y in zip(a[:3], b[:3]):
+            np.testing.assert_array_equal(x, y)
+        assert a[3] == b[3]
+    launched = {e for rank in runs["cuda:0"] for e, c in rank[1].items() if c}
+    assert {"rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear",
+            "rmi_leaf_eval_linear"} <= launched
+    (card, _), (cpu, _) = runs["cuda:0"][0], runs["cpu"][0]
+    e1, e2 = card[2].astype(np.int64), cpu[2].astype(np.int64)
+    assert np.abs(e1 - e2).max() <= 1
+    assert (e1 != e2).sum() <= max(1, B // 20)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-6, atol=1e-8)
+    assert card[3]["model_avg_log2_error"] == pytest.approx(
+        cpu[3]["model_avg_log2_error"], rel=1e-6)
+
+
+def test_dp_build_of_one_nccl_rank(dev, tmp_path):
+    """The same build by one NCCL rank on the card, within rmi_tpu's dp
+    tolerance of train on the card."""
+    from rmi_tpu_torch.parallel import multihost
+    _build.library()
+    spec, B = "cubic,linear", 1024
+    keys_img = rdata.books_like_on_device(1 << 20, 14, dev)
+    (out, launches), = multihost.run_ranks(
+        _dp_rank_build, 1, f"file://{tmp_path}/nccl", backend="nccl", device="cuda:0",
+        args=(tkeys.from_image(keys_img), spec, B, "cuda:0"), timeout=600)
+    assert launches["rmi_aug_moments"] > 0
+    single = rt.train(rdata.RMIDataset(keys_img, KeyType.U64), spec, B)
+    e1, e2 = single.leaf_errors.cpu().numpy(), out[2].astype(np.int64)
+    assert np.abs(e1 - e2).max() <= 1
+    assert (e1 != e2).sum() <= max(1, B // 20)
+    np.testing.assert_allclose(out[1], single.device_leaf_params.cpu().numpy(),
+                               rtol=1e-6, atol=1e-8)
+    assert out[3]["model_avg_log2_error"] == pytest.approx(single.model_avg_log2_error,
+                                                           rel=1e-6)

@@ -39,6 +39,7 @@ from rmi_tpu.data import RMIDataset as JDataset
 import rmi_tpu_torch as rt
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast as lf
+from rmi_tpu_torch.lookup import SORT_SERVE_MIN, search_route
 from rmi_tpu_torch.ops import sorted_serve_kernel as ssk
 
 N = 1 << 16
@@ -264,6 +265,20 @@ def test_bounded_plan_serves_exactly():
                      (lf.fast_search_via_sort, q, want),
                      (rt.search_sorted, qs, np.sort(want))):
         np.testing.assert_array_equal(fn(rc, _img(x)).numpy(), w)
+
+
+def test_search_route_names_the_route_search_takes():
+    """search_route: the plan below SORT_SERVE_MIN queries, the sort from
+    there (2^16 keys are dense for any such batch), the bounded search when
+    other keys are given; lookup_fast.sorts' density gate at its edge."""
+    keys, _, rc = _indexes("books", "cubic,linear", 256)
+    plan = lf.get_plan(rc)
+    assert plan.kind in ("packed", "packed_wide")
+    assert search_route(rc, SORT_SERVE_MIN - 1) == plan.kind
+    assert search_route(rc, SORT_SERVE_MIN) == "sort"
+    assert search_route(rc, SORT_SERVE_MIN, keys=rc.keys) == "bounded"
+    edge = -(-3 * -(-keys.size // lf.STRIDE) // 4)      # least nq: 4 nq >= 3 ceil(n / 64)
+    assert not lf.sorts(plan, edge - 1) and lf.sorts(plan, edge)
 
 
 # ---------------------------------------------------------------------------
