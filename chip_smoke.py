@@ -16,9 +16,8 @@ Phases (any failure raises and exits non-zero):
      the keys made twice and the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys, whose
      lookup must launch K4's fused entry (rmi_lookup_<leaf>) and nothing
-     else (path 5, whose integer top has no fused form: K4's per-element
-     entry rmi_leaf_eval_<leaf> after the top in torch); lookup of the
-     random queries too, both replayed in phase 7;
+     else, an integer top's too (path 5, the zoo); lookup of the random
+     queries too, both replayed in phase 7;
   5. exact search against torch.searchsorted: search and search_sorted
      of the path, then search, search_sorted and fast_search on 2^16
      queries (the packed plan); the search rate;
@@ -49,11 +48,13 @@ Phases (any failure raises and exits non-zero):
  11. path 4, ``train(data, "cubic,normal", 65536)``, the same way,
      replaying K2's variance-only variant and K3 and K4 for normal leaves;
  11b. path 5, ``train(data, "radix18,linear", 65536)``, a 2^18-entry
-     hint-table top (plain torch, as rmi_tpu computes it in XLA) over
-     linear leaves, phases 3-6 and 8 for it and its lookup timed, its
-     kernels (K1, K2, K3 and K4 linear, the run-length pass, both K5
-     entries) replayed against their plain versions; their times stay
-     path 1's;
+     hint-table top over linear leaves, phases 3-6 and 8 for it, its
+     lookup one launch of rmi_lookup_linear with the top evaluated in the
+     kernel, timed beside the two-step route (the top in torch, then
+     rmi_leaf_eval_linear), its plain version and path 1's fused entry,
+     its kernels (K1, K2, K3 and K4 linear, the run-length pass, the fused
+     lookup, both K5 entries) replayed against their plain versions; the
+     kernels line keeps path 1's rows;
  11c. path 6, the compile path through the CLI (rmi_tpu_torch.cli.main,
      in a temporary directory deleted at the end), the launches counted
      from 0: the keys written to an SOSD file; 6a ``cubic,linear
@@ -78,9 +79,10 @@ Phases (any failure raises and exits non-zero):
      4096``, ``radix22,cubic 65536`` and ``cubic,radix8 4096``, the last
      with hint-table leaves, swept and served in plain torch) built once
      each on the same keys, with max_err, avg_log2 and the build time
-     logged, 0 bound violations on 2^22 sampled keys, 0 search
-     mismatches on 2^16 queries, K6 replayed for ``radix22,cubic``, and
-     each one's card-vs-CPU cross-check;
+     logged, 0 bound violations on 2^22 sampled keys, whose lookup must be
+     one launch of the fused entry (none for hint-table leaves), 0 search
+     mismatches on 2^16 queries, the fused lookup and K6 (for
+     ``radix22,cubic``) replayed, and each one's card-vs-CPU cross-check;
  11e. path 7, ``cubic,linear 262144`` on f64 keys: path 1's keys cast to
      f64 and scaled by 2^-32 (exactly; keys in [0, 2^30]), as images with
      a sign fix: phases 3-5 for it (cold and warm builds bit-equal, the
@@ -95,12 +97,18 @@ Phases (any failure raises and exits non-zero):
      key_is_float and the compiled C++ on 2^16 keys and 2^16 queries: 0
      bound violations, exact search); its kernels (K1, K2, K3 and K4
      linear, the run-length pass, rmi_lookup_linear, both K5 entries)
-     replayed; the card-vs-CPU cross-check at n = 2^20;
+     replayed; the card-vs-CPU cross-check at n = 2^20; then the zoo's
+     f64 row, ``radix18,linear 65536`` on the same keys (an integer top
+     on f64 keys: the hier plan), as a zoo row (11d), its lookup the fused
+     entry with the f64 key kind, its search through rmi_hier_resolve;
  11f. path 8, ``linear,linear 100`` on u32 keys (path 1's keys shifted
      right by 30, the books_200M_uint32 shape): phases 3-5 for it through
      the hierarchical plan (asserted; no K5), its search of 2^22 queries
-     timed against bounded_search on the same batch (median of 7 runs,
-     CUDA events, both exact), lookup timed, its kernels replayed, the
+     one fused lookup and one rmi_hier_resolve launch (asserted), timed
+     against bounded_search and torch.searchsorted on the same batch
+     (median of 7 runs, CUDA events, all exact), lookup timed,
+     rmi_hier_resolve timed beside its plain version and its library
+     call (its kernels-line row), its other kernels replayed, the
      card-vs-CPU cross-check;
  11g. path 9, the optimizer (optimizer_phase), the launches counted from
      0: one path-1 build under torch.cuda.set_sync_debug_mode("warn"),
@@ -187,7 +195,9 @@ the card could take for the call (bound_ms): the bytes its tensors hold,
 each input read once and each output written once (K5: the queries, the
 answers, and the 32-byte sectors of keys that decide each answer and
 each block's binary search over its stripes; the scatter entry adds its
-order), at 3.35 TB/s, or its operations at the
+order; the hier resolve: the queries, guesses, errors and answers, the
+sectors that decide each answer and the upper levels), at 3.35 TB/s, or
+its operations at the
 peak rate of their type, whichever is larger.
 The last line is the device JSON; the line before it lists the kernels,
 one row per C entry point.
@@ -295,6 +305,11 @@ PATH_KERNELS = [
      "rmi_tpu/ops/sorted_serve_kernel.py:88"),
     ("rmi_cubic_l1", cubic_l1_kernel, "cubic_l1_sums", "cubic_l1_sums_plain", None,
      "rmi_tpu_torch/csrc/cubic_l1.cu", "rmi_tpu/ops/select_kernel.py:30"),
+    # the hier plan's resolve: rmi_tpu runs it in XLA beside K4
+    # (_fast_search_df64), no Pallas call of its own; lookup_fast calls the
+    # wrapper by its module's name
+    ("rmi_hier_resolve", lookup_fast, "resolve", "resolve_plain", None,
+     "rmi_tpu_torch/csrc/hier.cu", "rmi_tpu/lookup_fast.py:396"),
 ]
 # then the card probes, driven by their own phase
 PROBE_KERNELS = [
@@ -326,13 +341,13 @@ PATH4 = ("cubic,normal", 65536,
           "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5),
          ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
           "rmi_lookup_normal"))
-# an integer (hint-table) top over linear leaves: lookup's two steps
-# launch K4's per-element entry
+# an integer (hint-table) top over linear leaves: lookup is one launch of
+# the fused entry, its top evaluated in the kernel (csrc/int_top.cuh)
 PATH5 = ("radix18,linear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", *K5),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", *K5))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
 # path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
 # cubic,linear_f64_262144 row); the fused lookup decodes f64 images
 PATH7 = ("cubic,linear", 262144,
@@ -342,18 +357,26 @@ PATH7 = ("cubic,linear", 262144,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
 # path 8: the reference's books-u32 CI config (FAMILIES_200M.json's
 # linear,linear_u32_100 row), whose ~2M-key leaves no packed plan covers:
-# the hierarchical plan, which never reaches K5
+# the hierarchical plan, which never reaches K5: one fused lookup and one
+# rmi_hier_resolve a batch
 PATH8 = ("linear,linear", 100,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear"),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve"),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear"))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve"))
 HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
-# the other integer-model rows of FAMILIES_200M.json, and the entry each
-# replays
-ZOO = [("radix,linear", 1024, ()), ("bradix,linear", 1024, ()),
-       ("histogram,linear", 4096, ()), ("radix22,cubic", 65536, ("rmi_cubic_l1",)),
+# the other integer-model rows of FAMILIES_200M.json, and the entries each
+# replays: an integer top's lookup is the fused entry; hint-table leaves
+# keep their torch step and launch none
+ZOO = [("radix,linear", 1024, ("rmi_lookup_linear",)),
+       ("bradix,linear", 1024, ("rmi_lookup_linear",)),
+       ("histogram,linear", 4096, ("rmi_lookup_linear",)),
+       ("radix22,cubic", 65536, ("rmi_cubic_l1", "rmi_lookup_cubic")),
        ("cubic,radix8", 4096, ())]
+# the zoo row on path 7's f64 keys: an integer top on f64 keys takes the
+# hier plan, so it drives the fused lookup and rmi_hier_resolve with the
+# f64 key kind
+ZOO_F64 = ("radix18,linear", 65536, ("rmi_lookup_linear", "rmi_hier_resolve"))
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (),
              ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
@@ -453,13 +476,25 @@ def spread(t):
 def plain_args(name, args, kw, where):
     """Arguments of the plain version on ``where`` (None: where they
     are); K1's plain version takes no fill, lookup's none of the kernel's
-    lookup table."""
+    lookup table or top operands, the resolve's none of the packed
+    levels."""
     def move(a):
         return a.to(where or a.device) if torch.is_tensor(a) else a
     args = [move(a) for a in args]
     kw = {k: move(v) for k, v in kw.items()
-          if (name, k) not in (("scan_i32", "fill"), ("lookup_clamped", "table"))}
+          if (name, k) not in (("scan_i32", "fill"), ("lookup_clamped", "table"),
+                               ("lookup_clamped", "top_args"), ("resolve", "packed"))}
     return args, kw
+
+
+def first_tensor(args):
+    """A wrapper call's first tensor argument (the resolve's first
+    argument is its list of levels, its queries the next)."""
+    return next(a for a in args if torch.is_tensor(a))
+
+
+def call_size(args):
+    return first_tensor(args).shape[0]
 
 
 def compare(name, got, want, args, kw):
@@ -522,27 +557,27 @@ def check_kernels(rec, launches, entries, timed=True):
             worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
         # time the largest call: kernel, plain version and library call
         # on the card, and its bound
-        args, kw = max(calls, key=lambda c: c[0][0].shape[0])
+        args, kw = max(calls, key=lambda c: call_size(c[0]))
         if name == "leaf_eval_clamped":
             lookups = [c for c in rec.calls["lookup_clamped"]
                        if get_model(c[1]["leaf_type"]).leaf_kernel
                        == get_model(kw["leaf_type"]).leaf_kernel]
             if lookups and not timed:
-                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: c[0][0].shape[0]))
+                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: call_size(c[0])))
                 worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
             elif lookups:
                 out = wrapper(*args, **kw)
                 log(f"kernel {entry} at {list(args[0].shape)} (the build's epsilon "
                     f"probes): {spread(row_ms(lambda: wrapper(*args, **kw), 10))}")
                 del out
-                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: c[0][0].shape[0]))
+                args, kw = lookup_leaf_call(*max(lookups, key=lambda c: call_size(c[0])))
                 worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
         if not timed:
             rows[entry] = {"max_abs_err": worst}
             log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
                 f"version (max abs err {worst})")
             continue
-        pa, pk = plain_args(name, args, kw, args[0].device)
+        pa, pk = plain_args(name, args, kw, first_tensor(args).device)
         out = wrapper(*args, **kw)
         ms = row_ms(lambda: wrapper(*args, **kw), 10)
         plain_ms = row_ms(lambda: plain(*pa, **pk), 3)
@@ -560,16 +595,26 @@ def check_kernels(rec, launches, entries, timed=True):
         log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
             f"version (max abs err {worst}); {spread(ms)} vs plain {spread(plain_ms)}, "
             f"library {library_ms and spread(library_ms)}, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {list(args[0].shape)}")
+            f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {call_size(args)}")
         if name == "lookup_clamped":
-            steps = row_ms(lambda: eval_kernel.lookup_steps(
-                *args, kw["top_type"], kw["leaf_type"], eval_kernel.leaf_eval_clamped,
-                kw.get("key_type", KeyType.U64)), 10)
-            log(f"lookup {kw['top_type']},{kw['leaf_type']} at {list(args[0].shape)}: "
+            def two_steps():
+                return eval_kernel.lookup_steps(
+                    *args, kw["top_type"], kw["leaf_type"], eval_kernel.leaf_eval_clamped,
+                    kw.get("key_type", KeyType.U64))
+            same_as_steps(entry, wrapper(*args, **kw), two_steps())
+            steps = row_ms(two_steps, 10)
+            log(f"lookup {kw['top_type']},{kw['leaf_type']} at {call_size(args)}: "
                 f"fused {spread(ms)}, two steps (torch top eval, then "
                 f"rmi_leaf_eval_*: the route before the fused entry) {spread(steps)}, "
                 f"plain {spread(plain_ms)}; bound {bound_ms:.4f} ms")
     return rows
+
+
+def same_as_steps(entry, fused, steps):
+    """The fused lookup's (guess, err) against its two steps' on the card
+    (the top in torch, the leaf in rmi_leaf_eval_*), bit for bit."""
+    if not (torch.equal(fused[0], steps[0]) and torch.equal(fused[1], steps[1])):
+        raise RuntimeError(f"{entry}: the fused lookup disagrees with its two steps")
 
 
 def replay(entry, name, wrapper, plain, where, args, kw):
@@ -603,6 +648,8 @@ def _nbytes(*tensors):
 
 # f64 operations per element of each leaf kernel (a division counted as one)
 LEAF_OPS = {"linear": 2, "cubic": 6, "loglinear": 10, "normal": 14}
+# integer operations of radix, bradix or a hint table's bucket, per key
+INT_TOP_OPS = 10
 
 
 def work(name, args, kw, out):
@@ -620,16 +667,37 @@ def work(name, args, kw, out):
         return (_nbytes(*args, kw.get("weights"), *outs), int((hi - lo).sum()) * per,
                 F64_OPS_PER_S)
     if name == "lookup_clamped":
-        # the keys, the top row, each leaf's row and error read once (not
-        # the lookup table's padding: what the function needs, not what
-        # the kernel reads), guess and err written once; per query the
-        # key's conversion and normalization (5), both models and their
-        # floors and clamps (8)
+        # the keys, the top's operands (an affine top's row; an integer
+        # top's packed parameters and its hint table or pivots), each
+        # leaf's row and error read once (not the lookup table's padding:
+        # what the function needs, not what the kernel reads), guess and
+        # err written once; per query the key's conversion and
+        # normalization (5), both models and their floors and clamps (8);
+        # an integer top's shifts and compares counted at the f64 rate
+        # (the int32 lanes' is within 2% of it)
         q, top_w, leaf_w, leaf_errors = args[:4]
-        per = 13 + sum(LEAF_OPS[get_model(kw[k]).leaf_kernel]
-                       for k in ("top_type", "leaf_type"))
-        return (_nbytes(q, top_w, leaf_w, leaf_errors, *outs), q.shape[0] * per,
+        top = kw["top_type"]
+        top_ops = eval_kernel.top_operands(top, top_w, q.device)
+        kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(top)]
+        per = 13 + LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + (
+            LEAF_OPS[kind] if kind in LEAF_OPS else
+            3 * max(1, top_ops[4]).bit_length() if kind == "histogram" else INT_TOP_OPS)
+        return (_nbytes(q, *top_ops[:4], leaf_w, leaf_errors, *outs), q.shape[0] * per,
                 F64_OPS_PER_S)
+    if name == "resolve":
+        # what the answers need, not what the kernel reads (a 128-key row
+        # a level): each query, guess, error and answer once, the sectors
+        # of level 0 that hold keys[lb - 1] and keys[lb], each once, and
+        # levels 1..K once; per query and level a binary search of its
+        # 128-entry row (int64 compares, ~3 ops each)
+        levels, q, guess, err = args
+        keys = levels[0]
+        n = keys.shape[0]
+        near = torch.cat([(out - 1).clamp(0, n - 1), out.clamp(0, n - 1)])
+        sectors = torch.unique(near // (SECTOR_BYTES // keys.element_size())).numel()
+        nbytes = _nbytes(q, guess, err, out, *levels[1:]) + SECTOR_BYTES * sectors
+        steps = (kw["K"] + 1) * math.log2(lookup_fast.WIDTH)
+        return nbytes, q.shape[0] * steps * 3, INT_OPS_PER_S
     if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         per = LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + 4   # floor, clamps
         # K3: xn, yfix, the span bounds and the rows; K4: x, the rows, the leaf ids
@@ -670,6 +738,8 @@ def library_call(name, args, kw):
             (lambda: torch.cummin(args[0], 0))
     if name == "serve_sorted":
         return lambda: torch.searchsorted(args[2], args[0])
+    if name == "resolve":            # the same lower bounds, from the keys alone
+        return lambda: torch.searchsorted(args[0][0], args[1])
     return None         # the scatter entry: no one call both searches and scatters
 
 
@@ -988,6 +1058,14 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=Fa
         raise RuntimeError(f"{spec}: card build and CPU build disagree beyond tolerance")
 
 
+def launched(fn):
+    """(fn()'s result, {entry: launches} of the C entries fn launched)."""
+    before = dict(_build.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+
+
 def drive(path, data, queries, gen):
     """Phases 3-5 of one path: cold and warm builds with the launches
     counted from 0 and every call of a kernel wrapper recorded, the bound
@@ -1008,9 +1086,7 @@ def drive(path, data, queries, gen):
     warm_rmi = rmi_tpu_torch.train(data, spec, B)
     warm = time.perf_counter() - t0
     with rec:
-        before = dict(_build.launches)
-        viol = bound_violations(rmi, keys, nq, gen)
-        by_lookup = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+        viol, by_lookup = launched(lambda: bound_violations(rmi, keys, nq, gen))
         lookup(rmi, queries)         # replayed with the sampled keys' lookup
         idx = search(rmi, queries)
         idx_sorted = search_sorted(rmi, queries_sorted)
@@ -1057,37 +1133,69 @@ def drive(path, data, queries, gen):
     return rmi, rec, launches
 
 
-def zoo_phase(data, gen, nq, cross_n, seed, dev):
-    """The ZOO rows on the main path's keys: one build each (the kernels
-    long built), its metrics and build time, the bound on nq sampled keys,
-    search on 2^16 queries, the kernels it replays, then its card-vs-CPU
+def zoo_row(data, row, gen, nq, cross_n, seed, dev):
+    """One zoo row on ``data``'s keys: one build (the kernels long built),
+    its metrics and build time, the bound on nq sampled keys, whose lookup
+    must launch the fused entry once where eval_kernel.fused_lookup holds
+    and nothing else, search on 2^16 queries (for a hier plan through
+    rmi_hier_resolve), the fused lookup of nq sampled keys timed beside
+    the two-step route, the entries it replays, then its card-vs-CPU
     cross-check.  max_err near n is the models' own (rmi_tpu finds it on
     the TPU too), not a failure."""
+    spec, B, replayed = row
     keys = data.keys
     n = keys.shape[0]
-    for i, (spec, B, replayed) in enumerate(ZOO):
-        torch.cuda.synchronize()
-        with Recorder() as rec:
-            t0 = time.perf_counter()
-            rmi = rmi_tpu_torch.train(data, spec, B)
-            secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with Recorder() as rec:
+        t0 = time.perf_counter()
+        rmi = rmi_tpu_torch.train(data, spec, B)
+        secs = time.perf_counter() - t0
         plan = lookup_fast.get_plan(rmi)
-        log(f"zoo {spec} {B}: build {secs:.4f} s; model_max_error {rmi.model_max_error} "
-            f"at leaf {rmi.model_max_error_idx}, RMI_SIZE {rmi_size(rmi)}, "
-            f"model_avg_log2_error "
+        log(f"zoo {spec} {B} ({data.key_type.value} keys): build {secs:.4f} s; "
+            f"model_max_error {rmi.model_max_error} at leaf {rmi.model_max_error_idx}, "
+            f"RMI_SIZE {rmi_size(rmi)}, model_avg_log2_error "
             f"{rmi.model_avg_log2_error!r}; plan {plan.kind} S={plan.S} F={plan.F}")
         if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
             raise RuntimeError(f"{spec}: build produced malformed metrics")
-        viol = bound_violations(rmi, keys, nq, gen)
-        log(f"zoo {spec} bound check: {viol} violations on {nq} sampled keys")
+        viol, by_lookup = launched(lambda: bound_violations(rmi, keys, nq, gen))
+        kernel = get_model(rmi.leaf_type).leaf_kernel
+        want = ({f"rmi_lookup_{kernel}": 1} if eval_kernel.fused_lookup(rmi.top_type,
+                                                                         rmi.leaf_type)
+                else {})
+        log(f"zoo {spec} bound check: {viol} violations on {nq} sampled keys; lookup "
+            f"launches {json.dumps(by_lookup)}")
         if viol:
             raise RuntimeError(f"{spec}: bound |guess - lb| <= err violated")
-        check_search(rmi, keys, gen)
-        del rmi
-        check_kernels(rec, {}, replayed, timed=False)
-        del rec
-        torch.cuda.empty_cache()
-        cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed + i, dev)
+        if by_lookup != want:
+            raise RuntimeError(f"{spec}: lookup launched {by_lookup}, not {want}")
+        _, by_search = launched(lambda: check_search(rmi, keys, gen))
+        if plan.kind == "hier" and by_search.get("rmi_hier_resolve", 0) <= 0:
+            raise RuntimeError(f"{spec}: the hier plan's search launched {by_search}")
+    if want:         # the fused lookup's time beside the two-step route
+        sample = keys[torch.randint(0, n, (nq,), generator=gen, device=keys.device)]
+        def two_steps():
+            return eval_kernel.lookup_steps(
+                sample, rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors,
+                rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale, rmi.top_type,
+                rmi.leaf_type, eval_kernel.leaf_eval_clamped, rmi.key_type)
+        same_as_steps(f"zoo {spec}", lookup(rmi, sample), two_steps())
+        fused = row_ms(lambda: lookup(rmi, sample), 10)
+        steps = row_ms(two_steps, 10)
+        log(f"zoo {spec} lookup of {nq} sampled keys: fused {spread(fused)}, two steps "
+            f"{spread(steps)}")
+        del sample
+    del rmi
+    check_kernels(rec, {}, replayed, timed=False)
+    del rec
+    torch.cuda.empty_cache()
+    cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
+                key_type=data.key_type)
+
+
+def zoo_phase(data, gen, nq, cross_n, seed, dev):
+    """The ZOO rows on the main path's keys (zoo_row)."""
+    for i, row in enumerate(ZOO):
+        zoo_row(data, row, gen, nq, cross_n, seed + i, dev)
 
 
 # path 6: the compile path through the CLI on the paths' keys
@@ -1468,8 +1576,9 @@ def path7_phase(u_keys, gen, nq, cross_n, seed, dev, p1_rows):
     file (cli_path: RMI_SIZE, the card build's metrics, ``double`` keys,
     load_artifact, the native server with key_is_float and the compiled
     C++), the kernels replayed against their plain versions, and the
-    card-vs-CPU cross-check.  Returns the path's launches: drive's and the
-    CLI's, each counted from 0."""
+    card-vs-CPU cross-check, then the zoo's f64 row (ZOO_F64, zoo_row) on
+    the same keys.  Returns the path's launches: drive's and the CLI's,
+    each counted from 0."""
     spec, B, _, replayed = PATH7
     t0 = time.perf_counter()
     data = rdata.RMIDataset(typed_keys(u_keys, KeyType.F64), KeyType.F64)
@@ -1513,7 +1622,11 @@ def path7_phase(u_keys, gen, nq, cross_n, seed, dev, p1_rows):
     log(f"path 7 cli launches: {json.dumps(cli_counts)}")
     del ref, queries
     check_kernels(rec, counts, replayed, timed=False)
-    del rec, data
+    del rec
+    torch.cuda.empty_cache()
+    # the zoo's f64 row on the same keys: the hier plan
+    zoo_row(data, ZOO_F64, gen, nq, cross_n, seed + 1, dev)
+    del data
     torch.cuda.empty_cache()
     cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
                 key_type=KeyType.F64)
@@ -1530,11 +1643,14 @@ def median_ms(fn, runs=HIER_RUNS):
 def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
     """Path 8: ``linear,linear 100`` on path 1's keys as u32 keys
     (typed_keys), at ~2M keys a leaf (fewer leaves for a shorter --n):
-    phases 3-5 (drive), the hierarchical plan, its search
-    timed against bounded_search on the same batch (both exact), lookup
-    timed, the kernels replayed, and the card-vs-CPU cross-check.
-    Returns drive's launches."""
-    spec, B, launched, replayed = PATH8
+    phases 3-5 (drive), the hierarchical plan, whose search must launch
+    one fused lookup and one rmi_hier_resolve, timed against
+    bounded_search and torch.searchsorted on the same batch (median of
+    HIER_RUNS, all exact), lookup timed, rmi_hier_resolve timed beside its
+    plain version and its library call, the other kernels replayed, and
+    the card-vs-CPU cross-check.  Returns drive's launches and the
+    resolve's kernels row."""
+    spec, B, launched_entries, replayed = PATH8
     t0 = time.perf_counter()
     data = rdata.RMIDataset(typed_keys(u_keys, KeyType.U32), KeyType.U32)
     keys = data.keys
@@ -1546,31 +1662,44 @@ def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
     dups = int((keys[1:] == keys[:-1]).sum())
     log(f"path 8 keys: {n} u32 keys ({dups} equal to the key before) made on the card "
         f"in {time.perf_counter() - t0:.2f} s")
-    rmi, rec, counts = drive((spec, B, launched, replayed), data, queries, gen)
+    rmi, rec, counts = drive((spec, B, launched_entries, replayed), data, queries, gen)
     plan = lookup_fast.get_plan(rmi)
     log(f"path 8 plan {plan.kind}: K={plan.K}, levels "
         f"{[lv.shape[0] for lv in plan.levels or []]}, max_err {rmi.model_max_error}")
     if plan.kind != "hier":
         raise RuntimeError(f"path 8: plan {plan.kind}, not the hierarchical plan")
+    got, by_search = launched(lambda: lookup_fast.fast_search(rmi, queries))
+    log(f"path 8 hier search launches: {json.dumps(by_search)}")
+    if by_search != {"rmi_lookup_linear": 1, "rmi_hier_resolve": 1}:
+        raise RuntimeError(f"path 8: the hier search launched {by_search}, not one "
+                           f"fused lookup and one rmi_hier_resolve")
     hier = median_ms(lambda: lookup_fast.fast_search(rmi, queries))
     bounded = median_ms(lambda: bounded_search(rmi, queries))
-    mism = (mismatches(keys, queries, lookup_fast.fast_search(rmi, queries)),
+    library = median_ms(lambda: torch.searchsorted(keys, queries))
+    mism = (mismatches(keys, queries, got),
             mismatches(keys, queries, bounded_search(rmi, queries)))
+    del got
     look = row_ms(lambda: lookup(rmi, queries), 10)
     log(f"path 8 search of {nq} queries, median of {HIER_RUNS} (CUDA events): hier "
         f"{hier[0]:.4f} ms {[round(x, 4) for x in hier[1]]}, bounded_search "
-        f"{bounded[0]:.4f} ms {[round(x, 4) for x in bounded[1]]}; mismatches {mism}; "
+        f"{bounded[0]:.4f} ms {[round(x, 4) for x in bounded[1]]}, torch.searchsorted "
+        f"{library[0]:.4f} ms {[round(x, 4) for x in library[1]]}; mismatches {mism}; "
         f"lookup {spread(look)}")
+    log("path 8 search " + json.dumps({"hier_ms": hier[0], "bounded_ms": bounded[0],
+                                       "searchsorted_ms": library[0], "lookup_ms": look[0],
+                                       "mismatches": list(mism)}))
     if any(mism):
         raise RuntimeError("path 8: hier or bounded search disagrees with "
                            "torch.searchsorted")
     del rmi
-    check_kernels(rec, counts, replayed, timed=False)
+    rows = check_kernels(rec, counts, ("rmi_hier_resolve",))
+    check_kernels(rec, counts, tuple(e for e in replayed if e != "rmi_hier_resolve"),
+                  timed=False)
     del rec, data, queries
     torch.cuda.empty_cache()
     cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
                 key_type=KeyType.U32)
-    return counts
+    return counts, rows
 
 
 # path 9: the optimizer.  9a is the reference's max_size_wiki CI config
@@ -2636,13 +2765,17 @@ def main():
         torch.cuda.empty_cache()
         cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev)
 
-    # 11b. path 5: an integer top; its kernels replayed, their rows path 1's
+    # 11b. path 5: an integer top; its fused lookup timed beside the two
+    # steps and path 1's, its kernels replayed, their rows path 1's
     rmi, rec, counts = drive(PATH5, data, queries, gen)
     serving_curve(rmi, keys, gen)
-    steps = row_ms(lambda: lookup(rmi, queries), 10)
-    log(f"lookup {PATH5[0]} at {list(queries.shape)}: two steps (torch top eval, then "
-        f"rmi_leaf_eval_linear) {spread(steps)}")
     del rmi
+    p5 = check_kernels(rec, counts, ("rmi_lookup_linear",))["rmi_lookup_linear"]
+    p1_row = rows["rmi_lookup_linear"]
+    log(f"path 5 lookup {PATH5[0]} at {nq} keys: fused {p5['ms']:.4f} ms (bound "
+        f"{p5['bound_ms']:.4f}), plain {p5['plain_ms']:.4f} ms; path 1's fused "
+        f"{p1_row['ms']:.4f} ms (bound {p1_row['bound_ms']:.4f})")
+    log("path 5 lookup " + json.dumps(p5))
     check_kernels(rec, counts, PATH5[3], timed=False)
     launches = {e: launches[e] + counts[e] for e in launches}
     del rec
@@ -2664,7 +2797,8 @@ def main():
     counts = path7_phase(keys, gen, nq, cross_n, args.seed + 9, dev, rows)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
-    counts = path8_phase(keys, gen, nq, cross_n, args.seed + 10, dev)
+    counts, p8_rows = path8_phase(keys, gen, nq, cross_n, args.seed + 10, dev)
+    rows.update(p8_rows)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
 

@@ -57,20 +57,24 @@ RMI_ENTRY(rmi_leaf_eval_loglinear, (const double* x, const double* w,
 RMI_ENTRY(rmi_leaf_eval_normal, (const double* x, const double* w, const int64_t* leaf,
                                  int32_t* out, int64_t m, int64_t bound, void* stream))
 RMI_ENTRY(rmi_lookup_linear, (const int64_t* keys, int64_t key_kind, const double* top_w,
-                              int64_t top_kind, const double* rows, int64_t* guess,
-                              int64_t* err, int64_t m, int64_t B, int64_t n,
+                              int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
+                              const int64_t* pivots, int64_t top_len, const double* rows,
+                              int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
                               double offset, double scale, void* stream))
 RMI_ENTRY(rmi_lookup_cubic, (const int64_t* keys, int64_t key_kind, const double* top_w,
-                             int64_t top_kind, const double* rows, int64_t* guess,
-                             int64_t* err, int64_t m, int64_t B, int64_t n, double offset,
-                             double scale, void* stream))
-RMI_ENTRY(rmi_lookup_loglinear, (const int64_t* keys, int64_t key_kind,
-                                 const double* top_w, int64_t top_kind, const double* rows,
-                                 int64_t* guess, int64_t* err, int64_t m, int64_t B,
-                                 int64_t n, double offset, double scale, void* stream))
+                             int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
+                             const int64_t* pivots, int64_t top_len, const double* rows,
+                             int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
+                             double offset, double scale, void* stream))
+RMI_ENTRY(rmi_lookup_loglinear, (const int64_t* keys, int64_t key_kind, const double* top_w,
+                                 int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
+                                 const int64_t* pivots, int64_t top_len, const double* rows,
+                                 int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
+                                 double offset, double scale, void* stream))
 RMI_ENTRY(rmi_lookup_normal, (const int64_t* keys, int64_t key_kind, const double* top_w,
-                              int64_t top_kind, const double* rows, int64_t* guess,
-                              int64_t* err, int64_t m, int64_t B, int64_t n,
+                              int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
+                              const int64_t* pivots, int64_t top_len, const double* rows,
+                              int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
                               double offset, double scale, void* stream))
 // K6 (csrc/cubic_l1.cu)
 RMI_ENTRY(rmi_cubic_l1, (const double* x, const int32_t* y, const double* cubic_w,
@@ -87,6 +91,11 @@ RMI_ENTRY(rmi_serve_sorted_scatter, (const int64_t* q, const int64_t* order, int
                                      const int64_t* keys, int64_t n, const int64_t* lo_b,
                                      const int64_t* hi_b, int64_t kq, int64_t group,
                                      int64_t* out, void* stream))
+// the hierarchical plan's resolve (csrc/hier.cu)
+RMI_ENTRY(rmi_hier_resolve, (const int64_t* queries, const int64_t* guess, const int64_t* err,
+                             const int64_t* keys, int64_t n0, const int64_t* upper,
+                             const int64_t* index, int64_t K, int64_t* out, int64_t m,
+                             int64_t n, void* stream))
 // the card probes (csrc/probes.cu)
 RMI_ENTRY(rmi_probe_scale2, (const float* x, float* out, int64_t n, void* stream))
 RMI_ENTRY(rmi_probe_lt_i64, (const int64_t* x, const int64_t* q, int32_t* out, int64_t n,

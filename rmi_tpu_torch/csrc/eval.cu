@@ -6,18 +6,21 @@
 //                     one element per leaf) and lookup's leaf step where
 //                     the leaves are lognormal (x = max(ln x, 0)).
 //   rmi_lookup_*      lookup(key, &err) whole: from the int64 key image,
-//                     the normalized key, the top's leaf (its prediction
-//                     clamped to [0, B - 1]), the leaf's prediction
-//                     clamped to [0, n - 1] and the leaf's error, for
-//                     every affine top and leaf (all but lognormal).
+//                     the top's leaf (its prediction clamped to
+//                     [0, B - 1]), the leaf's prediction on the normalized
+//                     key clamped to [0, n - 1] and the leaf's error, for
+//                     every top but lognormal (the affine ones and the
+//                     integer-output ones) over every affine leaf.
 //
 // Replaces rmi_tpu/ops/eval_kernel.py:_eval_kernel (leaf_eval_clamped),
 // which takes parameter columns that XLA gathered beforehand and
-// evaluates them in float-float.  Here the row gather, the evaluation
-// and the clamp are one pass, and in rmi_lookup_* the key conversion and
-// the top's evaluation too: the eight elementwise passes of as_float, the
-// normalization, the top's FMAs and predict_clamped no longer write [m]
-// tensors between them.
+// evaluates them in float-float; rmi_tpu's lookup is one jax.jit program
+// around it (rmi_tpu/lookup.py:39-63, _rmi_eval; the df64 form
+// _rmi_eval_df64 :162-190).  Here the row gather, the evaluation and the
+// clamp are one pass, and in rmi_lookup_* the key conversion and the
+// top's evaluation too: the eight elementwise passes of as_float, the
+// normalization, the top's FMAs and predict_clamped, or an integer top's
+// ~25 torch launches, no longer write [m] tensors between them.
 //
 // Bound on the H100: device memory, at 24 bytes a lookup (an 8-byte key
 // in, an 8-byte guess and error out) and 20 an element of the per-element
@@ -44,7 +47,17 @@
 // the same arithmetic one at a time.  The top kind is a kernel argument:
 // the branch on it is the same in every thread.  The key kind is a
 // template parameter, so the u64 instantiation is the decode it always
-// was and the f64 one adds no branch.
+// was and the f64 one adds no branch; so is whether the top is an
+// integer one, so the affine tops' kernels carry no integer branch.
+//
+// An integer-output top (int_top.cuh) reads the key's u64 bits, of an
+// f64 key keys.as_int of its value, while the leaf reads the normalized
+// key: the kernel decodes each key both ways.  Its parameters come packed
+// in one small int64 tensor, beside a hint table's int32 entries or a
+// histogram's pivots, which every thread reads where they lie, through
+// L2 (a radix18 table is 1 MB; the histogram's pivots 8 B a leaf, read
+// by halving steps, log2 of their count a key).  The bound adds the
+// table or the pivots once a call.
 //
 // Every value keeps the bits of the plain PyTorch chain: the key image
 // converts as keys.as_float does (of a u64 key hi * 2^32 is exact, one
@@ -55,7 +68,10 @@
 // (sweep.cu) measured the bounds with, and the clamps rmi_clamp_floor.
 // The top's row is row 0 of its own table: every affine top model's
 // prediction is its leaf kernel's (tests/test_torch_lookup_kernel.py).
+// The integer tops are the torch code of models/radix.py and
+// models/histogram.py, bit for bit (int_top.cuh).
 #include "common.cuh"
+#include "int_top.cuh"
 #include "leaf_eval.cuh"
 
 namespace {
@@ -113,17 +129,32 @@ __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
 // low 63 bits complemented (keys.f64_image)
 enum class RmiKey : int64_t { kU64 = 0, kF64 = 1 };
 
-// keys.as_float then two_layer.normalize, on one int64 key image
+// keys.as_float of one int64 key image
 template <RmiKey K>
-__device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
-  double f;
+__device__ __forceinline__ double decoded(int64_t image) {
   if constexpr (K == RmiKey::kF64) {
-    f = __longlong_as_double(image < 0 ? image ^ 0x7fffffffffffffffll : image);
+    return __longlong_as_double(image < 0 ? image ^ 0x7fffffffffffffffll : image);
   } else {
     const uint64_t u = (uint64_t)image ^ 0x8000000000000000ull;
-    f = (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
+    return (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
   }
-  return (f - offset) * scale;
+}
+
+// keys.as_float then two_layer.normalize
+template <RmiKey K>
+__device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
+  return (decoded<K>(image) - offset) * scale;
+}
+
+// keys.as_int: the u64 bits the integer models read (an integer key's
+// own, an f64 key's value clipped and truncated)
+template <RmiKey K>
+__device__ __forceinline__ uint64_t int_bits(int64_t image) {
+  if constexpr (K == RmiKey::kF64) {
+    return rmi_as_int(decoded<K>(image));
+  } else {
+    return (uint64_t)image ^ 0x8000000000000000ull;
+  }
 }
 
 // The scalar ends and the 16-byte pairs between them.  Elements [0, head)
@@ -187,20 +218,26 @@ leaf_eval(const LeafEvalOp<L> op, int64_t m) {
 
 // --- lookup --------------------------------------------------------------------
 
-template <RmiLeaf L, RmiKey KK>
+// kInt: the top is an integer-output one (RmiIntTop), which gets its own
+// instantiation, so that the affine tops' kernels are the code they were
+// (the integer branch in the same body cost them registers and a stack
+// frame)
+template <RmiLeaf L, RmiKey KK, bool kInt>
 struct LookupOp {
   static constexpr int kW = lookup_width(L);
   static constexpr int kS = kW / 4;        // 32-byte sectors a lookup row
 
   const int64_t* keys;
-  const double* top_w;    // [1, width]: the top's row
+  const double* top_w;    // [1, width]: an affine top's row
+  RmiIntTopEval int_top;  // an integer top
   const double* rows;     // [B, kW]: row and error of each leaf
   int64_t* guess;
   int64_t* err;
   double offset, scale;
   double top_bound;       // B - 1
   double guess_bound;     // n - 1
-  RmiLeaf top;            // the top's leaf kernel, whose rmi_leaf evaluates it
+  int64_t top;            // the top kind: an affine top's leaf kernel (RmiLeaf),
+                          // whose rmi_leaf evaluates it, or an RmiIntTop
   int head;
 
   // the leaves of K normalized keys under a top of kind T
@@ -212,13 +249,20 @@ struct LookupOp {
     for (int k = 0; k < K; ++k) leaf[k] = rmi_clamp_floor(rmi_leaf<T>(r, 0, x[k]), top_bound);
   }
 
+  // the leaves of K keys, their images and normalized values
   template <int K>
-  __device__ __forceinline__ void leaves(const double (&x)[K], int64_t (&leaf)[K]) const {
-    switch (top) {
-      case RmiLeaf::kCubic: leaves_of<RmiLeaf::kCubic>(x, leaf); break;
-      case RmiLeaf::kLoglinear: leaves_of<RmiLeaf::kLoglinear>(x, leaf); break;
-      case RmiLeaf::kNormal: leaves_of<RmiLeaf::kNormal>(x, leaf); break;
-      default: leaves_of<RmiLeaf::kLinear>(x, leaf); break;
+  __device__ __forceinline__ void leaves(const int64_t (&image)[K], const double (&x)[K],
+                                         int64_t (&leaf)[K]) const {
+    if constexpr (kInt) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) leaf[k] = int_top.leaf(int_bits<KK>(image[k]));
+    } else {
+      switch (top) {
+        case (int64_t)RmiLeaf::kCubic: leaves_of<RmiLeaf::kCubic>(x, leaf); break;
+        case (int64_t)RmiLeaf::kLoglinear: leaves_of<RmiLeaf::kLoglinear>(x, leaf); break;
+        case (int64_t)RmiLeaf::kNormal: leaves_of<RmiLeaf::kNormal>(x, leaf); break;
+        default: leaves_of<RmiLeaf::kLinear>(x, leaf); break;
+      }
     }
   }
 
@@ -234,9 +278,10 @@ struct LookupOp {
   }
 
   __device__ __forceinline__ void one(int64_t i) const {
-    const double x[1] = {normalized<KK>(__ldg(keys + i), offset, scale)};
+    const int64_t image[1] = {__ldg(keys + i)};
+    const double x[1] = {normalized<KK>(image[0], offset, scale)};
     int64_t leaf[1];
-    leaves(x, leaf);
+    leaves(image, x, leaf);
     LookupRow<L> r[1];
     load_f64<kW>(rows + kW * leaf[0], r[0]);
     int64_t g[1], e[1];
@@ -289,10 +334,11 @@ struct LookupOp {
     const bool ok = p < npairs;
     const longlong2 v = ok ? __ldg(reinterpret_cast<const longlong2*>(keys + head) + p)
                            : make_longlong2(0, 0);
+    const int64_t image[2] = {v.x, v.y};
     const double x[2] = {normalized<KK>(v.x, offset, scale),
                          normalized<KK>(v.y, offset, scale)};
     int64_t leaf[2];
-    leaves(x, leaf);
+    leaves(image, x, leaf);
     LookupRow<L> r[2];
     load_rows(leaf, r);
     int64_t g[2], e[2];
@@ -304,9 +350,9 @@ struct LookupOp {
   }
 };
 
-template <RmiLeaf L, RmiKey KK>
+template <RmiLeaf L, RmiKey KK, bool kInt>
 __global__ void __launch_bounds__(kThreads)
-lookup(const LookupOp<L, KK> op, int64_t m) {
+lookup(const LookupOp<L, KK, kInt> op, int64_t m) {
   walk(op, m, op.head);
 }
 
@@ -333,22 +379,60 @@ int launch_leaf_eval(const double* x, const double* w, const int64_t* leaf,
   return (int)cudaGetLastError();
 }
 
-template <RmiLeaf L, RmiKey KK>
+template <RmiLeaf L, RmiKey KK, bool kInt>
 void start_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
-                  const double* rows, int64_t* guess, int64_t* err, int64_t m,
-                  int64_t B, int64_t n, double offset, double scale, int head,
-                  void* stream) {
-  const LookupOp<L, KK> op{keys, top_w, rows, guess, err, offset, scale, (double)(B - 1),
-                           (double)(n - 1), (RmiLeaf)top_kind, head};
-  lookup<L, KK><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
+                  const RmiIntTopEval& int_top, const double* rows, int64_t* guess,
+                  int64_t* err, int64_t m, int64_t B, int64_t n, double offset,
+                  double scale, int head, void* stream) {
+  const LookupOp<L, KK, kInt> op{keys, top_w, int_top, rows, guess, err, offset, scale,
+                                 (double)(B - 1), (double)(n - 1), top_kind, head};
+  lookup<L, KK, kInt><<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(op, m);
+}
+
+template <RmiLeaf L, RmiKey KK>
+void start_lookup_of(bool int_top_kind, const int64_t* keys, const double* top_w,
+                  int64_t top_kind, const RmiIntTopEval& int_top, const double* rows,
+                  int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
+                  double offset, double scale, int head, void* stream) {
+  if (int_top_kind) {
+    start_lookup<L, KK, true>(keys, top_w, top_kind, int_top, rows, guess, err, m, B, n,
+                              offset, scale, head, stream);
+  } else {
+    start_lookup<L, KK, false>(keys, top_w, top_kind, int_top, rows, guess, err, m, B, n,
+                               offset, scale, head, stream);
+  }
+}
+
+// the largest power of two <= len, 0 for len 0
+inline int64_t top_step(int64_t len) {
+  int64_t step = len > 0 ? 1 : 0;
+  while (step > 0 && step <= len / 2) step <<= 1;
+  return step;
+}
+
+// Are an integer top's operands there: the packed parameters of radix,
+// bradix and the hint tables, a hint table's entries, a histogram's
+// pivots (or none)?
+inline bool int_top_ok(const RmiIntTopEval& t) {
+  switch (t.kind) {
+    case (int64_t)RmiIntTop::kRadix:
+    case (int64_t)RmiIntTop::kBradix: return t.p != nullptr;
+    case (int64_t)RmiIntTop::kTable: return t.p != nullptr && t.table != nullptr && t.len >= 1;
+    case (int64_t)RmiIntTop::kHistogram: return t.len >= 0 && (t.len == 0 || t.pivots);
+    default: return false;
+  }
 }
 
 template <RmiLeaf L>
 int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
-                  int64_t top_kind, const double* rows, int64_t* guess, int64_t* err,
-                  int64_t m, int64_t B, int64_t n, double offset, double scale,
-                  void* stream) {
-  if (top_kind < 0 || top_kind > (int64_t)RmiLeaf::kNormal || B < 1 || n < 1 ||
+                  int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
+                  const int64_t* pivots, int64_t top_len, const double* rows,
+                  int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
+                  double offset, double scale, void* stream) {
+  const RmiIntTopEval int_top{top_kind, top_int, top_table, pivots, top_len,
+                              top_step(top_len), (uint64_t)(B - 1)};
+  const bool affine = top_kind >= 0 && top_kind <= (int64_t)RmiLeaf::kNormal;
+  if ((affine ? top_w == nullptr : !int_top_ok(int_top)) || B < 1 || n < 1 ||
       (key_kind != (int64_t)RmiKey::kU64 && key_kind != (int64_t)RmiKey::kF64)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -360,11 +444,11 @@ int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
     return (int)cudaErrorMisalignedAddress;
   }
   if (m > 0 && key_kind == (int64_t)RmiKey::kF64) {
-    start_lookup<L, RmiKey::kF64>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset,
-                                  scale, head, stream);
+    start_lookup_of<L, RmiKey::kF64>(!affine, keys, top_w, top_kind, int_top, rows, guess,
+                                     err, m, B, n, offset, scale, head, stream);
   } else if (m > 0) {
-    start_lookup<L, RmiKey::kU64>(keys, top_w, top_kind, rows, guess, err, m, B, n, offset,
-                                  scale, head, stream);
+    start_lookup_of<L, RmiKey::kU64>(!affine, keys, top_w, top_kind, int_top, rows, guess,
+                                     err, m, B, n, offset, scale, head, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -378,19 +462,26 @@ int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
     return launch_leaf_eval<L>(x, w, leaf, out, m, bound, stream);                    \
   }
 
-// guess[i], err[i] of key image keys[i], decoded as key_kind (RmiKey) says;
-// top_kind the RmiLeaf of the top's leaf kernel, top_w its [1, width] row;
-// rows the [B, lookup_width] lookup rows of the leaves; offset and scale
-// the normalization, n the keys indexed.  An unknown key or top kind is
-// refused with cudaErrorInvalidValue.
-#define RMI_LOOKUP_ENTRY(name, L)                                                     \
-  RMI_API int rmi_lookup_##name(const int64_t* keys, int64_t key_kind,                \
-                                const double* top_w, int64_t top_kind,                \
-                                const double* rows, int64_t* guess, int64_t* err,     \
-                                int64_t m, int64_t B, int64_t n, double offset,       \
-                                double scale, void* stream) {                         \
-    return launch_lookup<L>(keys, key_kind, top_w, top_kind, rows, guess, err, m, B,  \
-                            n, offset, scale, stream);                                \
+// guess[i], err[i] of key image keys[i], decoded as key_kind (RmiKey) says.
+// top_kind: an affine top's leaf kernel (RmiLeaf), top_w its [1, width]
+// row; or an RmiIntTop, top_int its packed parameters, top_table a hint
+// table's entries and pivots a histogram's, top_len their count (the
+// other operands empty: null).  rows: the [B, lookup_width] lookup rows of
+// the leaves; offset and scale the normalization, n the keys indexed.  An
+// unknown key or top kind, or a top without its operands, is refused with
+// cudaErrorInvalidValue.  One entry serves every top, the top kind an
+// argument as it always was, so the binding's table of parameter kinds
+// stays one row per leaf kernel.
+#define RMI_LOOKUP_ENTRY(name, L)                                                      \
+  RMI_API int rmi_lookup_##name(const int64_t* keys, int64_t key_kind,                 \
+                                const double* top_w, int64_t top_kind,                 \
+                                const int64_t* top_int, const int32_t* top_table,      \
+                                const int64_t* pivots, int64_t top_len,                \
+                                const double* rows, int64_t* guess, int64_t* err,      \
+                                int64_t m, int64_t B, int64_t n, double offset,        \
+                                double scale, void* stream) {                          \
+    return launch_lookup<L>(keys, key_kind, top_w, top_kind, top_int, top_table, pivots, \
+                            top_len, rows, guess, err, m, B, n, offset, scale, stream);  \
   }
 
 RMI_LEAF_EVAL_ENTRY(linear, RmiLeaf::kLinear)

@@ -50,10 +50,10 @@ SORT_SERVE_MIN = 1 << 20
 
 def lookup(rmi, queries: torch.Tensor):
     """Batched lookup(key, &err): (guess, err) as int64 tensors, from one
-    launch of K4's fused entry over the index's lookup table (made on its
-    first use on the card), or for a lognormal or integer-output top or
-    leaf, which has no lookup table, from the top eval in torch and K4's
-    per-element entry, or a hint-table leaf's gather in torch
+    launch of K4's fused entry over the index's lookup table and its top's
+    operands (made on their first use on the card), or for a lognormal top
+    or leaf, which has no lookup table, from the top eval in torch and
+    K4's per-element entry, or a hint-table leaf's gather in torch
     (eval_kernel.lookup_clamped).  An index saved without its errors
     answers err 0, as rmi_tpu's does.  A cachefix index answers the
     spline's quantized position and err = line_size (codegen.rs:412-419)."""
@@ -78,11 +78,13 @@ def _rmi_lookup(rmi, queries: torch.Tensor):
             and eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)):
         rmi.lookup_table_cache = eval_kernel.lookup_table(rmi.device_leaf_params,
                                                           errors)
+        rmi.lookup_top_cache = eval_kernel.top_operands(
+            rmi.top_type, rmi.device_top_params, queries.device)
     return eval_kernel.lookup_clamped(
         queries, rmi.device_top_params, rmi.device_leaf_params, errors,
         rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale,
         top_type=rmi.top_type, leaf_type=rmi.leaf_type, table=rmi.lookup_table_cache,
-        key_type=rmi.key_type)
+        top_args=rmi.lookup_top_cache, key_type=rmi.key_type)
 
 
 def cachefix_interp(spline_keys, spline_vals, queries, start, err_s,

@@ -31,11 +31,12 @@ k = 0..K, with K the least k such that 2 err_max / 64^k + 2 <= 64,
 lb_k = #(L_k < q) is a count over the 128 entries of L_k from
 64 (LB_k >> 6), for any lower limit LB_k <= lb_k within 65 of it: the
 guess gives level K's limit, each level's count the next one's.  Level 0
-is the key array itself and the others strided copies of it (n / 63
-entries in all); rmi_tpu's overlapped [rows, 128] copies of each level
-are a TPU layout and have no counterpart.  The resolve is plain torch,
-as rmi_tpu computes it in XLA; a hierarchical plan never sorts or runs
-K5.
+is the key array itself and the others strided copies of it in one
+tensor (n / 63 entries in all); rmi_tpu's overlapped [rows, 128] copies
+of each level are a TPU layout and have no counterpart.  The resolve is
+ops/hier_kernel.resolve: on the card one launch of rmi_hier_resolve
+for the whole batch after one fused lookup, where rmi_tpu runs both in
+one XLA program; a hierarchical plan never sorts or runs K5.
 
 Sorted serving.  Over a non-decreasing batch lb1 is non-decreasing, so
 the leaf rows of a block's first and last query bound lb1 for every
@@ -54,18 +55,22 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.ops import sorted_serve_kernel
+from rmi_tpu_torch.ops import hier_kernel, sorted_serve_kernel
+# WIDTH: the entries of one mid-level or level count.  resolve is the hier
+# plan's (the wrapper, which _hier_search calls by this module's name),
+# resolve_plain its plain version beside it
+from rmi_tpu_torch.ops.hier_kernel import LEVEL_FAN, WIDTH, count_from, resolve
+from rmi_tpu_torch.ops.hier_kernel import resolve_plain  # noqa: F401
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
 STRIDE = sorted_serve_kernel.STRIPE   # keys per stripe
-WIDTH = 128                           # stripe-first keys of one mid-level count
 
 # rmi_tpu's widest u32 leaf row (a base lane and S hi and S lo words),
 # kept so that (S, F) are the same integers in both packages
@@ -94,8 +99,7 @@ _PHI_U_MAX = 38.6
 
 SORTED_MIN = 1 << 14    # smallest batch fast_search_sorted sends to K5
 MAX_CHUNK = 1 << 21     # queries per packed-search step: ~1 GB of [., 64] rows
-HIER_CHUNK = 1 << 20    # queries per hierarchical step: ~1 GB of [., 128] counts
-LEVEL_FAN = 64          # the sampling factor between the hier plan's levels
+HIER_CHUNK = 1 << 20    # queries per plain hierarchical step: ~1 GB of [., 128] counts
 
 
 @dataclasses.dataclass
@@ -113,6 +117,9 @@ class Plan:
     kmax: int = 0
     K: int = 0                    # hier: the level the guess starts at
     levels: Optional[List[torch.Tensor]] = None  # hier: keys[::64^k], k = 0..K
+    # hier: levels 1..K in one tensor and their (offset, length), the
+    # kernel's (hier_kernel.hier_levels); levels[1:] are views into it
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def supports_fast_path(rmi) -> bool:
@@ -234,21 +241,13 @@ def hier_start_level(max_err: int) -> int:
     return K
 
 
-def hier_levels(keys: torch.Tensor, K: int) -> List[torch.Tensor]:
-    """The levels keys[::64^k], k = 0..K: the keys themselves, then
-    strided copies."""
-    levels = [keys]
-    for _ in range(K):
-        levels.append(levels[-1][::LEVEL_FAN].contiguous())
-    return levels
-
-
 def _make_plan(rmi) -> Plan:
     n = rmi.keys.shape[0]
     shape = packed_plan_shape(rmi) if _monotone_top(rmi) else None
     if shape is None:
         K = hier_start_level(int(rmi.leaf_errors.max()))
-        return Plan("hier", n, K=K, levels=hier_levels(rmi.keys, K))
+        levels, packed = hier_kernel.hier_levels(rmi.keys, K)
+        return Plan("hier", n, K=K, levels=levels, packed=packed)
     S, F = shape
     kmin, kmax = rmi.keys[[0, -1]].tolist()
     return Plan("packed" if F == 1 else "packed_wide", n, S, F,
@@ -269,41 +268,13 @@ def stripe_lower_limits(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
     return rows[:, 0] + (c1 - 1) * plan.F
 
 
-def _count_from(arr, start, q, width: int):
-    """start + #(arr[start : start + width] < q) per query; positions
-    past the end of ``arr`` count as not below q."""
-    m = arr.shape[0]
-    idx = start[:, None] + torch.arange(width, device=q.device)
-    below = (idx < m) & (arr[idx.clamp(max=m - 1)] < q[:, None])
-    return start + below.sum(1)
-
-
-def _count_row(level, row, q):
-    """64 r + #(level[64 r : 64 r + 128] < q) with r = row clipped to the
-    level's rows (rmi_tpu's _count_row over its overlapped row r)."""
-    nrows = max(1, -(-level.shape[0] // LEVEL_FAN))
-    return _count_from(level, row.clamp(0, nrows - 1) * LEVEL_FAN, q, WIDTH)
-
-
-def resolve(levels, queries, guess, err, *, K: int, n: int) -> torch.Tensor:
-    """Exact lower bounds from lookup's (guess, err) through the levels'
-    row counts (rmi_tpu lookup_fast.py:396-413): level K's lower limit
-    from guess - err, each finer level's from the count above it."""
-    sK = LEVEL_FAN ** K
-    LB = ((guess - err).clamp(0, n) + sK - 1) // sK
-    lb = _count_row(levels[K], LB >> 6, queries).clamp(max=levels[K].shape[0])
-    for k in range(K - 1, -1, -1):
-        LB = (lb * LEVEL_FAN - LEVEL_FAN + 1).clamp(min=0)
-        lb = _count_row(levels[k], LB >> 6, queries).clamp(max=levels[k].shape[0])
-    return lb
-
-
 def _hier_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
-    """Exact lower bounds of one chunk through the hierarchical plan."""
+    """Exact lower bounds of one batch through the hierarchical plan:
+    lookup, then resolve."""
     # imported here: rmi_tpu_torch.lookup imports this module
     from rmi_tpu_torch.lookup import lookup
     guess, err = lookup(rmi, q)
-    return resolve(plan.levels, q, guess, err, K=plan.K, n=plan.n)
+    return resolve(plan.levels, q, guess, err, K=plan.K, n=plan.n, packed=plan.packed)
 
 
 def _packed_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
@@ -316,18 +287,23 @@ def _packed_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
         row = LB1.clamp(0, nrows0 - 1)       # lb1 - 1 <= LB1 <= lb1
     else:
         r1 = LB1.clamp(0, nrows0) >> 6       # 64 r1 <= lb1 <= 64 r1 + 127
-        lb1 = _count_from(plan.stripe_first, r1 * STRIDE, q, WIDTH)
+        lb1 = count_from(plan.stripe_first, r1 * STRIDE, q, WIDTH)
         row = (lb1.clamp(max=nrows0) - 1).clamp(0, nrows0 - 1)
-    return _count_from(rmi.keys, row * STRIDE, q, STRIDE).clamp(max=plan.n)
+    return count_from(rmi.keys, row * STRIDE, q, STRIDE).clamp(max=plan.n)
 
 
 def fast_search(rmi, queries: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of int64 images in any order, through the
-    index's plan, MAX_CHUNK queries at a time (HIER_CHUNK for a
-    hierarchical plan)."""
+    index's plan, MAX_CHUNK queries at a time; a hierarchical plan serves
+    the whole batch on the card in one fused lookup and one
+    rmi_hier_resolve launch, and on the CPU HIER_CHUNK queries at a time,
+    which bounds the plain resolve's [chunk, 128] counts."""
     plan = get_plan(rmi)
-    step, chunk = ((_hier_search, HIER_CHUNK) if plan.kind == "hier"
-                   else (_packed_search, MAX_CHUNK))
+    if plan.kind == "hier":
+        step = _hier_search
+        chunk = HIER_CHUNK if queries.is_cpu else max(1, queries.shape[0])
+    else:
+        step, chunk = _packed_search, MAX_CHUNK
     out = torch.empty_like(queries)
     for i in range(0, queries.shape[0], chunk):
         out[i:i + chunk] = step(rmi, plan, queries[i:i + chunk])

@@ -7,7 +7,11 @@ one C entry point per leaf kernel (linear, cubic, loglinear, normal):
   lookup_clamped      key images -> (guess, err): lookup whole, from the
                       key to the leaf's error, in one pass over a table
                       that holds each leaf's row beside its error
-                      (lookup_table), made once per index.
+                      (lookup_table), made once per index; the top an
+                      affine one (its leaf kernel's evaluation) or an
+                      integer-output one (radix, bradix, the hint tables,
+                      histogram: csrc/int_top.cuh), whose parameters come
+                      packed (top_operands).
 
 Counterpart of rmi_tpu/ops/eval_kernel.py:leaf_eval_clamped.  Its leaf
 evaluation is the one the error sweep (K3) measured the bounds with
@@ -27,7 +31,13 @@ from rmi_tpu_torch.models.base import (clamp_int, get_model, kernel_input,
 from rmi_tpu_torch.ops import _build
 
 # csrc/leaf_eval.cuh's RmiLeaf, in its order: the top kind rmi_lookup_* takes
+# for an affine top, which its leaf kernel evaluates
 LEAF_KERNELS = ("linear", "cubic", "loglinear", "normal")
+# then csrc/int_top.cuh's RmiIntTop: the integer-output tops ("table": a
+# radix hint table, radix8/18/22/26/28)
+TOP_KINDS = LEAF_KERNELS + ("radix", "bradix", "table", "histogram")
+# entries of an integer top's packed parameters (top_operands)
+INT_PARAMS = {"radix": 2, "bradix": 4, "table": 2, "histogram": 0}
 
 
 def key_kind(key_type: KeyType) -> int:
@@ -106,14 +116,64 @@ def leaf_eval_clamped(x, w, leaf_ids, bound: int, *, leaf_type: str) -> torch.Te
 
 
 def fused_lookup(top_type: str, leaf_type: str) -> bool:
-    """Whether lookup_clamped serves this pair with rmi_lookup_*: both
-    models "affine".  A "raw" model (lognormal) takes max(ln x, 0) of the
-    keys' raw values, which stays one torch function outside the kernels
-    (CUDA's log differs from glibc's on a few keys; the build computed it
-    so), so a lognormal top or leaf keeps the two-step route; so does an
-    integer-output top or leaf (radix, bradix, the hint tables,
-    histogram), which rmi_lookup_*'s top branch does not evaluate."""
-    return get_model(top_type).input_domain == get_model(leaf_type).input_domain == "affine"
+    """Whether lookup_clamped serves this pair with rmi_lookup_*: every
+    pair but two kinds.  A "raw" model (lognormal) takes max(ln x, 0) of
+    the keys' raw values, which stays one torch function outside the
+    kernels (CUDA's log differs from glibc's on a few keys; the build
+    computed it so), so a lognormal top or leaf keeps the two-step route;
+    so does a hint-table leaf, which no kernel evaluates (its prediction
+    is a table gather in torch, lookup_steps)."""
+    mtop, mleaf = get_model(top_type), get_model(leaf_type)
+    return mleaf.leaf_kernel is not None and "raw" not in (mtop.input_domain,
+                                                           mleaf.input_domain)
+
+
+def top_kind(top_type: str) -> int:
+    """The top kind rmi_lookup_* takes for model ``top_type`` (TOP_KINDS)."""
+    mtop = get_model(top_type)
+    if not mtop.output_int:
+        return TOP_KINDS.index(mtop.leaf_kernel)
+    return TOP_KINDS.index("table" if mtop.function_name == "radix_table" else top_type)
+
+
+def top_operands(top_type: str, top_p, device):
+    """(top_w, top_int, top_table, pivots, top_len): the top's arguments of
+    rmi_lookup_*, empty where the kind reads none.  An affine top: its
+    [1, ppm] row.  An integer top: its parameters packed in one int64
+    tensor (radix: prefix, bits; bradix: prefix, bits, clamp, high; a hint
+    table: prefix, bits), a hint table's int32 entries or a histogram's
+    pivot images, and their count.  Made once per index (lookup keeps
+    them); a bradix top's packing is one small torch.cat."""
+    empty = [torch.empty(0, dtype=t, device=device)
+             for t in (torch.float64, torch.int64, torch.int32)]
+    f64, i64, i32 = empty
+    kind = TOP_KINDS[top_kind(top_type)]
+    if kind in LEAF_KERNELS:
+        return top_p, i64, i32, i64, 0
+    if kind == "histogram":
+        return f64, i64, i32, top_p["pivots"], top_p["pivots"].shape[0]
+    if kind == "table":
+        return f64, top_p["w_int"], top_p["table"], i64, top_p["table"].shape[0]
+    if kind == "bradix":
+        return f64, torch.cat([top_p["w_int"], top_p["high"].reshape(1)]), i32, i64, 0
+    return f64, top_p["w_int"], i32, i64, 0
+
+
+def _check_top_operands(top_type, operands):
+    top_w, top_int, table, pivots, top_len = operands
+    kind = TOP_KINDS[top_kind(top_type)]
+    if kind in LEAF_KERNELS:
+        _check_card_table("lookup_clamped", top_w)
+        return
+    if top_int.shape != (INT_PARAMS[kind],):
+        raise ValueError(f"lookup_clamped: {top_type} takes {INT_PARAMS[kind]} packed "
+                         f"parameters, not {list(top_int.shape)}")
+    # a hint table holds 2^bits entries (bytes_per_model: 4 bytes each)
+    want = (get_model(top_type).bytes_per_model // 4 if kind == "table"
+            else pivots.shape[0] if kind == "histogram" else 0)
+    if top_len != want or (kind == "table" and table.shape != (want,)):
+        raise ValueError(f"lookup_clamped: {top_type}'s table or pivots do not match "
+                         f"their count {top_len}")
 
 
 def lookup_steps(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
@@ -169,24 +229,25 @@ def lookup_table(leaf_w, leaf_errors) -> torch.Tensor:
 
 def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
                    s: float, *, top_type: str, leaf_type: str, table=None,
-                   key_type: KeyType = KeyType.U64):
+                   top_args=None, key_type: KeyType = KeyType.U64):
     """(guess, err), both [m] int64, of int64 images ``queries`` of
     ``key_type`` keys under
     the index of ``n`` keys with top row ``top_w`` [1, ppm], leaf rows
     ``leaf_w`` [B, ppm] (an integer-output model's parameter dict
     instead), per-leaf errors ``leaf_errors`` [B] int64 and
     normalization (kminf, s).  ``table`` is lookup_table(leaf_w,
-    leaf_errors) where the caller keeps one; else it is made here.
+    leaf_errors) and ``top_args`` top_operands(top_type, top_w, device)
+    where the caller keeps them; else they are made here.
 
     Route, by the models' types: where fused_lookup holds, one launch of
-    rmi_lookup_<leaf kernel>, which makes the top's input from the key
-    (decoded as key_kind(key_type) says), evaluates the top (its kernel's
-    rmi_leaf on row 0, the top kind a kernel argument), clamps the leaf
-    id, gathers the leaf's row and error and evaluates the leaf; with a
-    lognormal top or leaf, the two steps, the top and the kernel inputs
-    in torch and the leaf in rmi_leaf_eval_<leaf kernel>, and ``table``
-    is not read; so with an integer-output top, and with a hint-table
-    leaf, whose step is plain torch (lookup_steps)."""
+    rmi_lookup_<leaf kernel>, which decodes the key (as key_kind(key_type)
+    says), evaluates the top (an affine top's kernel's rmi_leaf on row 0,
+    or an integer top on the key's u64 bits; the top kind a kernel
+    argument), clamps the leaf id, gathers the leaf's row and error and
+    evaluates the leaf on the normalized key; with a lognormal top or
+    leaf, the two steps, the top and the kernel inputs in torch and the
+    leaf in rmi_leaf_eval_<leaf kernel>, and ``table`` is not read; with
+    a hint-table leaf, whose step is plain torch, lookup_steps."""
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
     if queries.dtype != torch.int64 or queries.dim() != 1:
         raise ValueError("lookup_clamped: queries must be 1-D int64 key images")
@@ -204,15 +265,17 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
                             top_type, leaf_type, leaf_eval_clamped, key_type)
     if table is None:
         table = lookup_table(leaf_w, leaf_errors)
+    if top_args is None:
+        top_args = top_operands(top_type, top_w, queries.device)
     _check_table("lookup_clamped", table, lookup_width(mleaf.ppm), rows=B)
     _check_card_table("lookup_clamped", table)
-    _check_card_table("lookup_clamped", top_w)
+    _check_top_operands(top_type, top_args)
     if not 1 <= n <= MAX_BOUND + 1 or B > MAX_BOUND + 1:
         raise ValueError("lookup_clamped: n and B must lie in [1, 2^31]")
     m = queries.shape[0]
     guess = _empty_in_phase(m, torch.int64, queries)
     err = _empty_in_phase(m, torch.int64, queries)
     _build.launch(f"rmi_lookup_{mleaf.leaf_kernel}", queries, key_kind(key_type),
-                  top_w, LEAF_KERNELS.index(mtop.leaf_kernel), table, guess, err, m,
+                  top_args[0], top_kind(top_type), *top_args[1:], table, guess, err, m,
                   B, int(n), float(kminf), float(s))
     return guess, err

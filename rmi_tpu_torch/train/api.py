@@ -72,12 +72,15 @@ class TrainedRMI:
         dataclasses.field(default=None, repr=False, compare=False)
     # serving state made on first use: lookup_fast's per-leaf (starts,
     # next_idx) and the search plan built from them, and lookup's table
-    # of each leaf's row beside its error (eval_kernel.lookup_table)
+    # of each leaf's row beside its error (eval_kernel.lookup_table) with
+    # its top's kernel arguments (eval_kernel.top_operands)
     leaf_spans_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default=None, init=False, repr=False, compare=False)
     plan_cache: Optional[Any] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
     lookup_table_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    lookup_top_cache: Optional[Tuple[Any, ...]] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
     # a cache_fix index's knot values on its device
     spline_vals_cache: Optional[torch.Tensor] = dataclasses.field(

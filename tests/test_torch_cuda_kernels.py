@@ -9,8 +9,9 @@ runs on a machine without it:
 
 Tolerances: K1, K3 and K4 (linear, cubic, loglinear and normal leaves,
 lognormal through the normal kernel; lookup's fused entry for every
-affine top and leaf kernel, against its plain version on the card and on
-the CPU, on test_torch_lookup_kernel.py's inputs) bit-equal (max/min never round; K3,
+affine and integer top and leaf kernel, against its plain version on the
+card and on the CPU, on test_torch_lookup_kernel.py's inputs) and the
+hierarchical resolve bit-equal (max/min never round; K3,
 the per-leaf maximum of the sweep, and K4 are compared with the plain
 version on CPU copies, where torch.addcmul is an exact FMA); the
 run-length pass and the nine card probes equal to their plain versions
@@ -46,12 +47,13 @@ from rmi_tpu_torch.models import cubic, get_model
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
                                        params_to, predict_top_assignment)
 from rmi_tpu_torch.models.linear import log_targets
-from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
-                               scan_kernel, select_kernel, sorted_serve_kernel as ssk,
-                               sweep_kernel)
+from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, hier_kernel,
+                               probe_kernels, scan_kernel, select_kernel,
+                               sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_lookup_kernel import LEAVES, leaf_table, lookup_case, top_rows
+from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, int_top_case, leaf_table,
+                                      lookup_case, resolve_case, top_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -418,7 +420,8 @@ def _lookup_on_card(dev, case, top, leaf, sliced=False, key_type=KeyType.U64):
     if sliced:
         qd, q = qd[1:], q[1:]
         assert qd.data_ptr() % 16 == 8
-    card = [qd] + [a.to(dev) if torch.is_tensor(a) else a for a in rest]
+    card = [qd] + [a.to(dev) if torch.is_tensor(a) else
+                   params_to(a, dev) if isinstance(a, dict) else a for a in rest]
     kw = {"top_type": top, "leaf_type": leaf, "key_type": key_type}
     entry = f"rmi_lookup_{get_model(leaf).leaf_kernel}"
     before = dict(_build.launches)
@@ -955,6 +958,7 @@ def _entry_calls(dev):
     hi = torch.full((1,), -(-n // 64), dtype=torch.int64, device=dev)
     gf = keys[::ssk.GROUP].contiguous()
     zeros = torch.zeros(B, 4, dtype=torch.float64, device=dev)
+    levels, packed = hier_kernel.hier_levels(keys, 1)
     calls = {
         "rmi_scan_i32": lambda: scan_kernel.scan_i32(y, is_max=True, fill=seg.INT32_MIN),
         "rmi_aug_moments": lambda: select_kernel.aug_centered_moments(
@@ -970,6 +974,8 @@ def _entry_calls(dev):
         "rmi_serve_sorted": lambda: ssk.serve_sorted(q, gf, keys, lo, hi),
         "rmi_serve_sorted_scatter": lambda: ssk.serve_sorted_scatter(
             q, torch.arange(q.shape[0], device=dev), gf, keys, lo, hi),
+        "rmi_hier_resolve": lambda: hier_kernel.resolve(
+            levels, q, q // 2, torch.full_like(q, 40), K=1, n=n, packed=packed),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -1186,8 +1192,9 @@ def test_k4_lookup_refuses_an_unknown_key_kind(dev, kind):
     guess, err = torch.empty_like(q), torch.empty_like(q)
     before = _build.launches["rmi_lookup_linear"]
     with pytest.raises(RuntimeError):
-        _build.launch("rmi_lookup_linear", q, kind, top_w, 1, table, guess, err,
-                      q.shape[0], leaf_w.shape[0], n, kminf, s)
+        _build.launch("rmi_lookup_linear", q, kind, *eval_kernel.top_operands(
+            "cubic", top_w, dev)[:1], 1, *eval_kernel.top_operands("cubic", top_w, dev)[1:],
+            table, guess, err, q.shape[0], leaf_w.shape[0], n, kminf, s)
     assert _build.launches["rmi_lookup_linear"] == before
 
 
@@ -1417,3 +1424,115 @@ def test_dp_build_of_one_nccl_rank(dev, tmp_path):
                                rtol=1e-6, atol=1e-8)
     assert out[3]["model_avg_log2_error"] == pytest.approx(single.model_avg_log2_error,
                                                            rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# integer tops in K4's fused entry, and the hierarchical resolve
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("top", INT_TOPS)
+@pytest.mark.parametrize("kind", KEY_SETS)
+def test_k4_lookup_fused_integer_top(dev, kind, top, leaf):
+    """Each integer top with each leaf kernel on test_torch_int_lookup.py's
+    matrix (u64, u32 and f64 keys, one distinct key, a 53-bit prefix):
+    one launch of rmi_lookup_<leaf kernel>, guess and err bit-equal to the
+    plain version on the card and on the CPU, from a 16-byte boundary and
+    one past it."""
+    case, key_type = int_top_case(top, leaf, kind, 3000, 11)
+    _lookup_on_card(dev, case, top, leaf, key_type=key_type)
+    _lookup_on_card(dev, case, top, leaf, sliced=True, key_type=key_type)
+
+
+@pytest.mark.parametrize("top", ["radix26", "radix28"])
+@pytest.mark.parametrize("kind", ["u64", "narrow"])
+def test_k4_lookup_fused_large_tables(dev, top, kind):
+    """The 256 MB and 1 GB hint tables, fitted on the card, read through
+    64-bit indices."""
+    case, key_type = int_top_case(top, "linear", kind, 1 << 16, 13, device=dev)
+    _lookup_on_card(dev, case, top, "linear", key_type=key_type)
+
+
+def test_k4_lookup_refuses_integer_tops_without_operands(dev):
+    (q, top_p, leaf_w, errs, n, kminf, s), _ = int_top_case("radix18", "linear", "u64",
+                                                              64, 3)
+    q, leaf_w, errs = q.to(dev), leaf_w.to(dev), errs.to(dev)
+    top_p = params_to(top_p, dev)
+    kw = {"top_type": "radix18", "leaf_type": "linear"}
+    ops = eval_kernel.top_operands("radix18", top_p, dev)
+    with pytest.raises(ValueError):                      # a table of other bits
+        eval_kernel.lookup_clamped(q, top_p, leaf_w, errs, n, kminf, s, **kw,
+                                   top_args=(*ops[:2], ops[2][:1024], ops[3], 1024))
+    with pytest.raises(ValueError):                      # bradix's four parameters
+        eval_kernel.lookup_clamped(q, top_p, leaf_w, errs, n, kminf, s,
+                                   top_type="bradix", leaf_type="linear", top_args=ops)
+    table = eval_kernel.lookup_table(leaf_w, errs)
+    guess, err = torch.empty_like(q), torch.empty_like(q)
+    before = _build.launches["rmi_lookup_linear"]
+    for kind, operands in ((6, (ops[1], ops[2][:0], ops[3], 0)),     # no table
+                           (8, ops[1:])):                           # no such top
+        with pytest.raises(RuntimeError):
+            _build.launch("rmi_lookup_linear", q, 0, ops[0], kind, *operands, table, guess,
+                          err, q.shape[0], leaf_w.shape[0], n, kminf, s)
+    assert _build.launches["rmi_lookup_linear"] == before
+
+
+@pytest.mark.parametrize("spec,key_type", [("radix,linear", KeyType.U64),
+                                           ("histogram,cubic", KeyType.U64),
+                                           ("radix18,linear", KeyType.F64),
+                                           ("bradix,normal", KeyType.F64)])
+def test_integer_top_index_serves_through_the_kernels(dev, spec, key_type):
+    """An integer-top index on the card: lookup is one launch of the fused
+    entry; on f64 keys the hier plan's search one fused lookup and one
+    rmi_hier_resolve launch; the bound holds and search is exact."""
+    u = rdata.books_like_on_device(1 << 18, 14, dev)
+    keys = tkeys.f64_image(tkeys.as_float(u) * 2.0 ** -32) if key_type is KeyType.F64 else u
+    rmi = rt.train(rdata.RMIDataset(keys, key_type), spec, 256)
+    kernel = get_model(rmi.leaf_type).leaf_kernel
+    before = dict(_build.launches)
+    g, e = rt.lookup(rmi, keys)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in _build.launches.items() if c != before[k]}
+    assert moved == {f"rmi_lookup_{kernel}": 1}
+    lb = torch.searchsorted(keys, keys)
+    assert int(((g - lb).abs() > e).sum()) == 0
+    q = torch.cat([keys[::5], torch.randint(int(keys[0]), int(keys[-1]), (1 << 16,),
+                                            device=dev)])
+    plan = lookup_fast.get_plan(rmi)
+    assert (plan.kind == "hier") == (key_type is KeyType.F64)
+    before = dict(_build.launches)
+    got = lookup_fast.fast_search(rmi, q)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in _build.launches.items() if c != before[k]}
+    if plan.kind == "hier":
+        assert moved == {f"rmi_lookup_{kernel}": 1, "rmi_hier_resolve": 1}
+    assert torch.equal(got, torch.searchsorted(keys, q))
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 3])
+def test_hier_resolve(dev, K):
+    """rmi_hier_resolve against resolve_plain on the card and on the CPU,
+    bit for bit, on test_torch_hier.py's cases (n not a multiple of 64,
+    runs across a row's edge, guess - err < 0 and guess + err > n), with
+    the plan's packed levels, on keys from a 16-byte boundary and one past
+    it; one launch a call, none for an empty batch."""
+    keys, q, guess, err = resolve_case(K, 70 + K, n=(1 << 16) + 37, m=(1 << 16) + 5)
+    n = keys.shape[0]
+    for kd in (keys.to(dev), torch.cat([keys[:1], keys]).to(dev)[1:]):
+        levels, packed = hier_kernel.hier_levels(kd, K)
+        cpu_levels = [lv.cpu() for lv in levels]
+        want = hier_kernel.resolve_plain(cpu_levels, q, guess, err, K=K, n=n)
+        qd, gd, ed = q.to(dev), guess.to(dev), err.to(dev)
+        before = _build.launches["rmi_hier_resolve"]
+        got = hier_kernel.resolve(levels, qd, gd, ed, K=K, n=n, packed=packed)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_hier_resolve"] == before + 1
+        assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+        assert torch.equal(hier_kernel.resolve_plain(levels, qd, gd, ed, K=K, n=n).cpu(), want)
+        for m in (0, 1, 33):
+            before = _build.launches["rmi_hier_resolve"]
+            got = hier_kernel.resolve(levels, qd[:m].clone(), gd[:m].clone(), ed[:m].clone(),
+                                      K=K, n=n, packed=packed)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want[:m])
+            assert _build.launches["rmi_hier_resolve"] == before + (m > 0)

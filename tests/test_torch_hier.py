@@ -13,7 +13,14 @@
   (c) search through a hierarchical plan equals rmi_tpu's and is exact
       against searchsorted on duplicate-heavy keys, on keys ending in a
       duplicate run and on out-of-range queries; lookup equals rmi_tpu's;
-      search_sorted and the large-batch route never sort or run K5 for it.
+      search_sorted and the large-batch route never sort or run K5 for it;
+  (d) resolve, the wrapper of rmi_hier_resolve (ops/hier_kernel.py), runs
+      resolve_plain on the CPU and is bit-equal to rmi_tpu's resolve from
+      levels K = 0..3 (test_torch_lookup_kernel.resolve_case: n not a
+      multiple of 64, runs of equal keys across a row's edge, queries
+      below the first key and above the last, guess - err < 0 and
+      guess + err > n), with the plan's packed levels or without; the
+      packed levels are keys[::64^k], each on a 16-byte boundary.
 
 A top that is not monotone over the keys assigns them leaf ids out of
 order, which neither package's spans expect: independent builds then
@@ -37,8 +44,10 @@ from rmi_tpu.data import RMIDataset as JDataset
 
 import rmi_tpu_torch as rt
 from test_torch_artifacts import carry
+from test_torch_lookup_kernel import resolve_case
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast as lf
+from rmi_tpu_torch.ops import hier_kernel
 from rmi_tpu_torch.ops import sorted_serve_kernel as ssk
 
 N = 1 << 14
@@ -151,7 +160,8 @@ def test_resolve_bit_equal(kind, spec, B):
     rng = np.random.default_rng(4)
     shift = torch.from_numpy(rng.integers(-1, 2, q.shape[0])) * err
     for g in (guess, guess + shift, (guess - 3 * err).clamp(min=0)):
-        got = lf.resolve(plan.levels, q, g, err, K=plan.K, n=plan.n)
+        got = lf.resolve(plan.levels, q, g, err, K=plan.K, n=plan.n,
+                         packed=plan.packed)
         want = jlf.resolve(levels, jnp.asarray(qn), jnp.asarray(g.numpy()),
                            jnp.asarray(err.numpy()), K=K, n=plan.n, level_lens=lens)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -213,3 +223,54 @@ def test_bounded_search_stays_for_other_keys():
     q = tkeys.to_image(qn)
     np.testing.assert_array_equal(rt.search(rp, q, keys=rp.keys).numpy(),
                                   rt.search(rp, q).numpy())
+
+
+# (d) the resolve's wrapper against rmi_tpu's resolve; max_err for K = 0..3
+RESOLVE_MAX_ERR = {0: 31, 1: 1984, 2: 126976, 3: 1 << 20}
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 3])
+def test_resolve_wrapper_equals_rmi_tpu(K):
+    keys, q, guess, err = resolve_case(K, 40 + K)
+    n = keys.shape[0]
+    jplan = jlf.SearchPlan(jnp.asarray(keys.numpy()), RESOLVE_MAX_ERR[K])
+    assert jplan.K == K == lf.hier_start_level(RESOLVE_MAX_ERR[K]) and n % 64
+    levels, packed = hier_kernel.hier_levels(keys, K)
+    want = np.asarray(jlf.resolve(jplan.levels, jnp.asarray(q.numpy()),
+                                  jnp.asarray(guess.numpy()), jnp.asarray(err.numpy()),
+                                  K=K, n=n, level_lens=tuple(jplan.level_lens)))
+    got = lf.resolve(levels, q, guess, err, K=K, n=n, packed=packed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), want)
+    # exact where the guess holds the lower bound within an err the plan's
+    # K covers, the edges guess - err < 0 and guess + err > n among them
+    lb = np.searchsorted(keys.numpy(), q.numpy(), side="left")
+    g, e = guess.numpy(), err.numpy()
+    ok = (np.abs(g - lb) <= e) & (e <= RESOLVE_MAX_ERR[K])
+    assert ok[2:4].all() and g[2] - e[2] < 0 and g[3] + e[3] > n
+    np.testing.assert_array_equal(want[ok], lb[ok])
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 3])
+def test_packed_levels(K):
+    keys = resolve_case(K, 50)[0]
+    levels, (upper, index) = hier_kernel.hier_levels(keys, K)
+    assert levels[0] is keys and len(levels) == K + 1 and index.shape == (K, 2)
+    for k in range(1, K + 1):
+        off, length = index[k - 1].tolist()
+        assert torch.equal(upper[off:off + length], keys[::64 ** k])
+        assert torch.equal(levels[k], keys[::64 ** k])
+        assert levels[k].data_ptr() == upper.data_ptr() + 8 * off
+    assert torch.equal(hier_kernel.pack_levels(levels)[0], upper)
+
+
+def test_resolve_refuses_bad_inputs():
+    keys, q, guess, err = resolve_case(1, 60)
+    levels, packed = hier_kernel.hier_levels(keys, 1)
+    with pytest.raises(ValueError):
+        lf.resolve(levels, q.int(), guess, err, K=1, n=keys.shape[0], packed=packed)
+    with pytest.raises(ValueError):
+        lf.resolve(levels, q, guess[1:], err, K=1, n=keys.shape[0], packed=packed)
+    with pytest.raises(ValueError):
+        lf.resolve(levels, q, guess, err, K=2, n=keys.shape[0], packed=packed)

@@ -230,3 +230,113 @@ def test_row_copy_beyond_one_block():
     idx = rng.integers(0, 4096, 70_000, dtype=np.int32)
     got = probe_kernels.row_copy(torch.from_numpy(idx), torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), x[idx])
+
+
+# ---------------------------------------------------------------------------
+# integer-output tops in the fused entry, and the hierarchical resolve: the
+# inputs test_torch_int_lookup.py, test_torch_hier.py and the card tests share
+# ---------------------------------------------------------------------------
+
+# the integer tops the CPU tests build (radix26 and radix28, whose tables
+# take 256 MB and 1 GB, run the table kind's code with other bits, and are
+# built on the card only)
+INT_TOPS = ("radix", "bradix", "radix8", "radix18", "radix22", "histogram")
+KEY_SETS = ("u64", "u32", "f64", "single", "narrow")
+U64_EDGES = [0, 1, 2 ** 63 - 1, 2 ** 63, 2 ** 64 - 2, 2 ** 64 - 1]
+
+
+def int_keys(kind, seed, n=1 << 12):
+    """(sorted keys, key type): u64 keys with the edges 0, 2^63 - 1, 2^63
+    and 2^64 - 1 among runs of equal keys; u32 keys with runs; f64 keys
+    from below 0 to past 2^64 (as_int clips them) with runs; one distinct
+    u64 key n times (a common prefix of 64 bits); u64 keys within 2^11 of
+    each other (a prefix of 53 bits, past 64 with a table's bits)."""
+    rng = np.random.default_rng(seed)
+    if kind == "single":
+        return np.full(n, 0x0123456789ABCDEF, dtype=np.uint64), KeyType.U64
+    if kind == "narrow":
+        return np.sort(rng.integers(0, 2 ** 11, n, dtype=np.uint64)
+                       + np.uint64(0xFEDCBA9876543000)), KeyType.U64
+    if kind == "u32":
+        base = rng.integers(0, 2 ** 32, n // 4, dtype=np.uint64)
+        keys = np.repeat(base, rng.integers(1, 8, base.size))[:n - 2]
+        return np.sort(np.concatenate([keys, [0, 2 ** 32 - 1]])).astype(np.uint32), \
+            KeyType.U32
+    if kind == "f64":
+        base = np.concatenate([rng.uniform(-1e3, 1e3, n // 16), rng.uniform(0, 2e19, n // 8),
+                               [0.0, 2.0 ** 63, 2.0 ** 64, 3e19, 1e30]])
+        keys = np.repeat(base, rng.integers(1, 6, base.size))
+        return np.sort(keys[rng.permutation(keys.size)[:n]]), KeyType.F64
+    base = np.concatenate([rng.integers(0, 2 ** 64 - 1, n // 4, dtype=np.uint64,
+                                        endpoint=True),
+                           np.array(U64_EDGES, dtype=np.uint64)])
+    keys = np.repeat(base, rng.integers(1, 6, base.size))
+    return np.sort(np.concatenate([keys[rng.permutation(keys.size)[:n - len(U64_EDGES)]],
+                                   np.array(U64_EDGES, dtype=np.uint64)])), KeyType.U64
+
+
+def int_queries(keys, key_type, m, seed):
+    """[m] images: keys of the index, random values over and past its
+    range, every image's extremes, the key below the first (below the
+    first pivot), and for f64 keys -0.0, +-inf, NaN, negative values and
+    values from 2^64."""
+    rng = np.random.default_rng(seed)
+    img = tkeys.to_image(keys).numpy()
+    lo, hi = int(img[0]), int(img[-1])
+    top = key_type.max_image if key_type is KeyType.U32 else IMAGE_MAX
+    q = np.concatenate([img[rng.integers(0, img.size, m // 4)],
+                        rng.integers(max(lo - (1 << 40), tkeys.IMAGE_MIN),
+                                     min(hi + (1 << 40), top), m // 4, dtype=np.int64),
+                        rng.integers(tkeys.IMAGE_MIN, top, m, dtype=np.int64,
+                                     endpoint=True)])
+    edges = [tkeys.IMAGE_MIN, top, lo, hi, max(lo - 1, tkeys.IMAGE_MIN), min(hi + 1, top)]
+    if key_type is KeyType.F64:
+        edges += tkeys.to_image(np.array([-0.0, 0.0, np.inf, -np.inf, np.nan, -1.5, 2.0 ** 64,
+                                          2.0 ** 63, 1e300, 5e-324, 0.999])).tolist()
+    q = np.concatenate([edges, q[rng.permutation(q.size)]])[:m]
+    return torch.from_numpy(q.astype(np.int64))
+
+
+def int_top_case(top, leaf, kind, m, seed, *, B=256, device="cpu"):
+    """A lookup's inputs under integer top ``top`` fitted as stage A fits
+    it (on ``device``): (queries, top params, leaf_w, leaf_errors, n,
+    kminf, s) on the CPU, and the key type."""
+    keys, key_type = int_keys(kind, seed)
+    img = tkeys.to_image(keys).to(device)
+    n = img.shape[0]
+    top_in = two_layer.model_float_input(get_model(top), img, 0.0, 1.0, key_type)
+    top_p, _, _ = two_layer._assign_body(top_in, two_layer.fixdups_i32(img),
+                                         top_type=top, B=B)
+    top_p = {k: v.cpu() for k, v in top_p.items()}
+    kminf, s = two_layer.norm_constants(img.cpu(), key_type)
+    rng = np.random.default_rng(seed + 1)
+    leaf_w = leaf_table(get_model(leaf).leaf_kernel, B, n, seed + 2)
+    errors = torch.from_numpy(rng.integers(0, 1000, B, dtype=np.int64))
+    q = int_queries(keys, key_type, m, seed + 3)
+    return (q, top_p, leaf_w, errors, n, kminf, s), key_type
+
+
+def resolve_case(K, seed, *, n=(1 << 13) + 37, m=3000):
+    """(keys, queries, guess, err) for the hierarchical resolve from level
+    K: n keys (not a multiple of 64) in runs of equal keys, some across a
+    row's edge (64 i - 3 .. 64 i + 3); queries among them, below the first
+    and above the last; guesses within err of the lower bound, and moved
+    past it so that guess - err < 0 and guess + err > n."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, 2 ** 40, n, dtype=np.int64))
+    for edge in range(64, n - 4, 64 * 7):
+        keys[edge - 3:edge + 4] = keys[edge - 3]
+    keys = np.sort(keys)
+    q = np.concatenate([[keys[0] - 1, keys[-1] + 1, keys[0] - 1, keys[-1] + 1,
+                         -(1 << 62), 1 << 62],
+                        keys[rng.integers(0, n, m // 3)],
+                        rng.integers(-5, 2 ** 40 + 5, m - m // 3 - 6)])
+    lb = np.searchsorted(keys, q, side="left")
+    reach = 64 ** K * 31 // 2 if K else 31     # within the level-K count's reach
+    err = rng.integers(0, reach + 1, q.size)
+    guess = np.clip(lb + rng.integers(-1, 2, q.size) * rng.integers(0, err + 1), 0, n)
+    # below the first key and above the last: guess - err < 0, guess + err > n
+    guess[:6] = [0, n, 0, n, 0, n]
+    err[:6] = [n + 5, n + 5, 3, 3, 2 ** 40, 2 ** 40]
+    t = [torch.from_numpy(a.astype(np.int64)) for a in (keys, q, guess, err)]
+    return tuple(t)
