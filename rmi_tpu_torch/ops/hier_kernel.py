@@ -10,10 +10,11 @@ Counterpart of rmi_tpu/lookup_fast.py:resolve and _count_row
 (:388-413), which rmi_tpu computes in XLA in the program that runs K4
 (_fast_search_df64, :524-551).  Level 0 is the key array itself; the
 kernel reads levels 1..K from one int64 tensor with their offsets and
-lengths (pack_levels), the plain version from the list of levels.  The
-levels are sorted (the keys are), so the kernel takes each count as its
-row's lower bound, by halving steps; the plain version compares all 128
-entries, as rmi_tpu does.
+lengths (pack_levels, each level on a 32-byte boundary), the plain
+version from the list of levels.  The levels are sorted (the keys are),
+so the kernel takes each count as its window's lower bound, and below
+level K as the lower bound inside the 63 entries the count above
+brackets; the plain version compares all 128 entries, as rmi_tpu does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from rmi_tpu_torch.ops import _build
 LEVEL_FAN = 64          # the sampling factor between the levels
 WIDTH = 128             # entries of one level's count
 MAX_K = 10              # the kernel's deepest start level: 64^K fits in int64
+SECTOR = 4              # int64 entries of a 32-byte sector: where each packed level starts
 
 
 def count_from(arr, start, q, width: int):
@@ -59,17 +61,19 @@ def resolve_plain(levels, queries, guess, err, *, K: int, n: int) -> torch.Tenso
 
 
 def _offsets(levels) -> List[int]:
-    """Where levels 1..K start in the packed tensor, one after the other;
-    the last entry is the tensor's length."""
+    """Where levels 1..K start in the packed tensor, one after the other,
+    each at a multiple of SECTOR entries (the kernel reads a level's
+    sectors whole); the last entry is the tensor's length."""
     offsets = [0]
     for lv in levels[1:]:
-        offsets.append(offsets[-1] + lv.shape[0])
+        offsets.append(-(-(offsets[-1] + lv.shape[0]) // SECTOR) * SECTOR)
     return offsets
 
 
 def pack_levels(levels: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(upper, index): levels 1..K copied into one int64 tensor
-    (_offsets), and the [K, 2] int64 (offset, length) of each."""
+    (_offsets; the gaps between them hold 0), and the [K, 2] int64
+    (offset, length) of each."""
     offsets = _offsets(levels)
     upper = levels[0].new_zeros(offsets[-1])
     for lv, off in zip(levels[1:], offsets):

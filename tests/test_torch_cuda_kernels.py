@@ -52,8 +52,9 @@ from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, hier_kernel
                                sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, int_top_case, leaf_table,
-                                      lookup_case, resolve_case, top_rows)
+from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, RESOLVE_EDGES, int_top_case,
+                                      leaf_table, lookup_case, resolve_case, resolve_edge_case,
+                                      top_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -1536,3 +1537,24 @@ def test_hier_resolve(dev, K):
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want[:m])
             assert _build.launches["rmi_hier_resolve"] == before + (m > 0)
+
+
+@pytest.mark.parametrize("kind,K", RESOLVE_EDGES)
+def test_hier_resolve_edges(dev, kind, K):
+    """rmi_hier_resolve bit-equal to resolve_plain at the resolve's edges
+    (test_torch_lookup_kernel.resolve_edge_case, which test_torch_hier.py
+    holds to rmi_tpu on the CPU: counts on each window's edges at every
+    level, guesses off by err + 1 and by whole rows, queries beyond the
+    keys, duplicate runs across sectors and rows, last rows shorter than
+    a sector, K = 4..10 over few keys), on keys from a 16-byte boundary
+    (whole-sector reads) and one past it."""
+    keys, q, guess, err = resolve_edge_case(kind, K, 90 + K)
+    n = keys.shape[0]
+    want = hier_kernel.resolve_plain(hier_kernel.hier_levels(keys, K)[0], q, guess, err,
+                                     K=K, n=n)
+    qd, gd, ed = q.to(dev), guess.to(dev), err.to(dev)
+    for kd in (keys.to(dev), torch.cat([keys[:1], keys]).to(dev)[1:]):
+        levels, packed = hier_kernel.hier_levels(kd, K)
+        got = hier_kernel.resolve(levels, qd, gd, ed, K=K, n=n, packed=packed)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)

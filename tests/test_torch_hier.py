@@ -20,7 +20,11 @@
       multiple of 64, runs of equal keys across a row's edge, queries
       below the first key and above the last, guess - err < 0 and
       guess + err > n), with the plan's packed levels or without; the
-      packed levels are keys[::64^k], each on a 16-byte boundary.
+      packed levels are keys[::64^k], each on a 32-byte boundary; and at
+      its edges (resolve_edge_case: counts on each window's edges at every
+      level, guesses off by err + 1 and by whole rows, queries beyond the
+      keys, duplicate runs across sectors and rows, last rows shorter than
+      a sector, K = 4..10 over few keys).
 
 A top that is not monotone over the keys assigns them leaf ids out of
 order, which neither package's spans expect: independent builds then
@@ -32,6 +36,7 @@ Queue 3, closed notes).
 
 import functools
 import importlib
+import importlib.util
 
 import numpy as np
 import jax.numpy as jnp
@@ -44,7 +49,9 @@ from rmi_tpu.data import RMIDataset as JDataset
 
 import rmi_tpu_torch as rt
 from test_torch_artifacts import carry
-from test_torch_lookup_kernel import resolve_case
+from test_torch_lookup_kernel import (RESOLVE_EDGES, level_counts, resolve_case,
+                                      resolve_edge_case)
+from rmi_tpu_torch import config
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast as lf
 from rmi_tpu_torch.ops import hier_kernel
@@ -262,7 +269,70 @@ def test_packed_levels(K):
         assert torch.equal(upper[off:off + length], keys[::64 ** k])
         assert torch.equal(levels[k], keys[::64 ** k])
         assert levels[k].data_ptr() == upper.data_ptr() + 8 * off
+        assert off % hier_kernel.SECTOR == 0          # on a 32-byte boundary
     assert torch.equal(hier_kernel.pack_levels(levels)[0], upper)
+
+
+def _rmi_tpu_max_err(K):
+    """A max error for which rmi_tpu's SearchPlan starts at level K."""
+    return 31 * 64 ** K if K < 10 else 1 << 62
+
+
+@pytest.mark.parametrize("kind,K", RESOLVE_EDGES)
+def test_resolve_edges_equal_rmi_tpu(kind, K):
+    """The resolve at its edges (test_torch_lookup_kernel.resolve_edge_case,
+    the inputs the kernel is held to on the card): the wrapper on the CPU
+    and resolve_plain bit-equal to rmi_tpu's resolve; exact where the
+    guess holds the bound within the plan's reach; and the cases reach
+    what they are for: at every level a count at its window's lower edge
+    and one at its upper edge, and where a level has two entries or more
+    one strictly inside."""
+    keys, q, guess, err = resolve_edge_case(kind, K, 90 + K)
+    n = keys.shape[0]
+    jplan = jlf.SearchPlan(jnp.asarray(keys.numpy()), _rmi_tpu_max_err(K))
+    assert jplan.K == K
+    want = np.asarray(jlf.resolve(jplan.levels, jnp.asarray(q.numpy()),
+                                  jnp.asarray(guess.numpy()), jnp.asarray(err.numpy()),
+                                  K=K, n=n, level_lens=tuple(jplan.level_lens)))
+    levels, packed = hier_kernel.hier_levels(keys, K)
+    np.testing.assert_array_equal(
+        lf.resolve(levels, q, guess, err, K=K, n=n, packed=packed).numpy(), want)
+    np.testing.assert_array_equal(
+        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), want)
+    lb = np.searchsorted(keys.numpy(), q.numpy(), side="left")
+    g, e = guess.numpy(), err.numpy()
+    ok = (np.abs(g - lb) <= e) & (e <= (31 * 64 ** K // 2 if K else 31))
+    assert ok.any()
+    np.testing.assert_array_equal(want[ok], lb[ok])
+    for (c, w), lv in zip(level_counts(levels, q, guess, err, K=K, n=n), levels[::-1]):
+        assert (c == 0).any() and (c == w).any()
+        assert ((c > 0) & (c < w)).any() or lv.shape[0] < 2
+
+
+def _read_replay():
+    """tools/count_torch_hier_reads.py, the host replay of the kernel's reads."""
+    path = config.PACKAGE_DIR.parent / "tools" / "count_torch_hier_reads.py"
+    spec = importlib.util.spec_from_file_location("count_torch_hier_reads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind,K", RESOLVE_EDGES)
+def test_read_replay_finds_the_resolves_answers(kind, K):
+    """The replay that counts the kernel's reads a query follows a search
+    that finds resolve_plain's answers at the resolve's edges, and reads
+    no entry outside its level."""
+    keys, q, guess, err = resolve_edge_case(kind, K, 90 + K)
+    n = keys.shape[0]
+    levels = hier_kernel.hier_levels(keys, K)[0]
+    counters = {k: [] for k in range(K + 1)}
+    got = _read_replay().replay([lv.numpy() for lv in levels], q.numpy(), guess.numpy(),
+                                err.numpy(), K, n, counters)
+    want = hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n)
+    np.testing.assert_array_equal(got, want.numpy())
+    for k, cs in counters.items():
+        assert all(0 <= s < -(-levels[k].shape[0] // 4) for c in cs for s in c.sectors)
 
 
 def test_resolve_refuses_bad_inputs():

@@ -340,3 +340,106 @@ def resolve_case(K, seed, *, n=(1 << 13) + 37, m=3000):
     err[:6] = [n + 5, n + 5, 3, 3, 2 ** 40, 2 ** 40]
     t = [torch.from_numpy(a.astype(np.int64)) for a in (keys, q, guess, err)]
     return tuple(t)
+
+
+# the hierarchical resolve's edges: (kind, K) of resolve_edge_case
+RESOLVE_EDGES = ([(kind, K) for kind in ("edges", "broken", "extremes", "dups")
+                  for K in range(4)]
+                 + [("short", K) for K in range(3)] + [("deep", K) for K in range(4, 11)])
+
+
+def _edge_keys(kind, K, rng):
+    """Sorted int64 keys for resolve_edge_case: for "dups", runs of equal
+    keys across a sector's edge (4 i - 2 .. 4 i + 1) and runs of 300
+    across a row's edge, so that level 1 holds runs too; for "short",
+    n = 8258, 66 and 130 (K = 0, 1, 2), levels whose last row holds
+    fewer entries than a sector; for "deep", n < 128 (K = 4) or a few
+    thousand keys, so that the levels above 1 hold one entry each."""
+    if kind == "short":
+        n = (64 * 64 * 2 + 66, 66, 130)[K]
+    elif kind == "deep":
+        n = 100 if K == 4 else 1000 + 37 * K
+    else:
+        n = 64 ** min(K, 2) * 150 + 37
+    keys = np.sort(rng.integers(0, 2 ** 40, n, dtype=np.int64))
+    if kind == "dups":
+        for i in range(4, n - 4, 4 * 5):
+            keys[i - 2:i + 2] = keys[i - 2]
+        for i in range(64 * 3, n - 300, 64 * 41):
+            keys[i - 150:i + 150] = keys[i - 150]
+        keys = np.sort(keys)
+    return keys
+
+
+def resolve_edge_case(kind, K, seed):
+    """(keys, queries, guess, err) for the hierarchical resolve from level
+    K at its edges (RESOLVE_EDGES):
+      edges     queries at, just below and just above the entries that
+                open, close and follow each window of every level, with
+                guesses that hold the bound and guesses far enough off
+                that each level's count lands on its window's edges;
+      broken    guesses off the lower bound by err + 1 and by whole rows
+                of level K and of level 0, either way;
+      extremes  queries below the first key and above the last, and the
+                int64 extremes, with every kind of guess;
+      dups      duplicate runs across sectors' and rows' edges;
+      short     levels whose last row is shorter than a sector;
+      deep      K = 4..10 over few keys (n < 128 for K = 4).
+    Guesses lie in [0, n], as lookup's do; errors are >= 0."""
+    rng = np.random.default_rng(seed)
+    keys = _edge_keys(kind, K, rng)
+    n = keys.size
+    levels = [keys[::64 ** k] for k in range(K + 1)]
+    if kind in ("edges", "dups", "short"):
+        qs = []
+        for lv in levels:
+            rows = np.unique(np.concatenate([np.arange(min(lv.size, 64 * 6)),
+                                             lv.size - 1 - np.arange(min(lv.size, 200)),
+                                             rng.integers(0, lv.size, 200)]))
+            at = np.unique(np.clip(np.concatenate(
+                [(rows // 64) * 64 + d for d in (-1, 0, 1, 3, 4, 63, 64, 65, 127, 128)]),
+                0, lv.size - 1))
+            qs += [lv[at] - 1, lv[at], lv[at] + 1]
+        q = np.concatenate(qs)
+    else:
+        q = np.concatenate([keys[rng.integers(0, n, 400)],
+                            rng.integers(-5, 2 ** 40 + 5, 400)])
+    q = np.concatenate([q, [keys[0] - 1, keys[-1] + 1, keys[0], keys[-1],
+                            -(1 << 63), (1 << 63) - 1, 0]])
+    lb = np.searchsorted(keys, q, side="left")
+    sK = 64 ** K
+    reach = min(sK * 31 // 2, 1 << 62) if K else 31   # within the level-K count's reach
+    m = q.size
+    err = rng.integers(0, reach + 1, m)
+    if kind == "broken":
+        off = rng.choice([-1, 1], m) * (err + rng.choice([1, 64 * sK, 128 * sK, 64, 128], m))
+    elif kind == "extremes" or kind == "deep":
+        err = rng.choice([0, 1, reach, n + 5, 1 << 40, 1 << 62], m)
+        off = rng.integers(-n - 3, n + 4, m)
+    else:      # within err, or whole rows of level K (and beyond) either way
+        off = np.where(rng.random(m) < 0.5, rng.integers(-1, 2, m) * err,
+                       rng.choice([-1, 1], m) * rng.choice([64 * sK, 128 * sK, 4096 * sK], m))
+    guess = np.clip(lb + off, 0, n)
+    t = [torch.from_numpy(a.astype(np.int64)) for a in (keys, q, guess, err)]
+    return tuple(t)
+
+
+def level_counts(levels, q, guess, err, *, K: int, n: int):
+    """Per level k = K..0 (numpy), the counts c of resolve_plain's windows
+    and their widths w: (c, w) arrays of each level, in that order."""
+    q, guess, err = (np.asarray(a) for a in (q, guess, err))
+    sK = 64 ** K
+    LB = (np.clip(guess - err, 0, n) + sK - 1) // sK
+    out = []
+    for k in range(K, -1, -1):
+        lv = np.asarray(levels[k])
+        if k < K:
+            LB = np.maximum(lb * 64 - 63, 0)
+        nrows = max(1, -(-lv.size // 64))
+        start = np.clip(LB >> 6, 0, nrows - 1) * 64
+        w = np.minimum(lv.size - start, 128)
+        c = np.minimum(np.searchsorted(lv, q, side="left"), start + w) - start
+        c = np.maximum(c, 0)
+        out.append((c, w))
+        lb = np.minimum(start + c, lv.size)
+    return out

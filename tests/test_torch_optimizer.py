@@ -30,6 +30,7 @@ rmi_tpu's sweeps run once per module (its CPU compiles dominate).
 """
 
 import math
+from fractions import Fraction
 import sys
 
 import numpy as np
@@ -520,3 +521,86 @@ def test_final_empty_leaf_at_9ds_density_against_rmi_tpu(seed):
     rp, cnt = assert_same_max_error(keys, "robust_linear,cubic", B)
     assert (rp.model_max_error, rp.model_max_error_idx) == (n - 1, B - 1)
     assert cnt[-1] == 0
+
+
+# ---------------------------------------------------------------------------
+# cubic,linear at B = 16 on these keys: the one leaf error that differs
+# ---------------------------------------------------------------------------
+
+def _two_point_line(x0, x1, y0, y1):
+    """The exact least-squares line (alpha, beta) through two points, as
+    Fractions of the f64 inputs."""
+    beta = Fraction(y1 - y0) / (Fraction(x1) - Fraction(x0))
+    return Fraction(y1) - beta * Fraction(x1), beta
+
+
+def test_b16_final_leaf_is_rmi_tpus_prefix_sum_rounding(keys, t_data):
+    """cubic,linear at B = 16 (ROADMAP Queue 3, closed): every leaf error
+    equals rmi_tpu's but the final leaf's, which holds one key, the last:
+    1 in the port, 2 in rmi_tpu, and the average log2 errors are apart by
+    what that leaf explains.  Its fit runs over keys 4998 and 4999 (the
+    leaf and its overlap); the reference's streaming fit (linear.rs:37-55)
+    gives the exact line through them, and so does rmi_tpu's own leaf fit
+    (models/linear.py:_slr_ranges) of the two keys alone; over the whole
+    array its moments are differences of prefix sums from key 0
+    (utils/segments.py:range_sum), which move that leaf's slope by 4e-8.
+    The exact line errs by 1 at the leaf, as the port does, and the port
+    holds |guess - lb| <= err at the leaf's key and at its two probes."""
+    import jax
+    import jax.numpy as jnp
+    from rmi_tpu.models import linear as j_linear
+    from rmi_tpu.utils import segments as j_seg
+    from rmi_tpu_torch import keys as tkeys
+    from rmi_tpu_torch.ops import eval_kernel
+
+    B, n = 16, keys.size
+    rp = rt.train(t_data, "cubic,linear", B)
+    rj = j_train(JDataset.from_numpy(keys), "cubic,linear", B)
+    e_p, e_j = rp.leaf_errors.numpy(), np.asarray(rj.leaf_errors).astype(np.int64)
+    assert np.flatnonzero(e_p != e_j).tolist() == [B - 1]
+    assert (e_p[-1], e_j[-1]) == (1, 2)
+    cnt = leaf_counts(rp)
+    assert cnt[-1] == 1 and cnt.sum() == n                 # the last key alone
+    explained = cnt[-1] * (math.log2(2.0 * e_p[-1] + 2.0) - math.log2(2.0 * e_j[-1] + 2.0)) / n
+    d = rp.model_avg_log2_error - rj.model_avg_log2_error
+    assert abs(d - explained) <= AVG_RTOL * abs(rj.model_avg_log2_error)
+
+    # the cause: rmi_tpu's leaf fit over the whole array against the same
+    # fit of the leaf's two keys alone, and the exact line through them
+    x = (keys.astype(np.float64) - rp.norm_offset) * rp.norm_scale
+    y = np.arange(n, dtype=np.float64)                      # the keys are distinct there
+    t = two_layer.top_assignment(get_model("cubic"), rp.device_top_params, rp.keys,
+                                 rp.norm_offset, rp.norm_scale, B - 1).numpy()
+
+    def j_fit(lo):
+        spans = j_seg.make_spans(jnp.asarray(t[lo:].astype(np.int32)), B)
+        fit = jax.jit(lambda a, b: j_linear._slr_ranges(a, b, spans)[0])
+        return np.asarray(fit(jnp.asarray(x[lo:]), jnp.asarray(y[lo:])))[B - 1]
+
+    alpha, beta = _two_point_line(x[n - 2], x[n - 1], n - 2, n - 1)
+    exact = np.array([float(alpha), float(beta)])
+    whole, alone = j_fit(0), j_fit(n - 2)
+    np.testing.assert_allclose(alone, exact, rtol=1e-12)
+    assert abs(whole[1] / exact[1] - 1) > 1e-8
+    np.testing.assert_allclose(np.asarray(rj.device_leaf_params["w"])[B - 1], whole,
+                               rtol=1e-9)
+    np.testing.assert_allclose(rp.device_leaf_params[B - 1].numpy(), exact, rtol=1e-12)
+
+    # the leaf's key, its lower probe (the previous leaf's last key + 1,
+    # target that key's index + 1) and its upper probe (past the last key,
+    # target n): the exact line's errors by the reference's rules, and the
+    # port's guesses within the port's error
+    img = rp.keys
+    probe_keys = torch.cat([img[n - 1:], tkeys.plus_epsilon(img[n - 2:n - 1], KeyType.U64),
+                            tkeys.minus_epsilon(torch.tensor([KeyType.U64.max_image]),
+                                                KeyType.U64)])
+    targets = torch.tensor([n - 1, n - 1, n])
+    xp = two_layer.model_float_input(get_model("linear"), probe_keys, rp.norm_offset,
+                                     rp.norm_scale, KeyType.U64)
+    exact_pred = [min(max(math.floor(alpha + beta * Fraction(v)), 0), n) for v in xp.tolist()]
+    assert max(abs(p - min(int(g), n)) for p, g in zip(exact_pred, targets)) == 1
+    pred = eval_kernel.leaf_eval_clamped(xp, rp.device_leaf_params, torch.full((3,), B - 1),
+                                         n, leaf_type="linear").long()
+    assert int((pred.clamp(max=n) - targets.clamp(max=n)).abs().max()) <= e_p[-1]
+    guess, err = rt.lookup(rp, img[n - 1:])
+    assert abs(int(guess) - (n - 1)) <= int(err) == e_p[-1]

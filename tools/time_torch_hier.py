@@ -9,7 +9,10 @@ Times, each the median of RUNS single calls with CUDA events after one
 untimed call: rmi_hier_resolve (hier_kernel.resolve, from the batch's
 guess and err), the hier search (lookup_fast.fast_search: one fused
 lookup and one resolve), bounded_search and torch.searchsorted on the
-same batch; each answer is checked against torch.searchsorted.
+same batch; each answer is checked against torch.searchsorted.  As
+yardsticks of what one random read a query costs: torch.index_select of
+each query's answer from the keys (level 0, 1.6 GB) and of answer // 64
+from level 1 (25 MB).
 
 --root DIR imports rmi_tpu_torch and chip_smoke from DIR, a checkout of
 another version: run both in one command, in turns, to compare them on
@@ -77,6 +80,11 @@ def main():
         mism = int((fn() != want).sum())
         med, runs = cs.median_ms(fn, args.runs)
         out[f"{name}_ms"], out[f"{name}_runs"], out[f"{name}_mismatches"] = med, runs, mism
+    at = want.clamp(max=keys.shape[0] - 1)
+    for name, level, idx in (("gather_level0", keys, at),
+                             ("gather_level1", plan.levels[1], at // 64)):
+        out[f"{name}_ms"] = cs.median_ms(lambda: torch.index_select(level, 0, idx),
+                                         args.runs)[0]
     print(json.dumps(out), flush=True)
     if any(out[f"{name}_mismatches"] for name in calls):
         raise RuntimeError("an answer differs from torch.searchsorted")
