@@ -50,8 +50,10 @@ Phases (any failure raises and exits non-zero):
  11b. path 5, ``train(data, "radix18,linear", 65536)``, a 2^18-entry
      hint-table top over linear leaves, phases 3-6 and 8 for it, its
      lookup one launch of rmi_lookup_linear with the top evaluated in the
-     kernel, timed beside the two-step route (the top in torch, then
-     rmi_leaf_eval_linear), its plain version and path 1's fused entry,
+     kernel (its table folded into the rows: the route asserted,
+     INT_ROUTES), timed beside its bound (the share logged), the two-step
+     route (the top in torch, then rmi_leaf_eval_linear), its plain
+     version and path 1's fused entry,
      its kernels (K1, K2, K3 and K4 linear, the run-length pass, the fused
      lookup, both K5 entries) replayed against their plain versions; the
      kernels line keeps path 1's rows;
@@ -81,8 +83,12 @@ Phases (any failure raises and exits non-zero):
      each on the same keys, with max_err, avg_log2 and the build time
      logged, 0 bound violations on 2^22 sampled keys, whose lookup must be
      one launch of the fused entry (none for hint-table leaves), 0 search
-     mismatches on 2^16 queries, the fused lookup and K6 (for
-     ``radix22,cubic``) replayed, and each one's card-vs-CPU cross-check;
+     mismatches on 2^16 queries, the fused lookup of 2^22 sampled keys
+     bit-equal to its two steps and timed beside them and beside its
+     bound, its route asserted (INT_ROUTES: the histogram's pivots staged
+     in a block, radix22's table in place, none for radix and bradix),
+     the fused lookup and K6 (for ``radix22,cubic``) replayed, and each
+     one's card-vs-CPU cross-check;
  11e. path 7, ``cubic,linear 262144`` on f64 keys: path 1's keys cast to
      f64 and scaled by 2^-32 (exactly; keys in [0, 2^30]), as images with
      a sign fix: phases 3-5 for it (cold and warm builds bit-equal, the
@@ -100,7 +106,8 @@ Phases (any failure raises and exits non-zero):
      replayed; the card-vs-CPU cross-check at n = 2^20; then the zoo's
      f64 row, ``radix18,linear 65536`` on the same keys (an integer top
      on f64 keys: the hier plan), as a zoo row (11d), its lookup the fused
-     entry with the f64 key kind, its search through rmi_hier_resolve;
+     entry with the f64 key kind (its table folded into the rows), its
+     search through rmi_hier_resolve;
  11f. path 8, ``linear,linear 100`` on u32 keys (path 1's keys shifted
      right by 30, the books_200M_uint32 shape): phases 3-5 for it through
      the hierarchical plan (asserted; no K5), its search of 2^22 queries
@@ -365,6 +372,10 @@ PATH8 = ("linear,linear", 100,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve"))
 HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
+# the route of each integer top's lookup in paths 5 and 7 and the zoo
+# (eval_kernel.route_name): where its operand lies when it is read
+INT_ROUTES = {"radix18": "folded", "histogram": "block", "radix22": "l2", "radix": "none",
+              "bradix": "none"}
 # the other integer-model rows of FAMILIES_200M.json, and the entries each
 # replays: an integer top's lookup is the fused entry; hint-table leaves
 # keep their torch step and launch none
@@ -583,9 +594,7 @@ def check_kernels(rec, launches, entries, timed=True):
         plain_ms = row_ms(lambda: plain(*pa, **pk), 3)
         lib = library_call(name, args, kw)
         library_ms = None if lib is None else row_ms(lib, 10)
-        nbytes, ops, peak = work(name, args, kw, out)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+        bound_ms, bound_by, nbytes, ops = bound_of(name, args, kw, out)
         del out
         rows[entry] = {"name": entry, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches[entry],
@@ -607,7 +616,33 @@ def check_kernels(rec, launches, entries, timed=True):
                 f"fused {spread(ms)}, two steps (torch top eval, then "
                 f"rmi_leaf_eval_*: the route before the fused entry) {spread(steps)}, "
                 f"plain {spread(plain_ms)}; bound {bound_ms:.4f} ms")
+            if get_model(kw["top_type"]).output_int:
+                int_lookup_line(f"{kw['top_type']},{kw['leaf_type']}", ms, bound_ms,
+                                plain_ms, kw)
     return rows
+
+
+def bound_of(name, args, kw, out):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one
+    wrapper call: the larger of work()'s bytes over HBM_BYTES_PER_S and
+    its operations over their peak rate."""
+    nbytes, ops, peak = work(name, args, kw, out)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
+
+
+def int_lookup_line(spec, ms, bound_ms, plain_ms, kw):
+    """Log an integer top's fused lookup (its time, bound and share of
+    the bound, its plain version's time, the route its operand took:
+    eval_kernel.route_name of the route lookup passed) and hold the route
+    to INT_ROUTES."""
+    top = kw["top_type"]
+    route = eval_kernel.route_name(top, kw["top_args"][5])
+    log(f"lookup {spec}: {spread(ms)}, bound {bound_ms:.4f} ms, share "
+        f"{bound_ms / ms[0]:.3f}, plain {spread(plain_ms)}, route {route}")
+    if route != INT_ROUTES[top]:
+        raise RuntimeError(f"{spec}: the lookup took the {route} route, not "
+                           f"{INT_ROUTES[top]}")
 
 
 def same_as_steps(entry, fused, steps):
@@ -675,14 +710,19 @@ def work(name, args, kw, out):
         # normalization (5), both models and their floors and clamps (8);
         # an integer top's shifts and compares counted at the f64 rate
         # (the int32 lanes' is within 2% of it)
+        # (the top's operands at their model size: an integer top's hint
+        # table as int32 entries, however the kernel stages it)
         q, top_w, leaf_w, leaf_errors = args[:4]
-        top = kw["top_type"]
-        top_ops = eval_kernel.top_operands(top, top_w, q.device)
-        kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(top)]
-        per = 13 + LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + (
-            LEAF_OPS[kind] if kind in LEAF_OPS else
-            3 * max(1, top_ops[4]).bit_length() if kind == "histogram" else INT_TOP_OPS)
-        return (_nbytes(q, *top_ops[:4], leaf_w, leaf_errors, *outs), q.shape[0] * per,
+        kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(kw["top_type"])]
+        if kind in LEAF_OPS:
+            top_ops, top_bytes = LEAF_OPS[kind], _nbytes(top_w)
+        else:
+            top_bytes = sum(_nbytes(top_w[k]) for k in ("w_int", "high", "table", "pivots")
+                            if k in top_w)
+            top_ops = (3 * max(1, top_w["pivots"].shape[0]).bit_length()
+                       if kind == "histogram" else INT_TOP_OPS)
+        per = 13 + LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + top_ops
+        return (_nbytes(q, leaf_w, leaf_errors, *outs) + top_bytes, q.shape[0] * per,
                 F64_OPS_PER_S)
     if name == "resolve":
         # what the answers need, not what the kernel reads (a 128-key row
@@ -1171,19 +1211,27 @@ def zoo_row(data, row, gen, nq, cross_n, seed, dev):
         _, by_search = launched(lambda: check_search(rmi, keys, gen))
         if plan.kind == "hier" and by_search.get("rmi_hier_resolve", 0) <= 0:
             raise RuntimeError(f"{spec}: the hier plan's search launched {by_search}")
-    if want:         # the fused lookup's time beside the two-step route
+    if want:         # the fused lookup's time beside its bound and the two steps
         sample = keys[torch.randint(0, n, (nq,), generator=gen, device=keys.device)]
+        args = (sample, rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors,
+                rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale)
         def two_steps():
-            return eval_kernel.lookup_steps(
-                sample, rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors,
-                rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale, rmi.top_type,
-                rmi.leaf_type, eval_kernel.leaf_eval_clamped, rmi.key_type)
-        same_as_steps(f"zoo {spec}", lookup(rmi, sample), two_steps())
-        fused = row_ms(lambda: lookup(rmi, sample), 10)
+            return eval_kernel.lookup_steps(*args, rmi.top_type, rmi.leaf_type,
+                                            eval_kernel.leaf_eval_clamped, rmi.key_type)
+        out = lookup(rmi, sample)
+        same_as_steps(f"zoo {spec}", out, two_steps())
+        kw = {"top_type": rmi.top_type, "leaf_type": rmi.leaf_type, "key_type": rmi.key_type,
+              "table": rmi.lookup_table_cache, "top_args": rmi.lookup_top_cache}
+        fused = row_ms(lambda: eval_kernel.lookup_clamped(*args, **kw), 10)
         steps = row_ms(two_steps, 10)
         log(f"zoo {spec} lookup of {nq} sampled keys: fused {spread(fused)}, two steps "
             f"{spread(steps)}")
-        del sample
+        if get_model(rmi.top_type).output_int:
+            pk = {k: kw[k] for k in ("top_type", "leaf_type", "key_type")}
+            plain = row_ms(lambda: eval_kernel.lookup_clamped_plain(*args, **pk), 3)
+            int_lookup_line(spec, fused, bound_of("lookup_clamped", args, kw, out)[0], plain,
+                            kw)
+        del sample, args, out
     del rmi
     check_kernels(rec, {}, replayed, timed=False)
     del rec

@@ -58,24 +58,24 @@ RMI_ENTRY(rmi_leaf_eval_normal, (const double* x, const double* w, const int64_t
                                  int32_t* out, int64_t m, int64_t bound, void* stream))
 RMI_ENTRY(rmi_lookup_linear, (const int64_t* keys, int64_t key_kind, const double* top_w,
                               int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
-                              const int64_t* pivots, int64_t top_len, const double* rows,
-                              int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
-                              double offset, double scale, void* stream))
+                              const int64_t* pivots, int64_t top_len, int64_t route,
+                              const double* rows, int64_t* guess, int64_t* err, int64_t m,
+                              int64_t B, int64_t n, double offset, double scale, void* stream))
 RMI_ENTRY(rmi_lookup_cubic, (const int64_t* keys, int64_t key_kind, const double* top_w,
                              int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
-                             const int64_t* pivots, int64_t top_len, const double* rows,
-                             int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
-                             double offset, double scale, void* stream))
+                             const int64_t* pivots, int64_t top_len, int64_t route,
+                             const double* rows, int64_t* guess, int64_t* err, int64_t m,
+                             int64_t B, int64_t n, double offset, double scale, void* stream))
 RMI_ENTRY(rmi_lookup_loglinear, (const int64_t* keys, int64_t key_kind, const double* top_w,
                                  int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
-                                 const int64_t* pivots, int64_t top_len, const double* rows,
-                                 int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
-                                 double offset, double scale, void* stream))
+                                 const int64_t* pivots, int64_t top_len, int64_t route,
+                                 const double* rows, int64_t* guess, int64_t* err, int64_t m,
+                                 int64_t B, int64_t n, double offset, double scale, void* stream))
 RMI_ENTRY(rmi_lookup_normal, (const int64_t* keys, int64_t key_kind, const double* top_w,
                               int64_t top_kind, const int64_t* top_int, const int32_t* top_table,
-                              const int64_t* pivots, int64_t top_len, const double* rows,
-                              int64_t* guess, int64_t* err, int64_t m, int64_t B, int64_t n,
-                              double offset, double scale, void* stream))
+                              const int64_t* pivots, int64_t top_len, int64_t route,
+                              const double* rows, int64_t* guess, int64_t* err, int64_t m,
+                              int64_t B, int64_t n, double offset, double scale, void* stream))
 // K6 (csrc/cubic_l1.cu)
 RMI_ENTRY(rmi_cubic_l1, (const double* x, const int32_t* y, const double* cubic_w,
                          const double* lin_w, const int64_t* aug_starts,

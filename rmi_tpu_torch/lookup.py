@@ -76,10 +76,11 @@ def _rmi_lookup(rmi, queries: torch.Tensor):
                              device=queries.device)
     if (rmi.lookup_table_cache is None and not queries.is_cpu
             and eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)):
-        rmi.lookup_table_cache = eval_kernel.lookup_table(rmi.device_leaf_params,
-                                                          errors)
         rmi.lookup_top_cache = eval_kernel.top_operands(
-            rmi.top_type, rmi.device_top_params, queries.device)
+            rmi.top_type, rmi.device_top_params, queries.device, errors.shape[0],
+            rmi.leaf_type)
+        rmi.lookup_table_cache = eval_kernel.lookup_rows(
+            rmi.device_leaf_params, errors, rmi.lookup_top_cache, errors.shape[0])
     return eval_kernel.lookup_clamped(
         queries, rmi.device_top_params, rmi.device_leaf_params, errors,
         rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale,

@@ -11,7 +11,8 @@ one C entry point per leaf kernel (linear, cubic, loglinear, normal):
                       affine one (its leaf kernel's evaluation) or an
                       integer-output one (radix, bradix, the hint tables,
                       histogram: csrc/int_top.cuh), whose parameters come
-                      packed (top_operands).
+                      packed (top_operands), their operand staged on chip
+                      where it fits (top_route).
 
 Counterpart of rmi_tpu/ops/eval_kernel.py:leaf_eval_clamped.  Its leaf
 evaluation is the one the error sweep (K3) measured the bounds with
@@ -136,31 +137,120 @@ def top_kind(top_type: str) -> int:
     return TOP_KINDS.index("table" if mtop.function_name == "radix_table" else top_type)
 
 
-def top_operands(top_type: str, top_p, device):
-    """(top_w, top_int, top_table, pivots, top_len): the top's arguments of
-    rmi_lookup_*, empty where the kind reads none.  An affine top: its
-    [1, ppm] row.  An integer top: its parameters packed in one int64
-    tensor (radix: prefix, bits; bradix: prefix, bits, clamp, high; a hint
-    table: prefix, bits), a hint table's int32 entries or a histogram's
-    pivot images, and their count.  Made once per index (lookup keeps
-    them); a bradix top's packing is one small torch.cat."""
+# The routes of an integer top's operand (csrc/int_top.cuh RmiRoute):
+# 0 read in place, through L1 and L2 (radix and bradix have none); 1 a
+# histogram's pivots staged in each block's shared memory as their
+# search tree, where one block holds it (BLOCK_BYTES: the trees are
+# powers of two, so 16383 pivots, 128 KB, are the most); 2 a hint table
+# folded into the lookup rows, one row a bucket, where those rows take
+# at most FOLD_BYTES, a third of the H100's 50 MB L2 (radix18's 8 MB of
+# folded rows beat its table in place, radix22's 128 MB lose to it:
+# PERF.md §6).
+IN_PLACE, BLOCK, FOLDED = 0, 1, 2
+BLOCK_BYTES = 192 * 1024
+FOLD_BYTES = 16 << 20
+
+
+def table_width(B: int) -> int:
+    """Bits of a narrowed hint-table entry under B leaves: 16 where every
+    leaf id fits them (B <= 2^16), else 32 (csrc/int_top.cuh kNarrowLast)."""
+    return 16 if B <= 1 << 16 else 32
+
+
+def narrow_table(table: torch.Tensor, B: int) -> torch.Tensor:
+    """A hint table as rmi_lookup_* reads it: each entry clamp_int(entry,
+    B - 1), which the kernel took of every entry it read, in
+    table_width(B) bits, two 16-bit entries to an int32 word (the even
+    entry in the low half)."""
+    t = clamp_int(table.long(), B - 1)
+    if table_width(B) == 32:
+        return t.to(torch.int32)
+    words = t[0::2] | (t[1::2] << 16)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_table(words: torch.Tensor, B: int) -> torch.Tensor:
+    """narrow_table's entries as int64 (its inverse on clamped entries)."""
+    if table_width(B) == 32:
+        return words.long()
+    w = words.long() & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], 1).reshape(-1)
+
+
+def operand_bytes(kind: str, length: int, row_bytes: int) -> int:
+    """Bytes of an integer top's operand as a route would hold it: a
+    histogram's ``length`` pivots as their complete search tree (2^h slots
+    of 8 bytes, h the bit length of ``length``), a hint table's ``length``
+    entries as folded lookup rows of ``row_bytes``; 0 for radix, bradix
+    and an empty histogram, which read none."""
+    if kind == "table":
+        return length * row_bytes
+    if kind == "histogram" and length:
+        return 8 << length.bit_length()
+    return 0
+
+
+def top_route(kind: str, nbytes: int) -> int:
+    """Where rmi_lookup_* reads an integer top's operand of ``nbytes``
+    (operand_bytes): a histogram's tree in each block (BLOCK) where one
+    block holds it, a hint table folded into the rows (FOLDED) where they
+    fit FOLD_BYTES; else, and for no operand, in place (IN_PLACE)."""
+    if kind == "histogram" and 0 < nbytes <= BLOCK_BYTES:
+        return BLOCK
+    if kind == "table" and nbytes <= FOLD_BYTES:
+        return FOLDED
+    return IN_PLACE
+
+
+def _route(kind: str, length: int, leaf_type: str) -> int:
+    """top_route of a ``kind`` operand of ``length`` entries over leaves of
+    ``leaf_type`` (their lookup rows' bytes)."""
+    row_bytes = 8 * lookup_width(get_model(leaf_type).ppm)
+    return top_route(kind, operand_bytes(kind, length, row_bytes))
+
+
+def route_name(top_type: str, route: int) -> str:
+    """A lookup's route as chip_smoke logs it: "affine", "none" (radix,
+    bradix), "l2", "block" or "folded"."""
+    kind = TOP_KINDS[top_kind(top_type)]
+    if kind in LEAF_KERNELS:
+        return "affine"
+    if kind in ("radix", "bradix"):
+        return "none"
+    return ("l2", "block", "folded")[route]
+
+
+def top_operands(top_type: str, top_p, device, B: int, leaf_type: str):
+    """(top_w, top_int, top_table, pivots, top_len, route): the top's
+    arguments of rmi_lookup_* under B leaves of ``leaf_type``, empty where
+    the kind reads none.  An affine top: its [1, ppm] row.  An integer
+    top: its parameters packed in one int64 tensor (radix: prefix, bits;
+    bradix: prefix, bits, clamp, high; a hint table: prefix, bits), a hint
+    table's entries narrowed (narrow_table) or a histogram's pivot images,
+    their count, and the route (top_route; FOLDED asks for lookup_rows'
+    rows by bucket).  Made once per index (lookup keeps them); a bradix
+    top's packing is one small torch.cat."""
     empty = [torch.empty(0, dtype=t, device=device)
              for t in (torch.float64, torch.int64, torch.int32)]
     f64, i64, i32 = empty
     kind = TOP_KINDS[top_kind(top_type)]
     if kind in LEAF_KERNELS:
-        return top_p, i64, i32, i64, 0
+        return top_p, i64, i32, i64, 0, IN_PLACE
     if kind == "histogram":
-        return f64, i64, i32, top_p["pivots"], top_p["pivots"].shape[0]
+        length = top_p["pivots"].shape[0]
+        return f64, i64, i32, top_p["pivots"], length, _route(kind, length, leaf_type)
     if kind == "table":
-        return f64, top_p["w_int"], top_p["table"], i64, top_p["table"].shape[0]
+        length = top_p["table"].shape[0]
+        return (f64, top_p["w_int"], narrow_table(top_p["table"], B), i64, length,
+                _route(kind, length, leaf_type))
     if kind == "bradix":
-        return f64, torch.cat([top_p["w_int"], top_p["high"].reshape(1)]), i32, i64, 0
-    return f64, top_p["w_int"], i32, i64, 0
+        return (f64, torch.cat([top_p["w_int"], top_p["high"].reshape(1)]), i32, i64, 0,
+                IN_PLACE)
+    return f64, top_p["w_int"], i32, i64, 0, IN_PLACE
 
 
-def _check_top_operands(top_type, operands):
-    top_w, top_int, table, pivots, top_len = operands
+def _check_top_operands(top_type, leaf_type, operands, B):
+    top_w, top_int, table, pivots, top_len, route = operands
     kind = TOP_KINDS[top_kind(top_type)]
     if kind in LEAF_KERNELS:
         _check_card_table("lookup_clamped", top_w)
@@ -168,12 +258,17 @@ def _check_top_operands(top_type, operands):
     if top_int.shape != (INT_PARAMS[kind],):
         raise ValueError(f"lookup_clamped: {top_type} takes {INT_PARAMS[kind]} packed "
                          f"parameters, not {list(top_int.shape)}")
-    # a hint table holds 2^bits entries (bytes_per_model: 4 bytes each)
+    # a hint table holds 2^bits entries (bytes_per_model: 4 bytes each),
+    # narrowed to table_width(B) bits
     want = (get_model(top_type).bytes_per_model // 4 if kind == "table"
             else pivots.shape[0] if kind == "histogram" else 0)
-    if top_len != want or (kind == "table" and table.shape != (want,)):
+    if top_len != want or (kind == "table" and
+                           table.shape != (want * table_width(B) // 32,)):
         raise ValueError(f"lookup_clamped: {top_type}'s table or pivots do not match "
-                         f"their count {top_len}")
+                         f"their count {top_len} under {B} leaves")
+    if route != _route(kind, top_len, leaf_type):
+        raise ValueError(f"lookup_clamped: route {route} is not {top_type}'s over "
+                         f"{B} {leaf_type} leaves")
 
 
 def lookup_steps(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
@@ -227,6 +322,16 @@ def lookup_table(leaf_w, leaf_errors) -> torch.Tensor:
     return rows.view(torch.float64)
 
 
+def lookup_rows(leaf_w, leaf_errors, top_args, B: int) -> torch.Tensor:
+    """The rows rmi_lookup_* reads: lookup_table(leaf_w, leaf_errors), or
+    under a hint table folded into them (route FOLDED) one row a bucket,
+    the row of the leaf the bucket's narrowed entry names."""
+    rows = lookup_table(leaf_w, leaf_errors)
+    if top_args[5] != FOLDED:
+        return rows
+    return rows[unpack_table(top_args[2], B)]
+
+
 def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
                    s: float, *, top_type: str, leaf_type: str, table=None,
                    top_args=None, key_type: KeyType = KeyType.U64):
@@ -235,16 +340,18 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     the index of ``n`` keys with top row ``top_w`` [1, ppm], leaf rows
     ``leaf_w`` [B, ppm] (an integer-output model's parameter dict
     instead), per-leaf errors ``leaf_errors`` [B] int64 and
-    normalization (kminf, s).  ``table`` is lookup_table(leaf_w,
-    leaf_errors) and ``top_args`` top_operands(top_type, top_w, device)
-    where the caller keeps them; else they are made here.
+    normalization (kminf, s).  ``top_args`` is top_operands(top_type,
+    top_w, device, B, leaf_type) and ``table`` lookup_rows(leaf_w,
+    leaf_errors, top_args, B) where the caller keeps them; else they are
+    made here.
 
     Route, by the models' types: where fused_lookup holds, one launch of
     rmi_lookup_<leaf kernel>, which decodes the key (as key_kind(key_type)
     says), evaluates the top (an affine top's kernel's rmi_leaf on row 0,
     or an integer top on the key's u64 bits; the top kind a kernel
-    argument), clamps the leaf id, gathers the leaf's row and error and
-    evaluates the leaf on the normalized key; with a lognormal top or
+    argument; its operand read where top_args' route says), clamps the
+    leaf id, gathers the leaf's row and error and evaluates the leaf on
+    the normalized key; with a lognormal top or
     leaf, the two steps, the top and the kernel inputs in torch and the
     leaf in rmi_leaf_eval_<leaf kernel>, and ``table`` is not read; with
     a hint-table leaf, whose step is plain torch, lookup_steps."""
@@ -263,13 +370,14 @@ def lookup_clamped(queries, top_w, leaf_w, leaf_errors, n: int, kminf: float,
     if not fused_lookup(top_type, leaf_type):
         return lookup_steps(queries, top_w, leaf_w, leaf_errors, n, kminf, s,
                             top_type, leaf_type, leaf_eval_clamped, key_type)
-    if table is None:
-        table = lookup_table(leaf_w, leaf_errors)
     if top_args is None:
-        top_args = top_operands(top_type, top_w, queries.device)
-    _check_table("lookup_clamped", table, lookup_width(mleaf.ppm), rows=B)
+        top_args = top_operands(top_type, top_w, queries.device, B, leaf_type)
+    if table is None:
+        table = lookup_rows(leaf_w, leaf_errors, top_args, B)
+    _check_top_operands(top_type, leaf_type, top_args, B)
+    _check_table("lookup_clamped", table, lookup_width(mleaf.ppm),
+                 rows=top_args[4] if top_args[5] == FOLDED else B)
     _check_card_table("lookup_clamped", table)
-    _check_top_operands(top_type, top_args)
     if not 1 <= n <= MAX_BOUND + 1 or B > MAX_BOUND + 1:
         raise ValueError("lookup_clamped: n and B must lie in [1, 2^31]")
     m = queries.shape[0]

@@ -72,8 +72,9 @@ class TrainedRMI:
         dataclasses.field(default=None, repr=False, compare=False)
     # serving state made on first use: lookup_fast's per-leaf (starts,
     # next_idx) and the search plan built from them, and lookup's table
-    # of each leaf's row beside its error (eval_kernel.lookup_table) with
-    # its top's kernel arguments (eval_kernel.top_operands)
+    # of each leaf's row beside its error (eval_kernel.lookup_rows: under a
+    # folded hint table one row a bucket) with its top's kernel arguments
+    # and route (eval_kernel.top_operands)
     leaf_spans_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default=None, init=False, repr=False, compare=False)
     plan_cache: Optional[Any] = dataclasses.field(

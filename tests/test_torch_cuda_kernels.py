@@ -52,9 +52,9 @@ from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, hier_kernel
                                sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, RESOLVE_EDGES, int_top_case,
-                                      leaf_table, lookup_case, resolve_case, resolve_edge_case,
-                                      top_rows)
+from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, RESOLVE_EDGES, int_keys,
+                                      int_top_case, leaf_table, lookup_case, resolve_case,
+                                      resolve_edge_case, top_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -430,8 +430,10 @@ def _lookup_on_card(dev, case, top, leaf, sliced=False, key_type=KeyType.U64):
     torch.cuda.synchronize()
     assert _build.launches[entry] == before[entry] + 1
     assert all(_build.launches[k] == before[k] for k in before if k.startswith("rmi_leaf_eval"))
-    table = eval_kernel.lookup_table(card[2], card[3])       # as lookup keeps it
-    g2, e2 = eval_kernel.lookup_clamped(*card, **kw, table=table)
+    B = card[3].shape[0]
+    ops = eval_kernel.top_operands(top, card[1], dev, B, leaf)
+    table = eval_kernel.lookup_rows(card[2], card[3], ops, B)     # as lookup keeps them
+    g2, e2 = eval_kernel.lookup_clamped(*card, **kw, table=table, top_args=ops)
     assert torch.equal(g2, g) and torch.equal(e2, e)
     pg, pe = eval_kernel.lookup_clamped_plain(*card, **kw)
     cg, ce = eval_kernel.lookup_clamped_plain(q, *rest, **kw)
@@ -1193,9 +1195,9 @@ def test_k4_lookup_refuses_an_unknown_key_kind(dev, kind):
     guess, err = torch.empty_like(q), torch.empty_like(q)
     before = _build.launches["rmi_lookup_linear"]
     with pytest.raises(RuntimeError):
-        _build.launch("rmi_lookup_linear", q, kind, *eval_kernel.top_operands(
-            "cubic", top_w, dev)[:1], 1, *eval_kernel.top_operands("cubic", top_w, dev)[1:],
-            table, guess, err, q.shape[0], leaf_w.shape[0], n, kminf, s)
+        ops = eval_kernel.top_operands("cubic", top_w, dev, leaf_w.shape[0], "linear")
+        _build.launch("rmi_lookup_linear", q, kind, ops[0], 1, *ops[1:], table, guess, err,
+                      q.shape[0], leaf_w.shape[0], n, kminf, s)
     assert _build.launches["rmi_lookup_linear"] == before
 
 
@@ -1460,18 +1462,122 @@ def test_k4_lookup_refuses_integer_tops_without_operands(dev):
     q, leaf_w, errs = q.to(dev), leaf_w.to(dev), errs.to(dev)
     top_p = params_to(top_p, dev)
     kw = {"top_type": "radix18", "leaf_type": "linear"}
-    ops = eval_kernel.top_operands("radix18", top_p, dev)
+    ops = eval_kernel.top_operands("radix18", top_p, dev, leaf_w.shape[0], "linear")
     with pytest.raises(ValueError):                      # a table of other bits
         eval_kernel.lookup_clamped(q, top_p, leaf_w, errs, n, kminf, s, **kw,
-                                   top_args=(*ops[:2], ops[2][:1024], ops[3], 1024))
+                                   top_args=(*ops[:2], ops[2][:512], ops[3], 1024, 1))
     with pytest.raises(ValueError):                      # bradix's four parameters
         eval_kernel.lookup_clamped(q, top_p, leaf_w, errs, n, kminf, s,
                                    top_type="bradix", leaf_type="linear", top_args=ops)
     table = eval_kernel.lookup_table(leaf_w, errs)
     guess, err = torch.empty_like(q), torch.empty_like(q)
     before = _build.launches["rmi_lookup_linear"]
-    for kind, operands in ((6, (ops[1], ops[2][:0], ops[3], 0)),     # no table
+    for kind, operands in ((6, (ops[1], ops[2][:0], ops[3], 0, 0)),   # no table
                            (8, ops[1:])):                           # no such top
+        with pytest.raises(RuntimeError):
+            _build.launch("rmi_lookup_linear", q, 0, ops[0], kind, *operands, table, guess,
+                          err, q.shape[0], leaf_w.shape[0], n, kminf, s)
+    assert _build.launches["rmi_lookup_linear"] == before
+
+
+# the integer-top kernel's routes (eval_kernel.top_route): each at its
+# edges, bit-equal to lookup_steps with K4's plain version
+
+def _route_of(case, top, leaf="linear"):
+    B = case[3].shape[0]
+    return eval_kernel.top_operands(top, case[1], "cpu", B, leaf)[5]
+
+
+def _histogram_case(B, kind, n, seed, m=3000):
+    """A histogram top fitted over n keys under B leaves; for B = 1, which
+    no fit gives, B = 2's one pivot with one leaf row."""
+    case, key_type = int_top_case("histogram", "linear", kind, m, seed, B=max(B, 2), n=n)
+    if B == 1:
+        case = (*case[:2], case[2][:1], case[3][:1], *case[4:])
+    return case, key_type
+
+
+def _round_sizes(leaf, route):
+    """Batch sizes at the grid's edges: none, a lone key, three (a head
+    and a tail), pairs just past two blocks' round (the third block takes
+    a partial round, the rest none), and a batch of several persistent
+    rounds past a multiple of a round.  A block's round (csrc/eval.cu
+    int_threads * int_pairs): in place 256 pairs; staged or folded 512
+    threads of two pairs, one for cubic leaves."""
+    per = 256 if route == eval_kernel.IN_PLACE else 512 * (
+        1 if get_model(leaf).leaf_kernel == "cubic" else 2)
+    return [0, 1, 3, 2 * (per * 2 + 3) + 1, 2 * (per * 2000 + per * 3 + 5) + 1]
+
+
+@pytest.mark.parametrize("kind", ["u64", "f64"])
+@pytest.mark.parametrize("B", [1 << 16, (1 << 16) + 1])
+@pytest.mark.parametrize("top", ["radix8", "radix18", "radix22"])
+def test_int_lookup_table_routes(dev, top, B, kind):
+    """radix8 and radix18 tables folded into the rows, a radix22 table
+    read in place (16-bit entries at B = 2^16, 32-bit at 2^16 + 1), from a
+    16-byte boundary and one past it, u64 and f64 keys."""
+    case, key_type = int_top_case(top, "linear", kind, 3000, 17, B=B)
+    assert _route_of(case, top) == (eval_kernel.IN_PLACE if top == "radix22"
+                                    else eval_kernel.FOLDED)
+    _lookup_on_card(dev, case, top, "linear", key_type=key_type)
+    _lookup_on_card(dev, case, top, "linear", sliced=True, key_type=key_type)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1 << 12), (2, 1 << 12), (4095, 1 << 14), (4096, 1 << 14),
+                                 (4097, 1 << 14), (16384, 1 << 16), (16385, 1 << 16)])
+def test_int_lookup_histogram_routes(dev, B, n):
+    """Histograms of 1 (B = 1, 2), 4094, 4095, 4096 pivots and the largest
+    tree one block stages (16383 pivots, 128 KB) in the block, and one
+    pivot more in place; u64 keys, and f64 keys at 4095 pivots."""
+    case, key_type = _histogram_case(B, "u64", n, 19)
+    pivots = case[1]["pivots"].shape[0]
+    assert _route_of(case, "histogram") == (eval_kernel.IN_PLACE if pivots > 16383
+                                            else eval_kernel.BLOCK)
+    _lookup_on_card(dev, case, "histogram", "linear", key_type=key_type)
+    _lookup_on_card(dev, case, "histogram", "linear", sliced=True, key_type=key_type)
+    if B == 4096:
+        case, key_type = _histogram_case(B, "f64", n, 21)
+        _lookup_on_card(dev, case, "histogram", "linear", key_type=key_type)
+
+
+@pytest.mark.parametrize("top,leaf,B,route", [("radix18", "linear", 1 << 16, 2),
+                                              ("radix18", "cubic", (1 << 16) + 1, 2),
+                                              ("histogram", "linear", 4096, 1),
+                                              ("radix22", "normal", 256, 0),
+                                              ("bradix", "cubic", 256, 0)])
+def test_int_lookup_round_edges(dev, top, leaf, B, route):
+    """Each route at the persistent grid's edges (_round_sizes), the keys
+    from a 16-byte boundary and one past it; radix18's cubic rows fold
+    into exactly FOLD_BYTES."""
+    case, key_type = int_top_case(top, leaf, "u64", 8, 23, B=B, n=1 << 14)
+    assert _route_of(case, top, leaf) == route
+    keys, _ = int_keys("u64", 29, 1 << 14)
+    for m in _round_sizes(leaf, route):
+        q = tkeys.to_image(keys[np.random.default_rng(m).integers(0, keys.size, m + 1)])
+        _lookup_on_card(dev, (q[:m], *case[1:]), top, leaf, key_type=key_type)
+        if m:
+            _lookup_on_card(dev, (q, *case[1:]), top, leaf, sliced=True, key_type=key_type)
+
+
+def test_int_lookup_refuses_routes_it_cannot_take(dev):
+    """A route the top cannot take is refused (a table staged in a block,
+    a histogram folded, radix staged, routes 3, 16 and -1), and so is a
+    launch the card refuses: a 16384-pivot histogram's 256 KB tree in one
+    block's shared memory.  No launch is counted."""
+    (q, top_p, leaf_w, errs, n, kminf, s), _ = int_top_case("radix18", "linear", "u64", 64, 3,
+                                                              B=1 << 16)
+    q, leaf_w, errs = q.to(dev), leaf_w.to(dev), errs.to(dev)
+    top_p = params_to(top_p, dev)
+    ops = eval_kernel.top_operands("radix18", top_p, dev, leaf_w.shape[0], "linear")
+    hist = int_top_case("histogram", "linear", "u64", 64, 3)[0][1]["pivots"].to(dev)
+    wide = torch.arange(1 << 14, dtype=torch.int64, device=dev)
+    table = eval_kernel.lookup_table(leaf_w, errs)
+    guess, err = torch.empty_like(q), torch.empty_like(q)
+    before = _build.launches["rmi_lookup_linear"]
+    for kind, operands in [(6, (*ops[1:5], r)) for r in (1, 3, 16, -1)] + [
+            (7, (ops[1], ops[2][:0], hist, hist.shape[0], 2)),
+            (7, (ops[1], ops[2][:0], wide, wide.shape[0], 1)),
+            (4, (top_p["w_int"], ops[2][:0], ops[3], 0, 1))]:
         with pytest.raises(RuntimeError):
             _build.launch("rmi_lookup_linear", q, 0, ops[0], kind, *operands, table, guess,
                           err, q.shape[0], leaf_w.shape[0], n, kminf, s)

@@ -39,6 +39,7 @@ import rmi_tpu_torch as rt
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import REGISTRY, get_model
+from rmi_tpu_torch.models.base import clamp_int
 from rmi_tpu_torch.models.histogram import build_radix_index
 from rmi_tpu_torch.ops import eval_kernel
 from rmi_tpu_torch.train import two_layer
@@ -134,12 +135,122 @@ def test_top_operands():
         else:
             assert kind == name
     (_, top_p, *_), _ = _case("bradix", "linear", "u64")
-    _, p, table, pivots, length = eval_kernel.top_operands("bradix", top_p, "cpu")
+    _, p, table, pivots, length, route = eval_kernel.top_operands("bradix", top_p, "cpu", 256,
+                                                                  "linear")
     assert torch.equal(p, torch.cat([top_p["w_int"], top_p["high"].reshape(1)]))
-    assert table.numel() == pivots.numel() == length == 0
+    assert table.numel() == pivots.numel() == length == route == 0
     (_, top_p, *_), _ = _case("radix18", "linear", "u64")
-    _, p, table, _, length = eval_kernel.top_operands("radix18", top_p, "cpu")
-    assert p is top_p["w_int"] and table is top_p["table"] and length == 1 << 18
+    _, p, table, _, length, route = eval_kernel.top_operands("radix18", top_p, "cpu", 256,
+                                                             "linear")
+    assert p is top_p["w_int"] and length == 1 << 18 and route == eval_kernel.FOLDED
+    assert table.dtype == torch.int32 and table.shape == (1 << 17,)
+    assert torch.equal(eval_kernel.unpack_table(table, 256),
+                       clamp_int(top_p["table"].long(), 255))
+    (_, top_p, *_), _ = _case("histogram", "linear", "u64")
+    _, p, table, pivots, length, route = eval_kernel.top_operands("histogram", top_p, "cpu",
+                                                                  256, "cubic")
+    assert pivots is top_p["pivots"] and length == pivots.shape[0] == 255
+    assert route == eval_kernel.BLOCK
+
+
+def _table_with_edges(bits, seed):
+    """A hint table as the fit makes them: 0 at slot 0, the fill 2^bits
+    past the last bucket, leaf ids up to 2^20 + 3 between."""
+    rng = np.random.default_rng(seed)
+    size = 1 << bits
+    t = np.sort(rng.integers(0, (1 << 20) + 4, size))
+    t[0], t[-size // 8:] = 0, size
+    t[1:9] = [1, 255, 256, 65535, 65536, 65537, (1 << 20) + 3, size]
+    return torch.from_numpy(t.astype(np.int32))
+
+
+@pytest.mark.parametrize("B", [1, 2, 255, 1 << 16, (1 << 16) + 1, 1 << 21])
+@pytest.mark.parametrize("bits", [8, 18])
+def test_narrowed_table(bits, B):
+    """The hint table rmi_lookup_* reads: narrow_table's entries, unpacked,
+    equal clamp_int(table, B - 1) at every entry (slot 0's 0, the fill
+    2^bits, ids past B - 1), in 16 bits an entry where B <= 2^16 (two to
+    an int32 word, the high half past 2^15 too) and 32 above; the fitted
+    tables of both fits (a 53-bit prefix: most slots the fill) likewise."""
+    table = _table_with_edges(bits, bits + B)
+    words = eval_kernel.narrow_table(table, B)
+    width = 16 if B <= 1 << 16 else 32
+    assert eval_kernel.table_width(B) == width
+    assert words.dtype == torch.int32 and words.shape == ((1 << bits) * width // 32,)
+    want = clamp_int(table.long(), B - 1)
+    got = eval_kernel.unpack_table(words, B)
+    assert torch.equal(got, want)
+    assert int(got[0]) == 0 and int(got[-1]) == min(1 << bits, B - 1)
+    for kind in ("narrow", "u64"):
+        (_, top_p, *_), _ = _case(f"radix{bits}", "linear", kind)
+        _, _, words, _, length, _ = eval_kernel.top_operands(f"radix{bits}", top_p, "cpu", B,
+                                                             "linear")
+        assert length == 1 << bits
+        assert torch.equal(eval_kernel.unpack_table(words, B),
+                           clamp_int(top_p["table"].long(), B - 1))
+
+
+def test_top_route_edges():
+    """top_route at each edge: the largest tree one block stages and one
+    byte more, the largest table folded into the rows and one byte more,
+    histogram len 0 and 1, radix and bradix with no operand; and the
+    routes of chip_smoke's rows (radix18 folded at B = 2^16 and 2^16 + 1,
+    a 4095-pivot histogram in a block, radix22 in place)."""
+    route, nbytes = eval_kernel.top_route, eval_kernel.operand_bytes
+    IN_PLACE, BLOCK, FOLDED = eval_kernel.IN_PLACE, eval_kernel.BLOCK, eval_kernel.FOLDED
+    block, fold = eval_kernel.BLOCK_BYTES, eval_kernel.FOLD_BYTES
+    assert route("histogram", 16) == route("histogram", block) == BLOCK
+    assert route("histogram", block + 1) == IN_PLACE
+    assert route("table", 1) == route("table", fold) == FOLDED
+    assert route("table", fold + 1) == IN_PLACE
+    assert nbytes("histogram", 0, 32) == 0 and route("histogram", 0) == IN_PLACE
+    assert nbytes("histogram", 1, 32) == 16 and route("histogram", 16) == BLOCK
+    assert nbytes("histogram", 16383, 32) == 1 << 17 == nbytes("histogram", 8192, 32)
+    assert nbytes("histogram", 16384, 32) == 1 << 18 > block
+    for kind in ("radix", "bradix"):
+        assert nbytes(kind, 0, 32) == 0 and route(kind, 0) == IN_PLACE
+        assert route(kind, block) == route(kind, fold) == IN_PLACE
+    assert route("table", nbytes("table", 1 << 18, 32)) == FOLDED        # radix18, linear
+    assert route("table", nbytes("table", 1 << 18, 64)) == FOLDED        # radix18, cubic
+    assert route("table", nbytes("table", 1 << 22, 64)) == IN_PLACE      # radix22, cubic
+    assert route("histogram", nbytes("histogram", 4095, 32)) == BLOCK
+    for top in ("radix", "bradix", "radix8", "radix18", "radix22", "histogram"):
+        for B in (1, 1 << 16, (1 << 16) + 1):
+            (_, top_p, *_), _ = _case(top, "linear", "u64")
+            got = eval_kernel.top_operands(top, top_p, "cpu", B, "cubic")[5]
+            kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(top)]
+            length = top_p["table"].shape[0] if kind == "table" else top_p.get(
+                "pivots", torch.empty(0)).shape[0]
+            assert got == route(kind, nbytes(kind, length, 64))
+    names = {t: eval_kernel.route_name(t, r) for t, r in
+             (("radix", 0), ("bradix", 0), ("radix22", 0), ("radix18", FOLDED),
+              ("histogram", BLOCK), ("histogram", IN_PLACE), ("cubic", 0))}
+    assert names == {"radix": "none", "bradix": "none", "radix22": "l2",
+                     "radix18": "folded", "histogram": "l2", "cubic": "affine"}
+
+
+def test_lookup_refuses_a_route_of_its_own():
+    """lookup_clamped takes the route top_route gives, no other."""
+    (q, top_p, leaf_w, errors, n, kminf, s), _ = _case("histogram", "linear", "u64")
+    ops = eval_kernel.top_operands("histogram", top_p, "cpu", 256, "linear")
+    eval_kernel._check_top_operands("histogram", "linear", ops, 256)
+    for route in (eval_kernel.IN_PLACE, eval_kernel.FOLDED):
+        with pytest.raises(ValueError, match="route"):
+            eval_kernel._check_top_operands("histogram", "linear", (*ops[:5], route), 256)
+
+
+def test_folded_rows():
+    """A folded hint table's rows (lookup_rows): row b is the lookup row
+    of leaf clamp_int(table[b], B - 1), its row and error bit for bit."""
+    (q, top_p, leaf_w, errors, n, kminf, s), _ = _case("radix18", "cubic", "narrow")
+    B = leaf_w.shape[0]
+    ops = eval_kernel.top_operands("radix18", top_p, "cpu", B, "cubic")
+    rows = eval_kernel.lookup_rows(leaf_w, errors, ops, B)
+    leaf = clamp_int(top_p["table"].long(), B - 1)
+    assert rows.shape == (1 << 18, eval_kernel.lookup_width(4))
+    assert torch.equal(rows.view(torch.int64), eval_kernel.lookup_table(
+        leaf_w, errors).view(torch.int64)[leaf])
+    assert torch.equal(rows[:, 4].view(torch.int64), errors[leaf])
 
 
 @pytest.mark.parametrize("top", sorted(n for n, m in REGISTRY.items()

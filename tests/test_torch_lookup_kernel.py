@@ -87,8 +87,9 @@ def leaf_table(leaf, B, n, seed):
         w = np.stack([np.log1p(ids * (n / B)), rng.normal(1.0, 0.5, B)], 1)
     else:
         w = np.stack([rng.normal(0.0, n / B, B), rng.normal(n, n / 100, B)], 1)
-    w[3] *= -1.0                                  # predicts below 0
-    w[7] *= 4.0                                   # and above n
+    if B > 7:
+        w[3] *= -1.0                              # predicts below 0
+        w[7] *= 4.0                               # and above n
     return torch.from_numpy(w)
 
 
@@ -297,11 +298,11 @@ def int_queries(keys, key_type, m, seed):
     return torch.from_numpy(q.astype(np.int64))
 
 
-def int_top_case(top, leaf, kind, m, seed, *, B=256, device="cpu"):
+def int_top_case(top, leaf, kind, m, seed, *, B=256, device="cpu", n=1 << 12):
     """A lookup's inputs under integer top ``top`` fitted as stage A fits
-    it (on ``device``): (queries, top params, leaf_w, leaf_errors, n,
-    kminf, s) on the CPU, and the key type."""
-    keys, key_type = int_keys(kind, seed)
+    it (on ``device``) over n keys of ``kind``: (queries, top params,
+    leaf_w, leaf_errors, n, kminf, s) on the CPU, and the key type."""
+    keys, key_type = int_keys(kind, seed, n)
     img = tkeys.to_image(keys).to(device)
     n = img.shape[0]
     top_in = two_layer.model_float_input(get_model(top), img, 0.0, 1.0, key_type)
