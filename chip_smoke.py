@@ -1,6 +1,6 @@
 """Drive rmi_tpu_torch once on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py              # 200M keys, all ten paths
+    python3 chip_smoke.py              # 200M keys, all eleven paths
     python3 chip_smoke.py --n 2000000  # a shorter run
 
 Phases (any failure raises and exits non-zero):
@@ -75,7 +75,10 @@ Phases (any failure raises and exits non-zero):
      exact, the native server's positions equal to the card's but for a
      lerp within eps of a line boundary (one line up); each step timed;
      the kernels of 6a's serving and of 6b replayed against their plain
-     versions;
+     versions; 6b's lookup (one fused lookup and one rmi_cachefix_interp)
+     timed beside the route it replaced (the interpolation's plain
+     version), and rmi_cachefix_interp beside its plain version and its
+     bound;
  11d. the zoo: the other integer-model rows of FAMILIES_200M.json
      (``radix,linear 1024``, ``bradix,linear 1024``, ``histogram,linear
      4096``, ``radix22,cubic 65536`` and ``cubic,radix8 4096``, the last
@@ -112,8 +115,12 @@ Phases (any failure raises and exits non-zero):
      right by 30, the books_200M_uint32 shape): phases 3-5 for it through
      the hierarchical plan (asserted; no K5), its search of 2^22 queries
      one fused lookup and one rmi_hier_resolve launch (asserted), timed
-     against bounded_search and torch.searchsorted on the same batch
-     (median of 7 runs, CUDA events, all exact), lookup timed,
+     against bounded_search (one fused lookup and one
+     rmi_bounded_lower_bound, asserted; beside the route it replaced, the
+     bounded search's plain version) and torch.searchsorted on the same
+     batch (median of 7 runs, CUDA events, all exact), lookup timed,
+     rmi_bounded_lower_bound timed beside its plain version, its bound
+     and its library call (its kernels-line row),
      rmi_hier_resolve timed beside its plain version and its library
      call (its kernels-line row), its other kernels replayed, the
      card-vs-CPU cross-check;
@@ -177,6 +184,27 @@ Phases (any failure raises and exits non-zero):
      counted), 0 mismatches, its rate beside path 1's search of the same
      batch and 10a's.  Four ranks on one card measure the
      sharded algorithm and its gloo collectives, not scaling over cards;
+ 11i. path 11, the reference's five other SOSD CI configurations
+     (PATH11: tests/test_sosd.py's rows with their flags), the launches
+     counted from 0, each through the CLI on SOSD_SYNTH.json's own keys
+     (synthetic_dataset("wiki" | "osm", n, seed=7) made on the host and
+     written once to SOSD files, the wiki one shared with 9a; first and
+     last key and duplicates logged): RMI_SIZE equal to SOSD_SYNTH.json's
+     row (a shorter run holds a cachefix size to the top's bytes + 24 B +
+     16 knots), the artifact loaded back onto the card with 0 bound
+     violations over every key (cachefix: |pos - lb| <= 8 and err = 8), 0
+     search mismatches on 2^22 queries over the file's key range
+     (cachefix: with the original keys), every entry of the build, the
+     lookup and the search route launched, the build again (warm), its
+     metrics the CLI's; max_err with its leaf, the keys routed there,
+     whether it is the final leaf and empty, avg_log2, cold and warm
+     build, the host spline's seconds and the peak device memory logged
+     beside the TPU row (no gate); a cachefix lookup of 2^22 keys drawn
+     at random timed beside the route it replaced and rmi_cachefix_interp
+     beside its plain version (``cache_fix_osm``'s is the kernels-line
+     row); the kernels replayed and the card against the CPU at 2^20 keys
+     of the same kind and seed (cross_check; train_bounded on both sides
+     for a cachefix configuration, the knots equal), uncounted;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
      and K4 calls (on max(ln x, 0), computed outside the kernels)
@@ -203,11 +231,15 @@ each input read once and each output written once (K5: the queries, the
 answers, and the 32-byte sectors of keys that decide each answer and
 each block's binary search over its stripes; the scatter entry adds its
 order; the hier resolve: the queries, guesses, errors and answers, the
-sectors that decide each answer and the upper levels), at 3.35 TB/s, or
+sectors that decide each answer and the upper levels; the bounded lower
+bound likewise without levels; the cachefix interpolation: the queries,
+starts, errors and answers and the sectors of each answer's knot pair and
+value pair), at 3.35 TB/s, or
 its operations at the
 peak rate of their type, whichever is larger.
-The last line is the device JSON; the line before it lists the kernels,
-one row per C entry point.
+After each path the run logs its wall time and the run's total (``wall``
+lines).  The last line is the device JSON; the line before it lists the
+kernels, one row per C entry point.
 """
 
 from __future__ import annotations
@@ -237,15 +269,15 @@ from rmi_tpu_torch import (cli, codegen, config, lookup_fast, native, optimizer,
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
-from rmi_tpu_torch.lookup import (bounded_search, lookup, search, search_route,
-                                  search_sorted)
+from rmi_tpu_torch.lookup import (_rmi_lookup, bounded_search, err_iters, lookup, search,
+                                  search_route, search_sorted)
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_input,
                                        params_equal, params_to, predict_clamped,
                                        predict_top_assignment)
-from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, probe_kernels,
-                               scan_kernel, select_kernel, sorted_serve_kernel,
-                               sweep_kernel)
+from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
+                               probe_kernels, scan_kernel, select_kernel,
+                               sorted_serve_kernel, sweep_kernel)
 from rmi_tpu_torch.parallel import sweep
 from rmi_tpu_torch.serialize import rmi_size
 from rmi_tpu_torch.train import api as train_api
@@ -317,6 +349,13 @@ PATH_KERNELS = [
     # wrapper by its module's name
     ("rmi_hier_resolve", lookup_fast, "resolve", "resolve_plain", None,
      "rmi_tpu_torch/csrc/hier.cu", "rmi_tpu/lookup_fast.py:396"),
+    # the cachefix serving path: rmi_tpu runs both in XLA beside K4
+    # (_bounded_search_jit, _cachefix_interp), no Pallas call of their own
+    ("rmi_bounded_lower_bound", cachefix_kernel, "bounded_lower_bound",
+     "bounded_lower_bound_plain", None, "rmi_tpu_torch/csrc/cachefix.cu",
+     "rmi_tpu/lookup.py:92"),
+    ("rmi_cachefix_interp", cachefix_kernel, "cachefix_interp", "cachefix_interp_plain", None,
+     "rmi_tpu_torch/csrc/cachefix.cu", "rmi_tpu/lookup.py:97"),
 ]
 # then the card probes, driven by their own phase
 PROBE_KERNELS = [
@@ -504,8 +543,14 @@ def first_tensor(args):
     return next(a for a in args if torch.is_tensor(a))
 
 
-def call_size(args):
-    return first_tensor(args).shape[0]
+# the argument that holds a wrapper's queries where its first tensor does
+# not (the keys or knots come first)
+QUERY_ARG = {"bounded_lower_bound": 1, "cachefix_interp": 2}
+
+
+def call_size(args, name=None):
+    """The rows of a wrapper call: its queries', or its first tensor's."""
+    return (args[QUERY_ARG[name]] if name in QUERY_ARG else first_tensor(args)).shape[0]
 
 
 def compare(name, got, want, args, kw):
@@ -568,7 +613,7 @@ def check_kernels(rec, launches, entries, timed=True):
             worst = max(worst, replay(entry, name, wrapper, plain, where, args, kw))
         # time the largest call: kernel, plain version and library call
         # on the card, and its bound
-        args, kw = max(calls, key=lambda c: call_size(c[0]))
+        args, kw = max(calls, key=lambda c: call_size(c[0], name))
         if name == "leaf_eval_clamped":
             lookups = [c for c in rec.calls["lookup_clamped"]
                        if get_model(c[1]["leaf_type"]).leaf_kernel
@@ -604,7 +649,7 @@ def check_kernels(rec, launches, entries, timed=True):
         log(f"kernel {entry}: {len(calls)} calls on the path match the plain "
             f"version (max abs err {worst}); {spread(ms)} vs plain {spread(plain_ms)}, "
             f"library {library_ms and spread(library_ms)}, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {call_size(args)}")
+            f"({bound_by}: {nbytes / 1e9:.4f} GB, {ops:.4g} ops) at {call_size(args, name)}")
         if name == "lookup_clamped":
             def two_steps():
                 return eval_kernel.lookup_steps(
@@ -738,6 +783,29 @@ def work(name, args, kw, out):
         nbytes = _nbytes(q, guess, err, out, *levels[1:]) + SECTOR_BYTES * sectors
         steps = (kw["K"] + 1) * math.log2(lookup_fast.WIDTH)
         return nbytes, q.shape[0] * steps * 3, INT_OPS_PER_S
+    if name in ("bounded_lower_bound", "cachefix_interp"):
+        # what the answers need: each query, guess, error and answer once,
+        # and the 32-byte sectors that decide each answer, each once: of the
+        # keys that hold keys[lb - 1] and keys[lb] (the bounded search), of
+        # the knots and their values at the pair r - 1, r (the interpolation,
+        # whose search ends at r); per query a halving search of its window
+        # (int64 compares, ~3 ops a step) and the lerp (~12 f64 ops)
+        keys, q, guess, err = (args[0], args[2], args[3], args[4]) \
+            if name == "cachefix_interp" else args[:4]
+        n = keys.shape[0]
+        per_sector = SECTOR_BYTES // keys.element_size()
+        steps = float(torch.log2((2 * err + 2).double()).ceil().mean())
+        if name == "bounded_lower_bound":
+            near = torch.cat([(out - 1).clamp(0, n - 1), out.clamp(0, n - 1)])
+            sectors = torch.unique(near // per_sector).numel()
+            return (_nbytes(q, guess, err, out) + SECTOR_BYTES * sectors,
+                    q.shape[0] * steps * 3, INT_OPS_PER_S)
+        res = cachefix_kernel.bounded_lower_bound_plain(keys, q, guess, err, n,
+                                                        cachefix_kernel.interp_iters(n))
+        r = res.clamp(1, n - 1)
+        pair = torch.unique(torch.cat([r - 1, r]) // per_sector).numel()
+        return (_nbytes(q, guess, err, out) + 2 * SECTOR_BYTES * pair,
+                q.shape[0] * (steps * 3 + 12), F64_OPS_PER_S)
     if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         per = LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + 4   # floor, clamps
         # K3: xn, yfix, the span bounds and the rows; K4: x, the rows, the leaf ids
@@ -780,6 +848,8 @@ def library_call(name, args, kw):
         return lambda: torch.searchsorted(args[2], args[0])
     if name == "resolve":            # the same lower bounds, from the keys alone
         return lambda: torch.searchsorted(args[0][0], args[1])
+    if name == "bounded_lower_bound":    # its answer on queries whose window holds it
+        return lambda: torch.searchsorted(args[0][:args[4]], args[1])
     return None         # the scatter entry: no one call both searches and scatters
 
 
@@ -1019,9 +1089,13 @@ def floor_flips(card, cpu, keys, t, B, key_type):
     return flips, gap
 
 
-def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=False):
-    """A build on the card against the plain build on the CPU, same keys;
-    the card build's kernel calls are recorded into ``rec`` if given.
+def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=False,
+                keys=None, line=None):
+    """A build on the card against the plain build on the CPU, same keys
+    (books-like ones from ``seed``, or ``keys``, images on the card);
+    with ``line``, train_bounded on both sides, whose knots must be equal,
+    and the RMIs over the knots compared; the card build's kernel calls
+    are recorded into ``rec`` if given.
     Leaf errors may differ by 1 from the order of sums in a few leaves.
     A lognormal leaf fits and predicts on ln x, so a leaf that reads a
     value whose log the card rounds otherwise may differ too
@@ -1031,13 +1105,24 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=Fa
     differ by 1 however few they are.  With ``sparse`` (a key or two a
     leaf), so may a leaf whose keys or probes the two builds' rows floor to
     other positions (floor_flips).  Such leaves are counted apart."""
-    keys = typed_keys(rdata.books_like_on_device(n, seed, dev), key_type)
-    if rec is None:
-        card = rmi_tpu_torch.train(rdata.RMIDataset(keys, key_type), spec, B)
-    else:
-        with rec:
-            card = rmi_tpu_torch.train(rdata.RMIDataset(keys, key_type), spec, B)
-    cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), key_type), spec, B)
+    if keys is None:
+        keys = typed_keys(rdata.books_like_on_device(n, seed, dev), key_type)
+
+    def build(k):
+        if line is None:
+            return rmi_tpu_torch.train(rdata.RMIDataset(k, key_type), spec, B)
+        return rmi_tpu_torch.train_bounded(rdata.RMIDataset(k, key_type), spec, B, line)
+
+    with rec or contextlib.nullcontext():
+        card = build(keys)
+    cpu = build(keys.cpu())
+    if line is not None:      # the spline runs on the host: the same knots
+        same_knots = all(np.array_equal(a, b) for a, b in zip(card.cache_fix, cpu.cache_fix))
+        log(f"cross-check {spec} --bounded {line}: {len(cpu.cache_fix[1])} knots over "
+            f"{n} keys, card and CPU knots equal {same_knots}")
+        if not same_knots:
+            raise RuntimeError(f"{spec}: the card's spline knots differ from the CPU's")
+        keys, n = card.keys, card.num_rmi_rows
 
     def ids_counts(r, k):
         t = two_layer.top_assignment(get_model(r.top_type), r.device_top_params, k,
@@ -1256,9 +1341,11 @@ PATH6_SAMPLE = 1 << 16            # keys and queries each for the native and C++
 # on the loaded artifact (6a), lookup over the knots (6b); and the ones
 # replayed on 6a's serving calls and 6b's calls
 PATH6 = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-         "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5)
+         "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, "rmi_cachefix_interp",
+         "rmi_bounded_lower_bound")
 PATH6B_LAUNCHES = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-                   "rmi_leaf_eval_linear", "rmi_lookup_linear")
+                   "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_cachefix_interp",
+                   "rmi_bounded_lower_bound")
 
 CPP_HARNESS = textwrap.dedent("""
     #include "{ns}.h"
@@ -1299,6 +1386,19 @@ CPP_HARNESS = textwrap.dedent("""
       return 0;
     }}
 """)
+
+
+class Walls:
+    """Wall seconds of each path of the run, logged as each one ends, with
+    the run's total so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, label):
+        now = time.perf_counter()
+        log(f"wall {label}: {now - self.last:.1f} s (run total {now - self.start:.1f} s)")
+        self.last = now
 
 
 class Timers:
@@ -1575,8 +1675,9 @@ def compile_phase(data, queries, gen, p1):
     missing = [e for e in PATH6 if launches[e] <= 0]
     if missing:
         raise RuntimeError(f"path 6: kernels not launched on the path: {missing}")
-    log(f"path 6b lookup of {sk.shape[0]} sampled keys on the card: "
-        f"{cuda_ms(lambda: lookup(bounded, sk), 5):.4f} ms (CUDA events, 5 calls)")
+    with uncounted():
+        cachefix_lookup_ms("path 6b", bounded, sk)
+        check_kernels(rec, launches, ("rmi_cachefix_interp",))
     return rec, launches
 
 
@@ -1681,6 +1782,16 @@ def path7_phase(u_keys, gen, nq, cross_n, seed, dev, p1_rows):
     return {e: counts[e] + cli_counts[e] for e in counts}
 
 
+def bounded_route_before(rmi, q):
+    """bounded_search of q by the route the kernel replaced: the same
+    fused lookup, then the bounded search's plain version."""
+    keys, n = rmi.keys, rmi.num_rmi_rows
+    guess, err = lookup(rmi, q)
+    lb = cachefix_kernel.bounded_lower_bound_plain(keys, q, guess, err, n,
+                                                   err_iters(rmi.model_max_error))
+    return torch.where(q > keys[-1], n, lb)
+
+
 def median_ms(fn, runs=HIER_RUNS):
     """(median, every run) of ``runs`` single calls timed with CUDA events,
     after one untimed call."""
@@ -1721,28 +1832,43 @@ def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
     if by_search != {"rmi_lookup_linear": 1, "rmi_hier_resolve": 1}:
         raise RuntimeError(f"path 8: the hier search launched {by_search}, not one "
                            f"fused lookup and one rmi_hier_resolve")
-    hier = median_ms(lambda: lookup_fast.fast_search(rmi, queries))
-    bounded = median_ms(lambda: bounded_search(rmi, queries))
-    library = median_ms(lambda: torch.searchsorted(keys, queries))
-    mism = (mismatches(keys, queries, got),
-            mismatches(keys, queries, bounded_search(rmi, queries)))
+    with rec:
+        by_bounded = launched(lambda: bounded_search(rmi, queries))[1]
+    log(f"path 8 bounded_search launches: {json.dumps(by_bounded)}")
+    if by_bounded != {"rmi_lookup_linear": 1, "rmi_bounded_lower_bound": 1}:
+        raise RuntimeError(f"path 8: bounded_search launched {by_bounded}, not one fused "
+                           f"lookup and one rmi_bounded_lower_bound")
+    # the path's own launch of bounded_search; the timed calls are not the path's
+    counts["rmi_bounded_lower_bound"] = by_bounded["rmi_bounded_lower_bound"]
+    with uncounted():
+        hier = median_ms(lambda: lookup_fast.fast_search(rmi, queries))
+        bounded = median_ms(lambda: bounded_search(rmi, queries))
+        library = median_ms(lambda: torch.searchsorted(keys, queries))
+        before = median_ms(lambda: bounded_route_before(rmi, queries), 3)
+        mism = (mismatches(keys, queries, got),
+                mismatches(keys, queries, bounded_search(rmi, queries)),
+                mismatches(keys, queries, bounded_route_before(rmi, queries)))
     del got
     look = row_ms(lambda: lookup(rmi, queries), 10)
     log(f"path 8 search of {nq} queries, median of {HIER_RUNS} (CUDA events): hier "
         f"{hier[0]:.4f} ms {[round(x, 4) for x in hier[1]]}, bounded_search "
-        f"{bounded[0]:.4f} ms {[round(x, 4) for x in bounded[1]]}, torch.searchsorted "
+        f"{bounded[0]:.4f} ms {[round(x, 4) for x in bounded[1]]} (the route it "
+        f"replaced, the bounded search's plain version: {before[0]:.4f} ms "
+        f"{[round(x, 4) for x in before[1]]}), torch.searchsorted "
         f"{library[0]:.4f} ms {[round(x, 4) for x in library[1]]}; mismatches {mism}; "
         f"lookup {spread(look)}")
     log("path 8 search " + json.dumps({"hier_ms": hier[0], "bounded_ms": bounded[0],
+                                       "bounded_before_ms": before[0],
                                        "searchsorted_ms": library[0], "lookup_ms": look[0],
                                        "mismatches": list(mism)}))
     if any(mism):
         raise RuntimeError("path 8: hier or bounded search disagrees with "
                            "torch.searchsorted")
     del rmi
-    rows = check_kernels(rec, counts, ("rmi_hier_resolve",))
-    check_kernels(rec, counts, tuple(e for e in replayed if e != "rmi_hier_resolve"),
-                  timed=False)
+    with uncounted():
+        rows = check_kernels(rec, counts, ("rmi_hier_resolve", "rmi_bounded_lower_bound"))
+        check_kernels(rec, counts, tuple(e for e in replayed if e != "rmi_hier_resolve"),
+                      timed=False)
     del rec, data, queries
     torch.cuda.empty_cache()
     cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
@@ -1790,17 +1916,25 @@ def uncounted():
         _build.launches.update(saved)
 
 
-def max_error_leaf(rmi):
+def max_leaf(rmi):
     """Where a build's max error lies: its leaf, the keys the top routes
-    there and to the final leaf, and the errors of the leaves around it."""
+    there, whether it is the final leaf and whether it is empty, the
+    final leaf's keys and error, and the errors of the leaves around it."""
     B, L = rmi.branching_factor, rmi.model_max_error_idx
-    t = two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, rmi.keys,
-                                 rmi.norm_offset, rmi.norm_scale, B - 1, rmi.key_type)
-    count = int((t == L).sum())
-    final = int((t == B - 1).sum())
-    near = rmi.leaf_errors[max(L - 2, 0):L + 3].tolist()
-    return (f"max error {rmi.model_max_error} at leaf {L} of {B} ({count} keys routed "
-            f"there; the final leaf {final}; leaves {max(L - 2, 0)}.. err {near})")
+    counts = torch.bincount(top_leaf(rmi, rmi.keys).long(), minlength=B)
+    return {"max_err": rmi.model_max_error, "leaf": L, "keys_routed": int(counts[L]),
+            "final_leaf": L == B - 1, "empty": int(counts[L]) == 0,
+            "final_leaf_keys": int(counts[B - 1]),
+            "final_leaf_err": int(rmi.leaf_errors[B - 1]),
+            "errors_around": rmi.leaf_errors[max(L - 2, 0):L + 3].tolist()}
+
+
+def max_error_leaf(rmi):
+    """max_leaf's facts as a line of the log."""
+    w, B = max_leaf(rmi), rmi.branching_factor
+    return (f"max error {w['max_err']} at leaf {w['leaf']} of {B} ({w['keys_routed']} keys "
+            f"routed there; the final leaf {w['final_leaf_keys']}; leaves "
+            f"{max(w['leaf'] - 2, 0)}.. err {w['errors_around']})")
 
 
 @contextlib.contextmanager
@@ -1896,20 +2030,32 @@ def build_syncs(data):
     torch.cuda.empty_cache()
 
 
-def max_size_wiki(tmp, n, gen):
-    """9a: ``--max-size 50000000`` on wiki keys under the fast profile,
-    through the CLI: the chosen configuration beside SOSD_SYNTH.json's TPU
-    row, RMI_SIZE < MAX_SIZE, 0 bound violations over every key of the
-    artifact loaded back onto the card, 0 search mismatches on 2^22
-    queries, the phases' builds and times, the CLI's time split."""
-    t0 = time.perf_counter()
-    keys_np = rdata.synthetic_dataset("wiki", n, KeyType.U64, seed=WIKI_SEED)
-    name = "wiki_ts_200M_uint64" if n == 200_000_000 else f"wiki_ts_{n}_uint64"
-    path = os.path.join(tmp, name)
-    rdata.write_sosd_file(path, keys_np)
-    log(f"path 9a: {n} wiki keys (seed {WIKI_SEED}) made on the host and written to "
-        f"{name} in {time.perf_counter() - t0:.3f} s")
-    del keys_np
+def sosd_file(files, kind, n):
+    """The SOSD file of n ``kind`` keys (synthetic_dataset, seed
+    WIKI_SEED, as tools/run_sosd_synth.py makes SOSD_SYNTH.json's) in the
+    directory files["dir"], named as tests/test_sosd.py:40-41 names it;
+    made on the host and written on first use, then shared (paths 9a and
+    11).  Logs the first and last key and the duplicates."""
+    if kind not in files:
+        t0 = time.perf_counter()
+        keys_np = rdata.synthetic_dataset(kind, n, KeyType.U64, seed=WIKI_SEED)
+        name = SOSD_NAMES[kind].replace("200M", "200M" if n == 200_000_000 else str(n))
+        files[kind] = os.path.join(files["dir"], name)
+        rdata.write_sosd_file(files[kind], keys_np)
+        dups = int(np.count_nonzero(keys_np[1:] == keys_np[:-1]))
+        log(f"{kind} keys: {n} (seed {WIKI_SEED}) made on the host and written to {name} in "
+            f"{time.perf_counter() - t0:.3f} s; first {int(keys_np[0])}, last "
+            f"{int(keys_np[-1])}, {dups} equal to the key before")
+    return files[kind]
+
+
+def max_size_wiki(tmp, path, n, gen):
+    """9a: ``--max-size 50000000`` on the wiki keys of the SOSD file
+    ``path`` under the fast profile, through the CLI: the chosen
+    configuration beside SOSD_SYNTH.json's TPU row, RMI_SIZE < MAX_SIZE, 0
+    bound violations over every key of the artifact loaded back onto the
+    card, 0 search mismatches on 2^22 queries, the phases' builds and
+    times, the CLI's time split."""
     clear_phase_times()
     with environ(RMI_OPTIMIZER_PROFILE="fast"):
         total, t = run_cli(tmp, [path, "wiki", "--max-size", str(MAX_SIZE),
@@ -2099,17 +2245,19 @@ def largest_disk_point(data, gen, nq, cross_n, seed, dev):
         cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev, sparse=True)
 
 
-def optimizer_phase(data, gen, nq, cross_n, seed, dev):
+def optimizer_phase(data, gen, nq, cross_n, seed, dev, files):
     """Path 9, the launches counted from 0: the host syncs of one build,
-    9a max_size_wiki, 9b --optimize and --param-grid on the paths' keys, 9d
+    9a max_size_wiki (on sosd_file(files, "wiki", n)), 9b --optimize and
+    --param-grid on the paths' keys, 9d
     the largest disk-profile point (9a's final build and 9d's build
     replayed against the plain versions, uncounted), then 9c the front on
     the card against the CPU.  Returns the launches."""
     for entry in _build.launches:
         _build.launches[entry] = 0
     build_syncs(data)
+    wiki = sosd_file(files, "wiki", data.n)
     with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_wiki_") as tmp:
-        kernel = max_size_wiki(tmp, data.n, gen)
+        kernel = max_size_wiki(tmp, wiki, data.n, gen)
     with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_front_") as tmp:
         optimize_books(tmp, data)
     torch.cuda.empty_cache()
@@ -2612,6 +2760,213 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
 
 # D runs at its narrowest and widest rows only: the rate table over all
 # widths is tools/probe_torch_kernels.py's
+# path 11: the reference's five other SOSD CI configurations
+# (tests/test_sosd.py:43-50) on SOSD_SYNTH.json's keys, each through the CLI
+# with its row's flags, held to the row's RMI_SIZE: (config, key kind,
+# models, branching factor, --bounded line size or None)
+PATH11 = [("simple_model_wiki", "wiki", "cubic,linear", 262144, None),
+          ("simple_model_osm", "osm", "robust_linear,linear", 262144, None),
+          ("radix_model_wiki", "wiki", "radix,linear", 1024, None),
+          ("cache_fix_wiki", "wiki", "linear_spline,linear", 4194304, 8),
+          ("cache_fix_osm", "osm", "cubic,linear", 786432, 8)]
+SOSD_NAMES = {"wiki": "wiki_ts_200M_uint64", "osm": "osm_cellids_200M_uint64"}
+# what every configuration's build and lookup launch (linear leaves: K1 for
+# FixDups, K2, K3, the run-length pass, K4's epsilon probes and its fused
+# lookup); a cachefix lookup adds rmi_cachefix_interp
+PATH11_BUILD = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+                "rmi_leaf_eval_linear", "rmi_lookup_linear")
+CACHEFIX = ("rmi_cachefix_interp", "rmi_bounded_lower_bound")
+# the entries each search route launches besides the fused lookup
+ROUTE_ENTRIES = {"sort": ("rmi_serve_sorted_scatter",), "hier": ("rmi_hier_resolve",),
+                 "cachefix": CACHEFIX, "bounded": ("rmi_bounded_lower_bound",),
+                 "packed": (), "packed_wide": ()}
+# the configuration whose cachefix lookup gives rmi_cachefix_interp's row
+PATH11_TIMED = "cache_fix_osm"
+
+
+def sosd_rows():
+    """SOSD_SYNTH.json's rows (rmi_tpu's builds on a TPU, df64), by config."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "SOSD_SYNTH.json")
+    with open(path) as f:
+        return {r["config"]: r for r in map(json.loads, filter(str.strip, f))}
+
+
+def cachefix_route_before(index, k):
+    """A cachefix lookup's positions by the route the kernel replaced: the
+    same fused lookup, then the interpolation's plain version."""
+    guess, err = _rmi_lookup(index, k)
+    return cachefix_kernel.cachefix_interp_plain(index.keys, index.spline_vals_cache, k, guess,
+                                                 err, index.cache_fix[0], index.num_data_rows)
+
+
+def cachefix_lookup_ms(label, index, k):
+    """The cachefix lookup of the keys ``k`` (one fused lookup and one
+    rmi_cachefix_interp) beside the route it replaced, both timed with CUDA
+    events, the answers equal."""
+    same = torch.equal(lookup(index, k)[0], cachefix_route_before(index, k))
+    new = row_ms(lambda: lookup(index, k), 10)
+    old = row_ms(lambda: cachefix_route_before(index, k), 3)
+    log(f"{label} cachefix lookup of {k.shape[0]} keys: {spread(new)}; the route it replaced "
+        f"(the interpolation's plain version) {spread(old)}; equal {same}")
+    log(f"{label} cachefix lookup " + json.dumps({"ms": new[0], "before_ms": old[0],
+                                                   "keys": k.shape[0]}))
+    if not same:
+        raise RuntimeError(f"{label}: the cachefix lookup differs from the route it replaced")
+
+
+def sosd_config(files, row, ref, gen, nq, cross_n, seed, dev):
+    """One PATH11 configuration on its SOSD file (sosd_file), through the
+    CLI with the row's flags and --stats-file, in a temporary directory:
+    RMI_SIZE equal to SOSD_SYNTH.json's ``ref`` row; the artifact loaded
+    back onto the card with |guess - lb| <= err over every key (cachefix:
+    |pos - lb| <= line and err = line), search of nq queries over the
+    file's key range exact (cachefix: with the original keys); every entry
+    of its build, lookup and search route launched; the build again on the
+    card (warm; of a cachefix index, the RMI over its knots), its metrics
+    the CLI's; max_err with its leaf (max_leaf), avg_log2, the cold and warm
+    build, the host spline and the peak device memory beside the TPU row,
+    no gate; its kernel calls replayed against their plain versions and
+    the card against the CPU at cross_n keys of the same kind and seed
+    (uncounted); a cachefix index's lookup of nq keys drawn at random
+    timed beside the route it replaced, and rmi_cachefix_interp's
+    kernels-line row (check_kernels), which it returns (None for the
+    other rows)."""
+    config, kind, spec, B, line = row
+    n = files["n"]
+    path = sosd_file(files, kind, n)
+    bounded = ["--bounded", str(line)] if line else []
+    timers = {"load": (rmi_tpu_torch, "load_data"),
+              "train": (train_api, "train") if line else (rmi_tpu_torch, "train"),
+              "output_rmi": (rmi_tpu_torch, "output_rmi")}
+    if line:
+        timers["spline (native, host)"] = (native, "cache_fix")
+    before = dict(_build.launches)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder()
+    with tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_sosd_") as tmp:
+        with rec:
+            total, t = run_cli(tmp, [path, config, spec, str(B), *bounded, "--stats-file",
+                                     "stats.json", "--data-path", "rmi_data"], timers)
+        peak = torch.cuda.max_memory_allocated()
+        stats = json.load(open(os.path.join(tmp, "stats.json")))
+        meta_path = os.path.join(tmp, "rmi_data", f"{config}.json")
+        size = stats["size binary search"]
+        # a cachefix size counts the knots, which follow the keys: a shorter
+        # run holds it to the top's bytes + 24 B + 16 knots
+        want = ref["size_bytes"]
+        if line and n != 200_000_000:      # the top's parameters, 24 B a leaf, 16 a knot
+            want = (8 * get_model(spec.split(",")[0]).ppm + 24 * B
+                    + 16 * json.load(open(meta_path))["cache_fix"]["num_points"])
+        log(f"path 11 {config} cli {spec} {B} {' '.join(bounded)}: {total:.3f} s "
+            f"({t.line()}); RMI_SIZE {size} (want {want}; SOSD_SYNTH.json "
+            f"{ref['size_bytes']})")
+        if size != want:
+            raise RuntimeError(f"path 11 {config}: RMI_SIZE {size}, not {want}")
+        data = rmi_tpu_torch.load_data(path)
+        keys = data.keys
+        loaded = rmi_tpu_torch.load_artifact(meta_path, keys=None if line else keys)
+    viol = 0
+    sample = keys[torch.randint(0, n, (nq,), generator=gen, device=keys.device)]
+    with rec:        # the lookup replayed and timed: nq keys drawn at random
+        lookup(loaded, sample)
+    for i in range(0, n, PATH9_CHUNK):
+        k = keys[i:i + PATH9_CHUNK]
+        g, e = lookup(loaded, k)
+        lb = torch.searchsorted(keys, k, side="left")
+        viol += (int(((g - lb).abs() > line).sum()) + int((e != line).sum()) if line
+                 else int(((g - lb).abs() > e).sum()))
+    del g, e, lb, k
+    q = make_queries(keys, nq, gen)
+    search_keys = keys if line else None
+    route = search_route(loaded, nq, search_keys)
+    with rec:
+        got, by_search = launched(lambda: search(loaded, q, keys=search_keys))
+    mism = mismatches(keys, q, got)
+    log(f"path 11 {config} artifact on the card: {viol} bound violations over all {n} keys "
+        f"({'|pos - lb| > ' + str(line) + ' or err != ' + str(line) if line else '|guess - lb| > err'}), "
+        f"search {mism} mismatches on {nq} queries (route {route}, launches "
+        f"{json.dumps(by_search)})")
+    if viol or mism:
+        raise RuntimeError(f"path 11 {config}: the bound or search is broken")
+    del got
+    counts = {e: c - before[e] for e, c in _build.launches.items()}
+    entries = (*PATH11_BUILD, *ROUTE_ENTRIES[route], *(("rmi_cachefix_interp",) if line else ()))
+    missing = [e for e in entries if counts[e] <= 0]
+    log(f"path 11 {config} launches: {json.dumps({e: c for e, c in counts.items() if c})}")
+    if missing:
+        raise RuntimeError(f"path 11 {config}: kernels not launched: {missing}")
+
+    # the build again (warm), its metrics the CLI's
+    spline_s = t.seconds.get("spline (native, host)")
+    with uncounted():
+        inner = rdata.RMIDataset(loaded.keys, KeyType.U64) if line else data
+        t0 = time.perf_counter()
+        rmi = rmi_tpu_torch.train(inner, spec, B)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    got = (rmi.model_max_error, rmi.model_avg_log2_error)
+    want = (stats["max error"], stats["average log2 error"])
+    where = max_leaf(rmi)
+    res = {"config": config, "models": spec, "branching_factor": B, "bounded": line,
+           "rmi_size": size, "max_err_leaf": where, "avg_log2": rmi.model_avg_log2_error,
+           "build_cold_s": t.seconds["train"], "build_warm_s": warm, "spline_s": spline_s,
+           "cli_s": total, "peak_device_gib": peak / 2**30,
+           "knots": rmi.num_rmi_rows if line else None,
+           "tpu_row": {k: ref[k] for k in ("max_err", "avg_log2", "size_bytes", "build_s")}}
+    log(f"path 11 {config}: max_err {where['max_err']} at leaf {where['leaf']} of {B} "
+        f"({where['keys_routed']} {'knots' if line else 'keys'} routed there; final leaf "
+        f"{where['final_leaf']}, empty {where['empty']}; the final leaf "
+        f"{where['final_leaf_keys']}, err {where['final_leaf_err']}) beside the TPU row's "
+        f"{ref['max_err']}; avg_log2 {rmi.model_avg_log2_error!r} beside "
+        f"{ref['avg_log2']!r}; build cold {t.seconds['train']:.4f} s, warm {warm:.4f} s"
+        f"{f', host spline {spline_s:.3f} s' if line else ''}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log("path 11 " + json.dumps(res))
+    if got != want:
+        raise RuntimeError(f"path 11 {config}: the build again gave {got}, the CLI {want}")
+    del rmi, t
+    kernel_row = None
+    with uncounted():
+        if line:
+            cachefix_lookup_ms(f"path 11 {config}", loaded, sample)
+        del loaded, data, keys, q, sample
+        torch.cuda.empty_cache()
+        check_kernels(rec, {}, entries, timed=False)
+        if line:       # rmi_cachefix_interp beside its plain version and its bound
+            kernel_row = check_kernels(rec, counts, ("rmi_cachefix_interp",))
+        del rec
+        torch.cuda.empty_cache()
+        ckeys = rdata.RMIDataset.from_numpy(
+            rdata.synthetic_dataset(kind, cross_n, KeyType.U64, seed=WIKI_SEED),
+            device=dev).keys
+        cB = max(64, (B * cross_n) // n)
+        sparse = bool(line) and res["knots"] < 16 * B     # a few knots a leaf
+        cross_check(spec, cross_n, cB, seed, dev, keys=ckeys, line=line, sparse=sparse)
+    return kernel_row
+
+
+def sosd_phase(files, gen, nq, cross_n, seed, dev):
+    """Path 11, the launches counted from 0: the PATH11 configurations in
+    turn (sosd_config).  Returns the launches and rmi_cachefix_interp's
+    kernels-line row from PATH11_TIMED's lookup of nq keys."""
+    for entry in _build.launches:
+        _build.launches[entry] = 0
+    refs, rows = sosd_rows(), {}
+    for i, row in enumerate(PATH11):
+        t0 = time.perf_counter()
+        out = sosd_config(files, row, refs[row[0]], gen, nq, cross_n, seed + i, dev)
+        if row[0] == PATH11_TIMED:
+            rows = out
+        log(f"path 11 {row[0]}: {time.perf_counter() - t0:.1f} s")
+    counts = dict(_build.launches)
+    log(f"path 11 launches: {json.dumps(counts)}")
+    missing = [e for e in (*PATH11_BUILD, *CACHEFIX) if counts[e] <= 0]
+    if missing:
+        raise RuntimeError(f"path 11: kernels not launched on the path: {missing}")
+    return counts, rows
+
+
 PROBE_RING_WIDTHS = (128, 2048)
 PROBE_TRACED = 200        # calls per probe in its device-time trace
 HOST_CALLS = 2000         # calls per host-time measurement
@@ -2752,6 +3107,7 @@ def main():
     cross_n = min(1 << 20, n)
 
     # 1. the card
+    walls = Walls()
     dev = config.require_cuda()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2783,6 +3139,7 @@ def main():
         raise RuntimeError("the same seed gave different keys")
     queries = make_queries(keys, nq, gen)
     rows, launches = {}, dict.fromkeys(_build.launches, 0)
+    walls.lap("the card, the kernels' build and the keys")
 
     # 3-8. path 1
     spec, B, _, replayed = PATH1
@@ -2801,6 +3158,7 @@ def main():
     del rec
     torch.cuda.empty_cache()
     cross_check(spec, cross_n, max(64, (B * cross_n) // n), args.seed + 2, dev)
+    walls.lap("path 1")
 
     # 9-11. paths 2, 3 and 4
     for seed, path in enumerate((PATH2, PATH3, PATH4), args.seed + 3):
@@ -2812,6 +3170,7 @@ def main():
         del rec
         torch.cuda.empty_cache()
         cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev)
+        walls.lap(f"path {seed - args.seed - 1}")
 
     # 11b. path 5: an integer top; its fused lookup timed beside the two
     # steps and path 1's, its kernels replayed, their rows path 1's
@@ -2829,6 +3188,7 @@ def main():
     del rec
     torch.cuda.empty_cache()
     cross_check(PATH5[0], cross_n, max(64, (PATH5[1] * cross_n) // n), args.seed + 7, dev)
+    walls.lap("path 5")
 
     # 11c. path 6: the compile path through the CLI, its kernels replayed
     rec, counts = compile_phase(data, queries, gen, p1)
@@ -2837,24 +3197,32 @@ def main():
     launches = {e: launches[e] + counts[e] for e in launches}
     del rec
     torch.cuda.empty_cache()
+    walls.lap("path 6")
 
     # 11d. the rest of the integer models
     zoo_phase(data, gen, nq, cross_n, args.seed + 8, dev)
+    walls.lap("the zoo")
 
     # 11e. path 7: f64 keys; 11f. path 8: u32 keys and the hier plan
     counts = path7_phase(keys, gen, nq, cross_n, args.seed + 9, dev, rows)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
+    walls.lap("path 7")
     counts, p8_rows = path8_phase(keys, gen, nq, cross_n, args.seed + 10, dev)
     rows.update(p8_rows)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
+    walls.lap("path 8")
 
     # 11g. path 9: the optimizer (max_size_wiki, --optimize, card against
-    # CPU, the largest disk-profile point)
-    counts = optimizer_phase(data, gen, nq, cross_n, args.seed + 11, dev)
+    # CPU, the largest disk-profile point); its wiki keys' SOSD file kept
+    # for path 11
+    sosd_dir = tempfile.TemporaryDirectory(prefix="rmi_chip_smoke_keys_")
+    files = {"dir": sosd_dir.name, "n": n}
+    counts = optimizer_phase(data, gen, nq, cross_n, args.seed + 11, dev, files)
     launches = {e: launches[e] + counts[e] for e in launches}
     torch.cuda.empty_cache()
+    walls.lap("path 9")
 
     # 11h. path 10: the data-parallel build and sharded serving, by ranks
     # that share the card
@@ -2862,6 +3230,18 @@ def main():
     launches = {e: launches[e] + counts[e] for e in launches}
     del p1_dp, p1_index
     torch.cuda.empty_cache()
+    walls.lap("path 10")
+
+    # 11i. path 11: the reference's five other SOSD CI configurations on
+    # their own keys, through the CLI
+    del queries, data, keys
+    torch.cuda.empty_cache()
+    counts, p11_rows = sosd_phase(files, gen, nq, cross_n, args.seed + 13, dev)
+    rows.update(p11_rows)
+    launches = {e: launches[e] + counts[e] for e in launches}
+    sosd_dir.cleanup()
+    torch.cuda.empty_cache()
+    walls.lap("path 11")
 
     # 12. lognormal leaves: the card against the CPU, and their K3 and K4
     # calls replayed; these launches are not the main path's
@@ -2878,6 +3258,7 @@ def main():
         row["launches"] = launches[entry]
     # 13. the card probes
     rows.update(probe_phase(dev))
+    walls.lap("the lognormal cross-check and the probes")
     print(json.dumps({"kernels": [rows[entry] for entry, *_ in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

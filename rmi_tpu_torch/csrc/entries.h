@@ -96,6 +96,16 @@ RMI_ENTRY(rmi_hier_resolve, (const int64_t* queries, const int64_t* guess, const
                              const int64_t* keys, int64_t n0, const int64_t* upper,
                              const int64_t* index, int64_t K, int64_t* out, int64_t m,
                              int64_t n, void* stream))
+// the cachefix serving path (csrc/cachefix.cu)
+RMI_ENTRY(rmi_bounded_lower_bound, (const int64_t* keys, int64_t n_keys, const int64_t* queries,
+                                    const int64_t* guess, const int64_t* err, int64_t* out,
+                                    int64_t m, int64_t n, int64_t iters, int64_t exact,
+                                    void* stream))
+RMI_ENTRY(rmi_cachefix_interp, (const int64_t* knots, const int64_t* vals, int64_t num_pts,
+                                const int64_t* queries, const int64_t* start,
+                                const int64_t* err, int64_t* out, int64_t m,
+                                int64_t line_size, int64_t total_keys, double eps,
+                                int64_t iters, void* stream))
 // the card probes (csrc/probes.cu)
 RMI_ENTRY(rmi_probe_scale2, (const float* x, float* out, int64_t n, void* stream))
 RMI_ENTRY(rmi_probe_lt_i64, (const int64_t* x, const int64_t* q, int32_t* out, int64_t n,

@@ -138,22 +138,6 @@ __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
   for (int k = 0; k < K; ++k) out[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), bound);
 }
 
-// How an int64 image decodes (ops/eval_kernel.key_kind): a u64 key's image
-// is u ^ 2^63 (u32 keys too), an f64 key's its bits with a negative value's
-// low 63 bits complemented (keys.f64_image)
-enum class RmiKey : int64_t { kU64 = 0, kF64 = 1 };
-
-// keys.as_float of one int64 key image
-template <RmiKey K>
-__device__ __forceinline__ double decoded(int64_t image) {
-  if constexpr (K == RmiKey::kF64) {
-    return __longlong_as_double(image < 0 ? image ^ 0x7fffffffffffffffll : image);
-  } else {
-    const uint64_t u = (uint64_t)image ^ 0x8000000000000000ull;
-    return (double)(u >> 32) * 4294967296.0 + (double)(u & 0xffffffffull);
-  }
-}
-
 // keys.as_float then two_layer.normalize
 template <RmiKey K>
 __device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {

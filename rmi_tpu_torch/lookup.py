@@ -27,8 +27,12 @@ bounded binary search, as rmi_tpu does.
 A cachefix index (train_bounded, --bounded) is an RMI over the spline's
 knots: ``lookup`` finds the query's knot pair with the RMI and the
 bounded search over the knots, then interpolates and quantizes to the
-cache line (cachefix_interp, rmi_tpu/lookup.py:95-140, in plain torch as
-rmi_tpu computes it in jnp), and ``search`` needs the original keys.
+cache line (rmi_tpu/lookup.py:97-140), and ``search`` needs the original
+keys.  Both bounded searches and the interpolation are the kernels of
+ops/cachefix_kernel.py (csrc/cachefix.cu): on the card the cachefix
+lookup is one fused K4 launch and one rmi_cachefix_interp, its search
+one more rmi_bounded_lower_bound, and ``bounded_search`` one fused K4
+launch and one rmi_bounded_lower_bound.
 """
 
 from __future__ import annotations
@@ -38,9 +42,8 @@ import math
 import numpy as np
 import torch
 
-from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch import lookup_fast
-from rmi_tpu_torch.ops import eval_kernel
+from rmi_tpu_torch.ops import cachefix_kernel, eval_kernel
 
 # Batch size from which search sorts and serves through K5: rmi_tpu's
 # value, calibrated on the TPU v5e (rmi_tpu/lookup.py:242-245); the
@@ -64,8 +67,8 @@ def lookup(rmi, queries: torch.Tensor):
     if rmi.spline_vals_cache is None:
         rmi.spline_vals_cache = torch.from_numpy(
             spline_vals.astype(np.int64)).to(rmi.keys.device)
-    pos = cachefix_interp(rmi.keys, rmi.spline_vals_cache, queries, guess, err,
-                          line_size, rmi.num_data_rows)
+    pos = cachefix_kernel.cachefix_interp(rmi.keys, rmi.spline_vals_cache, queries, guess,
+                                          err, line_size, rmi.num_data_rows)
     return pos, torch.full_like(pos, line_size)
 
 
@@ -88,51 +91,6 @@ def _rmi_lookup(rmi, queries: torch.Tensor):
         top_args=rmi.lookup_top_cache, key_type=rmi.key_type)
 
 
-def cachefix_interp(spline_keys, spline_vals, queries, start, err_s,
-                    line_size: int, total_keys: int) -> torch.Tensor:
-    """The spline's lerp quantized to the cache line (codegen.rs:405-444),
-    rmi_tpu's _cachefix_interp (rmi_tpu/lookup.py:95-140): the knot pair
-    from the bounded search of the knots (images ``spline_keys``, int64
-    values ``spline_vals``) around the RMI's (start, err_s), a
-    double-rounded lerp, as XLA computes it on the CPU, in place of the
-    reference's fused ``std::fma(1-t, v0, t*v1)``; any value within
-    eps = total_keys * 2^-40 of a line boundary goes to the upper line.
-    The fit puts the true offset in the fma lerp's line m, and this
-    index is m or m + 1, so |pos - offset| <= line_size either way
-    (rmi_tpu's proof).  A query past the last knot answers
-    total_keys - 1."""
-    num_pts = spline_keys.shape[0]
-    iters = max(1, math.ceil(math.log2(num_pts + 1)) + 1)
-    res = bounded_lower_bound(spline_keys, queries, start, err_s, num_pts, iters)
-    past_end = res >= num_pts
-    r = res.clamp(1, num_pts - 1)
-    k1 = keymod.as_float(spline_keys[r - 1])
-    k2 = keymod.as_float(spline_keys[r])
-    v0 = spline_vals[r - 1].double()
-    v1 = spline_vals[r].double()
-    t = (keymod.as_float(queries) - k1) / torch.clamp(k2 - k1, min=1.0)
-    v = (1.0 - t) * v0 + t * v1
-    eps = max(total_keys, 1) * (2.0 ** -40)
-    line = torch.floor((v + eps) / line_size)
-    pos = line.to(torch.int64).clamp(min=0) * line_size
-    return torch.where(past_end, total_keys - 1, pos)
-
-
-def bounded_lower_bound(keys, queries, guess, err, n: int, iters: int):
-    """First index i in [guess - err, guess + err] with keys[i] >= q:
-    a branchless fixed-trip binary search, ``iters`` covering the
-    widest window."""
-    lo = (guess - err).clamp(0, n)
-    hi = (guess + err + 1).clamp(0, n)
-    for _ in range(iters):
-        active = lo < hi
-        mid = (lo + hi) >> 1
-        go_right = keys[mid.clamp(0, n - 1)] < queries
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    return lo
-
-
 def err_iters(max_err: int) -> int:
     """Trip count of the bounded search: ceil(log2(2 max_err + 2)) + 1."""
     return max(1, math.ceil(math.log2(2 * max_err + 2)) + 1)
@@ -151,23 +109,28 @@ def bounded_search(rmi, queries: torch.Tensor, keys=None) -> torch.Tensor:
     keys = rmi.keys if keys is None else keys
     n = rmi.num_rmi_rows
     guess, err = lookup(rmi, queries)
-    lb = bounded_lower_bound(keys, queries, guess, err, n,
-                             err_iters(rmi.model_max_error))
+    lb = cachefix_kernel.bounded_lower_bound(keys, queries, guess, err, n,
+                                             err_iters(rmi.model_max_error))
     return torch.where(queries > keys[-1], n, lb)
 
 
 def search(rmi, queries: torch.Tensor, keys=None) -> torch.Tensor:
     """Exact lower-bound indices (searchsorted side='left') per query,
     in the index's keys, or in ``keys`` (images) when given: a cachefix
-    index needs its ORIGINAL keys here (rmi_tpu/lookup.py:265-282)."""
+    index needs its ORIGINAL keys here (rmi_tpu/lookup.py:265-282).  A
+    cachefix index's window, its position +- (line_size + 1), holds the
+    lower bound of every key but not of every query between two keys (one
+    after a run of equal keys may lie a run away): such a query is
+    searched over all the keys (bounded_lower_bound's ``exact``), where
+    rmi_tpu answers inside the window."""
     route = search_route(rmi, queries.shape[0], keys)
     if route == "cachefix":
         if keys is None:
             raise ValueError("cache_fix search needs the original key array")
         pos, err = lookup(rmi, queries)
         iters = max(1, math.ceil(math.log2(2 * rmi.cache_fix[0] + 2)) + 2)
-        return bounded_lower_bound(keys, queries, pos, err + 1, rmi.num_data_rows,
-                                   iters)
+        return cachefix_kernel.bounded_lower_bound(keys, queries, pos, err + 1,
+                                                   rmi.num_data_rows, iters, exact=True)
     if route == "sort":
         return lookup_fast.serve_via_sort(rmi, lookup_fast.get_plan(rmi), queries)
     if route != "bounded":

@@ -15,7 +15,11 @@ cachefix branches).
       = rmi_tpu's = 16 + layers + 16 * knots;
   (c) cachefix_interp equals rmi_tpu's _cachefix_interp on a sweep of
       lerp values across cache-line boundaries at ulp steps and random
-      ones (rmi_tpu's rule: a value within eps of a boundary goes up);
+      ones (rmi_tpu's rule: a value within eps of a boundary goes up) and
+      at the kernel's edges, and bounded_lower_bound equals rmi_tpu's
+      _bounded_search_jit at its edges (both wrappers run their plain
+      versions here; test_torch_cuda_kernels.py holds the kernels to
+      them on the card);
   (d) the artifact of a train_bounded index: a carried-across JAX build
       writes rmi_tpu's bytes (L2 blob included), load_artifact serves it
       as before the save, the generated C++ and the native server equal
@@ -38,9 +42,12 @@ from rmi_tpu.train.api import train_bounded as j_train_bounded
 import rmi_tpu_torch as rt
 from rmi_tpu_torch import cache_fix, native
 from rmi_tpu_torch import keys as tkeys
-from rmi_tpu_torch.lookup import cachefix_interp
+from rmi_tpu_torch.ops.cachefix_kernel import (bounded_lower_bound, bounded_lower_bound_plain,
+                                               cachefix_interp, cachefix_interp_plain)
 
 from test_torch_artifacts import assert_same_files, carry, compile_and_run
+from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, bounded_edge_case,
+                                      cachefix_edge_case)
 
 j_lookup = importlib.import_module("rmi_tpu.lookup")
 SPEC, B = "linear_spline,linear", 64
@@ -153,11 +160,37 @@ def test_bounded_against_rmi_tpu(kind, line):
     lb = np.searchsorted(keys, keys)
     assert (np.abs(pos.numpy()[:n] - lb) <= line).all()
     idx = rt.search(rp, tkeys.to_image(q), keys=tkeys.to_image(keys)).numpy()
-    np.testing.assert_array_equal(idx[:n], lb)
-    jidx = j_lookup.search(rj, jnp.asarray(q), keys=jnp.asarray(keys.astype(np.uint64)))
-    np.testing.assert_array_equal(idx, np.asarray(jidx))
+    np.testing.assert_array_equal(idx, np.searchsorted(keys, q, side="left"))
+    # rmi_tpu's answers where its window holds the lower bound (every key;
+    # test_search_between_keys_is_exact shows a query where it does not)
+    jidx = np.asarray(j_lookup.search(rj, jnp.asarray(q),
+                                      keys=jnp.asarray(keys.astype(np.uint64))))
+    right = jidx == np.searchsorted(keys, q, side="left")
+    assert right[:n].all()
+    np.testing.assert_array_equal(idx[right], jidx[right])
     g, e, i = rt.lookup_and_search(rp, tkeys.to_image(q), keys=tkeys.to_image(keys))
     assert torch.equal(g, pos) and torch.equal(e, err) and np.array_equal(i.numpy(), idx)
+
+
+def test_search_between_keys_is_exact():
+    """A query between a key that ends a run of equal keys and the next
+    key has the next key's lower bound, a run away from the spline's
+    position there (the spline passes within the line of both keys' lower
+    bounds and runs straight between them): rmi_tpu's search answers
+    inside pos +- (line + 1) and misses it; the port's searches all the
+    keys where the window's answer is not the lower bound."""
+    keys = np.repeat(np.arange(1, 61, dtype=np.uint64) * np.uint64(1000),
+                     np.tile(np.asarray([1, 200, 1], np.int64), 20))
+    q = np.arange(int(keys[0]) - 3, int(keys[-1]) + 4, 7, dtype=np.uint64)
+    lb = np.searchsorted(keys, q, side="left")
+    rj = j_train_bounded(JDataset.from_numpy(keys), SPEC, B, 8)
+    jidx = np.asarray(j_lookup.search(rj, jnp.asarray(q), keys=jnp.asarray(keys)))
+    assert (jidx != lb).any()             # the reference's window misses these
+    rp = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device="cpu"), SPEC, B, 8)
+    img = tkeys.to_image(keys)
+    np.testing.assert_array_equal(rt.search(rp, tkeys.to_image(q), keys=img).numpy(), lb)
+    np.testing.assert_array_equal(rt.search(rp, img, keys=img).numpy(),
+                                  np.searchsorted(keys, keys, side="left"))
 
 
 def test_search_needs_the_original_keys():
@@ -183,25 +216,65 @@ def test_wide_keys_end_to_end():
 # (c) the lerp
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("total", [1000, 200_000_000])
-@pytest.mark.parametrize("D,v0,v1,line", [((1 << 50) + 1, 13, 35, 8),
-                                          ((1 << 40) + 7, 1001, 1777, 8),
-                                          (12345678901, 5, 999999, 64),
-                                          ((1 << 60) + 3, 3, 2 ** 40 + 5, 4)])
-def test_interp_is_rmi_tpus(D, v0, v1, line, total):
+# the two-knot lerps across cache-line boundaries: (D, v0, v1, line)
+TWO_KNOTS = {"d2^50": ((1 << 50) + 1, 13, 35, 8), "d2^40": ((1 << 40) + 7, 1001, 1777, 8),
+             "d1e10": (12345678901, 5, 999999, 64), "d2^60": ((1 << 60) + 3, 3, 2 ** 40 + 5, 4)}
+
+
+def _interp_case(case):
+    """(knots, vals, queries, start, err, line): a TWO_KNOTS lerp swept at
+    ulp steps around its middle, where the first case's lerp crosses 24,
+    and at random points; or an edge of cachefix_edge_case."""
+    if case not in TWO_KNOTS:
+        return cachefix_edge_case(case, seed=3)
+    D, v0, v1, line = TWO_KNOTS[case]
     rng = np.random.default_rng(3)
-    # ulp steps around the middle, where the first case's lerp crosses 24
     q = np.concatenate([np.arange(D // 2 - 400, D // 2 + 400, dtype=np.uint64),
                         rng.integers(0, D, 4000, dtype=np.uint64)])
     sk, sv = np.asarray([0, D], np.uint64), np.asarray([v0, v1], np.uint64)
-    start, errs = np.zeros(q.shape, np.int64), np.full(q.shape, 2, np.int64)
+    return sk, sv, q, np.zeros(q.shape, np.int64), np.full(q.shape, 2, np.int64), line
+
+
+@pytest.mark.parametrize("total", [1000, 200_000_000])
+@pytest.mark.parametrize("case", [*TWO_KNOTS, *CACHEFIX_EDGES])
+def test_interp_is_rmi_tpus(case, total):
+    """The port's cachefix_interp (on the CPU its plain version) equals
+    rmi_tpu's _cachefix_interp: the two-knot sweeps and the kernel's
+    edges (err 0, windows clamped at 0 and at the knot count, queries past
+    the last knot, equal knot keys, lerps within eps of a line boundary,
+    one knot, the whole u64 range)."""
+    sk, sv, q, start, errs, line = _interp_case(case)
     want = j_lookup._cachefix_interp(jnp.asarray(sk), jnp.asarray(sv), jnp.asarray(q),
                                      jnp.asarray(start), jnp.asarray(errs),
                                      line_size=line, total_keys=total)
-    got = cachefix_interp(tkeys.to_image(sk), torch.from_numpy(sv.astype(np.int64)),
-                          tkeys.to_image(q), torch.from_numpy(start),
-                          torch.from_numpy(errs), line, total)
+    args = (tkeys.to_image(sk), torch.from_numpy(sv.astype(np.int64)), tkeys.to_image(q),
+            torch.from_numpy(start), torch.from_numpy(errs), line, total)
+    got = cachefix_interp(*args)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(cachefix_interp_plain(*args).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("case", BOUNDED_EDGES)
+def test_bounded_lower_bound_is_rmi_tpus(case, exact):
+    """bounded_lower_bound (on the CPU its plain version) equals rmi_tpu's
+    _bounded_search_jit at the kernel's edges, the trip count exactly
+    covering the widest window and too short for it among them; with
+    ``exact`` (the cachefix search's mode, which rmi_tpu lacks) it is the
+    lower bound over the first n keys on every query, whatever the window
+    and the trips."""
+    keys, q, guess, err, n, iters = bounded_edge_case(case, seed=4)
+    args = (tkeys.to_image(keys), tkeys.to_image(q), torch.from_numpy(guess),
+            torch.from_numpy(err), n, iters)
+    if exact:
+        want = np.searchsorted(keys[:n], q, side="left")
+    else:
+        want = j_lookup._bounded_search_jit(jnp.asarray(keys), jnp.asarray(q),
+                                            jnp.asarray(guess), jnp.asarray(err), n=n,
+                                            iters=iters)
+    np.testing.assert_array_equal(bounded_lower_bound(*args, exact).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(bounded_lower_bound_plain(*args, exact).numpy(),
+                                  np.asarray(want))
 
 
 # --------------------------------------------------------------------------

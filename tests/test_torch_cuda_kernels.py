@@ -31,7 +31,11 @@ images too; lookup's fused entry with the f64 key kind bit-equal to its
 plain version for every top and leaf kernel, an unknown key kind
 refused; an f64 and a u32 build on the card against the CPU build; K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
-when run again.
+when run again; the cachefix path's bounded lower bound and
+interpolation bit-equal to their plain versions at their edges
+(test_torch_lookup_kernel.py's cachefix_edge_case and bounded_edge_case)
+and at 2^22 queries, and a train_bounded index's lookup and search on
+the card equal to the CPU index's, through those kernels.
 """
 
 import numpy as np
@@ -47,14 +51,16 @@ from rmi_tpu_torch.models import cubic, get_model
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
                                        params_to, predict_top_assignment)
 from rmi_tpu_torch.models.linear import log_targets
-from rmi_tpu_torch.ops import (_build, cubic_l1_kernel, eval_kernel, hier_kernel,
-                               probe_kernels, scan_kernel, select_kernel,
+from rmi_tpu_torch.lookup import bounded_search
+from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
+                               hier_kernel, probe_kernels, scan_kernel, select_kernel,
                                sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_lookup_kernel import (INT_TOPS, KEY_SETS, LEAVES, RESOLVE_EDGES, int_keys,
-                                      int_top_case, leaf_table, lookup_case, resolve_case,
-                                      resolve_edge_case, top_rows)
+from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
+                                      LEAVES, RESOLVE_EDGES, bounded_edge_case,
+                                      cachefix_edge_case, int_keys, int_top_case, leaf_table,
+                                      lookup_case, resolve_case, resolve_edge_case, top_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -979,6 +985,10 @@ def _entry_calls(dev):
             q, torch.arange(q.shape[0], device=dev), gf, keys, lo, hi),
         "rmi_hier_resolve": lambda: hier_kernel.resolve(
             levels, q, q // 2, torch.full_like(q, 40), K=1, n=n, packed=packed),
+        "rmi_bounded_lower_bound": lambda: cachefix_kernel.bounded_lower_bound(
+            keys, q, q // 2, torch.full_like(q, 40), n, 8),
+        "rmi_cachefix_interp": lambda: cachefix_kernel.cachefix_interp(
+            keys, keys * 3, q, q // 2, torch.full_like(q, 40), 8, 3 * n),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -1664,3 +1674,143 @@ def test_hier_resolve_edges(dev, kind, K):
         got = hier_kernel.resolve(levels, qd, gd, ed, K=K, n=n, packed=packed)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+def _cachefix_on(dev, arrays):
+    return [tkeys.to_image(a).to(dev) if a.dtype == np.uint64
+            else torch.from_numpy(a.astype(np.int64)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("total", [1000, 200_000_000])
+@pytest.mark.parametrize("kind", CACHEFIX_EDGES)
+def test_cachefix_interp(dev, kind, total):
+    """rmi_cachefix_interp bit-equal to cachefix_interp_plain on the card
+    and on the CPU at the edges that test_torch_cachefix.py holds to
+    rmi_tpu (test_torch_lookup_kernel.cachefix_edge_case: err 0, windows
+    clamped at both ends, queries past the last knot, equal knot keys,
+    lerps within eps of a line boundary, one knot, the whole u64 range);
+    one launch a call, none for an empty batch."""
+    knots, vals, q, start, err, line = cachefix_edge_case(kind, seed=5)
+    kd, vd, qd, sd, ed = _cachefix_on(dev, (knots, vals.astype(np.int64), q, start, err))
+    want = cachefix_kernel.cachefix_interp_plain(kd.cpu(), vd.cpu(), qd.cpu(), sd.cpu(),
+                                                 ed.cpu(), line, total)
+    before = _build.launches["rmi_cachefix_interp"]
+    got = cachefix_kernel.cachefix_interp(kd, vd, qd, sd, ed, line, total)
+    torch.cuda.synchronize()
+    assert _build.launches["rmi_cachefix_interp"] == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    plain = cachefix_kernel.cachefix_interp_plain(kd, vd, qd, sd, ed, line, total)
+    assert torch.equal(plain.cpu(), want)
+    empty = qd[:0]
+    got = cachefix_kernel.cachefix_interp(kd, vd, empty, empty, empty, line, total)
+    assert got.shape == (0,) and _build.launches["rmi_cachefix_interp"] == before + 1
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("kind", BOUNDED_EDGES)
+def test_bounded_lower_bound(dev, kind, exact):
+    """rmi_bounded_lower_bound bit-equal to bounded_lower_bound_plain on
+    the card and on the CPU at its edges (bounded_edge_case: err 0,
+    windows clamped at 0 and n, queries past the last key, duplicate runs,
+    n = 1, a trip count just covering the widest window and one too short
+    for it, n below the keys' count), with and without ``exact`` (then
+    the lower bound on every query), on keys from a 16-byte boundary and
+    one past it; one launch a call."""
+    keys, q, guess, err, n, iters = bounded_edge_case(kind, seed=6)
+    kimg, qd, gd, ed = _cachefix_on(dev, (keys, q, guess, err))
+    want = cachefix_kernel.bounded_lower_bound_plain(kimg.cpu(), qd.cpu(), gd.cpu(), ed.cpu(),
+                                                     n, iters, exact)
+    if exact:
+        assert np.array_equal(want.numpy(), np.searchsorted(keys[:n], q, side="left"))
+    for kd in (kimg, torch.cat([kimg[:1], kimg])[1:]):
+        before = _build.launches["rmi_bounded_lower_bound"]
+        got = cachefix_kernel.bounded_lower_bound(kd, qd, gd, ed, n, iters, exact)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_bounded_lower_bound"] == before + 1
+        assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    plain = cachefix_kernel.bounded_lower_bound_plain(kimg, qd, gd, ed, n, iters, exact)
+    assert torch.equal(plain.cpu(), want)
+
+
+def test_cachefix_kernels_at_scale(dev):
+    """Both kernels over 2^22 queries of 2^24 keys (the grid-stride loop
+    past one grid), against their plain versions on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    n = 1 << 24
+    keys = torch.sort(torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)).values
+    q = torch.randint(-(1 << 62), 1 << 62, (1 << 22,), generator=g, device=dev)
+    lb = torch.searchsorted(keys, q)
+    err = torch.randint(0, 2000, q.shape, generator=g, device=dev)
+    guess = (lb + torch.randint(-3000, 3000, q.shape, generator=g, device=dev)).clamp(0, n)
+    for exact in (False, True):
+        got = cachefix_kernel.bounded_lower_bound(keys, q, guess, err, n, 13, exact)
+        assert torch.equal(got, cachefix_kernel.bounded_lower_bound_plain(keys, q, guess, err,
+                                                                          n, 13, exact))
+    assert torch.equal(got, lb)
+    vals = torch.arange(n, device=dev) * 3
+    got = cachefix_kernel.cachefix_interp(keys, vals, q, guess, err, 8, 3 * n)
+    assert torch.equal(got, cachefix_kernel.cachefix_interp_plain(keys, vals, q, guess, err,
+                                                                  8, 3 * n))
+
+
+def test_cachefix_kernels_refuse_bad_inputs(dev):
+    """A tensor on another device or of another dtype raises ValueError
+    before any launch."""
+    keys = torch.arange(100, dtype=torch.int64, device=dev)
+    q, g, e = keys.clone(), keys.clone(), torch.ones_like(keys)
+    before = dict(_build.launches)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys.cpu(), q, g, e, 100, 8)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q.int(), g, e, 100, 8)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q, g.double(), e, 100, 8)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys.cpu(), q, g, e, 8, 100)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys.double(), q, g, e, 8, 100)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys, q, g, e.cpu(), 8, 100)
+    with pytest.raises(ValueError):       # the binding's own check
+        _build.launch("rmi_bounded_lower_bound", keys, 100, q.cpu(), g, e, 100, 100, 100, 8, 0)
+    assert _build.launches == before
+
+
+def test_cachefix_lookup_and_search_on_the_card(dev):
+    """A train_bounded index on the card: lookup is one fused K4 launch and
+    one rmi_cachefix_interp, search with the original keys one more
+    rmi_bounded_lower_bound (exact on every query, those between keys
+    after a run of equal keys among them), bounded_search of a plain
+    index one fused lookup and one rmi_bounded_lower_bound; each answer
+    equal to the CPU index's."""
+    rng = np.random.default_rng(12)
+    keys = np.sort(rng.integers(10, 2 ** 40, 1 << 16, dtype=np.uint64))
+    keys[100:160] = keys[100]
+    q = tkeys.to_image(np.concatenate([keys, rng.integers(0, 2 ** 41, 4096,
+                                                          dtype=np.uint64)]))
+    img = tkeys.to_image(keys)
+    card = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device=dev), "linear_spline,linear",
+                            256, 8)
+    cpu = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device="cpu"), "linear_spline,linear",
+                           256, 8)
+    before = dict(_build.launches)
+    pos, err = rt.lookup(card, q.to(dev))
+    torch.cuda.synchronize()
+    moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+    assert moved == {"rmi_lookup_linear": 1, "rmi_cachefix_interp": 1}
+    assert torch.equal(pos.cpu(), rt.lookup(cpu, q)[0]) and bool((err == 8).all())
+    before = dict(_build.launches)
+    found = rt.search(card, q.to(dev), keys=img.to(dev))
+    torch.cuda.synchronize()
+    moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+    assert moved == {"rmi_lookup_linear": 1, "rmi_cachefix_interp": 1,
+                     "rmi_bounded_lower_bound": 1}
+    assert torch.equal(found.cpu(), torch.searchsorted(img, q))
+    plain = rt.train(rt.RMIDataset.from_numpy(keys, device=dev), "cubic,linear", 256)
+    before = dict(_build.launches)
+    found = bounded_search(plain, q.to(dev))
+    torch.cuda.synchronize()
+    moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+    assert moved == {"rmi_lookup_linear": 1, "rmi_bounded_lower_bound": 1}
+    assert torch.equal(found.cpu(), torch.searchsorted(img, q))

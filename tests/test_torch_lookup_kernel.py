@@ -18,7 +18,7 @@ from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import REGISTRY, get_model, predict_clamped
 from rmi_tpu_torch.models.base import kernel_input
-from rmi_tpu_torch.ops import eval_kernel, probe_kernels
+from rmi_tpu_torch.ops import cachefix_kernel, eval_kernel, probe_kernels
 from rmi_tpu_torch.train import two_layer
 
 AFFINE_TOPS = sorted(name for name, m in REGISTRY.items() if m.input_domain == "affine")
@@ -444,3 +444,136 @@ def level_counts(levels, q, guess, err, *, K: int, n: int):
         out.append((c, w))
         lb = np.minimum(start + c, lv.size)
     return out
+
+
+# the cachefix serving path's edges: kinds of cachefix_edge_case and
+# bounded_edge_case (ops/cachefix_kernel.py, csrc/cachefix.cu)
+CACHEFIX_EDGES = ("err0", "clamped", "past_end", "equal_knots", "near_line", "one", "wide")
+BOUNDED_EDGES = ("err0", "clamped", "past_end", "dups", "one", "exact_trips", "short_trips",
+                 "n_below_keys")
+
+
+def _windows(rng, lb, n, m, err_max):
+    """Guesses within err of each lower bound lb, and moved past it by
+    err + 1 on a few, in [0, n]; errors in [0, err_max]."""
+    err = rng.integers(0, err_max + 1, m)
+    off = rng.integers(-1, 2, m) * rng.integers(0, err + 1)
+    off[::7] = rng.choice([-1, 1], off[::7].size) * (err[::7] + 1)
+    return np.clip(lb + off, 0, n), err
+
+
+def cachefix_edge_case(kind, seed=0):
+    """(knots, vals, queries as u64; start, err as int64; line) for
+    cachefix_interp at its edges (CACHEFIX_EDGES):
+      err0         err 0, the start on the knot's lower bound or one off;
+      clamped      windows past both ends: start - err < 0 and start +
+                   err + 1 > the knot count;
+      past_end     queries above the last knot, windows that reach it;
+      equal_knots  runs of equal knot keys (k2 - k1 = 0, clamped to 1);
+      near_line    lerps on and within an ulp of cache-line boundaries;
+      one          a single knot (the pair is knot 0 twice);
+      wide         knots over the whole u64 range, the extremes queried.
+    The start is a position among the knots, as the RMI over them answers."""
+    rng = np.random.default_rng(seed)
+    line = 8
+    count = {"one": 1, "near_line": 2}.get(kind, 300)
+    if kind == "wide":
+        knots = np.unique(rng.integers(0, 2 ** 64 - 1, count, dtype=np.uint64))
+        knots[0], knots[-1] = 0, 2 ** 64 - 1
+    elif kind == "near_line":
+        knots = np.asarray([1 << 20, (1 << 20) + 3 * (1 << 40)], np.uint64)
+    else:
+        knots = np.sort(rng.integers(1, 2 ** 40, count, dtype=np.uint64))
+        if kind == "equal_knots":
+            knots[10:40] = knots[10]
+            knots[-5:] = knots[-5]
+        knots = np.sort(knots)
+    vals = np.cumsum(rng.integers(0, 50, knots.size)).astype(np.uint64)
+    if kind == "near_line":
+        vals = np.asarray([0, 3 * line * 1000], np.uint64)
+        # t = j / 3000 lands v on a line boundary where j is a multiple of 3
+        j = np.arange(0, 3001, dtype=np.uint64)
+        q = np.concatenate([knots[0] + j * (1 << 30) + d for d in (0, 1)]
+                           + [knots[0] + j * (1 << 30) - np.uint64(1)])
+    else:
+        q = np.concatenate([knots, knots - np.uint64(1), knots + np.uint64(1),
+                            rng.integers(int(knots[0]), int(knots[-1]), 600, dtype=np.uint64,
+                                         endpoint=True),
+                            np.asarray([0, 1, 2 ** 64 - 1, 2 ** 64 - 2], np.uint64)])
+    if kind == "past_end":
+        q = np.concatenate([q, knots[-1] + np.arange(1, 200, dtype=np.uint64)])
+    n = knots.size
+    lb = np.searchsorted(knots, q, side="left")
+    m = q.size
+    if kind == "err0":
+        start, err = np.clip(lb + rng.integers(-1, 2, m), 0, n), np.zeros(m, np.int64)
+    elif kind == "clamped":
+        start = rng.choice([0, 1, n - 1, n], m)
+        err = rng.choice([2, n // 2, n + 3, 2 * n], m)
+    else:
+        start, err = _windows(rng, lb, n, m, 5 if n > 1 else 1)
+    return knots, vals, q, start.astype(np.int64), err.astype(np.int64), line
+
+
+def bounded_edge_case(kind, seed=0):
+    """(keys, queries as u64; guess, err as int64; n, iters) for the
+    bounded lower bound at its edges (BOUNDED_EDGES):
+      err0          err 0;
+      clamped       windows past both ends of [0, n];
+      past_end      queries above the last key;
+      dups          runs of equal keys, queried at and around them;
+      one           n = 1;
+      exact_trips   iters = ceil(log2(2 max_err + 2)), just covering the
+                    widest window;
+      short_trips   fewer trips than the widest window needs (an answer
+                    inside the window, not the lower bound);
+      n_below_keys  n below the keys' count, guesses up to n."""
+    rng = np.random.default_rng(seed)
+    size = 1 if kind == "one" else 5000
+    keys = np.sort(rng.integers(1, 2 ** 40, size, dtype=np.uint64))
+    if kind == "dups":
+        for i in range(0, size - 300, 457):
+            keys[i:i + rng.integers(2, 300)] = keys[i]
+        keys = np.sort(keys)
+    n = size - 123 if kind == "n_below_keys" else size
+    q = np.concatenate([keys, keys - np.uint64(1), keys + np.uint64(1),
+                        rng.integers(0, 2 ** 40, 2000, dtype=np.uint64),
+                        np.asarray([0, 2 ** 64 - 1], np.uint64)])
+    if kind == "past_end":
+        q = np.concatenate([q, keys[-1] + np.arange(1, 300, dtype=np.uint64)])
+    lb = np.minimum(np.searchsorted(keys, q, side="left"), n)
+    m = q.size
+    if kind == "err0":
+        guess, err = np.clip(lb + rng.integers(-1, 2, m), 0, n), np.zeros(m, np.int64)
+    elif kind == "clamped":
+        guess = rng.choice([0, 1, n - 1, n], m)
+        err = rng.choice([3, n // 2, n + 3, 2 * n], m)
+    else:
+        guess, err = _windows(rng, lb, n, m, 1 if n == 1 else 700)
+    max_err = int(err.max())
+    iters = max(1, int(np.ceil(np.log2(2 * max_err + 2))))
+    if kind == "short_trips":
+        iters = max(1, iters - 4)
+    elif kind != "exact_trips":
+        iters += 1                    # rmi_tpu's count: lookup.err_iters
+    return keys, q, guess.astype(np.int64), err.astype(np.int64), n, iters
+
+
+def test_cachefix_wrappers_refuse_bad_inputs():
+    """Wrong dtype, shape or device, or an n beyond the keys: ValueError,
+    on the CPU as on the card."""
+    keys, q, start, err = (torch.arange(10, dtype=torch.int64) for _ in range(4))
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q.int(), start, err, 10, 5)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q, start[:5], err, 10, 5)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q, start, err, 11, 5)
+    with pytest.raises(ValueError):
+        cachefix_kernel.bounded_lower_bound(keys, q.to("meta"), start, err, 10, 5)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys[:9], q, start, err, 8, 100)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys.double(), q, start, err, 8, 100)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(keys, keys, q, start, err, 0, 100)

@@ -1,26 +1,32 @@
-"""max_size_wiki's final leaf, both packages on the CPU: rmi_tpu (JAX) and
-rmi_tpu_torch build ``linear,linear 1048576`` on the same wiki keys.
+"""One of SOSD_SYNTH.json's configurations, both packages on the CPU:
+rmi_tpu (JAX) and rmi_tpu_torch build it on the same synthetic keys.
 
-    python3 tools/witness_max_size_wiki.py [--n 200000000] [--B 1048576]
+    python3 tools/witness_sosd.py [--config max_size_wiki] [--n 200000000]
         [--seed 7] [--cap-gib 40] [--phases keys,top-port,top-ref,build-port,build-ref]
 
-SOSD_SYNTH.json's ``max_size_wiki`` row (rmi_tpu's build on a TPU, df64
-arithmetic) gives max_err n + 3 for this configuration on
-synthetic_dataset("wiki", 200M, seed=7); the port's build gives 287 with
-95 keys routed to the final leaf.  This tool asks rmi_tpu's own CPU build
-(IEEE f64, the reference run) how many keys its top routes there.
+SOSD_SYNTH.json's rows are rmi_tpu's builds on a TPU (df64 arithmetic) on
+synthetic_dataset("wiki" | "osm", 200M, seed=7).  Where the port's max_err
+differs from a row's, this tool asks rmi_tpu's own CPU build (IEEE f64,
+the reference run) how its top routes the keys and what its leaves err.
+``--config`` names the row (CONFIGS: tests/test_sosd.py's five
+configurations with flags, and max_size_wiki as the optimizer chose it,
+``linear,linear 1048576``).  A cachefix (--bounded) configuration builds
+with train_bounded in both packages, and its top and leaves are the RMI's
+over the spline's knots.
 
 Phases, each in a process of its own, in this order:
-  keys        each package's synthetic_dataset, asserted equal, saved to
-              .data/witness_wiki_<n>_<seed>.npy (reused when present);
+  keys        each package's synthetic_dataset of the row's kind, asserted
+              equal, saved to .data/witness_<kind>_<n>_<seed>.npy (reused
+              when present);
   top-port    the port's top fit (stage A) and leaf assignment;
   top-ref     rmi_tpu's (its jitted stage A, as RMI_BUILD_STAGED=1 runs it);
-  build-port  rmi_tpu_torch.train on the CPU;
-  build-ref   rmi_tpu.train (its default whole-build program).
-A top phase reports the top's row (alpha, beta in the normalized key
-domain, which both packages share) and the keys routed to the final leaf;
-a build phase max_err with its leaf, the final leaf's key count and error,
-and avg_log2, and the two builds' leaf errors are compared leaf by leaf.
+              neither top phase runs for a cachefix configuration;
+  build-port  rmi_tpu_torch.train (train_bounded) on the CPU;
+  build-ref   rmi_tpu.train (train_bounded; its default whole-build program).
+A top phase reports the top's parameters and the keys routed to the final
+leaf; a build phase max_err with its leaf and the keys routed there, the
+final leaf's key count and error, and avg_log2, and the two builds' leaf
+errors are compared leaf by leaf.
 Each phase's peak resident memory is read from /proc while
 it runs; a phase that passes --cap-gib is killed and reported with the
 peak it reached.  Runs outside the tests (minutes and tens of GB at 200M
@@ -37,12 +43,19 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SPEC = ("linear", "linear")
 PHASES = ("keys", "top-port", "top-ref", "build-port", "build-ref")
+# config -> (key kind, top, leaf, branching factor, --bounded line or None)
+CONFIGS = {"max_size_wiki": ("wiki", "linear", "linear", 1048576, None),
+           "simple_model_wiki": ("wiki", "cubic", "linear", 262144, None),
+           "simple_model_osm": ("osm", "robust_linear", "linear", 262144, None),
+           "radix_model_wiki": ("wiki", "radix", "linear", 1024, None),
+           "cache_fix_wiki": ("wiki", "linear_spline", "linear", 4194304, 8),
+           "cache_fix_osm": ("osm", "cubic", "linear", 786432, 8)}
+CONFIG, CONFIG_NAME = CONFIGS["max_size_wiki"], "max_size_wiki"
 
 
 def keys_path(n: int, seed: int) -> str:
-    return os.path.join(REPO, ".data", f"witness_wiki_{n}_{seed}.npy")
+    return os.path.join(REPO, ".data", f"witness_{CONFIG[0]}_{n}_{seed}.npy")
 
 
 def _jax():
@@ -57,20 +70,21 @@ def phase_keys(n, B, seed):
     path = keys_path(n, seed)
     if os.path.exists(path):
         return {"path": path, "reused": True}
+    kind = CONFIG[0]
     from rmi_tpu_torch.data import synthetic_dataset as t_synth
     from rmi_tpu_torch.keys import KeyType
-    t_keys = t_synth("wiki", n, KeyType.U64, seed=seed)
+    t_keys = t_synth(kind, n, KeyType.U64, seed=seed)
     _jax()
     from rmi_tpu.data import synthetic_dataset as j_synth
     from rmi_tpu.keys import KeyType as JKeyType
-    j_keys = j_synth("wiki", n, JKeyType.U64, seed=seed)
+    j_keys = j_synth(kind, n, JKeyType.U64, seed=seed)
     if not np.array_equal(t_keys, j_keys):
-        raise RuntimeError("the two packages' wiki keys differ")
+        raise RuntimeError(f"the two packages' {kind} keys differ")
     del j_keys
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.save(path, t_keys)
     return {"path": path, "reused": False, "equal": True, "first": int(t_keys[0]),
-            "last": int(t_keys[-1])}
+            "last": int(t_keys[-1]), "duplicates": int(np.count_nonzero(t_keys[1:] == t_keys[:-1]))}
 
 
 def _routing(t, B):
@@ -85,10 +99,14 @@ def _routing(t, B):
 
 
 def _row(w):
+    """A top's parameters: a float row's values and their hex (for a
+    linear top alpha, beta in the normalized key domain, which both
+    packages share), or an integer model's parameters by name."""
     import numpy as np
-    alpha, beta = (float(v) for v in np.asarray(w, dtype=np.float64).reshape(-1)[:2])
-    return {"alpha": alpha, "beta": beta, "alpha_hex": alpha.hex(), "beta_hex": beta.hex(),
-            "alpha_plus_beta": alpha + beta}
+    if isinstance(w, dict):
+        return {k: np.asarray(v).reshape(-1)[:8].tolist() for k, v in w.items()}
+    row = [float(v) for v in np.asarray(w, dtype=np.float64).reshape(-1)]
+    return {"row": row, "row_hex": [v.hex() for v in row]}
 
 
 def phase_top_port(n, B, seed):
@@ -99,9 +117,9 @@ def phase_top_port(n, B, seed):
     from rmi_tpu_torch.train import two_layer
     keys = RMIDataset.from_numpy(np.load(keys_path(n, seed)), device="cpu").keys
     kminf, s = two_layer.norm_constants(keys, KeyType.U64)
-    top_in = two_layer.model_float_input(get_model(SPEC[0]), keys, kminf, s, KeyType.U64)
+    top_in = two_layer.model_float_input(get_model(CONFIG[1]), keys, kminf, s, KeyType.U64)
     yfix = two_layer.fixdups_i32(keys)
-    top_w, t, _ = two_layer._assign_body(top_in, yfix, top_type=SPEC[0], B=B, keys=keys)
+    top_w, t, _ = two_layer._assign_body(top_in, yfix, top_type=CONFIG[1], B=B, keys=keys)
     return {"norm": [kminf, s], "top": _row(top_w), **_routing(t.numpy(), B)}
 
 
@@ -115,36 +133,43 @@ def phase_top_ref(n, B, seed):
     keys = RMIDataset.from_numpy(np.load(keys_path(n, seed))).keys
     kminf, s = two_layer.norm_constants(keys, JKeyType.U64)
     _, top_p, t = two_layer._stage_assign(keys, jnp.float64(kminf), jnp.float64(s),
-                                          top_type=SPEC[0], B=B, key_type=JKeyType.U64)
-    return {"norm": [kminf, s], "top": _row(top_p["w"]), **_routing(t, B)}
+                                          top_type=CONFIG[1], B=B, key_type=JKeyType.U64)
+    return {"norm": [kminf, s], "top": _row(top_p.get("w", top_p)), **_routing(t, B)}
 
 
 def leaves_path(name: str, n: int, seed: int) -> str:
-    return os.path.join(REPO, ".data", f"witness_{name}_{n}_{seed}.npz")
+    return os.path.join(REPO, ".data", f"witness_{CONFIG_NAME}_{name}_{n}_{seed}.npz")
 
 
 def _build_summary(name, n, seed, r, errors, counts, B):
     """The build's metrics; its leaf errors and key counts saved for compare()."""
     import numpy as np
     np.savez(leaves_path(name, n, seed), errors=errors.astype(np.int64), counts=counts)
-    return {"max_err": int(r.model_max_error), "max_err_leaf": int(r.model_max_error_idx),
-            "avg_log2": float(r.model_avg_log2_error), "final_leaf_error": int(errors[B - 1]),
-            "final_leaf_keys": int(counts[B - 1])}
+    L = int(r.model_max_error_idx)
+    out = {"max_err": int(r.model_max_error), "max_err_leaf": L,
+           "max_err_leaf_keys": int(counts[L]), "avg_log2": float(r.model_avg_log2_error),
+           "final_leaf_error": int(errors[B - 1]), "final_leaf_keys": int(counts[B - 1])}
+    if CONFIG[4]:
+        out["knots"] = int(len(r.cache_fix[1]))
+    return out
 
 
 def compare(n, seed, B):
     """Leaf errors of the two builds: how many differ, by how much, and the
-    avg_log2 gap they explain (the port's key counts)."""
+    avg_log2 gap they explain, each build's leaves with its own key counts
+    over the keys its RMI serves (a cachefix index's: the knots)."""
     import numpy as np
     p, j = (np.load(leaves_path(name, n, seed)) for name in ("build-port", "build-ref"))
-    ep, ej, cnt = p["errors"], j["errors"], p["counts"]
+    ep, ej, cp, cj = p["errors"], j["errors"], p["counts"], j["counts"]
     diff = ep != ej
-    explained = float(np.sum((cnt * (np.log2(2.0 * ep + 2.0) - np.log2(2.0 * ej + 2.0)))
-                             [diff]) / n)
+    moved = diff | (cp != cj)
+    explained = float(np.sum((cp * np.log2(2.0 * ep + 2.0) - cj * np.log2(2.0 * ej + 2.0))
+                             [moved]) / cp.sum())
     return {"leaves_differing": int(diff.sum()),
             "max_abs_diff": int(np.abs(ep - ej).max()) if diff.any() else 0,
             "port_minus_ref_on_them": np.bincount((ep - ej)[diff] + 2, minlength=5).tolist(),
-            "key_counts_equal": bool(np.array_equal(cnt, j["counts"])),
+            "key_counts_equal": bool(np.array_equal(cp, cj)),
+            "leaves_counted_otherwise": np.flatnonzero(cp != cj)[:10].tolist(),
             "avg_log2_gap_explained": explained,
             "first_differing_leaves": np.flatnonzero(diff)[:10].tolist()}
 
@@ -154,8 +179,10 @@ def phase_build_port(n, B, seed):
     import rmi_tpu_torch as rt
     from rmi_tpu_torch.models import get_model
     from rmi_tpu_torch.train import two_layer
-    r = rt.train(rt.RMIDataset.from_numpy(np.load(keys_path(n, seed)), device="cpu"),
-                 ",".join(SPEC), B)
+    data = rt.RMIDataset.from_numpy(np.load(keys_path(n, seed)), device="cpu")
+    spec, line = ",".join(CONFIG[1:3]), CONFIG[4]
+    r = rt.train_bounded(data, spec, B, line) if line else rt.train(data, spec, B)
+    # a cachefix index's RMI serves over its knots, which r.keys holds
     t = two_layer.top_assignment(get_model(r.top_type), r.device_top_params, r.keys,
                                  r.norm_offset, r.norm_scale, B - 1, r.key_type)
     counts = np.bincount(t.numpy(), minlength=B)
@@ -169,9 +196,14 @@ def phase_build_ref(n, B, seed):
     from rmi_tpu.data import RMIDataset
     from rmi_tpu.models import get_model
     from rmi_tpu.train import two_layer
-    from rmi_tpu.train.api import train
+    from rmi_tpu.train.api import train, train_bounded
     data = RMIDataset.from_numpy(np.load(keys_path(n, seed)))
-    r = train(data, ",".join(SPEC), B)
+    spec, line = ",".join(CONFIG[1:3]), CONFIG[4]
+    if line:
+        r = train_bounded(data, spec, B, line)
+        data = RMIDataset.from_numpy(r.cache_fix[1])      # the RMI's keys: the knots
+    else:
+        r = train(data, spec, B)
     mtop = get_model(r.top_type)
     kminf, s = r.norm_offset, r.norm_scale
 
@@ -181,7 +213,8 @@ def phase_build_ref(n, B, seed):
                                                 (xraw - kminf) * s, xraw, B - 1)
 
     counts = np.bincount(np.asarray(jax.jit(leaf_ids)(data.keys)), minlength=B)
-    return {"top": _row(r.device_top_params["w"]),
+    top = r.device_top_params
+    return {"top": _row(top["w"] if "w" in top else top),
             **_build_summary("build-ref", n, seed, r, np.asarray(r.leaf_errors), counts, B)}
 
 
@@ -202,8 +235,8 @@ def _status_kib(pid, field):
 
 def run_phase(name, args):
     """The phase in a child process, its peak RSS watched; killed past the cap."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--child", name, "--n", str(args.n),
-           "--B", str(args.B), "--seed", str(args.seed)]
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", name, "--config",
+           args.config, "--n", str(args.n), "--seed", str(args.seed)]
     t0 = time.time()
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, text=True)
     peak_kib, killed = 0, False
@@ -232,8 +265,8 @@ def run_phase(name, args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="max_size_wiki")
     ap.add_argument("--n", type=int, default=200_000_000)
-    ap.add_argument("--B", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--cap-gib", type=float, default=40.0,
                     help="kill a phase whose resident memory passes this")
@@ -241,9 +274,12 @@ def main():
     ap.add_argument("--child", choices=PHASES, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, REPO)
+    global CONFIG, CONFIG_NAME
+    CONFIG, CONFIG_NAME = CONFIGS[args.config], args.config
+    B = CONFIG[3]
     if args.child:
         import resource
-        out = RUNNERS[args.child](args.n, args.B, args.seed)
+        out = RUNNERS[args.child](args.n, B, args.seed)
         out["child_maxrss_kib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         print(json.dumps(out), flush=True)
         return
@@ -251,15 +287,18 @@ def main():
     for p in phases:
         if p not in PHASES:
             raise SystemExit(f"unknown phase {p}")
+    if CONFIG[4]:          # a cachefix top is fitted over the knots: builds only
+        phases = [p for p in phases if not p.startswith("top-")]
     results = {}
     for p in PHASES:
         if p in phases:
             results[p] = run_phase(p, args)
             if p == "keys" and results[p]["rc"] != 0:
                 break
-    summary = {"n": args.n, "B": args.B, "seed": args.seed, "phases": results}
+    summary = {"config": args.config, "spec": ",".join(CONFIG[1:3]), "B": B,
+               "bounded": CONFIG[4], "n": args.n, "seed": args.seed, "phases": results}
     if all(results.get(p, {}).get("rc") == 0 for p in ("build-port", "build-ref")):
-        summary["leaf_errors"] = compare(args.n, args.seed, args.B)
+        summary["leaf_errors"] = compare(args.n, args.seed, B)
     print(json.dumps(summary), flush=True)
 
 
