@@ -10,10 +10,13 @@ Phases (any failure raises and exits non-zero):
   3. path 1 on books-like u64 keys made on the card from a seed:
      ``train(data, "cubic,linear", 262144)`` cold and warm (each path's
      and zoo row's RMI_SIZE logged beside its max_err), then lookup,
-     search of 2^22 random queries (torch.sort, then K5's scatter entry,
-     at the default size) and search_sorted of the same queries sorted
-     (K5); every kernel of the path must have launched in that run, and
-     the keys made twice and the two builds must be bit-equal;
+     search of 2^22 random queries (torch.sort, then K5's window bounds,
+     rmi_sorted_bounds, and K5's scatter entry, at the default size),
+     search_sorted of the same queries sorted (rmi_sorted_bounds, then K5)
+     and fast_search of them (a packed plan: one rmi_packed_search launch
+     and nothing else, asserted, as the two routes' launches are); every
+     kernel of the path must have launched in that run, and the keys made
+     twice and the two builds must be bit-equal;
   4. the bound |guess - lower_bound| <= err on sampled keys, whose
      lookup must launch K4's fused entry (rmi_lookup_<leaf>) and nothing
      else, an integer top's too (path 5, the zoo); lookup of the random
@@ -23,11 +26,15 @@ Phases (any failure raises and exits non-zero):
      queries (the packed plan); the search rate;
   5b. K5 on that batch (k5_phase): the share of blocks whose window
      exceeds the shared-memory stage, search's device time split into
-     the sort and K5 with its scatter, and K5 at sample levels 8 and 16
-     timed in turns, both checked against torch.searchsorted;
+     the sort, K5's window bounds and K5 with its scatter, the bounds'
+     plain version's device time beside its time alone, and K5 at sample
+     levels 8 and 16 timed in turns, both checked against
+     torch.searchsorted;
   6. the serving curve: lookups/s at 2^14 ... 2^22 queries for the
-     bounded path, the packed plan, sort -> K5 -> unsort without the
-     density gate, and search_sorted on sorted batches;
+     bounded path, the packed plan (rmi_packed_search), sort -> K5 ->
+     unsort without the density gate, and search_sorted on sorted
+     batches, and the packed plan's plain route (the eager torch the
+     kernel replaced) beside them, uncounted;
   7. each kernel of the path replayed on the inputs the path gave it,
      against its plain PyTorch version: K1, K2, the run-length pass, K5,
      K5's scatter entry and K4's fused lookup entry on the card (guess and
@@ -53,10 +60,11 @@ Phases (any failure raises and exits non-zero):
      kernel (its table folded into the rows: the route asserted,
      INT_ROUTES), timed beside its bound (the share logged), the two-step
      route (the top in torch, then rmi_leaf_eval_linear), its plain
-     version and path 1's fused entry,
+     version and path 1's fused entry, its packed search and K5's window
+     bounds (the hint table read in place) timed beside path 1's,
      its kernels (K1, K2, K3 and K4 linear, the run-length pass, the fused
-     lookup, both K5 entries) replayed against their plain versions; the
-     kernels line keeps path 1's rows;
+     lookup, both K5 entries, the packed search and the bounds) replayed
+     against their plain versions; the kernels line keeps path 1's rows;
  11c. path 6, the compile path through the CLI (rmi_tpu_torch.cli.main,
      in a temporary directory deleted at the end), the launches counted
      from 0: the keys written to an SOSD file; 6a ``cubic,linear
@@ -82,11 +90,19 @@ Phases (any failure raises and exits non-zero):
  11d. the zoo: the other integer-model rows of FAMILIES_200M.json
      (``radix,linear 1024``, ``bradix,linear 1024``, ``histogram,linear
      4096``, ``radix22,cubic 65536`` and ``cubic,radix8 4096``, the last
-     with hint-table leaves, swept and served in plain torch) built once
+     with hint-table leaves, swept and served in plain torch) and two
+     scalar tops of it, ``normal,linear 4096`` and ``lognormal,linear
+     4096`` (the lognormal top's leaf ids from torch, its lookup the two
+     steps), all but the f64 row on a packed plan (packed_wide for radix,
+     bradix, histogram, cubic,radix8 and the scalar tops), built once
      each on the same keys, with max_err, avg_log2 and the build time
      logged, 0 bound violations on 2^22 sampled keys, whose lookup must be
      one launch of the fused entry (none for hint-table leaves), 0 search
-     mismatches on 2^16 queries, the fused lookup of 2^22 sampled keys
+     mismatches on 2^16 queries, fast_search, search_sorted and sort ->
+     K5 of 2^22 queries launching rmi_packed_search alone,
+     rmi_sorted_bounds and K5, and rmi_sorted_bounds and K5's scatter
+     entry (asserted), the packed search of them timed beside its plain
+     version, torch.searchsorted and its bound, the fused lookup of 2^22 sampled keys
      bit-equal to its two steps and timed beside them and beside its
      bound, its route asserted (INT_ROUTES: the histogram's pivots staged
      in a block, radix22's table in place, none for radix and bradix),
@@ -234,7 +250,11 @@ order; the hier resolve: the queries, guesses, errors and answers, the
 sectors that decide each answer and the upper levels; the bounded lower
 bound likewise without levels; the cachefix interpolation: the queries,
 starts, errors and answers and the sectors of each answer's knot pair and
-value pair), at 3.35 TB/s, or
+value pair; the packed search: the queries and answers, the top's
+operands and the sectors of each query's leaf row around q, of keys[::64]
+around lb1 (packed_wide) and of the keys around lb; the window bounds:
+each block's two anchors, the bounds and the anchors' row sectors), at
+3.35 TB/s, or
 its operations at the
 peak rate of their type, whichever is larger.
 After each path the run logs its wall time and the run's total (``wall``
@@ -276,8 +296,8 @@ from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_i
                                        params_equal, params_to, predict_clamped,
                                        predict_top_assignment)
 from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
-                               probe_kernels, scan_kernel, select_kernel,
-                               sorted_serve_kernel, sweep_kernel)
+                               hier_kernel, packed_kernel, probe_kernels, scan_kernel,
+                               select_kernel, sorted_serve_kernel, sweep_kernel)
 from rmi_tpu_torch.parallel import sweep
 from rmi_tpu_torch.serialize import rmi_size
 from rmi_tpu_torch.train import api as train_api
@@ -356,6 +376,13 @@ PATH_KERNELS = [
      "rmi_tpu/lookup.py:92"),
     ("rmi_cachefix_interp", cachefix_kernel, "cachefix_interp", "cachefix_interp_plain", None,
      "rmi_tpu_torch/csrc/cachefix.cu", "rmi_tpu/lookup.py:97"),
+    # the packed plan's search and K5's window bounds: rmi_tpu runs both in
+    # XLA (_fast_search_packed and _wide, _sorted_stats_direct), no Pallas
+    # call of their own
+    ("rmi_packed_search", packed_kernel, "packed_search", "packed_search_plain", None,
+     "rmi_tpu_torch/csrc/packed.cu", "rmi_tpu/lookup_fast.py:420"),
+    ("rmi_sorted_bounds", packed_kernel, "sorted_bounds", "sorted_bounds_plain", None,
+     "rmi_tpu_torch/csrc/packed.cu", "rmi_tpu/lookup_fast.py:683"),
 ]
 # then the card probes, driven by their own phase
 PROBE_KERNELS = [
@@ -363,44 +390,46 @@ PROBE_KERNELS = [
      "rmi_tpu_torch/csrc/probes.cu", p.replaces) for p in probe_kernels.PROBES]
 KERNELS = PATH_KERNELS + PROBE_KERNELS
 # (spec, B, the C entry points the path launches, those it replays)
-# search launches K5's scatter entry, search_sorted K5 itself
+# search launches K5's scatter entry, search_sorted K5 itself, each after
+# K5's window bounds; fast_search of a packed plan the packed search
 K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
+PACKED = ("rmi_packed_search", "rmi_sorted_bounds")
 RUN_MAX = "rmi_span_run_max"
 # K4: the build's epsilon probes launch the per-element entry, lookup the fused one
 PATH1 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
 PATH2 = ("robust_linear,cubic", 65536,
          ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
-          "rmi_lookup_cubic", *K5, "rmi_cubic_l1"),
+          "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
           "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
-          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5),
+          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED),
          ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX,
-          "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5),
+          "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED),
          ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
           "rmi_lookup_normal"))
 # an integer (hint-table) top over linear leaves: lookup is one launch of
 # the fused entry, its top evaluated in the kernel (csrc/int_top.cuh)
 PATH5 = ("radix18,linear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
 # path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
 # cubic,linear_f64_262144 row); the fused lookup decodes f64 images
 PATH7 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
 # path 8: the reference's books-u32 CI config (FAMILIES_200M.json's
 # linear,linear_u32_100 row), whose ~2M-key leaves no packed plan covers:
 # the hierarchical plan, which never reaches K5: one fused lookup and one
@@ -415,14 +444,20 @@ HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
 # (eval_kernel.route_name): where its operand lies when it is read
 INT_ROUTES = {"radix18": "folded", "histogram": "block", "radix22": "l2", "radix": "none",
               "bradix": "none"}
-# the other integer-model rows of FAMILIES_200M.json, and the entries each
-# replays: an integer top's lookup is the fused entry; hint-table leaves
-# keep their torch step and launch none
-ZOO = [("radix,linear", 1024, ("rmi_lookup_linear",)),
-       ("bradix,linear", 1024, ("rmi_lookup_linear",)),
-       ("histogram,linear", 4096, ("rmi_lookup_linear",)),
-       ("radix22,cubic", 65536, ("rmi_cubic_l1", "rmi_lookup_cubic")),
-       ("cubic,radix8", 4096, ())]
+# the other integer-model rows of FAMILIES_200M.json and two of its scalar
+# tops, and the entries each replays: an integer top's lookup is the fused
+# entry; hint-table leaves keep their torch step and launch none; a
+# lognormal top keeps its torch top before K4's per-element entry, and in
+# the packed search before rmi_packed_search; every row but the f64 one
+# serves a packed plan (radix, bradix, histogram, cubic,radix8, normal and
+# lognormal a packed_wide one)
+ZOO = [("radix,linear", 1024, ("rmi_lookup_linear", *PACKED)),
+       ("bradix,linear", 1024, ("rmi_lookup_linear", *PACKED)),
+       ("histogram,linear", 4096, ("rmi_lookup_linear", *PACKED)),
+       ("radix22,cubic", 65536, ("rmi_cubic_l1", "rmi_lookup_cubic", *PACKED)),
+       ("cubic,radix8", 4096, PACKED),
+       ("normal,linear", 4096, ("rmi_lookup_linear", *PACKED)),
+       ("lognormal,linear", 4096, ("rmi_leaf_eval_linear", *PACKED))]
 # the zoo row on path 7's f64 keys: an integer top on f64 keys takes the
 # hier plan, so it drives the fused lookup and rmi_hier_resolve with the
 # f64 key kind
@@ -572,7 +607,7 @@ def compare(name, got, want, args, kw):
                 bool(((m2 - wm2).abs() <= K2_RTOL * wm2.abs()).all()))
     if name == "cubic_l1_sums":
         return compare_l1(got, want)
-    if name == "lookup_clamped":      # (guess, err), both bit-equal
+    if name in ("lookup_clamped", "sorted_bounds"):    # (guess, err), (lo, hi): bit-equal
         diffs = [compare(None, g, w, args, kw) for g, w in zip(got, want)]
         return max(d[0] for d in diffs), all(d[1] for d in diffs)
     got, want = got.cpu().long(), want.cpu().long()
@@ -732,6 +767,20 @@ LEAF_OPS = {"linear": 2, "cubic": 6, "loglinear": 10, "normal": 14}
 INT_TOP_OPS = 10
 
 
+def top_work(top_type, top_w):
+    """(bytes, operations a query) of a top: an affine top's row and its
+    leaf kernel's operations; an integer top's parameters, table or pivots
+    at their model size, and its shifts and compares (a histogram's
+    halving steps)."""
+    kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(top_type)]
+    if kind in LEAF_OPS:
+        return _nbytes(top_w), LEAF_OPS[kind]
+    top_bytes = sum(_nbytes(top_w[k]) for k in ("w_int", "high", "table", "pivots")
+                    if k in top_w)
+    return top_bytes, (3 * max(1, top_w["pivots"].shape[0]).bit_length()
+                       if kind == "histogram" else INT_TOP_OPS)
+
+
 def work(name, args, kw, out):
     """(bytes, operations, peak operations/s) of one wrapper call: each
     input tensor read once and each output written once, and the
@@ -758,17 +807,40 @@ def work(name, args, kw, out):
         # (the top's operands at their model size: an integer top's hint
         # table as int32 entries, however the kernel stages it)
         q, top_w, leaf_w, leaf_errors = args[:4]
-        kind = eval_kernel.TOP_KINDS[eval_kernel.top_kind(kw["top_type"])]
-        if kind in LEAF_OPS:
-            top_ops, top_bytes = LEAF_OPS[kind], _nbytes(top_w)
-        else:
-            top_bytes = sum(_nbytes(top_w[k]) for k in ("w_int", "high", "table", "pivots")
-                            if k in top_w)
-            top_ops = (3 * max(1, top_w["pivots"].shape[0]).bit_length()
-                       if kind == "histogram" else INT_TOP_OPS)
+        top_bytes, top_ops = top_work(kw["top_type"], top_w)
         per = 13 + LEAF_OPS[get_model(kw["leaf_type"]).leaf_kernel] + top_ops
         return (_nbytes(q, leaf_w, leaf_errors, *outs) + top_bytes, q.shape[0] * per,
                 F64_OPS_PER_S)
+    if name in ("packed_search", "sorted_bounds"):
+        # what the answers need, not what the kernel reads: each query (of
+        # the bounds: each block's two anchors) and answer once, the top's
+        # operands once, and the 32-byte sectors that decide each answer,
+        # each once: of its leaf row, the base and the samples on either
+        # side of q; of keys[::64] (packed_wide) the stripe-first keys on
+        # either side of lb1; of the keys (the search) keys[lb - 1] and
+        # keys[lb]; per query the clip, the decode and the top (~5 + the
+        # top's) and ~3 ops a halving step (int64 compares), at the f64 rate
+        rmi, plan, q = args
+        if name == "sorted_bounds":
+            q = packed_kernel._anchors(q)
+        leaf = packed_kernel._leaf_ids(rmi, plan, q)
+        c1 = (packed_kernel.stripe_lower_limits(rmi, plan, q) - plan.rows[leaf, 0]) // plan.F + 1
+        at = leaf * (1 + plan.S) + 1
+        ents = [at - 1, at + (c1 - 1).clamp(0, plan.S - 1), at + c1.clamp(0, plan.S - 1)]
+        sectors = torch.unique(torch.cat(ents) // (SECTOR_BYTES // 8)).numel()
+        steps = math.ceil(math.log2(plan.S + 1))
+        if name == "packed_search":
+            pairs = [(rmi.keys, out)]
+            if plan.F > 1:
+                pairs.append((plan.stripe_first, torch.searchsorted(plan.stripe_first, q)))
+            for arr, pos in pairs:
+                m = arr.shape[0]
+                near = torch.cat([(pos - 1).clamp(0, m - 1), pos.clamp(0, m - 1)])
+                sectors += torch.unique(near // (SECTOR_BYTES // 8)).numel()
+            steps += 7 + (8 if plan.F > 1 else 0)
+        top_bytes, top_ops = top_work(rmi.top_type, rmi.device_top_params)
+        return (_nbytes(q, *outs) + top_bytes + SECTOR_BYTES * sectors,
+                q.shape[0] * (5 + top_ops + 3 * steps), F64_OPS_PER_S)
     if name == "resolve":
         # what the answers need, not what the kernel reads (a 128-key row
         # a level): each query, guess, error and answer once, the sectors
@@ -781,7 +853,7 @@ def work(name, args, kw, out):
         near = torch.cat([(out - 1).clamp(0, n - 1), out.clamp(0, n - 1)])
         sectors = torch.unique(near // (SECTOR_BYTES // keys.element_size())).numel()
         nbytes = _nbytes(q, guess, err, out, *levels[1:]) + SECTOR_BYTES * sectors
-        steps = (kw["K"] + 1) * math.log2(lookup_fast.WIDTH)
+        steps = (kw["K"] + 1) * math.log2(hier_kernel.WIDTH)
         return nbytes, q.shape[0] * steps * 3, INT_OPS_PER_S
     if name in ("bounded_lower_bound", "cachefix_interp"):
         # what the answers need: each query, guess, error and answer once,
@@ -850,6 +922,8 @@ def library_call(name, args, kw):
         return lambda: torch.searchsorted(args[0][0], args[1])
     if name == "bounded_lower_bound":    # its answer on queries whose window holds it
         return lambda: torch.searchsorted(args[0][:args[4]], args[1])
+    if name == "packed_search":          # the same lower bounds, from the keys alone
+        return lambda: torch.searchsorted(args[0].keys, args[2])
     return None         # the scatter entry: no one call both searches and scatters
 
 
@@ -914,7 +988,10 @@ def check_search(rmi, keys, gen):
 
 def serving_curve(rmi, keys, gen):
     """lookups/s per path and batch size over the main path's keys, each
-    path's answers checked against torch.searchsorted once."""
+    path's answers checked against torch.searchsorted once: the packed
+    plan (rmi_packed_search), sort -> K5 -> unsort, search_sorted, the
+    bounded route, and, for the record, the packed plan's plain route (the
+    eager torch it replaced), uncounted."""
     plan = lookup_fast.get_plan(rmi)
     paths = {
         "bounded": lambda q: bounded_search(rmi, q),
@@ -933,6 +1010,10 @@ def serving_curve(rmi, keys, gen):
                 raise RuntimeError(f"serving curve: {name} wrong at {nq} queries")
             ms = cuda_ms(lambda: fn(x), 20 if nq <= 1 << 18 else 5)
             row[name] = nq / (ms / 1e3)
+        with uncounted():
+            ms = cuda_ms(lambda: packed_kernel.packed_search_plain(rmi, plan, q),
+                         20 if nq <= 1 << 18 else 5)
+        row["packed_plain"] = nq / (ms / 1e3)
         rows.append(row)
         log(f"serving curve nq={nq}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in row.items() if k != "nq") + " lookups/s")
@@ -953,9 +1034,11 @@ def _device_us(evt):
 def k5_phase(rmi, keys, queries):
     """K5 on the main path's batch: the share of blocks whose window
     exceeds the shared-memory stage; search's device time per batch split
-    into the sort, K5 with its scatter and the rest (a profiler trace of
-    SEARCH_TRACED batches) beside each part timed alone; K5 at the sample
-    levels 8 and 16 in turns (8, 16, 16, 8), both exact."""
+    into the sort, K5's window bounds (rmi_sorted_bounds), K5 with its
+    scatter and the rest (a profiler trace of SEARCH_TRACED batches)
+    beside each part timed alone, and the bounds' plain version's device
+    time beside its time alone; K5 at the sample levels 8 and 16 in turns
+    (8, 16, 16, 8), both exact."""
     ssk = sorted_serve_kernel
     plan = lookup_fast.get_plan(rmi)
     n, nq = keys.shape[0], queries.shape[0]
@@ -976,21 +1059,31 @@ def k5_phase(rmi, keys, queries):
         for _ in range(SEARCH_TRACED):
             search(rmi, queries)
         torch.cuda.synchronize()
-    parts = dict.fromkeys(("sort", "k5_scatter", "other"), 0.0)
+    parts = dict.fromkeys(("sort", "bounds", "k5_scatter", "other"), 0.0)
     for e in prof.key_averages():
         name = e.key.lower()
-        part = ("k5_scatter" if "serve_sorted" in name
+        part = ("k5_scatter" if "serve_sorted" in name else "bounds" if "bounds" in name
                 else "sort" if "sort" in name else "other")
         parts[part] += _device_us(e) / 1e3 / SEARCH_TRACED
+    # the bounds' plain version (the eager torch rmi_sorted_bounds replaced):
+    # its device time a call from a trace, beside its CUDA-event time alone
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(SEARCH_TRACED):
+            packed_kernel.sorted_bounds_plain(rmi, plan, qs)
+        torch.cuda.synchronize()
+    plain_device = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / SEARCH_TRACED
     alone = {"sort": cuda_ms(lambda: torch.sort(queries), 10),
              "bounds": cuda_ms(lambda: lookup_fast.sorted_bounds(rmi, plan, qs), 10),
+             "bounds_plain": cuda_ms(lambda: packed_kernel.sorted_bounds_plain(rmi, plan, qs),
+                                     10),
              "k5_scatter": cuda_ms(lambda: ssk.serve_sorted_scatter(
                  qs, order, plan.group_first, keys, lo, hi), 10),
              "search": cuda_ms(lambda: search(rmi, queries), 10)}
     log(f"search device time per batch of {nq} (profiler, {SEARCH_TRACED} batches): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
         + f", busy {sum(parts.values()):.4f} ms; timed alone (CUDA events): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items())
+        + f"; the bounds' plain version's device time {plain_device:.4f} ms a call")
 
     want = torch.searchsorted(keys, qs)
     firsts = {g: keys[::g].contiguous() for g in ssk.LEVELS}
@@ -1213,8 +1306,11 @@ def drive(path, data, queries, gen):
     with rec:
         viol, by_lookup = launched(lambda: bound_violations(rmi, keys, nq, gen))
         lookup(rmi, queries)         # replayed with the sampled keys' lookup
-        idx = search(rmi, queries)
-        idx_sorted = search_sorted(rmi, queries_sorted)
+        idx, by_search = launched(lambda: search(rmi, queries))
+        idx_sorted, by_sorted = launched(lambda: search_sorted(rmi, queries_sorted))
+        plan = lookup_fast.get_plan(rmi)
+        if plan.kind != "hier":
+            idx_fast, by_fast = launched(lambda: lookup_fast.fast_search(rmi, queries))
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     kernel = get_model(rmi.leaf_type).leaf_kernel
@@ -1244,18 +1340,55 @@ def drive(path, data, queries, gen):
     log(f"{spec} bound check: {viol} violations on {nq} sampled keys")
     if viol:
         raise RuntimeError("bound |guess - lb| <= err violated")
-    plan = lookup_fast.get_plan(rmi)
     mism = mismatches(keys, queries, idx)
     mism_sorted = mismatches(keys, queries_sorted, idx_sorted)
+    mism_fast = 0 if plan.kind == "hier" else mismatches(keys, queries, idx_fast)
     log(f"{spec} search check: {mism} mismatches on {nq} queries, search_sorted "
-        f"{mism_sorted}; plan {plan.kind} S={plan.S} F={plan.F}")
-    if mism or mism_sorted:
+        f"{mism_sorted}, fast_search {mism_fast}; plan {plan.kind} S={plan.S} F={plan.F}")
+    if mism or mism_sorted or mism_fast:
         raise RuntimeError("search disagrees with torch.searchsorted")
+    if plan.kind != "hier":
+        serving_launches(spec, search_route(rmi, nq), by_search, by_sorted, by_fast)
     check_search(rmi, keys, gen)
     ms = cuda_ms(lambda: search(rmi, queries), 5)
     log(f"{spec} search: {nq / (ms / 1e3):.6g} lookups/s ({ms:.4f} ms per batch "
         f"of {nq})")
     return rmi, rec, launches
+
+
+def serving_launches(spec, route, by_search, by_sorted, by_fast):
+    """A packed plan's serving launches: fast_search rmi_packed_search
+    alone, search_sorted rmi_sorted_bounds and then K5, search as its
+    route says (the sort: rmi_sorted_bounds and K5's scatter entry)."""
+    want_search = ({"rmi_sorted_bounds": 1, "rmi_serve_sorted_scatter": 1} if route == "sort"
+                   else {"rmi_packed_search": 1})
+    log(f"{spec} serving launches: search ({route}) {json.dumps(by_search)}, search_sorted "
+        f"{json.dumps(by_sorted)}, fast_search {json.dumps(by_fast)}")
+    if (by_fast != {"rmi_packed_search": 1} or by_search != want_search
+            or by_sorted != {"rmi_sorted_bounds": 1, "rmi_serve_sorted": 1}):
+        raise RuntimeError(f"{spec}: a packed plan's serving launched other kernels")
+
+
+def packed_line(label, rmi, q):
+    """A packed plan's search of ``q``: rmi_packed_search timed beside its
+    plain version (the eager route it replaced), torch.searchsorted and
+    its bound, both exact; the launches uncounted."""
+    plan = lookup_fast.get_plan(rmi)
+    args = (rmi, plan, q)
+    with uncounted():
+        got = packed_kernel.packed_search(*args)
+        mism = (mismatches(rmi.keys, q, got),
+                mismatches(rmi.keys, q, packed_kernel.packed_search_plain(*args)))
+        ms = row_ms(lambda: packed_kernel.packed_search(*args), 10)
+        plain = row_ms(lambda: packed_kernel.packed_search_plain(*args), 3)
+        library = row_ms(lambda: torch.searchsorted(rmi.keys, q), 10)
+    bound_ms, bound_by, _, _ = bound_of("packed_search", args, {}, got)
+    log(f"{label} packed search ({plan.kind} S={plan.S} F={plan.F}) of {q.shape[0]} "
+        f"queries: kernel {spread(ms)}, plain {spread(plain)}, torch.searchsorted "
+        f"{spread(library)}, bound {bound_ms:.4f} ms ({bound_by}), share "
+        f"{bound_ms / ms[0]:.3f}; mismatches {mism}")
+    if any(mism):
+        raise RuntimeError(f"{label}: the packed search disagrees with torch.searchsorted")
 
 
 def zoo_row(data, row, gen, nq, cross_n, seed, dev):
@@ -1284,9 +1417,11 @@ def zoo_row(data, row, gen, nq, cross_n, seed, dev):
             raise RuntimeError(f"{spec}: build produced malformed metrics")
         viol, by_lookup = launched(lambda: bound_violations(rmi, keys, nq, gen))
         kernel = get_model(rmi.leaf_type).leaf_kernel
-        want = ({f"rmi_lookup_{kernel}": 1} if eval_kernel.fused_lookup(rmi.top_type,
-                                                                         rmi.leaf_type)
-                else {})
+        fused = eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)
+        # the two steps: K4's per-element entry after the torch top, or for
+        # hint-table leaves nothing
+        want = ({f"rmi_lookup_{kernel}": 1} if fused
+                else {f"rmi_leaf_eval_{kernel}": 1} if kernel else {})
         log(f"zoo {spec} bound check: {viol} violations on {nq} sampled keys; lookup "
             f"launches {json.dumps(by_lookup)}")
         if viol:
@@ -1296,7 +1431,17 @@ def zoo_row(data, row, gen, nq, cross_n, seed, dev):
         _, by_search = launched(lambda: check_search(rmi, keys, gen))
         if plan.kind == "hier" and by_search.get("rmi_hier_resolve", 0) <= 0:
             raise RuntimeError(f"{spec}: the hier plan's search launched {by_search}")
-    if want:         # the fused lookup's time beside its bound and the two steps
+        if plan.kind != "hier":      # at the paths' batch, recorded and replayed
+            q = make_queries(keys, nq, gen, data.key_type)
+            qs = torch.sort(q).values
+            _, by_fast = launched(lambda: lookup_fast.fast_search(rmi, q))
+            _, by_sorted = launched(lambda: search_sorted(rmi, qs))
+            _, by_sort = launched(lambda: lookup_fast.serve_via_sort(rmi, plan, q))
+            serving_launches(f"zoo {spec}", "sort", by_sort, by_sorted, by_fast)
+    if plan.kind != "hier":
+        packed_line(f"zoo {spec}", rmi, q)
+        del q, qs
+    if fused:        # the fused lookup's time beside its bound and the two steps
         sample = keys[torch.randint(0, n, (nq,), generator=gen, device=keys.device)]
         args = (sample, rmi.device_top_params, rmi.device_leaf_params, rmi.leaf_errors,
                 rmi.num_rmi_rows, rmi.norm_offset, rmi.norm_scale)
@@ -3166,6 +3311,7 @@ def main():
         rmi, rec, counts = drive(path, data, queries, gen)
         del rmi
         rows.update(check_kernels(rec, counts, replayed))
+        check_kernels(rec, counts, PACKED, timed=False)    # their rows stay path 1's
         launches = {e: launches[e] + counts[e] for e in launches}
         del rec
         torch.cuda.empty_cache()
@@ -3177,7 +3323,9 @@ def main():
     rmi, rec, counts = drive(PATH5, data, queries, gen)
     serving_curve(rmi, keys, gen)
     del rmi
-    p5 = check_kernels(rec, counts, ("rmi_lookup_linear",))["rmi_lookup_linear"]
+    p5_rows = check_kernels(rec, counts, ("rmi_lookup_linear", *PACKED))
+    log("path 5 packed kernels " + json.dumps({e: p5_rows[e] for e in PACKED}))
+    p5 = p5_rows["rmi_lookup_linear"]
     p1_row = rows["rmi_lookup_linear"]
     log(f"path 5 lookup {PATH5[0]} at {nq} keys: fused {p5['ms']:.4f} ms (bound "
         f"{p5['bound_ms']:.4f}), plain {p5['plain_ms']:.4f} ms; path 1's fused "

@@ -55,7 +55,7 @@ PyObject* THPVariable_Wrap(const at::TensorBase& var);
 
 namespace {
 
-constexpr int kMaxParams = 20;
+constexpr int kMaxParams = 28;
 constexpr int kMaxOutputs = 4;
 constexpr int kMaxDims = 8;
 

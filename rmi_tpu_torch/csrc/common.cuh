@@ -39,6 +39,13 @@ __device__ __forceinline__ double decoded(int64_t image) {
   }
 }
 
+// keys.as_float then two_layer.normalize: a subtraction and a product,
+// which -fmad=false keeps apart
+template <RmiKey K>
+__device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
+  return (decoded<K>(image) - offset) * scale;
+}
+
 // Blocks for a grid-stride loop over `work` items.
 static inline unsigned int rmi_grid(int64_t work, int per_block) {
   int64_t b = (work + per_block - 1) / per_block;

@@ -106,6 +106,24 @@ RMI_ENTRY(rmi_cachefix_interp, (const int64_t* knots, const int64_t* vals, int64
                                 const int64_t* err, int64_t* out, int64_t m,
                                 int64_t line_size, int64_t total_keys, double eps,
                                 int64_t iters, void* stream))
+// the packed plan's search and K5's window bounds (csrc/packed.cu)
+RMI_ENTRY(rmi_packed_search, (const int64_t* queries, int64_t key_kind, const double* top_w,
+                              int64_t top_kind, const int64_t* top_int,
+                              const int32_t* top_table, const int64_t* pivots,
+                              int64_t top_len, int64_t route, const int64_t* leaf_ids,
+                              const int64_t* rows, int64_t S, int64_t F,
+                              const int64_t* stripe_first, const int64_t* group_first,
+                              const int64_t* keys, int64_t* out, int64_t m, int64_t B, int64_t n,
+                              double offset, double scale, int64_t kmin, int64_t kmax,
+                              void* stream))
+RMI_ENTRY(rmi_sorted_bounds, (const int64_t* queries, int64_t key_kind, const double* top_w,
+                              int64_t top_kind, const int64_t* top_int,
+                              const int32_t* top_table, const int64_t* pivots,
+                              int64_t top_len, int64_t route, const int64_t* leaf_ids,
+                              const int64_t* rows, int64_t S, int64_t F, int64_t* lo,
+                              int64_t* hi, int64_t nq, int64_t kq, int64_t B, int64_t n,
+                              double offset, double scale, int64_t kmin, int64_t kmax,
+                              void* stream))
 // the card probes (csrc/probes.cu)
 RMI_ENTRY(rmi_probe_scale2, (const float* x, float* out, int64_t n, void* stream))
 RMI_ENTRY(rmi_probe_lt_i64, (const int64_t* x, const int64_t* q, int32_t* out, int64_t n,

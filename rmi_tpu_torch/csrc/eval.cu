@@ -138,23 +138,6 @@ __device__ __forceinline__ void eval_elems(const double* __restrict__ w,
   for (int k = 0; k < K; ++k) out[k] = rmi_clamp_floor(rmi_leaf<L>(r[k], 0, x[k]), bound);
 }
 
-// keys.as_float then two_layer.normalize
-template <RmiKey K>
-__device__ __forceinline__ double normalized(int64_t image, double offset, double scale) {
-  return (decoded<K>(image) - offset) * scale;
-}
-
-// keys.as_int: the u64 bits the integer models read (an integer key's
-// own, an f64 key's value clipped and truncated)
-template <RmiKey K>
-__device__ __forceinline__ uint64_t int_bits(int64_t image) {
-  if constexpr (K == RmiKey::kF64) {
-    return rmi_as_int(decoded<K>(image));
-  } else {
-    return (uint64_t)image ^ 0x8000000000000000ull;
-  }
-}
-
 // The scalar ends and the 16-byte pairs between them.  Elements [0, head)
 // lie before the first 16-byte boundary (head is 0 or 1); pair p < npairs
 // holds elements head + 2p and head + 2p + 1; an odd last element follows
@@ -578,31 +561,6 @@ cudaError_t start_int_lookup(const IntLookupOp<L, KK, R>& op, int64_t m, size_t 
   return cudaGetLastError();
 }
 
-// Is an integer top's route one it can take, and how many bytes of
-// shared memory does a block of it stage?  Route 0 reads the operand in
-// place (radix and bradix read none); 1 stages a histogram's pivots in
-// each block as their search tree; 2 reads a hint table folded into the
-// rows, one a bucket (the caller's rows hold top_len of them).
-inline bool int_route_ok(const RmiIntTopArgs& t, int64_t route, size_t* smem) {
-  *smem = 0;
-  switch (t.kind) {
-    case (int64_t)RmiIntTop::kRadix:
-    case (int64_t)RmiIntTop::kBradix:
-      return t.p != nullptr && route == 0;
-    case (int64_t)RmiIntTop::kTable:
-      return t.p != nullptr && t.len >= 1 &&
-             ((route == 0 && t.table != nullptr) || route == 2);
-    case (int64_t)RmiIntTop::kHistogram:
-      if (t.len < 0 || (t.len > 0 && t.pivots == nullptr)) return false;
-      if (route == 0) return true;
-      if (route != 1 || t.len < 1 || rmi_tree_levels(t.len) > 24) return false;
-      *smem = (size_t)8 << rmi_tree_levels(t.len);
-      return true;
-    default:
-      return false;
-  }
-}
-
 // An affine top's lookup, or an integer top's by its route
 template <RmiLeaf L, RmiKey KK>
 cudaError_t start_lookup(const int64_t* keys, const double* top_w, int64_t top_kind,
@@ -642,7 +600,7 @@ int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
                               (uint64_t)(B - 1)};
   const bool affine = top_kind >= 0 && top_kind <= (int64_t)RmiLeaf::kNormal;
   size_t smem = 0;
-  if ((affine ? top_w == nullptr || route != 0 : !int_route_ok(int_top, route, &smem)) ||
+  if ((affine ? top_w == nullptr || route != 0 : !rmi_int_route_ok(int_top, route, &smem)) ||
       B < 1 || n < 1 ||
       (key_kind != (int64_t)RmiKey::kU64 && key_kind != (int64_t)RmiKey::kF64)) {
     return (int)cudaErrorInvalidValue;
@@ -679,7 +637,7 @@ int launch_lookup(const int64_t* keys, int64_t key_kind, const double* top_w,
 // top_kind: an affine top's leaf kernel (RmiLeaf), top_w its [1, width]
 // row; or an RmiIntTop, top_int its packed parameters, top_table a hint
 // table's entries and pivots a histogram's, top_len their count (the
-// other operands empty: null), route where it is read (int_route_ok; 0
+// other operands empty: null), route where it is read (rmi_int_route_ok; 0
 // for an affine top).  rows: the [B, lookup_width] lookup rows of the
 // leaves (under a folded table, [top_len, lookup_width], one a bucket);
 // offset and scale the normalization, n the keys indexed.  An unknown

@@ -26,6 +26,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 // keys.shl, keys.shr: logical shifts, 0 for an amount of 64 or more
 __device__ __forceinline__ uint64_t rmi_shl(uint64_t x, int64_t a) {
   return a >= 64 ? 0 : x << (a < 0 ? 0 : a);
@@ -41,6 +43,17 @@ __device__ __forceinline__ uint64_t rmi_as_int(double f) {
   if (isnan(f) || f <= 0.0) return 0;
   if (f >= 18446744073709551616.0) return ~0ull;
   return __double2ull_rz(f);
+}
+
+// keys.as_int: the u64 bits the integer models read (an integer key's
+// own, an f64 key's value clipped and truncated)
+template <RmiKey K>
+__device__ __forceinline__ uint64_t int_bits(int64_t image) {
+  if constexpr (K == RmiKey::kF64) {
+    return rmi_as_int(decoded<K>(image));
+  } else {
+    return (uint64_t)image ^ 0x8000000000000000ull;
+  }
 }
 
 // The integer top kinds, numbered after the four leaf kernels that
@@ -229,3 +242,28 @@ struct RmiIntTopEval {
     for (int k = 0; k < K; ++k) leaf[k] = (int64_t)(pred[k] < last ? pred[k] : last);
   }
 };
+
+// Is an integer top's route one it can take, and how many bytes of
+// shared memory does a block of it stage?  Route 0 reads the operand in
+// place (radix and bradix read none); 1 stages a histogram's pivots in
+// each block as their search tree; 2 reads a hint table folded into the
+// rows, one a bucket (the caller's rows hold top_len of them).
+inline bool rmi_int_route_ok(const RmiIntTopArgs& t, int64_t route, size_t* smem) {
+  *smem = 0;
+  switch (t.kind) {
+    case (int64_t)RmiIntTop::kRadix:
+    case (int64_t)RmiIntTop::kBradix:
+      return t.p != nullptr && route == 0;
+    case (int64_t)RmiIntTop::kTable:
+      return t.p != nullptr && t.len >= 1 &&
+             ((route == 0 && t.table != nullptr) || route == 2);
+    case (int64_t)RmiIntTop::kHistogram:
+      if (t.len < 0 || (t.len > 0 && t.pivots == nullptr)) return false;
+      if (route == 0) return true;
+      if (route != 1 || t.len < 1 || rmi_tree_levels(t.len) > 24) return false;
+      *smem = (size_t)8 << rmi_tree_levels(t.len);
+      return true;
+    default:
+      return false;
+  }
+}

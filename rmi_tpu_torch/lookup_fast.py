@@ -19,7 +19,9 @@ Queries route clipped to [keys[0], keys[-1]] (the cubic top is monotone
 on that interval only) and count raw, so out-of-range queries resolve
 through the boundary leaf.  An integer-output top on f64 keys routes
 truncated keys, so it takes no packed plan (rmi_tpu lookup_fast.py:
-592-595).
+592-595).  The search is ops/packed_kernel.packed_search: on the card one
+launch of rmi_packed_search for the whole batch, where rmi_tpu runs one
+XLA program.
 
 The hierarchical plan ("hier", rmi_tpu's SearchPlan and resolve,
 lookup_fast.py:140-160, 388-413, 554-577) serves every other index: a
@@ -42,7 +44,9 @@ Sorted serving.  Over a non-decreasing batch lb1 is non-decreasing, so
 the leaf rows of a block's first and last query bound lb1 for every
 query between them; K5 (ops/sorted_serve_kernel.py) counts inside that
 window of the sample level group_first = keys[::8], then in one 8-key
-group.  A batch in any order is sorted and served by K5's scatter
+group.  The windows come from one rmi_sorted_bounds launch
+(packed_kernel.sorted_bounds), which routes each block's first and last
+query only.  A batch in any order is sorted and served by K5's scatter
 entry, which writes each answer back to the query's place
 (fast_search_via_sort).
 
@@ -61,12 +65,13 @@ import torch
 
 from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.models import get_model
-from rmi_tpu_torch.ops import hier_kernel, sorted_serve_kernel
-# WIDTH: the entries of one mid-level or level count.  resolve is the hier
-# plan's (the wrapper, which _hier_search calls by this module's name),
-# resolve_plain its plain version beside it
-from rmi_tpu_torch.ops.hier_kernel import LEVEL_FAN, WIDTH, count_from, resolve
+from rmi_tpu_torch.ops import hier_kernel, packed_kernel, sorted_serve_kernel
+# resolve is the hier plan's (the wrapper, which _hier_search calls by
+# this module's name), resolve_plain its plain version beside it
+from rmi_tpu_torch.ops.hier_kernel import LEVEL_FAN, resolve
 from rmi_tpu_torch.ops.hier_kernel import resolve_plain  # noqa: F401
+# K5's anchors, a plain step of packed_kernel.sorted_bounds
+from rmi_tpu_torch.ops.packed_kernel import sorted_anchors  # noqa: F401
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -75,7 +80,7 @@ STRIDE = sorted_serve_kernel.STRIPE   # keys per stripe
 # rmi_tpu's widest u32 leaf row (a base lane and S hi and S lo words),
 # kept so that (S, F) are the same integers in both packages
 _PACKED_MAX_LANES = 256
-# the wide plan's mid-level count covers lb1 while F + 63 < WIDTH
+# the wide plan's mid-level count covers lb1 while F + 63 < hier_kernel.WIDTH
 _WIDE_MAX_STRIDE = 64
 # the tops that are monotone on the key domain (rmi_tpu lookup_fast.py:
 # 178-190): the linear family on sorted data; the cubic on its interval
@@ -98,7 +103,7 @@ _EXP1_V_MIN = -63.9
 _PHI_U_MAX = 38.6
 
 SORTED_MIN = 1 << 14    # smallest batch fast_search_sorted sends to K5
-MAX_CHUNK = 1 << 21     # queries per packed-search step: ~1 GB of [., 64] rows
+MAX_CHUNK = 1 << 21     # queries per plain packed step: ~1 GB of [., 64] rows
 HIER_CHUNK = 1 << 20    # queries per plain hierarchical step: ~1 GB of [., 128] counts
 
 
@@ -120,6 +125,9 @@ class Plan:
     # hier: levels 1..K in one tensor and their (offset, length), the
     # kernel's (hier_kernel.hier_levels); levels[1:] are views into it
     packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # packed: the key's decode and the top's operands as the packed kernels
+    # take them (packed_kernel.top_operands), made on their first launch
+    top_args: Optional[tuple] = None
 
 
 def supports_fast_path(rmi) -> bool:
@@ -255,19 +263,6 @@ def _make_plan(rmi) -> Plan:
                 rmi.keys[::sorted_serve_kernel.GROUP].contiguous(), kmin, kmax)
 
 
-def stripe_lower_limits(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
-    """LB1 per query, with LB1 <= lb1(q) <= LB1 + F: route the clipped
-    query to its leaf row and count the row's samples below q."""
-    qr = q.clamp(plan.kmin, plan.kmax)
-    midx = two_layer.top_assignment(get_model(rmi.top_type),
-                                    rmi.device_top_params, qr, rmi.norm_offset,
-                                    rmi.norm_scale, rmi.branching_factor - 1,
-                                    rmi.key_type)
-    rows = plan.rows[midx]
-    c1 = (rows[:, 1:] < q[:, None]).sum(1)
-    return rows[:, 0] + (c1 - 1) * plan.F
-
-
 def _hier_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of one batch through the hierarchical plan:
     lookup, then resolve."""
@@ -278,32 +273,24 @@ def _hier_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
-    """Exact lower bounds of one chunk (rmi_tpu's _fast_search_packed
-    and _fast_search_packed_wide).  lb lies in (64 (lb1 - 1), 64 lb1], so
-    the count over stripe lb1 - 1 needs its 64 keys only."""
-    nrows0 = plan.stripe_first.shape[0]
-    LB1 = stripe_lower_limits(rmi, plan, q)
-    if plan.F == 1:
-        row = LB1.clamp(0, nrows0 - 1)       # lb1 - 1 <= LB1 <= lb1
-    else:
-        r1 = LB1.clamp(0, nrows0) >> 6       # 64 r1 <= lb1 <= 64 r1 + 127
-        lb1 = count_from(plan.stripe_first, r1 * STRIDE, q, WIDTH)
-        row = (lb1.clamp(max=nrows0) - 1).clamp(0, nrows0 - 1)
-    return count_from(rmi.keys, row * STRIDE, q, STRIDE).clamp(max=plan.n)
+    """Exact lower bounds of one batch through the packed plan (rmi_tpu's
+    _fast_search_packed and _fast_search_packed_wide):
+    packed_kernel.packed_search."""
+    return packed_kernel.packed_search(rmi, plan, q)
 
 
 def fast_search(rmi, queries: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of int64 images in any order, through the
-    index's plan, MAX_CHUNK queries at a time; a hierarchical plan serves
-    the whole batch on the card in one fused lookup and one
-    rmi_hier_resolve launch, and on the CPU HIER_CHUNK queries at a time,
-    which bounds the plain resolve's [chunk, 128] counts."""
+    index's plan.  On the card a packed plan serves the whole batch in
+    one rmi_packed_search launch, a hierarchical one in one fused lookup
+    and one rmi_hier_resolve launch; on the CPU the plain versions take
+    MAX_CHUNK or HIER_CHUNK queries at a time, which bounds their
+    [chunk, 64] and [chunk, 128] temporaries."""
     plan = get_plan(rmi)
-    if plan.kind == "hier":
-        step = _hier_search
-        chunk = HIER_CHUNK if queries.is_cpu else max(1, queries.shape[0])
-    else:
-        step, chunk = _packed_search, MAX_CHUNK
+    step = _hier_search if plan.kind == "hier" else _packed_search
+    chunk = HIER_CHUNK if plan.kind == "hier" else MAX_CHUNK
+    if not queries.is_cpu or queries.shape[0] <= chunk:
+        return step(rmi, plan, queries)
     out = torch.empty_like(queries)
     for i in range(0, queries.shape[0], chunk):
         out[i:i + chunk] = step(rmi, plan, queries[i:i + chunk])
@@ -314,28 +301,12 @@ def fast_search(rmi, queries: torch.Tensor) -> torch.Tensor:
 # sorted batches: kernel K5
 # ---------------------------------------------------------------------------
 
-def sorted_anchors(rmi, plan: Plan, qs: torch.Tensor):
-    """(LB1_f, LB1_l): LB1 of the first and of the last query of each K5
-    block of the sorted batch ``qs`` (the last block may be short).  The
-    counterpart of rmi_tpu's _sorted_stats_direct, which pads the batch
-    with its last query and anchors every 128 queries, so LB1_f here is
-    every KQ / 128-th of its LB1_f.  The top is evaluated on these
-    2 / KQ of the queries only: the kernel needs no per-query leaf."""
-    nq, kq = qs.shape[0], sorted_serve_kernel.KQ
-    first = torch.arange(0, nq, kq, device=qs.device)
-    last = (first + kq - 1).clamp(max=nq - 1)
-    LB1 = stripe_lower_limits(rmi, plan, qs[torch.cat([first, last])])
-    return LB1[:first.shape[0]], LB1[first.shape[0]:]
-
-
 def sorted_bounds(rmi, plan: Plan, qs: torch.Tensor):
-    """K5's window bounds [lo, hi] per block of KQ sorted queries.  Over
-    the block lb1 runs from lb1(first) >= LB1_f to lb1(last) <= LB1_l + F,
-    so lo = LB1_f - 1 and hi = LB1_l + F hold every query's lb1 - 1 and
-    lb1, clamped to the stripe count."""
-    LB1_f, LB1_l = sorted_anchors(rmi, plan, qs)
-    nrows0 = plan.stripe_first.shape[0]
-    return (LB1_f - 1).clamp(0, nrows0), (LB1_l + plan.F).clamp(0, nrows0)
+    """K5's window bounds [lo, hi] per block of KQ sorted queries
+    (packed_kernel.sorted_bounds: on the card one rmi_sorted_bounds
+    launch, which evaluates the top on the blocks' first and last queries
+    only)."""
+    return packed_kernel.sorted_bounds(rmi, plan, qs)
 
 
 def sorted_search(rmi, plan: Plan, qs: torch.Tensor) -> torch.Tensor:

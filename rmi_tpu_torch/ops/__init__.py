@@ -3,7 +3,8 @@ PyTorch versions: K1 scan_kernel, K2 select_kernel, K3 sweep_kernel
 (with the run-length pass), K4 eval_kernel, K5 sorted_serve_kernel,
 K6 cubic_l1_kernel, hier_kernel (the hierarchical plan's resolve),
 cachefix_kernel (the bounded lower bound and the cachefix spline's
-interpolation), and probe_kernels, the nine card probes.  K3 and K4 launch one C entry point
+interpolation), packed_kernel (the packed plan's search and K5's window
+bounds), and probe_kernels, the nine card probes.  K3 and K4 launch one C entry point
 per leaf family (linear, cubic, loglinear, normal); K5 one that writes
 sorted answers and one that scatters them back to their queries'
 places.  A wrapper

@@ -53,13 +53,14 @@ from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_e
 from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.lookup import bounded_search
 from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
-                               hier_kernel, probe_kernels, scan_kernel, select_kernel,
-                               sorted_serve_kernel as ssk, sweep_kernel)
+                               hier_kernel, packed_kernel, probe_kernels, scan_kernel,
+                               select_kernel, sorted_serve_kernel as ssk, sweep_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, RESOLVE_EDGES, bounded_edge_case,
-                                      cachefix_edge_case, int_keys, int_top_case, leaf_table,
+                                      cachefix_edge_case, int_keys, int_queries, int_top_case,
+                                      leaf_table,
                                       lookup_case, resolve_case, resolve_edge_case, top_rows)
 
 pytestmark = pytest.mark.cuda
@@ -966,6 +967,9 @@ def _entry_calls(dev):
     lo = torch.zeros(1, dtype=torch.int64, device=dev)
     hi = torch.full((1,), -(-n // 64), dtype=torch.int64, device=dev)
     gf = keys[::ssk.GROUP].contiguous()
+    rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), "linear,linear", 4)
+    plan = lookup_fast.get_plan(rmi)
+    plan.top_args = packed_kernel.top_operands(rmi)
     zeros = torch.zeros(B, 4, dtype=torch.float64, device=dev)
     levels, packed = hier_kernel.hier_levels(keys, 1)
     calls = {
@@ -989,6 +993,8 @@ def _entry_calls(dev):
             keys, q, q // 2, torch.full_like(q, 40), n, 8),
         "rmi_cachefix_interp": lambda: cachefix_kernel.cachefix_interp(
             keys, keys * 3, q, q // 2, torch.full_like(q, 40), 8, 3 * n),
+        "rmi_packed_search": lambda: packed_kernel.packed_search(rmi, plan, q),
+        "rmi_sorted_bounds": lambda: packed_kernel.sorted_bounds(rmi, plan, q),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -1814,3 +1820,135 @@ def test_cachefix_lookup_and_search_on_the_card(dev):
     moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
     assert moved == {"rmi_lookup_linear": 1, "rmi_bounded_lower_bound": 1}
     assert torch.equal(found.cpu(), torch.searchsorted(img, q))
+
+
+# ---------------------------------------------------------------------------
+# the packed plan's search and K5's window bounds (csrc/packed.cu)
+# ---------------------------------------------------------------------------
+
+# (keys, spec, B): every top of the packed plan on test_torch_lookup_kernel's
+# key sets (2^12 keys; "u32big" and "f64big" 2^16, for the wide plan) and on
+# 2^20 books-like keys: both plan kinds, a histogram's pivots staged in a block
+# (64 leaves) and read in place (32768), the 256 MB and 1 GB hint tables, and
+# the lognormal top, whose leaf ids come from torch
+PACKED_CASES = [("u64", "linear,linear", 4), ("u32", "robust_linear,linear", 64),
+                ("f64", "linear_spline,linear", 16), ("u64", "cubic,linear", 64),
+                ("single", "cubic,linear", 4), ("u64", "radix,linear", 64),
+                ("narrow", "radix,linear", 16), ("narrow", "bradix,linear", 64),
+                ("u64", "radix8,linear", 64), ("u32", "radix18,linear", 256),
+                ("u64", "radix22,linear", 64), ("u64", "histogram,linear", 64),
+                ("u32big", "cubic,linear", 2), ("f64big", "linear,linear", 2),
+                ("books", "loglinear,linear", 64), ("books", "normal,linear", 8),
+                ("books", "lognormal,linear", 64), ("books", "lognormal,linear", 4),
+                ("books", "histogram,linear", 1 << 15), ("books", "radix26,linear", 4096),
+                ("books", "radix28,linear", 4096), ("books", "cubic,linear", 1024)]
+
+
+def _packed_index(dev, kind, spec, B):
+    """(index built on the card, [m] query images on the card) of a case."""
+    if kind == "books":
+        keys = rdata.books_like_on_device(1 << 20, 15, dev)
+        key_type = KeyType.U64
+        gen = torch.Generator(device=dev).manual_seed(16)
+        q = torch.cat([keys[torch.randint(0, keys.shape[0], (1 << 14,), generator=gen,
+                                          device=dev)],
+                       torch.randint(int(keys[0]) - (1 << 40), int(keys[-1]) + (1 << 40),
+                                     (1 << 15,), generator=gen, device=dev),
+                       torch.tensor([tkeys.IMAGE_MIN, tkeys.IMAGE_MAX, int(keys[0]),
+                                     int(keys[-1])], device=dev)])
+    else:
+        u, key_type = int_keys(kind.replace("big", ""), 21,
+                               1 << 16 if kind.endswith("big") else 1 << 12)
+        keys = tkeys.to_image(u).to(dev)
+        q = int_queries(u, key_type, 1 << 14, 22).to(dev)
+    rmi = rt.train(rdata.RMIDataset(keys, key_type), spec, B)
+    return rmi, q
+
+
+def _moved(before):
+    torch.cuda.synchronize()
+    return {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+
+
+@pytest.mark.parametrize("kind,spec,B", PACKED_CASES)
+def test_packed_search_and_sorted_bounds(dev, kind, spec, B):
+    """fast_search of a packed plan is one rmi_packed_search launch (a
+    lognormal top: its torch top, then that launch), bit-equal to
+    packed_search_plain on the card and to torch.searchsorted, also on a
+    view one element past a 16-byte boundary; K5's bounds of the sorted
+    batch (its last block short) one rmi_sorted_bounds launch, bit-equal
+    to sorted_bounds_plain; search_sorted launches it, then K5."""
+    rmi, q = _packed_index(dev, kind, spec, B)
+    plan = lookup_fast.get_plan(rmi)
+    assert plan.kind in packed_kernel.PACKED_KINDS
+    want = torch.searchsorted(rmi.keys, q)
+    before = dict(_build.launches)
+    got = lookup_fast.fast_search(rmi, q)
+    assert _moved(before) == {"rmi_packed_search": 1}
+    assert torch.equal(got, want)
+    assert torch.equal(got, packed_kernel.packed_search_plain(rmi, plan, q))
+    assert torch.equal(packed_kernel.packed_search(rmi, plan, q[1:]), want[1:])
+    qs = torch.sort(q[:(1 << 14) + 300]).values
+    before = dict(_build.launches)
+    lo, hi = packed_kernel.sorted_bounds(rmi, plan, qs)
+    assert _moved(before) == {"rmi_sorted_bounds": 1}
+    want_lo, want_hi = packed_kernel.sorted_bounds_plain(rmi, plan, qs)
+    assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+    before = dict(_build.launches)
+    assert torch.equal(rt.search_sorted(rmi, qs), torch.searchsorted(rmi.keys, qs))
+    assert _moved(before) == {"rmi_sorted_bounds": 1, "rmi_serve_sorted": 1}
+
+
+def test_packed_kernels_at_scale(dev):
+    """2^22 queries over 2^24 keys (the grid-stride loop past one grid),
+    through a packed and a packed_wide plan, against the plain versions on
+    the card and torch.searchsorted."""
+    keys = rdata.books_like_on_device(1 << 24, 17, dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q = torch.randint(int(keys[0]), int(keys[-1]), (1 << 22,), generator=gen, device=dev)
+    q[: 1 << 18] = keys[torch.randint(0, keys.shape[0], (1 << 18,), generator=gen, device=dev)]
+    qs = torch.sort(q).values
+    for spec, B, kind in (("cubic,linear", 1 << 14, "packed"), ("linear,linear", 64,
+                                                                "packed_wide")):
+        rmi = rt.train(rdata.RMIDataset(keys, KeyType.U64), spec, B)
+        plan = lookup_fast.get_plan(rmi)
+        assert plan.kind == kind
+        got = packed_kernel.packed_search(rmi, plan, q)
+        assert torch.equal(got, packed_kernel.packed_search_plain(rmi, plan, q))
+        assert torch.equal(got, torch.searchsorted(keys, q))
+        for a, b in zip(packed_kernel.sorted_bounds(rmi, plan, qs),
+                        packed_kernel.sorted_bounds_plain(rmi, plan, qs)):
+            assert torch.equal(a, b)
+
+
+def test_packed_kernels_refuse_bad_inputs(dev):
+    """The wrappers refuse queries off the plan's device or of another
+    dtype (ValueError) before any launch; each C entry refuses a plan or a
+    top it cannot take (RuntimeError, nothing launched): S outside
+    [1, 127], F not a power of two <= 64, an unknown key kind, the folded
+    route, B or n below 1, kmin above kmax, kq below 1."""
+    rmi, q = _packed_index(dev, "u64", "radix18,linear", 256)
+    plan = lookup_fast.get_plan(rmi)
+    with pytest.raises(ValueError):
+        packed_kernel.packed_search(rmi, plan, q.cpu())
+    with pytest.raises(ValueError):
+        packed_kernel.sorted_bounds(rmi, plan, q.int())
+    args = list(packed_kernel._launch_args(rmi, plan, q))
+    tail = [plan.stripe_first, plan.group_first, rmi.keys, q.shape[0], q.shape[0],
+            *packed_kernel._norm(rmi, plan)]
+    bad = [(11, 0), (11, 128), (12, 3), (12, 128), (1, 2), (8, 2)]
+    for at, value in bad:
+        a = list(args)
+        a[at] = value
+        before = dict(_build.launches)
+        with pytest.raises(RuntimeError):
+            _build.launch("rmi_packed_search", *a, *tail)
+        assert _moved(before) == {}
+    for fix in ({5: 0}, {6: 0}, {9: tail[10], 10: tail[9]}):    # B, n, kmin > kmax
+        with pytest.raises(RuntimeError):
+            _build.launch("rmi_packed_search", *args,
+                          *[fix.get(i, v) for i, v in enumerate(tail)])
+    nb = -(-q.shape[0] // ssk.KQ)
+    with pytest.raises(RuntimeError):
+        _build.launch("rmi_sorted_bounds", *args, nb, nb, q.shape[0], 0,
+                      *packed_kernel._norm(rmi, plan))
