@@ -218,8 +218,11 @@ Phases (any failure raises and exits non-zero):
      beside the TPU row (no gate); a cachefix lookup of 2^22 keys drawn
      at random timed beside the route it replaced and rmi_cachefix_interp
      beside its plain version (``cache_fix_osm``'s is the kernels-line
-     row); the kernels replayed and the card against the CPU at 2^20 keys
-     of the same kind and seed (cross_check; train_bounded on both sides
+     row); on ``cache_fix_wiki`` a search batch made only of queries whose
+     window misses (after a run of equal keys: the whole array searched)
+     timed beside as many keys, logged; the kernels replayed and the
+     card against the CPU at 2^20 keys of the same kind and seed
+     (cross_check; train_bounded on both sides
      for a cachefix configuration, the knots equal), uncounted;
  12. a ``cubic,lognormal`` build on the card against the CPU build, at
      the paths' keys per leaf and at 64 keys per leaf, its normal-leaf K3
@@ -562,13 +565,14 @@ def plain_args(name, args, kw, where):
     """Arguments of the plain version on ``where`` (None: where they
     are); K1's plain version takes no fill, lookup's none of the kernel's
     lookup table or top operands, the resolve's none of the packed
-    levels."""
+    levels, the interpolation's none of the knots' sample."""
     def move(a):
         return a.to(where or a.device) if torch.is_tensor(a) else a
     args = [move(a) for a in args]
     kw = {k: move(v) for k, v in kw.items()
           if (name, k) not in (("scan_i32", "fill"), ("lookup_clamped", "table"),
-                               ("lookup_clamped", "top_args"), ("resolve", "packed"))}
+                               ("lookup_clamped", "top_args"), ("resolve", "packed"),
+                               ("cachefix_interp", "sample"))}
     return args, kw
 
 
@@ -2959,6 +2963,31 @@ def cachefix_lookup_ms(label, index, k):
         raise RuntimeError(f"{label}: the cachefix lookup differs from the route it replaced")
 
 
+def cachefix_missed_ms(label, index, keys, nq):
+    """A cachefix search batch made only of queries whose window misses
+    their lower bound: each key that ends a run of equal keys, plus one
+    (not a key), where the index's position +- (line + 1) leaves out the
+    run's end; at most nq of them.  Its time (CUDA events) beside a batch
+    of as many keys drawn at random, both exact; logged, no gate on the
+    time."""
+    run_end = torch.nonzero((keys[1:-1] == keys[:-2]) & (keys[2:] > keys[1:-1] + 1)).flatten()
+    q = keys[run_end + 1] + 1
+    pos, err = lookup(index, q)
+    lb = torch.searchsorted(keys, q)
+    q = q[(lb < pos - err - 1) | (lb > pos + err + 2)][:nq]
+    hit = keys[torch.randint(0, keys.shape[0], (q.shape[0],), device=keys.device,
+                             generator=torch.Generator(device=keys.device).manual_seed(5))]
+    res = {"queries": q.shape[0], "run_ends": run_end.shape[0]}
+    if q.shape[0]:
+        res["missed_ms"] = row_ms(lambda: search(index, q, keys=keys), 10)[0]
+        res["keys_ms"] = row_ms(lambda: search(index, hit, keys=keys), 10)[0]
+        res["mismatches"] = (mismatches(keys, q, search(index, q, keys=keys))
+                             + mismatches(keys, hit, search(index, hit, keys=keys)))
+    log(f"{label} cachefix search of queries whose window misses " + json.dumps(res))
+    if res.get("mismatches"):
+        raise RuntimeError(f"{label}: the cachefix search of missed windows is not exact")
+
+
 def sosd_config(files, row, ref, gen, nq, cross_n, seed, dev):
     """One PATH11 configuration on its SOSD file (sosd_file), through the
     CLI with the row's flags and --stats-file, in a temporary directory:
@@ -3075,6 +3104,8 @@ def sosd_config(files, row, ref, gen, nq, cross_n, seed, dev):
     with uncounted():
         if line:
             cachefix_lookup_ms(f"path 11 {config}", loaded, sample)
+        if line and kind == "wiki":
+            cachefix_missed_ms(f"path 11 {config}", loaded, keys, nq)
         del loaded, data, keys, q, sample
         torch.cuda.empty_cache()
         check_kernels(rec, {}, entries, timed=False)

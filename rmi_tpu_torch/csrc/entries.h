@@ -102,6 +102,7 @@ RMI_ENTRY(rmi_bounded_lower_bound, (const int64_t* keys, int64_t n_keys, const i
                                     int64_t m, int64_t n, int64_t iters, int64_t exact,
                                     void* stream))
 RMI_ENTRY(rmi_cachefix_interp, (const int64_t* knots, const int64_t* vals, int64_t num_pts,
+                                const int64_t* sample, int64_t n_sample, int64_t sample_stride,
                                 const int64_t* queries, const int64_t* start,
                                 const int64_t* err, int64_t* out, int64_t m,
                                 int64_t line_size, int64_t total_keys, double eps,

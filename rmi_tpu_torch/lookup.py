@@ -30,7 +30,8 @@ bounded search over the knots, then interpolates and quantizes to the
 cache line (rmi_tpu/lookup.py:97-140), and ``search`` needs the original
 keys.  Both bounded searches and the interpolation are the kernels of
 ops/cachefix_kernel.py (csrc/cachefix.cu): on the card the cachefix
-lookup is one fused K4 launch and one rmi_cachefix_interp, its search
+lookup is one fused K4 launch and one rmi_cachefix_interp (over the knots
+and their sample, made on first use and kept on the index), its search
 one more rmi_bounded_lower_bound, and ``bounded_search`` one fused K4
 launch and one rmi_bounded_lower_bound.
 """
@@ -67,8 +68,11 @@ def lookup(rmi, queries: torch.Tensor):
     if rmi.spline_vals_cache is None:
         rmi.spline_vals_cache = torch.from_numpy(
             spline_vals.astype(np.int64)).to(rmi.keys.device)
+    if rmi.knot_sample_cache is None and not queries.is_cpu:
+        rmi.knot_sample_cache = cachefix_kernel.knot_sample(rmi.keys)
     pos = cachefix_kernel.cachefix_interp(rmi.keys, rmi.spline_vals_cache, queries, guess,
-                                          err, line_size, rmi.num_data_rows)
+                                          err, line_size, rmi.num_data_rows,
+                                          sample=rmi.knot_sample_cache)
     return pos, torch.full_like(pos, line_size)
 
 

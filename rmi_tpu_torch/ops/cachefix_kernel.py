@@ -9,16 +9,21 @@ and the spline's interpolation quantized to the cache line.
   cachefix_interp      the knot pair from that search over the knots
                        around the RMI's (start, err), the double-rounded
                        lerp of their values, quantized: one launch of
-                       rmi_cachefix_interp, or cachefix_interp_plain.
+                       rmi_cachefix_interp (its knots searched first in
+                       their sample knots[::KNOT_STRIDE], knot_sample,
+                       which the caller may cache), or
+                       cachefix_interp_plain.
 
 Counterparts of rmi_tpu's bounded_lower_bound / _bounded_search_jit and
 _cachefix_interp (rmi_tpu/lookup.py:67-140), which rmi_tpu runs as XLA
 beside K4, no Pallas call of their own.  The plain versions are rmi_tpu's
 steps in torch: a branchless fixed-trip binary search, ``iters`` steps
-covering the widest window, then the lerp in f64.  The kernel stops a
-query's search once its window is empty, which changes nothing, so it
-answers what the plain version answers on every input, including a trip
-count too short for a window.
+covering the widest window, then the lerp in f64.  The kernels search
+sorted keys and knots by whole 32-byte sectors, placed by interpolation
+(csrc/cachefix.cu), wherever ``iters`` covers the query's window, where
+every exact search answers alike, and halve as the plain version does
+where it does not, so they answer what the plain versions answer on every
+input, including a trip count too short for a window.
 """
 
 from __future__ import annotations
@@ -100,6 +105,17 @@ def bounded_lower_bound(keys, queries, guess, err, n: int, iters: int, exact: bo
                          m, m, int(n), int(iters), int(exact))
 
 
+# every KNOT_STRIDE-th knot: the sample the kernel searches first where a
+# window holds more knots than this (csrc/cachefix.cu)
+KNOT_STRIDE = 32
+
+
+def knot_sample(spline_keys: torch.Tensor) -> torch.Tensor:
+    """The knots' sample the kernel searches first: spline_keys[::KNOT_STRIDE],
+    contiguous (ceil(num_pts / KNOT_STRIDE) entries, 8 B each)."""
+    return spline_keys[::KNOT_STRIDE].contiguous()
+
+
 def interp_iters(num_pts: int) -> int:
     """rmi_tpu's trip count over the knots: ceil(log2(num_pts + 1)) + 1."""
     return max(1, math.ceil(math.log2(num_pts + 1)) + 1)
@@ -120,6 +136,14 @@ def cachefix_interp_plain(spline_keys, spline_vals, queries, start, err_s,
     num_pts = spline_keys.shape[0]
     res = bounded_lower_bound_plain(spline_keys, queries, start, err_s, num_pts,
                                     interp_iters(num_pts))
+    return knot_positions(spline_keys, spline_vals, queries, res, line_size, total_keys)
+
+
+def knot_positions(spline_keys, spline_vals, queries, res, line_size: int,
+                   total_keys: int) -> torch.Tensor:
+    """The cachefix positions from each query's knot search result ``res``
+    (cachefix_interp_plain's lerp and quantization)."""
+    num_pts = spline_keys.shape[0]
     past_end = res >= num_pts
     r = res.clamp(1, num_pts - 1)
     k1 = keymod.as_float(spline_keys[r - 1])
@@ -134,9 +158,11 @@ def cachefix_interp_plain(spline_keys, spline_vals, queries, start, err_s,
 
 
 def cachefix_interp(spline_keys, spline_vals, queries, start, err_s,
-                    line_size: int, total_keys: int) -> torch.Tensor:
+                    line_size: int, total_keys: int, sample=None) -> torch.Tensor:
     """[m] int64 cachefix positions (cachefix_interp_plain): on the card
-    one launch of rmi_cachefix_interp, on the CPU the plain version."""
+    one launch of rmi_cachefix_interp over the knots and ``sample``, their
+    knot_sample (made here when None; lookup caches an index's), on the
+    CPU the plain version, which needs no sample."""
     _check("cachefix_interp", spline_keys=spline_keys, spline_vals=spline_vals,
            queries=queries, start=start, err=err_s)
     num_pts = spline_keys.shape[0]
@@ -150,6 +176,12 @@ def cachefix_interp(spline_keys, spline_vals, queries, start, err_s,
     m = queries.shape[0]
     if m == 0:
         return torch.empty_like(queries)
-    return _build.launch("rmi_cachefix_interp", spline_keys, spline_vals, num_pts, queries,
-                         start, err_s, m, m, int(line_size), int(total_keys),
-                         interp_eps(total_keys), interp_iters(num_pts))
+    if sample is None:
+        sample = knot_sample(spline_keys)
+    _check("cachefix_interp", queries=queries, sample=sample)
+    if sample.shape[0] != -(-num_pts // KNOT_STRIDE):
+        raise ValueError("cachefix_interp: sample must be knot_sample(spline_keys)")
+    return _build.launch("rmi_cachefix_interp", spline_keys, spline_vals, num_pts, sample,
+                         sample.shape[0], KNOT_STRIDE, queries, start, err_s, m, m,
+                         int(line_size), int(total_keys), interp_eps(total_keys),
+                         interp_iters(num_pts))

@@ -83,8 +83,12 @@ class TrainedRMI:
         default=None, init=False, repr=False, compare=False)
     lookup_top_cache: Optional[Tuple[Any, ...]] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
-    # a cache_fix index's knot values on its device
+    # a cache_fix index's knot values on its device, and on the card the
+    # knots' sample its interpolation searches first
+    # (ops/cachefix_kernel.knot_sample)
     spline_vals_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    knot_sample_cache: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):

@@ -19,7 +19,11 @@ cachefix branches).
       at the kernel's edges, and bounded_lower_bound equals rmi_tpu's
       _bounded_search_jit at its edges (both wrappers run their plain
       versions here; test_torch_cuda_kernels.py holds the kernels to
-      them on the card);
+      them on the card); the kernels' search as the host replay of
+      tools/count_torch_cachefix_reads.py follows it (interpolated sector
+      reads, the knots' sample) answers what the plain versions answer
+      at those edges and over windows of 2^16 keys, on arrays that start
+      on a sector's boundary and one entry past it;
   (d) the artifact of a train_bounded index: a carried-across JAX build
       writes rmi_tpu's bytes (L2 blob included), load_artifact serves it
       as before the save, the generated C++ and the native server equal
@@ -28,6 +32,7 @@ cachefix branches).
 
 import functools
 import importlib
+import importlib.util
 
 import numpy as np
 import jax.numpy as jnp
@@ -40,14 +45,14 @@ from rmi_tpu.data import RMIDataset as JDataset
 from rmi_tpu.train.api import train_bounded as j_train_bounded
 
 import rmi_tpu_torch as rt
-from rmi_tpu_torch import cache_fix, native
+from rmi_tpu_torch import cache_fix, config, native
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch.ops.cachefix_kernel import (bounded_lower_bound, bounded_lower_bound_plain,
                                                cachefix_interp, cachefix_interp_plain)
 
 from test_torch_artifacts import assert_same_files, carry, compile_and_run
-from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, bounded_edge_case,
-                                      cachefix_edge_case)
+from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, WIDE_WINDOWS,
+                                      bounded_edge_case, cachefix_edge_case, wide_window_case)
 
 j_lookup = importlib.import_module("rmi_tpu.lookup")
 SPEC, B = "linear_spline,linear", 64
@@ -275,6 +280,91 @@ def test_bounded_lower_bound_is_rmi_tpus(case, exact):
     np.testing.assert_array_equal(bounded_lower_bound(*args, exact).numpy(), np.asarray(want))
     np.testing.assert_array_equal(bounded_lower_bound_plain(*args, exact).numpy(),
                                   np.asarray(want))
+
+
+@functools.lru_cache(maxsize=None)
+def _read_replay():
+    """tools/count_torch_cachefix_reads.py, the host replay of the kernels'
+    reads."""
+    path = config.PACKAGE_DIR.parent / "tools" / "count_torch_cachefix_reads.py"
+    spec = importlib.util.spec_from_file_location("count_torch_cachefix_reads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _images(*arrays):
+    """Key images of u64 arrays, int64 copies of the rest, as numpy."""
+    return [tkeys.to_image(a).numpy() if a.dtype == np.uint64 else a.astype(np.int64)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("case", [*BOUNDED_EDGES, *WIDE_WINDOWS])
+def test_read_replay_is_the_bounded_lower_bound(case, exact, off):
+    """rmi_bounded_lower_bound's search as the host replay follows it
+    answers what bounded_lower_bound_plain answers, at the kernel's edges
+    (a trip count too short for a window among them: halving there) and
+    over windows of 2^16 keys (uniform, clustered, duplicate runs, u32
+    images, windows narrower than a sector, errors below 0, n below the
+    keys' count), with and without ``exact``, the keys starting on a
+    32-byte boundary (off 0) and one entry past it."""
+    keys, q, guess, err, n, iters = (bounded_edge_case(case, seed=7) if case in BOUNDED_EDGES
+                                     else wide_window_case(case, seed=7))
+    kimg, qimg = _images(keys, q)
+    want = bounded_lower_bound_plain(*(torch.from_numpy(a) for a in (kimg, qimg, guess, err)),
+                                     n, iters, exact)
+    got = _read_replay().bounded(kimg, qimg, guess, err, n, iters, exact, off)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _interp_inputs(case):
+    """(knots, vals, queries as u64; start, err; line) of a CACHEFIX_EDGES
+    case, or of a WIDE_WINDOWS one with the keys as knots."""
+    if case in CACHEFIX_EDGES:
+        return cachefix_edge_case(case, seed=8)
+    keys, q, start, err, n, _ = wide_window_case(case, seed=8)
+    vals = np.cumsum(np.random.default_rng(8).integers(0, 50, keys.size)).astype(np.uint64)
+    return keys[:n], vals[:n], q, start, err, 8
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("case", [*CACHEFIX_EDGES, *WIDE_WINDOWS])
+def test_read_replay_is_the_interpolation(case, off):
+    """rmi_cachefix_interp's knot search as the host replay follows it
+    (through the knots' sample where a window holds more than KNOT_STRIDE
+    knots) gives cachefix_interp_plain's positions at the kernel's edges
+    and over windows of 2^16 knots, the knots and their sample starting on
+    a 32-byte boundary and one entry past it."""
+    knots, vals, q, start, err, line = _interp_inputs(case)
+    kimg, vals, qimg = _images(knots, vals, q)
+    total = 1 << 40
+    want = cachefix_interp_plain(*(torch.from_numpy(a) for a in (kimg, vals, qimg, start, err)),
+                                 line, total)
+    got = _read_replay().interp(kimg, vals, qimg, start, err, line, total, off, off)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("case", ["uniform", "u32", "clustered"])
+def test_read_replay_reads_fewer_sectors_than_halving(case):
+    """Over windows of 2^16 keys the kernels' search makes fewer than half
+    the dependent reads a query of the halving search it replaced, and
+    reads fewer distinct sectors, where the keys are locally even (path
+    8's shape: uniform keys, u32 images); over clusters far apart, where
+    interpolating between a window's ends misleads, it makes no more."""
+    rr = _read_replay()
+    keys, q, guess, err, n, iters = wide_window_case(case, seed=9)
+    kimg, qimg = _images(keys, q)
+    new, old = rr.Reads(q.size), rr.Reads(q.size)
+    rr.bounded(kimg, qimg, guess, err, n, iters, reads=new)
+    lo, hi = rr.windows(guess, err, n)
+    rr.halving(kimg, qimg, lo, hi, iters, old)
+    if case == "clustered":
+        assert new.rounds.mean() <= old.rounds.mean()
+    else:
+        assert new.rounds.mean() < old.rounds.mean() / 2
+        assert new.sectors().mean() < old.sectors().mean()
 
 
 # --------------------------------------------------------------------------

@@ -33,10 +33,14 @@ refused; an f64 and a u32 build on the card against the CPU build; K6 within
 cubic_l1_kernel.sum_tolerance (summation order) and bit-equal to itself
 when run again; the cachefix path's bounded lower bound and
 interpolation bit-equal to their plain versions at their edges
-(test_torch_lookup_kernel.py's cachefix_edge_case and bounded_edge_case)
-and at 2^22 queries, and a train_bounded index's lookup and search on
-the card equal to the CPU index's, through those kernels.
+(test_torch_lookup_kernel.py's cachefix_edge_case and bounded_edge_case),
+over windows of 2^16 and 2^21 keys (wide_window_case), on keys, knots and
+samples one entry off a 16-byte boundary, and at 2^22 queries, and a
+train_bounded index's lookup and search on the card equal to the CPU
+index's, through those kernels, its knot sample made per index.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -58,10 +62,11 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
-                                      LEAVES, RESOLVE_EDGES, bounded_edge_case,
+                                      LEAVES, RESOLVE_EDGES, WIDE_WINDOWS, bounded_edge_case,
                                       cachefix_edge_case, int_keys, int_queries, int_top_case,
                                       leaf_table,
-                                      lookup_case, resolve_case, resolve_edge_case, top_rows)
+                                      lookup_case, resolve_case, resolve_edge_case, top_rows,
+                                      wide_window_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1820,6 +1825,121 @@ def test_cachefix_lookup_and_search_on_the_card(dev):
     moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
     assert moved == {"rmi_lookup_linear": 1, "rmi_bounded_lower_bound": 1}
     assert torch.equal(found.cpu(), torch.searchsorted(img, q))
+
+
+def _off_by_one(t):
+    """A contiguous copy of t that starts one entry past its storage's
+    start: 8 bytes off every 16- and 32-byte boundary."""
+    return torch.cat([t[:1], t])[1:]
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("kind", WIDE_WINDOWS)
+def test_bounded_lower_bound_wide_windows(dev, kind, exact):
+    """rmi_bounded_lower_bound bit-equal to bounded_lower_bound_plain over
+    windows of up to 2^16 + 1 keys (wide_window_case: uniform, clustered,
+    duplicate runs across sectors, u32 images, windows narrower than a
+    sector, errors below 0, n below the keys' count with sorted keys
+    beyond it), a seventh of the windows missing their lower bound, with
+    and without ``exact``, on keys from a 16-byte boundary and one entry
+    past it; one launch a call."""
+    keys, q, guess, err, n, iters = wide_window_case(kind, seed=13)
+    kimg, qd, gd, ed = _cachefix_on(dev, (keys, q, guess, err))
+    want = cachefix_kernel.bounded_lower_bound_plain(kimg.cpu(), qd.cpu(), gd.cpu(), ed.cpu(),
+                                                     n, iters, exact)
+    for kd in (kimg, _off_by_one(kimg)):
+        before = _build.launches["rmi_bounded_lower_bound"]
+        got = cachefix_kernel.bounded_lower_bound(kd, qd, gd, ed, n, iters, exact)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_bounded_lower_bound"] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", WIDE_WINDOWS)
+def test_cachefix_interp_wide_windows(dev, kind):
+    """rmi_cachefix_interp bit-equal to cachefix_interp_plain over windows
+    of up to 2^16 + 1 knots (the knots' sample searched first), the knots
+    and their sample each from a 16-byte boundary and one entry past it;
+    one launch a call."""
+    keys, q, start, err, n, _ = wide_window_case(kind, seed=14)
+    vals = np.cumsum(np.random.default_rng(14).integers(0, 50, n)).astype(np.int64)
+    kd, vd, qd, sd, ed = _cachefix_on(dev, (keys[:n], vals, q, start, err))
+    want = cachefix_kernel.cachefix_interp_plain(kd.cpu(), vd.cpu(), qd.cpu(), sd.cpu(),
+                                                 ed.cpu(), 8, 1 << 40)
+    for knots in (kd, _off_by_one(kd)):
+        sample = cachefix_kernel.knot_sample(knots)
+        for smp in (sample, _off_by_one(sample)):
+            before = _build.launches["rmi_cachefix_interp"]
+            got = cachefix_kernel.cachefix_interp(knots, vd, qd, sd, ed, 8, 1 << 40, sample=smp)
+            torch.cuda.synchronize()
+            assert _build.launches["rmi_cachefix_interp"] == before + 1
+            assert torch.equal(got.cpu(), want)
+
+
+def test_cachefix_kernels_windows_of_2_21_keys(dev):
+    """Both kernels over windows of 2^21 keys (errors up to 2^20) among 2^23
+    sorted keys, 2^20 queries, a seventh of the windows missing: equal to
+    the plain versions on the card, exact and not."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    n = 1 << 23
+    keys = torch.sort(torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)).values
+    q = torch.randint(-(1 << 62), 1 << 62, (1 << 20,), generator=g, device=dev)
+    lb = torch.searchsorted(keys, q)
+    err = torch.randint(0, 1 << 20, q.shape, generator=g, device=dev)
+    guess = lb + ((torch.rand(q.shape, generator=g, device=dev) * 2 - 1) * err).long()
+    guess[::7] = lb[::7] + err[::7] + 1
+    guess = guess.clamp(0, n)
+    iters = 23
+    for exact in (False, True):
+        got = cachefix_kernel.bounded_lower_bound(keys, q, guess, err, n, iters, exact)
+        assert torch.equal(got, cachefix_kernel.bounded_lower_bound_plain(keys, q, guess, err,
+                                                                          n, iters, exact))
+    assert torch.equal(got, lb)
+    vals = torch.arange(n, device=dev) * 5
+    got = cachefix_kernel.cachefix_interp(keys, vals, q, guess, err, 8, 5 * n)
+    assert torch.equal(got, cachefix_kernel.cachefix_interp_plain(keys, vals, q, guess, err,
+                                                                  8, 5 * n))
+
+
+def test_cachefix_sample_made_per_index(dev):
+    """lookup makes a cachefix index's knot sample on its first call on the
+    card and keeps it on the index; a second index, and a copy of the
+    first, make their own; every lookup one fused lookup and one
+    rmi_cachefix_interp, equal to the CPU index's."""
+    rng = np.random.default_rng(16)
+    for seed in (0, 1):
+        keys = np.sort(np.random.default_rng(seed).integers(10, 2 ** 40, 1 << 17,
+                                                            dtype=np.uint64))
+        card = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device=dev),
+                                "linear_spline,linear", 64, 8)
+        cpu = rt.train_bounded(rt.RMIDataset.from_numpy(keys, device="cpu"),
+                               "linear_spline,linear", 64, 8)
+        q = tkeys.to_image(np.concatenate([keys[rng.integers(0, keys.size, 4096)],
+                                           rng.integers(0, 2 ** 41, 4096, dtype=np.uint64)]))
+        assert card.knot_sample_cache is None
+        for index in (card, dataclasses.replace(card)):
+            before = dict(_build.launches)
+            pos = rt.lookup(index, q.to(dev))[0]
+            torch.cuda.synchronize()
+            moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+            assert moved == {"rmi_lookup_linear": 1, "rmi_cachefix_interp": 1}
+            assert torch.equal(index.knot_sample_cache, cachefix_kernel.knot_sample(index.keys))
+            assert torch.equal(pos.cpu(), rt.lookup(cpu, q)[0])
+
+
+def test_cachefix_interp_refuses_a_wrong_sample(dev):
+    """A sample that is not knot_sample of the knots' length, or lies on
+    another device, raises ValueError before any launch."""
+    knots = torch.arange(1000, dtype=torch.int64, device=dev)
+    q = knots.clone()
+    before = dict(_build.launches)
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(knots, knots, q, q, q, 8, 1000, sample=knots[:3])
+    with pytest.raises(ValueError):
+        cachefix_kernel.cachefix_interp(knots, knots, q, q, q, 8, 1000,
+                                        sample=cachefix_kernel.knot_sample(knots).cpu())
+    assert _build.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -559,6 +559,54 @@ def bounded_edge_case(kind, seed=0):
     return keys, q, guess.astype(np.int64), err.astype(np.int64), n, iters
 
 
+# windows of 2^16 keys and their edges, where the kernels' interpolated
+# sector reads and the knots' sample (cachefix_kernel.KNOT_STRIDE) act: kinds
+# of wide_window_case
+WIDE_WINDOWS = ("uniform", "clustered", "dups", "u32", "narrow", "inverted", "n_below")
+
+
+def wide_window_case(kind, seed=0, n=1 << 18, err_max=1 << 15):
+    """(keys, queries as u64; guess, err as int64; n, iters) with windows
+    of up to 2 err_max + 1 keys over n keys (WIDE_WINDOWS):
+      uniform    keys uniform over [1, 2^62);
+      clustered  osm-like cell ids: tight clusters far apart;
+      dups       runs of 2-300 equal keys, which straddle sectors and the
+                 knots' sample brackets;
+      u32        keys below 2^32, whose images lie near -2^63;
+      narrow     windows of 1-3 keys, narrower than a sector;
+      inverted   some errors below 0 (a window whose end lies before its
+                 start answers its start);
+      n_below    n = the keys' count - 1000, guesses up to n.
+    Guesses lie within err of each query's lower bound, and err + 1 off it
+    on a seventh of them (a window that misses); iters covers every window
+    (rmi_tpu's count, lookup.err_iters).  As knots (cachefix_interp) the
+    keys are sorted knot images, start and err the RMI's window."""
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        centers = np.sort(rng.uniform(0, 2 ** 62, n // 4096))
+        keys = np.sort((centers[rng.integers(0, centers.size, n)]
+                        + rng.exponential(2 ** 34, n)).astype(np.uint64))
+    elif kind == "u32":
+        keys = np.sort(rng.integers(0, 2 ** 32, n, dtype=np.uint64))
+    else:
+        keys = np.sort(rng.integers(1, 2 ** 62, n, dtype=np.uint64))
+    if kind == "dups":
+        for i in range(0, n - 300, 1009):
+            keys[i:i + rng.integers(2, 300)] = keys[i]
+        keys = np.sort(keys)
+    count = n - 1000 if kind == "n_below" else n
+    q = np.concatenate([keys[rng.integers(0, n, 3000)],
+                        keys[rng.integers(0, n, 3000)] + np.uint64(1),
+                        rng.integers(int(keys[0]), int(keys[-1]), 6000, dtype=np.uint64),
+                        np.asarray([0, 2 ** 64 - 1, keys[0], keys[-1]], np.uint64)])
+    lb = np.minimum(np.searchsorted(keys, q, side="left"), count)
+    guess, err = _windows(rng, lb, count, q.size, 1 if kind == "narrow" else err_max)
+    if kind == "inverted":
+        err[::5] = -rng.integers(1, 4, err[::5].size)
+    iters = max(1, int(np.ceil(np.log2(2 * max(int(err.max()), 0) + 2)))) + 1
+    return keys, q, guess.astype(np.int64), err.astype(np.int64), count, iters
+
+
 def test_cachefix_wrappers_refuse_bad_inputs():
     """Wrong dtype, shape or device, or an n beyond the keys: ValueError,
     on the CPU as on the card."""

@@ -8,7 +8,8 @@ exponential gaps of mean 2^32 / 200M, rounded, so some keys repeat).  The
 replay makes keys of that gap at --n keys, builds ``linear,linear`` with
 max(2, 100 n / 200M) leaves on the CPU (leaves of ~2M keys, as path 8's),
 takes lookup's guess and error for its queries (uniform over the keys'
-range, 1/16 of them keys) and follows the kernel's reads: per level, the
+range, 1/16 of them keys) and follows the kernel's reads over the keys'
+and queries' int64 images, as the kernel reads them: per level, the
 dependent reads (a 32-byte sector read as two 16-byte loads is one),
 the load instructions and the distinct 32-byte sectors a query touches.
 Level 0 is the keys, which the card reads from DRAM (its sectors x 32 B
@@ -179,6 +180,9 @@ def main():
     q[:args.queries // 16] = keys[rng.integers(0, args.n, args.queries // 16)]
     guess, err = (t.numpy() for t in rt.lookup(rmi, to_image(q.astype(np.uint32))))
     K = lookup_fast.hier_start_level(int(rmi.leaf_errors.max()))
+    # the kernel reads the keys' and queries' images (u ^ 2^63, near -2^63
+    # for u32 keys), whose doubles place its interpolated reads
+    keys, q = (to_image(a.astype(np.uint32)).numpy() for a in (keys, q))
     levels = [keys[::FAN ** k] for k in range(K + 1)]
     counters = {k: [] for k in range(K + 1)}
     got = replay(levels, q, guess, err, K, args.n, counters)
