@@ -254,7 +254,7 @@ sectors that decide each answer and the upper levels; the bounded lower
 bound likewise without levels; the cachefix interpolation: the queries,
 starts, errors and answers and the sectors of each answer's knot pair and
 value pair; the packed search: the queries and answers, the top's
-operands and the sectors of each query's leaf row around q, of keys[::64]
+operands and the sectors of each query's base and leaf row around q, of keys[::64]
 around lb1 (packed_wide) and of the keys around lb; the window bounds:
 each block's two anchors, the bounds and the anchors' row sectors), at
 3.35 TB/s, or
@@ -819,7 +819,7 @@ def work(name, args, kw, out):
         # what the answers need, not what the kernel reads: each query (of
         # the bounds: each block's two anchors) and answer once, the top's
         # operands once, and the 32-byte sectors that decide each answer,
-        # each once: of its leaf row, the base and the samples on either
+        # each once: of its leaf, the base and the row's samples on either
         # side of q; of keys[::64] (packed_wide) the stripe-first keys on
         # either side of lb1; of the keys (the search) keys[lb - 1] and
         # keys[lb]; per query the clip, the decode and the top (~5 + the
@@ -828,10 +828,12 @@ def work(name, args, kw, out):
         if name == "sorted_bounds":
             q = packed_kernel._anchors(q)
         leaf = packed_kernel._leaf_ids(rmi, plan, q)
-        c1 = (packed_kernel.stripe_lower_limits(rmi, plan, q) - plan.rows[leaf, 0]) // plan.F + 1
-        at = leaf * (1 + plan.S) + 1
-        ents = [at - 1, at + (c1 - 1).clamp(0, plan.S - 1), at + c1.clamp(0, plan.S - 1)]
-        sectors = torch.unique(torch.cat(ents) // (SECTOR_BYTES // 8)).numel()
+        c1 = (packed_kernel.stripe_lower_limits(rmi, plan, q) - plan.base[leaf]) // plan.F + 1
+        at = leaf * plan.rows.shape[1]
+        ents = [at + (c1 - 1).clamp(0, plan.S - 1), at + c1.clamp(0, plan.S - 1)]
+        per = SECTOR_BYTES // 8
+        sectors = (torch.unique(torch.cat(ents) // per).numel()
+                   + torch.unique(leaf // per).numel())
         steps = math.ceil(math.log2(plan.S + 1))
         if name == "packed_search":
             pairs = [(rmi.keys, out)]

@@ -112,18 +112,17 @@ RMI_ENTRY(rmi_packed_search, (const int64_t* queries, int64_t key_kind, const do
                               int64_t top_kind, const int64_t* top_int,
                               const int32_t* top_table, const int64_t* pivots,
                               int64_t top_len, int64_t route, const int64_t* leaf_ids,
-                              const int64_t* rows, int64_t S, int64_t F,
-                              const int64_t* stripe_first, const int64_t* group_first,
-                              const int64_t* keys, int64_t* out, int64_t m, int64_t B, int64_t n,
-                              double offset, double scale, int64_t kmin, int64_t kmax,
-                              void* stream))
+                              const int64_t* rows, const int64_t* bases, int64_t S, int64_t F,
+                              const int64_t* stripe_first, const int64_t* keys, int64_t* out,
+                              int64_t m, int64_t B, int64_t n, double offset, double scale,
+                              int64_t kmin, int64_t kmax, void* stream))
 RMI_ENTRY(rmi_sorted_bounds, (const int64_t* queries, int64_t key_kind, const double* top_w,
                               int64_t top_kind, const int64_t* top_int,
                               const int32_t* top_table, const int64_t* pivots,
                               int64_t top_len, int64_t route, const int64_t* leaf_ids,
-                              const int64_t* rows, int64_t S, int64_t F, int64_t* lo,
-                              int64_t* hi, int64_t nq, int64_t kq, int64_t B, int64_t n,
-                              double offset, double scale, int64_t kmin, int64_t kmax,
+                              const int64_t* rows, const int64_t* bases, int64_t S, int64_t F,
+                              int64_t* lo, int64_t* hi, int64_t nq, int64_t kq, int64_t B,
+                              int64_t n, double offset, double scale, int64_t kmin, int64_t kmax,
                               void* stream))
 // the card probes (csrc/probes.cu)
 RMI_ENTRY(rmi_probe_scale2, (const float* x, float* out, int64_t n, void* stream))

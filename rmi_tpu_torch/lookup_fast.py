@@ -8,8 +8,9 @@ normal or lognormal top when _scalar_top_monotone finds its fitted row
 monotone there), every
 key with a smaller leaf id precedes q and every key with a larger one
 follows it, so lb(q) lies in [start_j, next_idx_j] for the leaf j that
-q routes to.  Each leaf's row holds its stripe base start_j // 64 and S
-sample keys keys[64 (base + i F)]; the count c1 of samples below q
+q routes to.  Each leaf has its stripe base start_j // 64 (plan.base)
+and a row of S sample keys keys[64 (base + i F)] (plan.rows, padded to
+an even width); the count c1 of samples below q
 bounds the stripe index lb1(q) = #(stripe-first keys < q) as
     LB1 <= lb1 <= LB1 + F,    LB1 = base + (c1 - 1) F,
 without evaluating the leaf model.  With F = 1 ("packed") LB1 names the
@@ -115,7 +116,8 @@ class Plan:
     n: int
     S: int = 0                     # sample keys per leaf row
     F: int = 1                     # stripes between samples
-    rows: Optional[torch.Tensor] = None          # [B, 1 + S] int64
+    rows: Optional[torch.Tensor] = None          # [B, Sp] int64 samples (sample_width)
+    base: Optional[torch.Tensor] = None          # [B] int64: each row's stripe base
     stripe_first: Optional[torch.Tensor] = None  # keys[::64], [ceil(n / 64)]
     group_first: Optional[torch.Tensor] = None   # keys[::8], K5's sample level: n bytes
     kmin: int = 0                 # keys[0], keys[-1]: the routing domain
@@ -176,19 +178,22 @@ def packed_plan_shape(rmi):
     return -(-(s_max - 1) // F) + 1, F
 
 
-def leaf_rows(rmi, S: int, F: int) -> torch.Tensor:
-    """[B, 1 + S] int64: each leaf's stripe base start // 64, then the S
-    sample keys keys[64 (base + i F)]; a sample at or past n reads as
-    the largest image, IMAGE_MAX, which no query is below (rmi_tpu's
-    all-ones u64; an f64 +inf's image lies above f64::MAX's)."""
+def leaf_rows(rmi, S: int, F: int):
+    """(base, rows): [B] int64 each leaf's stripe base start // 64, and
+    [B, Sp] int64 its S sample keys keys[64 (base + i F)], Sp =
+    packed_kernel.sample_width(S) (rmi_tpu's row, the base kept apart,
+    the samples on 16-byte boundaries); a sample at or past n, and the
+    padding past S, read as the largest image, IMAGE_MAX, which no query
+    is below (rmi_tpu's all-ones u64; an f64 +inf's image lies above
+    f64::MAX's)."""
     starts, _ = leaf_spans(rmi)
     keys = rmi.keys
     n = keys.shape[0]
     base = starts // STRIDE
-    idx = (base[:, None]
-           + torch.arange(S, device=keys.device) * F) * STRIDE
-    samples = torch.where(idx < n, keys[idx.clamp(max=n - 1)], keymod.IMAGE_MAX)
-    return torch.cat([base[:, None], samples], 1)
+    lane = torch.arange(packed_kernel.sample_width(S), device=keys.device)
+    idx = (base[:, None] + lane * F) * STRIDE
+    rows = torch.where((idx < n) & (lane < S), keys[idx.clamp(max=n - 1)], keymod.IMAGE_MAX)
+    return base, rows
 
 
 def get_plan(rmi) -> Plan:
@@ -258,8 +263,9 @@ def _make_plan(rmi) -> Plan:
         return Plan("hier", n, K=K, levels=levels, packed=packed)
     S, F = shape
     kmin, kmax = rmi.keys[[0, -1]].tolist()
-    return Plan("packed" if F == 1 else "packed_wide", n, S, F,
-                leaf_rows(rmi, S, F), rmi.keys[::STRIDE].contiguous(),
+    base, rows = leaf_rows(rmi, S, F)
+    return Plan("packed" if F == 1 else "packed_wide", n, S, F, rows, base,
+                rmi.keys[::STRIDE].contiguous(),
                 rmi.keys[::sorted_serve_kernel.GROUP].contiguous(), kmin, kmax)
 
 

@@ -15,9 +15,10 @@ through the top to its leaf, and the count c1 of the leaf row's samples
 below it, LB1 = base + (c1 - 1) F <= lb1 <= LB1 + F with lb1 =
 #(stripe-first keys < q) (lookup_fast's module docstring says why).
 The plain versions compare whole rows, as rmi_tpu does; the kernel
-counts each sorted run by fewer reads (halving steps, then 8 entries at
-once; the stripe through K5's sample level keys[::8]), which gives the
-same counts.
+counts each sorted run by fewer reads (the leaf row whole, then 64-byte
+blocks of the stripe-first keys and of the stripe placed by
+interpolation between the values known on either side of q; csrc/
+packed.cu's header), which gives the same counts.
 
 The kernel routes with the top's operands of rmi_lookup_*
 (eval_kernel.top_operands), but reads a hint table in place where lookup
@@ -34,11 +35,18 @@ import torch
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.ops import _build, eval_kernel
 from rmi_tpu_torch.ops.hier_kernel import WIDTH, count_from
-from rmi_tpu_torch.ops.sorted_serve_kernel import GROUP, KQ, STRIPE
+from rmi_tpu_torch.ops.sorted_serve_kernel import ALIGN, KQ, STRIPE
 from rmi_tpu_torch.train import two_layer
 
 MAX_SAMPLES = 127       # samples a leaf row (csrc/packed.cu kMaxSamples)
 PACKED_KINDS = ("packed", "packed_wide")
+
+
+def sample_width(S: int) -> int:
+    """Sp, the entries of a leaf row: its S samples padded to an even
+    count, so that every row of plan.rows starts on an ALIGN-byte
+    boundary (csrc/packed.cu reads a row in 16-byte loads)."""
+    return S + (S & 1)
 
 
 def _leaf_ids(rmi, plan, q):
@@ -51,9 +59,9 @@ def _leaf_ids(rmi, plan, q):
 def stripe_lower_limits(rmi, plan, q: torch.Tensor) -> torch.Tensor:
     """LB1 per query, with LB1 <= lb1(q) <= LB1 + F: route the clipped
     query to its leaf row and count the row's samples below q."""
-    rows = plan.rows[_leaf_ids(rmi, plan, q)]
-    c1 = (rows[:, 1:] < q[:, None]).sum(1)
-    return rows[:, 0] + (c1 - 1) * plan.F
+    leaf = _leaf_ids(rmi, plan, q)
+    c1 = (plan.rows[leaf] < q[:, None]).sum(1)
+    return plan.base[leaf] + (c1 - 1) * plan.F
 
 
 def packed_search_plain(rmi, plan, q: torch.Tensor) -> torch.Tensor:
@@ -125,13 +133,14 @@ def _check(fn, rmi, plan, q):
         raise ValueError(f"{fn}: queries on device {q.device}, the plan and keys on "
                          f"{plan.rows.device}")
     B = rmi.branching_factor
-    if (plan.rows.dtype != torch.int64 or plan.rows.shape != (B, 1 + plan.S)
+    Sp = sample_width(plan.S)
+    if (plan.rows.dtype != torch.int64 or plan.rows.shape != (B, Sp)
+            or not plan.rows.is_contiguous() or plan.rows.data_ptr() % ALIGN
+            or plan.base is None or plan.base.dtype != torch.int64 or plan.base.shape != (B,)
             or not 1 <= plan.S <= MAX_SAMPLES):
-        raise ValueError(f"{fn}: the plan's rows must be [{B}, 1 + S] int64, "
-                         f"1 <= S <= {MAX_SAMPLES}")
-    if (rmi.keys.shape[0] != plan.n
-            or plan.stripe_first.shape[0] != -(-plan.n // STRIPE)
-            or plan.group_first.shape[0] != -(-plan.n // GROUP)):
+        raise ValueError(f"{fn}: the plan's rows must be [{B}, {Sp}] int64 on a {ALIGN}-byte "
+                         f"boundary beside [{B}] int64 bases, 1 <= S <= {MAX_SAMPLES}")
+    if rmi.keys.shape[0] != plan.n or plan.stripe_first.shape[0] != -(-plan.n // STRIPE):
         raise ValueError(f"{fn}: the plan was not made over these {rmi.keys.shape[0]} keys")
 
 
@@ -146,7 +155,7 @@ def _launch_args(rmi, plan, q, anchored=False):
         ids = _leaf_ids(rmi, plan, _anchors(q) if anchored else q)
     else:
         ids = torch.empty(0, dtype=torch.int64, device=q.device)
-    return (q, *plan.top_args, ids, plan.rows, plan.S, plan.F)
+    return (q, *plan.top_args, ids, plan.rows, plan.base, plan.S, plan.F)
 
 
 def _norm(rmi, plan):
@@ -166,7 +175,7 @@ def packed_search(rmi, plan, q: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return torch.empty_like(q)
     return _build.launch("rmi_packed_search", *_launch_args(rmi, plan, q),
-                         plan.stripe_first, plan.group_first, rmi.keys, m, m, *_norm(rmi, plan))
+                         plan.stripe_first, rmi.keys, m, m, *_norm(rmi, plan))
 
 
 def sorted_bounds(rmi, plan, qs: torch.Tensor):

@@ -62,11 +62,11 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
-                                      LEAVES, RESOLVE_EDGES, WIDE_WINDOWS, bounded_edge_case,
-                                      cachefix_edge_case, int_keys, int_queries, int_top_case,
-                                      leaf_table,
-                                      lookup_case, resolve_case, resolve_edge_case, top_rows,
-                                      wide_window_case)
+                                      LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
+                                      WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
+                                      int_keys, int_queries, int_top_case, leaf_table,
+                                      lookup_case, packed_edge_case, resolve_case,
+                                      resolve_edge_case, top_rows, wide_window_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -2041,12 +2041,46 @@ def test_packed_kernels_at_scale(dev):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B", PACKED_EDGE_BS)
+@pytest.mark.parametrize("case", PACKED_EDGES)
+def test_packed_search_edges(dev, case, B):
+    """rmi_packed_search at its edges (test_torch_lookup_kernel.
+    packed_edge_case: u32 keys; f64 keys with +-inf, NaN and -0.0
+    queries; runs of equal keys longer than a stripe; queries equal to a
+    stripe's first key; stripes whose keys jump, where the interpolation
+    misses both blocks; n a multiple of neither 8 nor 64; queries outside
+    [kmin, kmax]) under a linear top, packed and packed_wide, rows of 3
+    to 108 samples: bit-equal to packed_search_plain on the card and to
+    torch.searchsorted, also with the keys a view one element past a
+    16-byte boundary; rmi_sorted_bounds bit-equal to sorted_bounds_plain."""
+    keys, key_type, q = packed_edge_case(case, seed=23)
+    rmi = rt.train(rdata.RMIDataset.from_numpy(keys, key_type, device=dev), "linear,linear", B)
+    plan = lookup_fast.get_plan(rmi)
+    assert plan.kind in packed_kernel.PACKED_KINDS
+    q = q.to(dev)
+    want = torch.searchsorted(rmi.keys, q)
+    before = dict(_build.launches)
+    got = packed_kernel.packed_search(rmi, plan, q)
+    assert _moved(before) == {"rmi_packed_search": 1}
+    assert torch.equal(got, want)
+    assert torch.equal(got, packed_kernel.packed_search_plain(rmi, plan, q))
+    off = torch.empty(rmi.keys.shape[0] + 1, dtype=torch.int64, device=dev)[1:]
+    assert off.data_ptr() % 16 == 8
+    shifted = dataclasses.replace(rmi, keys=off.copy_(rmi.keys))
+    assert torch.equal(packed_kernel.packed_search(shifted, plan, q), want)
+    qs = torch.sort(q).values
+    for a, b in zip(packed_kernel.sorted_bounds(rmi, plan, qs),
+                    packed_kernel.sorted_bounds_plain(rmi, plan, qs)):
+        assert torch.equal(a, b)
+
+
 def test_packed_kernels_refuse_bad_inputs(dev):
     """The wrappers refuse queries off the plan's device or of another
     dtype (ValueError) before any launch; each C entry refuses a plan or a
     top it cannot take (RuntimeError, nothing launched): S outside
     [1, 127], F not a power of two <= 64, an unknown key kind, the folded
-    route, B or n below 1, kmin above kmax, kq below 1."""
+    route, rows off a 16-byte boundary, B or n below 1, kmin above kmax,
+    kq below 1."""
     rmi, q = _packed_index(dev, "u64", "radix18,linear", 256)
     plan = lookup_fast.get_plan(rmi)
     with pytest.raises(ValueError):
@@ -2054,9 +2088,12 @@ def test_packed_kernels_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):
         packed_kernel.sorted_bounds(rmi, plan, q.int())
     args = list(packed_kernel._launch_args(rmi, plan, q))
-    tail = [plan.stripe_first, plan.group_first, rmi.keys, q.shape[0], q.shape[0],
+    tail = [plan.stripe_first, rmi.keys, q.shape[0], q.shape[0],
             *packed_kernel._norm(rmi, plan)]
-    bad = [(11, 0), (11, 128), (12, 3), (12, 128), (1, 2), (8, 2)]
+    # S, F, the key kind, the folded route, rows off a 16-byte boundary
+    off = torch.empty(plan.rows.numel() + 1, dtype=torch.int64, device=dev)[1:]
+    bad = [(12, 0), (12, 128), (13, 3), (13, 128), (1, 2), (8, 2),
+           (10, off.copy_(plan.rows.view(-1)).view(plan.rows.shape))]
     for at, value in bad:
         a = list(args)
         a[at] = value
@@ -2064,7 +2101,7 @@ def test_packed_kernels_refuse_bad_inputs(dev):
         with pytest.raises(RuntimeError):
             _build.launch("rmi_packed_search", *a, *tail)
         assert _moved(before) == {}
-    for fix in ({5: 0}, {6: 0}, {9: tail[10], 10: tail[9]}):    # B, n, kmin > kmax
+    for fix in ({4: 0}, {5: 0}, {8: tail[9], 9: tail[8]}):    # B, n, kmin > kmax
         with pytest.raises(RuntimeError):
             _build.launch("rmi_packed_search", *args,
                           *[fix.get(i, v) for i, v in enumerate(tail)])

@@ -607,6 +607,86 @@ def wide_window_case(kind, seed=0, n=1 << 18, err_max=1 << 15):
     return keys, q, guess.astype(np.int64), err.astype(np.int64), count, iters
 
 
+# the packed plan's search (csrc/packed.cu) at its edges: kinds of
+# packed_edge_case, each served through a linear top at the B's of
+# PACKED_EDGE_BS (2: packed_wide, F = 2, rows of ~108 samples; 4: packed,
+# rows of ~96, both read by their chunks' last samples first; 64: packed,
+# rows of 7-10 samples, odd counts padded; "ragged" packed at every B)
+PACKED_EDGES = ("u32", "f64", "runs", "stripe_firsts", "jumps", "ragged", "outside")
+PACKED_EDGE_BS = (2, 4, 64)
+
+
+def packed_edge_case(kind, seed=0, n=(1 << 14) + 37):
+    """(sorted keys, key type, [m] int64 query images) over n keys, n a
+    multiple of neither 8 nor 64 (PACKED_EDGES):
+      u32            books-like u32 keys, whose images lie near -2^63, with
+                     runs; the u32 extremes among the queries;
+      f64            f64 keys from -1e6 to 1e12 with runs, -0.0 and 0.0
+                     among them; -0.0, 0.0, +-inf and NaN queries;
+      runs           runs of 65-300 equal keys that cross stripes; queries
+                     the runs' keys and one either side;
+      stripe_firsts  queries equal to each stripe's first key, one either
+                     side, and each stripe's last key;
+      jumps          each stripe's keys bunched at its start, then one jump
+                     of 2^40 at a random place inside it, so that the
+                     interpolation between its ends misses both blocks;
+      ragged         1005 keys: a last stripe of 45 keys, a last 8-key
+                     group of 5; queries around the last keys;
+      outside        queries far below the first key and above the last,
+                     0 and 2^64 - 1 among them.
+    Every kind adds keys of the index and uniform queries over its range."""
+    rng = np.random.default_rng(seed)
+    key_type = KeyType.U64
+    if kind == "ragged":
+        n = 1005
+    gaps = np.round(rng.exponential(2.0 ** 30, n)) * (rng.random(n) > 0.05)
+    keys = (np.cumsum(gaps) + 2 ** 50).astype(np.uint64)
+    if kind == "u32":
+        keys, key_type = (keys >> np.uint64(24)).astype(np.uint32), KeyType.U32
+    elif kind == "f64":
+        keys = np.sort(np.concatenate([rng.uniform(-1e6, 1e12, n - 40),
+                                       np.repeat(rng.uniform(-1e6, 1e12, 4), 9), [-0.0, 0.0],
+                                       [0.0, 0.0]]))
+        key_type = KeyType.F64
+    elif kind == "runs":
+        at = 0
+        while at < n - 300:
+            length = int(rng.integers(65, 301))
+            keys[at:at + length] = keys[at]
+            at += length + int(rng.integers(0, 200))
+        keys = np.sort(keys)
+    elif kind == "jumps":
+        stripe = np.arange(n) // 64
+        jump = rng.integers(1, 64, stripe[-1] + 1)
+        keys = (stripe.astype(np.uint64) * np.uint64(2 ** 42) + np.uint64(2 ** 50)
+                + np.arange(n, dtype=np.uint64) % np.uint64(64) * np.uint64(1000)
+                + np.where(np.arange(n) % 64 >= jump[stripe], np.uint64(2 ** 40), np.uint64(0)))
+    img = tkeys.to_image(keys).numpy()
+    lo, hi = int(img[0]), int(img[-1])
+    top = key_type.max_image if key_type is KeyType.U32 else IMAGE_MAX
+    parts = [img[rng.integers(0, n, 2000)], rng.integers(lo, hi, 4000, dtype=np.int64,
+                                                         endpoint=True)]
+    if kind == "u32":
+        parts.append(tkeys.to_image(np.array([0, 2 ** 32 - 1], np.uint32)).numpy())
+    elif kind == "f64":
+        parts.append(tkeys.to_image(np.array([-0.0, 0.0, np.inf, -np.inf, np.nan,
+                                              -1e7, 2e12])).numpy())
+    elif kind == "runs":
+        runs = img[np.flatnonzero(img[1:] == img[:-1])]
+        parts += [runs, runs - 1, runs + 1]
+    elif kind == "stripe_firsts":
+        first = img[::64]
+        parts += [first, first - 1, first + 1, img[63::64]]
+    elif kind == "ragged":
+        parts += [img[-70:], img[-70:] + 1, img[-70:] - 1, [hi + 1, top]]
+    elif kind == "outside":
+        parts += [rng.integers(tkeys.IMAGE_MIN, lo, 500, dtype=np.int64),
+                  rng.integers(hi, top, 500, dtype=np.int64, endpoint=True),
+                  [tkeys.IMAGE_MIN, top, lo - 1, hi + 1]]
+    q = np.concatenate([np.asarray(x, np.int64) for x in parts])
+    return keys, key_type, torch.from_numpy(q[rng.permutation(q.size)])
+
+
 def test_cachefix_wrappers_refuse_bad_inputs():
     """Wrong dtype, shape or device, or an n beyond the keys: ValueError,
     on the CPU as on the card."""

@@ -13,11 +13,13 @@ them.  Held bit-equal (every value is an integer, so no tolerance):
     LB1 of each block's first and last query, from _sorted_stats_direct,
     minus 1 and plus F, clamped to the stripe count; rmi_tpu's LB1_f of a
     sorted batch padded as rmi_tpu pads it, every KQ / 128-th;
-  * a numpy mirror of rmi_packed_search and rmi_sorted_bounds
-    (csrc/packed.cu), which count each sorted run by halving steps and a
-    last read of at most 8 entries, and a stripe through its 8 entries of
-    keys[::8] and then one 8-key group, against the plain versions'
-    whole-row counts on the same inputs.
+  * the numpy mirror of rmi_packed_search and rmi_sorted_bounds
+    (csrc/packed.cu) in tools/count_torch_packed_reads.py, which counts
+    the leaf row whole (a long row by its chunks' last samples, then one
+    chunk) and then 64-byte blocks of the stripe-first keys and of the
+    stripe placed by interpolation, against the plain versions' whole-row
+    counts on the same inputs; and that mirror on its own shapes, beside
+    the design before it.
 
 The cases: every top of lookup_fast._MONOTONE_TOPS but radix26 and
 radix28 (hint tables of 256 MB and 1 GB, which run the table kind's code
@@ -30,7 +32,9 @@ below and above the keys' range, 0 and 2^64 - 1 (f64: -0.0, +-inf, NaN);
 the sorted batch ends in a short K5 block.
 """
 
+import dataclasses
 import functools
+import importlib.util
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,12 +49,15 @@ from rmi_tpu.ops import sorted_serve_kernel as jssk
 from rmi_tpu.train import two_layer as j_two_layer
 
 import rmi_tpu_torch as rt
+from rmi_tpu_torch import config
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast as lf
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import get_model
 from rmi_tpu_torch.ops import packed_kernel as pk
 from rmi_tpu_torch.ops.sorted_serve_kernel import KQ, STRIPE
+
+from test_torch_lookup_kernel import PACKED_EDGE_BS, PACKED_EDGES, packed_edge_case
 
 N = (1 << 16) - 37           # not a multiple of 64
 NQ = 4096                    # queries a search batch: one shape, one compile a case
@@ -245,78 +252,99 @@ def test_sorted_bounds_are_rmi_tpus(kind, spec, B, plan_kind):
 
 # --- the kernel's counts, mirrored in numpy ---------------------------------
 
-def _count8(a, start, avail, q):
-    """csrc/packed.cu count8: #(a[start : start + min(avail, 8)] < q)."""
-    k = np.arange(8)
-    ok = k < np.minimum(avail, 8)[:, None]
-    v = np.where(ok, a[np.where(ok, start[:, None] + k, 0)], tkeys.IMAGE_MAX)
-    return (v < q[:, None]).sum(1)
+@functools.lru_cache(maxsize=None)
+def _read_replay():
+    """tools/count_torch_packed_reads.py, the host replay of csrc/packed.cu
+    read for read."""
+    path = config.PACKAGE_DIR.parent / "tools" / "count_torch_packed_reads.py"
+    spec = importlib.util.spec_from_file_location("count_torch_packed_reads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def _count_below(a, start, length, q):
-    """csrc/packed.cu count_below of a[start : start + length], per query:
-    halving steps while 8 entries or more are left, then count8."""
-    lo, hi = np.zeros_like(q), length.copy()
-    while True:
-        active = hi - lo >= 8
-        if not active.any():
-            return lo + _count8(a, start + lo, hi - lo, q)
-        mid = (lo + hi + 1) >> 1
-        below = a[np.where(active, start + mid - 1, 0)] < q
-        lo = np.where(active & below, mid, lo)
-        hi = np.where(active & ~below, mid - 1, hi)
+def _mirror_lb1(plan, leaf, q):
+    """csrc/packed.cu Plan::lb1: the row whole (a long one by its chunks'
+    last samples, then one chunk), LB1 = base + (c1 - 1) F."""
+    rr = _read_replay()
+    b = rr.count_row(plan.rows.numpy(), plan.rows.shape[1], leaf, q, rr.Reads(q.size))
+    return plan.base.numpy()[leaf] + (b.r - 1) * plan.F
 
 
-def _mirror_lb1(rows, leaf, F, q):
-    S = rows.shape[1] - 1
-    c1 = _count_below(rows.ravel(), leaf * (S + 1) + 1, np.full(q.size, S), q)
-    return rows[leaf, 0] + (c1 - 1) * F
+def _mirror_search(plan, keys, leaf, q, off):
+    """Plan::search of csrc/packed.cu, the keys ``off`` entries into their
+    64-byte block and the stripe-first keys as far into theirs."""
+    return _read_replay().search(plan, keys, leaf, q, off=off, sf_off=off)[0]
 
 
-def _mirror_count_from(arr, start, width, q):
-    length = np.clip(np.minimum(arr.size - start, width), 0, None)
-    return start + _count_below(arr, start, length, q)
-
-
-def _mirror_stripe(group_first, keys, row, q):
-    """csrc/packed.cu Plan::count_stripe: the stripe's 8 group-first keys,
-    then the 8 keys of the group they name."""
-    g0 = row * 8
-    c = _count8(group_first, g0, group_first.size - g0, q)
-    at = (g0 + np.maximum(c, 1) - 1) * 8
-    return np.where(c == 0, row * STRIPE, at + _count8(keys, at, keys.size - at, q))
-
-
-def _mirror_search(plan, keys, LB1, q):
-    """Plan::search of csrc/packed.cu."""
-    nrows0 = plan.stripe_first.shape[0]
-    if plan.F == 1:
-        row = np.clip(LB1, 0, nrows0 - 1)
-    else:
-        r1 = np.clip(LB1, 0, nrows0) >> 6
-        lb = _mirror_count_from(plan.stripe_first.numpy(), r1 * STRIPE, 128, q)
-        row = np.clip(np.minimum(lb, nrows0) - 1, 0, nrows0 - 1)
-    return np.minimum(_mirror_stripe(plan.group_first.numpy(), keys, row, q), plan.n)
-
-
+@pytest.mark.parametrize("off", [0, 3])
 @pytest.mark.parametrize("kind,spec,B,plan_kind", CASES, ids=map(_case_ids, CASES))
-def test_kernel_counts_by_halving_equal_the_plain_counts(kind, spec, B, plan_kind):
+def test_kernel_counts_by_halving_equal_the_plain_counts(kind, spec, B, plan_kind, off):
+    """The kernel's counts (the row whole, then blocks placed by
+    interpolation, halving where it cannot place them) as the replay
+    follows them equal the plain versions' whole-row counts, with the
+    blocks on the arrays' own alignment and three entries off it."""
     keys, _, rc = _indexes(kind, spec, B)
     plan = lf.get_plan(rc)
-    rows, img = plan.rows.numpy(), tkeys.to_image(keys).numpy()
+    img = tkeys.to_image(keys).numpy()
     q = tkeys.to_image(_queries(keys, rc.key_type, NQ, 9))
     leaf = pk._leaf_ids(rc, plan, q).numpy()
-    LB1 = _mirror_lb1(rows, leaf, plan.F, q.numpy())
+    LB1 = _mirror_lb1(plan, leaf, q.numpy())
     np.testing.assert_array_equal(LB1, pk.stripe_lower_limits(rc, plan, q).numpy())
-    np.testing.assert_array_equal(_mirror_search(plan, img, LB1, q.numpy()),
+    np.testing.assert_array_equal(_mirror_search(plan, img, leaf, q.numpy(), off),
                                   pk.packed_search_plain(rc, plan, q).numpy())
     qs = tkeys.to_image(_sorted_batch(keys, rc.key_type))
     anchors = pk._anchors(qs)
-    L = _mirror_lb1(rows, pk._leaf_ids(rc, plan, anchors).numpy(), plan.F, anchors.numpy())
+    L = _mirror_lb1(plan, pk._leaf_ids(rc, plan, anchors).numpy(), anchors.numpy())
     nb, nrows0 = L.size // 2, plan.stripe_first.shape[0]
     lo, hi = pk.sorted_bounds_plain(rc, plan, qs)
     np.testing.assert_array_equal(np.clip(L[:nb] - 1, 0, nrows0), lo.numpy())
     np.testing.assert_array_equal(np.clip(L[nb:] + plan.F, 0, nrows0), hi.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_index(case, B):
+    keys, key_type, q = packed_edge_case(case, seed=23)
+    return rt.train(rt.RMIDataset.from_numpy(keys, key_type, device="cpu"), "linear,linear",
+                    B), q
+
+
+@pytest.mark.parametrize("B", PACKED_EDGE_BS)
+@pytest.mark.parametrize("case", PACKED_EDGES)
+def test_kernel_counts_at_the_packed_edges(case, B):
+    """The replay of csrc/packed.cu at the card tests' edges
+    (test_torch_lookup_kernel.packed_edge_case: u32 and f64 images, runs
+    of equal keys across stripes, queries at stripe-first keys, stripes
+    whose keys jump, a ragged last stripe, queries outside the keys), the
+    keys on their block's boundary and one entry past it: the plain
+    answers and the lower bounds, and the plain LB1."""
+    rmi, q = _edge_index(case, B)
+    plan = lf.get_plan(rmi)
+    assert plan.kind in pk.PACKED_KINDS
+    want = pk.packed_search_plain(rmi, plan, q).numpy()
+    np.testing.assert_array_equal(want, np.searchsorted(rmi.keys.numpy(), q.numpy()))
+    leaf = pk._leaf_ids(rmi, plan, q).numpy()
+    np.testing.assert_array_equal(_mirror_lb1(plan, leaf, q.numpy()),
+                                  pk.stripe_lower_limits(rmi, plan, q).numpy())
+    for off in (0, 1):
+        np.testing.assert_array_equal(
+            _mirror_search(plan, rmi.keys.numpy(), leaf, q.numpy(), off), want)
+
+
+@pytest.mark.parametrize("shape", ["path1", "path5", "zoo_wide", "histogram", "u32", "f64"])
+def test_read_mirror_is_the_plain_search(shape):
+    """tools/count_torch_packed_reads.py on its shapes at 2^16 keys: both
+    replays answer what packed_search_plain answers and the kept one's
+    LB1 is stripe_lower_limits' (measure checks both); the kept design
+    reads fewer sectors of device memory a query, and waits for fewer
+    dependent rounds, than the design before."""
+    rr = _read_replay()
+    rmi = rr.shape_index(shape, 1 << 16)
+    got = rr.measure(rmi, rr.shape_queries(rmi, 1 << 13, 3))
+    assert got["plan"][0] == ("packed" if shape in ("path1", "path5", "u32", "f64")
+                              else "packed_wide")
+    assert got["kept"]["device_sectors"] < got["before"]["device_sectors"]
+    assert got["kept"]["rounds"] < got["before"]["rounds"]
 
 
 def test_cases_cover_both_plans_and_every_top():
@@ -340,11 +368,14 @@ def test_wrappers_refuse_bad_inputs():
         with pytest.raises(ValueError, match="packed one"):
             fn(rc, lf.Plan("hier", plan.n), q)
         with pytest.raises(ValueError, match="rows"):
-            fn(rc, lf.Plan(plan.kind, plan.n, plan.S + 1, plan.F, plan.rows,
-                           plan.stripe_first, plan.group_first, plan.kmin, plan.kmax), q)
+            fn(rc, dataclasses.replace(plan, S=plan.S + 2), q)
+        with pytest.raises(ValueError, match="rows"):      # no bases beside the rows
+            fn(rc, dataclasses.replace(plan, base=None), q)
+        with pytest.raises(ValueError, match="rows"):      # rows off a 16-byte boundary
+            wide = torch.empty(plan.rows.numel() + 1, dtype=torch.int64)
+            fn(rc, dataclasses.replace(plan, rows=wide[1:].view(plan.rows.shape)), q)
         with pytest.raises(ValueError, match="keys"):
-            fn(rc, lf.Plan(plan.kind, plan.n + 1, plan.S, plan.F, plan.rows,
-                           plan.stripe_first, plan.group_first, plan.kmin, plan.kmax), q)
+            fn(rc, dataclasses.replace(plan, n=plan.n + 1), q)
         with pytest.raises(ValueError, match="device"):
             fn(rc, plan, q.to("meta"))
     # an empty batch

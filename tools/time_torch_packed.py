@@ -12,10 +12,19 @@ its plain version (the eager route it replaced), sort -> K5 -> unsort
 against torch.searchsorted.  At 2^22 sorted queries rmi_sorted_bounds
 against its plain version, and search's device time a batch split by a
 profiler trace into the sort, the bounds, K5's scatter entry and the
-rest.  --root DIR imports rmi_tpu_torch and chip_smoke from DIR, a
-checkout of another version (one with the packed kernels): run both in
-one command, in turns, to compare them on one card.  Prints the card's
-name and power limit, one line a point, then one JSON line.
+rest.  Then each of chip_smoke's zoo rows that takes a packed plan
+(chip_smoke.ZOO: packed_wide under radix, bradix, a histogram's block
+route, the lognormal top's torch leaf ids) at 2^22 queries: the kernel
+(with the lognormal top's torch step, as packed_search runs it) and
+torch.searchsorted.  --root DIR imports rmi_tpu_torch and chip_smoke from
+DIR, a checkout of another version (one with the packed kernels): run
+both in one command, in turns, to compare them on one card, e.g.
+
+    for r in p c c p; do if [ $r = p ]; then python3 tools/time_torch_packed.py \
+        --root .chip_checkout/parent; else python3 tools/time_torch_packed.py; fi; done
+
+Prints the card's name and power limit, ptxas's registers of the packed
+kernels, one line a point, then one JSON line.
 """
 
 from __future__ import annotations
@@ -75,6 +84,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
     _build.library()
+    entry = ""
+    for line in _build.build_info["log"].splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif "registers" in line and "packed" in entry:
+            print("ptxas " + entry.split("'")[1][:60] + ": "
+                  + line.split("ptxas info    :")[-1].strip(), flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     keys = rdata.books_like_on_device(args.n, args.seed, dev)
@@ -111,6 +127,23 @@ def main():
               + "; search's device ms a batch: " + json.dumps(split), flush=True)
         out[spec] = {"plan": [plan.kind, plan.S, plan.F], "curve": rows, "bounds": bounds,
                      "search_split": split}
+        del rmi, plan
+        torch.cuda.empty_cache()
+    q = cs.make_queries(keys, cs.CURVE[-1], gen)
+    want = torch.searchsorted(keys, q)
+    out["zoo"] = {}
+    for spec, B, _ in cs.ZOO:
+        rmi = rmi_tpu_torch.train(data, spec, B)
+        plan = lookup_fast.get_plan(rmi)
+        if plan.kind in pk.PACKED_KINDS:
+            if not torch.equal(pk.packed_search(rmi, plan, q), want):
+                raise RuntimeError(f"zoo {spec}: the packed search is wrong")
+            row = {"plan": [plan.kind, plan.S, plan.F],
+                   "kernel": median_ms(cs, lambda: pk.packed_search(rmi, plan, q), args.runs),
+                   "searchsorted": median_ms(cs, lambda: torch.searchsorted(keys, q),
+                                             args.runs)}
+            out["zoo"][spec] = row
+            print(f"zoo {spec} {B} at {q.shape[0]}: " + json.dumps(row), flush=True)
         del rmi, plan
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
