@@ -35,8 +35,15 @@ Phases (any failure raises and exits non-zero):
      unsort without the density gate, and search_sorted on sorted
      batches, and the packed plan's plain route (the eager torch the
      kernel replaced) beside them, uncounted;
+  6b. stage A (stage_a_trace): a warm build traced, the device ms of its
+     rmi.build.* ranges, rmi.build.assign among them, then stage A alone
+     traced, each device kernel with its calls and device ms (FixDups
+     with K1, rmi_key_normalize, rmi_top_l1_cubic, rmi_top_assign and the
+     top fit's [1]-sized torch);
   7. each kernel of the path replayed on the inputs the path gave it,
-     against its plain PyTorch version: K1, K2, the run-length pass, K5,
+     against its plain PyTorch version: stage A's normalization (bit-
+     equal), the cubic top's L1 sums (as K6's) and the assignment
+     (bit-equal), all on the card, K1, K2, the run-length pass, K5,
      K5's scatter entry and K4's fused lookup entry on the card (guess and
      err bit-equal; lookup also timed against the two-step route it
      replaced), K3 (the per-leaf maxima, which must be equal) and K4's
@@ -256,7 +263,9 @@ starts, errors and answers and the sectors of each answer's knot pair and
 value pair; the packed search: the queries and answers, the top's
 operands and the sectors of each query's base and leaf row around q, of keys[::64]
 around lb1 (packed_wide) and of the keys around lb; the window bounds:
-each block's two anchors, the bounds and the anchors' row sectors), at
+each block's two anchors, the bounds and the anchors' row sectors; stage
+A's kernels: the images, or x and yfix, in, x, the two sums or the leaf
+ids out), at
 3.35 TB/s, or
 its operations at the
 peak rate of their type, whichever is larger.
@@ -300,7 +309,7 @@ from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_i
                                        predict_top_assignment)
 from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
                                hier_kernel, packed_kernel, probe_kernels, scan_kernel,
-                               select_kernel, sorted_serve_kernel, sweep_kernel)
+                               select_kernel, sorted_serve_kernel, sweep_kernel, top_kernel)
 from rmi_tpu_torch.parallel import sweep
 from rmi_tpu_torch.serialize import rmi_size
 from rmi_tpu_torch.train import api as train_api
@@ -386,6 +395,16 @@ PATH_KERNELS = [
      "rmi_tpu_torch/csrc/packed.cu", "rmi_tpu/lookup_fast.py:420"),
     ("rmi_sorted_bounds", packed_kernel, "sorted_bounds", "sorted_bounds_plain", None,
      "rmi_tpu_torch/csrc/packed.cu", "rmi_tpu/lookup_fast.py:683"),
+    # stage A of the build after FixDups: rmi_tpu computes it in one XLA
+    # program (_assign_body), no Pallas call of its own (the card tests hold
+    # the assignment to its plain version on the CPU too, where
+    # torch.addcmul is an exact FMA)
+    ("rmi_key_normalize", top_kernel, "key_normalize", "key_normalize_plain", None,
+     "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
+    ("rmi_top_l1_cubic", top_kernel, "top_l1_cubic", "top_l1_cubic_plain", None,
+     "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
+    ("rmi_top_assign", top_kernel, "top_assign", "top_assign_plain", None,
+     "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
 ]
 # then the card probes, driven by their own phase
 PROBE_KERNELS = [
@@ -398,50 +417,56 @@ KERNELS = PATH_KERNELS + PROBE_KERNELS
 K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
 PACKED = ("rmi_packed_search", "rmi_sorted_bounds")
 RUN_MAX = "rmi_span_run_max"
+# stage A after FixDups: every path's build normalizes its keys and
+# assigns them to leaves in a kernel; a cubic top's L1 sums are a kernel too
+NORM_ASSIGN = ("rmi_key_normalize", "rmi_top_assign")
+STAGE_A = ("rmi_key_normalize", "rmi_top_l1_cubic", "rmi_top_assign")
 # K4: the build's epsilon probes launch the per-element entry, lookup the fused one
 PATH1 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A))
 PATH2 = ("robust_linear,cubic", 65536,
          ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
-          "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED),
+          "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
           "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
-          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED),
+          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED, *STAGE_A),
          ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX,
-          "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED),
+          "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED, *STAGE_A),
          ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
           "rmi_lookup_normal"))
 # an integer (hint-table) top over linear leaves: lookup is one launch of
-# the fused entry, its top evaluated in the kernel (csrc/int_top.cuh)
+# the fused entry, its top evaluated in the kernel (csrc/int_top.cuh); the
+# build normalizes the keys for the leaves and assigns them under the
+# hint table
 PATH5 = ("radix18,linear", 65536,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN))
 # path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
 # cubic,linear_f64_262144 row); the fused lookup decodes f64 images
 PATH7 = ("cubic,linear", 262144,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A))
 # path 8: the reference's books-u32 CI config (FAMILIES_200M.json's
 # linear,linear_u32_100 row), whose ~2M-key leaves no packed plan covers:
 # the hierarchical plan, which never reaches K5: one fused lookup and one
 # rmi_hier_resolve a batch
 PATH8 = ("linear,linear", 100,
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve"),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN),
          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve"))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN))
 HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
 # the route of each integer top's lookup in paths 5 and 7 and the zoo
 # (eval_kernel.route_name): where its operand lies when it is read
@@ -567,6 +592,8 @@ def plain_args(name, args, kw, where):
     lookup table or top operands, the resolve's none of the packed
     levels, the interpolation's none of the knots' sample."""
     def move(a):
+        if isinstance(a, dict):              # an integer top's parameters
+            return {k: move(v) for k, v in a.items()}
         return a.to(where or a.device) if torch.is_tensor(a) else a
     args = [move(a) for a in args]
     kw = {k: move(v) for k, v in kw.items()
@@ -583,8 +610,8 @@ def first_tensor(args):
 
 
 # the argument that holds a wrapper's queries where its first tensor does
-# not (the keys or knots come first)
-QUERY_ARG = {"bounded_lower_bound": 1, "cachefix_interp": 2}
+# not (the keys, knots or the top's row come first)
+QUERY_ARG = {"bounded_lower_bound": 1, "cachefix_interp": 2, "top_assign": 2}
 
 
 def call_size(args, name=None):
@@ -609,8 +636,13 @@ def compare(name, got, want, args, kw):
         m2, wm2 = got.cpu(), want.cpu()
         return (float((m2 - wm2).abs().max()),
                 bool(((m2 - wm2).abs() <= K2_RTOL * wm2.abs()).all()))
-    if name == "cubic_l1_sums":
-        return compare_l1(got, want)
+    if name in ("cubic_l1_sums", "top_l1_cubic"):
+        return compare_l1(got, want, "K6" if name == "cubic_l1_sums" else "rmi_top_l1_cubic")
+    if name == "key_normalize":             # f64 bits, every NaN a NaN (where they lie)
+        nan = want.isnan()
+        ok = torch.equal(got.isnan(), nan) and torch.equal(got[~nan].view(torch.int64),
+                                                           want[~nan].view(torch.int64))
+        return float((got[~nan] - want[~nan]).abs().max()) if want.numel() else 0.0, ok
     if name in ("lookup_clamped", "sorted_bounds"):    # (guess, err), (lo, hi): bit-equal
         diffs = [compare(None, g, w, args, kw) for g, w in zip(got, want)]
         return max(d[0] for d in diffs), all(d[1] for d in diffs)
@@ -619,16 +651,17 @@ def compare(name, got, want, args, kw):
     return err, bool(torch.equal(got, want))
 
 
-def compare_l1(got, want):
-    """K6: both sums within cubic_l1_kernel.sum_tolerance, and the choice
-    l_err < c_err the same wherever the two sums are not a near tie, that
-    is closer than their two tolerances."""
+def compare_l1(got, want, label):
+    """K6 and the cubic top's sums: both sums within
+    cubic_l1_kernel.sum_tolerance, and the choice l_err < c_err the same
+    wherever the two sums are not a near tie, that is closer than their
+    two tolerances."""
     (c, l), (wc, wl) = [[t.cpu() for t in r] for r in (got, want)]
     tc, tl = cubic_l1_kernel.sum_tolerance(wc), cubic_l1_kernel.sum_tolerance(wl)
     err = max(float((c - wc).abs().max()), float((l - wl).abs().max()))
     near_tie = (wl - wc).abs() <= tc + tl
     same_choice = ((l < c) == (wl < wc)) | near_tie
-    log(f"  K6: {int(near_tie.sum())} near-tie leaves of {c.shape[0]}, "
+    log(f"  {label}: {int(near_tie.sum())} near-tie leaves of {c.shape[0]}, "
         f"{int(((l < c) != (wl < wc)).sum())} choices differ")
     return err, bool(((c - wc).abs() <= tc).all() and ((l - wl).abs() <= tl).all()
                      and same_choice.all())
@@ -896,6 +929,21 @@ def work(name, args, kw, out):
         elems = int((spans.aug_ends - spans.aug_starts).sum())
         return (_nbytes(x, y, cubic_w, lin_w, spans.aug_starts, spans.aug_ends, *outs),
                 elems * 12, F64_OPS_PER_S)
+    if name == "key_normalize":       # an image in, x out; the decode (4), sub, mul
+        return _nbytes(args[0], *outs), args[0].shape[0] * 6, F64_OPS_PER_S
+    if name == "top_l1_cubic":
+        # x and yfix read once, the two rows, the two sums written; per key
+        # the target (mul, trunc), both candidates (4 FMAs), two subtractions,
+        # absolutes and adds
+        x, yfix, _, cubic_w, lin_w = args
+        return _nbytes(x, yfix, cubic_w, lin_w, *outs), x.shape[0] * 14, F64_OPS_PER_S
+    if name == "top_assign":
+        # the top's input in, the ids out, the top's operands once; per key
+        # the top and the floor and clamps (4)
+        top_type, top_w, top_in = args[:3]
+        top_bytes, top_ops = top_work(top_type, top_w)
+        return (_nbytes(top_in, *outs) + top_bytes, top_in.shape[0] * (top_ops + 4),
+                F64_OPS_PER_S)
     if name in ("serve_sorted", "serve_sorted_scatter"):
         # what the answers need, not what K5 reads: each query, window
         # bound and answer once (and the scatter's order); per answer lb
@@ -1035,6 +1083,40 @@ def _device_us(evt):
         return 0.0
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def stage_a_trace(data, spec, B):
+    """Path 1's stage A on the card: a warm build traced, each rmi.build.*
+    range's device ms (rmi.build.assign is stage A: FixDups, the model's
+    input, the top fit, the assignment), then stage A alone traced as
+    train_two_layer runs it, each device kernel with its calls and device
+    ms; returns the rmi.build.assign device ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rmi_tpu_torch.train(data, spec, B)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        rmi_tpu_torch.train(data, spec, B)
+        torch.cuda.synchronize()
+    ranges = {}
+    for e in prof.key_averages():       # a range's host span and its device span
+        if e.key.startswith("rmi.build."):
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            ranges[e.key] = max(ranges.get(e.key, 0.0), us / 1e3)
+    log(f"path 1 warm build traced, device ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(ranges.items())))
+    keys, key_type, top = data.keys, data.key_type, spec.split(",")[0]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        kminf, s = two_layer.norm_constants(keys, key_type)
+        top_in = model_float_input(get_model(top), keys, kminf, s, key_type)
+        two_layer._assign_body(top_in, two_layer.fixdups_i32(keys), top_type=top, B=B,
+                               keys=keys, key_type=key_type)
+        torch.cuda.synchronize()
+    kernels = sorted(((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+                      if _device_us(e) > 0), reverse=True)
+    log(f"path 1 stage A alone, {len(kernels)} device kernels, "
+        f"{sum(k[0] for k in kernels):.4f} ms: " + "; ".join(
+            f"{ms:.4f} ms x{count} {name[:72]}" for ms, count, name in kernels))
+    return ranges.get("rmi.build.assign")
 
 
 def k5_phase(rmi, keys, queries):
@@ -1226,7 +1308,7 @@ def cross_check(spec, n, B, seed, dev, rec=None, key_type=KeyType.U64, sparse=Fa
     def ids_counts(r, k):
         t = two_layer.top_assignment(get_model(r.top_type), r.device_top_params, k,
                                      r.norm_offset, r.norm_scale, B - 1, key_type)
-        spans = seg.make_spans(t.to(torch.int32), B)
+        spans = seg.make_spans(t, B)
         return t.cpu(), (spans.ends - spans.starts).cpu()
 
     t_card, cnt_card = ids_counts(card, keys)
@@ -1312,9 +1394,11 @@ def drive(path, data, queries, gen):
     with rec:
         viol, by_lookup = launched(lambda: bound_violations(rmi, keys, nq, gen))
         lookup(rmi, queries)         # replayed with the sampled keys' lookup
+        # made before search's launches are counted: a packed plan's leaf
+        # spans assign the keys (rmi_key_normalize, rmi_top_assign)
+        plan, by_plan = launched(lambda: lookup_fast.get_plan(rmi))
         idx, by_search = launched(lambda: search(rmi, queries))
         idx_sorted, by_sorted = launched(lambda: search_sorted(rmi, queries_sorted))
-        plan = lookup_fast.get_plan(rmi)
         if plan.kind != "hier":
             idx_fast, by_fast = launched(lambda: lookup_fast.fast_search(rmi, queries))
     torch.cuda.synchronize()
@@ -1331,10 +1415,14 @@ def drive(path, data, queries, gen):
         f"at leaf {rmi.model_max_error_idx}, RMI_SIZE {rmi_size(rmi)}, "
         f"model_avg_log2_error {rmi.model_avg_log2_error!r}, "
         f"model_avg_error {rmi.model_avg_error!r}")
-    log(f"{spec} launches: {json.dumps(launches)}")
+    log(f"{spec} launches: {json.dumps(launches)}; the plan's {json.dumps(by_plan)}")
     missing = [e for e in entries if launches[e] <= 0]
     if missing:
         raise RuntimeError(f"{spec}: kernels not launched on the path: {missing}")
+    if (plan.kind != "hier" and get_model(rmi.top_type).input_domain != "raw"
+            and by_plan.get("rmi_top_assign") != 1):
+        raise RuntimeError(f"{spec}: the plan's leaf spans launched {by_plan}, "
+                           "not rmi_top_assign once")
     if not math.isfinite(rmi.model_avg_log2_error) or rmi.leaf_errors.shape != (B,):
         raise RuntimeError(f"{spec}: build produced malformed metrics")
     builds_again = same_build(rmi, warm_rmi)
@@ -1425,9 +1513,13 @@ def zoo_row(data, row, gen, nq, cross_n, seed, dev):
         kernel = get_model(rmi.leaf_type).leaf_kernel
         fused = eval_kernel.fused_lookup(rmi.top_type, rmi.leaf_type)
         # the two steps: K4's per-element entry after the torch top, or for
-        # hint-table leaves nothing
+        # hint-table leaves nothing, each after rmi_key_normalize where the
+        # top or the leaf takes normalized keys
         want = ({f"rmi_lookup_{kernel}": 1} if fused
                 else {f"rmi_leaf_eval_{kernel}": 1} if kernel else {})
+        if not fused and "affine" in (get_model(rmi.top_type).input_domain,
+                                      get_model(rmi.leaf_type).input_domain):
+            want["rmi_key_normalize"] = 1
         log(f"zoo {spec} bound check: {viol} violations on {nq} sampled keys; lookup "
             f"launches {json.dumps(by_lookup)}")
         if viol:
@@ -2576,8 +2668,8 @@ def dp_cross_rank(rank, keys_np, spec, B, device):
     rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
     t = two_layer.top_assignment(get_model(top), rmi.device_top_params, data.keys,
                                  rmi.norm_offset, rmi.norm_scale, B - 1)
-    spans = seg.make_spans(t.to(torch.int32), B)
-    return {"res": res, "t": t.to(torch.int32), "counts": spans.ends - spans.starts,
+    spans = seg.make_spans(t, B)
+    return {"res": res, "t": t, "counts": spans.ends - spans.starts,
             "launches": dict(_build.launches)}
 
 
@@ -2783,7 +2875,7 @@ def path1_host(rmi):
     B = rmi.branching_factor
     t = two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params, rmi.keys,
                                  rmi.norm_offset, rmi.norm_scale, B - 1)
-    spans = seg.make_spans(t.to(torch.int32), B)
+    spans = seg.make_spans(t, B)
     del t
     _, next_key, prev_key = two_layer.lower_bound_fills(spans, rmi.keys, rmi.key_type)
     return {"leaf_errors": rmi.leaf_errors.cpu().numpy(),
@@ -3324,6 +3416,7 @@ def main():
     rmi, rec, counts = drive(PATH1, data, queries, gen)
     k5_phase(rmi, keys, queries)
     serving_curve(rmi, keys, gen)
+    stage_a_trace(data, spec, B)
     # what path 6a's artifact must reproduce
     p1 = {"metrics": (rmi.model_max_error, rmi.model_max_error_idx,
                       rmi.model_avg_log2_error),
@@ -3344,7 +3437,9 @@ def main():
         rmi, rec, counts = drive(path, data, queries, gen)
         del rmi
         rows.update(check_kernels(rec, counts, replayed))
-        check_kernels(rec, counts, PACKED, timed=False)    # their rows stay path 1's
+        # their rows stay path 1's
+        check_kernels(rec, counts, PACKED + tuple(e for e in STAGE_A if e in path[2]),
+                      timed=False)
         launches = {e: launches[e] + counts[e] for e in launches}
         del rec
         torch.cuda.empty_cache()

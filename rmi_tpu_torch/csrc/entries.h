@@ -124,6 +124,18 @@ RMI_ENTRY(rmi_sorted_bounds, (const int64_t* queries, int64_t key_kind, const do
                               int64_t* lo, int64_t* hi, int64_t nq, int64_t kq, int64_t B,
                               int64_t n, double offset, double scale, int64_t kmin, int64_t kmax,
                               void* stream))
+// stage A of the build: the normalized keys, the cubic top's L1 sums, the
+// leaf assignment (csrc/top.cu)
+RMI_ENTRY(rmi_key_normalize, (const int64_t* keys, int64_t key_kind, double* x, int64_t n,
+                              double offset, double scale, void* stream))
+RMI_ENTRY(rmi_top_l1_cubic, (const double* x, const int32_t* y, int64_t n, double sf,
+                             int64_t scale_targets, const double* cubic_w,
+                             const double* lin_w, double* partials, int64_t capacity,
+                             double* sums, void* stream))
+RMI_ENTRY(rmi_top_assign, (const double* x, const int64_t* images, const double* top_w,
+                           int64_t top_kind, const int64_t* top_int,
+                           const int32_t* top_table, const int64_t* pivots, int64_t top_len,
+                           int32_t* t, int64_t n, int64_t B, void* stream))
 // the card probes (csrc/probes.cu)
 RMI_ENTRY(rmi_probe_scale2, (const float* x, float* out, int64_t n, void* stream))
 RMI_ENTRY(rmi_probe_lt_i64, (const int64_t* x, const int64_t* q, int32_t* out, int64_t n,

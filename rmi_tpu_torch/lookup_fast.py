@@ -147,7 +147,7 @@ def leaf_spans(rmi):
                                      rmi.device_top_params, rmi.keys,
                                      rmi.norm_offset, rmi.norm_scale, B - 1,
                                      rmi.key_type)
-        spans = seg.make_spans(t.to(torch.int32), B)
+        spans = seg.make_spans(t, B)
         next_idx = two_layer.lower_bound_fills(spans, rmi.keys,
                                                rmi.key_type)[0]
         rmi.leaf_spans_cache = (spans.starts, next_idx)

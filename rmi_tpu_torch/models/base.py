@@ -102,13 +102,14 @@ class ModelDef:
         ``predict`` is that evaluation's plain version; None for the
         integer-output models, which no kernel evaluates (rmi_tpu
         computes them outside Pallas, two_layer.py:382-400).
-    fit_aux: None, or for cubic fit_aux(xf, yf, spans, ep_y, keys, key_type)
-        -> (rows, aux): the fit that fit_top (spans over the whole array,
-        ep_y its endpoint targets) and fit_leaves (ep_y None) return the
-        rows of, with the generator statistics from which convert.py
-        recomputes the raw coefficients (rmi_tpu models/cubic.py:183-194;
-        ``keys`` the images of ``key_type`` keys, whose raw floats give
-        xmin and xmax).
+    fit_aux: None, or for cubic fit_aux(xf, yf, spans, ep_y, keys, key_type,
+        sf=1.0) -> (rows, aux): the fit that fit_top (spans over the whole
+        array, ep_y its endpoint targets, ``yf`` the int32 FixDups
+        positions and sf = B / n, which scales them as they are read) and
+        fit_leaves (ep_y None, sf 1) return the rows of, with the
+        generator statistics from which convert.py recomputes the raw
+        coefficients (rmi_tpu models/cubic.py:183-194; ``keys`` the images
+        of ``key_type`` keys, whose raw floats give xmin and xmax).
     bytes_per_model: the artifact bytes of one model's parameters
         (codegen.rs:375-394); None where they follow the data (histogram).
     function_name: the model's function in the reference's generated code.
@@ -180,14 +181,19 @@ def normalize(keys: torch.Tensor, kminf: float, s: float,
 def model_float_input(mdef, keys: torch.Tensor, kminf: float, s: float,
                       key_type: KeyType = KeyType.U64) -> torch.Tensor:
     """The input model ``mdef`` fits and predicts on, from images of
-    ``key_type`` keys: the normalized keys, the keys' raw f64 values for
-    a "raw" model (rmi_tpu two_layer.py:63-66), or for an integer-output
-    model the integer-key images (keys.int_image)."""
+    ``key_type`` keys: the normalized keys (on the card one launch of
+    rmi_key_normalize, ops/top_kernel.key_normalize; normalize here on
+    the CPU), the keys' raw f64 values for a "raw" model (rmi_tpu
+    two_layer.py:63-66), or for an integer-output model the integer-key
+    images (keys.int_image)."""
+    # the kernel wrappers import this module
+    from rmi_tpu_torch.ops import top_kernel
+
     if mdef.input_domain == "int":
         return keymod.int_image(keys, key_type)
     if mdef.input_domain == "raw":
         return keymod.as_float(keys, key_type)
-    return normalize(keys, kminf, s, key_type)
+    return top_kernel.key_normalize(keys, kminf, s, key_type)
 
 
 def predict_top_assignment(mtop, top_w, x, bound: int) -> torch.Tensor:

@@ -7,7 +7,9 @@ points, the monotonicity clamp m1^2 + m2^2 <= 9, closed-form
 coefficients, and a fallback to the linear spline through the endpoints
 whenever that has the lower total L1 error (cubic_spline.rs:18-136).
 For leaves the L1 sums run in kernel K6 (ops/cubic_l1_kernel.py); the
-top's are whole-array sums in XLA's order (segments.whole_array_sum).
+top's are whole-array sums, on the card one launch of rmi_top_l1_cubic
+(ops/top_kernel.py), which scales the targets as it reads them, on the
+CPU in XLA's order (segments.whole_array_sum).
 ``fit_cubic_aux`` also returns rmi_tpu's generator statistics (aux),
 from which convert.py recomputes the artifact's raw coefficients.
 
@@ -37,8 +39,8 @@ from rmi_tpu_torch import keys as keymod
 from rmi_tpu_torch.convert import (CUBIC_CASE_CONST, CUBIC_CASE_CUBIC,
                                    CUBIC_CASE_EMPTY, CUBIC_CASE_LINEAR)
 from rmi_tpu_torch.models.base import ModelDef, leaf_columns, register
-from rmi_tpu_torch.models.linear import linear_predict, spline_from_endpoints
-from rmi_tpu_torch.ops import cubic_l1_kernel
+from rmi_tpu_torch.models.linear import spline_from_endpoints
+from rmi_tpu_torch.ops import cubic_l1_kernel, top_kernel
 from rmi_tpu_torch.utils import segments as seg
 
 
@@ -72,7 +74,13 @@ def _coeffs(xmin, ymin, xmax, ymax, m1, m2):
     return a * ys, b * ys, c * ys, _fma(d, ys, ymin)     # d ys + ymin, contracted
 
 
-def _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate):
+def _targets(yf, idx, sf: float):
+    """The targets at indices ``idx``: the FixDups positions ``yf``
+    (int32) there, scaled by ``sf`` (top_kernel.scaled_targets)."""
+    return top_kernel.scaled_targets(yf[idx], sf)
+
+
+def _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate, sf: float = 1.0):
     """Endpoint slopes (m1, m2) in the unit square, clamped to
     m1^2 + m2^2 <= 9 (cubic_spline.rs:46-72).  On the globally sorted
     keys the first point with x > xmin and the last with x < xmax are
@@ -81,7 +89,7 @@ def _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate):
     n = xf.shape[0]
     i1 = torch.searchsorted(xf, xmin, right=True).clamp(0, n - 1)
     i2 = (torch.searchsorted(xf, xmax) - 1).clamp(0, n - 1)
-    return slopes_from_points(xf[i1], yf[i1].double(), xf[i2], yf[i2].double(),
+    return slopes_from_points(xf[i1], _targets(yf, i1, sf), xf[i2], _targets(yf, i2, sf),
                               xmin, ymin, xmax, ymax, degenerate)
 
 
@@ -105,27 +113,28 @@ def slopes_from_points(x1, y1, x2, y2, xmin, ymin, xmax, ymax, degenerate):
 
 def _fit_cubic_ranges(xf, yf, spans: seg.Spans, ep_y=None):
     """[B, 4] cubic rows over the augmented spans.  ``yf`` are the
-    targets (f64, or the int32 FixDups positions of a leaf fit);
-    ``ep_y`` = (first, last) overrides the y of the top container's
-    endpoints, which bypass FixDups (cubic_spline.rs:38-41,
-    models/mod.rs:268-274).  Each row is the cubic candidate, or the
-    linear spline where its L1 error is lower (cubic_spline.rs:113-135)."""
+    int32 FixDups positions, the targets; ``ep_y`` = (first, last)
+    overrides the y of the top container's endpoints, which bypass
+    FixDups (cubic_spline.rs:38-41, models/mod.rs:268-274).  Each row is
+    the cubic candidate, or the linear spline where its L1 error is lower
+    (cubic_spline.rs:113-135)."""
     return fit_cubic_aux(xf, yf, spans, ep_y)[0]
 
 
 def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None,
-                  key_type: keymod.KeyType = keymod.KeyType.U64):
-    """(rows [B, 4], aux): _fit_cubic_ranges's rows and the generator
-    statistics the raw conversion reads (rmi_tpu models/cubic.py:183-194):
-    the endpoints xmin and xmax (the raw key floats of ``keys``, images
-    of ``key_type`` keys, when given; the fit's inputs otherwise), ymin,
-    ymax, the clamped slopes m1 and m2, and each row's case."""
-    cubic_w, lin_w, st = _candidates(xf, yf, spans, ep_y)
+                  key_type: keymod.KeyType = keymod.KeyType.U64, sf: float = 1.0):
+    """(rows [B, 4], aux): _fit_cubic_ranges's rows, the targets the
+    int32 FixDups positions ``yf`` scaled by ``sf`` (the top's B / n,
+    top_kernel.scaled_targets: read where the fit reads them, never made
+    whole), and the generator statistics the raw conversion reads
+    (rmi_tpu models/cubic.py:183-194): the endpoints xmin and xmax (the
+    raw key floats of ``keys``, images of ``key_type`` keys, when given;
+    the fit's inputs otherwise), ymin, ymax, the clamped slopes m1 and m2,
+    and each row's case."""
+    cubic_w, lin_w, st = _candidates(xf, yf, spans, ep_y, sf)
     empty = st["empty"]
-    if spans.B == 1:
-        yd = yf.double()
-        c_err = seg.whole_array_sum((cubic_predict(cubic_w, None, xf) - yd).abs_(), 0, spans.n)
-        l_err = seg.whole_array_sum((linear_predict(lin_w, None, xf) - yd).abs_(), 0, spans.n)
+    if spans.B == 1:           # the whole array: rmi_top_l1_cubic on the card
+        c_err, l_err = top_kernel.top_l1_cubic(xf, yf, sf, cubic_w, lin_w)
     else:
         c_err, l_err = cubic_l1_kernel.cubic_l1_sums(xf, yf, cubic_w, lin_w, spans)
     w, use_lin = choose_candidates(cubic_w, lin_w, c_err, l_err, empty)
@@ -145,7 +154,7 @@ def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None,
     return w, aux
 
 
-def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
+def _candidates(xf, yf, spans: seg.Spans, ep_y=None, sf: float = 1.0):
     """(cubic_w [B, 4], lin_w [B, 2], stats): each container's cubic with
     its special cases, the linear spline through its endpoints, and the
     statistics the fit's aux keeps ([B] each: the first and last indices,
@@ -153,11 +162,11 @@ def _candidates(xf, yf, spans: seg.Spans, ep_y=None):
     first, last = seg.aug_first_last(spans)
     xmin, xmax = xf[first], xf[last]
     if ep_y is None:
-        ymin, ymax = yf[first].double(), yf[last].double()
+        ymin, ymax = _targets(yf, first, sf), _targets(yf, last, sf)
     else:
         ymin, ymax = torch.full_like(xmin, ep_y[0]), torch.full_like(xmin, ep_y[1])
     degenerate = xmin == xmax              # all duplicates or a single point
-    m1, m2 = _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate)
+    m1, m2 = _slopes(xf, yf, xmin, ymin, xmax, ymax, degenerate, sf)
     cubic_w, lin_w, st = candidates_from_slopes(xmin, ymin, xmax, ymax, m1, m2,
                                                 seg.aug_count(spans))
     return cubic_w, lin_w, dict(st, first=first, last=last)
@@ -199,8 +208,10 @@ def _const_cubic(value_f):
 
 register(ModelDef(
     name="cubic", ppm=4,
+    # the scaled targets are whole numbers below 2^31: as int32 they are
+    # exact, and the fit reads them unscaled
     fit_top=lambda xf, yf, ep_first, ep_last: _fit_cubic_ranges(
-        xf, yf, seg.whole_array_spans(xf.shape[0], xf.device),
+        xf, yf.to(torch.int32), seg.whole_array_spans(xf.shape[0], xf.device),
         (ep_first, ep_last)),
     fit_leaves=_fit_cubic_ranges, predict=cubic_predict,
     constant_params=_const_cubic, leaf_kernel="cubic", bytes_per_model=32,

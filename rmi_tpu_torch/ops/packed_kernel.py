@@ -50,10 +50,13 @@ def sample_width(S: int) -> int:
 
 
 def _leaf_ids(rmi, plan, q):
-    """The top's leaf of each query clipped to the key domain."""
-    return two_layer.top_assignment(get_model(rmi.top_type), rmi.device_top_params,
-                                    q.clamp(plan.kmin, plan.kmax), rmi.norm_offset,
-                                    rmi.norm_scale, rmi.branching_factor - 1, rmi.key_type)
+    """The top's leaf of each query clipped to the key domain, int64 as
+    the entries' leaf_ids: predict_top_assignment, the plain route."""
+    mtop = get_model(rmi.top_type)
+    x = two_layer.model_float_input(mtop, q.clamp(plan.kmin, plan.kmax), rmi.norm_offset,
+                                    rmi.norm_scale, rmi.key_type)
+    return two_layer.predict_top_assignment(mtop, rmi.device_top_params, x,
+                                            rmi.branching_factor - 1)
 
 
 def stripe_lower_limits(rmi, plan, q: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,7 @@ import torch.distributed as dist
 
 from rmi_tpu_torch.keys import KeyType, u64_bits
 from rmi_tpu_torch.models import get_model, validate_spec
-from rmi_tpu_torch.models.base import kernel_input, model_float_input, predict_top_assignment
+from rmi_tpu_torch.models.base import kernel_input, model_float_input
 from rmi_tpu_torch.models.cubic import (candidates_from_slopes, choose_candidates,
                                         cubic_predict, slopes_from_points)
 from rmi_tpu_torch.models.histogram import build_radix_index
@@ -65,7 +65,8 @@ from rmi_tpu_torch.models.linear import (_slr_from_moments, linear_predict, log_
                                          spline_from_endpoints, trimmed)
 from rmi_tpu_torch.models.normal import _ln_or_zero
 from rmi_tpu_torch.models.radix import bradix_fit, common_prefix_size, num_bits
-from rmi_tpu_torch.ops import cubic_l1_kernel, scan_kernel, select_kernel, sweep_kernel
+from rmi_tpu_torch.ops import (cubic_l1_kernel, scan_kernel, select_kernel, sweep_kernel,
+                               top_kernel)
 from rmi_tpu_torch.train import api, two_layer
 from rmi_tpu_torch.utils import segments as seg
 
@@ -400,10 +401,9 @@ def _global_bitword_reduce(ki_local, n: int, comm: DPGroup):
 
 
 def _dist_fit_top(top_type, top_in, ys, ep, is_pad, n: int, B: int, comm):
-    """The top's parameters and each shard key's leaf id (int64, before
-    the pads are routed), ``top_in`` the top's model input on the shard
-    and ``ys`` its scaled targets."""
-    mtop = get_model(top_type)
+    """The top's parameters and each shard key's leaf id (int32, before
+    the pads are routed; top_kernel.top_assign), ``top_in`` the top's
+    model input on the shard and ``ys`` its scaled targets."""
     dev = top_in.device
     whole = seg.whole_array_spans(n, dev)
     zeros = torch.zeros(top_in.shape[0], dtype=torch.int32, device=dev)
@@ -451,7 +451,7 @@ def _dist_fit_top(top_type, top_in, ys, ep, is_pad, n: int, B: int, comm):
                  "radix_index": build_radix_index(pivots)}
     else:
         raise NotImplementedError(top_type)
-    return top_w, predict_top_assignment(mtop, top_w, top_in, B - 1)
+    return top_w, top_kernel.top_assign(top_type, top_w, top_in, B)
 
 
 # ---------------------------------------------------------------------------

@@ -416,7 +416,7 @@ def trained_from_tensors(models: str, branching_factor: int, key_type: KeyType,
     errs = leaf_errors.long()
     if metrics is None:
         t = two_layer.top_assignment(mtop, top_w, keys_img, norm_offset,
-                                     norm_scale, B - 1, key_type).to(torch.int32)
+                                     norm_scale, B - 1, key_type)
         spans = seg.make_spans(t, B)
         metrics = two_layer.metrics_dict(fetch_host(two_layer.error_metrics(
             errs, spans.ends - spans.starts, keys_img.shape[0])))

@@ -6,7 +6,9 @@ partition and fit, lower-bound correction, error sweep; two_layer.rs:
 device, in three stages whose per-key temporaries are freed before the
 next stage allocates:
 
-  A  FixDups (kernel K1) + top fit + leaf assignment;
+  A  FixDups (kernel K1) + top fit + leaf assignment (on the card the
+     normalized keys, the cubic top's L1 sums and the assignment are
+     kernels too, ops/top_kernel.py);
   B  per-leaf fits over overlap-augmented spans (kernel K2 for linear,
      loglinear and normal leaves, K6 for cubic ones) + lower-bound fills
      + empty-leaf patch;
@@ -45,7 +47,7 @@ from rmi_tpu_torch.models import clamp_int, get_model, predict_clamped, validate
 # models, where lookup's kernel wrapper (ops/eval_kernel.py) reaches them
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input,  # noqa: F401
                                        normalize, predict_top_assignment)
-from rmi_tpu_torch.ops import eval_kernel, sweep_kernel
+from rmi_tpu_torch.ops import eval_kernel, sweep_kernel, top_kernel
 from rmi_tpu_torch.utils import profiling
 from rmi_tpu_torch.utils import segments as seg
 
@@ -68,10 +70,12 @@ def norm_from_ends(ends: torch.Tensor, key_type: KeyType = KeyType.U64):
 
 def top_assignment(mtop, top_w, keys: torch.Tensor, kminf: float, s: float,
                    bound: int, key_type: KeyType = KeyType.U64) -> torch.Tensor:
-    """predict_top_assignment of images of ``key_type`` keys: the build's
-    leaf assignment and serving's top eval both come here."""
-    return predict_top_assignment(
-        mtop, top_w, model_float_input(mtop, keys, kminf, s, key_type), bound)
+    """The leaf of each of the images of ``key_type`` keys, int32:
+    top_kernel.top_assign (rmi_top_assign on the card) of their
+    model_float_input under bound + 1 leaves, as the build assigned them
+    (_assign_body)."""
+    return top_kernel.top_assign(mtop.name, top_w,
+                                 model_float_input(mtop, keys, kminf, s, key_type), bound + 1)
 
 
 def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
@@ -86,10 +90,11 @@ def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
 
 def _scale(v, sf: float):
     """map_scale! (models/mod.rs:238-250): targets scaled by B/n and
-    truncated; identity when sf == 1."""
-    if abs(sf - 1.0) > _F64_EPS:
-        return torch.trunc(v * sf) if torch.is_tensor(v) else float(math.trunc(v * sf))
-    return v
+    truncated; identity when sf == 1 (top_kernel.scales).  A tensor's as
+    f64 (top_kernel.scaled_targets)."""
+    if torch.is_tensor(v):
+        return top_kernel.scaled_targets(v, sf)
+    return float(math.trunc(v * sf)) if top_kernel.scales(sf) else v
 
 
 def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
@@ -98,24 +103,25 @@ def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
     ``top_in`` the top's model_float_input (an integer-output top's: the
     integer-key images).  Returns (top_w, t, top_aux), top_aux the fit's
     generator statistics (fit_aux; xmin and xmax from ``keys``, images of
-    ``key_type`` keys), or None for a model without them."""
+    ``key_type`` keys), or None for a model without them.  The cubic top
+    scales its targets where it reads them (fit_cubic_aux; on the card its
+    L1 sums in rmi_top_l1_cubic), the others fit on the scaled targets
+    made whole; the ids are top_kernel.top_assign's (rmi_top_assign on the
+    card)."""
     n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
-    ys_scaled = _scale(yfix.double(), sf)
+    ep_y = (_scale(0.0, sf), _scale(float(n - 1), sf))
     top_aux = None
-    if mtop.output_int:
-        top_w = mtop.fit_top(top_in, ys_scaled, B, sf)
-    elif mtop.fit_aux is not None:
-        top_w, top_aux = mtop.fit_aux(
-            top_in, ys_scaled, seg.whole_array_spans(n, top_in.device),
-            (_scale(0.0, sf), _scale(float(n - 1), sf)), keys, key_type)
+    if mtop.fit_aux is not None:
+        top_w, top_aux = mtop.fit_aux(top_in, yfix, seg.whole_array_spans(n, top_in.device),
+                                      ep_y, keys, key_type, sf=sf)
     else:
-        top_w = mtop.fit_top(top_in, ys_scaled, _scale(0.0, sf),
-                             _scale(float(n - 1), sf))
-    del ys_scaled
-    t = predict_top_assignment(mtop, top_w, top_in, B - 1).to(torch.int32)
-    return top_w, t, top_aux
+        ys_scaled = _scale(yfix, sf)
+        top_w = (mtop.fit_top(top_in, ys_scaled, B, sf) if mtop.output_int
+                 else mtop.fit_top(top_in, ys_scaled, *ep_y))
+        del ys_scaled
+    return top_w, top_kernel.top_assign(top_type, top_w, top_in, B), top_aux
 
 
 def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,

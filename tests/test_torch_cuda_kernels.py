@@ -52,20 +52,21 @@ from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import cubic, get_model
-from rmi_tpu_torch.models.base import (kernel_input, model_float_input, params_equal,
-                                       params_to, predict_top_assignment)
+from rmi_tpu_torch.models.base import (REGISTRY, kernel_input, model_float_input,
+                                       params_equal, params_to, predict_top_assignment)
 from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.lookup import bounded_search
 from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
                                hier_kernel, packed_kernel, probe_kernels, scan_kernel,
-                               select_kernel, sorted_serve_kernel as ssk, sweep_kernel)
+                               select_kernel, sorted_serve_kernel as ssk, sweep_kernel,
+                               top_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
                                       WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
                                       int_keys, int_queries, int_top_case, leaf_table,
-                                      lookup_case, packed_edge_case, resolve_case,
+                                      lookup_case, model_inputs, packed_edge_case, resolve_case,
                                       resolve_edge_case, top_rows, wide_window_case)
 
 pytestmark = pytest.mark.cuda
@@ -1000,6 +1001,11 @@ def _entry_calls(dev):
             keys, keys * 3, q, q // 2, torch.full_like(q, 40), 8, 3 * n),
         "rmi_packed_search": lambda: packed_kernel.packed_search(rmi, plan, q),
         "rmi_sorted_bounds": lambda: packed_kernel.sorted_bounds(rmi, plan, q),
+        "rmi_key_normalize": lambda: top_kernel.key_normalize(keys, 0.0, 1.0),
+        "rmi_top_l1_cubic": lambda: top_kernel.top_l1_cubic(
+            x, y, 0.5, zeros[:1], zeros[:1, :2].contiguous()),
+        "rmi_top_assign": lambda: top_kernel.top_assign(
+            "linear", zeros[:1, :2].contiguous(), x, B),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -2109,3 +2115,195 @@ def test_packed_kernels_refuse_bad_inputs(dev):
     with pytest.raises(RuntimeError):
         _build.launch("rmi_sorted_bounds", *args, nb, nb, q.shape[0], 0,
                       *packed_kernel._norm(rmi, plan))
+
+
+# stage A of the build (csrc/top.cu, ops/top_kernel.py) -----------------------
+
+STAGE_A_NS = (1, 2, 31, 32, 33, 1025, 2049, 1_000_003)     # 1025, 2049: ragged rounds
+STAGE_A_TOPS = sorted(name for name, m in REGISTRY.items() if not m.output_int)
+
+
+def _stage_a_keys(kind, n, seed=0):
+    """Sorted images of n keys of ``kind`` with runs of equal keys (f64:
+    across 0, with -0.0), and their key type."""
+    rng = np.random.default_rng(seed)
+    if kind == "f64":
+        keys = np.sort(np.repeat(rng.normal(0.0, 1e6, n), rng.integers(1, 4, n))[:n])
+        keys[: min(n, 3)] = -0.0
+        return tkeys.to_image(np.sort(keys)), KeyType.F64
+    if kind == "u32":
+        keys = np.repeat(rng.integers(0, 2 ** 32, n, dtype=np.uint64), rng.integers(1, 4, n))[:n]
+        return tkeys.to_image(np.sort(keys).astype(np.uint32)), KeyType.U32
+    keys = np.repeat(rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64, endpoint=True),
+                     rng.integers(1, 4, n))[:n]
+    return tkeys.to_image(np.sort(keys)), KeyType.U64
+
+
+def _bits_equal(a, b):
+    """f64 tensors equal bit for bit, every NaN as a NaN."""
+    a, b = a.cpu(), b.cpu()
+    nan = b.isnan()
+    return torch.equal(a.isnan(), nan) and torch.equal(a[~nan].view(torch.int64),
+                                                       b[~nan].view(torch.int64))
+
+
+@pytest.mark.parametrize("n", STAGE_A_NS)
+@pytest.mark.parametrize("kind", ["u64", "u32", "f64"])
+def test_key_normalize(dev, kind, n):
+    """rmi_key_normalize bit-equal to normalize on the card and on the CPU,
+    one launch, also on keys one element off a 16-byte boundary and on
+    f64 keys with -0.0, +-inf and NaN."""
+    img, key_type = _stage_a_keys(kind, n)
+    kminf, s = two_layer.norm_constants(img, key_type)
+    cases = [img]
+    if kind == "f64":
+        cases.append(torch.cat([img, tkeys.to_image(np.array(
+            [-0.0, np.inf, -np.inf, np.nan, 5e-324, 1e300]))]))
+    for keys in cases:
+        d = keys.to(dev)
+        for view in (d, torch.cat([d[:1], d])[1:]):     # the second off a 16-byte boundary
+            before = _build.launches["rmi_key_normalize"]
+            got = top_kernel.key_normalize(view, kminf, s, key_type)
+            torch.cuda.synchronize()
+            assert _build.launches["rmi_key_normalize"] == before + 1
+            assert _bits_equal(got, two_layer.normalize(view, kminf, s, key_type))
+            assert _bits_equal(got, two_layer.normalize(keys, kminf, s, key_type))
+
+
+def _top_l1_inputs(n, B, seed):
+    """Normalized books-like keys, FixDups with runs, sf and the cubic
+    top's own candidates over them."""
+    img, _ = _stage_a_keys("u64", n, seed)
+    kminf, s = two_layer.norm_constants(img)
+    x = two_layer.normalize(img, kminf, s)
+    yfix = two_layer.fixdups_i32(img)
+    sf = B / n
+    ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
+    cw, lw, _ = cubic._candidates(x, yfix, seg.whole_array_spans(n, "cpu"), ep, sf)
+    return x, yfix, sf, cw, lw
+
+
+@pytest.mark.parametrize("n", STAGE_A_NS)
+@pytest.mark.parametrize("B", [1, 262144, None])     # None: B = n, no scaling
+def test_top_l1_cubic(dev, n, B):
+    """rmi_top_l1_cubic within cubic_l1_kernel.sum_tolerance of its plain
+    version, the choice l < c the same unless the sums are closer than
+    their tolerances, the same bits when run again, one launch; on views
+    one element off a 16-byte boundary too."""
+    x, yfix, sf, cw, lw = _top_l1_inputs(n, B or n, n)
+    want = top_kernel.top_l1_cubic_plain(x, yfix, sf, cw, lw)
+    tol = [cubic_l1_kernel.sum_tolerance(w) for w in want]
+    dx, dy = x.to(dev), yfix.to(dev)
+    for vx, vy in ((dx, dy), (torch.cat([dx[:1], dx])[1:], torch.cat([dy[:1], dy])[1:])):
+        before = _build.launches["rmi_top_l1_cubic"]
+        got = top_kernel.top_l1_cubic(vx, vy, sf, cw.to(dev), lw.to(dev))
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_top_l1_cubic"] == before + 1
+        for g, w, t in zip(got, want, tol):
+            assert ((g.cpu() - w).abs() <= t).all()
+        near_tie = bool(((want[1] - want[0]).abs() <= tol[0] + tol[1]).all())
+        assert near_tie or bool((got[1] < got[0]).cpu() == (want[1] < want[0]))
+        again = top_kernel.top_l1_cubic(vx, vy, sf, cw.to(dev), lw.to(dev))
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("B", [1, 16, 4096])
+@pytest.mark.parametrize("top", STAGE_A_TOPS)
+def test_top_assign_affine(dev, top, B):
+    """rmi_top_assign under every affine top (lognormal: its plain version
+    on the card, no launch) bit-equal to its plain version on the card and
+    on the CPU, over top rows fitted, random and degenerate, and inputs
+    with signed zeros, subnormals, infinities and NaN, predictions below
+    0, past B and NaN; on inputs off a 16-byte boundary too."""
+    x = model_inputs(4099, 3)
+    launches = 0 if get_model(top).input_domain == "raw" else 1
+    for w in top_rows(top, 5):
+        want = top_kernel.top_assign_plain(top, w, x, B)
+        d = x.to(dev)
+        for view in (d, torch.cat([d[:1], d])[1:]):
+            before = _build.launches["rmi_top_assign"]
+            got = top_kernel.top_assign(top, w.to(dev), view, B)
+            torch.cuda.synchronize()
+            assert _build.launches["rmi_top_assign"] == before + launches
+            assert got.dtype == torch.int32
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(got, top_kernel.top_assign_plain(top, w.to(dev), view, B))
+
+
+@pytest.mark.parametrize("B", [16, 1024])
+@pytest.mark.parametrize("kind", KEY_SETS)
+@pytest.mark.parametrize("top", INT_TOPS)
+def test_top_assign_int(dev, top, kind, B):
+    """rmi_top_assign under every integer top, fitted as stage A fits it
+    on each key set, bit-equal to its plain version on the CPU, over the
+    keys and over queries past every edge; a hint table read as its
+    fitted int32 entries whatever B."""
+    keys, key_type = int_keys(kind, 11)
+    img = tkeys.to_image(keys)
+    top_in = model_float_input(get_model(top), img, 0.0, 1.0, key_type)
+    top_p, _, _ = two_layer._assign_body(top_in, two_layer.fixdups_i32(img), top_type=top,
+                                         B=B)
+    q = model_float_input(get_model(top), int_queries(keys, key_type, 5000, 12), 0.0, 1.0,
+                          key_type)
+    for x in (top_in, q):
+        want = top_kernel.top_assign_plain(top, top_p, x, B)
+        before = _build.launches["rmi_top_assign"]
+        got = top_kernel.top_assign(top, params_to(top_p, dev), x.to(dev), B)
+        torch.cuda.synchronize()
+        assert _build.launches["rmi_top_assign"] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_stage_a_entries_refuse_bad_inputs(dev):
+    """An unknown key kind, an unknown top kind, a top without its
+    operands, B below 1 or past 2^31, a scratch too small for the sums:
+    each refused, nothing counted."""
+    img = torch.arange(64, dtype=torch.int64, device=dev)
+    x = torch.linspace(0, 1, 64, dtype=torch.float64, device=dev)
+    y = torch.arange(64, dtype=torch.int32, device=dev)
+    w2 = torch.zeros(1, 2, dtype=torch.float64, device=dev)
+    w4 = torch.zeros(1, 4, dtype=torch.float64, device=dev)
+    f64, i64, i32 = [torch.empty(0, dtype=t, device=dev)
+                     for t in (torch.float64, torch.int64, torch.int32)]
+    bad = [("rmi_key_normalize", (img, 2, 64, 64, 0.0, 1.0)),
+           ("rmi_top_assign", (x, i64, w2, 9, i64, i32, i64, 0, 64, 64, 16)),
+           ("rmi_top_assign", (x, i64, f64, 0, i64, i32, i64, 0, 64, 64, 16)),
+           ("rmi_top_assign", (f64, img, f64, 6, i64, i32, i64, 0, 64, 64, 16)),
+           ("rmi_top_assign", (x, i64, w2, 0, i64, i32, i64, 0, 64, 64, 0)),
+           ("rmi_top_assign", (x, i64, w2, 0, i64, i32, i64, 0, 64, 64, 1 << 32)),
+           ("rmi_top_l1_cubic", (x, y, 64, 1.0, 0, w4, w2, 2, 0, 2))]
+    for entry, args in bad:
+        before = dict(_build.launches)
+        with pytest.raises(RuntimeError):
+            _build.launch(entry, *args)
+        assert _build.launches == before, entry
+    with pytest.raises(ValueError):
+        top_kernel.top_l1_cubic(x, y.long(), 1.0, w4, w2)
+
+
+@pytest.mark.parametrize("top", ["cubic", "linear", "normal", "radix18", "lognormal"])
+def test_stage_a_on_card(dev, top):
+    """_assign_body on the card: a cubic top launches each stage A entry
+    once, the other affine tops normalize and assign, radix18 assigns, the
+    lognormal top none of them; the ids are the plain assignment's under
+    the card's own top row, and for the cubic and radix18 tops, whose
+    fits are [1]-sized arithmetic or integers but for the cubic's two
+    sums, the top and the ids are the CPU build's."""
+    keys = rdata.books_like_on_device(1 << 20, 9, dev)
+    B, mtop = 4096, get_model(top)
+    stage = {"rmi_key_normalize", "rmi_top_l1_cubic", "rmi_top_assign"}
+    want = ({"cubic": stage, "radix18": {"rmi_top_assign"}, "lognormal": set()}
+            .get(top, {"rmi_key_normalize", "rmi_top_assign"}))
+    kminf, s = two_layer.norm_constants(keys)
+    before = dict(_build.launches)
+    top_in = model_float_input(mtop, keys, kminf, s)
+    top_w, t, _ = two_layer._assign_body(top_in, two_layer.fixdups_i32(keys), top_type=top,
+                                         B=B, keys=keys)
+    assert set(_moved(before)) & stage == want
+    top_w = params_to(top_w, "cpu")
+    assert torch.equal(t.cpu(), top_kernel.top_assign_plain(top, top_w, top_in.cpu(), B))
+    if top in ("cubic", "radix18"):
+        k = keys.cpu()
+        hw, ht, _ = two_layer._assign_body(model_float_input(mtop, k, kminf, s),
+                                           two_layer.fixdups_i32(k), top_type=top, B=B, keys=k)
+        assert params_equal(top_w, hw) and torch.equal(t.cpu(), ht)

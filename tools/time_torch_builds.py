@@ -6,8 +6,10 @@ one checkout of rmi_tpu_torch on one CUDA card.
 Makes books-like keys on the card (as chip_smoke.py does), then for each
 path builds once to warm up and REPS times more, each build timed by the
 host clock around ``train`` and a synchronize.  Prints per path the
-median, quartiles, least and most seconds, and the kernel calls a build
-makes through the binding (``_build.launches``).  chip_smoke times one
+median, quartiles, least and most seconds, the kernel calls a build
+makes through the binding (``_build.launches``) and the peak device
+memory of its builds (``torch.cuda.max_memory_allocated``, the keys
+included).  chip_smoke times one
 warm build a path; this gives the spread that one build hides.
 
 --root DIR imports rmi_tpu_torch from DIR, a checkout of another commit:
@@ -55,6 +57,7 @@ def main():
         rmi_tpu_torch.train(data, spec, B)          # warm-up, kernels built
         torch.cuda.synchronize()
         before = sum(_build.launches.values())
+        torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(args.reps):
             t0 = time.perf_counter()
@@ -62,13 +65,14 @@ def main():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         calls = (sum(_build.launches.values()) - before) / args.reps
+        peak = torch.cuda.max_memory_allocated() / 2**30
         times.sort()
         q = [times[int(f * (len(times) - 1))] for f in (0.25, 0.5, 0.75)]
         out[spec] = {"median_s": q[1], "quartiles_s": [q[0], q[2]], "least_s": times[0],
-                     "most_s": times[-1], "binding_calls": calls}
+                     "most_s": times[-1], "binding_calls": calls, "peak_gib": peak}
         print(f"{spec} {B}: warm build median {q[1]:.4f} s (quartiles {q[0]:.4f}-{q[2]:.4f}, "
               f"{times[0]:.4f}-{times[-1]:.4f}, {args.reps} builds), {calls:g} kernel calls "
-              f"through the binding a build", flush=True)
+              f"through the binding a build, peak device memory {peak:.2f} GiB", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root), "reps": args.reps, "paths": out}),
           flush=True)
 

@@ -1,0 +1,97 @@
+"""Stage A's three kernels (csrc/top.cu) on one CUDA card, on path 1's
+inputs at 200M keys, beside their bounds and their plain versions.
+
+    python3 tools/time_torch_stage_a.py [--n 200000000] [--reps 5]
+
+Makes books-like keys on the card (as chip_smoke.py does), stage A's
+inputs as the build makes them (the normalized keys, FixDups, the cubic
+top's candidates of ``cubic,linear 262144`` and its fitted row), then
+times with CUDA events rmi_key_normalize, rmi_top_l1_cubic and
+rmi_top_assign (cubic top) and their plain versions (the eager torch
+they replaced): each the median of --reps runs of 10 calls, with the
+runs' spread.  The bound is the bytes a call must move at 3.35 TB/s
+(chip_smoke.py's HBM_BYTES_PER_S): 16, 12 and 12 bytes a key.  Prints
+the card's name and power limit first and one JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from rmi_tpu_torch import config, data as rdata  # noqa: E402
+from rmi_tpu_torch.models import cubic, get_model  # noqa: E402
+from rmi_tpu_torch.models.base import model_float_input  # noqa: E402
+from rmi_tpu_torch.ops import top_kernel  # noqa: E402
+from rmi_tpu_torch.train import two_layer  # noqa: E402
+from rmi_tpu_torch.utils import segments as seg  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12
+B = 262144
+CALLS = 10
+
+
+def _ms(fn, reps):
+    """(median, least, most) ms a call over reps runs of CALLS calls."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(CALLS):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / CALLS)
+    runs.sort()
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=200_000_000)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    dev = config.require_cuda()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
+          flush=True)
+    keys = rdata.books_like_on_device(args.n, args.seed, dev)
+    n = keys.shape[0]
+    kminf, s = two_layer.norm_constants(keys)
+    x = model_float_input(get_model("cubic"), keys, kminf, s)
+    yfix = two_layer.fixdups_i32(keys)
+    sf = B / n
+    ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
+    cw, lw, _ = cubic._candidates(x, yfix, seg.whole_array_spans(n, dev), ep, sf)
+    top_w, _, _ = two_layer._assign_body(x, yfix, top_type="cubic", B=B, keys=keys)
+    calls = {
+        "rmi_key_normalize": (16, lambda: top_kernel.key_normalize(keys, kminf, s),
+                              lambda: top_kernel.key_normalize_plain(keys, kminf, s)),
+        "rmi_top_l1_cubic": (12, lambda: top_kernel.top_l1_cubic(x, yfix, sf, cw, lw),
+                             lambda: top_kernel.top_l1_cubic_plain(x, yfix, sf, cw, lw)),
+        "rmi_top_assign": (12, lambda: top_kernel.top_assign("cubic", top_w, x, B),
+                           lambda: top_kernel.top_assign_plain("cubic", top_w, x, B)),
+    }
+    out = {}
+    for entry, (per_key, kernel, plain) in calls.items():
+        bound = per_key * n / HBM_BYTES_PER_S * 1e3
+        k, p = _ms(kernel, args.reps), _ms(plain, max(1, args.reps // 2))
+        out[entry] = {"ms": k[0], "spread": [k[1], k[2]], "plain_ms": p[0], "bound_ms": bound,
+                      "share": bound / k[0]}
+        print(f"{entry} at {n} keys: {k[0]:.4f} ms ({k[1]:.4f}-{k[2]:.4f}), bound {bound:.4f} "
+              f"ms, share {bound / k[0]:.3f}; plain {p[0]:.4f} ms", flush=True)
+    print(json.dumps({"n": n, "kernels": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

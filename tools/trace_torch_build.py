@@ -2,6 +2,7 @@
 
     python3 tools/trace_torch_build.py [--n 200000000] [--spec cubic,linear]
                                        [--B 262144] [--trace build_trace.json]
+    python3 tools/trace_torch_build.py --paths [--root DIR]
 
 Makes books-like keys on the card (as chip_smoke.py does), runs one
 untraced build and search to warm up, then traces with torch.profiler a
@@ -13,9 +14,15 @@ apart from it SEARCH_BATCHES search batches of 2^22 random queries
 (sort -> K5 -> unsort).  For each
 trace it prints the device time of the rmi.* ranges (the build stages of
 train/two_layer.py), the kernels by device time, the device's busy
-share of the traced wall time, and any scatter operation it saw (the
-build takes its per-leaf maxima inside kernels and should show none,
-but for hint-table leaves, which are swept in torch).
+share of the traced wall time, the warm build's peak device memory, and
+any scatter operation it saw (the build takes its per-leaf maxima inside
+kernels and should show none, but for hint-table leaves, which are swept
+in torch).
+
+--paths traces the warm builds of chip_smoke.py's paths 1-5 (PATHS) in
+turn on the same keys, in one process, and no search; --root DIR imports
+rmi_tpu_torch from DIR, a checkout of another commit, so that two
+commits' stage splits are taken with one tool on one card.
 """
 
 from __future__ import annotations
@@ -29,14 +36,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import rmi_tpu_torch  # noqa: E402
-from rmi_tpu_torch import config, data as rdata  # noqa: E402
-from rmi_tpu_torch.keys import KeyType  # noqa: E402
-
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = 1 << 22
 SEARCH_BATCHES = 5
+# chip_smoke.py's build paths 1-5
+PATHS = (("cubic,linear", 262144), ("robust_linear,cubic", 65536),
+         ("cubic,loglinear", 65536), ("cubic,normal", 65536), ("radix18,linear", 65536))
 
 
 def _dev_us(evt, self_only=False):
@@ -57,7 +62,13 @@ def main():
     ap.add_argument("--spec", default="cubic,linear")
     ap.add_argument("--B", type=int, default=262144)
     ap.add_argument("--trace", default=None, help="chrome trace output path")
+    ap.add_argument("--paths", action="store_true", help="trace paths 1-5 (PATHS)")
+    ap.add_argument("--root", default=REPO, help="checkout to import rmi_tpu_torch from")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import rmi_tpu_torch
+    from rmi_tpu_torch import config, data as rdata
+    from rmi_tpu_torch.keys import KeyType
 
     dev = config.require_cuda()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -68,21 +79,28 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     q = torch.randint(int(keys[0]), int(keys[-1]), (QUERIES,),
                       generator=gen, device=dev)
-    rmi = rmi_tpu_torch.train(data, args.spec, args.B)   # warm-up
-    rmi_tpu_torch.search(rmi, q)
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        rmi = rmi_tpu_torch.train(data, args.spec, args.B)
+    print(f"rmi_tpu_torch from {os.path.abspath(args.root)}")
+    for spec, B in PATHS if args.paths else ((args.spec, args.B),):
+        rmi = rmi_tpu_torch.train(data, spec, B)   # warm-up
+        del rmi
         torch.cuda.synchronize()
-        build_wall = time.perf_counter() - t0
-    _report(prof, build_wall, f"n={args.n} {args.spec} B={args.B}: build", 25)
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            rmi = rmi_tpu_torch.train(data, spec, B)
+            torch.cuda.synchronize()
+            build_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        _report(prof, build_wall, f"n={args.n} {spec} B={B}: build", 25)
+        print(f"  peak device memory {peak / 2**30:.2f} GiB")
+        if args.trace:
+            os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+            prof.export_chrome_trace(args.trace)
+        if args.paths:
+            del rmi
+    if args.paths:
+        return
     rmi_tpu_torch.search(rmi, q)          # the plan is made on first use
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
