@@ -35,15 +35,20 @@ Phases (any failure raises and exits non-zero):
      unsort without the density gate, and search_sorted on sorted
      batches, and the packed plan's plain route (the eager torch the
      kernel replaced) beside them, uncounted;
-  6b. stage A (stage_a_trace): a warm build traced, the device ms of its
-     rmi.build.* ranges, rmi.build.assign among them, then stage A alone
-     traced, each device kernel with its calls and device ms (FixDups
-     with K1, rmi_key_normalize, rmi_top_l1_cubic, rmi_top_assign and the
-     top fit's [1]-sized torch);
+  6b. stages A and B (stage_a_trace): a warm build traced, the device ms
+     of its rmi.build.* ranges, then stage A alone and stage B's leaf fit
+     alone traced, each device kernel with its calls and device ms
+     (FixDups one rmi_fixdups launch and no K1, rmi_key_normalize,
+     rmi_top_l1_cubic, rmi_top_assign and the top fit's [1]-sized torch;
+     the fit one rmi_aug_fit_moments launch and no K2, asserted);
   7. each kernel of the path replayed on the inputs the path gave it,
      against its plain PyTorch version: stage A's normalization (bit-
      equal), the cubic top's L1 sums (as K6's) and the assignment
-     (bit-equal), all on the card, K1, K2, the run-length pass, K5,
+     (bit-equal), all on the card, rmi_fixdups (bit-equal) and
+     rmi_aug_fit_moments (within select_kernel.fit_tolerance), each also
+     the same bits when run again, K1 and K2 on the calls the build made
+     before those two (legacy_calls: FixDups' running max, the fit's
+     moments about its means), the run-length pass, K5,
      K5's scatter entry and K4's fused lookup entry on the card (guess and
      err bit-equal; lookup also timed against the two-step route it
      replaced), K3 (the per-leaf maxima, which must be equal) and K4's
@@ -60,7 +65,9 @@ Phases (any failure raises and exits non-zero):
      replaying K2's weighted variant on the card and K3 and K4 for
      loglinear leaves on CPU copies;
  11. path 4, ``train(data, "cubic,normal", 65536)``, the same way,
-     replaying K2's variance-only variant and K3 and K4 for normal leaves;
+     replaying rmi_aug_fit_moments' xx form (timed and logged), K2's
+     variance-only variant on its leaves (legacy_calls; its row) and K3
+     and K4 for normal leaves;
  11b. path 5, ``train(data, "radix18,linear", 65536)``, a 2^18-entry
      hint-table top over linear leaves, phases 3-6 and 8 for it, its
      lookup one launch of rmi_lookup_linear with the top evaluated in the
@@ -69,8 +76,9 @@ Phases (any failure raises and exits non-zero):
      route (the top in torch, then rmi_leaf_eval_linear), its plain
      version and path 1's fused entry, its packed search and K5's window
      bounds (the hint table read in place) timed beside path 1's,
-     its kernels (K1, K2, K3 and K4 linear, the run-length pass, the fused
-     lookup, both K5 entries, the packed search and the bounds) replayed
+     its kernels (FixDups, the leaf fit, K3 and K4 linear, the run-length
+     pass, the fused lookup, both K5 entries, the packed search and the
+     bounds) replayed
      against their plain versions; the kernels line keeps path 1's rows;
  11c. path 6, the compile path through the CLI (rmi_tpu_torch.cli.main,
      in a temporary directory deleted at the end), the launches counted
@@ -127,8 +135,9 @@ Phases (any failure raises and exits non-zero):
      ``*_f64`` SOSD file (RMI_SIZE 6291488, the card build's metrics,
      ``double`` keys in the header, load_artifact, the native server with
      key_is_float and the compiled C++ on 2^16 keys and 2^16 queries: 0
-     bound violations, exact search); its kernels (K1, K2, K3 and K4
-     linear, the run-length pass, rmi_lookup_linear, both K5 entries)
+     bound violations, exact search); its kernels (FixDups, the leaf fit,
+     K3 and K4 linear, the run-length pass, rmi_lookup_linear, both K5
+     entries)
      replayed; the card-vs-CPU cross-check at n = 2^20; then the zoo's
      f64 row, ``radix18,linear 65536`` on the same keys (an integer top
      on f64 keys: the hier plan), as a zoo row (11d), its lookup the fused
@@ -168,7 +177,7 @@ Phases (any failure raises and exits non-zero):
      equal to the front's; 9d ``robust_linear,cubic 134217728``, the disk
      profile's largest point: its build time and peak device memory, then
      built again (bit-equal) with the bound on 2^22 sampled keys, where
-     its max error lies, its kernels (K1, K6, K3 and K4 cubic, the
+     its max error lies, its kernels (FixDups, K6, K3 and K4 cubic, the
      run-length pass, rmi_lookup_cubic) replayed against their plain
      versions, and its card-vs-CPU cross-check at n = 2^20 with as many
      leaves a key (replays and cross-checks uncounted); then 9c, the
@@ -194,8 +203,10 @@ Phases (any failure raises and exits non-zero):
      replicated (``replicate_rmi``) and 2^22 queries served by
      ``shard_queries`` (2^20 a rank, below search's density gate at 200M
      keys: the packed plan) and
-     ``unshard``, 0 mismatches, timed; rank 0's K1, K2, K3 and K4
-     calls replayed against their plain versions (uncounted); each rank's
+     ``unshard``, 0 mismatches, timed; one dp build of ``cubic,normal
+     65536`` a rank (PATH10_XX: K2 xx's one caller); rank 0's K1, K2 (and
+     K2 xx), K3 and K4 calls replayed against their plain versions
+     (uncounted); each rank's
      peak device memory and launches; 10b the same build by one NCCL rank,
      held to path 1 the same way; 10c ``robust_linear,cubic 4096`` at 2^20
      keys by four gloo ranks on the card against four on the CPU (K3
@@ -332,6 +343,9 @@ INF_IMAGE = 0x7FF0000000000000  # the image of f64 +inf: its bits
 PATH_KERNELS = [
     ("rmi_scan_i32", scan_kernel, "scan_i32", "scan_i32_plain", None,
      "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
+    # FixDups whole: K1's scan with the arange, compare and select before it
+    ("rmi_fixdups", scan_kernel, "fixdups", "fixdups_plain", None,
+     "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
     ("rmi_aug_moments", select_kernel, "aug_centered_moments",
      "aug_centered_moments_plain", None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
@@ -340,6 +354,10 @@ PATH_KERNELS = [
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
     ("rmi_aug_moments_xx", select_kernel, "aug_centered_xx", "aug_centered_xx_plain",
      None,
+     "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
+    # the linear and normal leaf fits whole: K2's step with the range sums
+    # and means before it
+    ("rmi_aug_fit_moments", select_kernel, "aug_fit_moments", "aug_fit_moments_plain", None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
     ("rmi_sweep_max_linear", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
      "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
@@ -417,28 +435,35 @@ KERNELS = PATH_KERNELS + PROBE_KERNELS
 K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
 PACKED = ("rmi_packed_search", "rmi_sorted_bounds")
 RUN_MAX = "rmi_span_run_max"
-# stage A after FixDups: every path's build normalizes its keys and
-# assigns them to leaves in a kernel; a cubic top's L1 sums are a kernel too
+# stage A: every path's build takes FixDups in one kernel, normalizes its
+# keys and assigns them to leaves in a kernel; a cubic top's L1 sums are a
+# kernel too.  Linear and normal leaves fit in one kernel (stage B).
+FIT = ("rmi_fixdups", "rmi_aug_fit_moments")
+# K1 and K2, which the build's FixDups and leaf fits launched before
+# rmi_fixdups and rmi_aug_fit_moments, and the data-parallel build (path
+# 10) still launches: timed on path 1's and path 4's inputs (legacy_calls)
+LEGACY = ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx")
 NORM_ASSIGN = ("rmi_key_normalize", "rmi_top_assign")
 STAGE_A = ("rmi_key_normalize", "rmi_top_l1_cubic", "rmi_top_assign")
 # K4: the build's epsilon probes launch the per-element entry, lookup the fused one
 PATH1 = ("cubic,linear", 262144,
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A),
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A))
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A,
+          "rmi_scan_i32", "rmi_aug_moments"))
 PATH2 = ("robust_linear,cubic", 65536,
-         ("rmi_scan_i32", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
+         ("rmi_fixdups", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
           "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
           "rmi_cubic_l1"))
 PATH3 = ("cubic,loglinear", 65536,
-         ("rmi_scan_i32", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED, *STAGE_A),
          ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
-         ("rmi_scan_i32", "rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_normal", RUN_MAX,
           "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED, *STAGE_A),
          ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
           "rmi_lookup_normal"))
@@ -447,25 +472,25 @@ PATH4 = ("cubic,normal", 65536,
 # build normalizes the keys for the leaves and assigns them under the
 # hint table
 PATH5 = ("radix18,linear", 65536,
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN),
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN))
 # path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
 # cubic,linear_f64_262144 row); the fused lookup decodes f64 images
 PATH7 = ("cubic,linear", 262144,
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A),
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A))
 # path 8: the reference's books-u32 CI config (FAMILIES_200M.json's
 # linear,linear_u32_100 row), whose ~2M-key leaves no packed plan covers:
 # the hierarchical plan, which never reaches K5: one fused lookup and one
 # rmi_hier_resolve a batch
 PATH8 = ("linear,linear", 100,
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN),
-         ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN))
 HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
 # the route of each integer top's lookup in paths 5 and 7 and the zoo
@@ -492,7 +517,7 @@ ZOO = [("radix,linear", 1024, ("rmi_lookup_linear", *PACKED)),
 ZOO_F64 = ("radix18,linear", 65536, ("rmi_lookup_linear", "rmi_hier_resolve"))
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (),
-             ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
+             ("rmi_aug_fit_moments", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
 CURVE = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22]   # serving curve batch sizes
 SEARCH_TRACED = 5         # search batches the K5 phase traces
 
@@ -632,6 +657,17 @@ def compare(name, got, want, args, kw):
         err = max(float((m2 - wm2).abs().max()), float((c - wc).abs().max()))
         ok = bool(((m2 - wm2).abs() <= tol_m2).all() and ((c - wc).abs() <= tol_c).all())
         return err, ok
+    if name == "aug_fit_moments":
+        # fit_tolerance: the plain sums are prefix-sum differences, each within
+        # 2^11 L u P of the exact sum (at 200M keys P is ~1e8 for x and ~2e16
+        # for the targets, ulp 4), the kernel's within cnt u of the leaf's (its
+        # sum of y exact); the means over cnt, the centered sums by cnt dm^2
+        # about the two means and each side's summation (cnt u)
+        x, y, lo, hi = args
+        tol = select_kernel.fit_tolerance(x, y, lo, hi, want)
+        diffs = [(g - w).abs() for g, w in zip(got, want)]
+        return (max(float(d.max()) if d.numel() else 0.0 for d in diffs),
+                all(bool((d <= t).all()) for d, t in zip(diffs, tol)))
     if name == "aug_centered_xx":
         m2, wm2 = got.cpu(), want.cpu()
         return (float((m2 - wm2).abs().max()),
@@ -769,9 +805,24 @@ def same_as_steps(entry, fused, steps):
         raise RuntimeError(f"{entry}: the fused lookup disagrees with its two steps")
 
 
+# wrappers whose kernels are also run twice in a replay, the same bits
+# each time (their sums' order fixed, no float atomics)
+RERUN = ("fixdups", "aug_fit_moments")
+
+
+def same_bits(a, b):
+    """Two outputs (a tensor or a tuple of them) equal bit for bit."""
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch.equal(x.view(torch.int64) if x.is_floating_point() else x,
+                           y.view(torch.int64) if y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
 def replay(entry, name, wrapper, plain, where, args, kw):
     """A wrapper call against its plain version; its max abs error."""
     got = wrapper(*args, **kw)
+    if name in RERUN and not same_bits(got, wrapper(*args, **kw)):
+        raise RuntimeError(f"{entry}: two runs gave different bits")
     pa, pk = plain_args(name, args, kw, where)
     want = plain(*pa, **pk)
     err, ok = compare(name, got, want, args, kw)
@@ -826,6 +877,16 @@ def work(name, args, kw, out):
     if name == "scan_i32":
         n = args[0].shape[0]
         return _nbytes(args[0], *outs), n, INT_OPS_PER_S
+    if name == "fixdups":            # a key read, an index written; a compare and a max a key
+        return _nbytes(args[0], *outs), 2 * args[0].shape[0], INT_OPS_PER_S
+    if name == "aug_fit_moments":
+        # x (and y) read once, the bounds and the outputs; per element of
+        # the augmented ranges the sums' adds, then the centered terms (xx:
+        # a subtraction, a product and an add; the linear form 4 more with
+        # y's conversion), at the f64 rate
+        x, y, lo, hi = args
+        per = 4 if y is None else 9
+        return _nbytes(x, y, lo, hi, *outs), int((hi - lo).sum()) * per, F64_OPS_PER_S
     if name in ("aug_centered_moments", "aug_centered_xx"):
         lo, hi = args[-2:]
         per = 3 if name == "aug_centered_xx" else 6
@@ -970,6 +1031,8 @@ def library_call(name, args, kw):
     if name == "scan_i32":
         return (lambda: torch.cummax(args[0], 0)) if kw["is_max"] else \
             (lambda: torch.cummin(args[0], 0))
+    if name == "fixdups":            # each key's first index: its lower bound among the keys
+        return lambda: torch.searchsorted(args[0], args[0], out_int32=True)
     if name == "serve_sorted":
         return lambda: torch.searchsorted(args[2], args[0])
     if name == "resolve":            # the same lower bounds, from the keys alone
@@ -1086,11 +1149,13 @@ def _device_us(evt):
 
 
 def stage_a_trace(data, spec, B):
-    """Path 1's stage A on the card: a warm build traced, each rmi.build.*
-    range's device ms (rmi.build.assign is stage A: FixDups, the model's
-    input, the top fit, the assignment), then stage A alone traced as
-    train_two_layer runs it, each device kernel with its calls and device
-    ms; returns the rmi.build.assign device ms."""
+    """Path 1's stages A and B on the card: a warm build traced, each
+    rmi.build.* range's device ms (rmi.build.assign is stage A: FixDups,
+    the model's input, the top fit, the assignment; rmi.build.fit stage
+    B), then stage A alone and stage B's leaf fit alone traced as
+    train_two_layer runs them, each device kernel with its calls and
+    device ms, and their launches: FixDups one rmi_fixdups, the fit one
+    rmi_aug_fit_moments, K1 and K2 none; returns the ranges' device ms."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     rmi_tpu_torch.train(data, spec, B)
     torch.cuda.synchronize()
@@ -1104,19 +1169,38 @@ def stage_a_trace(data, spec, B):
             ranges[e.key] = max(ranges.get(e.key, 0.0), us / 1e3)
     log(f"path 1 warm build traced, device ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(ranges.items())))
-    keys, key_type, top = data.keys, data.key_type, spec.split(",")[0]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    keys, key_type, (top, leaf) = data.keys, data.key_type, spec.split(",")
+
+    def stage(label, fn, want):
+        before = dict(_build.launches)
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        moved = {e: c - before[e] for e, c in _build.launches.items() if c != before[e]}
+        kernels = sorted(((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+                          if _device_us(e) > 0), reverse=True)
+        log(f"path 1 {label} alone, {len(kernels)} device kernels, "
+            f"{sum(k[0] for k in kernels):.4f} ms: " + "; ".join(
+                f"{ms:.4f} ms x{count} {name[:72]}" for ms, count, name in kernels))
+        log(f"path 1 {label} launches: {json.dumps(moved)}")
+        if any(moved.get(e, 0) != c for e, c in want.items()):
+            raise RuntimeError(f"path 1's {label} launched {moved}, not {want}")
+        return out
+
+    def stage_a():
         kminf, s = two_layer.norm_constants(keys, key_type)
         top_in = model_float_input(get_model(top), keys, kminf, s, key_type)
-        two_layer._assign_body(top_in, two_layer.fixdups_i32(keys), top_type=top, B=B,
-                               keys=keys, key_type=key_type)
-        torch.cuda.synchronize()
-    kernels = sorted(((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
-                      if _device_us(e) > 0), reverse=True)
-    log(f"path 1 stage A alone, {len(kernels)} device kernels, "
-        f"{sum(k[0] for k in kernels):.4f} ms: " + "; ".join(
-            f"{ms:.4f} ms x{count} {name[:72]}" for ms, count, name in kernels))
-    return ranges.get("rmi.build.assign")
+        yfix = two_layer.fixdups_i32(keys)
+        _, t, _ = two_layer._assign_body(top_in, yfix, top_type=top, B=B, keys=keys,
+                                         key_type=key_type)
+        return top_in, yfix, t
+    top_in, yfix, t = stage("stage A", stage_a, {"rmi_fixdups": 1, "rmi_scan_i32": 0})
+    spans = seg.make_spans(t, B)
+    next_idx = two_layer.lower_bound_fills(spans, keys, key_type)[0]
+    stage("stage B's leaf fit", lambda: two_layer._fit_body(
+        top_in, yfix, spans, next_idx, leaf_type=leaf, keys=keys, key_type=key_type),
+        {"rmi_aug_fit_moments": 1, "rmi_aug_moments": 0})
+    return ranges
 
 
 def k5_phase(rmi, keys, queries):
@@ -1583,10 +1667,10 @@ PATH6_SAMPLE = 1 << 16            # keys and queries each for the native and C++
 # every entry path 6 launches: the train (6a and 6b), lookup and search
 # on the loaded artifact (6a), lookup over the knots (6b); and the ones
 # replayed on 6a's serving calls and 6b's calls
-PATH6 = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+PATH6 = ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, "rmi_cachefix_interp",
          "rmi_bounded_lower_bound")
-PATH6B_LAUNCHES = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+PATH6B_LAUNCHES = ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
                    "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_cachefix_interp",
                    "rmi_bounded_lower_bound")
 
@@ -2110,8 +2194,10 @@ def path8_phase(u_keys, gen, nq, cross_n, seed, dev):
     del rmi
     with uncounted():
         rows = check_kernels(rec, counts, ("rmi_hier_resolve", "rmi_bounded_lower_bound"))
-        check_kernels(rec, counts, tuple(e for e in replayed if e != "rmi_hier_resolve"),
-                      timed=False)
+        log("path 8 rmi_aug_fit_moments, leaves of ~2M keys " + json.dumps(
+            check_kernels(rec, counts, ("rmi_aug_fit_moments",))["rmi_aug_fit_moments"]))
+        check_kernels(rec, counts, tuple(e for e in replayed if e not in (
+            "rmi_hier_resolve", "rmi_aug_fit_moments")), timed=False)
     del rec, data, queries
     torch.cuda.empty_cache()
     cross_check(spec, cross_n, max(64, (B * cross_n) // n), seed, dev,
@@ -2132,10 +2218,10 @@ PATH9C_BFS = [1 << 6, 1 << 10, 1 << 14]
 # 9d: the disk profile's most memory-hungry point
 PATH9D = ("robust_linear,cubic", 1 << 27)
 PATH9_CHUNK = 1 << 22         # keys a step of 9a's bound check over every key
-# what path 9 launches: its sweeps' builds (linear and cubic leaves; K1 in
-# each dataset's shared inputs) and 9a's bound check (the fused lookup of
+# what path 9 launches: its sweeps' builds (linear and cubic leaves;
+# FixDups in each dataset's shared inputs) and 9a's bound check (the fused lookup of
 # its chosen leaves); 9a's search logs the entries it launched
-PATH9 = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", "rmi_sweep_max_cubic",
+PATH9 = ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", "rmi_sweep_max_cubic",
          RUN_MAX, "rmi_leaf_eval_linear", "rmi_leaf_eval_cubic", "rmi_cubic_l1")
 
 
@@ -2144,7 +2230,7 @@ def leaf_path(leaf_type):
     optimizer's leaves) and its fused lookup launch: what path 9 replays
     from 9a's final build and from 9d's build, each with its lookups."""
     k = get_model(leaf_type).leaf_kernel
-    return ("rmi_scan_i32", "rmi_cubic_l1" if k == "cubic" else "rmi_aug_moments",
+    return ("rmi_fixdups", "rmi_cubic_l1" if k == "cubic" else "rmi_aug_fit_moments",
             f"rmi_sweep_max_{k}", RUN_MAX, f"rmi_leaf_eval_{k}", f"rmi_lookup_{k}")
 
 
@@ -2157,6 +2243,31 @@ def uncounted():
         yield
     finally:
         _build.launches.update(saved)
+
+
+def legacy_calls(rec, entries):
+    """Record, for each of ``entries`` (LEGACY), the K1 or K2 call that the
+    build made before rmi_fixdups and rmi_aug_fit_moments, from the path's
+    recorded calls of those two: the running max over where(changed, i, 0)
+    of its FixDups keys; K2 (K2 xx for the fit's xx form) over its spans,
+    with the means of its fit (uncounted).  The data-parallel build still
+    launches K1 and K2, so their rows are timed on the main path's inputs."""
+    with uncounted():
+        if "rmi_scan_i32" in entries:
+            for (keys,), _ in rec.calls["fixdups"]:
+                n = keys.shape[0]
+                changed = torch.ones(n, dtype=torch.bool, device=keys.device)
+                torch.ne(keys[1:], keys[:-1], out=changed[1:])
+                v = torch.where(changed, torch.arange(n, dtype=torch.int32,
+                                                      device=keys.device), 0)
+                rec.calls["scan_i32"].append(((v,), {"is_max": True, "fill": seg.INT32_MIN}))
+        for x, y, lo, hi in (args for args, _ in rec.calls["aug_fit_moments"]):
+            means = select_kernel.aug_fit_moments(x, y, lo, hi)
+            if y is None and "rmi_aug_moments_xx" in entries:
+                rec.calls["aug_centered_xx"].append(((x, means[0], lo, hi), {}))
+            elif y is not None and "rmi_aug_moments" in entries:
+                rec.calls["aug_centered_moments"].append(
+                    ((x, y.double(), means[0], means[1], lo, hi), {}))
 
 
 def max_leaf(rmi):
@@ -2519,15 +2630,18 @@ def optimizer_phase(data, gen, nq, cross_n, seed, dev, files):
 # on path 1's keys, by ranks that share card 0: 10a four gloo ranks, 10b one
 # NCCL rank (path 1's spec); 10c robust_linear,cubic on the card against the
 # CPU; 10d the per-device copies in this process
-# what 10a launches over its ranks: the dp build (K1, K2, K3, K4 per
+# what 10a launches over its ranks: the dp build (K1, K2, K2 xx, K3, K4 per
 # element) and the bound check (K4's fused lookup); each rank's 2^20 queries
 # fall below search's density gate at 200M keys (4 nq < 3 ceil(n / 64),
 # lookup_fast.sorts), so they take the packed plan, in torch; 10d serves
 # twice as many queries over two copies, 2^22 a copy, past the gate: K5's
 # scatter entry
 PATH10 = ("cubic,linear", 262144,
-          ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear",
+          ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_sweep_max_linear",
            "rmi_leaf_eval_linear", "rmi_lookup_linear"))
+# the dp build of path 4's spec, once a rank: its normal leaves are the one
+# caller of K2 xx (their variance sums cross ranks)
+PATH10_XX = ("cubic,normal", 65536)
 PATH10D = ("rmi_serve_sorted_scatter",)
 PATH10_RANKS = 4
 PATH10_WARM = 3               # warm dp builds timed a run; the median is logged
@@ -2542,8 +2656,10 @@ DP_ROWS_RTOL, DP_ROWS_ATOL, DP_LOG2_RTOL = 1e-6, 1e-8, 1e-6   # tests/test_paral
 # within half a position of each other (a floor then moves by at most 1,
 # which the error tolerance allows), floor its two epsilon probes at most
 # 1 apart, and the dp row is within half a position of the leaf's exact
-# least-squares line (_exact_slr) at those keys and probes, or no farther
-# from it than path 1's row
+# least-squares line (_exact_slr) at those keys and at those probes as the
+# build takes them, clamped to [0, n] (two_layer.final_errors; a probe
+# past the last key lies far outside the domain), or no farther from it
+# than path 1's row
 DP_PRED_GAP = 0.5
 
 
@@ -2570,9 +2686,10 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
     time in collectives clocked; the bound |guess - yfix| <= err on every
     key of the shard; then, with ``serve_queries``, rank 0's index
     replicated to every rank and nq queries (the same on every rank, from
-    ``qseed``) served sharded, timed; the launches counted from the first
-    build to the last search; with ``replay``, the recorded calls replayed
-    against their plain versions on rank 0 (uncounted)."""
+    ``qseed``) served sharded, timed; one dp build of PATH10_XX (K2 xx's
+    caller); the launches counted from the first build to the last search;
+    with ``replay``, the recorded calls replayed against their plain
+    versions on rank 0 (uncounted)."""
     from rmi_tpu_torch.parallel import dp_trainer, serve
     import torch.distributed as dist
     dev = torch.device(device)
@@ -2610,6 +2727,9 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
     out["walls"] = walls
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                        if dev.type == "cuda" else None)
+    with rec:
+        dp_trainer.dp_train_two_layer(keys_local, n, data.key_type,
+                                      *PATH10_XX[0].split(","), PATH10_XX[1], comm)
 
     # the bound on every key of the shard, against the build's own FixDups
     rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
@@ -2743,8 +2863,10 @@ def _outside_witness(data, want, leaf_w, leaves):
     to each leaf and at its two epsilon probes (two_layer.final_errors),
     the largest gap between their floors at the probes, each row's
     largest distance from the exact line's prediction at the keys and at
-    the probes, its slope's relative error, and the leaf farthest from
-    the exact line; ``ok`` when every leaf passes as DP_PRED_GAP says."""
+    the probes (both clamped to [0, n] there, as the build takes a
+    probe's prediction), its slope's relative error, and the leaf
+    farthest from the exact line; ``ok`` when every leaf passes as
+    DP_PRED_GAP says."""
     if want["leaf_type"] != "linear":
         raise NotImplementedError("the exact witness fits linear leaves")
     dev, kt, n = data.keys.device, data.key_type, data.n
@@ -2789,6 +2911,8 @@ def _outside_witness(data, want, leaf_w, leaves):
             for where, pts, got in (("at_keys", x[on], pred[b][0][on]),
                                     ("at_probes", probes, pred[b][1][[j, k + j]])):
                 exact = np.array([float(alpha + beta * Fraction(v)) for v in pts.tolist()])
+                if where == "at_probes":
+                    got, exact = np.clip(got, 0, n), np.clip(exact, 0, n)
                 st[f"{where}_{b}"][j] = np.abs(got - exact).max(initial=0.0)
             st[f"slope_{b}"][j] = (abs(Fraction(float(w[ids[j], 1])) - beta) / abs(beta)
                                    if beta else abs(float(w[ids[j], 1])))
@@ -3013,10 +3137,10 @@ PATH11 = [("simple_model_wiki", "wiki", "cubic,linear", 262144, None),
           ("cache_fix_wiki", "wiki", "linear_spline,linear", 4194304, 8),
           ("cache_fix_osm", "osm", "cubic,linear", 786432, 8)]
 SOSD_NAMES = {"wiki": "wiki_ts_200M_uint64", "osm": "osm_cellids_200M_uint64"}
-# what every configuration's build and lookup launch (linear leaves: K1 for
-# FixDups, K2, K3, the run-length pass, K4's epsilon probes and its fused
+# what every configuration's build and lookup launch (linear leaves: FixDups,
+# the leaf fit, K3, the run-length pass, K4's epsilon probes and its fused
 # lookup); a cachefix lookup adds rmi_cachefix_interp
-PATH11_BUILD = ("rmi_scan_i32", "rmi_aug_moments", "rmi_sweep_max_linear", RUN_MAX,
+PATH11_BUILD = ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
                 "rmi_leaf_eval_linear", "rmi_lookup_linear")
 CACHEFIX = ("rmi_cachefix_interp", "rmi_bounded_lower_bound")
 # the entries each search route launches besides the fused lookup
@@ -3424,6 +3548,7 @@ def main():
     p1_dp = path1_host(rmi)      # what path 10's dp builds are held to
     p1_index = dataclasses.replace(rmi)     # path 10d's index, its caches dropped
     del rmi
+    legacy_calls(rec, LEGACY)
     rows.update(check_kernels(rec, counts, replayed))
     launches = {e: launches[e] + counts[e] for e in launches}
     del rec
@@ -3436,10 +3561,16 @@ def main():
         spec, B, _, replayed = path
         rmi, rec, counts = drive(path, data, queries, gen)
         del rmi
+        fit_timed = ()
+        if path is PATH4:    # K2 xx's row on its leaves; the fit's xx form timed, logged
+            legacy_calls(rec, LEGACY)
+            fit_timed = ("rmi_aug_fit_moments",)
+            log("path 4 rmi_aug_fit_moments, xx form " + json.dumps(
+                check_kernels(rec, counts, fit_timed)["rmi_aug_fit_moments"]))
         rows.update(check_kernels(rec, counts, replayed))
         # their rows stay path 1's
-        check_kernels(rec, counts, PACKED + tuple(e for e in STAGE_A if e in path[2]),
-                      timed=False)
+        check_kernels(rec, counts, PACKED + tuple(
+            e for e in STAGE_A + FIT if e in path[2] and e not in fit_timed), timed=False)
         launches = {e: launches[e] + counts[e] for e in launches}
         del rec
         torch.cuda.empty_cache()

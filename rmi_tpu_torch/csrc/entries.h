@@ -10,10 +10,11 @@
 // Keep one entry per RMI_ENTRY and its parameters in one parenthesis.
 #include <stdint.h>
 
-// K1 (csrc/scan.cu)
+// K1 and FixDups (csrc/scan.cu)
 RMI_ENTRY(rmi_scan_i32, (const int32_t* v, int32_t* out, int64_t n, int32_t is_max,
                          int32_t fill, int32_t reverse, int32_t* scratch, void* stream))
-// K2 (csrc/moments.cu)
+RMI_ENTRY(rmi_fixdups, (const int64_t* keys, int32_t* out, int64_t n, void* stream))
+// K2 and the leaf fits' moments (csrc/moments.cu)
 RMI_ENTRY(rmi_aug_moments, (const double* x, const double* y, const double* mean_x,
                             const double* mean_y, const int64_t* aug_starts,
                             const int64_t* aug_ends, double* m2, double* c, int64_t B,
@@ -25,6 +26,10 @@ RMI_ENTRY(rmi_aug_moments_weighted, (const double* x, const double* y, const dou
 RMI_ENTRY(rmi_aug_moments_xx, (const double* x, const double* mean_x,
                                const int64_t* aug_starts, const int64_t* aug_ends,
                                double* m2, int64_t B, void* stream))
+RMI_ENTRY(rmi_aug_fit_moments, (const double* x, const int32_t* y, const int64_t* aug_starts,
+                                const int64_t* aug_ends, int64_t n, int64_t xx_only,
+                                double* out, int64_t B, int64_t* scratch, int64_t capacity,
+                                void* stream))
 // K3 (csrc/sweep.cu)
 RMI_ENTRY(rmi_sweep_max_linear, (const double* xn, const int32_t* yfix,
                                  const int64_t* starts, const int64_t* ends,

@@ -116,3 +116,459 @@ RMI_API int rmi_aug_moments_xx(const double* x, const double* mean_x,
   return launch_moments<false, true>(x, nullptr, nullptr, mean_x, nullptr,
                                      aug_starts, aug_ends, m2, nullptr, B, stream);
 }
+
+// ---------------------------------------------------------------------------
+// rmi_aug_fit_moments: the whole per-leaf statistics of the linear-family
+// and normal leaf fits in one entry, from the keys' x and their int32
+// FixDups targets,
+//   mean_x[j] = sum x / max(cnt, 1)        mean_y[j] = sum y / max(cnt, 1)
+//   m2[j]     = sum (x - mean_x[j])^2      c[j] = sum (x - mean_x[j]) (y - mean_y[j])
+// over [aug_starts[j], aug_ends[j]), cnt its length; with xx_only, x alone:
+// mean_x and m2 (normal and lognormal leaves).  sum y adds the int32
+// targets in int64, exactly, and converts once; each mean is one IEEE
+// division; the centered terms are K2's above (-fmad=false: each product
+// rounded, then added).  out is [4, B] (mean_x, mean_y, m2, c) or [2, B]
+// (mean_x, m2).
+//
+// Replaces rmi_tpu/ops/select_kernel.py:_moments_kernel (window_moments)
+// with the range sums before it (rmi_tpu/models/linear.py:89-93 and
+// rmi_tpu/utils/segments.py:88, range_sum_blocked on the TPU route): the
+// fit that K2 above served with its means made in eager torch, two f64
+// prefix sums over the whole array (utils/segments.py:87-119, each a
+// padded [rows, 1024] copy, a row scan and a recursive fix-up) and
+// yfix.double().  Here nothing [n]-sized is written.
+//
+// Bound on the H100: memory.  x (8 B) and y (4 B) a key, x alone in the
+// xx form, plus 16 B of bounds and 32 (16) B of output a leaf: at 200M
+// keys 2.4 GB, 0.72 ms at 3.35 TB/s.  One warp takes a leaf of at most
+// kChunk keys: each lane loads kBatch = 32 of its keys at once, sums them,
+// and after the means centers them from the registers it loaded them
+// into, so a leaf of up to 1024 keys (path 1: 765 on average, 899 at
+// most) is read from device memory once.  A longer leaf (paths 4 and 5:
+// ~3050) is read again for the centered pass, and the grid then keeps as
+// many warps an SM as keep their mean leaf in L1 (kL1Bytes) in between.
+// A first design, every resident warp on a leaf and 8 keys loaded at once
+// a lane, read the second pass from device memory: 1.21 ms on path 1 and
+// 1.09 on path 4's xx form at 200M keys (tools/time_torch_fit.py; PERF.md
+// §6).
+//
+// A leaf longer than kChunk is cut into chunks of kChunk keys counted
+// from its start, a constant here and not a function of the grid: its warp
+// takes slots of a schedule with one integer atomicAdd and hands
+// the chunks to three grid-stride passes (each chunk's sums; each chunk's
+// centered terms about the leaf's means, which every chunk's warp adds up
+// from the chunks' sums in chunk order; the chunks' terms added in chunk
+// order).  A leaf that finds the schedule full does the same chunks
+// itself, in the same order.  Every sum is a lane-strided sequence and a
+// fixed butterfly of shuffles (its result the same bits in every lane:
+// each step adds a pair in either order), the chunks' partials combine
+// lane-strided by chunk and by the same butterfly, and no float atomic is
+// used: every run gives the same bits, wherever a slot lands.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int kFitThreads = 128;         // 4 warps, 4 leaves a block
+constexpr int64_t kChunk = 4096;         // keys a chunk of a long leaf
+constexpr int kBatch = 32;               // keys a lane loads at once
+constexpr int64_t kRegKeys = 32 * kBatch;     // a leaf up to this long stays in registers
+constexpr int64_t kL1Bytes = 192 * 1024;  // of an SM's L1 for the leaves it streams
+constexpr unsigned int kLongBlocks = 2048;   // grid of the long leaves' passes
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(RMI_FULL_MASK, v, off);
+  return v;
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(RMI_FULL_MASK, v, off);
+  return v;
+}
+
+// lane l's keys i, i + 32, ..., i + 32 (kBatch - 1), 0 past hi
+template <bool kXx>
+__device__ __forceinline__ void load_batch(const double* __restrict__ x,
+                                           const int32_t* __restrict__ y, int64_t i,
+                                           int64_t hi, double (&xv)[kBatch],
+                                           int32_t (&yv)[kBatch]) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const bool in = i + 32 * u < hi;
+    xv[u] = in ? x[i + 32 * u] : 0.0;
+    if constexpr (!kXx) yv[u] = in ? y[i + 32 * u] : 0;
+  }
+}
+
+// sum x and sum y of a batch into a lane's sums (0.0 past hi leaves a sum
+// begun at +0.0 as it was)
+template <bool kXx>
+__device__ __forceinline__ void add_batch(const double (&xv)[kBatch],
+                                          const int32_t (&yv)[kBatch], double& ax,
+                                          long long& ay) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    ax += xv[u];
+    if constexpr (!kXx) ay += yv[u];
+  }
+}
+
+// the centered terms of a batch whose first key is i
+template <bool kXx>
+__device__ __forceinline__ void center_batch(const double (&xv)[kBatch],
+                                             const int32_t (&yv)[kBatch], int64_t i,
+                                             int64_t hi, double mx, double my, double& sxx,
+                                             double& sxy) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const bool in = i + 32 * u < hi;
+    const double dx = in ? xv[u] - mx : 0.0;
+    sxx += dx * dx;
+    if constexpr (!kXx) sxy += dx * (in ? (double)yv[u] - my : 0.0);
+  }
+}
+
+// sum x and sum y over [lo, hi), in every lane: lane l adds x[lo + l],
+// x[lo + l + 32], ... in sequence, a batch loaded before its adds
+template <bool kXx>
+__device__ __forceinline__ void chunk_sums(const double* __restrict__ x,
+                                           const int32_t* __restrict__ y, int64_t lo,
+                                           int64_t hi, int lane, double& sx, long long& sy) {
+  double ax = 0.0, xv[kBatch];
+  long long ay = 0;
+  int32_t yv[kBatch];
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
+    load_batch<kXx>(x, y, i, hi, xv, yv);
+    add_batch<kXx>(xv, yv, ax, ay);
+  }
+  sx = warp_sum(ax);
+  sy = kXx ? 0 : warp_sum(ay);
+}
+
+// sum (x - mx)^2 and sum (x - mx)(y - my) over [lo, hi), in every lane, in
+// chunk_sums' order
+template <bool kXx>
+__device__ __forceinline__ void chunk_moments(const double* __restrict__ x,
+                                              const int32_t* __restrict__ y, int64_t lo,
+                                              int64_t hi, int lane, double mx, double my,
+                                              double& m2, double& c) {
+  double sxx = 0.0, sxy = 0.0, xv[kBatch];
+  int32_t yv[kBatch];
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
+    load_batch<kXx>(x, y, i, hi, xv, yv);
+    center_batch<kXx>(xv, yv, i, hi, mx, my, sxx, sxy);
+  }
+  m2 = warp_sum(sxx);
+  c = kXx ? 0.0 : warp_sum(sxy);
+}
+
+__device__ __forceinline__ double fit_mean(double s, int64_t cnt) {
+  return s / fmax((double)cnt, 1.0);
+}
+
+// a leaf of at most kChunk keys, chunk_sums then chunk_moments: one batch
+// (kRegKeys keys) is read once and centered from the registers it was
+// loaded into, a longer leaf read again
+template <bool kXx>
+__device__ __forceinline__ void leaf_stats(const double* __restrict__ x,
+                                           const int32_t* __restrict__ y, int64_t lo,
+                                           int64_t hi, int lane, double& mx, double& my,
+                                           double& m2, double& c) {
+  double ax = 0.0, xv[kBatch] = {};          // a lane past hi loads nothing
+  long long ay = 0;
+  int32_t yv[kBatch] = {};
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
+    load_batch<kXx>(x, y, i, hi, xv, yv);
+    add_batch<kXx>(xv, yv, ax, ay);
+  }
+  mx = fit_mean(warp_sum(ax), hi - lo);
+  my = kXx ? 0.0 : fit_mean((double)warp_sum(ay), hi - lo);
+  if (hi - lo <= 0 || hi - lo > kRegKeys) {
+    chunk_moments<kXx>(x, y, lo, hi, lane, mx, my, m2, c);
+    return;
+  }
+  double sxx = 0.0, sxy = 0.0;
+  center_batch<kXx>(xv, yv, lo + lane, hi, mx, my, sxx, sxy);
+  m2 = warp_sum(sxx);
+  c = kXx ? 0.0 : warp_sum(sxy);
+}
+
+template <bool kXx>
+__device__ __forceinline__ void write_leaf(double* __restrict__ out, int64_t B, int64_t j,
+                                           double mx, double my, double m2, double c) {
+  out[j] = mx;
+  if constexpr (kXx) {
+    out[B + j] = m2;
+  } else {
+    out[B + j] = my;
+    out[2 * B + j] = m2;
+    out[3 * B + j] = c;
+  }
+}
+
+// The schedule of the long leaves' chunks, in one int64 scratch:
+// [0] the slots taken, then per slot its leaf (-1: none) and chunk, the
+// chunk's sums (x as f64, y as int64) and centered terms
+struct Schedule {
+  int64_t* taken;
+  int64_t* leaf;
+  int64_t* chunk;
+  double* sx;
+  long long* sy;
+  double* m2;
+  double* c;
+  int64_t capacity;
+  __host__ __device__ Schedule(int64_t* s, int64_t cap)
+      : taken(s), leaf(s + 1), chunk(s + 1 + cap), sx((double*)(s + 1 + 2 * cap)),
+        sy((long long*)(s + 1 + 3 * cap)), m2((double*)(s + 1 + 4 * cap)),
+        c((double*)(s + 1 + 5 * cap)), capacity(cap) {}
+  __device__ int64_t slots() const {
+    const int64_t t = *taken;
+    return t < capacity ? t : capacity;
+  }
+};
+
+__device__ __forceinline__ int64_t chunks_of(int64_t len) { return (len + kChunk - 1) / kChunk; }
+
+// A long leaf's combination of its chunks' partials p[0..nch) in chunk
+// order: lane l adds p[l], p[l + 32], ... in sequence, then the butterfly
+template <typename T>
+__device__ __forceinline__ T chunk_order_sum(const T* __restrict__ p, int64_t nch, int lane) {
+  T acc = 0;
+  for (int64_t k = lane; k < nch; k += 32) acc += p[k];
+  return warp_sum(acc);
+}
+
+// a long leaf done by its own warp, chunk by chunk, each chunk's partial
+// added into lane (chunk % 32) as the schedule's passes add them
+template <bool kXx>
+__device__ void long_leaf_alone(const double* __restrict__ x, const int32_t* __restrict__ y,
+                                int64_t lo, int64_t hi, int lane, double* __restrict__ out,
+                                int64_t B, int64_t j) {
+  const int64_t nch = chunks_of(hi - lo);
+  double ax = 0.0;
+  long long ay = 0;
+  for (int64_t k = 0; k < nch; ++k) {
+    double sx;
+    long long sy;
+    chunk_sums<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, sx, sy);
+    if ((k & 31) == lane) {
+      ax += sx;
+      ay += sy;
+    }
+  }
+  const double mx = fit_mean(warp_sum(ax), hi - lo);
+  const double my = kXx ? 0.0 : fit_mean((double)warp_sum(ay), hi - lo);
+  double am2 = 0.0, ac = 0.0;
+  for (int64_t k = 0; k < nch; ++k) {
+    double m2, c;
+    chunk_moments<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
+                       m2, c);
+    if ((k & 31) == lane) {
+      am2 += m2;
+      ac += c;
+    }
+  }
+  const double m2 = warp_sum(am2), c = warp_sum(ac);
+  if (lane == 0) write_leaf<kXx>(out, B, j, mx, my, m2, c);
+}
+
+// (1) a warp a leaf: a leaf of at most kChunk keys whole, a longer one
+// scheduled (or done alone where the schedule is full)
+template <bool kXx>
+__global__ void __launch_bounds__(kFitThreads)
+fit_leaves(const double* __restrict__ x, const int32_t* __restrict__ y,
+           const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+           double* __restrict__ out, int64_t B, Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t j = warp; j < B; j += nwarps) {      // warp-uniform
+    const int64_t lo = aug_starts[j], hi = aug_ends[j];
+    if (hi - lo <= kChunk) {
+      double mx, my, m2, c;
+      leaf_stats<kXx>(x, y, lo, hi, lane, mx, my, m2, c);
+      if (lane == 0) write_leaf<kXx>(out, B, j, mx, my, m2, c);
+      continue;
+    }
+    const int64_t nch = chunks_of(hi - lo);
+    unsigned long long base = 0;
+    if (lane == 0) {
+      base = atomicAdd(reinterpret_cast<unsigned long long*>(sched.taken),
+                       (unsigned long long)nch);
+    }
+    const int64_t first = (int64_t)__shfl_sync(RMI_FULL_MASK, base, 0);
+    const bool room = first + nch <= sched.capacity;
+    for (int64_t k = lane; k < nch && first + k < sched.capacity; k += 32) {
+      sched.leaf[first + k] = room ? j : -1;
+      sched.chunk[first + k] = k;
+    }
+    if (!room) long_leaf_alone<kXx>(x, y, lo, hi, lane, out, B, j);
+  }
+}
+
+// (2) each scheduled chunk's sums
+template <bool kXx>
+__global__ void __launch_bounds__(kFitThreads)
+fit_chunk_sums(const double* __restrict__ x, const int32_t* __restrict__ y,
+               const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+               Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int64_t slots = sched.slots();
+  for (int64_t w = warp; w < slots; w += nwarps) {
+    const int64_t j = sched.leaf[w];
+    if (j < 0) continue;
+    const int64_t lo = aug_starts[j] + sched.chunk[w] * kChunk;
+    double sx;
+    long long sy;
+    chunk_sums<kXx>(x, y, lo, min(aug_ends[j], lo + kChunk), lane, sx, sy);
+    if (lane == 0) {
+      sched.sx[w] = sx;
+      sched.sy[w] = sy;
+    }
+  }
+}
+
+// (3) each scheduled chunk's centered terms about its leaf's means, which
+// the leaf's first chunk writes
+template <bool kXx>
+__global__ void __launch_bounds__(kFitThreads)
+fit_chunk_moments(const double* __restrict__ x, const int32_t* __restrict__ y,
+                  const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+                  double* __restrict__ out, int64_t B, Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int64_t slots = sched.slots();
+  for (int64_t w = warp; w < slots; w += nwarps) {
+    const int64_t j = sched.leaf[w];
+    if (j < 0) continue;
+    const int64_t k = sched.chunk[w], first = w - k;
+    const int64_t lo = aug_starts[j], hi = aug_ends[j], nch = chunks_of(hi - lo);
+    const double mx = fit_mean(chunk_order_sum(sched.sx + first, nch, lane), hi - lo);
+    const double my =
+        kXx ? 0.0 : fit_mean((double)chunk_order_sum(sched.sy + first, nch, lane), hi - lo);
+    double m2, c;
+    chunk_moments<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
+                       m2, c);
+    if (lane == 0) {
+      sched.m2[w] = m2;
+      sched.c[w] = c;
+      if (k == 0) {
+        out[j] = mx;
+        if constexpr (!kXx) out[B + j] = my;
+      }
+    }
+  }
+}
+
+// (4) each scheduled leaf's centered sums, its chunks' terms in chunk order
+template <bool kXx>
+__global__ void __launch_bounds__(kFitThreads)
+fit_chunk_totals(const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+                 double* __restrict__ out, int64_t B, Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int64_t slots = sched.slots();
+  for (int64_t w = warp; w < slots; w += nwarps) {
+    const int64_t j = sched.leaf[w];
+    if (j < 0 || sched.chunk[w] != 0) continue;
+    const int64_t nch = chunks_of(aug_ends[j] - aug_starts[j]);
+    const double m2 = chunk_order_sum(sched.m2 + w, nch, lane);
+    const double c = kXx ? 0.0 : chunk_order_sum(sched.c + w, nch, lane);
+    if (lane == 0) {
+      if constexpr (kXx) {
+        out[B + j] = m2;
+      } else {
+        out[2 * B + j] = m2;
+        out[3 * B + j] = c;
+      }
+    }
+  }
+}
+
+// SMs of the current device and fit_leaves' resident blocks an SM, asked
+// once per device, with fit_leaves' carveout set to the most L1
+template <bool kXx>
+cudaError_t fit_residency(int* sms, int* blocks) {
+  static int counts[kMaxDevices][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (counts[dev][0] == 0) {
+    int n = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(fit_leaves<kXx>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxL1);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fit_leaves<kXx>, kFitThreads,
+                                                          0);
+    }
+    if (err != cudaSuccess) return err;
+    counts[dev][0] = n;
+    counts[dev][1] = per_sm > 0 ? per_sm : 1;
+  }
+  *sms = counts[dev][0];
+  *blocks = counts[dev][1];
+  return cudaSuccess;
+}
+
+template <bool kXx>
+int launch_fit(const double* x, const int32_t* y, const int64_t* aug_starts,
+               const int64_t* aug_ends, int64_t n, double* out, int64_t B, int64_t* scratch,
+               int64_t capacity, cudaStream_t s) {
+  const Schedule sched(scratch, capacity);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int64_t), s);
+  if (err != cudaSuccess) return (int)err;
+  // a persistent grid: every block the card keeps resident where a mean
+  // leaf fits in registers; where leaves stream twice, as many warps an SM
+  // as keep their mean leaf in L1 between the two passes
+  int sms = 0, per_sm = 0;
+  err = fit_residency<kXx>(&sms, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t mean_keys = (n + 2 * B) / B + 1;
+  int64_t blocks_per_sm = per_sm;
+  if (mean_keys > kRegKeys) {
+    const int64_t warps = kL1Bytes / (mean_keys * (kXx ? 8 : 12));
+    blocks_per_sm = warps / (kFitThreads / 32);
+    if (blocks_per_sm < 1) blocks_per_sm = 1;
+    if (blocks_per_sm > per_sm) blocks_per_sm = per_sm;
+  }
+  int64_t grid = (int64_t)sms * blocks_per_sm;
+  const int64_t needed = rmi_grid(B * 32, kFitThreads);
+  if (grid > needed) grid = needed;
+  fit_leaves<kXx><<<(unsigned int)grid, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out,
+                                                              B, sched);
+  if (capacity > 0) {
+    const int64_t blocks = rmi_grid(capacity * 32, kFitThreads);
+    const unsigned int g = blocks < kLongBlocks ? (unsigned int)blocks : kLongBlocks;
+    fit_chunk_sums<kXx><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, sched);
+    fit_chunk_moments<kXx><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out, B,
+                                                     sched);
+    fit_chunk_totals<kXx><<<g, kFitThreads, 0, s>>>(aug_starts, aug_ends, out, B, sched);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch: 1 + 6 * capacity int64 (ops/select_kernel.fit_capacity: enough
+// for every chunk of well-formed spans; fewer slots make long leaves run
+// alone, same bits); y unread and out [2, B] with xx_only
+RMI_API int rmi_aug_fit_moments(const double* x, const int32_t* y,
+                                const int64_t* aug_starts, const int64_t* aug_ends, int64_t n,
+                                int64_t xx_only, double* out, int64_t B, int64_t* scratch,
+                                int64_t capacity, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (capacity < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return xx_only
+             ? launch_fit<true>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity, s)
+             : launch_fit<false>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity, s);
+}

@@ -179,3 +179,106 @@ RMI_API int rmi_scan_i32(const int32_t* v, int32_t* out, int64_t n,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// rmi_fixdups: FixDups of sorted key images (models/mod.rs:143-185),
+//   out[i] = the first index of keys[i]'s run of equal keys, int32,
+// which train/two_layer.fixdups_i32 made as K1's running max over
+// where(keys[i] != keys[i - 1], i, 0), three [n] temporaries before it.
+//
+// Replaces rmi_tpu/ops/scan_kernel.py:_scan_kernel as rmi_tpu's
+// _fixdups_i32 (rmi_tpu/train/two_layer.py:77-84) calls it, with the
+// arange, compare and select around it.
+//
+// Bound on the H100: memory.  An 8-byte key read and a 4-byte index
+// written a key (2.4 GB at 200M keys, 0.72 ms at 3.35 TB/s).  The keys
+// are sorted, so no carry has to cross from block to block: a warp takes
+// kFixdupsWarpKeys keys, and where its first key continues the run before
+// it, the run's first index is a lower bound of that key in keys[0, s),
+// found by the warp in 32-way steps (the 32 keys before s first: most
+// runs are short; at most 6 steps more over 2^31 keys).  Then rounds of
+// 32 keys, kFixdupsBatch rounds loaded together, each a running max over
+// (changed ? i : 0) by shuffles from the round before's.  One launch, no
+// scratch, the same result in any order of the blocks; a max never
+// rounds, so it is bit-equal to the plain version.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int kFixdupsThreads = 256;
+constexpr int kFixdupsBatch = 8;                         // rounds loaded together
+constexpr int64_t kFixdupsWarpKeys = 32 * kFixdupsBatch * 8;   // 2048 keys a warp
+
+// the first index p in [0, s] with keys[p] == keys[s], s > 0, in every lane
+__device__ int64_t run_start(const int64_t* __restrict__ keys, int64_t s, int lane) {
+  const int64_t target = keys[s];
+  int64_t lo = s > 32 ? s - 32 : 0, hi = s;      // the answer lies in [lo, hi]
+  for (;;) {
+    const int64_t len = hi - lo;
+    const int64_t step = len <= 32 ? 1 : (len + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const unsigned int less = __ballot_sync(RMI_FULL_MASK, p < hi && keys[p] < target);
+    const int k = __popc(less);                  // keys below target: a prefix of the probes
+    if (step == 1 || k == 0) {
+      if (k > 0 || lo == 0 || hi != s) return lo + k * step;
+      // the 32 keys before s all equal it: search the rest of [0, s - 32)
+      hi = lo;
+      lo = 0;
+      continue;
+    }
+    const int64_t next = lo + k * step;
+    lo = lo + (k - 1) * step + 1;
+    if (next < hi) hi = next;
+  }
+}
+
+__global__ void __launch_bounds__(kFixdupsThreads)
+fixdups(const int64_t* __restrict__ keys, int32_t* __restrict__ out, int64_t n) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t s = warp * kFixdupsWarpKeys; s < n; s += nwarps * kFixdupsWarpKeys) {
+    const int64_t e = s + kFixdupsWarpKeys < n ? s + kFixdupsWarpKeys : n;
+    // the running max before the first key: its run's start where the run
+    // began before s (no changed index of the warp's is below it)
+    int64_t running = (s > 0 && keys[s] == keys[s - 1]) ? run_start(keys, s, lane) : s;
+    int64_t last = 0;                           // the key before the round's lane 0
+    for (int64_t base = s; base < e; base += 32 * kFixdupsBatch) {
+      int64_t k[kFixdupsBatch];
+#pragma unroll
+      for (int u = 0; u < kFixdupsBatch; ++u) {
+        const int64_t i = base + u * 32 + lane;
+        k[u] = i < e ? keys[i] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kFixdupsBatch; ++u) {
+        const int64_t i = base + u * 32 + lane;
+        int64_t prev = __shfl_up_sync(RMI_FULL_MASK, k[u], 1);
+        if (lane == 0) prev = last;
+        int64_t v = (i == s || k[u] == prev) ? 0 : i;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int64_t o = __shfl_up_sync(RMI_FULL_MASK, v, off);
+          if (lane >= off) v = max(v, o);
+        }
+        v = max(v, running);
+        if (i < e) out[i] = (int32_t)v;
+        running = __shfl_sync(RMI_FULL_MASK, v, 31);
+        last = __shfl_sync(RMI_FULL_MASK, k[u], 31);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// keys sorted (as int64 images); n at most 2^31, or refused with
+// cudaErrorInvalidValue
+RMI_API int rmi_fixdups(const int64_t* keys, int32_t* out, int64_t n, void* stream) {
+  if (n < 0 || n > ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int64_t warps = (n + kFixdupsWarpKeys - 1) / kFixdupsWarpKeys;
+    fixdups<<<rmi_grid(warps * 32, kFixdupsThreads), kFixdupsThreads, 0,
+              (cudaStream_t)stream>>>(keys, out, n);
+  }
+  return (int)cudaGetLastError();
+}

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from rmi_tpu_torch.models.base import ModelDef, leaf_columns, register
+from rmi_tpu_torch.ops import select_kernel
 from rmi_tpu_torch.utils import segments as seg
 
 
@@ -68,8 +69,15 @@ def trimmed(spans: seg.Spans) -> seg.Spans:
 def _slr_ranges(xf, yf, spans, trim: bool = False, weights=None):
     """Per-leaf (alpha, beta) least squares over augmented spans, [B, 2];
     ``trim`` fits robust_linear's trimmed spans instead, and 0/1
-    ``weights`` drop items (loglinear)."""
+    ``weights`` drop items (loglinear).  Leaves without weights (B > 1)
+    take int32 FixDups targets ``yf`` and their sums, means and centered
+    moments from select_kernel.aug_fit_moments (one launch on the card);
+    the other fits take f64 targets."""
     use = trimmed(spans) if trim else spans
+    if weights is None and use.B > 1:
+        mean_x, mean_y, m2, c = select_kernel.aug_fit_moments(xf, yf, use.aug_starts,
+                                                              use.aug_ends)
+        return _slr_from_moments(seg.aug_count(use), mean_x, mean_y, m2, c)
     if weights is None:
         sx = seg.range_sum(xf, use.aug_starts, use.aug_ends)
         sy = seg.range_sum(yf, use.aug_starts, use.aug_ends)
@@ -129,7 +137,7 @@ for _name, _trim in (("linear", False), ("robust_linear", True)):
         fit_top=lambda xf, yf, ep_first, ep_last, _trim=_trim: _slr_ranges(
             xf, yf, seg.whole_array_spans(xf.shape[0], xf.device), _trim),
         fit_leaves=lambda xf, yfix, spans, _trim=_trim: _slr_ranges(
-            xf, yfix.double(), spans, _trim),
+            xf, yfix, spans, _trim),
         predict=linear_predict, constant_params=_const_linear,
         leaf_kernel="linear", bytes_per_model=16, function_name="linear"))
 

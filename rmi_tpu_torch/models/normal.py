@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from rmi_tpu_torch.models.base import ModelDef, leaf_columns, log_input, register
+from rmi_tpu_torch.ops import select_kernel
 from rmi_tpu_torch.utils import segments as seg
 
 # -1.65451 / 64: XLA folds the two constants of -1.65451 z / 64
@@ -63,13 +64,17 @@ def _ln_or_zero(x):
 
 
 def _ncdf_ranges(xf, yf, spans: seg.Spans):
-    """[B, 3] (mean, stdev, scale) per container; the variance runs in
-    K2's variance-only variant for leaves (segments.aug_centered_dot)."""
+    """[B, 3] (mean, stdev, scale) per container; leaves take the mean and
+    the variance sum from select_kernel.aug_fit_moments' xx form (one
+    launch on the card), the top from whole-array sums."""
     cnt = seg.aug_count(spans)
     safe_cnt = cnt.clamp(min=1.0)
-    sx = seg.aug_sum(spans, xf)
-    mean = torch.where(cnt == 0, 0.0, sx / safe_cnt)
-    ss = seg.aug_centered_dot(spans, xf, mean)
+    if spans.B > 1:
+        mean, ss = select_kernel.aug_fit_moments(xf, None, spans.aug_starts, spans.aug_ends)
+    else:
+        sx = seg.aug_sum(spans, xf)
+        mean = torch.where(cnt == 0, 0.0, sx / safe_cnt)
+        ss = seg.aug_centered_dot(spans, xf, mean)
     stdev = torch.sqrt(torch.where(cnt == 0, float("nan"),
                                    ss.clamp(min=0.0) / safe_cnt))
     scale = torch.where(cnt == 0, float("-inf"),

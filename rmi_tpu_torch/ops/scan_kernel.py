@@ -1,10 +1,14 @@
-"""K1: inclusive running max/min over an int32 vector (csrc/scan.cu).
+"""K1: inclusive running max/min over an int32 vector, and FixDups
+(csrc/scan.cu).
 
-Counterpart of rmi_tpu/ops/scan_kernel.py.  Serves the build's n-scale
-monotone scan, the FixDups first-occurrence cummax (train/two_layer.py);
-the run lengths' reverse cummin is taken per leaf off each run's last
-key instead (ops/sweep_kernel.py:span_run_max), with this kernel's plain
-version in that pass's plain version.
+Counterpart of rmi_tpu/ops/scan_kernel.py.  ``fixdups`` is the build's
+first-occurrence index (train/two_layer.fixdups_i32): one launch of
+rmi_fixdups over the sorted keys, where rmi_tpu runs the scan over
+where(changed, i, 0) (rmi_tpu/train/two_layer.py:77-84).  ``scan_i32``
+(rmi_scan_i32) serves the data-parallel build's scans across shards
+(parallel/dp_trainer.py); the run lengths' reverse cummin is taken per
+leaf off each run's last key instead (ops/sweep_kernel.py:span_run_max),
+with this kernel's plain version in that pass's plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ import torch
 
 from rmi_tpu_torch.ops import _build
 
-TILE = 4096          # elements per block of csrc/scan.cu
+TILE = 4096          # elements per block of csrc/scan.cu's K1
+FIXDUPS_WARP_KEYS = 2048     # keys a warp of rmi_fixdups takes (kFixdupsWarpKeys)
 
 
 def scan_i32_plain(v: torch.Tensor, *, is_max: bool,
@@ -38,3 +43,31 @@ def scan_i32(v: torch.Tensor, *, is_max: bool, fill: int,
     out, _ = _build.launch("rmi_scan_i32", v, n, n, int(is_max), int(fill), int(reverse),
                            max(1, -(-n // TILE)))      # the output and a scratch
     return out
+
+
+def fixdups_plain(keys: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: the running max of where(keys[i] !=
+    keys[i - 1], i, 0), as int32 (rmi_tpu's _fixdups_i32)."""
+    n = keys.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
+    changed = torch.ones(n, dtype=torch.bool, device=keys.device)
+    torch.ne(keys[1:], keys[:-1], out=changed[1:])
+    return scan_i32_plain(torch.where(changed, idx, 0), is_max=True)
+
+
+def fixdups(keys: torch.Tensor) -> torch.Tensor:
+    """[n] int32: the first index of each key's run of equal keys in the
+    sorted int64 images ``keys`` (FixDups, models/mod.rs:143-185),
+    bit-equal to the plain version: one launch of rmi_fixdups on the
+    card, none for no keys."""
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError(f"fixdups: want 1-D int64 key images, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    n = keys.shape[0]
+    if n > 1 << 31:
+        raise ValueError("fixdups: int32 indices hold at most 2^31 keys")
+    if keys.is_cpu:
+        return fixdups_plain(keys)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
+    return _build.launch("rmi_fixdups", keys, n, n)

@@ -3,12 +3,17 @@ fits (csrc/moments.cu).
 
 Counterpart of rmi_tpu/ops/select_kernel.py:window_moments plus the
 per-leaf range sums that follow it (rmi_tpu/utils/segments.py:683-720).
-The kernel fuses the per-key products into the per-leaf sums.  Three C
-entry points, one per variant of the TPU kernel, behind two wrappers:
-``aug_centered_moments`` launches ``rmi_aug_moments`` (linear leaves) or,
-given 0/1 weights, ``rmi_aug_moments_weighted`` (``has_w``, loglinear
-leaves); ``aug_centered_xx`` launches ``rmi_aug_moments_xx`` (``xx_only``:
-the variance of x alone, normal and lognormal leaves).
+The kernel fuses the per-key products into the per-leaf sums.  Four C
+entry points, behind three wrappers: ``aug_fit_moments`` launches
+``rmi_aug_fit_moments``, the build's linear and normal leaf fits whole
+(each leaf's means from its sums, then its centered moments, from x and
+the int32 FixDups targets: no prefix sum and no f64 copy of the
+targets); ``aug_centered_moments`` launches ``rmi_aug_moments`` or, given
+0/1 weights, ``rmi_aug_moments_weighted`` (``has_w``, loglinear leaves)
+on means made outside; ``aug_centered_xx`` launches
+``rmi_aug_moments_xx`` (``xx_only``: the variance of x alone).  The
+data-parallel build (parallel/dp_trainer.py), whose sums cross ranks,
+keeps the last two.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from rmi_tpu_torch.ops import _build
+from rmi_tpu_torch.utils import segments as seg
 
 
 def _check(name, tensors, per_leaf):
@@ -104,3 +110,109 @@ def aug_centered_xx(x, mean_x, aug_starts, aug_ends):
         return aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends)
     B = mean_x.shape[0]
     return _build.launch("rmi_aug_moments_xx", x, mean_x, aug_starts, aug_ends, B, B)
+
+
+# keys a chunk of a long leaf in rmi_aug_fit_moments (csrc/moments.cu kChunk)
+FIT_CHUNK = 4096
+_U = 2.0 ** -53         # the unit roundoff of f64
+
+
+def fit_capacity(n: int, B: int) -> int:
+    """Slots of rmi_aug_fit_moments' schedule of long-leaf chunks: enough
+    for spans whose lengths add up to at most n + 2B (augmented spans,
+    robust_linear's trimmed ones), where a leaf longer than FIT_CHUNK has
+    fewer than 2 len / FIT_CHUNK chunks.  With fewer slots a long leaf
+    runs on its own warp, to the same bits."""
+    return 2 * (n + 2 * B) // FIT_CHUNK + 1
+
+
+def aug_fit_moments_plain(x, y, aug_starts, aug_ends):
+    """The plain PyTorch version, the leaf fits' eager composition: the
+    range sums as prefix-sum differences (segments.range_sum), the means
+    s / max(cnt, 1), then K2's plain version with y as f64; with y None
+    the normal fit's, the mean (0 where cnt == 0) and K2 xx's plain
+    version."""
+    cnt = (aug_ends - aug_starts).double()
+    safe = cnt.clamp(min=1.0)
+    mean_x = seg.range_sum(x, aug_starts, aug_ends) / safe
+    if y is None:
+        mean_x = torch.where(cnt == 0, 0.0, mean_x)
+        return mean_x, aug_centered_xx_plain(x, mean_x, aug_starts, aug_ends)
+    yf = y.double()
+    mean_y = seg.range_sum(yf, aug_starts, aug_ends) / safe
+    return (mean_x, mean_y,
+            *aug_centered_moments_plain(x, yf, mean_x, mean_y, aug_starts, aug_ends))
+
+
+def aug_fit_moments(x, y, aug_starts, aug_ends):
+    """(mean_x, mean_y, m2, c) [B] f64 of each leaf j over its augmented
+    range [aug_starts[j], aug_ends[j]) of cnt keys: the means
+    sum / max(cnt, 1), m2 = sum (x - mean_x)^2 and
+    c = sum (x - mean_x) (y - mean_y), from f64 ``x`` and int32 ``y``;
+    with ``y`` None, (mean_x, m2).  On the card one launch of
+    rmi_aug_fit_moments, its sum of y exact, the same bits in every run,
+    within fit_tolerance of the plain version; on the CPU the plain
+    version."""
+    named = [("x", x), ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
+    _check("aug_fit_moments", named, ("aug_starts", "aug_ends"))
+    if y is not None and (y.dtype != torch.int32 or y.shape != x.shape):
+        raise ValueError("aug_fit_moments: y must be int32 shaped like x")
+    if x.is_cpu:
+        return aug_fit_moments_plain(x, y, aug_starts, aug_ends)
+    B = aug_starts.shape[0]
+    rows = 2 if y is None else 4
+    if B == 0:
+        return tuple(x.new_empty(0) for _ in range(rows))
+    if y is None:
+        y = torch.empty(0, dtype=torch.int32, device=x.device)
+    capacity = fit_capacity(x.shape[0], B)
+    out, _ = _build.launch("rmi_aug_fit_moments", x, y, aug_starts, aug_ends, x.shape[0],
+                           int(rows == 2), (rows, B), B, 1 + 6 * capacity, capacity)
+    return out.unbind(0)
+
+
+def scan_levels(n: int) -> int:
+    """Levels of segments._row_scan over n values (rows of 1024)."""
+    levels = 1
+    while n > 1024:
+        n, levels = -(-n // 1024), levels + 1
+    return levels
+
+
+def fit_tolerance(x, y, aug_starts, aug_ends, want):
+    """Per-leaf tolerances of aug_fit_moments on the card against its
+    plain version's outputs ``want`` (in their order), from how the two
+    round.  The plain sums are differences of two prefix sums: each
+    prefix value takes at most 1024 adds a level of the row scan, L
+    levels, every add rounding by at most u P (u = 2^-53, P the sum of
+    |v| over the whole array), so a sum lies within 2^11 L u P of the
+    exact one; the kernel's adds cnt values, within cnt u S (S the
+    leaf's sum of |v|; its sum of y is exact).  A mean moves by that over
+    max(cnt, 1) and a rounding on each side; the centered sums, taken
+    about the two means, differ by cnt (dmx)^2 and cnt dmx dmy (their
+    first-order terms vanish about the exact means) and by each side's
+    summation, within cnt u of sum |term|, which is m2 and at most
+    sqrt(m2 syy) for c (syy the y variance sum)."""
+    n, lo, hi = x.shape[0], aug_starts, aug_ends
+    cnt = (hi - lo).double()
+    safe = cnt.clamp(min=1.0)
+    levels = scan_levels(n)
+
+    def mean_tol(v, mean, exact_kernel=False):
+        a = v.double().abs()
+        total = float(a.sum())
+        s_abs = seg.range_sum(a, lo, hi).abs()
+        tol = 2048 * levels * _U * total + (0.0 if exact_kernel else 1.0) * cnt * _U * s_abs
+        return tol / safe + 4 * _U * mean.abs()
+
+    tx = mean_tol(x, want[0])
+    m2 = want[-2] if y is not None else want[1]
+    tm2 = (2 * cnt + 4) * _U * m2.abs() + cnt * (2 * tx) ** 2
+    if y is None:
+        return [tx, tm2]
+    yf = y.double()
+    ty = mean_tol(yf, want[1], exact_kernel=True)
+    syy = aug_centered_xx_plain(yf, want[1], lo, hi)
+    tc = ((2 * cnt + 4) * _U * torch.sqrt(m2.clamp(min=0) * syy.clamp(min=0))
+          + 4 * cnt * tx * ty)
+    return [tx, ty, tm2, tc]

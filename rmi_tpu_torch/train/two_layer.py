@@ -6,11 +6,11 @@ partition and fit, lower-bound correction, error sweep; two_layer.rs:
 device, in three stages whose per-key temporaries are freed before the
 next stage allocates:
 
-  A  FixDups (kernel K1) + top fit + leaf assignment (on the card the
+  A  FixDups (rmi_fixdups) + top fit + leaf assignment (on the card the
      normalized keys, the cubic top's L1 sums and the assignment are
      kernels too, ops/top_kernel.py);
-  B  per-leaf fits over overlap-augmented spans (kernel K2 for linear,
-     loglinear and normal leaves, K6 for cubic ones) + lower-bound fills
+  B  per-leaf fits over overlap-augmented spans (rmi_aug_fit_moments for
+     linear and normal leaves, K2 for loglinear ones, K6 for cubic ones) + lower-bound fills
      + empty-leaf patch;
   C  per-leaf error sweep (K3) + epsilon probes (K4) + the longest
      duplicate run per leaf (the run-length pass) + the reference's error
@@ -47,7 +47,7 @@ from rmi_tpu_torch.models import clamp_int, get_model, predict_clamped, validate
 # models, where lookup's kernel wrapper (ops/eval_kernel.py) reaches them
 from rmi_tpu_torch.models.base import (kernel_input, model_float_input,  # noqa: F401
                                        normalize, predict_top_assignment)
-from rmi_tpu_torch.ops import eval_kernel, sweep_kernel, top_kernel
+from rmi_tpu_torch.ops import eval_kernel, scan_kernel, sweep_kernel, top_kernel
 from rmi_tpu_torch.utils import profiling
 from rmi_tpu_torch.utils import segments as seg
 
@@ -80,12 +80,9 @@ def top_assignment(mtop, top_w, keys: torch.Tensor, kminf: float, s: float,
 
 def fixdups_i32(keys: torch.Tensor) -> torch.Tensor:
     """First-occurrence index per key as int32 (FixDups,
-    models/mod.rs:143-185)."""
-    n = keys.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
-    changed = torch.ones(n, dtype=torch.bool, device=keys.device)
-    torch.ne(keys[1:], keys[:-1], out=changed[1:])
-    return seg.blocked_cummax(torch.where(changed, idx, 0))
+    models/mod.rs:143-185): scan_kernel.fixdups, one launch of
+    rmi_fixdups on the card."""
+    return scan_kernel.fixdups(keys)
 
 
 def _scale(v, sf: float):
@@ -137,16 +134,18 @@ def lower_bound_fills(spans: seg.Spans, keys: torch.Tensor,
         key_at = keys.__getitem__
     n = spans.n
     big = n + 1
-    first_val = torch.where(spans.nonempty, spans.starts, big)
-    suffix_min = torch.cummin(first_val.flip(0), 0).values.flip(0)
+    # the spans tile [0, n) in leaf order (segments.spans_from_starts), so
+    # the first row of the first non-empty leaf at or after j is starts[j]
+    # where that is below n, and the last row of the last non-empty leaf up
+    # to j is ends[j] - 1 (-1 where none): no scan over the leaves
+    suffix_min = torch.where(spans.starts < n, spans.starts, big)
     next_start = torch.cat([suffix_min[1:], suffix_min.new_full((1,), big)])
     has_next_leaf = next_start < big
     next_idx = torch.where(has_next_leaf, next_start, n)
     safe = next_start.clamp(0, max(n - 1, 0))
     next_key = torch.where(has_next_leaf, key_at(safe), key_type.max_image)
 
-    last_val = torch.where(spans.nonempty, spans.ends - 1, -1)
-    prefix_max = torch.cummax(last_val, 0).values
+    prefix_max = spans.ends - 1
     prev_last = torch.cat([prefix_max.new_full((1,), -1), prefix_max[:-1]])
     has_prev_leaf = prev_last >= 0
     prev_key = torch.where(has_prev_leaf, key_at(prev_last.clamp(min=0)),

@@ -6,12 +6,12 @@ contiguous range.  The JAX package rewrote searchsorted, the scans and
 the segmented max into TPU-friendly forms.  On the card the plain
 operations serve instead: ``torch.searchsorted`` in place of
 sorted_starts (below) and hier_count (models/cubic.py, the integer
-models); kernel K1
-(ops/scan_kernel.py) runs the n-scale running max, kernel K2
-(ops/select_kernel.py) the per-leaf moments (plain, 0/1-weighted and
-variance-only), and the per-leaf maxima are taken inside kernel K3 and
-the run-length pass (ops/sweep_kernel.py), with ``range_max`` here as
-their plain form.
+models); FixDups is one kernel (ops/scan_kernel.fixdups), the linear
+and normal leaf fits' sums, means and moments another
+(ops/select_kernel.aug_fit_moments, whose plain version is range_sum
+here and K2's), kernel K2 the loglinear and data-parallel moments, and
+the per-leaf maxima are taken inside kernel K3 and the run-length pass
+(ops/sweep_kernel.py), with ``range_max`` here as their plain form.
 
 Leaf-overlap semantics (two_layer.rs:52-82): a non-empty leaf j with
 span [s_j, e_j) trains on the augmented range [s_j - (s_j>0),
@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from rmi_tpu_torch.ops import scan_kernel, select_kernel
+from rmi_tpu_torch.ops import select_kernel
 
 INT32_MIN = -(1 << 31)
 INT32_MAX = (1 << 31) - 1
@@ -233,9 +233,3 @@ def range_max(values: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     out = torch.full((starts.shape[0],), fill, dtype=values.dtype,
                      device=values.device)
     return out.scatter_reduce_(0, leaf, values[elem], "amax", include_self=True)
-
-
-def blocked_cummax(v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """Inclusive running max of int32 ``v`` (kernel K1)."""
-    return scan_kernel.scan_i32(v, is_max=True, fill=INT32_MIN,
-                                reverse=reverse)

@@ -37,7 +37,14 @@ interpolation bit-equal to their plain versions at their edges
 over windows of 2^16 and 2^21 keys (wide_window_case), on keys, knots and
 samples one entry off a 16-byte boundary, and at 2^22 queries, and a
 train_bounded index's lookup and search on the card equal to the CPU
-index's, through those kernels, its knot sample made per index.
+index's, through those kernels, its knot sample made per index;
+rmi_fixdups bit-equal to its plain version (test_torch_fit_kernels.py's
+edge cases and runs of a million keys), and rmi_aug_fit_moments, both
+forms, within select_kernel.fit_tolerance of its plain version on those
+edge cases and on leaves of hundreds of chunks, each the same bits when
+run again and, the fit, with a full schedule of long-leaf chunks; the
+build's FixDups and linear and normal leaf fits one launch each, the
+fit allocating nothing of the keys' size.
 """
 
 import dataclasses
@@ -62,6 +69,8 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
                                top_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
+from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, fit_case, fixdups_case,
+                                    leaf_arrays)
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
                                       WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
@@ -535,7 +544,8 @@ def test_wrappers_refuse_bad_inputs(dev):
 
 
 # the kernel wrappers a build calls, with their plain versions
-BUILD_WRAPPERS = [(scan_kernel, "scan_i32"), (select_kernel, "aug_centered_moments"),
+BUILD_WRAPPERS = [(scan_kernel, "fixdups"), (select_kernel, "aug_fit_moments"),
+                  (select_kernel, "aug_centered_moments"),
                   (sweep_kernel, "sweep_leaf_max"), (sweep_kernel, "span_run_max"),
                   (eval_kernel, "leaf_eval_clamped"), (cubic_l1_kernel, "cubic_l1_sums")]
 
@@ -555,16 +565,19 @@ def _record_build(monkeypatch, fn):
 
 
 def _replay_on_plain(name, args, kw):
-    """A recorded wrapper call against its plain version: K2 and K6 on the
-    card within their tolerances, the others bit-equal (K3 and K4 on CPU
-    copies, where torch.addcmul is an exact FMA)."""
+    """A recorded wrapper call against its plain version: K2, K6 and the
+    leaf fit's moments on the card within their tolerances, the others
+    bit-equal (K3 and K4 on CPU copies, where torch.addcmul is an exact
+    FMA)."""
     mod = dict((n, m) for m, n in BUILD_WRAPPERS)[name]
     got = getattr(mod, name)(*args, **kw)
     if name in ("sweep_leaf_max", "leaf_eval_clamped"):
         args = [a.cpu() if torch.is_tensor(a) else a for a in args]
-    kw = {k: v for k, v in kw.items() if (name, k) != ("scan_i32", "fill")}
     want = getattr(mod, name + "_plain")(*args, **kw)
-    if name == "aug_centered_moments":
+    if name == "aug_fit_moments":
+        tol = select_kernel.fit_tolerance(*args, want)
+        assert all(bool(((g - w).abs() <= t).all()) for g, w, t in zip(got, want, tol))
+    elif name == "aug_centered_moments":
         x, y, mean_x, mean_y, lo, hi = args
         syy = select_kernel.aug_centered_moments_plain(y, y, mean_y, mean_y, lo, hi)[0]
         _k2_close(got, want, syy.cpu())
@@ -598,7 +611,7 @@ def test_card_build_integer_models_matches_cpu_build(dev, spec, monkeypatch):
         assert params_equal(params_to(card.device_leaf_params, "cpu"), cpu.device_leaf_params)
         assert torch.equal(card.leaf_errors.cpu(), cpu.leaf_errors)
     names = {name for name, _, _ in calls}
-    assert {"scan_i32", "span_run_max"} <= names
+    assert {"fixdups", "span_run_max"} <= names
     assert ("sweep_leaf_max" in names) == (not get_model(card.leaf_type).output_int)
     for name, args, kw in calls:
         _replay_on_plain(name, args, kw)
@@ -1006,6 +1019,9 @@ def _entry_calls(dev):
             x, y, 0.5, zeros[:1], zeros[:1, :2].contiguous()),
         "rmi_top_assign": lambda: top_kernel.top_assign(
             "linear", zeros[:1, :2].contiguous(), x, B),
+        "rmi_fixdups": lambda: scan_kernel.fixdups(keys),
+        "rmi_aug_fit_moments": lambda: select_kernel.aug_fit_moments(
+            x, y, spans.aug_starts, spans.aug_ends),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -2307,3 +2323,145 @@ def test_stage_a_on_card(dev, top):
         hw, ht, _ = two_layer._assign_body(model_float_input(mtop, k, kminf, s),
                                            two_layer.fixdups_i32(k), top_type=top, B=B, keys=k)
         assert params_equal(top_w, hw) and torch.equal(t.cpu(), ht)
+
+
+# the leaf fits' moments and FixDups (csrc/moments.cu, csrc/scan.cu) ----------
+
+FIXDUPS_CARD = FIXDUPS_EDGES + ("dups_1m", "run_of_1m")
+
+
+def _card_fixdups_keys(kind):
+    """fixdups_case's keys, or at a million keys: runs of geometric
+    lengths, one run of 10^6 keys."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "dups_1m":
+        return torch.from_numpy(np.sort(np.repeat(
+            rng.integers(-(1 << 62), 1 << 62, 400_000), rng.geometric(0.4, 400_000)))[:1_000_003])
+    if kind == "run_of_1m":
+        return torch.from_numpy(np.concatenate([np.arange(50), np.full(1_000_017, 50),
+                                                np.arange(51, 3000)]).astype(np.int64))
+    return fixdups_case(kind)
+
+
+@pytest.mark.parametrize("kind", FIXDUPS_CARD)
+def test_fixdups(dev, kind):
+    """rmi_fixdups bit-equal to its plain version on the CPU and on the
+    card, one launch (none for no keys), the same bits when run again, on
+    keys one element off a 16-byte boundary too."""
+    keys = _card_fixdups_keys(kind)
+    want = scan_kernel.fixdups_plain(keys)
+    d = keys.to(dev)
+    for view in (d, torch.cat([d[:1], d])[1:]):
+        before = dict(_build.launches)
+        got = scan_kernel.fixdups(view)
+        assert _moved(before) == ({"rmi_fixdups": 1} if keys.shape[0] else {})
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got, scan_kernel.fixdups_plain(view))
+        assert torch.equal(scan_kernel.fixdups(view), got)
+
+
+FIT_CARD = FIT_EDGES + ("many_chunks", "path8_like")
+
+
+def _card_fit_case(kind):
+    """fit_case's (x, y, aug_starts, aug_ends), or on the card's scale: two
+    leaves of 2^19 keys (128 chunks each, more than a warp's lanes), four
+    of 2^20 (path 8's leaves are ~2M keys)."""
+    if kind not in ("many_chunks", "path8_like"):
+        return fit_case(kind)
+    n, B = ((1 << 20) + 333, 2) if kind == "many_chunks" else (1 << 22, 4)
+    x, y, t = leaf_arrays(n, B, 90 + B)
+    spans = seg.make_spans(torch.from_numpy(t), B)
+    return torch.from_numpy(x), torch.from_numpy(y), spans.aug_starts, spans.aug_ends
+
+
+def _f64_bits(outs):
+    return [o.contiguous().view(torch.int64) for o in outs]
+
+
+@pytest.mark.parametrize("xx", [False, True])
+@pytest.mark.parametrize("kind", FIT_CARD)
+def test_aug_fit_moments(dev, kind, xx):
+    """rmi_aug_fit_moments (the linear form, or with xx the normal one)
+    within fit_tolerance of its plain version on the CPU and on the card,
+    one launch, the same bits when run again and when its schedule of
+    long-leaf chunks has no slot or too few (those leaves then done by
+    their own warps)."""
+    x, y, lo, hi = _card_fit_case(kind)
+    y = None if xx else y
+    want = select_kernel.aug_fit_moments_plain(x, y, lo, hi)
+    tol = select_kernel.fit_tolerance(x, y, lo, hi, want)
+    dx, dlo, dhi = x.to(dev), lo.to(dev), hi.to(dev)
+    dy = None if y is None else y.to(dev)
+    before = dict(_build.launches)
+    got = select_kernel.aug_fit_moments(dx, dy, dlo, dhi)
+    assert _moved(before) == {"rmi_aug_fit_moments": 1}
+    assert len(got) == len(want)
+    plain_card = select_kernel.aug_fit_moments_plain(dx, dy, dlo, dhi)
+    for g, w, pc, t in zip(got, want, plain_card, tol):
+        assert g.dtype == torch.float64 and g.shape == lo.shape
+        assert ((g.cpu() - w).abs() <= t).all()
+        assert ((pc.cpu() - w).abs() <= t).all()
+    bits = _f64_bits(got)
+    assert all(torch.equal(a, b) for a, b in zip(_f64_bits(
+        select_kernel.aug_fit_moments(dx, dy, dlo, dhi)), bits))
+    rows, B = len(got), lo.shape[0]
+    ey = torch.empty(0, dtype=torch.int32, device=dev) if dy is None else dy
+    for capacity in (0, 3):
+        out, _ = _build.launch("rmi_aug_fit_moments", dx, ey, dlo, dhi, dx.shape[0], int(xx),
+                               (rows, B), B, 1 + 6 * capacity, capacity)
+        assert all(torch.equal(a, b) for a, b in zip(_f64_bits(out.unbind(0)), bits))
+
+
+def test_fit_entries_refuse_bad_inputs(dev):
+    """A negative schedule capacity, keys past 2^31 for int32 indices, and
+    wrong types: refused, nothing counted; no leaves or no keys: empty
+    answers and no launch."""
+    x, y, lo, hi = (a.to(dev) for a in fit_case("books"))
+    B = lo.shape[0]
+    before = dict(_build.launches)
+    with pytest.raises(RuntimeError):
+        _build.launch("rmi_aug_fit_moments", x, y, lo, hi, x.shape[0], 0, (4, B), B, 1, -1)
+    with pytest.raises(RuntimeError):
+        _build.launch("rmi_fixdups", lo, (4,), (1 << 31) + 1)
+    with pytest.raises(ValueError):
+        select_kernel.aug_fit_moments(x, y.long(), lo, hi)
+    with pytest.raises(ValueError):
+        scan_kernel.fixdups(y)
+    e = lo[:0]
+    assert [o.shape for o in select_kernel.aug_fit_moments(x, y, e, e)] == [(0,)] * 4
+    assert scan_kernel.fixdups(e).shape == (0,)
+    assert _build.launches == before
+
+
+@pytest.mark.parametrize("spec", ["cubic,linear", "robust_linear,linear", "linear,normal",
+                                  "radix18,linear"])
+def test_fit_and_fixdups_on_card(dev, spec):
+    """A build on the card takes FixDups and its linear or normal leaf fit
+    in one launch each, and K1 and K2 not at all; the leaf fit allocates
+    no tensor of the keys' size (its peak below n bytes, a quarter of an
+    int32 [n] tensor)."""
+    n, B = 1 << 22, 4096
+    keys = rdata.books_like_on_device(n, 9, dev)
+    data = rdata.RMIDataset(keys, KeyType.U64)
+    rt.train(data, spec, B)
+    before = dict(_build.launches)
+    rt.train(data, spec, B)
+    moved = _moved(before)
+    assert moved["rmi_fixdups"] == 1 and moved["rmi_aug_fit_moments"] == 1
+    assert not set(moved) & {"rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx"}
+    top, leaf = (get_model(m) for m in spec.split(","))
+    kminf, s = two_layer.norm_constants(keys)
+    yfix = two_layer.fixdups_i32(keys)
+    top_in = model_float_input(top, keys, kminf, s)
+    _, t, _ = two_layer._assign_body(top_in, yfix, top_type=top.name, B=B, keys=keys)
+    leaf_in = model_float_input(leaf, keys, kminf, s)
+    spans = seg.make_spans(t, B)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w = leaf.fit_leaves(leaf_in, yfix, spans)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < n
+    assert w.shape == (B, leaf.ppm) and bool(torch.isfinite(w[spans.nonempty]).all())

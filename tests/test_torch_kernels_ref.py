@@ -27,6 +27,20 @@ JAX functions on the same numpy inputs:
     run-length kernel's own formula (a run's length read off its last
     key) equals them too, because a run never straddles two leaves
     under any ported top.
+  * The leaf fits' statistics (select_kernel.aug_fit_moments, the plain
+    version of rmi_aug_fit_moments) against rmi_tpu's _slr_ranges and
+    _ncdf_ranges steps, xla (prefix-sum range sums, aug_centered_moments
+    and aug_centered_dot) and the Pallas route (range_sum_blocked and
+    aug_centered_moments_pallas in interpret mode), on
+    test_torch_fit_kernels.py's edge cases (empty and one-key leaves,
+    leaves across the kernel's chunks, robust_linear's trimmed spans):
+    the means within select_kernel.fit_tolerance (both sides sum by
+    prefix-sum differences or by blocks), the moments within it plus
+    K2's 1e-9 relative and 1e-15 a key (float-float products on the
+    Pallas route) and the rounding of rmi_tpu's range sums of the
+    per-key terms (2^11 L u of their whole-array sum).  FixDups (scan_kernel.fixdups, rmi_fixdups' plain
+    version) bit-equal to rmi_tpu's _fixdups_i32 with its XLA scan and
+    with the Pallas scan in interpret mode.
 """
 
 import numpy as np
@@ -49,6 +63,7 @@ from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel, scan_kernel, select_kernel, sweep_kernel
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as t_seg
+from test_torch_fit_kernels import FIXDUPS_EDGES, fit_arrays, fit_case, fixdups_case
 
 N = (1 << 15) + 517          # not a multiple of any kernel block
 B = 1024
@@ -381,3 +396,91 @@ def test_runs_never_straddle_leaves(top, seed, log_n, max_run, nb):
     np.testing.assert_array_equal(
         _run_end_max(img.numpy(), yfix.numpy(), spans.starts.numpy(), spans.ends.numpy()),
         want.numpy())
+
+
+def _j_fit_spans(t, B, trim):
+    """rmi_tpu's spans of leaf ids t, trimmed as its _slr_ranges trims
+    robust_linear's (rmi_tpu/models/linear.py:54-75)."""
+    spans = j_seg.make_spans(jnp.asarray(t), B)
+    if not trim:
+        return spans
+    total = spans.aug_ends - spans.aug_starts
+    bnd = jnp.maximum(jnp.int64(1), (total.astype(jnp.float64) * 1e-4).astype(jnp.int64))
+    ok = (2 * bnd + 1) < total
+    lo = jnp.where(ok, spans.aug_starts + bnd, spans.aug_starts)
+    hi = jnp.where(ok, jnp.maximum(spans.aug_ends - bnd, spans.aug_starts + bnd),
+                   spans.aug_ends)
+    return j_seg.Spans(t=spans.t, starts=lo, ends=hi, aug_starts=lo, aug_ends=hi,
+                       nonempty=lo < hi, has_prev=jnp.zeros_like(spans.has_prev),
+                       has_next=jnp.zeros_like(spans.has_next), n=spans.n, B=spans.B)
+
+
+_SPAN_ARRAYS = ("t", "starts", "ends", "aug_starts", "aug_ends", "nonempty", "has_prev",
+                "has_next")
+
+
+def _j_fit_stats(x, yf, fields, n, B, ref, xx):
+    """rmi_tpu's leaf-fit statistics over the spans of ``fields`` (their
+    arrays) and n, B: ((mean_x, mean_y, m2, c), or the normal fit's
+    (mean, m2), by the xla or the Pallas route; the Pallas kernel's
+    window overflow, 0 on the xla route)."""
+    spans = j_seg.Spans(**fields, n=n, B=B)
+    cnt = j_seg.aug_count(spans)
+    safe = jnp.maximum(cnt, 1.0)
+    lo, hi = spans.aug_starts, spans.aug_ends
+    rsum = j_seg.range_sum_blocked if ref == "pallas" else j_seg.range_sum
+    mx = rsum(x, lo, hi) / safe
+    ovf = jnp.int32(0)
+    if xx:
+        mx = jnp.where(cnt == 0, 0.0, mx)
+        if ref == "pallas":
+            m2, _, ovf = j_seg.aug_centered_moments_pallas(spans, x, x, mx, mx, span=B)
+        else:
+            m2 = j_seg.aug_centered_dot(spans, x, x, mx, mx)
+        return (mx, m2), ovf
+    my = rsum(yf, lo, hi) / safe
+    if ref == "pallas":
+        m2, c, ovf = j_seg.aug_centered_moments_pallas(spans, x, yf, mx, my, span=B)
+    else:
+        m2, c = j_seg.aug_centered_moments(spans, x, yf, mx, my)
+    return (mx, my, m2, c), ovf
+
+
+@pytest.mark.parametrize("xx", [False, True])
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("kind", ["sparse", "chunk_edges", "trimmed"])
+def test_fit_moments_match_jax(kind, ref, xx):
+    x, y, t, B, trim = fit_arrays(kind)
+    tx, ty, lo, hi = fit_case(kind)
+    jspans = _j_fit_spans(t, B, trim)
+    np.testing.assert_array_equal(np.asarray(jspans.aug_starts), lo.numpy())
+    np.testing.assert_array_equal(np.asarray(jspans.aug_ends), hi.numpy())
+    got = select_kernel.aug_fit_moments(tx, None if xx else ty, lo, hi)
+    fields = {f: getattr(jspans, f) for f in _SPAN_ARRAYS}
+    want, ovf = jax.jit(_j_fit_stats, static_argnums=(3, 4, 5, 6))(
+        jnp.asarray(x), jnp.asarray(y.astype(np.float64)), fields, jspans.n, B, ref, xx)
+    assert int(ovf) == 0
+    want = [torch.from_numpy(np.array(w)) for w in want]
+    tol = select_kernel.fit_tolerance(tx, None if xx else ty, lo, hi, want)
+    cnt = (hi - lo).double()
+    # rmi_tpu's own moments are range sums of the per-key terms over the
+    # whole array (prefix sums or block partials): within 2^11 L u of the
+    # terms' whole-array sum, sum m2 (and sum sqrt(m2 syy) for c)
+    whole = 2048 * select_kernel.scan_levels(x.shape[0]) * 2.0 ** -53
+    m2 = want[-1] if xx else want[2]
+    mags = {len(got) - 1: m2} if xx else {2: m2, 3: torch.sqrt(m2 * select_kernel.aug_centered_xx_plain(
+        ty.double(), want[1], lo, hi))}
+    for i, (g, w, t_) in enumerate(zip(got, want, tol)):
+        if i in mags:                                       # m2 and c
+            t_ = t_ + 1e-9 * w.abs() + 1e-15 * cnt + whole * float(mags[i].sum())
+        bad = (g - w).abs() > t_
+        assert not bad.any(), (i, np.flatnonzero(bad.numpy())[:5], g[bad][:5], w[bad][:5])
+
+
+@pytest.mark.parametrize("scan", ["xla", "pallas"])
+@pytest.mark.parametrize("kind", [k for k in FIXDUPS_EDGES if k != "empty"])
+def test_fixdups_matches_jax(monkeypatch, kind, scan):
+    monkeypatch.setenv("RMI_SCAN_KERNEL", "1" if scan == "pallas" else "0")
+    keys = fixdups_case(kind)
+    want = j_two_layer._fixdups_i32(jnp.asarray(keys.numpy()))
+    np.testing.assert_array_equal(two_layer.fixdups_i32(keys).numpy(), np.asarray(want))

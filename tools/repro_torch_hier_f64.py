@@ -1,0 +1,77 @@
+"""Exact search through the hier plan on f64 keys, for one checkout of
+rmi_tpu_torch on one CUDA card: chip_smoke.py's zoo f64 row.
+
+    python3 tools/repro_torch_hier_f64.py [--root DIR] [--n 4000000]
+
+Makes books-like keys on the card (as chip_smoke.py does), casts them to
+f64 and scales them by 2^-32 (chip_smoke.typed_keys), builds
+``radix18,linear 65536`` on them (an integer top on f64 keys: the hier
+plan) and searches 2^22 random images over the keys' range, each key's
+image minus 1 and each key's image plus 1, against torch.searchsorted.
+Prints the card's name and power limit, the plan and the build's
+max_err and avg_log2, the mismatches of each query set and, for up to
+ten of them, the query, its lower bound, the answer and lookup's guess
+and err.  At 4M keys the image just above the last key is answered
+wrong by this tree and by its parent alike (ROADMAP Queue 3); --root DIR
+imports rmi_tpu_torch from DIR, a checkout of another commit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=REPO, help="checkout to import rmi_tpu_torch from")
+    ap.add_argument("--n", type=int, default=4_000_000)
+    ap.add_argument("--seed", type=int, default=42)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import rmi_tpu_torch
+    from rmi_tpu_torch import config, data as rdata, keys as keymod, lookup_fast
+    from rmi_tpu_torch.keys import KeyType
+    from rmi_tpu_torch.lookup import lookup, search
+
+    dev = config.require_cuda()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
+          flush=True)
+    u = rdata.books_like_on_device(args.n, args.seed, dev)
+    keys = keymod.f64_image(keymod.as_float(u).mul_(2.0 ** -32))
+    del u
+    rmi = rmi_tpu_torch.train(rdata.RMIDataset(keys, KeyType.F64), "radix18,linear", 65536)
+    plan = lookup_fast.get_plan(rmi)
+    print(f"rmi_tpu_torch from {os.path.abspath(args.root)}: plan {plan.kind} K={plan.K}, "
+          f"max_err {rmi.model_max_error}, avg_log2 {rmi.model_avg_log2_error!r}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    sets = {"random": torch.randint(int(keys[0]), int(keys[-1]), (1 << 22,), generator=gen,
+                                    device=dev),
+            "key - 1": keys - 1, "key + 1": keys + 1}
+    total = 0
+    for label, q in sets.items():
+        got = search(rmi, q)
+        lb = torch.searchsorted(keys, q, side="left")
+        bad = (got != lb).nonzero().flatten()
+        total += bad.numel()
+        print(f"{label}: {q.shape[0]} queries, {bad.numel()} mismatches", flush=True)
+        if bad.numel():
+            guess, err = lookup(rmi, q[bad[:10]])
+            for j, b in enumerate(bad[:10].tolist()):
+                print(json.dumps({"query": int(q[b]), "lower_bound": int(lb[b]),
+                                  "answer": int(got[b]), "guess": int(guess[j]),
+                                  "err": int(err[j])}), flush=True)
+    print(json.dumps({"root": os.path.abspath(args.root), "n": args.n, "mismatches": total}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
-"""Warm build times of chip_smoke.py's four paths, many builds each, for
-one checkout of rmi_tpu_torch on one CUDA card.
+"""Warm build times of chip_smoke.py's paths 1-5 and 8, many builds each,
+for one checkout of rmi_tpu_torch on one CUDA card.
 
     python3 tools/time_torch_builds.py [--root DIR] [--n 200000000] [--reps 15]
 
-Makes books-like keys on the card (as chip_smoke.py does), then for each
-path builds once to warm up and REPS times more, each build timed by the
+Makes books-like keys on the card (as chip_smoke.py does; path 8's are
+the same keys shifted right by 30, u32, chip_smoke.typed_keys, with path
+8's B = 100), then for each path builds once to warm up and REPS times
+more, each build timed by the
 host clock around ``train`` and a synchronize.  Prints per path the
 median, quartiles, least and most seconds, the kernel calls a build
 makes through the binding (``_build.launches``) and the peak device
@@ -30,8 +32,10 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = (("cubic,linear", 262144), ("robust_linear,cubic", 65536),
-         ("cubic,loglinear", 65536), ("cubic,normal", 65536))
+# (spec, B, key kind): chip_smoke.py's paths 1-5 and 8
+PATHS = (("cubic,linear", 262144, "u64"), ("robust_linear,cubic", 65536, "u64"),
+         ("cubic,loglinear", 65536, "u64"), ("cubic,normal", 65536, "u64"),
+         ("radix18,linear", 65536, "u64"), ("linear,linear", 100, "u32"))
 
 
 def main():
@@ -44,6 +48,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     import rmi_tpu_torch
     from rmi_tpu_torch import config, data as rdata
+    from rmi_tpu_torch import keys as keymod
     from rmi_tpu_torch.keys import KeyType
     from rmi_tpu_torch.ops import _build
 
@@ -51,9 +56,13 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
-    data = rdata.RMIDataset(rdata.books_like_on_device(args.n, args.seed, dev), KeyType.U64)
+    u = rdata.books_like_on_device(args.n, args.seed, dev)
+    typed = {"u64": rdata.RMIDataset(u, KeyType.U64),
+             "u32": rdata.RMIDataset((keymod.u64_bits(u) >> 30).add_(keymod.IMAGE_MIN),
+                                     KeyType.U32)}
     out = {}
-    for spec, B in PATHS:
+    for spec, B, kind in PATHS:
+        data = typed[kind]
         rmi_tpu_torch.train(data, spec, B)          # warm-up, kernels built
         torch.cuda.synchronize()
         before = sum(_build.launches.values())
@@ -68,7 +77,7 @@ def main():
         peak = torch.cuda.max_memory_allocated() / 2**30
         times.sort()
         q = [times[int(f * (len(times) - 1))] for f in (0.25, 0.5, 0.75)]
-        out[spec] = {"median_s": q[1], "quartiles_s": [q[0], q[2]], "least_s": times[0],
+        out[f"{spec} {kind}"] = {"median_s": q[1], "quartiles_s": [q[0], q[2]], "least_s": times[0],
                      "most_s": times[-1], "binding_calls": calls, "peak_gib": peak}
         print(f"{spec} {B}: warm build median {q[1]:.4f} s (quartiles {q[0]:.4f}-{q[2]:.4f}, "
               f"{times[0]:.4f}-{times[-1]:.4f}, {args.reps} builds), {calls:g} kernel calls "
