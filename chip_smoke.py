@@ -37,14 +37,24 @@ Phases (any failure raises and exits non-zero):
      kernel replaced) beside them, uncounted;
   6b. stages A and B (stage_a_trace): a warm build traced, the device ms
      of its rmi.build.* ranges, then stage A alone and stage B's leaf fit
-     alone traced, each device kernel with its calls and device ms
-     (FixDups one rmi_fixdups launch and no K1, rmi_key_normalize,
-     rmi_top_l1_cubic, rmi_top_assign and the top fit's [1]-sized torch;
-     the fit one rmi_aug_fit_moments launch and no K2, asserted);
+     alone traced, each device kernel with its calls and device ms and
+     the device launches in all (FixDups one rmi_fixdups launch and no
+     K1, one each of rmi_key_normalize, rmi_top_cubic_candidates,
+     rmi_top_l1_cubic and rmi_top_assign, no torch step of the top fit
+     between them; the fit one rmi_aug_fit_moments launch and no K2,
+     asserted);
   7. each kernel of the path replayed on the inputs the path gave it,
      against its plain PyTorch version: stage A's normalization (bit-
-     equal), the cubic top's L1 sums (as K6's) and the assignment
-     (bit-equal), all on the card, rmi_fixdups (bit-equal) and
+     equal), the cubic top's candidates (bit-equal), L1 sums (as K6's;
+     the chosen row and case bit-equal but on a near tie) and the
+     assignment (bit-equal), all on the card, the linear-family and
+     normal tops' rmi_top_moments (path 2's trimmed robust_linear span,
+     path 8's whole-span linear top on u32 keys and the zoo's normal top,
+     200M keys each; bit-equal to the plain version on CPU copies, whose
+     sums add in XLA's order) and the
+     hint-table tops' rmi_top_table_fit (path 5, the zoo's radix22 and
+     f64 rows; bit-equal), each of them the same bits when run again,
+     rmi_fixdups (bit-equal) and
      rmi_aug_fit_moments (within select_kernel.fit_tolerance), each also
      the same bits when run again, K1 and K2 on the calls the build made
      before those two (legacy_calls: FixDups' running max, the fit's
@@ -142,7 +152,10 @@ Phases (any failure raises and exits non-zero):
      f64 row, ``radix18,linear 65536`` on the same keys (an integer top
      on f64 keys: the hier plan), as a zoo row (11d), its lookup the fused
      entry with the f64 key kind (its table folded into the rows), its
-     search through rmi_hier_resolve;
+     search through rmi_hier_resolve, also of the images just past
+     either end of the keys and of the ends, logged (the image past the
+     last key, 2^30, routes by a bit no key has: resolve's ``ends``
+     answers it);
  11f. path 8, ``linear,linear 100`` on u32 keys (path 1's keys shifted
      right by 30, the books_200M_uint32 shape): phases 3-5 for it through
      the hierarchical plan (asserted; no K5), its search of 2^22 queries
@@ -276,7 +289,10 @@ operands and the sectors of each query's base and leaf row around q, of keys[::6
 around lb1 (packed_wide) and of the keys around lb; the window bounds:
 each block's two anchors, the bounds and the anchors' row sectors; stage
 A's kernels: the images, or x and yfix, in, x, the two sums or the leaf
-ids out), at
+ids out; the cubic candidates: the sectors of x their two binary
+searches read; the moments: x and yfix over the fitted span once,
+though their two passes read them twice; the table fit: the sectors of
+the images and targets beside each slot's first key, and the table), at
 3.35 TB/s, or
 its operations at the
 peak rate of their type, whichever is larger.
@@ -314,7 +330,7 @@ from rmi_tpu_torch import data as rdata
 from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.lookup import (_rmi_lookup, bounded_search, err_iters, lookup, search,
                                   search_route, search_sorted)
-from rmi_tpu_torch.models import get_model
+from rmi_tpu_torch.models import get_model, radix
 from rmi_tpu_torch.models.base import (kernel_input, leaf_predict, model_float_input,
                                        params_equal, params_to, predict_clamped,
                                        predict_top_assignment)
@@ -419,8 +435,21 @@ PATH_KERNELS = [
     # torch.addcmul is an exact FMA)
     ("rmi_key_normalize", top_kernel, "key_normalize", "key_normalize_plain", None,
      "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
+    # the cubic top's fit: its candidates (rmi_tpu's _fit_cubic_ranges over
+    # the top's one span), then the L1 sums and the choice
+    ("rmi_top_cubic_candidates", top_kernel, "top_cubic_candidates",
+     "top_cubic_candidates_plain", None, "rmi_tpu_torch/csrc/top.cu",
+     "rmi_tpu/models/cubic.py:63"),
     ("rmi_top_l1_cubic", top_kernel, "top_l1_cubic", "top_l1_cubic_plain", None,
      "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
+    # the linear-family and normal tops' fits (rmi_tpu's _linear_fit_top,
+    # _robust_fit_top, _normal_fit_top): held to the plain version on the
+    # CPU, whose whole-array sums add in XLA's order, as the kernel's do
+    ("rmi_top_moments", top_kernel, "top_moments", "top_moments_plain", "cpu",
+     "rmi_tpu_torch/csrc/top_fit.cu", "rmi_tpu/models/linear.py:164"),
+    # the hint-table tops' fit (rmi_tpu's _make_radix_table_fit)
+    ("rmi_top_table_fit", top_kernel, "top_table_fit", "top_table_fit_plain", None,
+     "rmi_tpu_torch/csrc/top_fit.cu", "rmi_tpu/models/radix.py:186"),
     ("rmi_top_assign", top_kernel, "top_assign", "top_assign_plain", None,
      "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
 ]
@@ -436,15 +465,22 @@ K5 = ("rmi_serve_sorted", "rmi_serve_sorted_scatter")
 PACKED = ("rmi_packed_search", "rmi_sorted_bounds")
 RUN_MAX = "rmi_span_run_max"
 # stage A: every path's build takes FixDups in one kernel, normalizes its
-# keys and assigns them to leaves in a kernel; a cubic top's L1 sums are a
-# kernel too.  Linear and normal leaves fit in one kernel (stage B).
+# keys and assigns them to leaves in a kernel; the cubic, linear-family,
+# normal and hint-table tops fit in kernels too.  Linear and normal leaves
+# fit in one kernel (stage B).
 FIT = ("rmi_fixdups", "rmi_aug_fit_moments")
 # K1 and K2, which the build's FixDups and leaf fits launched before
 # rmi_fixdups and rmi_aug_fit_moments, and the data-parallel build (path
 # 10) still launches: timed on path 1's and path 4's inputs (legacy_calls)
 LEGACY = ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx")
 NORM_ASSIGN = ("rmi_key_normalize", "rmi_top_assign")
-STAGE_A = ("rmi_key_normalize", "rmi_top_l1_cubic", "rmi_top_assign")
+# a cubic top's stage A: the normalization, its fit in two entries, the
+# assignment; a linear-family or normal top fits in rmi_top_moments, a
+# hint-table top in rmi_top_table_fit
+STAGE_A = ("rmi_key_normalize", "rmi_top_cubic_candidates", "rmi_top_l1_cubic",
+           "rmi_top_assign")
+MOMENTS = "rmi_top_moments"
+TABLE_FIT = "rmi_top_table_fit"
 # K4: the build's epsilon probes launch the per-element entry, lookup the fused one
 PATH1 = ("cubic,linear", 262144,
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
@@ -454,9 +490,9 @@ PATH1 = ("cubic,linear", 262144,
           "rmi_scan_i32", "rmi_aug_moments"))
 PATH2 = ("robust_linear,cubic", 65536,
          ("rmi_fixdups", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
-          "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN),
+          "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN, MOMENTS),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
-          "rmi_cubic_l1"))
+          "rmi_cubic_l1", MOMENTS))
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_fixdups", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED, *STAGE_A),
@@ -473,7 +509,7 @@ PATH4 = ("cubic,normal", 65536,
 # hint table
 PATH5 = ("radix18,linear", 65536,
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN, TABLE_FIT),
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *NORM_ASSIGN))
 # path 7: path 1's spec on f64 keys (FAMILIES_200M.json's
@@ -489,9 +525,11 @@ PATH7 = ("cubic,linear", 262144,
 # rmi_hier_resolve a batch
 PATH8 = ("linear,linear", 100,
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN),
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN,
+          MOMENTS),
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
-          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN))
+          "rmi_leaf_eval_linear", "rmi_lookup_linear", "rmi_hier_resolve", *NORM_ASSIGN,
+          MOMENTS))
 HIER_RUNS = 7             # timed runs of path 8's hier and bounded searches
 # the route of each integer top's lookup in paths 5 and 7 and the zoo
 # (eval_kernel.route_name): where its operand lies when it is read
@@ -503,18 +541,19 @@ INT_ROUTES = {"radix18": "folded", "histogram": "block", "radix22": "l2", "radix
 # lognormal top keeps its torch top before K4's per-element entry, and in
 # the packed search before rmi_packed_search; every row but the f64 one
 # serves a packed plan (radix, bradix, histogram, cubic,radix8, normal and
-# lognormal a packed_wide one)
+# lognormal a packed_wide one); the radix22, cubic and normal tops' fits
+# are kernels too
 ZOO = [("radix,linear", 1024, ("rmi_lookup_linear", *PACKED)),
        ("bradix,linear", 1024, ("rmi_lookup_linear", *PACKED)),
        ("histogram,linear", 4096, ("rmi_lookup_linear", *PACKED)),
-       ("radix22,cubic", 65536, ("rmi_cubic_l1", "rmi_lookup_cubic", *PACKED)),
-       ("cubic,radix8", 4096, PACKED),
-       ("normal,linear", 4096, ("rmi_lookup_linear", *PACKED)),
+       ("radix22,cubic", 65536, ("rmi_cubic_l1", "rmi_lookup_cubic", *PACKED, TABLE_FIT)),
+       ("cubic,radix8", 4096, (*PACKED, "rmi_top_cubic_candidates")),
+       ("normal,linear", 4096, ("rmi_lookup_linear", *PACKED, MOMENTS)),
        ("lognormal,linear", 4096, ("rmi_leaf_eval_linear", *PACKED))]
 # the zoo row on path 7's f64 keys: an integer top on f64 keys takes the
 # hier plan, so it drives the fused lookup and rmi_hier_resolve with the
-# f64 key kind
-ZOO_F64 = ("radix18,linear", 65536, ("rmi_lookup_linear", "rmi_hier_resolve"))
+# f64 key kind; its hint table is fitted on the keys' integer images
+ZOO_F64 = ("radix18,linear", 65536, ("rmi_lookup_linear", "rmi_hier_resolve", TABLE_FIT))
 # the lognormal cross-check's build, and the entries replayed from it
 LOGNORMAL = ("cubic,lognormal", 65536, (),
              ("rmi_aug_fit_moments", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal"))
@@ -672,8 +711,25 @@ def compare(name, got, want, args, kw):
         m2, wm2 = got.cpu(), want.cpu()
         return (float((m2 - wm2).abs().max()),
                 bool(((m2 - wm2).abs() <= K2_RTOL * wm2.abs()).all()))
-    if name in ("cubic_l1_sums", "top_l1_cubic"):
-        return compare_l1(got, want, "K6" if name == "cubic_l1_sums" else "rmi_top_l1_cubic")
+    if name == "cubic_l1_sums":
+        return compare_l1(got, want, "K6")
+    if name == "top_l1_cubic":
+        # the sums as K6's; the chosen row and its case bit-equal unless the
+        # two sums are a near tie
+        err, ok = compare_l1(got[0].split(1), want[0].split(1), "rmi_top_l1_cubic")
+        c, l = want[0].cpu().tolist()
+        tie = abs(l - c) <= float(cubic_l1_kernel.sum_tolerance(want[0][:1].cpu())
+                                  + cubic_l1_kernel.sum_tolerance(want[0][1:].cpu()))
+        return err, ok and (tie or (same_bits(got[1].cpu(), want[1].cpu())
+                                    and torch.equal(got[2].cpu(), want[2].cpu())))
+    if name in ("top_cubic_candidates", "top_moments"):    # f64 bits, NaN as NaN
+        g, w = got.cpu(), want.cpu()
+        nan = w.isnan()
+        ok = torch.equal(g.isnan(), nan) and same_bits(g[~nan], w[~nan])
+        return float((g[~nan] - w[~nan]).abs().max()) if (~nan).any() else 0.0, ok
+    if name == "top_table_fit":          # the table and (prefix, bits) equal
+        diffs = [compare(None, got[k], want[k], args, kw) for k in ("table", "w_int")]
+        return max(d[0] for d in diffs), all(d[1] for d in diffs)
     if name == "key_normalize":             # f64 bits, every NaN a NaN (where they lie)
         nan = want.isnan()
         ok = torch.equal(got.isnan(), nan) and torch.equal(got[~nan].view(torch.int64),
@@ -807,11 +863,14 @@ def same_as_steps(entry, fused, steps):
 
 # wrappers whose kernels are also run twice in a replay, the same bits
 # each time (their sums' order fixed, no float atomics)
-RERUN = ("fixdups", "aug_fit_moments")
+RERUN = ("fixdups", "aug_fit_moments", "top_cubic_candidates", "top_l1_cubic", "top_moments",
+         "top_table_fit")
 
 
 def same_bits(a, b):
-    """Two outputs (a tensor or a tuple of them) equal bit for bit."""
+    """Two outputs (a tensor, a tuple or a dict of them) equal bit for bit."""
+    if isinstance(a, dict):
+        a, b = tuple(a.values()), tuple(b[k] for k in a)
     a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
     return all(torch.equal(x.view(torch.int64) if x.is_floating_point() else x,
                            y.view(torch.int64) if y.is_floating_point() else y)
@@ -993,11 +1052,51 @@ def work(name, args, kw, out):
     if name == "key_normalize":       # an image in, x out; the decode (4), sub, mul
         return _nbytes(args[0], *outs), args[0].shape[0] * 6, F64_OPS_PER_S
     if name == "top_l1_cubic":
-        # x and yfix read once, the two rows, the two sums written; per key
-        # the target (mul, trunc), both candidates (4 FMAs), two subtractions,
-        # absolutes and adds
-        x, yfix, _, cubic_w, lin_w = args
-        return _nbytes(x, yfix, cubic_w, lin_w, *outs), x.shape[0] * 14, F64_OPS_PER_S
+        # x and yfix read once, the candidates, the two sums, the row and the
+        # case written; per key the target (mul, trunc), both candidates (4
+        # FMAs), two subtractions, absolutes and adds
+        x, yfix, _, cand = args
+        return _nbytes(x, yfix, cand, *outs), x.shape[0] * 14, F64_OPS_PER_S
+    if name == "top_cubic_candidates":
+        # what the candidates need: the 32-byte sectors of x each of the two
+        # binary searches reads (log2 n + 1 probes), the endpoints' and the
+        # inner points' x, targets and key images, the buffer written; ~80
+        # f64 operations (the slopes, their clamp, the coefficients)
+        x = args[0]
+        n = x.shape[0]
+        probes = 2 * (math.ceil(math.log2(n + 1)) + 1)
+        return SECTOR_BYTES * (probes + 10) + _nbytes(*outs), 80 + 3 * probes, F64_OPS_PER_S
+    if name == "top_moments":
+        # x and yfix over the fitted span read once (each pass reads them, the
+        # centered pass after the means: twice what is counted here), the row
+        # written; per key the target (mul, trunc), the two sums' adds, the
+        # centered terms (2 subtractions, 2 products, 2 adds)
+        top_type, x, yfix, _ = args
+        lo, hi = top_kernel.top_span(top_type, x.shape[0])
+        per = 12 if top_kernel.MOMENT_TOPS[top_type] == 0 else 4
+        key_bytes = 12 if per == 12 else 8
+        return key_bytes * (hi - lo) + _nbytes(*outs), (hi - lo) * per, F64_OPS_PER_S
+    if name == "top_table_fit":
+        # what the table needs: each slot's lower bound among the keys, the
+        # 32-byte sectors of the images on either side of it and of its
+        # target, each once; the table and (prefix, bits) written; per slot
+        # a binary search of the keys (~4 integer ops a step: the bucket's
+        # shifts and mask, the compare)
+        images, yfix, _, bits = args
+        n = images.shape[0]
+        # slot b's first key: #{keys < the prefix's bits + (b << shift)}, as
+        # the hint-table leaves' fit finds it (models/radix.py)
+        prefix = out["w_int"][:1]
+        top_bits = keymod.u64_bits(images[:1]) & ~keymod.shr(torch.full_like(prefix, -1), prefix)
+        slots = torch.arange(1 << bits, device=images.device)
+        at = torch.searchsorted(images, keymod.u64_bits(
+            top_bits + keymod.shl(slots, radix._table_shift(prefix, bits))))
+        near = torch.cat([(at - 1).clamp(0, n - 1), at.clamp(0, n - 1)])
+        sectors = (torch.unique(near // (SECTOR_BYTES // 8)).numel()
+                   + torch.unique(at.clamp(0, n - 1) // (SECTOR_BYTES // 4)).numel())
+        steps = math.ceil(math.log2(n + 1))
+        return (SECTOR_BYTES * sectors + _nbytes(out["table"], out["w_int"]),
+                (1 << bits) * steps * 4, INT_OPS_PER_S)
     if name == "top_assign":
         # the top's input in, the ids out, the top's operands once; per key
         # the top and the floor and clamps (4)
@@ -1154,8 +1253,11 @@ def stage_a_trace(data, spec, B):
     the model's input, the top fit, the assignment; rmi.build.fit stage
     B), then stage A alone and stage B's leaf fit alone traced as
     train_two_layer runs them, each device kernel with its calls and
-    device ms, and their launches: FixDups one rmi_fixdups, the fit one
-    rmi_aug_fit_moments, K1 and K2 none; returns the ranges' device ms."""
+    device ms, the device launches in all, and the C entries' launches:
+    stage A one rmi_fixdups and one of each STAGE_A entry (the
+    normalization, the cubic top's candidates and L1 sums, the
+    assignment), the fit one rmi_aug_fit_moments, K1 and K2 none; returns
+    the ranges' device ms."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     rmi_tpu_torch.train(data, spec, B)
     torch.cuda.synchronize()
@@ -1180,6 +1282,7 @@ def stage_a_trace(data, spec, B):
         kernels = sorted(((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
                           if _device_us(e) > 0), reverse=True)
         log(f"path 1 {label} alone, {len(kernels)} device kernels, "
+            f"{sum(k[1] for k in kernels)} launches, "
             f"{sum(k[0] for k in kernels):.4f} ms: " + "; ".join(
                 f"{ms:.4f} ms x{count} {name[:72]}" for ms, count, name in kernels))
         log(f"path 1 {label} launches: {json.dumps(moved)}")
@@ -1194,7 +1297,8 @@ def stage_a_trace(data, spec, B):
         _, t, _ = two_layer._assign_body(top_in, yfix, top_type=top, B=B, keys=keys,
                                          key_type=key_type)
         return top_in, yfix, t
-    top_in, yfix, t = stage("stage A", stage_a, {"rmi_fixdups": 1, "rmi_scan_i32": 0})
+    top_in, yfix, t = stage("stage A", stage_a, {
+        "rmi_fixdups": 1, "rmi_scan_i32": 0, **{e: 1 for e in STAGE_A}})
     spans = seg.make_spans(t, B)
     next_idx = two_layer.lower_bound_fills(spans, keys, key_type)[0]
     stage("stage B's leaf fit", lambda: two_layer._fit_body(
@@ -1613,6 +1717,13 @@ def zoo_row(data, row, gen, nq, cross_n, seed, dev):
         _, by_search = launched(lambda: check_search(rmi, keys, gen))
         if plan.kind == "hier" and by_search.get("rmi_hier_resolve", 0) <= 0:
             raise RuntimeError(f"{spec}: the hier plan's search launched {by_search}")
+        if plan.kind == "hier":      # the images just past either end and the ends
+            edge = torch.cat([keys[:1] - 1, keys[:1], keys[-1:], keys[-1:] + 1])
+            got, want = search(rmi, edge), torch.searchsorted(keys, edge)
+            log(f"zoo {spec} search past the ends: queries {edge.tolist()}, answers "
+                f"{got.tolist()}, lower bounds {want.tolist()}")
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{spec}: search past the keys' ends is not exact")
         if plan.kind != "hier":      # at the paths' batch, recorded and replayed
             q = make_queries(keys, nq, gen, data.key_type)
             qs = torch.sort(q).values
@@ -3582,7 +3693,8 @@ def main():
     rmi, rec, counts = drive(PATH5, data, queries, gen)
     serving_curve(rmi, keys, gen)
     del rmi
-    p5_rows = check_kernels(rec, counts, ("rmi_lookup_linear", *PACKED))
+    p5_rows = check_kernels(rec, counts, ("rmi_lookup_linear", *PACKED, TABLE_FIT))
+    rows[TABLE_FIT] = p5_rows[TABLE_FIT]
     log("path 5 packed kernels " + json.dumps({e: p5_rows[e] for e in PACKED}))
     p5 = p5_rows["rmi_lookup_linear"]
     p1_row = rows["rmi_lookup_linear"]

@@ -129,14 +129,26 @@ RMI_ENTRY(rmi_sorted_bounds, (const int64_t* queries, int64_t key_kind, const do
                               int64_t* lo, int64_t* hi, int64_t nq, int64_t kq, int64_t B,
                               int64_t n, double offset, double scale, int64_t kmin, int64_t kmax,
                               void* stream))
-// stage A of the build: the normalized keys, the cubic top's L1 sums, the
+// stage A of the build: the normalized keys, the cubic top's fit, the
 // leaf assignment (csrc/top.cu)
 RMI_ENTRY(rmi_key_normalize, (const int64_t* keys, int64_t key_kind, double* x, int64_t n,
                               double offset, double scale, void* stream))
+RMI_ENTRY(rmi_top_cubic_candidates, (const double* x, const int32_t* y, const int64_t* keys,
+                                     int64_t key_kind, int64_t n, double sf,
+                                     int64_t scale_targets, int64_t has_ep, double ep_first,
+                                     double ep_last, double* cand, void* stream))
 RMI_ENTRY(rmi_top_l1_cubic, (const double* x, const int32_t* y, int64_t n, double sf,
-                             int64_t scale_targets, const double* cubic_w,
-                             const double* lin_w, double* partials, int64_t capacity,
-                             double* sums, void* stream))
+                             int64_t scale_targets, const double* cand, double* partials,
+                             int64_t capacity, double* sums, double* row, int32_t* top_case,
+                             void* stream))
+// stage A's other top fits: the linear-family and normal tops' moments and
+// the hint-table tops (csrc/top_fit.cu)
+RMI_ENTRY(rmi_top_moments, (const double* x, const int32_t* y, int64_t n, int64_t lo,
+                            int64_t hi, double sf, int64_t scale_targets, int64_t model,
+                            double* scratch, int64_t capacity, double* row, void* stream))
+RMI_ENTRY(rmi_top_table_fit, (const int64_t* images, const int32_t* y, int64_t n, double sf,
+                              int64_t scale_targets, int64_t bits, int32_t* table,
+                              int64_t* w_int, void* stream))
 RMI_ENTRY(rmi_top_assign, (const double* x, const int64_t* images, const double* top_w,
                            int64_t top_kind, const int64_t* top_int,
                            const int32_t* top_table, const int64_t* pivots, int64_t top_len,

@@ -9,7 +9,9 @@
 //                      64 clamp(LB >> 6, 0, nrows - 1) (nrows =
 //                      ceil(len / 64); entries past the level's end count
 //                      as not below q), capped at the level's length, and
-//                      the next level's limit max(64 lb - 63, 0).
+//                      the next level's limit max(64 lb - 63, 0); a
+//                      query at or below keys[0] is answered 0 and one
+//                      above keys[n0 - 1] n0 without the levels.
 //
 // Replaces rmi_tpu/lookup_fast.py:resolve (:396-413) and _count_row
 // (:388-393), which rmi_tpu's _fast_search_df64 (:524-551) runs in the
@@ -211,8 +213,14 @@ resolve(const int64_t* __restrict__ queries, const int64_t* __restrict__ guess,
         const int64_t* __restrict__ upper, const int64_t* __restrict__ index, int K,
         int64_t sK, int64_t* __restrict__ out, int64_t m, int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
+  // the keys' range: a query outside it is answered by its end
+  const int64_t kfirst = __ldg(keys), klast = __ldg(keys + n0 - 1);
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < m; i += stride) {
     const int64_t q = __ldg(queries + i);
+    if (q <= kfirst || q > klast) {
+      out[i] = q <= kfirst ? 0 : n0;
+      continue;
+    }
     // guess - err wraps as torch's int64 does
     int64_t lo = (int64_t)((uint64_t)__ldg(guess + i) - (uint64_t)__ldg(err + i));
     lo = lo < 0 ? 0 : (lo > n ? n : lo);
@@ -275,7 +283,9 @@ cudaError_t resident_blocks(int* blocks) {
 
 // out[i]: the lower bound of queries[i] in keys[0 : n0] from guess[i] and
 // err[i] through levels 0..K (the keys, then upper as index says); n the
-// plan's key count, which clamps guess - err.  A K outside [0, 10] or a
+// plan's key count, which clamps guess - err.  A query at or below
+// keys[0] answers 0 and one above keys[n0 - 1] n0, whatever its guess
+// (ops/hier_kernel.resolve_plain says why).  A K outside [0, 10] or a
 // missing level is refused with cudaErrorInvalidValue.  One persistent
 // grid: the blocks resident at once, or fewer for a small batch.
 RMI_API int rmi_hier_resolve(const int64_t* queries, const int64_t* guess, const int64_t* err,

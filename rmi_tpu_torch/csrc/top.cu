@@ -1,18 +1,29 @@
 // Stage A of the build (train/two_layer.py, the rmi.build.assign range)
-// after FixDups: the model's float input, the cubic top's two L1 sums and
-// the leaf assignment, in three entries.
+// after FixDups: the model's float input, the cubic top's whole fit and
+// the leaf assignment, in four entries (csrc/top_fit.cu has the other
+// tops' fits).
 //
 //   rmi_key_normalize   x[i] = (as_float(key[i]) - offset) * scale, f64:
 //                       the normalized key (models.base.normalize) that
 //                       the top fit, the assignment and stages B and C
 //                       read;
+//   rmi_top_cubic_candidates
+//                       one thread: the cubic top's endpoints (or the
+//                       top's ep_y), the two global searches of _slopes,
+//                       the clamped slopes, _coeffs and both candidates
+//                       (models/cubic.py _candidates), into a [kCand]
+//                       buffer with the aux statistics fit_cubic_aux
+//                       returns (kC* below);
 //   rmi_top_l1_cubic    the whole-array sums
 //                         c = sum |fma(fma(fma(a, x, b), x, c), x, d) - y|
 //                         l = sum |fma(beta, x, alpha) - y|
-//                       with y = trunc(yfix * sf) (two_layer._scale; yfix
-//                       itself where sf does not scale): the cubic top
-//                       keeps the linear spline where l < c
-//                       (cubic_spline.rs:113-135);
+//                       of the buffer's two candidates, with y =
+//                       trunc(yfix * sf) (two_layer._scale; yfix itself
+//                       where sf does not scale); its last block keeps the
+//                       linear spline where l < c (cubic_spline.rs:113-135)
+//                       and writes the chosen row and its case
+//                       (choose_candidates), so the top's fit is two
+//                       launches with no host step between them;
 //   rmi_top_assign      t[i] = min(B - 1, predict_to_int(top(x[i]))), int32:
 //                       each key's leaf (two_layer.rs:49).
 //
@@ -47,6 +58,15 @@
 // (l1_blocks), not of the card, and no float atomic is used, so every
 // run gives the same bits.
 //
+// The candidates are the plain chain's bits: its searches are aten's
+// (the same midpoints, so the same answer on any input, NaN included),
+// every quotient and square root is IEEE-rounded as torch's, the
+// reciprocal that torch takes for a scalar over a tensor (3 / sqrt(.) is
+// reciprocal(sqrt(.)) * 3) is kept, and each addcmul is an fma().  One
+// thread does it: ~60 dependent reads at 200M keys, some tens of
+// microseconds, in place of ~180 [1]- and [2]-sized torch operators each
+// issued by the host.
+//
 // The assignment has two kernels behind its entry, as the fused lookup
 // has (eval.cu): one for the affine tops (linear, robust_linear,
 // linear_spline, loglinear, cubic, normal; the top kind, warp-uniform, a
@@ -72,6 +92,14 @@ constexpr int kPer = kThreads * kUnroll;    // elements of a block's round
 // kL1Blocks blocks, whatever the card
 constexpr int64_t kL1Keys = 2048;
 constexpr int64_t kL1Blocks = 1024;
+// the candidates buffer (ops/top_kernel.CAND): the cubic row (a, b, c, d),
+// the spline's (intercept, slope), then the aux statistics and the
+// container's constant case (1.0 or 0.0)
+constexpr int kCand = 16;
+enum : int { kCubicRow = 0, kLinRow = 4, kCXmin = 6, kCXmax = 7, kCYmin = 8, kCYmax = 9,
+             kCM1 = 10, kCM2 = 11, kCConst = 12 };
+// convert.CUBIC_CASE_*
+constexpr int32_t kCaseCubic = 0, kCaseLinear = 1, kCaseConst = 2;
 
 int64_t l1_blocks(int64_t n) {
   const int64_t b = (n + kL1Keys - 1) / kL1Keys;
@@ -103,6 +131,89 @@ __device__ __forceinline__ double target(int32_t y, double sf, bool scaled) {
   return scaled ? trunc((double)y * sf) : (double)y;
 }
 
+// torch.searchsorted of v in x[0:n], left (lower) or right (upper): aten's
+// binary search step for step
+template <bool kRight>
+__device__ int64_t search_f64(const double* __restrict__ x, int64_t n, double v) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = lo + ((hi - lo) >> 1);
+    const double m = x[mid];
+    if (kRight ? !(m > v) : !(m >= v)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
+  return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
+}
+
+// fit_cubic_aux's whole-array candidates (models/cubic.py _candidates,
+// _slopes, slopes_from_points, _coeffs, candidates_from_slopes,
+// linear.spline_from_endpoints), operation for operation, one thread
+template <RmiKey K>
+__global__ void cubic_candidates(const double* __restrict__ x, const int32_t* __restrict__ y,
+                                 const int64_t* __restrict__ keys, int64_t n, double sf,
+                                 bool scaled, bool has_ep, double ep_first, double ep_last,
+                                 double* __restrict__ cand) {
+  const double xmin = x[0], xmax = x[n - 1];
+  const double ymin = has_ep ? ep_first : target(y[0], sf, scaled);
+  const double ymax = has_ep ? ep_last : target(y[n - 1], sf, scaled);
+  const bool degenerate = xmin == xmax;
+  // the first point with x > xmin and the last with x < xmax, global
+  const int64_t i1 = clamp_index(search_f64<true>(x, n, xmin), n);
+  const int64_t i2 = clamp_index(search_f64<false>(x, n, xmax) - 1, n);
+  const double x1 = x[i1], y1 = target(y[i1], sf, scaled);
+  const double x2 = x[i2], y2 = target(y[i2], sf, scaled);
+  // slopes_from_points
+  const double safe_span = degenerate ? 1.0 : xmax - xmin;
+  const double safe_yspan = ymax == ymin ? 1.0 : ymax - ymin;
+  const double sxn = (x1 - xmin) / safe_span;
+  const double sxp = (x2 - xmin) / safe_span;
+  const double syp = (y2 - ymin) / safe_yspan;
+  double m1 = (y1 - ymin) / (safe_yspan * (sxn == 0.0 ? 1.0 : sxn));
+  double m2 = (1.0 - syp) / (sxp == 1.0 ? 1.0 : 1.0 - sxp);
+  const double norm2 = fma(m1, m1, m2 * m2);
+  // 3 / sqrt(norm2) as torch takes a scalar over a tensor: reciprocal,
+  // then * 3 (the plain chain's clamp to 1e-300 never acts above 9)
+  const double tau = norm2 > 9.0 ? (1.0 / sqrt(norm2)) * 3.0 : 1.0;
+  m1 = m1 * tau;
+  m2 = m2 * tau;
+  // _coeffs
+  const double span = xmax - xmin;
+  const double span3 = span * span * span;
+  const double xx = xmax * xmax, nn = xmin * xmin, xn = xmax * xmin;
+  const double a = (m1 + m2 - 2.0) / span3;
+  const double b = -fma(xmax, 2.0 * m1 + m2 - 3.0, xmin * (m1 + 2.0 * m2 - 3.0)) / span3;
+  const double c = fma(xn, 2.0 * m1 + 2.0 * m2 - 6.0, fma(m1, xx, m2 * nn)) / span3;
+  const double d = -xmin * fma(xmin, xmin, fma(m1, xx, xn * (m2 - 3.0))) / span3;
+  const double ys = ymax - ymin;
+  // candidates_from_slopes: n >= 1 points, so never the empty case
+  const bool const_case = n == 1 || degenerate;
+  cand[kCubicRow] = const_case ? 0.0 : a * ys;
+  cand[kCubicRow + 1] = const_case ? 0.0 : b * ys;
+  cand[kCubicRow + 2] = const_case ? 0.0 : c * ys;
+  cand[kCubicRow + 3] = const_case ? ymin : fma(d, ys, ymin);
+  // spline_from_endpoints (fused)
+  const double slope = degenerate ? 0.0 : (ymin - ymax) / (xmin - xmax);
+  const double intercept = fma(-slope, xmin, ymin);
+  cand[kLinRow] = n == 1 || degenerate ? ymin : intercept;
+  cand[kLinRow + 1] = n <= 1 || degenerate ? 0.0 : slope;
+  cand[kCXmin] = keys == nullptr ? xmin : decoded<K>(keys[0]);
+  cand[kCXmax] = keys == nullptr ? xmax : decoded<K>(keys[n - 1]);
+  cand[kCYmin] = ymin;
+  cand[kCYmax] = ymax;
+  cand[kCM1] = m1;
+  cand[kCM2] = m2;
+  cand[kCConst] = const_case ? 1.0 : 0.0;
+#pragma unroll
+  for (int k = kCConst + 1; k < kCand; ++k) cand[k] = 0.0;
+}
+
 // a and b summed over the block by a fixed tree; thread 0 gets the totals
 __device__ __forceinline__ void block_sum(double& a, double& b) {
   __shared__ double sa[kWarps], sb[kWarps];
@@ -132,13 +243,13 @@ __device__ __forceinline__ void block_sum(double& a, double& b) {
 // partials[2 j + 1] (linear) of block j
 __global__ void __launch_bounds__(kThreads)
 top_l1_blocks(const double* __restrict__ x, const int32_t* __restrict__ y, int64_t n,
-              double sf, bool scaled, const double* __restrict__ cubic_w,
-              const double* __restrict__ lin_w, double* __restrict__ partials) {
+              double sf, bool scaled, const double* __restrict__ cand,
+              double* __restrict__ partials) {
   double cw[4], lw[2];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) cw[k] = __ldg(cubic_w + k);
-  lw[0] = __ldg(lin_w);
-  lw[1] = __ldg(lin_w + 1);
+  for (int k = 0; k < 4; ++k) cw[k] = __ldg(cand + kCubicRow + k);
+  lw[0] = __ldg(cand + kLinRow);
+  lw[1] = __ldg(cand + kLinRow + 1);
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   double sc = 0.0, sl = 0.0;
@@ -172,9 +283,14 @@ top_l1_blocks(const double* __restrict__ x, const int32_t* __restrict__ y, int64
 }
 
 // pass 2, one block: thread k adds the partials of blocks k, k + kThreads,
-// ... in order, then the block's tree; sums[0] cubic, sums[1] linear
+// ... in order, then the block's tree; sums[0] cubic, sums[1] linear;
+// then the choice (models/cubic.py choose_candidates and fit_cubic_aux's
+// case): row the cubic, or the spline as (0, 0, slope, intercept) where
+// l < c, and its case
 __global__ void __launch_bounds__(kThreads)
-top_l1_total(const double* __restrict__ partials, int64_t blocks, double* __restrict__ sums) {
+top_l1_total(const double* __restrict__ partials, int64_t blocks,
+             const double* __restrict__ cand, double* __restrict__ sums,
+             double* __restrict__ row, int32_t* __restrict__ top_case) {
   double sc = 0.0, sl = 0.0;
   for (int64_t j = threadIdx.x; j < blocks; j += kThreads) {
     sc += partials[2 * j];
@@ -184,6 +300,16 @@ top_l1_total(const double* __restrict__ partials, int64_t blocks, double* __rest
   if (threadIdx.x == 0) {
     sums[0] = sc;
     sums[1] = sl;
+    const bool use_lin = sl < sc;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) row[k] = cand[kCubicRow + k];
+    if (use_lin) {
+      row[0] = 0.0;
+      row[1] = 0.0;
+      row[2] = cand[kLinRow + 1];
+      row[3] = cand[kLinRow];
+    }
+    *top_case = cand[kCConst] != 0.0 ? kCaseConst : (use_lin ? kCaseLinear : kCaseCubic);
   }
 }
 
@@ -270,19 +396,45 @@ RMI_API int rmi_key_normalize(const int64_t* keys, int64_t key_kind, double* x, 
   return (int)cudaGetLastError();
 }
 
+// cand[kCand]: the candidates of the cubic fit over the n points of x and
+// the FixDups positions y (the targets y scaled by sf where scale_targets
+// is nonzero); has_ep: the endpoints' targets are ep_first and ep_last
+// (the top's), else y's; keys (null: x's) the key images whose first and
+// last give the aux's xmin and xmax, decoded as key_kind says.  n < 1 or
+// an unknown kind is refused.
+RMI_API int rmi_top_cubic_candidates(const double* x, const int32_t* y, const int64_t* keys,
+                                     int64_t key_kind, int64_t n, double sf,
+                                     int64_t scale_targets, int64_t has_ep, double ep_first,
+                                     double ep_last, double* cand, void* stream) {
+  if (n < 1 || (key_kind != (int64_t)RmiKey::kU64 && key_kind != (int64_t)RmiKey::kF64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (key_kind == (int64_t)RmiKey::kF64) {
+    cubic_candidates<RmiKey::kF64><<<1, 1, 0, (cudaStream_t)stream>>>(
+        x, y, keys, n, sf, scale_targets != 0, has_ep != 0, ep_first, ep_last, cand);
+  } else {
+    cubic_candidates<RmiKey::kU64><<<1, 1, 0, (cudaStream_t)stream>>>(
+        x, y, keys, n, sf, scale_targets != 0, has_ep != 0, ep_first, ep_last, cand);
+  }
+  return (int)cudaGetLastError();
+}
+
 // sums[0] (cubic) and sums[1] (linear) over the n keys of x and y, the
-// targets y scaled by sf where scale_targets is nonzero; cubic_w the
-// top's (a, b, c, d) row, lin_w its (alpha, beta) row; partials a scratch
-// of 2 * capacity values, refused if it holds fewer than l1_blocks(n)
-// blocks' (ops/top_kernel.L1_BLOCKS is kL1Blocks)
+// targets y scaled by sf where scale_targets is nonzero, of the candidates
+// in cand (rmi_top_cubic_candidates' buffer); row[4] the chosen row and
+// top_case[0] its case; partials a scratch of 2 * capacity values, refused
+// if it holds fewer than l1_blocks(n) blocks' (ops/top_kernel.L1_BLOCKS
+// is kL1Blocks)
 RMI_API int rmi_top_l1_cubic(const double* x, const int32_t* y, int64_t n, double sf,
-                             int64_t scale_targets, const double* cubic_w, const double* lin_w,
-                             double* partials, int64_t capacity, double* sums, void* stream) {
+                             int64_t scale_targets, const double* cand, double* partials,
+                             int64_t capacity, double* sums, double* row, int32_t* top_case,
+                             void* stream) {
   const int64_t blocks = l1_blocks(n);
   if (n < 1 || capacity < blocks) return (int)cudaErrorInvalidValue;
   top_l1_blocks<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, n, sf, scale_targets != 0, cubic_w, lin_w, partials);
-  top_l1_total<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, blocks, sums);
+      x, y, n, sf, scale_targets != 0, cand, partials);
+  top_l1_total<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, blocks, cand, sums, row,
+                                                         top_case);
   return (int)cudaGetLastError();
 }
 

@@ -271,7 +271,12 @@ def _make_plan(rmi) -> Plan:
 
 def _hier_search(rmi, plan: Plan, q: torch.Tensor) -> torch.Tensor:
     """Exact lower bounds of one batch through the hierarchical plan:
-    lookup, then resolve."""
+    lookup, then resolve, which answers a query outside the keys' range
+    by its end.  An integer top routes a query by the bits below the
+    keys' common prefix, so one outside the range whose prefix differs
+    (on f64 keys, the double just past a last key below 2^30 truncates
+    to 2^30) reaches a leaf whose window does not hold its lower bound;
+    rmi_tpu's hierarchical search answers such a query wrong too."""
     # imported here: rmi_tpu_torch.lookup imports this module
     from rmi_tpu_torch.lookup import lookup
     guess, err = lookup(rmi, q)

@@ -122,6 +122,8 @@ class ModelDef:
         the images of their as_int values (keys.int_image).
     output_int, restriction, leaf_capable, needs_bounds_check: as
         rmi_tpu's (models/base.py:44-116).
+    table_bits: a radix hint table's bits (its 2^bits slots), None for
+        the other models.
     """
 
     name: str
@@ -139,6 +141,7 @@ class ModelDef:
     restriction: Restriction = Restriction.NONE
     leaf_capable: bool = True
     needs_bounds_check: bool = True
+    table_bits: Optional[int] = None
 
 
 REGISTRY: Dict[str, ModelDef] = {}

@@ -7,9 +7,11 @@ points, the monotonicity clamp m1^2 + m2^2 <= 9, closed-form
 coefficients, and a fallback to the linear spline through the endpoints
 whenever that has the lower total L1 error (cubic_spline.rs:18-136).
 For leaves the L1 sums run in kernel K6 (ops/cubic_l1_kernel.py); the
-top's are whole-array sums, on the card one launch of rmi_top_l1_cubic
-(ops/top_kernel.py), which scales the targets as it reads them, on the
-CPU in XLA's order (segments.whole_array_sum).
+top's whole fit is two launches on the card (ops/top_kernel.py):
+rmi_top_cubic_candidates, the candidates and statistics in one buffer,
+and rmi_top_l1_cubic, whose whole-array sums scale the targets as they
+read them and whose last block chooses; on the CPU their plain versions,
+this module's chain and sums in XLA's order (segments.whole_array_sum).
 ``fit_cubic_aux`` also returns rmi_tpu's generator statistics (aux),
 from which convert.py recomputes the artifact's raw coefficients.
 
@@ -131,12 +133,16 @@ def fit_cubic_aux(xf, yf, spans: seg.Spans, ep_y=None, keys=None,
     raw key floats of ``keys``, images of ``key_type`` keys, when given;
     the fit's inputs otherwise), ymin, ymax, the clamped slopes m1 and m2,
     and each row's case."""
+    if spans.B == 1:
+        # the whole array (the top, or one leaf of n >= 1 keys): on the card
+        # rmi_top_cubic_candidates, then rmi_top_l1_cubic, which chooses
+        cand = top_kernel.top_cubic_candidates(xf, yf, sf, ep_y, keys, key_type)
+        _, w, case = top_kernel.top_l1_cubic(xf, yf, sf, cand)
+        aux = {name: cand[i:i + 1] for name, i in top_kernel.CAND_AUX.items()}
+        return w, dict(aux, case=case)
     cubic_w, lin_w, st = _candidates(xf, yf, spans, ep_y, sf)
     empty = st["empty"]
-    if spans.B == 1:           # the whole array: rmi_top_l1_cubic on the card
-        c_err, l_err = top_kernel.top_l1_cubic(xf, yf, sf, cubic_w, lin_w)
-    else:
-        c_err, l_err = cubic_l1_kernel.cubic_l1_sums(xf, yf, cubic_w, lin_w, spans)
+    c_err, l_err = cubic_l1_kernel.cubic_l1_sums(xf, yf, cubic_w, lin_w, spans)
     w, use_lin = choose_candidates(cubic_w, lin_w, c_err, l_err, empty)
 
     case = torch.full_like(st["first"], CUBIC_CASE_CUBIC, dtype=torch.int32)

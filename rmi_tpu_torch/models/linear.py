@@ -18,7 +18,10 @@ fma(beta, x, alpha) (linear.rs:87-90) and the intercept
 fma(-beta, mean_x, mean_y).  ``torch.addcmul`` computes exactly that
 FMA on the CPU.  The top's whole-array sums follow XLA's order
 (segments.whole_array_sum), and its means multiply by 1 / count, which
-XLA folds because the count is known when it compiles the top fit.
+XLA folds because the count is known when it compiles the top fit.  On
+the card the linear and robust_linear tops' fit is one launch of
+rmi_top_moments (ops/top_kernel.top_moments, the same order and bits);
+this module's fit_top is its plain version.
 """
 
 from __future__ import annotations
@@ -51,17 +54,23 @@ def loglinear_predict(w, leaf_ids, x):
     return exp1(linear_predict(w, leaf_ids, x))
 
 
-def trimmed(spans: seg.Spans) -> seg.Spans:
-    """robust_linear's containers: each augmented span without its
-    first and last bnd = max(1, trunc(len * 1e-4)) items
-    (linear.rs:247-252).  The reference asserts 2 bnd + 1 < len and would
-    abort on a smaller container; rmi_tpu keeps the untrimmed span there
+def trim_bounds(starts: torch.Tensor, ends: torch.Tensor):
+    """robust_linear's containers [starts, ends) without their first and
+    last bnd = max(1, trunc(len * 1e-4)) items (linear.rs:247-252), as
+    (lo, hi).  The reference asserts 2 bnd + 1 < len and would abort on a
+    smaller container; rmi_tpu keeps the untrimmed span there
     (rmi_tpu/models/linear.py:54-75), and so does the port."""
-    total = spans.aug_ends - spans.aug_starts
+    total = ends - starts
     bnd = (total.double() * 1e-4).long().clamp(min=1)
     ok = 2 * bnd + 1 < total
-    lo = torch.where(ok, spans.aug_starts + bnd, spans.aug_starts)
-    hi = torch.where(ok, torch.maximum(spans.aug_ends - bnd, lo), spans.aug_ends)
+    lo = torch.where(ok, starts + bnd, starts)
+    return lo, torch.where(ok, torch.maximum(ends - bnd, lo), ends)
+
+
+def trimmed(spans: seg.Spans) -> seg.Spans:
+    """robust_linear's containers: each augmented span trimmed by
+    trim_bounds."""
+    lo, hi = trim_bounds(spans.aug_starts, spans.aug_ends)
     return seg.Spans(t=spans.t, starts=lo, ends=hi, aug_starts=lo, aug_ends=hi,
                      nonempty=lo < hi, n=spans.n, B=spans.B)
 

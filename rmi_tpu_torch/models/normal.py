@@ -66,7 +66,8 @@ def _ln_or_zero(x):
 def _ncdf_ranges(xf, yf, spans: seg.Spans):
     """[B, 3] (mean, stdev, scale) per container; leaves take the mean and
     the variance sum from select_kernel.aug_fit_moments' xx form (one
-    launch on the card), the top from whole-array sums."""
+    launch on the card), the top from whole-array sums (on the card the
+    normal top's fit is rmi_top_moments, ops/top_kernel.top_moments)."""
     cnt = seg.aug_count(spans)
     safe_cnt = cnt.clamp(min=1.0)
     if spans.B > 1:

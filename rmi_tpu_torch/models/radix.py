@@ -159,7 +159,9 @@ def _make_table_fit_top(bits: int):
         at least b; slots past the last key's bucket hold the table's
         size (hint_table.len(), radix.rs:111-113); slot 0 keeps its 0
         (the construction loop's last_radix starts at 0, so the first
-        key never writes it, radix.rs:94-108).  int32: targets < 2^31."""
+        key never writes it, radix.rs:94-108).  int32: targets < 2^31.
+        On the card the fit is rmi_top_table_fit (ops/top_kernel.
+        top_table_fit), a thread a slot; this is its plain version."""
         n = keys.shape[0]
         prefix = common_prefix_size(keys)
         bucket = _table_bucket(u64_bits(keys), prefix, _table_shift(prefix, bits))
@@ -240,4 +242,4 @@ for _bits in TABLE_BITS:
         fit_leaves=_make_table_fit_leaves(_bits), predict=_table_predict,
         constant_params=None, leaf_kernel=None, bytes_per_model=4 * (1 << _bits),
         function_name="radix_table", input_domain="int", output_int=True,
-        needs_bounds_check=False))
+        needs_bounds_check=False, table_bits=_bits))

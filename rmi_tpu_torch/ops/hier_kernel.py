@@ -50,14 +50,21 @@ def _count_row(level, row, q):
 def resolve_plain(levels, queries, guess, err, *, K: int, n: int) -> torch.Tensor:
     """Exact lower bounds from lookup's (guess, err) through the levels'
     row counts (rmi_tpu lookup_fast.py:396-413): level K's lower limit
-    from guess - err, each finer level's from the count above it."""
+    from guess - err, each finer level's from the count above it.  A
+    query at or below the first key answers 0 and one above the last
+    answers the key count, whatever its guess: an integer top routes
+    such a query by bits that no key shares, to a leaf whose window need
+    not hold its lower bound (lookup_fast._hier_search); rmi_tpu's
+    resolve counts it through the levels like any other."""
     sK = LEVEL_FAN ** K
     LB = ((guess - err).clamp(0, n) + sK - 1) // sK
     lb = _count_row(levels[K], LB >> 6, queries).clamp(max=levels[K].shape[0])
     for k in range(K - 1, -1, -1):
         LB = (lb * LEVEL_FAN - LEVEL_FAN + 1).clamp(min=0)
         lb = _count_row(levels[k], LB >> 6, queries).clamp(max=levels[k].shape[0])
-    return lb
+    keys = levels[0]
+    return torch.where(queries <= keys[0], 0,
+                       torch.where(queries > keys[-1], keys.shape[0], lb))
 
 
 def _offsets(levels) -> List[int]:

@@ -100,11 +100,13 @@ def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
     ``top_in`` the top's model_float_input (an integer-output top's: the
     integer-key images).  Returns (top_w, t, top_aux), top_aux the fit's
     generator statistics (fit_aux; xmin and xmax from ``keys``, images of
-    ``key_type`` keys), or None for a model without them.  The cubic top
-    scales its targets where it reads them (fit_cubic_aux; on the card its
-    L1 sums in rmi_top_l1_cubic), the others fit on the scaled targets
-    made whole; the ids are top_kernel.top_assign's (rmi_top_assign on the
-    card)."""
+    ``key_type`` keys), or None for a model without them.  The cubic,
+    linear, robust_linear, normal and hint-table tops scale their targets
+    where they read them (on the card: the cubic top's two launches in
+    fit_cubic_aux, top_kernel.top_moments, top_kernel.top_table_fit; no
+    host step between FixDups and the assignment); the others fit on the
+    scaled targets made whole.  The ids are top_kernel.top_assign's
+    (rmi_top_assign on the card)."""
     n = top_in.shape[0]
     mtop = get_model(top_type)
     sf = float(B) / float(n)                  # two_layer.rs:109
@@ -113,6 +115,10 @@ def _assign_body(top_in, yfix, *, top_type: str, B: int, keys=None,
     if mtop.fit_aux is not None:
         top_w, top_aux = mtop.fit_aux(top_in, yfix, seg.whole_array_spans(n, top_in.device),
                                       ep_y, keys, key_type, sf=sf)
+    elif top_type in top_kernel.MOMENT_TOPS:
+        top_w = top_kernel.top_moments(top_type, top_in, yfix, sf)
+    elif mtop.table_bits is not None:
+        top_w = top_kernel.top_table_fit(top_in, yfix, sf, mtop.table_bits)
     else:
         ys_scaled = _scale(yfix, sf)
         top_w = (mtop.fit_top(top_in, ys_scaled, B, sf) if mtop.output_int

@@ -135,8 +135,10 @@ def whole_array_sum(values: torch.Tensor, lo: int, hi: int,
     before it is summed, except in a reduction of 32 or fewer, one loop
     in which XLA fuses it into the sum as an FMA; of such tiny masked
     sums (a trimmed container of 11 to 32) a few round otherwise in
-    rmi_tpu.  The card has no reference order to follow and takes one
-    reduction in torch's own fixed order."""
+    rmi_tpu.  On the card the linear-family and normal tops' fits add in
+    this order inside rmi_top_moments (ops/top_kernel.top_moments, with
+    no host step); the other callers here (the loglinear and lognormal
+    tops, bradix's chi^2) take one reduction in torch's own fixed order."""
     n = values.shape[0]
     if times is not None and n <= _XLA_WINDOW:
         acc = values.new_zeros(())

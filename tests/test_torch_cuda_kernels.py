@@ -69,8 +69,8 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
                                top_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, fit_case, fixdups_case,
-                                    leaf_arrays)
+from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, TOP_FIT_EDGES, fit_case,
+                                    fixdups_case, leaf_arrays, top_fit_case)
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
                                       WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
@@ -1015,8 +1015,10 @@ def _entry_calls(dev):
         "rmi_packed_search": lambda: packed_kernel.packed_search(rmi, plan, q),
         "rmi_sorted_bounds": lambda: packed_kernel.sorted_bounds(rmi, plan, q),
         "rmi_key_normalize": lambda: top_kernel.key_normalize(keys, 0.0, 1.0),
-        "rmi_top_l1_cubic": lambda: top_kernel.top_l1_cubic(
-            x, y, 0.5, zeros[:1], zeros[:1, :2].contiguous()),
+        "rmi_top_cubic_candidates": lambda: top_kernel.top_cubic_candidates(x, y, 0.5),
+        "rmi_top_l1_cubic": lambda: top_kernel.top_l1_cubic(x, y, 0.5, zeros[0].repeat(4)),
+        "rmi_top_moments": lambda: top_kernel.top_moments("linear", x, y, 0.5),
+        "rmi_top_table_fit": lambda: top_kernel.top_table_fit(keys, y[:n], 0.5, 8),
         "rmi_top_assign": lambda: top_kernel.top_assign(
             "linear", zeros[:1, :2].contiguous(), x, B),
         "rmi_fixdups": lambda: scan_kernel.fixdups(keys),
@@ -1709,6 +1711,46 @@ def test_hier_resolve_edges(dev, kind, K):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("kind,K", RESOLVE_EDGES)
+def test_hier_resolve_ends(dev, kind, K):
+    """rmi_hier_resolve bit-equal to resolve_plain at the resolve's edges
+    with each guess at either end of the keys and err 0, and #(keys < q)
+    on every query outside the keys' range, whatever its guess."""
+    keys, q, guess, err = resolve_edge_case(kind, K, 90 + K)
+    n = keys.shape[0]
+    levels, packed = hier_kernel.hier_levels(keys.to(dev), K)
+    cpu_levels = hier_kernel.hier_levels(keys, K)[0]
+    out = (q <= keys[0]) | (q > keys[-1])
+    zero = torch.zeros_like(err)
+    for g in (zero, torch.full_like(guess, n)):
+        want = hier_kernel.resolve_plain(cpu_levels, q, g, zero, K=K, n=n)
+        got = hier_kernel.resolve(levels, q.to(dev), g.to(dev), zero.to(dev), K=K, n=n,
+                                  packed=packed)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(want[out], torch.searchsorted(keys, q[out]))
+
+
+def test_hier_search_past_the_f64_ends_4m(dev):
+    """radix18,linear 65536 on 4M books-like keys made on the card, cast to
+    f64 and scaled by 2^-32 (chip_smoke's zoo f64 row at --n 4000000): the
+    last key is the double below 2^30, so the image just past it
+    truncates to 2^30, a bit no key has, and its top routes it to leaf 0;
+    search, search_sorted and fast_search answer it and the images just
+    before the first key, past the last and at the ends exactly."""
+    u = rdata.books_like_on_device(4_000_000, 42, dev)
+    keys = tkeys.f64_image(tkeys.as_float(u).mul_(2.0 ** -32))
+    rmi = rt.train(rdata.RMIDataset(keys, KeyType.F64), "radix18,linear", 65536)
+    assert lookup_fast.get_plan(rmi).kind == "hier"
+    q = torch.cat([keys[-1:] + 1, keys[-1:] + 2, keys[:1] - 1, keys[:1], keys[-1:],
+                   torch.tensor([tkeys.IMAGE_MIN, tkeys.IMAGE_MAX], device=dev)])
+    want = torch.searchsorted(keys, q)
+    assert int(want[0]) == keys.shape[0]
+    assert torch.equal(rt.search(rmi, q), want)
+    assert torch.equal(lookup_fast.fast_search(rmi, q), want)
+    qs, order = q.sort()
+    assert torch.equal(rt.search_sorted(rmi, qs), want[order])
+
+
 def _cachefix_on(dev, arrays):
     return [tkeys.to_image(a).to(dev) if a.dtype == np.uint64
             else torch.from_numpy(a.astype(np.int64)).to(dev) for a in arrays]
@@ -2195,32 +2237,113 @@ def _top_l1_inputs(n, B, seed):
     yfix = two_layer.fixdups_i32(img)
     sf = B / n
     ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
-    cw, lw, _ = cubic._candidates(x, yfix, seg.whole_array_spans(n, "cpu"), ep, sf)
-    return x, yfix, sf, cw, lw
+    return x, yfix, sf, top_kernel.top_cubic_candidates_plain(x, yfix, sf, ep, img)
 
 
 @pytest.mark.parametrize("n", STAGE_A_NS)
 @pytest.mark.parametrize("B", [1, 262144, None])     # None: B = n, no scaling
 def test_top_l1_cubic(dev, n, B):
     """rmi_top_l1_cubic within cubic_l1_kernel.sum_tolerance of its plain
-    version, the choice l < c the same unless the sums are closer than
-    their tolerances, the same bits when run again, one launch; on views
-    one element off a 16-byte boundary too."""
-    x, yfix, sf, cw, lw = _top_l1_inputs(n, B or n, n)
-    want = top_kernel.top_l1_cubic_plain(x, yfix, sf, cw, lw)
-    tol = [cubic_l1_kernel.sum_tolerance(w) for w in want]
+    version, the choice l < c, and so the row and the case, the same
+    unless the sums are closer than their tolerances, the same bits when
+    run again, one launch; on views one element off a 16-byte boundary
+    too."""
+    x, yfix, sf, cand = _top_l1_inputs(n, B or n, n)
+    want = top_kernel.top_l1_cubic_plain(x, yfix, sf, cand)
+    tol = [cubic_l1_kernel.sum_tolerance(w) for w in want[0]]
     dx, dy = x.to(dev), yfix.to(dev)
     for vx, vy in ((dx, dy), (torch.cat([dx[:1], dx])[1:], torch.cat([dy[:1], dy])[1:])):
         before = _build.launches["rmi_top_l1_cubic"]
-        got = top_kernel.top_l1_cubic(vx, vy, sf, cw.to(dev), lw.to(dev))
+        got = top_kernel.top_l1_cubic(vx, vy, sf, cand.to(dev))
         torch.cuda.synchronize()
         assert _build.launches["rmi_top_l1_cubic"] == before + 1
-        for g, w, t in zip(got, want, tol):
-            assert ((g.cpu() - w).abs() <= t).all()
-        near_tie = bool(((want[1] - want[0]).abs() <= tol[0] + tol[1]).all())
-        assert near_tie or bool((got[1] < got[0]).cpu() == (want[1] < want[0]))
-        again = top_kernel.top_l1_cubic(vx, vy, sf, cw.to(dev), lw.to(dev))
+        for g, w, t in zip(got[0].cpu(), want[0], tol):
+            assert (g - w).abs() <= t
+        c, l = want[0]
+        if (l - c).abs() > tol[0] + tol[1]:              # no near tie: the same choice
+            assert _bits_equal(got[1], want[1]) and torch.equal(got[2].cpu(), want[2])
+        again = top_kernel.top_l1_cubic(vx, vy, sf, cand.to(dev))
         assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# the top fits (csrc/top.cu's candidates, csrc/top_fit.cu) at their edges:
+# n = 1, 2, 3 (robust_linear untrimmed: 2 bnd + 1 >= n), 31-33 around
+# XLA's window, 1025 (level 1 past 32 windows), 32769 and 10^6 keys
+TOP_FIT_NS = (1, 2, 3, 31, 32, 33, 1025, 32769, 1_000_003)
+TOP_FIT_CASES = [("u64", n) for n in TOP_FIT_NS] + [(k, 4099) for k in TOP_FIT_EDGES[1:]]
+
+
+def _top_fit_inputs(top, kind, n, B):
+    """(images, key type, the top's input, FixDups, sf) of top_fit_case."""
+    img, key_type = top_fit_case(kind, n)
+    kminf, s = two_layer.norm_constants(img, key_type)
+    top_in = model_float_input(get_model(top), img, kminf, s, key_type)
+    return img, key_type, top_in, two_layer.fixdups_i32(img), B / n
+
+
+def _same_fit(got, want):
+    """A top fit's output (a tensor or an integer top's dict) the same bits."""
+    if isinstance(want, dict):
+        return want.keys() == got.keys() and all(
+            torch.equal(got[k].cpu(), want[k].cpu()) and got[k].dtype == want[k].dtype
+            for k in want)
+    return got.shape == want.shape and _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("B", [4096, None])          # None: B = n, no scaling
+@pytest.mark.parametrize("kind,n", TOP_FIT_CASES)
+def test_top_cubic_candidates(dev, kind, n, B):
+    """rmi_top_cubic_candidates bit-equal to its plain version on the CPU
+    and on the card, with the top's endpoint targets and the keys' raw
+    ends and without them, one launch, the same bits when run again."""
+    img, kt, x, yfix, sf = _top_fit_inputs("cubic", kind, n, B or n)
+    ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
+    dx, dy, dk = x.to(dev), yfix.to(dev), img.to(dev)
+    for ep_y, keys, dkeys in ((ep, img, dk), (None, None, None)):
+        want = top_kernel.top_cubic_candidates_plain(x, yfix, sf, ep_y, keys, kt)
+        before = dict(_build.launches)
+        got = top_kernel.top_cubic_candidates(dx, dy, sf, ep_y, dkeys, kt)
+        assert _moved(before) == {"rmi_top_cubic_candidates": 1}
+        assert _same_fit(got, want)
+        assert _same_fit(got, top_kernel.top_cubic_candidates_plain(dx, dy, sf, ep_y, dkeys, kt))
+        assert _same_fit(top_kernel.top_cubic_candidates(dx, dy, sf, ep_y, dkeys, kt), got)
+
+
+@pytest.mark.parametrize("B", [4096, None])
+@pytest.mark.parametrize("kind,n", TOP_FIT_CASES)
+@pytest.mark.parametrize("top", sorted(top_kernel.MOMENT_TOPS))
+def test_top_moments(dev, top, kind, n, B):
+    """rmi_top_moments bit-equal to its plain version on the CPU, whose
+    whole-array sums follow XLA's order, one launch, the same bits when
+    run again; on inputs one element off a 16-byte boundary too."""
+    _, _, x, yfix, sf = _top_fit_inputs(top, kind, n, B or n)
+    want = top_kernel.top_moments_plain(top, x, yfix, sf)
+    dx, dy = x.to(dev), yfix.to(dev)
+    for vx, vy in ((dx, dy), (torch.cat([dx[:1], dx])[1:], torch.cat([dy[:1], dy])[1:])):
+        before = dict(_build.launches)
+        got = top_kernel.top_moments(top, vx, vy, sf)
+        assert _moved(before) == {"rmi_top_moments": 1}
+        assert _same_fit(got, want)
+        assert _same_fit(top_kernel.top_moments(top, vx, vy, sf), got)
+
+
+@pytest.mark.parametrize("B", [4096, None])
+@pytest.mark.parametrize("kind,n", TOP_FIT_CASES)
+@pytest.mark.parametrize("bits", [8, 18, 22])
+def test_top_table_fit(dev, bits, kind, n, B):
+    """rmi_top_table_fit bit-equal to its plain version on the CPU and on
+    the card (empty slots between the clusters and past the last key's
+    bucket, n equal keys: a prefix of 64), one launch, the same bits when
+    run again."""
+    _, _, top_in, yfix, sf = _top_fit_inputs(f"radix{bits}", kind, n, B or n)
+    want = top_kernel.top_table_fit_plain(top_in, yfix, sf, bits)
+    di, dy = top_in.to(dev), yfix.to(dev)
+    before = dict(_build.launches)
+    got = top_kernel.top_table_fit(di, dy, sf, bits)
+    assert _moved(before) == {"rmi_top_table_fit": 1}
+    assert _same_fit(got, want)
+    assert _same_fit(got, top_kernel.top_table_fit_plain(di, dy, sf, bits))
+    assert _same_fit(top_kernel.top_table_fit(di, dy, sf, bits), got)
 
 
 @pytest.mark.parametrize("B", [1, 16, 4096])
@@ -2272,13 +2395,14 @@ def test_top_assign_int(dev, top, kind, B):
 
 def test_stage_a_entries_refuse_bad_inputs(dev):
     """An unknown key kind, an unknown top kind, a top without its
-    operands, B below 1 or past 2^31, a scratch too small for the sums:
-    each refused, nothing counted."""
+    operands, B below 1 or past 2^31, a scratch too small for the sums, no
+    keys, an unknown moments model, a span past the keys, a table of 31
+    bits: each refused, nothing counted."""
     img = torch.arange(64, dtype=torch.int64, device=dev)
     x = torch.linspace(0, 1, 64, dtype=torch.float64, device=dev)
     y = torch.arange(64, dtype=torch.int32, device=dev)
     w2 = torch.zeros(1, 2, dtype=torch.float64, device=dev)
-    w4 = torch.zeros(1, 4, dtype=torch.float64, device=dev)
+    c16 = torch.zeros(top_kernel.CAND, dtype=torch.float64, device=dev)
     f64, i64, i32 = [torch.empty(0, dtype=t, device=dev)
                      for t in (torch.float64, torch.int64, torch.int32)]
     bad = [("rmi_key_normalize", (img, 2, 64, 64, 0.0, 1.0)),
@@ -2287,29 +2411,43 @@ def test_stage_a_entries_refuse_bad_inputs(dev):
            ("rmi_top_assign", (f64, img, f64, 6, i64, i32, i64, 0, 64, 64, 16)),
            ("rmi_top_assign", (x, i64, w2, 0, i64, i32, i64, 0, 64, 64, 0)),
            ("rmi_top_assign", (x, i64, w2, 0, i64, i32, i64, 0, 64, 64, 1 << 32)),
-           ("rmi_top_l1_cubic", (x, y, 64, 1.0, 0, w4, w2, 2, 0, 2))]
+           ("rmi_top_l1_cubic", (x, y, 64, 1.0, 0, c16, 2, 0, 2, (1, 4), 1)),
+           ("rmi_top_cubic_candidates", (x, y, i64, 2, 64, 1.0, 0, 0, 0.0, 0.0, 16)),
+           ("rmi_top_cubic_candidates", (x, y, i64, 0, 0, 1.0, 0, 0, 0.0, 0.0, 16)),
+           ("rmi_top_moments", (x, y, 64, 0, 64, 1.0, 0, 2, 1 << 12, 1 << 12, 2)),
+           ("rmi_top_moments", (x, y, 64, 10, 65, 1.0, 0, 0, 1 << 12, 1 << 12, 2)),
+           ("rmi_top_moments", (x, y, 64, 0, 64, 1.0, 0, 0, 8, 8, 2)),
+           ("rmi_top_table_fit", (img, y, 64, 1.0, 0, 31, 2, 2)),
+           ("rmi_top_table_fit", (img, y, 0, 1.0, 0, 8, 256, 2))]
     for entry, args in bad:
         before = dict(_build.launches)
         with pytest.raises(RuntimeError):
             _build.launch(entry, *args)
         assert _build.launches == before, entry
     with pytest.raises(ValueError):
-        top_kernel.top_l1_cubic(x, y.long(), 1.0, w4, w2)
+        top_kernel.top_l1_cubic(x, y.long(), 1.0, c16)
+    with pytest.raises(ValueError):
+        top_kernel.top_moments("cubic", x, y, 1.0)
 
 
-@pytest.mark.parametrize("top", ["cubic", "linear", "normal", "radix18", "lognormal"])
+@pytest.mark.parametrize("top", ["cubic", "linear", "robust_linear", "normal", "radix18",
+                                 "lognormal"])
 def test_stage_a_on_card(dev, top):
-    """_assign_body on the card: a cubic top launches each stage A entry
-    once, the other affine tops normalize and assign, radix18 assigns, the
-    lognormal top none of them; the ids are the plain assignment's under
-    the card's own top row, and for the cubic and radix18 tops, whose
-    fits are [1]-sized arithmetic or integers but for the cubic's two
-    sums, the top and the ids are the CPU build's."""
+    """_assign_body on the card: a cubic top normalizes, fits in its two
+    entries and assigns, the linear-family and normal tops normalize, fit
+    in rmi_top_moments and assign, radix18 fits in rmi_top_table_fit and
+    assigns, the lognormal top launches none of them; the ids are the
+    plain assignment's under the card's own top row, and but for the
+    lognormal top (its fit's sums in torch's order) the top and the ids
+    are the CPU build's (the cubic's L1 sums differ in order, but not its
+    choice on these keys)."""
     keys = rdata.books_like_on_device(1 << 20, 9, dev)
     B, mtop = 4096, get_model(top)
-    stage = {"rmi_key_normalize", "rmi_top_l1_cubic", "rmi_top_assign"}
-    want = ({"cubic": stage, "radix18": {"rmi_top_assign"}, "lognormal": set()}
-            .get(top, {"rmi_key_normalize", "rmi_top_assign"}))
+    stage = {"rmi_key_normalize", "rmi_top_cubic_candidates", "rmi_top_l1_cubic",
+             "rmi_top_moments", "rmi_top_table_fit", "rmi_top_assign"}
+    moments = {"rmi_key_normalize", "rmi_top_moments", "rmi_top_assign"}
+    want = {"cubic": stage - {"rmi_top_moments", "rmi_top_table_fit"},
+            "radix18": {"rmi_top_table_fit", "rmi_top_assign"}, "lognormal": set()}.get(top, moments)
     kminf, s = two_layer.norm_constants(keys)
     before = dict(_build.launches)
     top_in = model_float_input(mtop, keys, kminf, s)
@@ -2318,7 +2456,7 @@ def test_stage_a_on_card(dev, top):
     assert set(_moved(before)) & stage == want
     top_w = params_to(top_w, "cpu")
     assert torch.equal(t.cpu(), top_kernel.top_assign_plain(top, top_w, top_in.cpu(), B))
-    if top in ("cubic", "radix18"):
+    if top != "lognormal":
         k = keys.cpu()
         hw, ht, _ = two_layer._assign_body(model_float_input(mtop, k, kminf, s),
                                            two_layer.fixdups_i32(k), top_type=top, B=B, keys=k)

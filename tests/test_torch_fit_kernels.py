@@ -21,6 +21,8 @@ import torch
 
 import rmi_tpu_torch as rt
 from rmi_tpu_torch import data as rdata
+from rmi_tpu_torch import keys as tkeys
+from rmi_tpu_torch.keys import KeyType
 from rmi_tpu_torch.models import linear
 from rmi_tpu_torch.ops import scan_kernel, select_kernel
 from rmi_tpu_torch.train import two_layer
@@ -34,6 +36,39 @@ WARP = scan_kernel.FIXDUPS_WARP_KEYS
 CHUNK_EDGE_COUNTS = (CHUNK - 2, CHUNK - 1, CHUNK, 1, 0, 2 * CHUNK - 2, 2 * CHUNK - 1, 0,
                      3 * CHUNK + 1, 5)
 FIT_EDGES = ("books", "sparse", "single", "chunk_edges", "long", "trimmed", "dups")
+
+
+# the top fits' key sets (ops/top_kernel.py): top_fit_case
+TOP_FIT_EDGES = ("u64", "u32", "f64", "dups", "f64_edges", "clustered")
+
+
+def top_fit_case(kind, n, seed=0):
+    """(sorted images, key type) of n keys of ``kind`` for the top fits,
+    made from a seed: u64, u32 and f64 keys with runs of equal keys (f64
+    across 0), n equal keys, f64 keys with NaN, -inf, both zeros and +inf
+    among them (the images put NaN first), and u64 keys in two clusters
+    2^62 apart, whose hint tables hold runs of empty slots."""
+    rng = np.random.default_rng(seed + len(kind))
+
+    def runs(v):
+        return np.repeat(v, rng.integers(1, 4, v.size))[:n]
+    key_type = KeyType.U64
+    if kind == "u32":
+        keys, key_type = runs(rng.integers(0, 2 ** 32, n, dtype=np.uint64)).astype(np.uint32), \
+            KeyType.U32
+    elif kind in ("f64", "f64_edges"):
+        keys, key_type = runs(rng.normal(0.0, 1e6, n)), KeyType.F64
+        if kind == "f64_edges":
+            keys[:5] = np.array([np.nan, -np.inf, -0.0, 0.0, np.inf])[:n]
+    elif kind == "dups":
+        keys = np.full(n, 123456789, dtype=np.uint64)
+    elif kind == "clustered":
+        keys = np.concatenate([rng.integers(2 ** 40, 2 ** 40 + 2 ** 20, n // 2, dtype=np.uint64),
+                               rng.integers(2 ** 62, 2 ** 62 + 2 ** 30, n - n // 2,
+                                            dtype=np.uint64)])
+    else:
+        keys = runs(rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64, endpoint=True))
+    return tkeys.to_image(keys).sort().values, key_type
 
 
 def _fixdups_np(x):

@@ -7,15 +7,18 @@
   (b) with rmi_tpu's build carried across (trained_from_numpy), the
       plan's levels and K are rmi_tpu's, and resolve over the levels
       keys[::64^k] is bit-equal to rmi_tpu's resolve over its overlapped
-      rows, for lookup's guess and err and for guesses moved inside and
-      outside the error window, f64 keys with NaN, +-inf and -0.0 queries
-      included; hier_start_level is rmi_tpu's K;
+      rows on every query inside the keys' range, for lookup's guess and
+      err and for guesses moved inside and outside the error window, f64
+      keys with NaN, +-inf and -0.0 queries included, and answers a query
+      outside the range by its end (#(keys < q), where rmi_tpu counts
+      through the levels from the guess); hier_start_level is rmi_tpu's K;
   (c) search through a hierarchical plan equals rmi_tpu's and is exact
       against searchsorted on duplicate-heavy keys, on keys ending in a
       duplicate run and on out-of-range queries; lookup equals rmi_tpu's;
       search_sorted and the large-batch route never sort or run K5 for it;
   (d) resolve, the wrapper of rmi_hier_resolve (ops/hier_kernel.py), runs
-      resolve_plain on the CPU and is bit-equal to rmi_tpu's resolve from
+      resolve_plain on the CPU and is bit-equal to rmi_tpu's resolve inside
+      the keys' range, and #(keys < q) outside it (as in (b)), from
       levels K = 0..3 (test_torch_lookup_kernel.resolve_case: n not a
       multiple of 64, runs of equal keys across a row's edge, queries
       below the first key and above the last, guess - err < 0 and
@@ -149,6 +152,16 @@ def _queries(keys, rng, n=3000):
     return np.concatenate([q, edges, keys[rng.integers(0, keys.size, 1000)]])
 
 
+def _assert_resolve(got, want, keys, q):
+    """``got`` (the port's resolve) equals ``want`` (rmi_tpu's) on every
+    query inside the keys' range and #(keys < q) on every query outside
+    it, which the port answers by its end; all int64 images."""
+    got, want, keys, q = (np.asarray(a) for a in (got, want, keys, q))
+    out = (q <= keys[0]) | (q > keys[-1])
+    np.testing.assert_array_equal(got[~out], want[~out])
+    np.testing.assert_array_equal(got[out], np.searchsorted(keys, q[out], side="left"))
+
+
 def _j_levels(rj):
     plan = jlf.get_plan(rj)
     return tuple(plan.levels), tuple(plan.level_lens), plan.K
@@ -171,7 +184,7 @@ def test_resolve_bit_equal(kind, spec, B):
                          packed=plan.packed)
         want = jlf.resolve(levels, jnp.asarray(qn), jnp.asarray(g.numpy()),
                            jnp.asarray(err.numpy()), K=K, n=plan.n, level_lens=lens)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        _assert_resolve(got.numpy(), want, plan.levels[0].numpy(), q.numpy())
 
 
 @pytest.mark.parametrize("kind,spec,B", HIER_CASES)
@@ -247,9 +260,9 @@ def test_resolve_wrapper_equals_rmi_tpu(K):
                                   jnp.asarray(guess.numpy()), jnp.asarray(err.numpy()),
                                   K=K, n=n, level_lens=tuple(jplan.level_lens)))
     got = lf.resolve(levels, q, guess, err, K=K, n=n, packed=packed)
-    np.testing.assert_array_equal(got.numpy(), want)
+    _assert_resolve(got.numpy(), want, keys.numpy(), q.numpy())
     np.testing.assert_array_equal(
-        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), want)
+        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), got.numpy())
     # exact where the guess holds the lower bound within an err the plan's
     # K covers, the edges guess - err < 0 and guess + err > n among them
     lb = np.searchsorted(keys.numpy(), q.numpy(), side="left")
@@ -282,7 +295,8 @@ def _rmi_tpu_max_err(K):
 def test_resolve_edges_equal_rmi_tpu(kind, K):
     """The resolve at its edges (test_torch_lookup_kernel.resolve_edge_case,
     the inputs the kernel is held to on the card): the wrapper on the CPU
-    and resolve_plain bit-equal to rmi_tpu's resolve; exact where the
+    and resolve_plain bit-equal to rmi_tpu's resolve inside the keys'
+    range and exact outside it; exact where the
     guess holds the bound within the plan's reach; and the cases reach
     what they are for: at every level a count at its window's lower edge
     and one at its upper edge, and where a level has two entries or more
@@ -295,10 +309,10 @@ def test_resolve_edges_equal_rmi_tpu(kind, K):
                                   jnp.asarray(guess.numpy()), jnp.asarray(err.numpy()),
                                   K=K, n=n, level_lens=tuple(jplan.level_lens)))
     levels, packed = hier_kernel.hier_levels(keys, K)
+    got = lf.resolve(levels, q, guess, err, K=K, n=n, packed=packed).numpy()
+    _assert_resolve(got, want, keys.numpy(), q.numpy())
     np.testing.assert_array_equal(
-        lf.resolve(levels, q, guess, err, K=K, n=n, packed=packed).numpy(), want)
-    np.testing.assert_array_equal(
-        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), want)
+        hier_kernel.resolve_plain(levels, q, guess, err, K=K, n=n).numpy(), got)
     lb = np.searchsorted(keys.numpy(), q.numpy(), side="left")
     g, e = guess.numpy(), err.numpy()
     ok = (np.abs(g - lb) <= e) & (e <= (31 * 64 ** K // 2 if K else 31))

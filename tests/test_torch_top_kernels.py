@@ -150,10 +150,11 @@ def test_top_l1_sums_are_rmi_tpus(kind, B):
     assert top_kernel.scales(sf) == (B != N)
     want = _j_top_sums(N)(jnp.asarray(cw.numpy()), jnp.asarray(lw.numpy()),
                           jnp.asarray(x.numpy()), jnp.asarray(ys.numpy()))
-    got = top_kernel.top_l1_cubic_plain(x, yfix, sf, cw, lw)
-    for g, w in zip(got, want):
-        _same_bits(g, w)
-    for g, w in zip(top_kernel.top_l1_cubic(x, yfix, sf, cw, lw), got):
+    cand = torch.cat([cw[0], lw[0], torch.zeros(top_kernel.CAND - 6, dtype=torch.float64)])
+    got = top_kernel.top_l1_cubic_plain(x, yfix, sf, cand)
+    for g, w in zip(got[0], want):
+        _same_bits(g.reshape(1), w)
+    for g, w in zip(top_kernel.top_l1_cubic(x, yfix, sf, cand), got):
         assert torch.equal(g, w)
 
 
@@ -289,15 +290,16 @@ def test_stage_a_is_rmi_tpus(top, kind):
 def test_wrappers_refuse_bad_inputs():
     x = torch.linspace(0, 1, 64, dtype=torch.float64)
     y = torch.arange(64, dtype=torch.int32)
-    cw, lw = torch.zeros(1, 4, dtype=torch.float64), torch.zeros(1, 2, dtype=torch.float64)
+    lw = torch.zeros(1, 2, dtype=torch.float64)
+    cand = torch.zeros(top_kernel.CAND, dtype=torch.float64)
     with pytest.raises(ValueError):
         top_kernel.key_normalize(x, 0.0, 1.0)                 # not images
     with pytest.raises(ValueError):
-        top_kernel.top_l1_cubic(x, y.long(), 1.0, cw, lw)     # yfix not int32
+        top_kernel.top_l1_cubic(x, y.long(), 1.0, cand)       # yfix not int32
     with pytest.raises(ValueError):
-        top_kernel.top_l1_cubic(x, y, 1.0, cw[:, :3], lw)     # not a cubic row
+        top_kernel.top_l1_cubic(x, y, 1.0, cand[:12])         # not a candidates buffer
     with pytest.raises(ValueError):
-        top_kernel.top_l1_cubic(x[:0], y[:0], 1.0, cw, lw)    # no keys
+        top_kernel.top_l1_cubic(x[:0], y[:0], 1.0, cand)      # no keys
     with pytest.raises(ValueError):
         top_kernel.top_assign("linear", lw, x.float(), 16)    # not f64
     with pytest.raises(ValueError):

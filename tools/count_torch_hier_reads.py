@@ -120,11 +120,20 @@ def search(a, ln, p, span, q, bracket, st, cnt):
 
 def replay(levels, q, guess, err, K, n, counters=None):
     """Lower bounds of queries q through levels 0..K as the kernel finds
-    them; counters[k] collects level k's reads when given."""
+    them; counters[k] collects level k's reads when given.  A query
+    outside the keys' range is answered by its end and reads no level
+    (the kernel reads the first and last key once a thread)."""
     out = np.empty(len(q), dtype=np.int64)
     sK = FAN ** K
+    first, last = int(levels[0][0]), int(levels[0][-1])
     for i in range(len(q)):
         qi = int(q[i])
+        if qi <= first or qi > last:
+            out[i] = 0 if qi <= first else len(levels[0])
+            if counters is not None:
+                for k in range(K + 1):
+                    counters[k].append(Counter())
+            continue
         lo = min(max(int(guess[i]) - int(err[i]), 0), n)
         LB = (lo + sK - 1) // sK
         lb, st, inside = 0, [0, 0], False

@@ -1,7 +1,8 @@
 """Exact search through the hier plan on f64 keys, for one checkout of
 rmi_tpu_torch on one CUDA card: chip_smoke.py's zoo f64 row.
 
-    python3 tools/repro_torch_hier_f64.py [--root DIR] [--n 4000000]
+    python3 tools/repro_torch_hier_f64.py [--root DIR] [--n 4000000] [--cpu]
+                                          [--save FILE]
 
 Makes books-like keys on the card (as chip_smoke.py does), casts them to
 f64 and scales them by 2^-32 (chip_smoke.typed_keys), builds
@@ -9,11 +10,17 @@ f64 and scales them by 2^-32 (chip_smoke.typed_keys), builds
 plan) and searches 2^22 random images over the keys' range, each key's
 image minus 1 and each key's image plus 1, against torch.searchsorted.
 Prints the card's name and power limit, the plan and the build's
-max_err and avg_log2, the mismatches of each query set and, for up to
-ten of them, the query, its lower bound, the answer and lookup's guess
-and err.  At 4M keys the image just above the last key is answered
-wrong by this tree and by its parent alike (ROADMAP Queue 3); --root DIR
-imports rmi_tpu_torch from DIR, a checkout of another commit.
+max_err and avg_log2, the last keys, the mismatches of each query set
+and, for up to ten of them, the query, its lower bound, the answer and
+lookup's guess and err.  At 4M keys the last key is the double below
+2^30 and the image just above it truncates to 2^30, a bit no key has:
+the radix18 top sends it to leaf 0, whose window does not hold n, so a
+checkout whose resolve does not answer a query past the last key by the
+key count answers it wrong.  --cpu also
+builds the same keys on the machine's CPU (the plain route) and
+searches the same queries there; --save FILE writes the keys' images
+(.npy); --root DIR imports rmi_tpu_torch from DIR, a checkout of another
+commit.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ def main():
     ap.add_argument("--root", default=REPO, help="checkout to import rmi_tpu_torch from")
     ap.add_argument("--n", type=int, default=4_000_000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--cpu", action="store_true",
+                    help="also build on the machine's CPU from the same keys and compare")
+    ap.add_argument("--save", default=None, help="write the keys' images here (.npy)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import rmi_tpu_torch
@@ -56,6 +66,25 @@ def main():
     sets = {"random": torch.randint(int(keys[0]), int(keys[-1]), (1 << 22,), generator=gen,
                                     device=dev),
             "key - 1": keys - 1, "key + 1": keys + 1}
+    if args.save:
+        import numpy as np
+        np.save(args.save, keys.cpu().numpy())
+    cpu = None
+    if args.cpu:
+        cpu = rmi_tpu_torch.train(rdata.RMIDataset(keys.cpu(), KeyType.F64), "radix18,linear",
+                                  65536)
+        top_c = {k: bool(torch.equal(v.cpu(), cpu.device_top_params[k]))
+                 for k, v in rmi.device_top_params.items()}
+        print(json.dumps({"cpu max_err": cpu.model_max_error,
+                          "top equal": top_c,
+                          "leaf rows equal": bool(torch.equal(rmi.device_leaf_params.cpu(),
+                                                              cpu.device_leaf_params)),
+                          "leaf errors differ": int((rmi.leaf_errors.cpu()
+                                                     != cpu.leaf_errors).sum())}), flush=True)
+    last = keys[-3:]
+    print(json.dumps({"last images": last.tolist(),
+                      "last values": keymod.as_float(last, KeyType.F64).tolist(),
+                      "first image": int(keys[0])}), flush=True)
     total = 0
     for label, q in sets.items():
         got = search(rmi, q)
@@ -63,12 +92,22 @@ def main():
         bad = (got != lb).nonzero().flatten()
         total += bad.numel()
         print(f"{label}: {q.shape[0]} queries, {bad.numel()} mismatches", flush=True)
+        if cpu is not None:
+            bad_c = (search(cpu, q.cpu()) != lb.cpu()).nonzero().flatten()
+            print(f"{label} on the CPU: {bad_c.numel()} mismatches {bad_c[:10].tolist()}",
+                  flush=True)
         if bad.numel():
             guess, err = lookup(rmi, q[bad[:10]])
             for j, b in enumerate(bad[:10].tolist()):
                 print(json.dumps({"query": int(q[b]), "lower_bound": int(lb[b]),
                                   "answer": int(got[b]), "guess": int(guess[j]),
                                   "err": int(err[j])}), flush=True)
+            if cpu is not None:
+                qc = q[bad[:10]].cpu()
+                gc, ec = lookup(cpu, qc)
+                print(json.dumps({"cpu search": search(cpu, qc).tolist(),
+                                  "cpu guess": gc.tolist(), "cpu err": ec.tolist()}),
+                      flush=True)
     print(json.dumps({"root": os.path.abspath(args.root), "n": args.n, "mismatches": total}),
           flush=True)
 

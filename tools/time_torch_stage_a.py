@@ -1,23 +1,32 @@
-"""Stage A's three kernels (csrc/top.cu) on one CUDA card, on path 1's
-inputs at 200M keys, beside their bounds and their plain versions.
+"""Stage A's kernels (csrc/top.cu, csrc/top_fit.cu) on one CUDA card, on
+the paths' inputs at 200M keys, beside their bounds and their plain
+versions.
 
     python3 tools/time_torch_stage_a.py [--n 200000000] [--reps 5]
 
 Makes books-like keys on the card (as chip_smoke.py does), stage A's
 inputs as the build makes them (the normalized keys, FixDups, the cubic
 top's candidates of ``cubic,linear 262144`` and its fitted row), then
-times with CUDA events rmi_key_normalize, rmi_top_l1_cubic and
-rmi_top_assign (cubic top) and their plain versions (the eager torch
-they replaced): each the median of --reps runs of 10 calls, with the
-runs' spread.  The bound is the bytes a call must move at 3.35 TB/s
-(chip_smoke.py's HBM_BYTES_PER_S): 16, 12 and 12 bytes a key.  Prints
-the card's name and power limit first and one JSON line last.
+times with CUDA events rmi_key_normalize, rmi_top_cubic_candidates,
+rmi_top_l1_cubic, rmi_top_moments (the robust_linear top of path 2, the
+linear top of path 8 and a normal top, each at B = 65536),
+rmi_top_table_fit (path 5's radix18 top) and rmi_top_assign (cubic top)
+and their plain versions (the eager torch they replaced): each the
+median of --reps runs of 10 calls, with the runs' spread.  The bound is
+the bytes a call must move at 3.35 TB/s (chip_smoke.py's
+HBM_BYTES_PER_S), each input read once: 16, 12 and 12 bytes a key for
+the normalization, the L1 sums and the assignment, 12 (linear tops) and
+8 (normal) for the moments, whose two passes read them twice; the
+candidates' 2 (log2 n + 1) + 10 sectors of 32 bytes and the table fit's
+two sectors a slot.  Prints the card's name and power limit first and
+one JSON line last.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -27,11 +36,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rmi_tpu_torch import config, data as rdata  # noqa: E402
-from rmi_tpu_torch.models import cubic, get_model  # noqa: E402
+from rmi_tpu_torch.models import get_model  # noqa: E402
 from rmi_tpu_torch.models.base import model_float_input  # noqa: E402
 from rmi_tpu_torch.ops import top_kernel  # noqa: E402
 from rmi_tpu_torch.train import two_layer  # noqa: E402
-from rmi_tpu_torch.utils import segments as seg  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 B = 262144
@@ -72,19 +80,31 @@ def main():
     yfix = two_layer.fixdups_i32(keys)
     sf = B / n
     ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
-    cw, lw, _ = cubic._candidates(x, yfix, seg.whole_array_spans(n, dev), ep, sf)
+    cand = top_kernel.top_cubic_candidates_plain(x, yfix, sf, ep, keys)
     top_w, _, _ = two_layer._assign_body(x, yfix, top_type="cubic", B=B, keys=keys)
+    sf_paths = 65536 / n
+    sectors = 2 * (math.ceil(math.log2(n + 1)) + 1) + 10
     calls = {
-        "rmi_key_normalize": (16, lambda: top_kernel.key_normalize(keys, kminf, s),
+        "rmi_key_normalize": (16 * n, lambda: top_kernel.key_normalize(keys, kminf, s),
                               lambda: top_kernel.key_normalize_plain(keys, kminf, s)),
-        "rmi_top_l1_cubic": (12, lambda: top_kernel.top_l1_cubic(x, yfix, sf, cw, lw),
-                             lambda: top_kernel.top_l1_cubic_plain(x, yfix, sf, cw, lw)),
-        "rmi_top_assign": (12, lambda: top_kernel.top_assign("cubic", top_w, x, B),
+        "rmi_top_cubic_candidates": (
+            32 * sectors, lambda: top_kernel.top_cubic_candidates(x, yfix, sf, ep, keys),
+            lambda: top_kernel.top_cubic_candidates_plain(x, yfix, sf, ep, keys)),
+        "rmi_top_l1_cubic": (12 * n, lambda: top_kernel.top_l1_cubic(x, yfix, sf, cand),
+                             lambda: top_kernel.top_l1_cubic_plain(x, yfix, sf, cand)),
+        **{f"rmi_top_moments {top}": (
+            per_key * n, lambda top=top: top_kernel.top_moments(top, x, yfix, sf_paths),
+            lambda top=top: top_kernel.top_moments_plain(top, x, yfix, sf_paths))
+           for top, per_key in (("robust_linear", 12), ("linear", 12), ("normal", 8))},
+        "rmi_top_table_fit radix18": (
+            (64 + 4) << 18, lambda: top_kernel.top_table_fit(keys, yfix, sf_paths, 18),
+            lambda: top_kernel.top_table_fit_plain(keys, yfix, sf_paths, 18)),
+        "rmi_top_assign": (12 * n, lambda: top_kernel.top_assign("cubic", top_w, x, B),
                            lambda: top_kernel.top_assign_plain("cubic", top_w, x, B)),
     }
     out = {}
-    for entry, (per_key, kernel, plain) in calls.items():
-        bound = per_key * n / HBM_BYTES_PER_S * 1e3
+    for entry, (nbytes, kernel, plain) in calls.items():
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         k, p = _ms(kernel, args.reps), _ms(plain, max(1, args.reps // 2))
         out[entry] = {"ms": k[0], "spread": [k[1], k[2]], "plain_ms": p[0], "bound_ms": bound,
                       "share": bound / k[0]}

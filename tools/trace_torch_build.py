@@ -19,10 +19,14 @@ any scatter operation it saw (the build takes its per-leaf maxima inside
 kernels and should show none, but for hint-table leaves, which are swept
 in torch).
 
---paths traces the warm builds of chip_smoke.py's paths 1-5 (PATHS) in
-turn on the same keys, in one process, and no search; --root DIR imports
-rmi_tpu_torch from DIR, a checkout of another commit, so that two
-commits' stage splits are taken with one tool on one card.
+--paths traces the warm builds of chip_smoke.py's paths 1-5 and 8
+(PATHS; path 8 on the keys shifted right by 30, u32, as chip_smoke's
+typed_keys makes them) in turn, in one process, and no search, and after
+each build its stage A alone (two_layer's rmi.build.assign: the norm
+constants, the top's input, FixDups, _assign_body), with the device
+launches it makes in all and by kernel; --root DIR imports rmi_tpu_torch
+from DIR, a checkout of another commit, so that two commits' stage
+splits are taken with one tool on one card.
 """
 
 from __future__ import annotations
@@ -39,9 +43,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = 1 << 22
 SEARCH_BATCHES = 5
-# chip_smoke.py's build paths 1-5
-PATHS = (("cubic,linear", 262144), ("robust_linear,cubic", 65536),
-         ("cubic,loglinear", 65536), ("cubic,normal", 65536), ("radix18,linear", 65536))
+# chip_smoke.py's build paths 1-5 and 8: (spec, B, key kind)
+PATHS = (("cubic,linear", 262144, "u64"), ("robust_linear,cubic", 65536, "u64"),
+         ("cubic,loglinear", 65536, "u64"), ("cubic,normal", 65536, "u64"),
+         ("radix18,linear", 65536, "u64"), ("linear,linear", 100, "u32"))
 
 
 def _dev_us(evt, self_only=False):
@@ -68,19 +73,26 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     import rmi_tpu_torch
     from rmi_tpu_torch import config, data as rdata
+    from rmi_tpu_torch import keys as keymod
     from rmi_tpu_torch.keys import KeyType
+    from rmi_tpu_torch.models import get_model
+    from rmi_tpu_torch.models.base import model_float_input
+    from rmi_tpu_torch.train import two_layer
 
     dev = config.require_cuda()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     keys = rdata.books_like_on_device(args.n, args.seed, dev)
-    data = rdata.RMIDataset(keys, KeyType.U64)
+    typed = {"u64": rdata.RMIDataset(keys, KeyType.U64),
+             "u32": rdata.RMIDataset((keymod.u64_bits(keys) >> 30).add_(keymod.IMAGE_MIN),
+                                     KeyType.U32)}
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     q = torch.randint(int(keys[0]), int(keys[-1]), (QUERIES,),
                       generator=gen, device=dev)
     print(f"rmi_tpu_torch from {os.path.abspath(args.root)}")
-    for spec, B in PATHS if args.paths else ((args.spec, args.B),):
+    for spec, B, kind in PATHS if args.paths else ((args.spec, args.B, "u64"),):
+        data = typed[kind]
         rmi = rmi_tpu_torch.train(data, spec, B)   # warm-up
         del rmi
         torch.cuda.synchronize()
@@ -99,8 +111,29 @@ def main():
             prof.export_chrome_trace(args.trace)
         if args.paths:
             del rmi
+            top = get_model(spec.split(",")[0])
+
+            def stage_a():
+                kminf, s = two_layer.norm_constants(data.keys, data.key_type)
+                top_in = model_float_input(top, data.keys, kminf, s, data.key_type)
+                two_layer._assign_body(top_in, two_layer.fixdups_i32(data.keys),
+                                       top_type=top.name, B=B, keys=data.keys,
+                                       key_type=data.key_type)
+            stage_a()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                stage_a()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = sum(e.count for e in prof.key_averages()
+                           if _on_device(e) and not e.key.startswith("rmi."))
+            print(f"  stage A alone: {launches} device launches")
+            _report(prof, wall, f"n={args.n} {spec} B={B}: stage A alone", 12)
     if args.paths:
         return
+    data = typed["u64"]
     rmi_tpu_torch.search(rmi, q)          # the plan is made on first use
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
