@@ -205,11 +205,12 @@ def top_span(top_type: str, n: int):
 
 
 def moments_scratch(n: int) -> int:
-    """The doubles rmi_top_moments' scratch holds for n keys (csrc/
-    top_fit.cu channel_stride): a head of 16, then two regions of two
-    channels, each of the level-2 windows XLA cuts n into, at least 32."""
-    l1 = -(-n // 32)
-    return 16 + 4 * max(-(-l1 // 32), 32)
+    """Doubles enough for rmi_top_moments' scratch at n keys: csrc/
+    top_fit.cu's Tree owns the layout (the means, the window counters, two
+    channels of sums from level 2 up, about n / 512 doubles) and the entry
+    refuses a scratch smaller than Tree(n).doubles(); this bound holds it
+    with room to spare at every n."""
+    return 64 + n // 256
 
 
 def top_moments_plain(top_type: str, x, yfix, sf: float):
@@ -225,7 +226,23 @@ def top_moments(top_type: str, x, yfix, sf: float):
     ``yfix``, the targets scaled by ``sf`` in the kernel (no [n] copy of
     them is made), robust_linear over top_span's trimmed keys.  Bit-equal
     to top_moments_plain on the CPU, whose whole-array sums follow XLA's
-    order; the same bits in every run."""
+    order; the same bits in every run.
+
+    On the card one rmi_top_moments call (csrc/top_fit.cu): a memset of
+    the scratch's window counters, then a pass two kernels, bound by
+    memory: each pass reads x and yfix, 12 bytes a key (8 for the normal
+    top), twice in all since the centered sums need the means.  The first
+    design (2.25 ms for a linear top at 200M keys on an H100, 1.26 for the
+    normal one) spent 0.23-0.26 ms a pass in one-block tails that read the
+    level-2 sums a window a thread through one SM, and its pass-1 grid held
+    242 registers a thread (8 warps an SM, 0.75 of the pass's bound).
+    This one walks the level-2 windows with each warp's next window
+    streamed into shared memory by cp.async (no key in a register while in
+    flight; 0.90-0.94 of the pass's bound), then adds the sums above level
+    2 across the card (the warp that completes a window adds it, counted
+    with an integer atomicAdd; 0.012 ms), whose last warp finishes the
+    pass.  Counting the sums in during the walk cost a fence, which waits
+    for the warp's copies in flight: 1.06-1.47 ms a pass."""
     if top_type not in MOMENT_TOPS:
         raise ValueError(f"top_moments: {top_type} is not one of {sorted(MOMENT_TOPS)}")
     _check_fit("top_moments", x, yfix)
@@ -253,7 +270,18 @@ def top_table_fit(images, yfix, sf: float, bits: int):
     ``images`` (keys.int_image) and their int32 FixDups positions, the
     targets scaled by ``sf``: table[b] the target of the first key whose
     bucket is at least b, the size past the last key's bucket, table[0] =
-    0.  Bit-equal to top_table_fit_plain."""
+    0.  Bit-equal to top_table_fit_plain.
+
+    On the card one rmi_top_table_fit launch (csrc/top_fit.cu), bound by the
+    latency of dependent reads and the count of random 64-byte blocks of
+    the keys: a slot's first key is a search of n keys.  The first design
+    (0.0885 ms for path 5's radix18 table at 200M keys on an H100) ran a
+    binary search a slot over all n keys: log2(n) dependent reads, the
+    last ~10 in the slot's own blocks.  This one still gives a thread a
+    slot, searched from the keys' two ends, but reads a 64-byte block a
+    round, placed by interpolation between the masked key bits known on
+    either side: 4.4 reads a slot on path 5's keys
+    (tools/count_torch_table_reads.py replays it)."""
     _check_fit("top_table_fit", images, yfix)
     if images.dtype != torch.int64:
         raise ValueError("top_table_fit: images must be int64")

@@ -69,8 +69,9 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
                                top_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
-from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, TOP_FIT_EDGES, fit_case,
-                                    fixdups_case, leaf_arrays, top_fit_case)
+from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, TABLE_EDGES, TOP_FIT_EDGES,
+                                    fit_case, fixdups_case, leaf_arrays, table_edge_case,
+                                    top_fit_case)
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
                                       WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
@@ -2344,6 +2345,56 @@ def test_top_table_fit(dev, bits, kind, n, B):
     assert _same_fit(got, want)
     assert _same_fit(got, top_kernel.top_table_fit_plain(di, dy, sf, bits))
     assert _same_fit(top_kernel.top_table_fit(di, dy, sf, bits), got)
+
+
+# rmi_top_moments' walk at its own edges: n within one window (1, 32),
+# level 1 at 32 windows and past (1024, 1025), level 2 at 32 windows and
+# past (32768, 32769), below one grid wave of the walk (the resident warps
+# take 1024 keys each: 500_000 leaves warps idle) and above it
+# (3_000_017, ~3 waves on an H100), the last window of the keys partial
+# and so the last stage of its warp's ring (1_000_003, 3_000_017); and
+# robust_linear spans whose trimmed ends fall inside a window
+MOMENT_WALK_NS = (1, 32, 33, 1024, 1025, 32768, 32769, 500_000, 1_000_003, 3_000_017)
+
+
+@pytest.mark.parametrize("n", MOMENT_WALK_NS)
+@pytest.mark.parametrize("top", sorted(top_kernel.MOMENT_TOPS))
+def test_top_moments_walk_edges(dev, top, n):
+    """rmi_top_moments bit-equal to its plain version on the CPU at the
+    walk's and the tree's edges, one launch, the same bits when run
+    again, also on inputs one element off a 16-byte boundary."""
+    _, _, x, yfix, sf = _top_fit_inputs(top, "u64", n, 65536)
+    lo, hi = top_kernel.top_span(top, n)
+    if top == "robust_linear" and n >= 500_000:          # trimmed inside a window
+        front = (-n % 32) // 2
+        assert (lo + front) % 32 != 0 and (hi + front) % 32 != 0
+    want = top_kernel.top_moments_plain(top, x, yfix, sf)
+    dx, dy = x.to(dev), yfix.to(dev)
+    for vx, vy in ((dx, dy), (torch.cat([dx[:1], dx])[1:], torch.cat([dy[:1], dy])[1:])):
+        before = dict(_build.launches)
+        got = top_kernel.top_moments(top, vx, vy, sf)
+        assert _moved(before) == {"rmi_top_moments": 1}
+        assert _same_fit(got, want)
+        assert _same_fit(top_kernel.top_moments(top, vx, vy, sf), got)
+
+
+@pytest.mark.parametrize("kind", TABLE_EDGES)
+@pytest.mark.parametrize("bits", [8, 18, 22])
+def test_top_table_fit_edges(dev, bits, kind):
+    """rmi_top_table_fit bit-equal to its plain version on the CPU on
+    table_edge_case's keys (books-like u64, u32 and f64 images at 2^22
+    keys, one bucket, buckets that skip many slots, one key), one launch,
+    the same bits when run again, also on images one element off a
+    16-byte boundary (the 64-byte blocks fall elsewhere)."""
+    images, yfix, sf = table_edge_case(kind)
+    want = top_kernel.top_table_fit_plain(images, yfix, sf, bits)
+    di, dy = images.to(dev), yfix.to(dev)
+    for vi, vy in ((di, dy), (torch.cat([di[:1], di])[1:], torch.cat([dy[:1], dy])[1:])):
+        before = dict(_build.launches)
+        got = top_kernel.top_table_fit(vi, vy, sf, bits)
+        assert _moved(before) == {"rmi_top_table_fit": 1}
+        assert _same_fit(got, want)
+        assert _same_fit(top_kernel.top_table_fit(vi, vy, sf, bits), got)
 
 
 @pytest.mark.parametrize("B", [1, 16, 4096])

@@ -71,6 +71,36 @@ def top_fit_case(kind, n, seed=0):
     return tkeys.to_image(keys).sort().values, key_type
 
 
+# the hint-table fit's key sets (rmi_top_table_fit): table_edge_case
+TABLE_EDGES = ("books", "books_u32", "books_f64", "one_bucket", "skips", "one_key")
+
+
+def table_edge_case(kind, seed=0):
+    """(integer-key images, int32 FixDups of the keys, sf) of ``kind``,
+    made from a seed: 2^22 books-like keys (data.books_like_on_device on
+    the CPU) as u64, shifted right by 30 as u32, and cast to f64 and
+    scaled by 2^-32 (their truncated integer images, keys.int_image);
+    2^16 equal keys (all in one bucket); top_fit_case's two clusters 2^62
+    apart at 2^20 keys (runs of empty slots between them); one key.  sf
+    is 65536 / n, path 5's."""
+    if kind.startswith("books"):
+        u = rdata.books_like_on_device(1 << 22, seed, torch.device("cpu"))
+        if kind == "books_u32":
+            img = (tkeys.u64_bits(u) >> 30).add_(tkeys.IMAGE_MIN)
+            ints = img
+        elif kind == "books_f64":
+            img = tkeys.f64_image(tkeys.as_float(u).mul_(2.0 ** -32))
+            ints = tkeys.int_image(img, KeyType.F64)
+        else:
+            img = ints = u
+    else:
+        case, n = {"one_bucket": ("dups", 1 << 16), "skips": ("clustered", 1 << 20),
+                   "one_key": ("u64", 1)}[kind]
+        img, key_type = top_fit_case(case, n, seed)
+        ints = tkeys.int_image(img, key_type)
+    return ints, scan_kernel.fixdups(img), 65536 / img.shape[0]
+
+
 def _fixdups_np(x):
     first = np.concatenate([[True], x[1:] != x[:-1]])
     return np.maximum.accumulate(np.where(first, np.arange(x.shape[0]), 0)).astype(np.int32)

@@ -11,11 +11,14 @@ search past the keys' ends, on the CPU against rmi_tpu.
       adds in another order (test_torch_top_kernels.STAGE_ULPS), the row is
       bit-equal to rmi_tpu's fit_top jitted alone on the stage's inputs;
   (b) a host mirror of rmi_top_moments' summation order (csrc/top_fit.cu:
-      a warp's tile of level-1 windows summed row by row, the level-2 sum
-      of the rows, the tail's levels, the FMA chain of 32 or fewer) bit-equal
+      a walking warp's tile of level-1 windows summed row by row, the
+      level-2 sum of the rows, each window of the levels above summed by
+      the warp that completes it, the FMA chain of 32 or fewer) bit-equal
       to segments.whole_array_sum, and the mirror's whole fit (the means,
       the centered sums, the degenerate cases) bit-equal to
-      top_moments_plain, on top_fit_case's keys;
+      top_moments_plain, on top_fit_case's keys; a host mirror of
+      rmi_top_table_fit's search (tools/count_torch_table_reads.py) equal
+      to top_table_fit_plain;
   (c) search through the hierarchical plan past the keys' ends: an
       integer top routes a query outside the range whose bits differ in
       the keys' common prefix to a leaf whose window does not hold its
@@ -25,6 +28,7 @@ search past the keys' ends, on the CPU against rmi_tpu.
 """
 
 import functools
+import importlib.util
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,7 @@ from rmi_tpu.data import RMIDataset as JDataset
 from rmi_tpu.models import get_model as j_get_model
 
 import rmi_tpu_torch as rt
+from rmi_tpu_torch import config
 from rmi_tpu_torch import keys as tkeys
 from rmi_tpu_torch import lookup_fast as lf
 from rmi_tpu_torch.models import get_model
@@ -107,10 +112,12 @@ def _gather(values, pos):
 def kernel_order_sum(values, lo, hi, times=None):
     """[1]: sum of values[lo:hi] (times values * times) as rmi_top_moments
     adds it: at most 32 values one loop (an FMA chain over [lo, hi) with
-    ``times``); else level 2 from level 0 as window_sums' warps do (row r
+    ``times``); else level 2 from level 0 as the walk's warps do (row r
     of warp w2's tile is level-1 window 32 w2 - front1 + r, whose
-    position k is 32 j - front0 + k), or level 1 in the tail, then the
-    tail's levels and its last loop."""
+    position k is 32 j - front0 + k), or where level 1 has at most 32
+    windows their sum in sequence (one walk window, front1 = 0, its rows
+    past them zeros), then each level's windows as climb adds them and
+    the last level's loop."""
     n = values.shape[0]
     if n <= WIN:
         acc = torch.zeros((), dtype=torch.float64)
@@ -201,6 +208,39 @@ def test_moments_mirror_is_the_plain_fit(top, kind, n):
     assert torch.equal(got[~nan].view(torch.int64), want[~nan].view(torch.int64))
     assert torch.equal(top_kernel.top_moments(top, x, yfix, sf).view(torch.int64),
                        want.view(torch.int64))
+
+
+# (b') the table fit's search, mirrored --------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _table_replay():
+    """tools/count_torch_table_reads.py, the host replay of csrc/top_fit.cu's
+    table fit read for read."""
+    path = config.PACKAGE_DIR.parent / "tools" / "count_torch_table_reads.py"
+    spec = importlib.util.spec_from_file_location("count_torch_table_reads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TABLE_MIRROR_CASES = ([(kind, n) for kind in ("u64", "u32", "f64") for n in (1, 4099, 1 << 16)]
+                      + [("dups", 4099), ("clustered", 1 << 16)])
+
+
+@pytest.mark.parametrize("bits", [8, 18])
+@pytest.mark.parametrize("kind,n", TABLE_MIRROR_CASES)
+def test_table_search_mirror_is_the_plain_fit(kind, n, bits):
+    """The kernel's search (a thread a slot from the keys' two ends, 64-byte
+    blocks placed by interpolation), replayed on the host, gives
+    top_table_fit_plain's table and prefix on top_fit_case's keys."""
+    img, key_type = top_fit_case(kind, n)
+    ints = tkeys.int_image(img, key_type)
+    yfix = two_layer.fixdups_i32(img)
+    sf = 1000 / n
+    want = top_kernel.top_table_fit_plain(ints, yfix, sf, bits)
+    got, prefix = _table_replay().table_search(ints, yfix, sf, bits)
+    np.testing.assert_array_equal(got, want["table"].numpy())
+    assert prefix == int(want["w_int"][0])
 
 
 def test_top_fit_wrappers_refuse_bad_inputs():
