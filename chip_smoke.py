@@ -72,8 +72,10 @@ Phases (any failure raises and exits non-zero):
      for cubic leaves (on CPU copies) and K6 (on the card) replayed
      against their plain versions, and its card-vs-CPU cross-check;
  10. path 3, ``train(data, "cubic,loglinear", 65536)``, the same way,
-     replaying K2's weighted variant on the card and K3 and K4 for
-     loglinear leaves on CPU copies;
+     its leaf fit one rmi_aug_fit_log_moments launch (no K2 weighted),
+     replaying it (within fit_tolerance's log form) and K2's weighted
+     variant on the fit's leaves with its means (legacy_calls; its row)
+     on the card and K3 and K4 for loglinear leaves on CPU copies;
  11. path 4, ``train(data, "cubic,normal", 65536)``, the same way,
      replaying rmi_aug_fit_moments' xx form (timed and logged), K2's
      variance-only variant on its leaves (legacy_calls; its row) and K3
@@ -216,9 +218,10 @@ Phases (any failure raises and exits non-zero):
      replicated (``replicate_rmi``) and 2^22 queries served by
      ``shard_queries`` (2^20 a rank, below search's density gate at 200M
      keys: the packed plan) and
-     ``unshard``, 0 mismatches, timed; one dp build of ``cubic,normal
-     65536`` a rank (PATH10_XX: K2 xx's one caller); rank 0's K1, K2 (and
-     K2 xx), K3 and K4 calls replayed against their plain versions
+     ``unshard``, 0 mismatches, timed; one dp build each of ``cubic,normal
+     65536`` and ``cubic,loglinear 65536`` a rank (PATH10_XX and PATH10_W:
+     the callers of K2 xx and K2 weighted); rank 0's K1, K2 (and K2 xx and
+     weighted), K3 and K4 calls replayed against their plain versions
      (uncounted); each rank's
      peak device memory and launches; 10b the same build by one NCCL rank,
      held to path 1 the same way; 10c ``robust_linear,cubic 4096`` at 2^20
@@ -375,6 +378,11 @@ PATH_KERNELS = [
     # and means before it
     ("rmi_aug_fit_moments", select_kernel, "aug_fit_moments", "aug_fit_moments_plain", None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
+    # the loglinear leaf fit whole: K2 has_w with ln y, its weights and the
+    # masked range sums before it
+    ("rmi_aug_fit_log_moments", select_kernel, "aug_fit_log_moments",
+     "aug_fit_log_moments_plain", None, "rmi_tpu_torch/csrc/moments.cu",
+     "rmi_tpu/ops/select_kernel.py:100"),
     ("rmi_sweep_max_linear", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
      "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
     ("rmi_sweep_max_cubic", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
@@ -467,12 +475,13 @@ RUN_MAX = "rmi_span_run_max"
 # stage A: every path's build takes FixDups in one kernel, normalizes its
 # keys and assigns them to leaves in a kernel; the cubic, linear-family,
 # normal and hint-table tops fit in kernels too.  Linear and normal leaves
-# fit in one kernel (stage B).
+# fit in one kernel (stage B), loglinear leaves in another (PATH3).
 FIT = ("rmi_fixdups", "rmi_aug_fit_moments")
 # K1 and K2, which the build's FixDups and leaf fits launched before
-# rmi_fixdups and rmi_aug_fit_moments, and the data-parallel build (path
-# 10) still launches: timed on path 1's and path 4's inputs (legacy_calls)
-LEGACY = ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx")
+# rmi_fixdups, rmi_aug_fit_moments and rmi_aug_fit_log_moments, and the
+# data-parallel build (path 10) still launches: timed on path 1's, path
+# 3's and path 4's inputs (legacy_calls)
+LEGACY = ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted")
 NORM_ASSIGN = ("rmi_key_normalize", "rmi_top_assign")
 # a cubic top's stage A: the normalization, its fit in two entries, the
 # assignment; a linear-family or normal top fits in rmi_top_moments, a
@@ -493,11 +502,14 @@ PATH2 = ("robust_linear,cubic", 65536,
           "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN, MOMENTS),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
           "rmi_cubic_l1", MOMENTS))
+# loglinear leaves fit in one kernel; K2 weighted, which the build launched
+# before it and the data-parallel build still launches, is timed on its
+# inputs (legacy_calls)
 PATH3 = ("cubic,loglinear", 65536,
-         ("rmi_fixdups", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
+         ("rmi_fixdups", "rmi_aug_fit_log_moments", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED, *STAGE_A),
-         ("rmi_aug_moments_weighted", "rmi_sweep_max_loglinear", RUN_MAX,
-          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
+         ("rmi_aug_fit_log_moments", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear",
+          RUN_MAX, "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_normal", RUN_MAX,
           "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED, *STAGE_A),
@@ -696,14 +708,17 @@ def compare(name, got, want, args, kw):
         err = max(float((m2 - wm2).abs().max()), float((c - wc).abs().max()))
         ok = bool(((m2 - wm2).abs() <= tol_m2).all() and ((c - wc).abs() <= tol_c).all())
         return err, ok
-    if name == "aug_fit_moments":
+    if name in ("aug_fit_moments", "aug_fit_log_moments"):
         # fit_tolerance: the plain sums are prefix-sum differences, each within
         # 2^11 L u P of the exact sum (at 200M keys P is ~1e8 for x and ~2e16
         # for the targets, ulp 4), the kernel's within cnt u of the leaf's (its
-        # sum of y exact); the means over cnt, the centered sums by cnt dm^2
-        # about the two means and each side's summation (cnt u)
+        # sum of y exact; the log form's count exact, its sum of ln y within
+        # (cnt + 2) u, an ulp of each ln y allowed); the means over cnt, the
+        # centered sums by cnt dm^2 about the two means and each side's
+        # summation (cnt u)
         x, y, lo, hi = args
-        tol = select_kernel.fit_tolerance(x, y, lo, hi, want)
+        tol = select_kernel.fit_tolerance(x, y, lo, hi, want,
+                                          log_form=name == "aug_fit_log_moments")
         diffs = [(g - w).abs() for g, w in zip(got, want)]
         return (max(float(d.max()) if d.numel() else 0.0 for d in diffs),
                 all(bool((d <= t).all()) for d, t in zip(diffs, tol)))
@@ -863,8 +878,8 @@ def same_as_steps(entry, fused, steps):
 
 # wrappers whose kernels are also run twice in a replay, the same bits
 # each time (their sums' order fixed, no float atomics)
-RERUN = ("fixdups", "aug_fit_moments", "top_cubic_candidates", "top_l1_cubic", "top_moments",
-         "top_table_fit")
+RERUN = ("fixdups", "aug_fit_moments", "aug_fit_log_moments", "top_cubic_candidates",
+         "top_l1_cubic", "top_moments", "top_table_fit")
 
 
 def same_bits(a, b):
@@ -910,6 +925,10 @@ def _nbytes(*tensors):
 
 # f64 operations per element of each leaf kernel (a division counted as one)
 LEAF_OPS = {"linear": 2, "cubic": 6, "loglinear": 10, "normal": 14}
+# f64 operations of CUDA's log() of a double in rmi_aug_fit_log_moments' SASS
+# (tools/time_torch_fit.py --sass: ~32 f64 instructions a key in its chunks'
+# sums, 16 of them DFMA, each counted two: PERF.md §6)
+LOG_F64_OPS = 48
 # integer operations of radix, bradix or a hint table's bucket, per key
 INT_TOP_OPS = 10
 
@@ -946,6 +965,14 @@ def work(name, args, kw, out):
         x, y, lo, hi = args
         per = 4 if y is None else 9
         return _nbytes(x, y, lo, hi, *outs), int((hi - lo).sum()) * per, F64_OPS_PER_S
+    if name == "aug_fit_log_moments":
+        # x and y read once, the bounds and the outputs; per element of the
+        # augmented ranges ln y once (LOG_F64_OPS, though the kernel takes it
+        # again where it reads a leaf twice), the count's and sums' adds and
+        # the centered terms (the linear form's 9 with the weight's select)
+        x, y, lo, hi = args
+        return (_nbytes(x, y, lo, hi, *outs), int((hi - lo).sum()) * (LOG_F64_OPS + 10),
+                F64_OPS_PER_S)
     if name in ("aug_centered_moments", "aug_centered_xx"):
         lo, hi = args[-2:]
         per = 3 if name == "aug_centered_xx" else 6
@@ -2358,11 +2385,13 @@ def uncounted():
 
 def legacy_calls(rec, entries):
     """Record, for each of ``entries`` (LEGACY), the K1 or K2 call that the
-    build made before rmi_fixdups and rmi_aug_fit_moments, from the path's
-    recorded calls of those two: the running max over where(changed, i, 0)
-    of its FixDups keys; K2 (K2 xx for the fit's xx form) over its spans,
-    with the means of its fit (uncounted).  The data-parallel build still
-    launches K1 and K2, so their rows are timed on the main path's inputs."""
+    build made before rmi_fixdups, rmi_aug_fit_moments and
+    rmi_aug_fit_log_moments, from the path's recorded calls of those: the
+    running max over where(changed, i, 0) of its FixDups keys; K2 (K2 xx
+    for the fit's xx form, K2 weighted on ln y and its weights for the log
+    form) over its spans, with the means of its fit (uncounted).  The
+    data-parallel build still launches K1 and K2, so their rows are timed
+    on the main path's inputs."""
     with uncounted():
         if "rmi_scan_i32" in entries:
             for (keys,), _ in rec.calls["fixdups"]:
@@ -2379,6 +2408,12 @@ def legacy_calls(rec, entries):
             elif y is not None and "rmi_aug_moments" in entries:
                 rec.calls["aug_centered_moments"].append(
                     ((x, y.double(), means[0], means[1], lo, hi), {}))
+        if "rmi_aug_moments_weighted" in entries:
+            for x, y, lo, hi in (args for args, _ in rec.calls["aug_fit_log_moments"]):
+                _, mean_x, mean_y, _, _ = select_kernel.aug_fit_log_moments(x, y, lo, hi)
+                ln, w = select_kernel._log_targets(y)
+                rec.calls["aug_centered_moments"].append(
+                    ((x, ln, mean_x, mean_y, lo, hi), {"weights": w}))
 
 
 def max_leaf(rmi):
@@ -2748,11 +2783,13 @@ def optimizer_phase(data, gen, nq, cross_n, seed, dev, files):
 # twice as many queries over two copies, 2^22 a copy, past the gate: K5's
 # scatter entry
 PATH10 = ("cubic,linear", 262144,
-          ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_sweep_max_linear",
-           "rmi_leaf_eval_linear", "rmi_lookup_linear"))
-# the dp build of path 4's spec, once a rank: its normal leaves are the one
-# caller of K2 xx (their variance sums cross ranks)
+          ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted",
+           "rmi_sweep_max_linear", "rmi_leaf_eval_linear", "rmi_lookup_linear"))
+# the dp builds of path 4's and path 3's specs, once a rank: their normal
+# and loglinear leaves are the callers of K2 xx and K2 weighted (their sums
+# cross ranks)
 PATH10_XX = ("cubic,normal", 65536)
+PATH10_W = ("cubic,loglinear", 65536)
 PATH10D = ("rmi_serve_sorted_scatter",)
 PATH10_RANKS = 4
 PATH10_WARM = 3               # warm dp builds timed a run; the median is logged
@@ -2797,8 +2834,9 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
     time in collectives clocked; the bound |guess - yfix| <= err on every
     key of the shard; then, with ``serve_queries``, rank 0's index
     replicated to every rank and nq queries (the same on every rank, from
-    ``qseed``) served sharded, timed; one dp build of PATH10_XX (K2 xx's
-    caller); the launches counted from the first build to the last search;
+    ``qseed``) served sharded, timed; one dp build each of PATH10_XX and
+    PATH10_W (K2 xx's and K2 weighted's callers); the launches counted from
+    the first build to the last search;
     with ``replay``, the recorded calls replayed against their plain
     versions on rank 0 (uncounted)."""
     from rmi_tpu_torch.parallel import dp_trainer, serve
@@ -2839,8 +2877,9 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                        if dev.type == "cuda" else None)
     with rec:
-        dp_trainer.dp_train_two_layer(keys_local, n, data.key_type,
-                                      *PATH10_XX[0].split(","), PATH10_XX[1], comm)
+        for spec_b in (PATH10_XX, PATH10_W):
+            dp_trainer.dp_train_two_layer(keys_local, n, data.key_type,
+                                          *spec_b[0].split(","), spec_b[1], comm)
 
     # the bound on every key of the shard, against the build's own FixDups
     rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
@@ -3673,6 +3712,12 @@ def main():
         rmi, rec, counts = drive(path, data, queries, gen)
         del rmi
         fit_timed = ()
+        if path is PATH3:    # its two builds' leaf fits; K2 weighted's row on its leaves
+            fits = (counts["rmi_aug_fit_log_moments"], counts["rmi_aug_moments_weighted"])
+            log(f"path 3 leaf fit launches (rmi_aug_fit_log_moments, K2 weighted): {fits}")
+            if fits != (2, 0):
+                raise RuntimeError(f"path 3's two builds launched {fits}, not (2, 0)")
+            legacy_calls(rec, ("rmi_aug_moments_weighted",))
         if path is PATH4:    # K2 xx's row on its leaves; the fit's xx form timed, logged
             legacy_calls(rec, LEGACY)
             fit_timed = ("rmi_aug_fit_moments",)

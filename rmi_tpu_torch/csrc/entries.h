@@ -30,6 +30,10 @@ RMI_ENTRY(rmi_aug_fit_moments, (const double* x, const int32_t* y, const int64_t
                                 const int64_t* aug_ends, int64_t n, int64_t xx_only,
                                 double* out, int64_t B, int64_t* scratch, int64_t capacity,
                                 void* stream))
+RMI_ENTRY(rmi_aug_fit_log_moments, (const double* x, const int32_t* y,
+                                    const int64_t* aug_starts, const int64_t* aug_ends,
+                                    int64_t n, double* out, int64_t B, int64_t* scratch,
+                                    int64_t capacity, void* stream))
 // K3 (csrc/sweep.cu)
 RMI_ENTRY(rmi_sweep_max_linear, (const double* xn, const int32_t* yfix,
                                  const int64_t* starts, const int64_t* ends,

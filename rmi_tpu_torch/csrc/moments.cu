@@ -1,5 +1,6 @@
-// K2: per-leaf centered moments of the linear-family and normal leaf
-// fits,
+// K2: per-leaf centered moments of the data-parallel build's
+// linear-family, loglinear and normal leaf fits (the one-card build takes
+// rmi_aug_fit_moments and rmi_aug_fit_log_moments below),
 //   m2[j] = sum (x[i] - mean_x[j])^2
 //   c[j]  = sum (x[i] - mean_x[j]) * (y[i] - mean_y[j])
 // over the leaf's overlap-augmented range [aug_starts[j], aug_ends[j]),
@@ -30,6 +31,8 @@
 // interior-plus-edge terms of segments.aug_centered_moments.  Known
 // weakness: a leaf with millions of keys keeps one warp busy while the
 // rest of the card idles; it is slow, never wrong.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -118,39 +121,62 @@ RMI_API int rmi_aug_moments_xx(const double* x, const double* mean_x,
 }
 
 // ---------------------------------------------------------------------------
-// rmi_aug_fit_moments: the whole per-leaf statistics of the linear-family
-// and normal leaf fits in one entry, from the keys' x and their int32
-// FixDups targets,
-//   mean_x[j] = sum x / max(cnt, 1)        mean_y[j] = sum y / max(cnt, 1)
-//   m2[j]     = sum (x - mean_x[j])^2      c[j] = sum (x - mean_x[j]) (y - mean_y[j])
-// over [aug_starts[j], aug_ends[j]), cnt its length; with xx_only, x alone:
-// mean_x and m2 (normal and lognormal leaves).  sum y adds the int32
-// targets in int64, exactly, and converts once; each mean is one IEEE
-// division; the centered terms are K2's above (-fmad=false: each product
-// rounded, then added).  out is [4, B] (mean_x, mean_y, m2, c) or [2, B]
-// (mean_x, m2).
+// rmi_aug_fit_moments and rmi_aug_fit_log_moments: a leaf fit's whole
+// per-leaf statistics in one entry, from the keys' x and their int32
+// FixDups targets y, over [aug_starts[j], aug_ends[j]), in three forms:
+//   rmi_aug_fit_moments (the linear-family and normal leaf fits)
+//     mean_x[j] = sum x / max(cnt, 1)      mean_y[j] = sum y / max(cnt, 1)
+//     m2[j]     = sum (x - mean_x[j])^2    c[j] = sum (x - mean_x[j]) (y - mean_y[j])
+//   cnt the range's length; with xx_only, x alone: mean_x and m2 (normal
+//   and lognormal leaves).  out is [4, B] (mean_x, mean_y, m2, c) or
+//   [2, B] (mean_x, m2).
+//   rmi_aug_fit_log_moments (the loglinear leaf fit) the same sums of x
+//   and ln y over the keys whose ln y is finite (models/linear.log_targets:
+//   FixDups targets are >= 0, so the keys dropped are the first run's,
+//   y = 0), cnt their count; out is [5, B] (cnt, mean_x, mean_y, m2, c).
+// sum y adds the int32 targets in int64, exactly, and converts once; each
+// mean is one IEEE division; the centered terms are K2's above
+// (-fmad=false: each product rounded, then added; a dropped key adds no
+// term, where K2 weighted adds its product times 0).  ln y is CUDA's
+// log() of the target as a double, as torch.log's on the card.
 //
-// Replaces rmi_tpu/ops/select_kernel.py:_moments_kernel (window_moments)
-// with the range sums before it (rmi_tpu/models/linear.py:89-93 and
-// rmi_tpu/utils/segments.py:88, range_sum_blocked on the TPU route): the
-// fit that K2 above served with its means made in eager torch, two f64
-// prefix sums over the whole array (utils/segments.py:87-119, each a
-// padded [rows, 1024] copy, a row scan and a recursive fix-up) and
-// yfix.double().  Here nothing [n]-sized is written.
+// Replaces rmi_tpu/ops/select_kernel.py:_moments_kernel (window_moments,
+// its plain and has_w forms) with the range sums before it
+// (rmi_tpu/models/linear.py:89-93 and rmi_tpu/utils/segments.py:88,
+// range_sum_blocked on the TPU route; for loglinear leaves
+// _loglinear_fit_leaves, rmi_tpu/models/linear.py:316-330, its
+// _log_targets and masked sums): the fits that K2 above served with their
+// means made in eager torch, two or three f64 prefix sums over the whole
+// array (utils/segments.py:87-119 and :183-193, each a padded
+// [rows, 1024] copy, a row scan and a recursive fix-up), yfix.double()
+// and, for loglinear leaves, ln y and a 0/1 weight as two more [n] f64
+// tensors.  Here nothing [n]-sized is written.
 //
-// Bound on the H100: memory.  x (8 B) and y (4 B) a key, x alone in the
-// xx form, plus 16 B of bounds and 32 (16) B of output a leaf: at 200M
-// keys 2.4 GB, 0.72 ms at 3.35 TB/s.  One warp takes a leaf of at most
-// kChunk keys: each lane loads kBatch = 32 of its keys at once, sums them,
+// Bound on the H100: memory for the linear and xx forms.  x (8 B) and y
+// (4 B) a key, x alone in the xx form, plus 16 B of bounds and 32 (16,
+// the log form 40) B of output a leaf: at 200M keys 2.4 GB, 0.72 ms at
+// 3.35 TB/s.  The log form reads the same 12 B a key and takes ln y,
+// ~32 f64 instructions (libdevice's log in this kernel's SASS, PERF.md
+// §6), once a key in the least work; it takes ln y again where it reads a
+// leaf twice, and then the f64 pipe binds it more than the bytes.
+//
+// One warp takes a leaf of at most kChunk keys: each lane loads a batch
+// of its keys at once (kBatch = 32; the log form kLogBatch), sums them,
 // and after the means centers them from the registers it loaded them
-// into, so a leaf of up to 1024 keys (path 1: 765 on average, 899 at
-// most) is read from device memory once.  A longer leaf (paths 4 and 5:
-// ~3050) is read again for the centered pass, and the grid then keeps as
-// many warps an SM as keep their mean leaf in L1 (kL1Bytes) in between.
-// A first design, every resident warp on a leaf and 8 keys loaded at once
-// a lane, read the second pass from device memory: 1.21 ms on path 1 and
-// 1.09 on path 4's xx form at 200M keys (tools/time_torch_fit.py; PERF.md
-// §6).
+// into (the log form keeps ln y there in place of y), so a leaf of up to
+// 32 batches' keys (path 1: 765 on average, 899 at most) is read from
+// device memory once.  A longer leaf (paths 3, 4 and 5: ~3050) is read
+// again for the centered pass, and the grid then keeps as many warps an
+// SM as keep their mean leaf in L1 (kL1Bytes) in between, but for the log
+// form, which keeps every warp the card holds: its logs want the warps
+// more than its second pass wants L1.  A first design, every resident
+// warp on a leaf and 8 keys loaded at once a lane, read the second pass
+// from device memory: 1.21 ms on path 1 and 1.09 on path 4's xx form at
+// 200M keys (tools/time_torch_fit.py; PERF.md §6).  On path 3 the log form
+// ran fastest with every resident warp and 4 keys a batch: the L1 grid,
+// fewer blocks an SM, longer batches, and a block a leaf that held the
+// leaf's x and ln y in registers and took ln y once (254 registers) were
+// all slower (PERF.md §6).
 //
 // A leaf longer than kChunk is cut into chunks of kChunk keys counted
 // from its start, a constant here and not a function of the grid: its warp
@@ -167,12 +193,34 @@ RMI_API int rmi_aug_moments_xx(const double* x, const double* mean_x,
 // ---------------------------------------------------------------------------
 namespace {
 
+// kXy: x and y (rmi_aug_fit_moments); kXx: x alone (its xx_only); kLog: x
+// and ln y over the keys whose ln y is finite (rmi_aug_fit_log_moments)
+enum class Form { kXy, kXx, kLog };
+
 constexpr int kFitThreads = 128;         // 4 warps, 4 leaves a block
 constexpr int64_t kChunk = 4096;         // keys a chunk of a long leaf
 constexpr int kBatch = 32;               // keys a lane loads at once
-constexpr int64_t kRegKeys = 32 * kBatch;     // a leaf up to this long stays in registers
+constexpr int kLogBatch = 4;             // the same, log form (PERF.md §6)
 constexpr int64_t kL1Bytes = 192 * 1024;  // of an SM's L1 for the leaves it streams
 constexpr unsigned int kLongBlocks = 2048;   // grid of the long leaves' passes
+
+template <Form F>
+constexpr int kBatchOf = F == Form::kLog ? kLogBatch : kBatch;
+// a leaf up to this long stays in registers between its two passes
+template <Form F>
+constexpr int64_t kRegKeysOf = 32 * (int64_t)kBatchOf<F>;
+
+// what a lane holds of a key beside x: its int32 target (kXy; unused by
+// kXx), or its ln y (kLog, -inf for a dropped key)
+template <Form F>
+using Target = std::conditional_t<F == Form::kLog, double, int32_t>;
+
+// the rows of out: mean_x, mean_y, m2, c (kXy); mean_x, m2 (kXx); cnt,
+// mean_x, mean_y, m2, c (kLog)
+template <Form F>
+constexpr int kRowMx = F == Form::kLog ? 1 : 0;
+template <Form F>
+constexpr int kRowM2 = F == Form::kXx ? 1 : (F == Form::kLog ? 3 : 2);
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -186,129 +234,172 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-// lane l's keys i, i + 32, ..., i + 32 (kBatch - 1), 0 past hi
-template <bool kXx>
-__device__ __forceinline__ void load_batch(const double* __restrict__ x,
-                                           const int32_t* __restrict__ y, int64_t i,
-                                           int64_t hi, double (&xv)[kBatch],
-                                           int32_t (&yv)[kBatch]) {
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const bool in = i + 32 * u < hi;
-    xv[u] = in ? x[i + 32 * u] : 0.0;
-    if constexpr (!kXx) yv[u] = in ? y[i + 32 * u] : 0;
-  }
+// a key's ln y as log_targets takes it: -inf (dropped) where y = 0
+__device__ __forceinline__ double log_target(int32_t y) { return log((double)y); }
+
+// whether a key's ln y is kept (finite)
+__device__ __forceinline__ bool kept(double ln) { return isfinite(ln); }
+
+// A pass's sums, a lane's and then the warp's: sum x, and sum y (kXy,
+// exact) or sum ln y and the kept keys' count in y (kLog)
+struct Sums {
+  double x = 0.0, ln = 0.0;
+  long long y = 0;
+};
+
+template <Form F>
+__device__ __forceinline__ Sums warp_sums(const Sums& s) {
+  Sums t;
+  t.x = warp_sum(s.x);
+  if constexpr (F == Form::kLog) t.ln = warp_sum(s.ln);
+  if constexpr (F != Form::kXx) t.y = warp_sum(s.y);
+  return t;
 }
 
-// sum x and sum y of a batch into a lane's sums (0.0 past hi leaves a sum
-// begun at +0.0 as it was)
-template <bool kXx>
-__device__ __forceinline__ void add_batch(const double (&xv)[kBatch],
-                                          const int32_t (&yv)[kBatch], double& ax,
-                                          long long& ay) {
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    ax += xv[u];
-    if constexpr (!kXx) ay += yv[u];
-  }
-}
-
-// the centered terms of a batch whose first key is i
-template <bool kXx>
-__device__ __forceinline__ void center_batch(const double (&xv)[kBatch],
-                                             const int32_t (&yv)[kBatch], int64_t i,
-                                             int64_t hi, double mx, double my, double& sxx,
-                                             double& sxy) {
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const bool in = i + 32 * u < hi;
-    const double dx = in ? xv[u] - mx : 0.0;
-    sxx += dx * dx;
-    if constexpr (!kXx) sxy += dx * (in ? (double)yv[u] - my : 0.0);
-  }
-}
-
-// sum x and sum y over [lo, hi), in every lane: lane l adds x[lo + l],
-// x[lo + l + 32], ... in sequence, a batch loaded before its adds
-template <bool kXx>
-__device__ __forceinline__ void chunk_sums(const double* __restrict__ x,
-                                           const int32_t* __restrict__ y, int64_t lo,
-                                           int64_t hi, int lane, double& sx, long long& sy) {
-  double ax = 0.0, xv[kBatch];
-  long long ay = 0;
-  int32_t yv[kBatch];
-  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
-    load_batch<kXx>(x, y, i, hi, xv, yv);
-    add_batch<kXx>(xv, yv, ax, ay);
-  }
-  sx = warp_sum(ax);
-  sy = kXx ? 0 : warp_sum(ay);
-}
-
-// sum (x - mx)^2 and sum (x - mx)(y - my) over [lo, hi), in every lane, in
-// chunk_sums' order
-template <bool kXx>
-__device__ __forceinline__ void chunk_moments(const double* __restrict__ x,
-                                              const int32_t* __restrict__ y, int64_t lo,
-                                              int64_t hi, int lane, double mx, double my,
-                                              double& m2, double& c) {
-  double sxx = 0.0, sxy = 0.0, xv[kBatch];
-  int32_t yv[kBatch];
-  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
-    load_batch<kXx>(x, y, i, hi, xv, yv);
-    center_batch<kXx>(xv, yv, i, hi, mx, my, sxx, sxy);
-  }
-  m2 = warp_sum(sxx);
-  c = kXx ? 0.0 : warp_sum(sxy);
-}
-
+// a leaf's means: (mean_x, mean_y) of its sums over cnt keys (kLog: the
+// sums' own count)
 __device__ __forceinline__ double fit_mean(double s, int64_t cnt) {
   return s / fmax((double)cnt, 1.0);
 }
 
+template <Form F>
+__device__ __forceinline__ void means_of(const Sums& s, int64_t len, double& mx, double& my) {
+  const int64_t cnt = F == Form::kLog ? s.y : len;
+  mx = fit_mean(s.x, cnt);
+  my = F == Form::kXx ? 0.0 : fit_mean(F == Form::kLog ? s.ln : (double)s.y, cnt);
+}
+
+// lane l's keys i, i + 32, ..., i + 32 (batch - 1): x 0.0 past hi, the
+// target 0 (kLog: ln y -inf, dropped)
+template <Form F>
+__device__ __forceinline__ void load_batch(const double* __restrict__ x,
+                                           const int32_t* __restrict__ y, int64_t i,
+                                           int64_t hi, double (&xv)[kBatchOf<F>],
+                                           Target<F> (&yv)[kBatchOf<F>]) {
+  int32_t t[kBatchOf<F>];               // the log form's targets, logged below
+#pragma unroll
+  for (int u = 0; u < kBatchOf<F>; ++u) {
+    const bool in = i + 32 * u < hi;
+    xv[u] = in ? x[i + 32 * u] : 0.0;
+    if constexpr (F == Form::kXy) yv[u] = in ? y[i + 32 * u] : 0;
+    if constexpr (F == Form::kLog) t[u] = in ? y[i + 32 * u] : 0;
+  }
+  if constexpr (F == Form::kLog) {
+#pragma unroll
+    for (int u = 0; u < kBatchOf<F>; ++u) yv[u] = log_target(t[u]);
+  }
+}
+
+// a batch's keys added into a lane's sums (x 0.0 past hi leaves a sum
+// begun at +0.0 as it was; kLog adds the kept keys alone)
+template <Form F>
+__device__ __forceinline__ void add_batch(const double (&xv)[kBatchOf<F>],
+                                          const Target<F> (&yv)[kBatchOf<F>], Sums& s) {
+#pragma unroll
+  for (int u = 0; u < kBatchOf<F>; ++u) {
+    if constexpr (F == Form::kLog) {
+      const bool w = kept(yv[u]);
+      s.x += w ? xv[u] : 0.0;
+      s.ln += w ? yv[u] : 0.0;
+      s.y += w ? 1 : 0;
+    } else {
+      s.x += xv[u];
+      if constexpr (F == Form::kXy) s.y += yv[u];
+    }
+  }
+}
+
+// the centered terms of a batch whose first key is i
+template <Form F>
+__device__ __forceinline__ void center_batch(const double (&xv)[kBatchOf<F>],
+                                             const Target<F> (&yv)[kBatchOf<F>], int64_t i,
+                                             int64_t hi, double mx, double my, double& sxx,
+                                             double& sxy) {
+#pragma unroll
+  for (int u = 0; u < kBatchOf<F>; ++u) {
+    // a dropped key (kLog) or a slot past hi adds no term
+    const bool in = i + 32 * u < hi && (F != Form::kLog || kept((double)yv[u]));
+    const double dx = in ? xv[u] - mx : 0.0;
+    sxx += dx * dx;
+    if constexpr (F != Form::kXx) sxy += dx * (in ? (double)yv[u] - my : 0.0);
+  }
+}
+
+// the sums over [lo, hi), in every lane: lane l adds key lo + l, lo + l +
+// 32, ... in sequence, a batch loaded before its adds
+template <Form F>
+__device__ __forceinline__ Sums chunk_sums(const double* __restrict__ x,
+                                           const int32_t* __restrict__ y, int64_t lo,
+                                           int64_t hi, int lane) {
+  Sums s;
+  double xv[kBatchOf<F>];
+  Target<F> yv[kBatchOf<F>];
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatchOf<F>) {
+    load_batch<F>(x, y, i, hi, xv, yv);
+    add_batch<F>(xv, yv, s);
+  }
+  return warp_sums<F>(s);
+}
+
+// sum (x - mx)^2 and sum (x - mx)(y - my) over [lo, hi), in every lane, in
+// chunk_sums' order
+template <Form F>
+__device__ __forceinline__ void chunk_moments(const double* __restrict__ x,
+                                              const int32_t* __restrict__ y, int64_t lo,
+                                              int64_t hi, int lane, double mx, double my,
+                                              double& m2, double& c) {
+  double sxx = 0.0, sxy = 0.0, xv[kBatchOf<F>];
+  Target<F> yv[kBatchOf<F>];
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatchOf<F>) {
+    load_batch<F>(x, y, i, hi, xv, yv);
+    center_batch<F>(xv, yv, i, hi, mx, my, sxx, sxy);
+  }
+  m2 = warp_sum(sxx);
+  c = F == Form::kXx ? 0.0 : warp_sum(sxy);
+}
+
 // a leaf of at most kChunk keys, chunk_sums then chunk_moments: one batch
-// (kRegKeys keys) is read once and centered from the registers it was
+// (kRegKeysOf keys) is read once and centered from the registers it was
 // loaded into, a longer leaf read again
-template <bool kXx>
+template <Form F>
 __device__ __forceinline__ void leaf_stats(const double* __restrict__ x,
                                            const int32_t* __restrict__ y, int64_t lo,
-                                           int64_t hi, int lane, double& mx, double& my,
-                                           double& m2, double& c) {
-  double ax = 0.0, xv[kBatch] = {};          // a lane past hi loads nothing
-  long long ay = 0;
-  int32_t yv[kBatch] = {};
-  for (int64_t i = lo + lane; i < hi; i += 32 * kBatch) {
-    load_batch<kXx>(x, y, i, hi, xv, yv);
-    add_batch<kXx>(xv, yv, ax, ay);
+                                           int64_t hi, int lane, Sums& s, double& mx,
+                                           double& my, double& m2, double& c) {
+  double xv[kBatchOf<F>] = {};          // a lane past hi loads nothing
+  Target<F> yv[kBatchOf<F>] = {};
+  Sums a;
+  for (int64_t i = lo + lane; i < hi; i += 32 * kBatchOf<F>) {
+    load_batch<F>(x, y, i, hi, xv, yv);
+    add_batch<F>(xv, yv, a);
   }
-  mx = fit_mean(warp_sum(ax), hi - lo);
-  my = kXx ? 0.0 : fit_mean((double)warp_sum(ay), hi - lo);
-  if (hi - lo <= 0 || hi - lo > kRegKeys) {
-    chunk_moments<kXx>(x, y, lo, hi, lane, mx, my, m2, c);
+  s = warp_sums<F>(a);
+  means_of<F>(s, hi - lo, mx, my);
+  if (hi - lo <= 0 || hi - lo > kRegKeysOf<F>) {
+    chunk_moments<F>(x, y, lo, hi, lane, mx, my, m2, c);
     return;
   }
   double sxx = 0.0, sxy = 0.0;
-  center_batch<kXx>(xv, yv, lo + lane, hi, mx, my, sxx, sxy);
+  center_batch<F>(xv, yv, lo + lane, hi, mx, my, sxx, sxy);
   m2 = warp_sum(sxx);
-  c = kXx ? 0.0 : warp_sum(sxy);
+  c = F == Form::kXx ? 0.0 : warp_sum(sxy);
 }
 
-template <bool kXx>
+template <Form F>
 __device__ __forceinline__ void write_leaf(double* __restrict__ out, int64_t B, int64_t j,
-                                           double mx, double my, double m2, double c) {
-  out[j] = mx;
-  if constexpr (kXx) {
-    out[B + j] = m2;
-  } else {
-    out[B + j] = my;
-    out[2 * B + j] = m2;
-    out[3 * B + j] = c;
-  }
+                                           const Sums& s, double mx, double my, double m2,
+                                           double c) {
+  if constexpr (F == Form::kLog) out[j] = (double)s.y;
+  out[kRowMx<F> * B + j] = mx;
+  if constexpr (F != Form::kXx) out[(kRowMx<F> + 1) * B + j] = my;
+  out[kRowM2<F> * B + j] = m2;
+  if constexpr (F != Form::kXx) out[(kRowM2<F> + 1) * B + j] = c;
 }
 
 // The schedule of the long leaves' chunks, in one int64 scratch:
 // [0] the slots taken, then per slot its leaf (-1: none) and chunk, the
-// chunk's sums (x as f64, y as int64) and centered terms
+// chunk's sums (x as f64, y or the count as int64), centered terms and,
+// the log form's alone, its sum of ln y
 struct Schedule {
   int64_t* taken;
   int64_t* leaf;
@@ -317,11 +408,12 @@ struct Schedule {
   long long* sy;
   double* m2;
   double* c;
+  double* sln;
   int64_t capacity;
   __host__ __device__ Schedule(int64_t* s, int64_t cap)
       : taken(s), leaf(s + 1), chunk(s + 1 + cap), sx((double*)(s + 1 + 2 * cap)),
         sy((long long*)(s + 1 + 3 * cap)), m2((double*)(s + 1 + 4 * cap)),
-        c((double*)(s + 1 + 5 * cap)), capacity(cap) {}
+        c((double*)(s + 1 + 5 * cap)), sln((double*)(s + 1 + 6 * cap)), capacity(cap) {}
   __device__ int64_t slots() const {
     const int64_t t = *taken;
     return t < capacity ? t : capacity;
@@ -341,41 +433,40 @@ __device__ __forceinline__ T chunk_order_sum(const T* __restrict__ p, int64_t nc
 
 // a long leaf done by its own warp, chunk by chunk, each chunk's partial
 // added into lane (chunk % 32) as the schedule's passes add them
-template <bool kXx>
+template <Form F>
 __device__ void long_leaf_alone(const double* __restrict__ x, const int32_t* __restrict__ y,
                                 int64_t lo, int64_t hi, int lane, double* __restrict__ out,
                                 int64_t B, int64_t j) {
   const int64_t nch = chunks_of(hi - lo);
-  double ax = 0.0;
-  long long ay = 0;
+  Sums a;
   for (int64_t k = 0; k < nch; ++k) {
-    double sx;
-    long long sy;
-    chunk_sums<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, sx, sy);
+    const Sums s = chunk_sums<F>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane);
     if ((k & 31) == lane) {
-      ax += sx;
-      ay += sy;
+      a.x += s.x;
+      a.ln += s.ln;
+      a.y += s.y;
     }
   }
-  const double mx = fit_mean(warp_sum(ax), hi - lo);
-  const double my = kXx ? 0.0 : fit_mean((double)warp_sum(ay), hi - lo);
+  const Sums s = warp_sums<F>(a);
+  double mx, my;
+  means_of<F>(s, hi - lo, mx, my);
   double am2 = 0.0, ac = 0.0;
   for (int64_t k = 0; k < nch; ++k) {
     double m2, c;
-    chunk_moments<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
-                       m2, c);
+    chunk_moments<F>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
+                     m2, c);
     if ((k & 31) == lane) {
       am2 += m2;
       ac += c;
     }
   }
   const double m2 = warp_sum(am2), c = warp_sum(ac);
-  if (lane == 0) write_leaf<kXx>(out, B, j, mx, my, m2, c);
+  if (lane == 0) write_leaf<F>(out, B, j, s, mx, my, m2, c);
 }
 
 // (1) a warp a leaf: a leaf of at most kChunk keys whole, a longer one
 // scheduled (or done alone where the schedule is full)
-template <bool kXx>
+template <Form F>
 __global__ void __launch_bounds__(kFitThreads)
 fit_leaves(const double* __restrict__ x, const int32_t* __restrict__ y,
            const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
@@ -386,9 +477,10 @@ fit_leaves(const double* __restrict__ x, const int32_t* __restrict__ y,
   for (int64_t j = warp; j < B; j += nwarps) {      // warp-uniform
     const int64_t lo = aug_starts[j], hi = aug_ends[j];
     if (hi - lo <= kChunk) {
+      Sums s;
       double mx, my, m2, c;
-      leaf_stats<kXx>(x, y, lo, hi, lane, mx, my, m2, c);
-      if (lane == 0) write_leaf<kXx>(out, B, j, mx, my, m2, c);
+      leaf_stats<F>(x, y, lo, hi, lane, s, mx, my, m2, c);
+      if (lane == 0) write_leaf<F>(out, B, j, s, mx, my, m2, c);
       continue;
     }
     const int64_t nch = chunks_of(hi - lo);
@@ -403,12 +495,12 @@ fit_leaves(const double* __restrict__ x, const int32_t* __restrict__ y,
       sched.leaf[first + k] = room ? j : -1;
       sched.chunk[first + k] = k;
     }
-    if (!room) long_leaf_alone<kXx>(x, y, lo, hi, lane, out, B, j);
+    if (!room) long_leaf_alone<F>(x, y, lo, hi, lane, out, B, j);
   }
 }
 
 // (2) each scheduled chunk's sums
-template <bool kXx>
+template <Form F>
 __global__ void __launch_bounds__(kFitThreads)
 fit_chunk_sums(const double* __restrict__ x, const int32_t* __restrict__ y,
                const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
@@ -421,19 +513,18 @@ fit_chunk_sums(const double* __restrict__ x, const int32_t* __restrict__ y,
     const int64_t j = sched.leaf[w];
     if (j < 0) continue;
     const int64_t lo = aug_starts[j] + sched.chunk[w] * kChunk;
-    double sx;
-    long long sy;
-    chunk_sums<kXx>(x, y, lo, min(aug_ends[j], lo + kChunk), lane, sx, sy);
+    const Sums s = chunk_sums<F>(x, y, lo, min(aug_ends[j], lo + kChunk), lane);
     if (lane == 0) {
-      sched.sx[w] = sx;
-      sched.sy[w] = sy;
+      sched.sx[w] = s.x;
+      sched.sy[w] = s.y;
+      if constexpr (F == Form::kLog) sched.sln[w] = s.ln;
     }
   }
 }
 
 // (3) each scheduled chunk's centered terms about its leaf's means, which
-// the leaf's first chunk writes
-template <bool kXx>
+// (with the log form's count) the leaf's first chunk writes
+template <Form F>
 __global__ void __launch_bounds__(kFitThreads)
 fit_chunk_moments(const double* __restrict__ x, const int32_t* __restrict__ y,
                   const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
@@ -447,25 +538,30 @@ fit_chunk_moments(const double* __restrict__ x, const int32_t* __restrict__ y,
     if (j < 0) continue;
     const int64_t k = sched.chunk[w], first = w - k;
     const int64_t lo = aug_starts[j], hi = aug_ends[j], nch = chunks_of(hi - lo);
-    const double mx = fit_mean(chunk_order_sum(sched.sx + first, nch, lane), hi - lo);
-    const double my =
-        kXx ? 0.0 : fit_mean((double)chunk_order_sum(sched.sy + first, nch, lane), hi - lo);
+    const long long sy = F == Form::kXx ? 0 : chunk_order_sum(sched.sy + first, nch, lane);
+    // the log form's count is its sum of y
+    const int64_t cnt = F == Form::kLog ? sy : hi - lo;
+    const double mx = fit_mean(chunk_order_sum(sched.sx + first, nch, lane), cnt);
+    double my = 0.0;
+    if constexpr (F == Form::kXy) my = fit_mean((double)sy, cnt);
+    if constexpr (F == Form::kLog) my = fit_mean(chunk_order_sum(sched.sln + first, nch, lane), cnt);
     double m2, c;
-    chunk_moments<kXx>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
-                       m2, c);
+    chunk_moments<F>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane, mx, my,
+                     m2, c);
     if (lane == 0) {
       sched.m2[w] = m2;
       sched.c[w] = c;
       if (k == 0) {
-        out[j] = mx;
-        if constexpr (!kXx) out[B + j] = my;
+        if constexpr (F == Form::kLog) out[j] = (double)cnt;
+        out[kRowMx<F> * B + j] = mx;
+        if constexpr (F != Form::kXx) out[(kRowMx<F> + 1) * B + j] = my;
       }
     }
   }
 }
 
 // (4) each scheduled leaf's centered sums, its chunks' terms in chunk order
-template <bool kXx>
+template <Form F>
 __global__ void __launch_bounds__(kFitThreads)
 fit_chunk_totals(const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
                  double* __restrict__ out, int64_t B, Schedule sched) {
@@ -478,21 +574,17 @@ fit_chunk_totals(const int64_t* __restrict__ aug_starts, const int64_t* __restri
     if (j < 0 || sched.chunk[w] != 0) continue;
     const int64_t nch = chunks_of(aug_ends[j] - aug_starts[j]);
     const double m2 = chunk_order_sum(sched.m2 + w, nch, lane);
-    const double c = kXx ? 0.0 : chunk_order_sum(sched.c + w, nch, lane);
+    const double c = F == Form::kXx ? 0.0 : chunk_order_sum(sched.c + w, nch, lane);
     if (lane == 0) {
-      if constexpr (kXx) {
-        out[B + j] = m2;
-      } else {
-        out[2 * B + j] = m2;
-        out[3 * B + j] = c;
-      }
+      out[kRowM2<F> * B + j] = m2;
+      if constexpr (F != Form::kXx) out[(kRowM2<F> + 1) * B + j] = c;
     }
   }
 }
 
 // SMs of the current device and fit_leaves' resident blocks an SM, asked
 // once per device, with fit_leaves' carveout set to the most L1
-template <bool kXx>
+template <Form F>
 cudaError_t fit_residency(int* sms, int* blocks) {
   static int counts[kMaxDevices][2] = {};
   int dev = 0;
@@ -503,11 +595,11 @@ cudaError_t fit_residency(int* sms, int* blocks) {
     int n = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(fit_leaves<kXx>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      err = cudaFuncSetAttribute(fit_leaves<F>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxL1);
     }
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fit_leaves<kXx>, kFitThreads,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fit_leaves<F>, kFitThreads,
                                                           0);
     }
     if (err != cudaSuccess) return err;
@@ -519,7 +611,7 @@ cudaError_t fit_residency(int* sms, int* blocks) {
   return cudaSuccess;
 }
 
-template <bool kXx>
+template <Form F>
 int launch_fit(const double* x, const int32_t* y, const int64_t* aug_starts,
                const int64_t* aug_ends, int64_t n, double* out, int64_t B, int64_t* scratch,
                int64_t capacity, cudaStream_t s) {
@@ -527,15 +619,16 @@ int launch_fit(const double* x, const int32_t* y, const int64_t* aug_starts,
   cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int64_t), s);
   if (err != cudaSuccess) return (int)err;
   // a persistent grid: every block the card keeps resident where a mean
-  // leaf fits in registers; where leaves stream twice, as many warps an SM
-  // as keep their mean leaf in L1 between the two passes
+  // leaf fits in registers, and for the log form, whose f64 log wants every
+  // warp the card holds; where leaves of the other forms stream twice, as
+  // many warps an SM as keep their mean leaf in L1 between the two passes
   int sms = 0, per_sm = 0;
-  err = fit_residency<kXx>(&sms, &per_sm);
+  err = fit_residency<F>(&sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const int64_t mean_keys = (n + 2 * B) / B + 1;
   int64_t blocks_per_sm = per_sm;
-  if (mean_keys > kRegKeys) {
-    const int64_t warps = kL1Bytes / (mean_keys * (kXx ? 8 : 12));
+  if (F != Form::kLog && mean_keys > kRegKeysOf<F>) {
+    const int64_t warps = kL1Bytes / (mean_keys * (F == Form::kXx ? 8 : 12));
     blocks_per_sm = warps / (kFitThreads / 32);
     if (blocks_per_sm < 1) blocks_per_sm = 1;
     if (blocks_per_sm > per_sm) blocks_per_sm = per_sm;
@@ -543,15 +636,14 @@ int launch_fit(const double* x, const int32_t* y, const int64_t* aug_starts,
   int64_t grid = (int64_t)sms * blocks_per_sm;
   const int64_t needed = rmi_grid(B * 32, kFitThreads);
   if (grid > needed) grid = needed;
-  fit_leaves<kXx><<<(unsigned int)grid, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out,
-                                                              B, sched);
+  fit_leaves<F><<<(unsigned int)grid, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out, B,
+                                                           sched);
   if (capacity > 0) {
     const int64_t blocks = rmi_grid(capacity * 32, kFitThreads);
     const unsigned int g = blocks < kLongBlocks ? (unsigned int)blocks : kLongBlocks;
-    fit_chunk_sums<kXx><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, sched);
-    fit_chunk_moments<kXx><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out, B,
-                                                     sched);
-    fit_chunk_totals<kXx><<<g, kFitThreads, 0, s>>>(aug_starts, aug_ends, out, B, sched);
+    fit_chunk_sums<F><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, sched);
+    fit_chunk_moments<F><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, out, B, sched);
+    fit_chunk_totals<F><<<g, kFitThreads, 0, s>>>(aug_starts, aug_ends, out, B, sched);
   }
   return (int)cudaGetLastError();
 }
@@ -568,7 +660,20 @@ RMI_API int rmi_aug_fit_moments(const double* x, const int32_t* y,
   if (B <= 0) return (int)cudaGetLastError();
   if (capacity < 0 || n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return xx_only
-             ? launch_fit<true>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity, s)
-             : launch_fit<false>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity, s);
+  return xx_only ? launch_fit<Form::kXx>(x, y, aug_starts, aug_ends, n, out, B, scratch,
+                                         capacity, s)
+                 : launch_fit<Form::kXy>(x, y, aug_starts, aug_ends, n, out, B, scratch,
+                                         capacity, s);
+}
+
+// out [5, B] (cnt, mean_x, mean_y, m2, c) of x and ln y; scratch 1 + 7 *
+// capacity int64 (the schedule's slots carry each chunk's sum of ln y too)
+RMI_API int rmi_aug_fit_log_moments(const double* x, const int32_t* y,
+                                    const int64_t* aug_starts, const int64_t* aug_ends,
+                                    int64_t n, double* out, int64_t B, int64_t* scratch,
+                                    int64_t capacity, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (capacity < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  return launch_fit<Form::kLog>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity,
+                                (cudaStream_t)stream);
 }

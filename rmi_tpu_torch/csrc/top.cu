@@ -8,7 +8,7 @@
 //                       the top fit, the assignment and stages B and C
 //                       read;
 //   rmi_top_cubic_candidates
-//                       one thread: the cubic top's endpoints (or the
+//                       one block: the cubic top's endpoints (or the
 //                       top's ep_y), the two global searches of _slopes,
 //                       the clamped slopes, _coeffs and both candidates
 //                       (models/cubic.py _candidates), into a [kCand]
@@ -63,9 +63,20 @@
 // every quotient and square root is IEEE-rounded as torch's, the
 // reciprocal that torch takes for a scalar over a tensor (3 / sqrt(.) is
 // reciprocal(sqrt(.)) * 3) is kept, and each addcmul is an fma().  One
-// thread does it: ~60 dependent reads at 200M keys, some tens of
-// microseconds, in place of ~180 [1]- and [2]-sized torch operators each
-// issued by the host.
+// block of two warps does it, in place of ~180 [1]- and [2]-sized torch
+// operators each issued by the host: warp 0 searches for the first point
+// with x > xmin, warp 1 for the last with x < xmax, at once, then one
+// thread finishes the chain.  A warp walks aten's binary search
+// kSearchLevels steps a round: the steps a round can take form a tree of
+// 2^kSearchLevels - 1 brackets, each with its midpoint; the lanes read
+// all of those midpoints at once (one a lane), ballot each one's step,
+// and every lane walks the tree on the ballots.  So each search takes aten's midpoints and its
+// answer on any input, NaN included, in ceil(log2(n + 1) / kSearchLevels)
+// rounds of reads (6 at 200M keys) where one thread took log2(n + 1)
+// dependent reads (28); a warp reading evenly spaced probes would need a
+// midpoint walk of its own wherever NaN breaks x's order (keys.f64_image
+// puts NaN keys first).  A lane holds one bracket: a deeper tree (8 steps,
+// 255 brackets, 8 a lane) spent on the brackets what it saved in reads.
 //
 // The assignment has two kernels behind its entry, as the fused lookup
 // has (eval.cu): one for the affine tops (linear, robust_linear,
@@ -131,18 +142,58 @@ __device__ __forceinline__ double target(int32_t y, double sf, bool scaled) {
   return scaled ? trunc((double)y * sf) : (double)y;
 }
 
-// torch.searchsorted of v in x[0:n], left (lower) or right (upper): aten's
-// binary search step for step
+// steps of aten's binary search a round of search_f64 takes: the round's
+// tree holds 2^kSearchLevels - 1 brackets, node k (heap-numbered from 1)
+// lane k - 1's
+constexpr int kSearchLevels = 5;
+
+// aten's step at a midpoint read m: whether the search goes right of it
 template <bool kRight>
-__device__ int64_t search_f64(const double* __restrict__ x, int64_t n, double v) {
+__device__ __forceinline__ bool goes_right(double m, double v) {
+  return kRight ? !(m > v) : !(m >= v);
+}
+
+// torch.searchsorted of v in x[0:n], left (lower) or right (upper), in
+// every lane of the warp: aten's binary search, kSearchLevels steps a round
+// (the file's header)
+template <bool kRight>
+__device__ int64_t search_f64(const double* __restrict__ x, int64_t n, double v, int lane) {
+  const int k = lane + 1;                   // lane 31: node 32, past the tree
+  const int depth = 31 - __clz(k);
   int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    const double m = x[mid];
-    if (kRight ? !(m > v) : !(m >= v)) {
-      lo = mid + 1;
+  while (lo < hi) {                         // warp-uniform
+    // node k's bracket down the tree (the bits of k below its leading one,
+    // a right step for a 1), then its midpoint, read where it is not empty
+    long long a = lo, b = hi;
+#pragma unroll
+    for (int d = kSearchLevels - 2; d >= 0; --d) {
+      if (d < depth) {
+        const long long mid = a + ((b - a) >> 1);
+        if ((k >> d) & 1) {
+          a = mid + 1;
+        } else {
+          b = mid;
+        }
+      }
+    }
+    const bool live = lane < 31 && a < b;
+    const double m = live ? __ldg(x + a + ((b - a) >> 1)) : 0.0;
+    const unsigned int right = __ballot_sync(RMI_FULL_MASK, live && goes_right<kRight>(m, v));
+    const unsigned int lives = __ballot_sync(RMI_FULL_MASK, live);
+    // aten's walk through the tree: it leaves at an empty bracket, where its
+    // loop ends, or at a child of the last level, one step below its parent
+    int w = 1;
+    while (w < 32 && ((lives >> (w - 1)) & 1)) w = 2 * w + ((right >> (w - 1)) & 1);
+    const int src = w < 32 ? w - 1 : (w >> 1) - 1;
+    const long long pa = __shfl_sync(RMI_FULL_MASK, a, src);
+    const long long pb = __shfl_sync(RMI_FULL_MASK, b, src);
+    if (w < 32) {
+      lo = pa;
+      hi = pb;
     } else {
-      hi = mid;
+      const long long mid = pa + ((pb - pa) >> 1);
+      lo = w & 1 ? mid + 1 : pa;
+      hi = w & 1 ? pb : mid;
     }
   }
   return lo;
@@ -154,19 +205,33 @@ __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
 
 // fit_cubic_aux's whole-array candidates (models/cubic.py _candidates,
 // _slopes, slopes_from_points, _coeffs, candidates_from_slopes,
-// linear.spline_from_endpoints), operation for operation, one thread
+// linear.spline_from_endpoints), operation for operation: the two global
+// searches a warp each, the rest one thread
 template <RmiKey K>
-__global__ void cubic_candidates(const double* __restrict__ x, const int32_t* __restrict__ y,
-                                 const int64_t* __restrict__ keys, int64_t n, double sf,
-                                 bool scaled, bool has_ep, double ep_first, double ep_last,
-                                 double* __restrict__ cand) {
+__global__ void __launch_bounds__(64)
+cubic_candidates(const double* __restrict__ x, const int32_t* __restrict__ y,
+                 const int64_t* __restrict__ keys, int64_t n, double sf, bool scaled,
+                 bool has_ep, double ep_first, double ep_last, double* __restrict__ cand) {
+  __shared__ int64_t found[2];
+  const int lane = threadIdx.x & 31;
   const double xmin = x[0], xmax = x[n - 1];
+  // read before the searches, where their loads wait beside them
   const double ymin = has_ep ? ep_first : target(y[0], sf, scaled);
   const double ymax = has_ep ? ep_last : target(y[n - 1], sf, scaled);
-  const bool degenerate = xmin == xmax;
+  const double key_min = keys == nullptr ? xmin : decoded<K>(keys[0]);
+  const double key_max = keys == nullptr ? xmax : decoded<K>(keys[n - 1]);
   // the first point with x > xmin and the last with x < xmax, global
-  const int64_t i1 = clamp_index(search_f64<true>(x, n, xmin), n);
-  const int64_t i2 = clamp_index(search_f64<false>(x, n, xmax) - 1, n);
+  if (threadIdx.x < 32) {
+    const int64_t i = search_f64<true>(x, n, xmin, lane);
+    if (lane == 0) found[0] = clamp_index(i, n);
+  } else {
+    const int64_t i = search_f64<false>(x, n, xmax, lane);
+    if (lane == 0) found[1] = clamp_index(i - 1, n);
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const bool degenerate = xmin == xmax;
+  const int64_t i1 = found[0], i2 = found[1];
   const double x1 = x[i1], y1 = target(y[i1], sf, scaled);
   const double x2 = x[i2], y2 = target(y[i2], sf, scaled);
   // slopes_from_points
@@ -203,8 +268,8 @@ __global__ void cubic_candidates(const double* __restrict__ x, const int32_t* __
   const double intercept = fma(-slope, xmin, ymin);
   cand[kLinRow] = n == 1 || degenerate ? ymin : intercept;
   cand[kLinRow + 1] = n <= 1 || degenerate ? 0.0 : slope;
-  cand[kCXmin] = keys == nullptr ? xmin : decoded<K>(keys[0]);
-  cand[kCXmax] = keys == nullptr ? xmax : decoded<K>(keys[n - 1]);
+  cand[kCXmin] = key_min;
+  cand[kCXmax] = key_max;
   cand[kCYmin] = ymin;
   cand[kCYmax] = ymax;
   cand[kCM1] = m1;
@@ -410,10 +475,10 @@ RMI_API int rmi_top_cubic_candidates(const double* x, const int32_t* y, const in
     return (int)cudaErrorInvalidValue;
   }
   if (key_kind == (int64_t)RmiKey::kF64) {
-    cubic_candidates<RmiKey::kF64><<<1, 1, 0, (cudaStream_t)stream>>>(
+    cubic_candidates<RmiKey::kF64><<<1, 64, 0, (cudaStream_t)stream>>>(
         x, y, keys, n, sf, scale_targets != 0, has_ep != 0, ep_first, ep_last, cand);
   } else {
-    cubic_candidates<RmiKey::kU64><<<1, 1, 0, (cudaStream_t)stream>>>(
+    cubic_candidates<RmiKey::kU64><<<1, 64, 0, (cudaStream_t)stream>>>(
         x, y, keys, n, sf, scale_targets != 0, has_ep != 0, ep_first, ep_last, cand);
   }
   return (int)cudaGetLastError();

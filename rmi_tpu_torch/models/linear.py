@@ -21,7 +21,10 @@ FMA on the CPU.  The top's whole-array sums follow XLA's order
 XLA folds because the count is known when it compiles the top fit.  On
 the card the linear and robust_linear tops' fit is one launch of
 rmi_top_moments (ops/top_kernel.top_moments, the same order and bits);
-this module's fit_top is its plain version.
+this module's fit_top is its plain version.  The leaf fits' statistics
+are one launch each on the card: select_kernel.aug_fit_moments for the
+linear and robust_linear leaves, aug_fit_log_moments for loglinear ones
+(ln y and its weight taken per key inside the kernel).
 """
 
 from __future__ import annotations
@@ -164,13 +167,24 @@ def _loglinear_fit(xf, yf, spans):
     return _slr_ranges(xf, ln, spans, weights=w)
 
 
+def _loglinear_leaves(xf, yfix, spans):
+    """The loglinear leaf fit: with B > 1 its weighted count, means and
+    moments from select_kernel.aug_fit_log_moments (one launch on the
+    card, from x and the int32 FixDups targets; on the CPU the chain
+    below, bit for bit), else that chain on f64 targets."""
+    if spans.B > 1:
+        return _slr_from_moments(*select_kernel.aug_fit_log_moments(
+            xf, yfix, spans.aug_starts, spans.aug_ends))
+    return _loglinear_fit(xf, yfix.double(), spans)
+
+
 # empty loglinear leaves keep the (0, 0) row of an empty fit, exp1(0) = 1:
 # rmi_tpu does not patch them (two_layer.py:235-243)
 register(ModelDef(
     name="loglinear", ppm=2,
     fit_top=lambda xf, yf, ep_first, ep_last: _loglinear_fit(
         xf, yf, seg.whole_array_spans(xf.shape[0], xf.device)),
-    fit_leaves=lambda xf, yfix, spans: _loglinear_fit(xf, yfix.double(), spans),
+    fit_leaves=_loglinear_leaves,
     predict=loglinear_predict, constant_params=None, leaf_kernel="loglinear",
     bytes_per_model=16, function_name="loglinear"))
 

@@ -1,19 +1,21 @@
-"""K2: per-leaf centered moments of the linear-family and normal leaf
-fits (csrc/moments.cu).
+"""K2: per-leaf centered moments of the linear-family, loglinear and
+normal leaf fits (csrc/moments.cu).
 
 Counterpart of rmi_tpu/ops/select_kernel.py:window_moments plus the
 per-leaf range sums that follow it (rmi_tpu/utils/segments.py:683-720).
-The kernel fuses the per-key products into the per-leaf sums.  Four C
-entry points, behind three wrappers: ``aug_fit_moments`` launches
+The kernel fuses the per-key products into the per-leaf sums.  Five C
+entry points, behind four wrappers: ``aug_fit_moments`` launches
 ``rmi_aug_fit_moments``, the build's linear and normal leaf fits whole
 (each leaf's means from its sums, then its centered moments, from x and
 the int32 FixDups targets: no prefix sum and no f64 copy of the
-targets); ``aug_centered_moments`` launches ``rmi_aug_moments`` or, given
-0/1 weights, ``rmi_aug_moments_weighted`` (``has_w``, loglinear leaves)
-on means made outside; ``aug_centered_xx`` launches
-``rmi_aug_moments_xx`` (``xx_only``: the variance of x alone).  The
-data-parallel build (parallel/dp_trainer.py), whose sums cross ranks,
-keeps the last two.
+targets); ``aug_fit_log_moments`` launches ``rmi_aug_fit_log_moments``,
+the loglinear leaf fit whole (ln y and its 0/1 weight taken per key from
+the same int32 targets, then the weighted count, means and moments);
+``aug_centered_moments`` launches ``rmi_aug_moments`` or, given 0/1
+weights, ``rmi_aug_moments_weighted`` (``has_w``, loglinear leaves) on
+means made outside; ``aug_centered_xx`` launches ``rmi_aug_moments_xx``
+(``xx_only``: the variance of x alone).  The data-parallel build
+(parallel/dp_trainer.py), whose sums cross ranks, keeps the last two.
 """
 
 from __future__ import annotations
@@ -171,6 +173,56 @@ def aug_fit_moments(x, y, aug_starts, aug_ends):
     return out.unbind(0)
 
 
+def _log_targets(y):
+    """models/linear.log_targets of the int32 FixDups targets as f64: (ln y,
+    0 where not finite; the 0/1 weights)."""
+    from rmi_tpu_torch.models.linear import log_targets   # the models import this module
+    return log_targets(y.double())
+
+
+def aug_fit_log_moments_plain(x, y, aug_starts, aug_ends):
+    """The plain PyTorch version, the loglinear leaf fit's eager
+    composition (models/linear._slr_ranges with weights, B > 1): ln y and
+    its 0/1 weight (log_targets), the weighted count and sums as
+    prefix-sum differences (segments.aug_masked_stats), the means
+    s / max(cnt, 1), then K2 weighted's plain version."""
+    ln, w = _log_targets(y)
+    spans = seg.Spans(t=None, starts=aug_starts, ends=aug_ends, aug_starts=aug_starts,
+                      aug_ends=aug_ends, nonempty=aug_starts < aug_ends, n=x.shape[0],
+                      B=aug_starts.shape[0])
+    cnt, sx, sy = seg.aug_masked_stats(spans, w, x, ln)
+    safe = cnt.clamp(min=1.0)
+    mean_x, mean_y = sx / safe, sy / safe
+    return (cnt, mean_x, mean_y,
+            *aug_centered_moments_plain(x, ln, mean_x, mean_y, aug_starts, aug_ends,
+                                        weights=w))
+
+
+def aug_fit_log_moments(x, y, aug_starts, aug_ends):
+    """(cnt, mean_x, mean_y, m2, c) [B] f64 of each leaf j over its
+    augmented range [aug_starts[j], aug_ends[j]): the loglinear fit's
+    regression of ln y on x over the keys whose ln y is finite (y > 0:
+    the FixDups targets of the first run, y = 0, are dropped), cnt their
+    count, the means sum / max(cnt, 1), m2 = sum (x - mean_x)^2 and
+    c = sum (x - mean_x) (ln y - mean_y), from f64 ``x`` and int32
+    ``y``.  On the card one launch of rmi_aug_fit_log_moments, its count
+    exact, the same bits in every run, within fit_tolerance(...,
+    log_form=True) of the plain version; on the CPU the plain version."""
+    named = [("x", x), ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
+    _check("aug_fit_log_moments", named, ("aug_starts", "aug_ends"))
+    if y is None or y.dtype != torch.int32 or y.shape != x.shape:
+        raise ValueError("aug_fit_log_moments: y must be int32 shaped like x")
+    if x.is_cpu:
+        return aug_fit_log_moments_plain(x, y, aug_starts, aug_ends)
+    B = aug_starts.shape[0]
+    if B == 0:
+        return tuple(x.new_empty(0) for _ in range(5))
+    capacity = fit_capacity(x.shape[0], B)
+    out, _ = _build.launch("rmi_aug_fit_log_moments", x, y, aug_starts, aug_ends, x.shape[0],
+                           (5, B), B, 1 + 7 * capacity, capacity)
+    return out.unbind(0)
+
+
 def scan_levels(n: int) -> int:
     """Levels of segments._row_scan over n values (rows of 1024)."""
     levels = 1
@@ -179,40 +231,56 @@ def scan_levels(n: int) -> int:
     return levels
 
 
-def fit_tolerance(x, y, aug_starts, aug_ends, want):
-    """Per-leaf tolerances of aug_fit_moments on the card against its
-    plain version's outputs ``want`` (in their order), from how the two
-    round.  The plain sums are differences of two prefix sums: each
-    prefix value takes at most 1024 adds a level of the row scan, L
-    levels, every add rounding by at most u P (u = 2^-53, P the sum of
-    |v| over the whole array), so a sum lies within 2^11 L u P of the
-    exact one; the kernel's adds cnt values, within cnt u S (S the
-    leaf's sum of |v|; its sum of y is exact).  A mean moves by that over
-    max(cnt, 1) and a rounding on each side; the centered sums, taken
-    about the two means, differ by cnt (dmx)^2 and cnt dmx dmy (their
-    first-order terms vanish about the exact means) and by each side's
-    summation, within cnt u of sum |term|, which is m2 and at most
-    sqrt(m2 syy) for c (syy the y variance sum)."""
+def fit_tolerance(x, y, aug_starts, aug_ends, want, log_form=False):
+    """Per-leaf tolerances of aug_fit_moments (or, with ``log_form``,
+    aug_fit_log_moments) on the card against its plain version's outputs
+    ``want`` (in their order), from how the two round.  The plain sums
+    are differences of two prefix sums: each prefix value takes at most
+    1024 adds a level of the row scan, L levels, every add rounding by at
+    most u P (u = 2^-53, P the sum of |v| over the whole array), so a sum
+    lies within 2^11 L u P of the exact one; the kernel's adds cnt values,
+    within cnt u S (S the leaf's sum of |v|; its sum of y is exact).  A
+    mean moves by that over max(cnt, 1) and a rounding on each side; the
+    centered sums, taken about the two means, differ by cnt (dmx)^2 and
+    cnt dmx dmy (their first-order terms vanish about the exact means)
+    and by each side's summation, within cnt u of sum |term|, which is m2
+    and at most sqrt(m2 syy) for c (syy the y variance sum).  The log form
+    sums x w and ln(y) w, cnt = sum w (exact on both sides: its tolerance
+    is 0), and its sum of ln y is no longer exact; each ln y may differ by
+    an ulp, 2 u |ln y|, where the kernel's log and the plain version's do
+    (CUDA's against glibc's on the CPU), which moves the sum of ln y by
+    2 u S and c by 2 u sum w |x - mean_x| |ln y|."""
     n, lo, hi = x.shape[0], aug_starts, aug_ends
-    cnt = (hi - lo).double()
-    safe = cnt.clamp(min=1.0)
     levels = scan_levels(n)
+    if log_form:
+        ln, w = _log_targets(y)
+        cnt = want[0]
+        want = want[1:]
+    else:
+        ln, w = (None if y is None else y.double()), None
+        cnt = (hi - lo).double()
+    safe = cnt.clamp(min=1.0)
 
-    def mean_tol(v, mean, exact_kernel=False):
-        a = v.double().abs()
+    def mean_tol(v, mean, kernel_ulps):
+        a = (v.double() if w is None else v * w).abs()
         total = float(a.sum())
         s_abs = seg.range_sum(a, lo, hi).abs()
-        tol = 2048 * levels * _U * total + (0.0 if exact_kernel else 1.0) * cnt * _U * s_abs
+        tol = 2048 * levels * _U * total + kernel_ulps * _U * s_abs
         return tol / safe + 4 * _U * mean.abs()
 
-    tx = mean_tol(x, want[0])
+    tx = mean_tol(x, want[0], cnt)
     m2 = want[-2] if y is not None else want[1]
     tm2 = (2 * cnt + 4) * _U * m2.abs() + cnt * (2 * tx) ** 2
     if y is None:
         return [tx, tm2]
-    yf = y.double()
-    ty = mean_tol(yf, want[1], exact_kernel=True)
-    syy = aug_centered_xx_plain(yf, want[1], lo, hi)
+    ty = mean_tol(ln, want[1], cnt + 2 if log_form else 0.0)
+    syy = (aug_centered_xx_plain(ln, want[1], lo, hi) if w is None else
+           aug_centered_moments_plain(ln, ln, want[1], want[1], lo, hi, weights=w)[0])
     tc = ((2 * cnt + 4) * _U * torch.sqrt(m2.clamp(min=0) * syy.clamp(min=0))
           + 4 * cnt * tx * ty)
-    return [tx, ty, tm2, tc]
+    if not log_form:
+        return [tx, ty, tm2, tc]
+    leaf, elem = span_elements(lo, hi)
+    dx_ln = ((x[elem] - want[0][leaf]) * ln[elem] * w[elem]).abs()
+    tc = tc + 2 * _U * torch.zeros_like(tc).index_add_(0, leaf, dx_ln)
+    return [torch.zeros_like(cnt), tx, ty, tm2, tc]

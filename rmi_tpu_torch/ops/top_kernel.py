@@ -64,6 +64,10 @@ L1_BLOCKS = 1024
 CAND = 16
 CAND_AUX = {"xmin": 6, "xmax": 7, "ymin": 8, "ymax": 9, "m1": 10, "m2": 11}
 CAND_CONST = 12
+# steps of aten's binary search that a round of rmi_top_cubic_candidates'
+# warp searches takes (csrc/top.cu kSearchLevels): 2^SEARCH_LEVELS - 1
+# midpoints read at once a round, one a lane
+SEARCH_LEVELS = 5
 # the tops rmi_top_moments fits, and its model argument for each
 MOMENT_TOPS = {"linear": 0, "robust_linear": 0, "normal": 1}
 

@@ -10,7 +10,8 @@ next stage allocates:
      normalized keys, the cubic top's L1 sums and the assignment are
      kernels too, ops/top_kernel.py);
   B  per-leaf fits over overlap-augmented spans (rmi_aug_fit_moments for
-     linear and normal leaves, K2 for loglinear ones, K6 for cubic ones) + lower-bound fills
+     linear and normal leaves, rmi_aug_fit_log_moments for loglinear ones,
+     K6 for cubic ones) + lower-bound fills
      + empty-leaf patch;
   C  per-leaf error sweep (K3) + epsilon probes (K4) + the longest
      duplicate run per leaf (the run-length pass) + the reference's error

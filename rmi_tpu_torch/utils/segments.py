@@ -9,7 +9,9 @@ sorted_starts (below) and hier_count (models/cubic.py, the integer
 models); FixDups is one kernel (ops/scan_kernel.fixdups), the linear
 and normal leaf fits' sums, means and moments another
 (ops/select_kernel.aug_fit_moments, whose plain version is range_sum
-here and K2's), kernel K2 the loglinear and data-parallel moments, and
+here and K2's), the loglinear leaf fit's a third form of it
+(aug_fit_log_moments: aug_masked_stats here and K2 weighted's plain
+version), kernel K2 the data-parallel moments, and
 the per-leaf maxima are taken inside kernel K3 and the run-length pass
 (ops/sweep_kernel.py), with ``range_max`` here as their plain form.
 

@@ -40,11 +40,15 @@ train_bounded index's lookup and search on the card equal to the CPU
 index's, through those kernels, its knot sample made per index;
 rmi_fixdups bit-equal to its plain version (test_torch_fit_kernels.py's
 edge cases and runs of a million keys), and rmi_aug_fit_moments, both
-forms, within select_kernel.fit_tolerance of its plain version on those
-edge cases and on leaves of hundreds of chunks, each the same bits when
-run again and, the fit, with a full schedule of long-leaf chunks; the
-build's FixDups and linear and normal leaf fits one launch each, the
-fit allocating nothing of the keys' size.
+forms, and rmi_aug_fit_log_moments within select_kernel.fit_tolerance of
+their plain versions on those edge cases, on leaves of hundreds of chunks
+and on path 3's ~3050-key leaves, each the same bits when run again and,
+the fits, with a full schedule of long-leaf chunks; the log form's ln y
+within one ulp of torch.log's for every y in [1, 2^28) (the count that
+differs printed); the build's FixDups and linear, normal and loglinear
+leaf fits one launch each, the fit allocating nothing of the keys' size;
+rmi_top_cubic_candidates bit-equal on runs of up to 2^20 + 1 equal keys
+at both ends and on f64 keys led by NaN, -inf or +inf.
 """
 
 import dataclasses
@@ -70,8 +74,8 @@ from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_ke
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
 from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, TABLE_EDGES, TOP_FIT_EDGES,
-                                    fit_case, fixdups_case, leaf_arrays, table_edge_case,
-                                    top_fit_case)
+                                    _fixdups_np, fit_case, fixdups_case, leaf_arrays,
+                                    table_edge_case, top_fit_case)
 from test_torch_lookup_kernel import (BOUNDED_EDGES, CACHEFIX_EDGES, INT_TOPS, KEY_SETS,
                                       LEAVES, PACKED_EDGE_BS, PACKED_EDGES, RESOLVE_EDGES,
                                       WIDE_WINDOWS, bounded_edge_case, cachefix_edge_case,
@@ -1024,6 +1028,8 @@ def _entry_calls(dev):
             "linear", zeros[:1, :2].contiguous(), x, B),
         "rmi_fixdups": lambda: scan_kernel.fixdups(keys),
         "rmi_aug_fit_moments": lambda: select_kernel.aug_fit_moments(
+            x, y, spans.aug_starts, spans.aug_ends),
+        "rmi_aug_fit_log_moments": lambda: select_kernel.aug_fit_log_moments(
             x, y, spans.aug_starts, spans.aug_ends),
     }
     for leaf in LEAVES:
@@ -2291,12 +2297,21 @@ def _same_fit(got, want):
     return got.shape == want.shape and _bits_equal(got, want)
 
 
+# the cubic candidates' searches also at their edges: runs of 33, 1025 and
+# 2^20 + 1 equal keys at both ends (past a round's 31 midpoints and past
+# whole rounds), f64 keys led by NaN or -inf, all +inf, ending in +inf
+CANDIDATE_CASES = TOP_FIT_CASES + [("end_runs", 3 * r) for r in (33, 1025, (1 << 20) + 1)] + [
+    ("f64_nan_led", 4099), ("f64_ninf_led", 4099), ("f64_pinf", 33), ("f64_pinf_end", 4099)]
+
+
 @pytest.mark.parametrize("B", [4096, None])          # None: B = n, no scaling
-@pytest.mark.parametrize("kind,n", TOP_FIT_CASES)
+@pytest.mark.parametrize("kind,n", CANDIDATE_CASES)
 def test_top_cubic_candidates(dev, kind, n, B):
     """rmi_top_cubic_candidates bit-equal to its plain version on the CPU
     and on the card, with the top's endpoint targets and the keys' raw
-    ends and without them, one launch, the same bits when run again."""
+    ends and without them, one launch, the same bits when run again; its
+    two warp searches aten's answers on every key set, n = 1, 2 and 33,
+    all keys equal and x all NaN included."""
     img, kt, x, yfix, sf = _top_fit_inputs("cubic", kind, n, B or n)
     ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
     dx, dy, dk = x.to(dev), yfix.to(dev), img.to(dev)
@@ -2550,17 +2565,22 @@ def test_fixdups(dev, kind):
         assert torch.equal(scan_kernel.fixdups(view), got)
 
 
-FIT_CARD = FIT_EDGES + ("many_chunks", "path8_like")
+FIT_CARD = FIT_EDGES + ("many_chunks", "path8_like", "path3_like")
 
 
 def _card_fit_case(kind):
     """fit_case's (x, y, aug_starts, aug_ends), or on the card's scale: two
     leaves of 2^19 keys (128 chunks each, more than a warp's lanes), four
-    of 2^20 (path 8's leaves are ~2M keys)."""
-    if kind not in ("many_chunks", "path8_like"):
+    of 2^20 (path 8's leaves are ~2M keys), 2^22 keys in 1376 leaves of
+    ~3050 (path 3's), the first 5000 keys one run."""
+    if kind not in ("many_chunks", "path8_like", "path3_like"):
         return fit_case(kind)
-    n, B = ((1 << 20) + 333, 2) if kind == "many_chunks" else (1 << 22, 4)
+    n, B = {"many_chunks": ((1 << 20) + 333, 2), "path8_like": (1 << 22, 4),
+            "path3_like": (1 << 22, 1376)}[kind]
     x, y, t = leaf_arrays(n, B, 90 + B)
+    if kind == "path3_like":
+        x[:5000] = x[0]
+        y = _fixdups_np(x)
     spans = seg.make_spans(torch.from_numpy(t), B)
     return torch.from_numpy(x), torch.from_numpy(y), spans.aug_starts, spans.aug_ends
 
@@ -2569,38 +2589,70 @@ def _f64_bits(outs):
     return [o.contiguous().view(torch.int64) for o in outs]
 
 
-@pytest.mark.parametrize("xx", [False, True])
+@pytest.mark.parametrize("form", ["xy", "xx", "log"])
 @pytest.mark.parametrize("kind", FIT_CARD)
-def test_aug_fit_moments(dev, kind, xx):
-    """rmi_aug_fit_moments (the linear form, or with xx the normal one)
-    within fit_tolerance of its plain version on the CPU and on the card,
-    one launch, the same bits when run again and when its schedule of
-    long-leaf chunks has no slot or too few (those leaves then done by
-    their own warps)."""
+def test_aug_fit_moments(dev, kind, form):
+    """rmi_aug_fit_moments (the linear form, or the normal one, xx) and
+    rmi_aug_fit_log_moments (log: loglinear leaves) within fit_tolerance
+    of their plain versions on the CPU and on the card (the log form's
+    count equal), one launch, the same bits when run again and when the
+    schedule of long-leaf chunks has no slot or too few (those leaves
+    then done by their own warps)."""
     x, y, lo, hi = _card_fit_case(kind)
-    y = None if xx else y
-    want = select_kernel.aug_fit_moments_plain(x, y, lo, hi)
-    tol = select_kernel.fit_tolerance(x, y, lo, hi, want)
+    y = None if form == "xx" else y
+    log = form == "log"
+    wrapper, plain = ((select_kernel.aug_fit_log_moments, select_kernel.aug_fit_log_moments_plain)
+                      if log else (select_kernel.aug_fit_moments,
+                                   select_kernel.aug_fit_moments_plain))
+    entry = "rmi_aug_fit_log_moments" if log else "rmi_aug_fit_moments"
+    want = plain(x, y, lo, hi)
+    tol = select_kernel.fit_tolerance(x, y, lo, hi, want, log_form=log)
     dx, dlo, dhi = x.to(dev), lo.to(dev), hi.to(dev)
     dy = None if y is None else y.to(dev)
     before = dict(_build.launches)
-    got = select_kernel.aug_fit_moments(dx, dy, dlo, dhi)
-    assert _moved(before) == {"rmi_aug_fit_moments": 1}
+    got = wrapper(dx, dy, dlo, dhi)
+    assert _moved(before) == {entry: 1}
     assert len(got) == len(want)
-    plain_card = select_kernel.aug_fit_moments_plain(dx, dy, dlo, dhi)
+    plain_card = plain(dx, dy, dlo, dhi)
     for g, w, pc, t in zip(got, want, plain_card, tol):
         assert g.dtype == torch.float64 and g.shape == lo.shape
         assert ((g.cpu() - w).abs() <= t).all()
         assert ((pc.cpu() - w).abs() <= t).all()
+    if log:
+        assert torch.equal(got[0].cpu(), want[0])
     bits = _f64_bits(got)
-    assert all(torch.equal(a, b) for a, b in zip(_f64_bits(
-        select_kernel.aug_fit_moments(dx, dy, dlo, dhi)), bits))
+    assert all(torch.equal(a, b) for a, b in zip(_f64_bits(wrapper(dx, dy, dlo, dhi)), bits))
     rows, B = len(got), lo.shape[0]
     ey = torch.empty(0, dtype=torch.int32, device=dev) if dy is None else dy
     for capacity in (0, 3):
-        out, _ = _build.launch("rmi_aug_fit_moments", dx, ey, dlo, dhi, dx.shape[0], int(xx),
-                               (rows, B), B, 1 + 6 * capacity, capacity)
+        if log:
+            out, _ = _build.launch(entry, dx, ey, dlo, dhi, dx.shape[0], (rows, B), B,
+                                   1 + 7 * capacity, capacity)
+        else:
+            out, _ = _build.launch(entry, dx, ey, dlo, dhi, dx.shape[0], int(form == "xx"),
+                                   (rows, B), B, 1 + 6 * capacity, capacity)
         assert all(torch.equal(a, b) for a, b in zip(_f64_bits(out.unbind(0)), bits))
+
+
+def test_log_fit_ln_bits(dev):
+    """rmi_aug_fit_log_moments' ln y against torch.log on the card for every
+    y in [1, 2^28) (path 3's targets stay below 2 * 10^8): one key a leaf,
+    whose mean_y is its ln y exactly (one term over a count of one).  The
+    keys whose bits differ are counted and printed (PERF.md §6 holds the
+    count); none differs by more than one ulp, which fit_tolerance's log
+    form allows on every key."""
+    top, chunk, differ = 1 << 28, 1 << 24, 0
+    for start in range(1, top, chunk):
+        y = torch.arange(start, min(start + chunk, top), dtype=torch.int32, device=dev)
+        lo = torch.arange(y.shape[0], dtype=torch.int64, device=dev)
+        x = torch.zeros(y.shape[0], dtype=torch.float64, device=dev)
+        cnt, _, ln, m2, c = select_kernel.aug_fit_log_moments(x, y, lo, lo + 1)
+        assert bool((cnt == 1).all()) and not m2.any() and not c.any()
+        ulps = ln.view(torch.int64) - torch.log(y.double()).view(torch.int64)
+        assert int(ulps.abs().max()) <= 1
+        differ += int((ulps != 0).sum())
+    print(f"ln y of rmi_aug_fit_log_moments against torch.log on the card: {differ} of "
+          f"{top - 1} targets differ (by one ulp)")
 
 
 def test_fit_entries_refuse_bad_inputs(dev):
@@ -2613,6 +2665,10 @@ def test_fit_entries_refuse_bad_inputs(dev):
     with pytest.raises(RuntimeError):
         _build.launch("rmi_aug_fit_moments", x, y, lo, hi, x.shape[0], 0, (4, B), B, 1, -1)
     with pytest.raises(RuntimeError):
+        _build.launch("rmi_aug_fit_log_moments", x, y, lo, hi, x.shape[0], (5, B), B, 1, -1)
+    with pytest.raises(ValueError):
+        select_kernel.aug_fit_log_moments(x, y.long(), lo, hi)
+    with pytest.raises(RuntimeError):
         _build.launch("rmi_fixdups", lo, (4,), (1 << 31) + 1)
     with pytest.raises(ValueError):
         select_kernel.aug_fit_moments(x, y.long(), lo, hi)
@@ -2620,17 +2676,18 @@ def test_fit_entries_refuse_bad_inputs(dev):
         scan_kernel.fixdups(y)
     e = lo[:0]
     assert [o.shape for o in select_kernel.aug_fit_moments(x, y, e, e)] == [(0,)] * 4
+    assert [o.shape for o in select_kernel.aug_fit_log_moments(x, y, e, e)] == [(0,)] * 5
     assert scan_kernel.fixdups(e).shape == (0,)
     assert _build.launches == before
 
 
 @pytest.mark.parametrize("spec", ["cubic,linear", "robust_linear,linear", "linear,normal",
-                                  "radix18,linear"])
+                                  "radix18,linear", "cubic,loglinear"])
 def test_fit_and_fixdups_on_card(dev, spec):
-    """A build on the card takes FixDups and its linear or normal leaf fit
-    in one launch each, and K1 and K2 not at all; the leaf fit allocates
-    no tensor of the keys' size (its peak below n bytes, a quarter of an
-    int32 [n] tensor)."""
+    """A build on the card takes FixDups and its linear, normal or
+    loglinear leaf fit in one launch each, and K1 and K2 not at all; the
+    leaf fit allocates no tensor of the keys' size (its peak below n
+    bytes, a quarter of an int32 [n] tensor)."""
     n, B = 1 << 22, 4096
     keys = rdata.books_like_on_device(n, 9, dev)
     data = rdata.RMIDataset(keys, KeyType.U64)
@@ -2638,8 +2695,10 @@ def test_fit_and_fixdups_on_card(dev, spec):
     before = dict(_build.launches)
     rt.train(data, spec, B)
     moved = _moved(before)
-    assert moved["rmi_fixdups"] == 1 and moved["rmi_aug_fit_moments"] == 1
-    assert not set(moved) & {"rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx"}
+    fit = "rmi_aug_fit_log_moments" if spec.endswith("loglinear") else "rmi_aug_fit_moments"
+    assert moved["rmi_fixdups"] == 1 and moved[fit] == 1
+    assert not set(moved) & {"rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_weighted",
+                             "rmi_aug_moments_xx"}
     top, leaf = (get_model(m) for m in spec.split(","))
     kminf, s = two_layer.norm_constants(keys)
     yfix = two_layer.fixdups_i32(keys)

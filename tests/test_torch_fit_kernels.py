@@ -35,7 +35,14 @@ WARP = scan_kernel.FIXDUPS_WARP_KEYS
 # keys and of two and three chunks, one-key and empty leaves
 CHUNK_EDGE_COUNTS = (CHUNK - 2, CHUNK - 1, CHUNK, 1, 0, 2 * CHUNK - 2, 2 * CHUNK - 1, 0,
                      3 * CHUNK + 1, 5)
-FIT_EDGES = ("books", "sparse", "single", "chunk_edges", "long", "trimmed", "dups")
+FIT_EDGES = ("books", "sparse", "single", "chunk_edges", "long", "trimmed", "dups",
+             "first_run", "long_first_run")
+# leaf key counts of the first-run cases: the first run (FixDups target 0,
+# ln y = -inf: every key dropped by the loglinear fit) covers two leaves
+# whole ("first_run"), or a leaf of two chunks whole and the next leaf's
+# first chunks ("long_first_run")
+FIRST_RUN_COUNTS = {"first_run": ((100, 150, 1, 0, 200, 2549), 300),
+                    "long_first_run": ((5000, 9000, 1, 0, 4000, 13767), 3 * CHUNK + 5)}
 
 
 # the top fits' key sets (ops/top_kernel.py): top_fit_case
@@ -53,6 +60,8 @@ def top_fit_case(kind, n, seed=0):
     def runs(v):
         return np.repeat(v, rng.integers(1, 4, v.size))[:n]
     key_type = KeyType.U64
+    if kind in CANDIDATE_EDGES:
+        return candidate_case(kind, n, rng)
     if kind == "u32":
         keys, key_type = runs(rng.integers(0, 2 ** 32, n, dtype=np.uint64)).astype(np.uint32), \
             KeyType.U32
@@ -69,6 +78,35 @@ def top_fit_case(kind, n, seed=0):
     else:
         keys = runs(rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64, endpoint=True))
     return tkeys.to_image(keys).sort().values, key_type
+
+
+# the cubic candidates' further key sets (rmi_top_cubic_candidates' two
+# searches): candidate_case
+CANDIDATE_EDGES = ("end_runs", "f64_nan_led", "f64_ninf_led", "f64_pinf", "f64_pinf_end")
+
+
+def candidate_case(kind, n, rng):
+    """(sorted images, key type) of n keys for the cubic top's searches:
+    u64 keys whose first and last n // 3 are equal (runs the search walks
+    through); f64 keys led by NaN or -inf, all +inf, or ending in +inf
+    (x all NaN under the first three, x 0 then NaN under the last: the
+    norm constants' span is NaN or inf)."""
+    if kind == "end_runs":
+        r = n // 3
+        mid = np.sort(rng.integers(1, 2 ** 63, n - 2 * r, dtype=np.uint64))
+        keys = np.concatenate([np.zeros(r, np.uint64), mid,
+                               np.full(r, 2 ** 64 - 1, np.uint64)])
+        return tkeys.to_image(keys).sort().values, KeyType.U64
+    keys = rng.normal(0.0, 1e6, n)
+    if kind == "f64_nan_led":
+        keys[:7] = np.nan
+    elif kind == "f64_ninf_led":
+        keys[:40] = -np.inf
+    elif kind == "f64_pinf":
+        keys[:] = np.inf
+    else:
+        keys[:40] = np.inf
+    return tkeys.to_image(keys).sort().values, KeyType.F64
 
 
 # the hint-table fit's key sets (rmi_top_table_fit): table_edge_case
@@ -123,6 +161,12 @@ def fit_arrays(kind):
     """(x, y, t, B, trim) of edge case ``kind``: leaf_arrays', and
     whether the build trims the spans (robust_linear)."""
     seed = FIT_EDGES.index(kind) + 40
+    if kind in FIRST_RUN_COUNTS:
+        counts, run = FIRST_RUN_COUNTS[kind]
+        counts = np.array(counts)
+        x, _, t = leaf_arrays(int(counts.sum()), counts.shape[0], seed, counts=counts)
+        x[:run] = x[0]
+        return x, _fixdups_np(x), t, counts.shape[0], False
     if kind == "chunk_edges":
         counts = np.array(CHUNK_EDGE_COUNTS)
         return (*leaf_arrays(int(counts.sum()), counts.shape[0], seed, counts=counts),
@@ -268,26 +312,44 @@ def _lanes(values, start=0.0):
     return acc
 
 
-def fit_mirror(x, y, lo, hi):
+def fit_mirror(x, y, lo, hi, log=False):
     """What rmi_aug_fit_moments computes, in its order, in numpy f64 (and
-    Python ints for the sum of y): (mean_x, mean_y, m2, c), [B] each."""
-    out = np.zeros((4, lo.shape[0]))
+    Python ints for the sum of y): (mean_x, mean_y, m2, c), [B] each; with
+    ``log``, rmi_aug_fit_log_moments' (cnt, mean_x, mean_y, m2, c), its ln
+    y torch's log on the CPU, a dropped key's terms 0.0 as the kernel adds
+    them."""
+    if log:
+        ln = torch.log(torch.from_numpy(y).double()).numpy()
+        keep = np.isfinite(ln)
+        ln = np.where(keep, ln, 0.0)
+    out = np.zeros((5 if log else 4, lo.shape[0]))
     for j, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
         chunks = [(s, min(b, s + CHUNK)) for s in range(a, b, CHUNK)] or [(a, a)]
-        xs = [x[s:e] for s, e in chunks]
-        ys = [y[s:e].astype(np.int64) for s, e in chunks]
+        if log:
+            xs = [np.where(keep[s:e], x[s:e], 0.0) for s, e in chunks]
+            ys = [ln[s:e] for s, e in chunks]
+            ws = [keep[s:e] for s, e in chunks]
+            sy = [_warp_sum(_lanes(c)) for c in ys]
+            n_kept = sum(int(w.sum()) for w in ws)
+        else:
+            xs = [x[s:e] for s, e in chunks]
+            ys = [y[s:e].astype(np.int64) for s, e in chunks]
+            ws = [np.ones(e - s, bool) for s, e in chunks]
+            sy = [int(sum(c.tolist())) for c in ys]
+            n_kept = b - a
         sx = [_warp_sum(_lanes(c)) for c in xs]
-        sy = [int(sum(c.tolist())) for c in ys]
         if len(chunks) > 1:
-            sx, sy = [_warp_sum(_lanes(sx))], [sum(sy)]
-        cnt = max(float(b - a), 1.0)
+            sx = [_warp_sum(_lanes(sx))]
+            sy = [_warp_sum(_lanes(sy))] if log else [sum(sy)]
+        cnt = max(float(n_kept), 1.0)
         mx, my = sx[0] / cnt, float(sy[0]) / cnt
-        m2 = [_warp_sum(_lanes((c - mx) * (c - mx))) for c in xs]
-        cc = [_warp_sum(_lanes((c - mx) * (d.astype(np.float64) - my)))
-              for c, d in zip(xs, ys)]
+        dxs = [np.where(w, c - mx, 0.0) for c, w in zip(xs, ws)]
+        m2 = [_warp_sum(_lanes(d * d)) for d in dxs]
+        cc = [_warp_sum(_lanes(d * np.where(w, v.astype(np.float64) - my, 0.0)))
+              for d, v, w in zip(dxs, ys, ws)]
         if len(chunks) > 1:
             m2, cc = [_warp_sum(_lanes(m2))], [_warp_sum(_lanes(cc))]
-        out[:, j] = mx, my, m2[0], cc[0]
+        out[:, j] = (n_kept, mx, my, m2[0], cc[0]) if log else (mx, my, m2[0], cc[0])
     return torch.from_numpy(out)
 
 
@@ -305,6 +367,82 @@ def test_fit_mirror_within_tolerance(kind):
     assert got[1].tolist() == exact
 
 
+# -- the loglinear leaf fit's moments (rmi_aug_fit_log_moments) -----------------
+
+def _log_chain(x, y, lo, hi):
+    """_slr_ranges' weighted statistics before the kernel, written out:
+    log_targets, the masked range sums, the means, K2 weighted's terms."""
+    ln, w = linear.log_targets(y.double())
+    cnt = seg.range_sum(w, lo, hi)
+    safe = cnt.clamp(min=1.0)
+    mean_x = seg.range_sum(x * w, lo, hi) / safe
+    mean_y = seg.range_sum(ln * w, lo, hi) / safe
+    return (cnt, mean_x, mean_y, *select_kernel.aug_centered_moments_plain(
+        x, ln, mean_x, mean_y, lo, hi, weights=w))
+
+
+@pytest.mark.parametrize("kind", FIT_EDGES)
+def test_log_fit_cpu_is_the_chain(kind):
+    """On the CPU aug_fit_log_moments is the loglinear fit's chain before
+    the kernel, bit for bit, and the model's leaf rows are
+    _loglinear_fit's on f64 targets; leaves of the first run alone count
+    no key and fit (0, 0)."""
+    x, y, lo, hi = fit_case(kind)
+    got = select_kernel.aug_fit_log_moments(x, y, lo, hi)
+    assert len(got) == 5
+    for g, w in zip(got, _log_chain(x, y, lo, hi)):
+        assert g.dtype == torch.float64 and g.shape == lo.shape
+        assert torch.equal(_bits(g), _bits(w))
+    _, _, t, B, trim = fit_arrays(kind)
+    if trim:
+        return
+    spans = seg.make_spans(torch.from_numpy(t), B)
+    rows = linear._loglinear_leaves(x, y, spans)
+    assert torch.equal(_bits(rows), _bits(linear._loglinear_fit(x, y.double(), spans)))
+    dropped = (got[0] == 0) & (hi > lo)
+    assert (kind not in FIRST_RUN_COUNTS) or int(dropped.sum()) >= 1
+    assert (rows[dropped] == 0).all()
+
+
+@pytest.mark.parametrize("kind", [k for k in FIT_EDGES if k != "books"])
+def test_log_fit_mirror_within_tolerance(kind):
+    """The log form's arithmetic, mirrored, lies within fit_tolerance's log
+    form of the plain version on every edge case, its count exact."""
+    x, y, lo, hi = fit_case(kind)
+    want = select_kernel.aug_fit_log_moments_plain(x, y, lo, hi)
+    got = fit_mirror(x.numpy(), y.numpy(), lo, hi, log=True)
+    tol = select_kernel.fit_tolerance(x, y, lo, hi, want, log_form=True)
+    for g, w, t in zip(got, want, tol):
+        assert ((g - w).abs() <= t).all()
+    assert torch.equal(got[0], want[0]) and not tol[0].any()
+
+
+def test_log_fit_tolerance_is_needed():
+    """On 1024 leaves the mirrored kernel's mean of ln y and its moments
+    differ from the plain version's prefix-sum differences on some leaves,
+    within fit_tolerance's log form, which is nonzero wherever a key is
+    kept and 0 for the count."""
+    x, y, lo, hi = fit_case("books")
+    want = select_kernel.aug_fit_log_moments_plain(x, y, lo, hi)
+    got = fit_mirror(x.numpy(), y.numpy(), lo, hi, log=True)
+    tol = select_kernel.fit_tolerance(x, y, lo, hi, want, log_form=True)
+    kept = want[0] > 0
+    assert int(kept.sum()) > 1000 and not tol[0].any()
+    for i in (1, 2, 3, 4):
+        assert (tol[i][kept] > 0).all()
+        assert ((got[i] - want[i]).abs() <= tol[i]).all()
+    assert int((got[2] != want[2]).sum()) > 0
+
+
+def test_log_fit_refuses_bad_inputs():
+    x, y, lo, hi = fit_case("books")
+    bad = [(x.float(), y, lo, hi), (x, y.long(), lo, hi), (x, y[:-1], lo, hi),
+           (x, None, lo, hi), (x, y, lo.int(), hi), (x, y, lo, hi[:-1])]
+    for args in bad:
+        with pytest.raises(ValueError, match="aug_fit_log_moments"):
+            select_kernel.aug_fit_log_moments(*args)
+
+
 @pytest.mark.parametrize("kind", FIT_EDGES)
 def test_fit_capacity_holds_every_chunk(kind):
     """fit_capacity's slots hold the chunks of every leaf longer than a
@@ -317,22 +455,24 @@ def test_fit_capacity_holds_every_chunk(kind):
 
 
 @pytest.mark.parametrize("spec", ["cubic,linear", "radix18,robust_linear", "linear,normal",
-                                  "cubic,lognormal", "linear,loglinear"])
+                                  "cubic,lognormal", "linear,loglinear", "loglinear,linear"])
 def test_leaf_fits_take_the_wrapper(monkeypatch, spec):
     """The linear, robust_linear, normal and lognormal leaf fits call
     aug_fit_moments once, with the int32 FixDups targets (none for the
-    normal forms); loglinear leaves keep K2 weighted and the top fits
-    their whole-array sums, and do not call it."""
+    normal forms); loglinear leaves call aug_fit_log_moments once, with
+    the same targets, and K2 weighted not at all; the top fits keep their
+    whole-array sums and call neither (a loglinear top: K2 weighted's
+    whole-array form)."""
     calls = []
-    real = select_kernel.aug_fit_moments
-
-    def counting(x, y, lo, hi):
-        calls.append(None if y is None else y.dtype)
-        return real(x, y, lo, hi)
-    monkeypatch.setattr(select_kernel, "aug_fit_moments", counting)
+    for name in ("aug_fit_moments", "aug_fit_log_moments", "aug_centered_moments"):
+        def counting(*args, _real=getattr(select_kernel, name), _name=name, **kw):
+            y = args[1]
+            calls.append((_name, None if y is None else y.dtype))
+            return _real(*args, **kw)
+        monkeypatch.setattr(select_kernel, name, counting)
     keys = np.sort(np.random.default_rng(3).integers(0, 1 << 62, 20_000, dtype=np.uint64))
     rt.train(rdata.RMIDataset.from_numpy(keys, device="cpu"), spec, 64)
     leaf = spec.split(",")[1]
-    want = {"linear": [torch.int32], "robust_linear": [torch.int32], "normal": [None],
-            "lognormal": [None], "loglinear": []}[leaf]
-    assert calls == want
+    fit = "aug_fit_log_moments" if leaf == "loglinear" else "aug_fit_moments"
+    y = None if leaf in ("normal", "lognormal") else torch.int32
+    assert calls == [(fit, y)]

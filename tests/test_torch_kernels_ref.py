@@ -38,7 +38,14 @@ JAX functions on the same numpy inputs:
     prefix-sum differences or by blocks), the moments within it plus
     K2's 1e-9 relative and 1e-15 a key (float-float products on the
     Pallas route) and the rounding of rmi_tpu's range sums of the
-    per-key terms (2^11 L u of their whole-array sum).  FixDups (scan_kernel.fixdups, rmi_fixdups' plain
+    per-key terms (2^11 L u of their whole-array sum); the loglinear
+    leaf rows (aug_fit_log_moments' plain version, then
+    _slr_from_moments) against jax.jit of rmi_tpu's _loglinear_fit_leaves
+    on the same edge cases, the first run's leaves among them: the count
+    exact, the statistics within fit_tolerance's log form plus that
+    rounding, each row within their first-order effect on beta = c / m2
+    and alpha, leaves without variance or of one kept key bit for bit.
+    FixDups (scan_kernel.fixdups, rmi_fixdups' plain
     version) bit-equal to rmi_tpu's _fixdups_i32 with its XLA scan and
     with the Pallas scan in interpret mode.
 """
@@ -51,6 +58,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from rmi_tpu.models import get_model as j_get_model
+from rmi_tpu.models import linear as j_linear
 from rmi_tpu.models.base import predict_clamped as j_predict_clamped
 from rmi_tpu.models.linear import _linear_predict as j_linear_predict
 from rmi_tpu.ops import eval_kernel as j_eval
@@ -63,7 +71,7 @@ from rmi_tpu_torch.models.base import kernel_input
 from rmi_tpu_torch.ops import eval_kernel, scan_kernel, select_kernel, sweep_kernel
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as t_seg
-from test_torch_fit_kernels import FIXDUPS_EDGES, fit_arrays, fit_case, fixdups_case
+from test_torch_fit_kernels import FIT_EDGES, FIXDUPS_EDGES, fit_arrays, fit_case, fixdups_case
 
 N = (1 << 15) + 517          # not a multiple of any kernel block
 B = 1024
@@ -475,6 +483,65 @@ def test_fit_moments_match_jax(kind, ref, xx):
             t_ = t_ + 1e-9 * w.abs() + 1e-15 * cnt + whole * float(mags[i].sum())
         bad = (g - w).abs() > t_
         assert not bad.any(), (i, np.flatnonzero(bad.numpy())[:5], g[bad][:5], w[bad][:5])
+
+
+def _j_log_fit(x, yf, t, B):
+    """rmi_tpu's loglinear leaf fit, jitted: _loglinear_fit_leaves' rows
+    and the statistics _slr_ranges takes them from with weights (its
+    _log_targets, aug_masked_stats, the means, aug_centered_moments)."""
+    spans = j_seg.make_spans(t, B)
+    rows = j_linear._loglinear_fit_leaves(x, yf, spans, x)
+    ln, w = j_linear._log_targets(yf)
+    cnt, sx = j_seg.aug_masked_stats(spans, x, w)
+    _, sy = j_seg.aug_masked_stats(spans, ln, w)
+    safe = jnp.maximum(cnt, 1.0)
+    mx, my = sx / safe, sy / safe
+    return rows, (cnt, mx, my, *j_seg.aug_centered_moments(spans, x, ln, mx, my, w))
+
+
+@pytest.mark.parametrize("kind", [k for k in FIT_EDGES if k != "trimmed"])
+def test_log_fit_rows_match_jax(kind):
+    """The port's loglinear leaf rows (aug_fit_log_moments' plain version,
+    then _slr_from_moments) against jax.jit of rmi_tpu's
+    _loglinear_fit_leaves on the same keys.  Both sides take the sums as
+    whole-array prefix-sum differences: the count is exact on both, the
+    means and moments within fit_tolerance's log form plus the rounding
+    of rmi_tpu's range sums of the per-key terms (2^11 L u of their
+    whole-array sum, as test_fit_moments_match_jax).  A row's beta = c /
+    m2 and alpha = mean_y - beta mean_x move by first order in those
+    (beta by (tc + |beta| tm2) / (m2 - tm2), alpha by ty + |mean_x| dbeta
+    + |beta| tx), with 4 ulps of each for the division and the FMA;
+    leaves of at most one kept key or of m2 within tm2 of 0 (no
+    variance) must give the same row bit for bit, as empty leaves do."""
+    x, y, t, B, _ = fit_arrays(kind)
+    tx, ty, lo, hi = fit_case(kind)
+    cnt, mx, my, m2, c = select_kernel.aug_fit_log_moments(tx, ty, lo, hi)
+    got = get_model("loglinear").fit_leaves(tx, ty, t_seg.make_spans(torch.from_numpy(t), B))
+    rows, want = jax.jit(_j_log_fit, static_argnums=3)(
+        jnp.asarray(x), jnp.asarray(y.astype(np.float64)), jnp.asarray(t), B)
+    want = [torch.from_numpy(np.array(w)) for w in want]
+    rows = torch.from_numpy(np.array(rows))
+    tol = select_kernel.fit_tolerance(tx, ty, lo, hi, want, log_form=True)
+    whole = 2048 * select_kernel.scan_levels(x.shape[0]) * 2.0 ** -53
+    ln, w = select_kernel._log_targets(ty)
+    syy = select_kernel.aug_centered_moments_plain(ln, ln, want[2], want[2], lo, hi,
+                                                   weights=w)[0]
+    tol[3] = tol[3] + whole * float(want[3].sum())
+    tol[4] = tol[4] + whole * float(torch.sqrt(want[3] * syy).sum())
+    for i, (g, wv, t_) in enumerate(zip((cnt, mx, my, m2, c), want, tol)):
+        bad = (g - wv).abs() > t_
+        assert not bad.any(), (i, np.flatnonzero(bad.numpy())[:5], g[bad][:5], wv[bad][:5])
+    assert torch.equal(cnt, want[0])
+    u = 2.0 ** -53
+    beta = rows[:, 1].abs()
+    well = (want[0] > 1) & (want[3] > tol[3])
+    dbeta = torch.where(well, (tol[4] + beta * tol[3]) / (want[3] - tol[3]).clamp(min=1e-300),
+                        0.0) + 4 * u * beta
+    dalpha = tol[2] + want[1].abs() * dbeta + beta * tol[1] + 4 * u * (
+        want[2].abs() + (beta * want[1]).abs())
+    diff = (got - rows).abs()
+    assert (diff[:, 1] <= dbeta).all() and (diff[:, 0] <= dalpha).all()
+    assert torch.equal(got[~well].view(torch.int64), rows[~well].view(torch.int64))
 
 
 @pytest.mark.parametrize("scan", ["xla", "pallas"])

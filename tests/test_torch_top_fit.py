@@ -18,7 +18,12 @@ search past the keys' ends, on the CPU against rmi_tpu.
       the centered sums, the degenerate cases) bit-equal to
       top_moments_plain, on top_fit_case's keys; a host mirror of
       rmi_top_table_fit's search (tools/count_torch_table_reads.py) equal
-      to top_table_fit_plain;
+      to top_table_fit_plain; a host mirror of rmi_top_cubic_candidates'
+      warp searches (aten's binary search, top_kernel.SEARCH_LEVELS steps
+      a round from the ballots of every midpoint the round can reach)
+      equal to torch.searchsorted on both sides, on sorted keys with long
+      runs at both ends and on keys led by NaN, where only aten's own
+      midpoints give its answer;
   (c) search through the hierarchical plan past the keys' ends: an
       integer top routes a query outside the range whose bits differ in
       the keys' common prefix to a leaf whose window does not hold its
@@ -29,12 +34,14 @@ search past the keys' ends, on the CPU against rmi_tpu.
 
 import functools
 import importlib.util
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import rmi_tpu
 from rmi_tpu.data import RMIDataset as JDataset
@@ -241,6 +248,72 @@ def test_table_search_mirror_is_the_plain_fit(kind, n, bits):
     got, prefix = _table_replay().table_search(ints, yfix, sf, bits)
     np.testing.assert_array_equal(got, want["table"].numpy())
     assert prefix == int(want["w_int"][0])
+
+
+# (b'') the cubic candidates' warp searches, mirrored ----------------------------
+
+def warp_search_mirror(x, v, right, levels=top_kernel.SEARCH_LEVELS):
+    """(index, rounds) of csrc/top.cu's search_f64 on the host: each round
+    lane k - 1 takes node k's bracket down the round's tree of ``levels``
+    steps below (lo, hi) (heap-numbered, a right step for a 1 bit), reads
+    its midpoint where the bracket is not empty and ballots aten's step
+    there; the walk leaves the tree at an empty bracket (lo >= hi, the end)
+    or below its last level, one step under its parent's bracket."""
+    def goes_right(m):
+        return not (m > v) if right else not (m >= v)
+    width = 1 << levels
+    lo, hi, rounds = 0, len(x), 0
+    while lo < hi:
+        rounds += 1
+        brackets, go, alive = {}, 0, 0
+        for k in range(1, width):
+            a, b = lo, hi
+            for d in range(k.bit_length() - 2, -1, -1):
+                mid = a + ((b - a) >> 1)
+                a, b = (mid + 1, b) if (k >> d) & 1 else (a, mid)
+            brackets[k] = (a, b)
+            if a < b:
+                alive |= 1 << (k - 1)
+                go |= goes_right(x[a + ((b - a) >> 1)]) << (k - 1)
+        w = 1
+        while w < width and (alive >> (w - 1)) & 1:
+            w = 2 * w + ((go >> (w - 1)) & 1)
+        if w < width:
+            lo, hi = brackets[w]
+        else:
+            a, b = brackets[w >> 1]
+            mid = a + ((b - a) >> 1)
+            lo, hi = (mid + 1, b) if w & 1 else (a, mid)
+    return lo, rounds
+
+
+@settings(max_examples=60, deadline=None)
+@given(lead=st.integers(0, 3), first=st.integers(0, 700), middle=st.integers(0, 300),
+       last=st.integers(0, 700), seed=st.integers(0, 2 ** 16),
+       ends=st.sampled_from([(0.0, 1.0), (-math.inf, math.inf), (-1.0, -1.0), (2.5, 2.5)]))
+def test_warp_search_mirror_is_searchsorted(lead, first, middle, last, seed, ends):
+    """The warp search, mirrored, equals torch.searchsorted (aten's walk)
+    on both sides for the candidates' values (x[0] right, x[n - 1] left)
+    and a few others, on sorted keys with runs of up to 700 equal keys at
+    each end (several rounds of 31 midpoints), all keys equal, +-inf at
+    the ends, and keys led by NaN (keys.f64_image puts NaN keys first)."""
+    lo_v, hi_v = ends
+    mid = np.sort(np.random.default_rng(seed).uniform(-1.0, 1.0, middle))
+    if lo_v == hi_v:
+        mid[:] = lo_v
+    elif math.isfinite(hi_v - lo_v):
+        mid = lo_v + (hi_v - lo_v) * (mid + 1) / 2
+    x = np.concatenate([np.full(lead, np.nan), np.full(first, lo_v), mid,
+                        np.full(last, hi_v)])
+    if x.shape[0] == 0:
+        return
+    t = torch.from_numpy(x)
+    for v, right in ((x[0], True), (x[-1], False), (x[-1], True), (x[0], False),
+                     (lo_v, True), (hi_v, False), (0.0, True), (np.nan, False)):
+        want = int(torch.searchsorted(t, torch.tensor([v], dtype=torch.float64), right=right))
+        got, rounds = warp_search_mirror(x, v, right)
+        assert got == want, (v, right, got, want)
+        assert rounds <= max(1, math.ceil(math.log2(x.shape[0] + 1) / top_kernel.SEARCH_LEVELS))
 
 
 def test_top_fit_wrappers_refuse_bad_inputs():

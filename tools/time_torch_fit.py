@@ -1,7 +1,8 @@
 """The build's FixDups and leaf fits on one CUDA card at 200M keys, for one
-checkout of rmi_tpu_torch: chip_smoke.py's paths 1, 4, 5 and 8.
+checkout of rmi_tpu_torch: chip_smoke.py's paths 1, 3, 4, 5 and 8.
 
     python3 tools/time_torch_fit.py [--root DIR] [--n 200000000] [--reps 5] [--errors DIR]
+                                    [--sass FILE] [--paths "path 3,path 4"]
 
 Makes books-like keys on the card (as chip_smoke.py does; path 8's are
 the same keys shifted right by 30, u32, chip_smoke.typed_keys), then per
@@ -14,7 +15,15 @@ the checkout has them (select_kernel.aug_fit_moments,
 scan_kernel.fixdups), it also times the two entries alone on the same
 inputs, beside their bounds (bytes at 3.35 TB/s: 12 B a key for FixDups
 and the linear form, 8 for the xx form) and K2 (rmi_aug_moments or
-rmi_aug_moments_xx) on the same spans and means.
+rmi_aug_moments_xx) on the same spans and means; path 3's loglinear leaves
+likewise through select_kernel.aug_fit_log_moments (12 B a key) where the
+checkout has it, beside K2 weighted (rmi_aug_moments_weighted) on ln y,
+its weights and the fit's means.
+
+--sass FILE writes the SASS of moments.cu's fit kernels (cuobjdump, beside
+nvcc) to FILE and prints, per kernel, its f64 instructions by opcode (a
+static count: every path of the code once), with ptxas's lines for
+moments.cu (registers, spills); --paths keeps the named paths alone.
 
 --root DIR imports rmi_tpu_torch from DIR, a checkout of another commit:
 run both in one command, in turns, to compare them on one card.  With
@@ -28,8 +37,10 @@ line per measurement and one JSON line last.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -40,9 +51,40 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12
 CALLS = 10
-# chip_smoke.py's paths 1, 4, 5 and 8 (path 8's B at 200M keys)
-PATHS = (("path 1", "cubic,linear", 262144, "u64"), ("path 4", "cubic,normal", 65536, "u64"),
-         ("path 5", "radix18,linear", 65536, "u64"), ("path 8", "linear,linear", 100, "u32"))
+# chip_smoke.py's paths 1, 3, 4, 5 and 8 (path 8's B at 200M keys)
+PATHS = (("path 1", "cubic,linear", 262144, "u64"), ("path 3", "cubic,loglinear", 65536, "u64"),
+         ("path 4", "cubic,normal", 65536, "u64"), ("path 5", "radix18,linear", 65536, "u64"),
+         ("path 8", "linear,linear", 100, "u32"))
+
+
+def _sass(lib_path, nvcc, out_file, build_log):
+    """Write the SASS of moments.cu's fit kernels to ``out_file``; print
+    each one's f64 instructions by opcode and ptxas's lines for them."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, keep, name = {}, [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "fit_" in m.group(1) else None
+            if name:
+                counts[name] = collections.Counter()
+        if name is None:
+            continue
+        keep.append(line)
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*(?:\.[A-Z0-9]+)*)", line)
+        if op and (op.group(1)[0] == "D" or op.group(1).startswith("MUFU")):
+            counts[name][op.group(1)] += 1
+    with open(out_file, "w") as f:
+        f.write("\n".join(keep) + "\n")
+    for name, c in counts.items():
+        print(f"sass {name}: {sum(c.values())} f64 instructions {dict(sorted(c.items()))}",
+              flush=True)
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "fit_" in line and "Compiling entry function" in line:
+            print("ptxas " + " | ".join(lines[i:i + 4]), flush=True)
 
 
 def _ms(fn, reps):
@@ -112,6 +154,8 @@ def main():
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--errors", default=None, help="directory to save and compare leaf errors in")
+    ap.add_argument("--sass", default=None, help="file for the fit kernels' SASS")
+    ap.add_argument("--paths", default=None, help="comma-separated labels of PATHS to run")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import rmi_tpu_torch
@@ -120,7 +164,8 @@ def main():
     from rmi_tpu_torch.keys import KeyType
     from rmi_tpu_torch.models import get_model
     from rmi_tpu_torch.models.base import model_float_input
-    from rmi_tpu_torch.ops import scan_kernel, select_kernel
+    from rmi_tpu_torch.models.linear import log_targets
+    from rmi_tpu_torch.ops import _build, scan_kernel, select_kernel
     from rmi_tpu_torch.train import two_layer
     from rmi_tpu_torch.utils import segments as seg
 
@@ -129,12 +174,20 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
           flush=True)
     print(f"rmi_tpu_torch from {os.path.abspath(args.root)}", flush=True)
+    if args.sass:
+        _build.library()
+        _sass(_build.build_info["path"], config.nvcc_path(), args.sass,
+              _build.build_info.get("log", ""))
     u = rdata.books_like_on_device(args.n, args.seed, dev)
     typed = {"u64": (u, KeyType.U64),
              "u32": ((keymod.u64_bits(u) >> 30).add_(keymod.IMAGE_MIN), KeyType.U32)}
     has_entries = hasattr(select_kernel, "aug_fit_moments")
+    has_log = hasattr(select_kernel, "aug_fit_log_moments")
     out = {"root": os.path.abspath(args.root), "n": args.n, "paths": {}}
+    wanted = None if args.paths is None else set(args.paths.split(","))
     for label, spec, B, kind in PATHS:
+        if wanted is not None and label not in wanted:
+            continue
         keys, key_type = typed[kind]
         n = keys.shape[0]
         B = B if kind == "u64" else max(2, B * n // 200_000_000)
@@ -173,6 +226,19 @@ def main():
                 row["k2_ms"] = _ms(lambda: select_kernel.aug_centered_moments(
                     leaf_in, yf, means[0], means[1], lo, hi), args.reps)
                 del yf
+        if leaf.name == "loglinear":
+            if has_log:
+                _, mx, my, _, _ = select_kernel.aug_fit_log_moments(leaf_in, yfix, lo, hi)
+                row["aug_fit_log_moments_ms"] = _ms(
+                    lambda: select_kernel.aug_fit_log_moments(leaf_in, yfix, lo, hi), args.reps)
+                row["aug_fit_log_moments_bound_ms"] = 12 * n / HBM_BYTES_PER_S * 1e3
+            ln, w = log_targets(yfix.double())
+            if not has_log:          # the fit's means as the checkout's chain takes them
+                cnt, sx, sy = seg.aug_masked_stats(spans, w, leaf_in, ln)
+                mx, my = sx / cnt.clamp(min=1.0), sy / cnt.clamp(min=1.0)
+            row["k2_ms"] = _ms(lambda: select_kernel.aug_centered_moments(
+                leaf_in, ln, mx, my, lo, hi, weights=w), args.reps)
+            del ln, w
         if has_entries and hasattr(scan_kernel, "fixdups"):
             row["rmi_fixdups_bound_ms"] = 12 * n / HBM_BYTES_PER_S * 1e3
         out["paths"][label] = row
@@ -181,12 +247,14 @@ def main():
                 f"{row['fixdups_ms'][0]:.4f} ms ({row['fixdups_ms'][1]:.4f}-"
                 f"{row['fixdups_ms'][2]:.4f}); fit_leaves {row['fit_leaves_ms'][0]:.4f} ms "
                 f"({row['fit_leaves_ms'][1]:.4f}-{row['fit_leaves_ms'][2]:.4f})")
-        if "aug_fit_moments_ms" in row:
-            f, k2 = row["aug_fit_moments_ms"], row["k2_ms"]
-            line += (f"; rmi_aug_fit_moments {f[0]:.4f} ms ({f[1]:.4f}-{f[2]:.4f}), bound "
-                     f"{row['aug_fit_moments_bound_ms']:.4f}, share "
-                     f"{row['aug_fit_moments_bound_ms'] / f[0]:.3f}; K2 on the same spans "
-                     f"{k2[0]:.4f} ({k2[1]:.4f}-{k2[2]:.4f})")
+        for entry in ("aug_fit_moments", "aug_fit_log_moments"):
+            if f"{entry}_ms" in row:
+                f, bound = row[f"{entry}_ms"], row[f"{entry}_bound_ms"]
+                line += (f"; rmi_{entry} {f[0]:.4f} ms ({f[1]:.4f}-{f[2]:.4f}), bound "
+                         f"{bound:.4f}, share {bound / f[0]:.3f}")
+        if "k2_ms" in row:
+            k2 = row["k2_ms"]
+            line += f"; K2 on the same spans {k2[0]:.4f} ({k2[1]:.4f}-{k2[2]:.4f})"
         print(line, flush=True)
         del data, yfix, leaf_in, spans
         torch.cuda.empty_cache()

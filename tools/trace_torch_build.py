@@ -24,7 +24,10 @@ in torch).
 typed_keys makes them) in turn, in one process, and no search, and after
 each build its stage A alone (two_layer's rmi.build.assign: the norm
 constants, the top's input, FixDups, _assign_body), with the device
-launches it makes in all and by kernel; --root DIR imports rmi_tpu_torch
+launches it makes in all and by kernel, then its stage B leaf fit alone
+(the leaf model's fit_leaves on that stage A's FixDups and spans), its
+device kernels by name and its peak device memory above what it was
+given; --root DIR imports rmi_tpu_torch
 from DIR, a checkout of another commit, so that two commits' stage
 splits are taken with one tool on one card.
 """
@@ -78,6 +81,7 @@ def main():
     from rmi_tpu_torch.models import get_model
     from rmi_tpu_torch.models.base import model_float_input
     from rmi_tpu_torch.train import two_layer
+    from rmi_tpu_torch.utils import segments as seg
 
     dev = config.require_cuda()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,21 +120,43 @@ def main():
             def stage_a():
                 kminf, s = two_layer.norm_constants(data.keys, data.key_type)
                 top_in = model_float_input(top, data.keys, kminf, s, data.key_type)
-                two_layer._assign_body(top_in, two_layer.fixdups_i32(data.keys),
-                                       top_type=top.name, B=B, keys=data.keys,
-                                       key_type=data.key_type)
+                yfix = two_layer.fixdups_i32(data.keys)
+                _, t, _ = two_layer._assign_body(top_in, yfix, top_type=top.name, B=B,
+                                                 keys=data.keys, key_type=data.key_type)
+                return kminf, s, yfix, t
             stage_a()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          acc_events=True) as prof:
                 t0 = time.perf_counter()
-                stage_a()
+                kminf, s, yfix, t = stage_a()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             launches = sum(e.count for e in prof.key_averages()
                            if _on_device(e) and not e.key.startswith("rmi."))
             print(f"  stage A alone: {launches} device launches")
             _report(prof, wall, f"n={args.n} {spec} B={B}: stage A alone", 12)
+            leaf = get_model(spec.split(",")[1])
+            leaf_in = model_float_input(leaf, data.keys, kminf, s, data.key_type)
+            spans = seg.make_spans(t, B)
+            del t
+            leaf.fit_leaves(leaf_in, yfix, spans)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                leaf.fit_leaves(leaf_in, yfix, spans)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = sum(e.count for e in prof.key_averages()
+                           if _on_device(e) and not e.key.startswith("rmi."))
+            print(f"  stage B's leaf fit alone: {launches} device launches, peak device "
+                  f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+                  f"above its inputs")
+            _report(prof, wall, f"n={args.n} {spec} B={B}: stage B's leaf fit alone", 12)
+            del leaf_in, yfix, spans
     if args.paths:
         return
     data = typed["u64"]
