@@ -56,9 +56,10 @@ Phases (any failure raises and exits non-zero):
      f64 rows; bit-equal), each of them the same bits when run again,
      rmi_fixdups (bit-equal) and
      rmi_aug_fit_moments (within select_kernel.fit_tolerance), each also
-     the same bits when run again, K1 and K2 on the calls the build made
-     before those two (legacy_calls: FixDups' running max, the fit's
-     moments about its means), the run-length pass, K5,
+     the same bits when run again, K1 on the call the build made before
+     rmi_fixdups (legacy_calls: FixDups' running max; the data-parallel
+     build's K1 calls are its [world]-element carries), the run-length
+     pass, K5,
      K5's scatter entry and K4's fused lookup entry on the card (guess and
      err bit-equal; lookup also timed against the two-step route it
      replaced), K3 (the per-leaf maxima, which must be equal) and K4's
@@ -73,12 +74,10 @@ Phases (any failure raises and exits non-zero):
      against their plain versions, and its card-vs-CPU cross-check;
  10. path 3, ``train(data, "cubic,loglinear", 65536)``, the same way,
      its leaf fit one rmi_aug_fit_log_moments launch (no K2 weighted),
-     replaying it (within fit_tolerance's log form) and K2's weighted
-     variant on the fit's leaves with its means (legacy_calls; its row)
-     on the card and K3 and K4 for loglinear leaves on CPU copies;
+     replaying it (within fit_tolerance's log form) on the card and K3
+     and K4 for loglinear leaves on CPU copies;
  11. path 4, ``train(data, "cubic,normal", 65536)``, the same way,
-     replaying rmi_aug_fit_moments' xx form (timed and logged), K2's
-     variance-only variant on its leaves (legacy_calls; its row) and K3
+     replaying rmi_aug_fit_moments' xx form (timed and logged) and K3
      and K4 for normal leaves;
  11b. path 5, ``train(data, "radix18,linear", 65536)``, a 2^18-entry
      hint-table top over linear leaves, phases 3-6 and 8 for it, its
@@ -218,13 +217,22 @@ Phases (any failure raises and exits non-zero):
      replicated (``replicate_rmi``) and 2^22 queries served by
      ``shard_queries`` (2^20 a rank, below search's density gate at 200M
      keys: the packed plan) and
-     ``unshard``, 0 mismatches, timed; one dp build each of ``cubic,normal
-     65536`` and ``cubic,loglinear 65536`` a rank (PATH10_XX and PATH10_W:
-     the callers of K2 xx and K2 weighted); rank 0's K1, K2 (and K2 xx and
-     weighted), K3 and K4 calls replayed against their plain versions
-     (uncounted); each rank's
-     peak device memory and launches; 10b the same build by one NCCL rank,
-     held to path 1 the same way; 10c ``robust_linear,cubic 4096`` at 2^20
+     ``unshard``, 0 mismatches, timed; a cold and a warm dp build each of
+     ``cubic,normal 65536`` and ``cubic,loglinear 65536`` a rank
+     (PATH10_XX and PATH10_W: the callers of K2 xx and K2 weighted), the
+     warm one timed with its peak device memory; one more build of each
+     spec recorded on rank 0, whose calls of the dp build's per-shard
+     forms (DP_FORMS: rmi_fixdups_carry and rmi_span_run_max_carry
+     bit-equal, rmi_top_l1_partial within sum_tolerance, rmi_aug_fit_sums
+     within fit_sums_tolerance), of K1 (the [world] carries), stage A's
+     normalization and assignment, K2 on the targets (within
+     centered_tolerance), K2 xx and weighted, K3 and K4 are replayed
+     against their plain versions (uncounted; the same bits when run
+     again); each rank's peak device memory and launches; 10b the same
+     builds by one NCCL rank, held to path 1 the same way, its warm builds
+     of the three specs and peak memory logged, and DP_TIMED's rows (the
+     dp forms and K2's three entries) timed on its calls; 10c
+     ``robust_linear,cubic 4096`` at 2^20
      keys by four gloo ranks on the card against four on the CPU (K3
      cubic and K6 per shard), held to the cross-check's tolerances; 10d
      ``replicate_rmi_per_device`` and ``search_sharded`` over [cuda:0,
@@ -365,6 +373,9 @@ PATH_KERNELS = [
     # FixDups whole: K1's scan with the arange, compare and select before it
     ("rmi_fixdups", scan_kernel, "fixdups", "fixdups_plain", None,
      "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
+    # FixDups of a rank's shard in the data-parallel build, with its carry
+    ("rmi_fixdups_carry", scan_kernel, "fixdups_carry", "fixdups_carry_plain", None,
+     "rmi_tpu_torch/csrc/scan.cu", "rmi_tpu/ops/scan_kernel.py:35"),
     ("rmi_aug_moments", select_kernel, "aug_centered_moments",
      "aug_centered_moments_plain", None,
      "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
@@ -383,6 +394,10 @@ PATH_KERNELS = [
     ("rmi_aug_fit_log_moments", select_kernel, "aug_fit_log_moments",
      "aug_fit_log_moments_plain", None, "rmi_tpu_torch/csrc/moments.cu",
      "rmi_tpu/ops/select_kernel.py:100"),
+    # the fits' first pass alone: the dp build's per-clip sums, which cross
+    # ranks before K2 takes the centered moments about their means
+    ("rmi_aug_fit_sums", select_kernel, "aug_fit_sums", "aug_fit_sums_plain", None,
+     "rmi_tpu_torch/csrc/moments.cu", "rmi_tpu/ops/select_kernel.py:100"),
     ("rmi_sweep_max_linear", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
      "cpu", "rmi_tpu_torch/csrc/sweep.cu", "rmi_tpu/ops/sweep_kernel.py:131"),
     ("rmi_sweep_max_cubic", sweep_kernel, "sweep_leaf_max", "sweep_leaf_max_plain",
@@ -394,6 +409,11 @@ PATH_KERNELS = [
     # the reverse running min of _run_lengths_i32 and the max over it
     ("rmi_span_run_max", sweep_kernel, "span_run_max", "span_run_max_plain", None,
      "rmi_tpu_torch/csrc/run_max.cu", "rmi_tpu/ops/scan_kernel.py:35"),
+    # the same over a rank's clips in the data-parallel build, the runs that
+    # cross its edges carried
+    ("rmi_span_run_max_carry", sweep_kernel, "span_run_max_carry",
+     "span_run_max_carry_plain", None, "rmi_tpu_torch/csrc/run_max.cu",
+     "rmi_tpu/ops/scan_kernel.py:35"),
     ("rmi_leaf_eval_linear", eval_kernel, "leaf_eval_clamped",
      "leaf_eval_clamped_plain", "cpu",
      "rmi_tpu_torch/csrc/eval.cu", "rmi_tpu/ops/eval_kernel.py:39"),
@@ -450,6 +470,10 @@ PATH_KERNELS = [
      "rmi_tpu/models/cubic.py:63"),
     ("rmi_top_l1_cubic", top_kernel, "top_l1_cubic", "top_l1_cubic_plain", None,
      "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/train/two_layer.py:176"),
+    # its partial sums over a rank's shard in the data-parallel build
+    # (rmi_tpu's _dist_fit_cubic_top, in its shard_map program)
+    ("rmi_top_l1_partial", top_kernel, "top_l1_partial", "top_l1_partial_plain", None,
+     "rmi_tpu_torch/csrc/top.cu", "rmi_tpu/parallel/dp_trainer.py:275"),
     # the linear-family and normal tops' fits (rmi_tpu's _linear_fit_top,
     # _robust_fit_top, _normal_fit_top): held to the plain version on the
     # CPU, whose whole-array sums add in XLA's order, as the kernel's do
@@ -477,11 +501,10 @@ RUN_MAX = "rmi_span_run_max"
 # normal and hint-table tops fit in kernels too.  Linear and normal leaves
 # fit in one kernel (stage B), loglinear leaves in another (PATH3).
 FIT = ("rmi_fixdups", "rmi_aug_fit_moments")
-# K1 and K2, which the build's FixDups and leaf fits launched before
-# rmi_fixdups, rmi_aug_fit_moments and rmi_aug_fit_log_moments, and the
-# data-parallel build (path 10) still launches: timed on path 1's, path
-# 3's and path 4's inputs (legacy_calls)
-LEGACY = ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted")
+# K1, which the build's FixDups launched before rmi_fixdups, and which the
+# data-parallel build (path 10) launches on the [world] carries alone, is
+# timed on path 1's FixDups input (legacy_calls); K2, whose callers are the
+# data-parallel build's leaf moments, on path 10b's
 NORM_ASSIGN = ("rmi_key_normalize", "rmi_top_assign")
 # a cubic top's stage A: the normalization, its fit in two entries, the
 # assignment; a linear-family or normal top fits in rmi_top_moments, a
@@ -496,25 +519,23 @@ PATH1 = ("cubic,linear", 262144,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A),
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_linear", RUN_MAX,
           "rmi_leaf_eval_linear", "rmi_lookup_linear", *K5, *PACKED, *STAGE_A,
-          "rmi_scan_i32", "rmi_aug_moments"))
+          "rmi_scan_i32"))
 PATH2 = ("robust_linear,cubic", 65536,
          ("rmi_fixdups", "rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic",
           "rmi_lookup_cubic", *K5, "rmi_cubic_l1", *PACKED, *NORM_ASSIGN, MOMENTS),
          ("rmi_sweep_max_cubic", RUN_MAX, "rmi_leaf_eval_cubic", "rmi_lookup_cubic",
           "rmi_cubic_l1", MOMENTS))
-# loglinear leaves fit in one kernel; K2 weighted, which the build launched
-# before it and the data-parallel build still launches, is timed on its
-# inputs (legacy_calls)
+# loglinear leaves fit in one kernel (K2 weighted, which the build launched
+# before it, serves the data-parallel build: path 10)
 PATH3 = ("cubic,loglinear", 65536,
          ("rmi_fixdups", "rmi_aug_fit_log_moments", "rmi_sweep_max_loglinear", RUN_MAX,
           "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear", *K5, *PACKED, *STAGE_A),
-         ("rmi_aug_fit_log_moments", "rmi_aug_moments_weighted", "rmi_sweep_max_loglinear",
-          RUN_MAX, "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
+         ("rmi_aug_fit_log_moments", "rmi_sweep_max_loglinear", RUN_MAX,
+          "rmi_leaf_eval_loglinear", "rmi_lookup_loglinear"))
 PATH4 = ("cubic,normal", 65536,
          ("rmi_fixdups", "rmi_aug_fit_moments", "rmi_sweep_max_normal", RUN_MAX,
           "rmi_leaf_eval_normal", "rmi_lookup_normal", *K5, *PACKED, *STAGE_A),
-         ("rmi_aug_moments_xx", "rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal",
-          "rmi_lookup_normal"))
+         ("rmi_sweep_max_normal", RUN_MAX, "rmi_leaf_eval_normal", "rmi_lookup_normal"))
 # an integer (hint-table) top over linear leaves: lookup is one launch of
 # the fused entry, its top evaluated in the kernel (csrc/int_top.cuh); the
 # build normalizes the keys for the leaves and assigns them under the
@@ -614,7 +635,8 @@ def entry_of(name, kw):
     """The C entry point a call of wrapper ``name`` with keywords ``kw``
     launches, where the wrapper has more than one."""
     if name == "aug_centered_moments":
-        return "rmi_aug_moments" if kw.get("weights") is None else "rmi_aug_moments_weighted"
+        weighted = kw.get("weights") is not None or kw.get("log")
+        return "rmi_aug_moments_weighted" if weighted else "rmi_aug_moments"
     if name == "lookup_clamped":       # a lognormal or integer model: the two-step route
         kernel = get_model(kw["leaf_type"]).leaf_kernel
         if kernel is None:             # hint-table leaves: plain torch, no launch
@@ -697,6 +719,15 @@ def call_size(args, name=None):
 
 def compare(name, got, want, args, kw):
     """(max abs error, ok) of a kernel output against its plain version."""
+    if name == "aug_centered_moments" and args[1].dtype == torch.int32:
+        # the dp build's call on the FixDups targets, given the means: the
+        # two sides differ by summation alone (select_kernel.centered_tolerance)
+        x, y, mean_x, mean_y, lo, hi = [a.cpu() for a in args]
+        tol = select_kernel.centered_tolerance(x, y, mean_x, mean_y, lo, hi,
+                                               [t.cpu() for t in want], log=kw.get("log", False))
+        diffs = [(g.cpu() - w.cpu()).abs() for g, w in zip(got, want)]
+        return (max(float(d.max()) if d.numel() else 0.0 for d in diffs),
+                all(bool((d <= t).all()) for d, t in zip(diffs, tol)))
     if name == "aug_centered_moments":
         x, y, mean_x, mean_y, lo, hi = [a.cpu() for a in args]
         w = kw.get("weights")
@@ -722,6 +753,18 @@ def compare(name, got, want, args, kw):
         diffs = [(g - w).abs() for g, w in zip(got, want)]
         return (max(float(d.max()) if d.numel() else 0.0 for d in diffs),
                 all(bool((d <= t).all()) for d, t in zip(diffs, tol)))
+    if name == "aug_fit_sums":
+        # fit_sums_tolerance: the counts exact, the plain prefix-sum
+        # differences within 2^11 L u P, the kernel's sums within cnt u S (its
+        # sum of y exact; ln y an ulp a key)
+        x, y, lo, hi = [None if a is None else a.cpu() for a in args]
+        tol = select_kernel.fit_sums_tolerance(x, y, lo, hi, [t.cpu() for t in want],
+                                               log=kw.get("log", False))
+        diffs = [(g.cpu() - w.cpu()).abs() for g, w in zip(got, want)]
+        return (max(float(d.max()) if d.numel() else 0.0 for d in diffs),
+                all(bool((d <= t).all()) for d, t in zip(diffs, tol)))
+    if name == "top_l1_partial":     # the shard's two sums, as K6's
+        return compare_l1(got.split(1), want.split(1), "rmi_top_l1_partial")
     if name == "aug_centered_xx":
         m2, wm2 = got.cpu(), want.cpu()
         return (float((m2 - wm2).abs().max()),
@@ -879,7 +922,8 @@ def same_as_steps(entry, fused, steps):
 # wrappers whose kernels are also run twice in a replay, the same bits
 # each time (their sums' order fixed, no float atomics)
 RERUN = ("fixdups", "aug_fit_moments", "aug_fit_log_moments", "top_cubic_candidates",
-         "top_l1_cubic", "top_moments", "top_table_fit")
+         "top_l1_cubic", "top_moments", "top_table_fit", "fixdups_carry", "aug_fit_sums",
+         "top_l1_partial", "span_run_max_carry", "aug_centered_moments")
 
 
 def same_bits(a, b):
@@ -955,8 +999,15 @@ def work(name, args, kw, out):
     if name == "scan_i32":
         n = args[0].shape[0]
         return _nbytes(args[0], *outs), n, INT_OPS_PER_S
-    if name == "fixdups":            # a key read, an index written; a compare and a max a key
-        return _nbytes(args[0], *outs), 2 * args[0].shape[0], INT_OPS_PER_S
+    if name in ("fixdups", "fixdups_carry"):   # a key read, an index written; a compare
+        return _nbytes(args[0], *outs), 2 * args[0].shape[0], INT_OPS_PER_S   # and a max
+    if name == "aug_fit_sums":
+        # x (and y) read once, the bounds and the sums; per element of the
+        # clipped ranges the sums' adds (the log form ln y once and the
+        # kept count's select)
+        x, y, lo, hi = args
+        per = 1 if y is None else (LOG_F64_OPS + 4 if kw.get("log") else 2)
+        return _nbytes(x, y, lo, hi, *outs), int((hi - lo).sum()) * per, F64_OPS_PER_S
     if name == "aug_fit_moments":
         # x (and y) read once, the bounds and the outputs; per element of
         # the augmented ranges the sums' adds, then the centered terms (xx:
@@ -976,7 +1027,8 @@ def work(name, args, kw, out):
     if name in ("aug_centered_moments", "aug_centered_xx"):
         lo, hi = args[-2:]
         per = 3 if name == "aug_centered_xx" else 6
-        per += 0 if kw.get("weights") is None else 2
+        per += 0 if kw.get("weights") is None and not kw.get("log") else 2
+        per += LOG_F64_OPS if kw.get("log") else 0
         return (_nbytes(*args, kw.get("weights"), *outs), int((hi - lo).sum()) * per,
                 F64_OPS_PER_S)
     if name == "lookup_clamped":
@@ -1071,6 +1123,8 @@ def work(name, args, kw, out):
                 args[0].shape[0] * per, F64_OPS_PER_S)
     if name == "span_run_max":       # a compare, a subtraction and a max per key
         return _nbytes(*args, *outs), args[0].shape[0] * 3, INT_OPS_PER_S
+    if name == "span_run_max_carry":     # the keys, targets and clips; as span_run_max
+        return _nbytes(*args[:4], *outs), args[0].shape[0] * 3, INT_OPS_PER_S
     if name == "cubic_l1_sums":
         x, y, cubic_w, lin_w, spans = args
         elems = int((spans.aug_ends - spans.aug_starts).sum())
@@ -1084,6 +1138,9 @@ def work(name, args, kw, out):
         # FMAs), two subtractions, absolutes and adds
         x, yfix, _, cand = args
         return _nbytes(x, yfix, cand, *outs), x.shape[0] * 14, F64_OPS_PER_S
+    if name == "top_l1_partial":     # the same over the shard's rows below n
+        x, yfix, _, cand, hi = args
+        return _nbytes(x[:hi], yfix[:hi], cand, *outs), hi * 14, F64_OPS_PER_S
     if name == "top_cubic_candidates":
         # what the candidates need: the 32-byte sectors of x each of the two
         # binary searches reads (log2 n + 1 probes), the endpoints' and the
@@ -2383,37 +2440,19 @@ def uncounted():
         _build.launches.update(saved)
 
 
-def legacy_calls(rec, entries):
-    """Record, for each of ``entries`` (LEGACY), the K1 or K2 call that the
-    build made before rmi_fixdups, rmi_aug_fit_moments and
-    rmi_aug_fit_log_moments, from the path's recorded calls of those: the
-    running max over where(changed, i, 0) of its FixDups keys; K2 (K2 xx
-    for the fit's xx form, K2 weighted on ln y and its weights for the log
-    form) over its spans, with the means of its fit (uncounted).  The
-    data-parallel build still launches K1 and K2, so their rows are timed
-    on the main path's inputs."""
+def legacy_calls(rec):
+    """Record the K1 call that the build made before rmi_fixdups, from the
+    path's recorded calls of that: the running max over where(changed, i,
+    0) of its FixDups keys (uncounted).  The data-parallel build's K1
+    calls take its [world]-element carries alone, so K1's row is timed on
+    the main path's [n] input."""
     with uncounted():
-        if "rmi_scan_i32" in entries:
-            for (keys,), _ in rec.calls["fixdups"]:
-                n = keys.shape[0]
-                changed = torch.ones(n, dtype=torch.bool, device=keys.device)
-                torch.ne(keys[1:], keys[:-1], out=changed[1:])
-                v = torch.where(changed, torch.arange(n, dtype=torch.int32,
-                                                      device=keys.device), 0)
-                rec.calls["scan_i32"].append(((v,), {"is_max": True, "fill": seg.INT32_MIN}))
-        for x, y, lo, hi in (args for args, _ in rec.calls["aug_fit_moments"]):
-            means = select_kernel.aug_fit_moments(x, y, lo, hi)
-            if y is None and "rmi_aug_moments_xx" in entries:
-                rec.calls["aug_centered_xx"].append(((x, means[0], lo, hi), {}))
-            elif y is not None and "rmi_aug_moments" in entries:
-                rec.calls["aug_centered_moments"].append(
-                    ((x, y.double(), means[0], means[1], lo, hi), {}))
-        if "rmi_aug_moments_weighted" in entries:
-            for x, y, lo, hi in (args for args, _ in rec.calls["aug_fit_log_moments"]):
-                _, mean_x, mean_y, _, _ = select_kernel.aug_fit_log_moments(x, y, lo, hi)
-                ln, w = select_kernel._log_targets(y)
-                rec.calls["aug_centered_moments"].append(
-                    ((x, ln, mean_x, mean_y, lo, hi), {"weights": w}))
+        for (keys,), _ in rec.calls["fixdups"]:
+            n = keys.shape[0]
+            changed = torch.ones(n, dtype=torch.bool, device=keys.device)
+            torch.ne(keys[1:], keys[:-1], out=changed[1:])
+            v = torch.where(changed, torch.arange(n, dtype=torch.int32, device=keys.device), 0)
+            rec.calls["scan_i32"].append(((v,), {"is_max": True, "fill": seg.INT32_MIN}))
 
 
 def max_leaf(rmi):
@@ -2776,18 +2815,27 @@ def optimizer_phase(data, gen, nq, cross_n, seed, dev, files):
 # on path 1's keys, by ranks that share card 0: 10a four gloo ranks, 10b one
 # NCCL rank (path 1's spec); 10c robust_linear,cubic on the card against the
 # CPU; 10d the per-device copies in this process
-# what 10a launches over its ranks: the dp build (K1, K2, K2 xx, K3, K4 per
+# what 10a launches over its ranks: the dp build (its per-shard forms:
+# FixDups with its carry, the cubic top's partial L1 sums, the leaf fits'
+# clip sums, the counted runs; K1 on the carries, stage A's normalization
+# and assignment, K2, K2 xx and K2 weighted on the targets, K3, K4 per
 # element) and the bound check (K4's fused lookup); each rank's 2^20 queries
 # fall below search's density gate at 200M keys (4 nq < 3 ceil(n / 64),
 # lookup_fast.sorts), so they take the packed plan, in torch; 10d serves
 # twice as many queries over two copies, 2^22 a copy, past the gate: K5's
 # scatter entry
+DP_FORMS = ("rmi_fixdups_carry", "rmi_top_l1_partial", "rmi_aug_fit_sums",
+            "rmi_span_run_max_carry")
 PATH10 = ("cubic,linear", 262144,
-          ("rmi_scan_i32", "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted",
+          (*DP_FORMS, "rmi_scan_i32", "rmi_key_normalize", "rmi_top_assign",
+           "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted",
            "rmi_sweep_max_linear", "rmi_leaf_eval_linear", "rmi_lookup_linear"))
-# the dp builds of path 4's and path 3's specs, once a rank: their normal
-# and loglinear leaves are the callers of K2 xx and K2 weighted (their sums
-# cross ranks)
+# the rows 10b times on its one rank's calls (the shard is all of path 1's
+# keys): the dp forms and K2's three entries, whose callers they are
+DP_TIMED = (*DP_FORMS, "rmi_aug_moments", "rmi_aug_moments_xx", "rmi_aug_moments_weighted")
+# the dp builds of path 4's and path 3's specs, a rank: their normal and
+# loglinear leaves are the callers of K2 xx and K2 weighted (their sums
+# cross ranks); 10b logs each one's warm build and peak memory
 PATH10_XX = ("cubic,normal", 65536)
 PATH10_W = ("cubic,loglinear", 65536)
 PATH10D = ("rmi_serve_sorted_scatter",)
@@ -2827,18 +2875,21 @@ def _same_dp(a, b):
     return all(eq(x, y) for x, y in zip(a[:3], b[:3])) and a[3] == b[3]
 
 
-def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
-    """One rank of path 10a (10b: without serving or replays): the shard of
-    the SOSD file's keys, loaded whole onto ``device``; a cold and
-    PATH10_WARM warm dp builds (the first two bit-equal), one more with the
-    time in collectives clocked; the bound |guess - yfix| <= err on every
-    key of the shard; then, with ``serve_queries``, rank 0's index
-    replicated to every rank and nq queries (the same on every rank, from
-    ``qseed``) served sharded, timed; one dp build each of PATH10_XX and
-    PATH10_W (K2 xx's and K2 weighted's callers); the launches counted from
-    the first build to the last search;
-    with ``replay``, the recorded calls replayed against their plain
-    versions on rank 0 (uncounted)."""
+def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, check):
+    """One rank of path 10a (10b: without serving): the shard of the SOSD
+    file's keys, loaded whole onto ``device``; a cold and PATH10_WARM warm
+    dp builds (the first two bit-equal), one more with the time in
+    collectives clocked, the peak device memory over them; a cold and a
+    warm dp build each of PATH10_XX and PATH10_W (K2 xx's and K2
+    weighted's callers), the warm one timed with its peak; then one build
+    each of the three specs recorded (rank 0); the bound |guess - yfix| <=
+    err on every key of the shard; then, with ``serve_queries``, rank 0's
+    index replicated to every rank and nq queries (the same on every rank,
+    from ``qseed``) served sharded, timed; the launches counted from the
+    first build to the last search.  ``check`` "replay": the recorded calls
+    of PATH10's entries replayed against their plain versions on rank 0
+    (uncounted); "time": DP_TIMED's rows timed on them, each of their calls
+    replayed on the card; "both": the two."""
     from rmi_tpu_torch.parallel import dp_trainer, serve
     import torch.distributed as dist
     dev = torch.device(device)
@@ -2851,35 +2902,42 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
         _build.launches[entry] = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    replay = replay and rank == 0
-    rec = Recorder() if replay else contextlib.nullcontext()
-    walls, builds = [], []
-    for i in range(1 + PATH10_WARM):
+    check = check if rank == 0 else None
+    rec = Recorder() if check else contextlib.nullcontext()
+
+    def build(spec_b, B_b, group=comm):
         _sync(dev)
         dist.barrier()
         t0 = time.perf_counter()
-        with rec if i == 0 else contextlib.nullcontext():
-            res = dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, top, leaf, B,
-                                                comm)
+        res = dp_trainer.dp_train_two_layer(keys_local, n, data.key_type,
+                                            *spec_b.split(","), B_b, group)
         _sync(dev)
-        walls.append(time.perf_counter() - t0)
+        return res, time.perf_counter() - t0
+
+    walls, builds = [], []
+    for i in range(1 + PATH10_WARM):
+        res, wall = build(spec, B)
+        walls.append(wall)
         builds.append(res if i < 2 else None)
     out["same_build"] = _same_dp(builds[0], builds[1])
     res = builds[0]
     del builds
     timed = dp_trainer.DPGroup(timed=True)
-    dist.barrier()
-    t0 = time.perf_counter()
-    dp_trainer.dp_train_two_layer(keys_local, n, data.key_type, top, leaf, B, timed)
-    out["timed_build_s"] = time.perf_counter() - t0
+    out["timed_build_s"] = build(spec, B, timed)[1]
     out["collective_s"], out["collectives"] = timed.seconds, timed.calls
     out["walls"] = walls
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                        if dev.type == "cuda" else None)
+    out["specs"] = {}
+    for spec_b, B_b in (PATH10_XX, PATH10_W):
+        build(spec_b, B_b)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out["specs"][f"{spec_b} {B_b}"] = (build(spec_b, B_b)[1], (
+            torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None))
     with rec:
-        for spec_b in (PATH10_XX, PATH10_W):
-            dp_trainer.dp_train_two_layer(keys_local, n, data.key_type,
-                                          *spec_b[0].split(","), spec_b[1], comm)
+        for spec_b, B_b in ((spec, B), PATH10_XX, PATH10_W):
+            build(spec_b, B_b)
 
     # the bound on every key of the shard, against the build's own FixDups
     rmi = dp_trainer.trained_rmi(data.keys, data.key_type, top, leaf, B, res)
@@ -2918,10 +2976,16 @@ def dp_rank(rank, sosd_path, spec, B, nq, qseed, device, serve_queries, replay):
     _sync(dev)
     out["launches"] = dict(_build.launches)
     out["res"] = res
-    if replay:
+    if check:
+        data = res = rmi = None         # the recorded calls alone stay on the card
+        replays = {}
         with uncounted():
-            rows = check_kernels(rec, {}, PATH10[2], timed=False)
-        out["replays"] = {e: r["max_abs_err"] for e, r in rows.items()}
+            if check != "time":
+                replays.update(check_kernels(rec, {}, PATH10[2], timed=False))
+            if check != "replay":
+                out["rows"] = check_kernels(rec, out["launches"], DP_TIMED)
+                replays.update(out["rows"])
+        out["replays"] = {e: r["max_abs_err"] for e, r in replays.items()}
     return out
 
 
@@ -3173,7 +3237,8 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
     10c dp_cross_check at ``cross_n`` keys; 10d per-device copies of path
     1's index (``p1_index``) over [dev, dev], serving twice ``queries``'
     size, each copy's half through K5's scatter entry.  Returns the
-    launches of 10a's ranks, 10b's and 10d's search_sharded."""
+    launches of 10a's ranks, 10b's and 10d's search_sharded, and the rows
+    of DP_TIMED, timed on 10b's calls (on 10a's rank 0 without ``nccl``)."""
     from rmi_tpu_torch.parallel import multihost, serve
     spec, B, entries = PATH10
     nq = queries.shape[0]
@@ -3187,7 +3252,8 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
         t0 = time.perf_counter()
         ranks = multihost.run_ranks(
             dp_rank, PATH10_RANKS, f"file://{tmp}/w10a", backend="gloo", device=rank_device,
-            args=(path, spec, B, nq, seed, rank_device, True, True), timeout=PATH10_TIMEOUT)
+            args=(path, spec, B, nq, seed, rank_device, True, "replay" if nccl else "both"),
+            timeout=PATH10_TIMEOUT)
         log(f"path 10a: {PATH10_RANKS} gloo ranks on {rank_device}, {spec} {B}, "
             f"{time.perf_counter() - t0:.3f} s with their start")
         r0 = ranks[0]
@@ -3208,6 +3274,9 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
             f"sharded search {rate:.6g} lookups/s ({nq} queries, {PATH10_RANKS} ranks "
             f"sharing one card, with the all_gather)")
         log(f"path 10a replays (rank 0): {json.dumps(r0['replays'])}")
+        for spec_b, (wall, peak) in r0["specs"].items():
+            log(f"path 10a rank 0: dp build {spec_b} warm {wall:.4f} s, peak {peak} GiB")
+        rows = r0.get("rows", {})
         if not all(_same_dp(r0["res"], r["res"]) for r in ranks[1:]):
             raise RuntimeError("10a: the ranks returned different builds")
         if not all(r["same_build"] for r in ranks):
@@ -3227,13 +3296,17 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
         if nccl:
             (r,) = multihost.run_ranks(
                 dp_rank, 1, f"file://{tmp}/w10b", backend="nccl", device=rank_device,
-                args=(path, spec, B, nq, seed, rank_device, False, False),
+                args=(path, spec, B, nq, seed, rank_device, False, "time"),
                 timeout=PATH10_TIMEOUT)
             log(f"path 10b: one NCCL rank, cold build {r['walls'][0]:.4f} s, warm "
                 f"{', '.join(f'{w:.4f}' for w in r['walls'][1:])} s, timed "
                 f"{r['timed_build_s']:.4f} s of which {r['collective_s']:.4f} s in "
                 f"{r['collectives']} collectives; peak {r['peak_gib']} GiB; "
                 f"{r['violations']} violations on {r['checked_keys']} keys")
+            for spec_b, (wall, peak) in r["specs"].items():
+                log(f"path 10b: dp build {spec_b} warm {wall:.4f} s, peak {peak} GiB")
+            log(f"path 10b replays: {json.dumps(r['replays'])}")
+            rows = r["rows"]
             if not r["same_build"] or r["violations"]:
                 raise RuntimeError("10b: the NCCL rank's build is not reproducible or wrong")
             dp_tolerance("path 10b", r["res"], p1, data)
@@ -3271,7 +3344,7 @@ def dp_phase(data, queries, p1, p1_index, cross_n, seed, dev, rank_device="cuda:
     if routes != ["sort", "sort"] or missing:
         raise RuntimeError(f"10d: the copies did not serve through K5's scatter entry: "
                            f"routes {routes}, not launched {missing}")
-    return launches
+    return launches, rows
 
 
 
@@ -3698,7 +3771,7 @@ def main():
     p1_dp = path1_host(rmi)      # what path 10's dp builds are held to
     p1_index = dataclasses.replace(rmi)     # path 10d's index, its caches dropped
     del rmi
-    legacy_calls(rec, LEGACY)
+    legacy_calls(rec)
     rows.update(check_kernels(rec, counts, replayed))
     launches = {e: launches[e] + counts[e] for e in launches}
     del rec
@@ -3712,14 +3785,12 @@ def main():
         rmi, rec, counts = drive(path, data, queries, gen)
         del rmi
         fit_timed = ()
-        if path is PATH3:    # its two builds' leaf fits; K2 weighted's row on its leaves
+        if path is PATH3:    # its two builds' leaf fits
             fits = (counts["rmi_aug_fit_log_moments"], counts["rmi_aug_moments_weighted"])
             log(f"path 3 leaf fit launches (rmi_aug_fit_log_moments, K2 weighted): {fits}")
             if fits != (2, 0):
                 raise RuntimeError(f"path 3's two builds launched {fits}, not (2, 0)")
-            legacy_calls(rec, ("rmi_aug_moments_weighted",))
-        if path is PATH4:    # K2 xx's row on its leaves; the fit's xx form timed, logged
-            legacy_calls(rec, LEGACY)
+        if path is PATH4:    # the fit's xx form timed, logged
             fit_timed = ("rmi_aug_fit_moments",)
             log("path 4 rmi_aug_fit_moments, xx form " + json.dumps(
                 check_kernels(rec, counts, fit_timed)["rmi_aug_fit_moments"]))
@@ -3790,7 +3861,8 @@ def main():
 
     # 11h. path 10: the data-parallel build and sharded serving, by ranks
     # that share the card
-    counts = dp_phase(data, queries, p1_dp, p1_index, cross_n, args.seed + 12, dev)
+    counts, p10_rows = dp_phase(data, queries, p1_dp, p1_index, cross_n, args.seed + 12, dev)
+    rows.update(p10_rows)
     launches = {e: launches[e] + counts[e] for e in launches}
     del p1_dp, p1_index
     torch.cuda.empty_cache()

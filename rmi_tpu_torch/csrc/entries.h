@@ -10,16 +10,19 @@
 // Keep one entry per RMI_ENTRY and its parameters in one parenthesis.
 #include <stdint.h>
 
-// K1 and FixDups (csrc/scan.cu)
+// K1, FixDups and its shard form (csrc/scan.cu)
 RMI_ENTRY(rmi_scan_i32, (const int32_t* v, int32_t* out, int64_t n, int32_t is_max,
                          int32_t fill, int32_t reverse, int32_t* scratch, void* stream))
 RMI_ENTRY(rmi_fixdups, (const int64_t* keys, int32_t* out, int64_t n, void* stream))
-// K2 and the leaf fits' moments (csrc/moments.cu)
-RMI_ENTRY(rmi_aug_moments, (const double* x, const double* y, const double* mean_x,
-                            const double* mean_y, const int64_t* aug_starts,
-                            const int64_t* aug_ends, double* m2, double* c, int64_t B,
-                            void* stream))
+RMI_ENTRY(rmi_fixdups_carry, (const int64_t* keys, int32_t* out, int64_t n, int64_t offset,
+                              const int64_t* first, void* stream))
+// K2, the leaf fits' moments and their first pass alone (csrc/moments.cu)
+RMI_ENTRY(rmi_aug_moments, (const double* x, const double* y, const int32_t* y_targets,
+                            const double* mean_x, const double* mean_y,
+                            const int64_t* aug_starts, const int64_t* aug_ends, double* m2,
+                            double* c, int64_t B, void* stream))
 RMI_ENTRY(rmi_aug_moments_weighted, (const double* x, const double* y, const double* w,
+                                     const int32_t* y_targets,
                                      const double* mean_x, const double* mean_y,
                                      const int64_t* aug_starts, const int64_t* aug_ends,
                                      double* m2, double* c, int64_t B, void* stream))
@@ -34,6 +37,9 @@ RMI_ENTRY(rmi_aug_fit_log_moments, (const double* x, const int32_t* y,
                                     const int64_t* aug_starts, const int64_t* aug_ends,
                                     int64_t n, double* out, int64_t B, int64_t* scratch,
                                     int64_t capacity, void* stream))
+RMI_ENTRY(rmi_aug_fit_sums, (const double* x, const int32_t* y, const int64_t* aug_starts,
+                             const int64_t* aug_ends, int64_t form, double* out, int64_t B,
+                             int64_t* scratch, int64_t capacity, void* stream))
 // K3 (csrc/sweep.cu)
 RMI_ENTRY(rmi_sweep_max_linear, (const double* xn, const int32_t* yfix,
                                  const int64_t* starts, const int64_t* ends,
@@ -51,10 +57,14 @@ RMI_ENTRY(rmi_sweep_max_normal, (const double* xn, const int32_t* yfix,
                                  const int64_t* starts, const int64_t* ends,
                                  const double* w, int32_t* max_err, int64_t B,
                                  int64_t n_keys, int64_t bound, void* stream))
-// the run-length pass (csrc/run_max.cu)
+// the run-length pass and its shard form (csrc/run_max.cu)
 RMI_ENTRY(rmi_span_run_max, (const int64_t* keys, const int32_t* yfix,
                              const int64_t* starts, const int64_t* ends,
                              int32_t* longest_run, int64_t B, int64_t n, void* stream))
+RMI_ENTRY(rmi_span_run_max_carry, (const int64_t* keys, const int32_t* yfix,
+                                   const int64_t* starts, const int64_t* ends,
+                                   int32_t* longest_run, int64_t B, int64_t n, int64_t offset,
+                                   int64_t total, const int64_t* last_end, void* stream))
 // K4, per element and lookup whole (csrc/eval.cu)
 RMI_ENTRY(rmi_leaf_eval_linear, (const double* x, const double* w, const int64_t* leaf,
                                  int32_t* out, int64_t m, int64_t bound, void* stream))
@@ -145,6 +155,9 @@ RMI_ENTRY(rmi_top_l1_cubic, (const double* x, const int32_t* y, int64_t n, doubl
                              int64_t scale_targets, const double* cand, double* partials,
                              int64_t capacity, double* sums, double* row, int32_t* top_case,
                              void* stream))
+RMI_ENTRY(rmi_top_l1_partial, (const double* x, const int32_t* y, int64_t n, double sf,
+                               int64_t scale_targets, const double* cand, double* partials,
+                               int64_t capacity, double* sums, void* stream))
 // stage A's other top fits: the linear-family and normal tops' moments and
 // the hint-table tops (csrc/top_fit.cu)
 RMI_ENTRY(rmi_top_moments, (const double* x, const int32_t* y, int64_t n, int64_t lo,

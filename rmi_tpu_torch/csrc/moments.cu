@@ -31,6 +31,14 @@
 // interior-plus-edge terms of segments.aug_centered_moments.  Known
 // weakness: a leaf with millions of keys keeps one warp busy while the
 // rest of the card idles; it is slow, never wrong.
+//
+// The first two also read the int32 FixDups targets in place of an f64 y
+// (y_targets given, y and w null): rmi_aug_moments takes each as a
+// double, rmi_aug_moments_weighted its log as models/linear.log_targets
+// does (ln y, or 0 where it is not finite, weighted 1, or 0), so the
+// data-parallel build (parallel/dp_trainer.py), whose leaf moments take
+// means summed across ranks, makes no [m] f64 copy of y, ln y or the
+// weights for them: 12 B a key in place of 16 and 24.
 #include <type_traits>
 
 #include "common.cuh"
@@ -39,11 +47,12 @@ namespace {
 
 constexpr int kThreads = 256;   // 8 leaves per block
 
-// kWeighted reads w; kXxOnly reads neither y nor mean_y and writes no c.
-template <bool kWeighted, bool kXxOnly>
+// kWeighted reads w; kXxOnly reads neither y nor mean_y and writes no c;
+// kTargets reads the int32 targets yt in place of y (and, weighted, of w)
+template <bool kWeighted, bool kXxOnly, bool kTargets>
 __global__ void __launch_bounds__(kThreads)
 aug_moments(const double* __restrict__ x, const double* __restrict__ y,
-            const double* __restrict__ w,
+            const double* __restrict__ w, const int32_t* __restrict__ yt,
             const double* __restrict__ mean_x, const double* __restrict__ mean_y,
             const int64_t* __restrict__ aug_starts,
             const int64_t* __restrict__ aug_ends,
@@ -58,12 +67,24 @@ aug_moments(const double* __restrict__ x, const double* __restrict__ y,
     double sxx = 0.0, sxy = 0.0;
     for (int64_t i = lo + lane; i < hi; i += 32) {
       const double dx = x[i] - mx;
+      double yi = 0.0, wi = 1.0;
+      if constexpr (kTargets && kWeighted) {
+        const double ln = log((double)yt[i]);
+        const bool keep = isfinite(ln);
+        yi = keep ? ln : 0.0;
+        wi = keep ? 1.0 : 0.0;
+      } else if constexpr (kTargets) {
+        yi = (double)yt[i];
+      } else {
+        if constexpr (!kXxOnly) yi = y[i];
+        if constexpr (kWeighted) wi = w[i];
+      }
       double xx = dx * dx;
-      if constexpr (kWeighted) xx = xx * w[i];
+      if constexpr (kWeighted) xx = xx * wi;
       sxx += xx;
       if constexpr (!kXxOnly) {
-        double xy = dx * (y[i] - my);
-        if constexpr (kWeighted) xy = xy * w[i];
+        double xy = dx * (yi - my);
+        if constexpr (kWeighted) xy = xy * wi;
         sxy += xy;
       }
     }
@@ -79,45 +100,60 @@ aug_moments(const double* __restrict__ x, const double* __restrict__ y,
   }
 }
 
-template <bool kWeighted, bool kXxOnly>
-int launch_moments(const double* x, const double* y, const double* w,
+template <bool kWeighted, bool kXxOnly, bool kTargets>
+int launch_moments(const double* x, const double* y, const double* w, const int32_t* yt,
                    const double* mean_x, const double* mean_y,
                    const int64_t* aug_starts, const int64_t* aug_ends,
                    double* m2, double* c, int64_t B, void* stream) {
   if (B > 0) {
-    aug_moments<kWeighted, kXxOnly>
+    aug_moments<kWeighted, kXxOnly, kTargets>
         <<<rmi_grid(B * 32, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-            x, y, w, mean_x, mean_y, aug_starts, aug_ends, m2, c, B);
+            x, y, w, yt, mean_x, mean_y, aug_starts, aug_ends, m2, c, B);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-RMI_API int rmi_aug_moments(const double* x, const double* y,
+// y (f64) or y_targets (int32 FixDups targets), the other empty (null);
+// both given is refused
+RMI_API int rmi_aug_moments(const double* x, const double* y, const int32_t* y_targets,
                             const double* mean_x, const double* mean_y,
                             const int64_t* aug_starts, const int64_t* aug_ends,
                             double* m2, double* c, int64_t B, void* stream) {
-  return launch_moments<false, false>(x, y, nullptr, mean_x, mean_y, aug_starts,
-                                      aug_ends, m2, c, B, stream);
+  if (y != nullptr && y_targets != nullptr) return (int)cudaErrorInvalidValue;
+  if (y_targets != nullptr) {
+    return launch_moments<false, false, true>(x, nullptr, nullptr, y_targets, mean_x, mean_y,
+                                              aug_starts, aug_ends, m2, c, B, stream);
+  }
+  return launch_moments<false, false, false>(x, y, nullptr, nullptr, mean_x, mean_y,
+                                             aug_starts, aug_ends, m2, c, B, stream);
 }
 
+// y and w (f64), or y_targets (int32 FixDups targets: ln y and its weight
+// taken per key) with y and w empty (null)
 RMI_API int rmi_aug_moments_weighted(const double* x, const double* y,
-                                     const double* w, const double* mean_x,
-                                     const double* mean_y,
+                                     const double* w, const int32_t* y_targets,
+                                     const double* mean_x, const double* mean_y,
                                      const int64_t* aug_starts,
                                      const int64_t* aug_ends, double* m2,
                                      double* c, int64_t B, void* stream) {
-  return launch_moments<true, false>(x, y, w, mean_x, mean_y, aug_starts,
-                                     aug_ends, m2, c, B, stream);
+  const bool targets = y_targets != nullptr;
+  if (targets && (y != nullptr || w != nullptr)) return (int)cudaErrorInvalidValue;
+  if (targets) {
+    return launch_moments<true, false, true>(x, nullptr, nullptr, y_targets, mean_x, mean_y,
+                                             aug_starts, aug_ends, m2, c, B, stream);
+  }
+  return launch_moments<true, false, false>(x, y, w, nullptr, mean_x, mean_y, aug_starts,
+                                            aug_ends, m2, c, B, stream);
 }
 
 RMI_API int rmi_aug_moments_xx(const double* x, const double* mean_x,
                                const int64_t* aug_starts,
                                const int64_t* aug_ends, double* m2, int64_t B,
                                void* stream) {
-  return launch_moments<false, true>(x, nullptr, nullptr, mean_x, nullptr,
-                                     aug_starts, aug_ends, m2, nullptr, B, stream);
+  return launch_moments<false, true, false>(x, nullptr, nullptr, nullptr, mean_x, nullptr,
+                                            aug_starts, aug_ends, m2, nullptr, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -676,4 +712,142 @@ RMI_API int rmi_aug_fit_log_moments(const double* x, const int32_t* y,
   if (capacity < 0 || n < 0) return (int)cudaErrorInvalidValue;
   return launch_fit<Form::kLog>(x, y, aug_starts, aug_ends, n, out, B, scratch, capacity,
                                 (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// rmi_aug_fit_sums: the first pass of the two fit entries above alone, for
+// the data-parallel build (parallel/dp_trainer.py), whose leaves' means
+// are sums over every rank's clip of a leaf's augmented range, added
+// across ranks before the centered pass (K2 above, given those means).
+// Per range [aug_starts[j], aug_ends[j]) of one rank's shard, out [3, B]:
+//   form 0 (linear family)  cnt, sum x, sum y
+//   form 1 (normal)         cnt, sum x, 0
+//   form 2 (loglinear)      the count of keys whose ln y is finite, their
+//                           sum x and sum ln y
+// cnt the range's length, sum y the int32 targets added in int64 (exact)
+// and converted once, every sum in chunk_sums' order, a long range's
+// chunks combined in chunk order as rmi_aug_fit_moments does (same
+// schedule, same bits wherever a slot lands).
+//
+// Replaces the eager chain the dp build ran for these sums
+// (rmi_tpu/parallel/dp_trainer.py:321-333 and :374-380, _dist_slr_leaves
+// and _dist_fit_ncdf_leaves through global_range_sum: an f64 prefix sum
+// of each summed value over the whole shard, taken as differences at the
+// clip's bounds; for loglinear leaves also ln y, its weights and their
+// products, [m] f64 arrays): x and y read once, nothing [m]-sized
+// written.  Bound on the H100: memory, x (8 B) and y (4 B) a key over the
+// clips (x alone in form 1) and 24 B of output a leaf; the log form takes
+// ln y a key, ~32 f64 instructions (rmi_aug_fit_log_moments' header).
+// ---------------------------------------------------------------------------
+namespace {
+
+template <Form F>
+__device__ __forceinline__ void write_sums(double* __restrict__ out, int64_t B, int64_t j,
+                                           const Sums& s, int64_t len) {
+  out[j] = F == Form::kLog ? (double)s.y : (double)len;
+  out[B + j] = s.x;
+  out[2 * B + j] = F == Form::kLog ? s.ln : (F == Form::kXy ? (double)s.y : 0.0);
+}
+
+// (1) a warp a range: one of at most kChunk keys whole, a longer one
+// scheduled, or summed chunk by chunk by its own warp where the schedule is
+// full (each chunk's sums added into lane (chunk % 32), as (3) adds them)
+template <Form F>
+__global__ void __launch_bounds__(kFitThreads)
+sums_leaves(const double* __restrict__ x, const int32_t* __restrict__ y,
+            const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+            double* __restrict__ out, int64_t B, Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t j = warp; j < B; j += nwarps) {      // warp-uniform
+    const int64_t lo = aug_starts[j], hi = aug_ends[j];
+    if (hi - lo <= kChunk) {
+      const Sums s = chunk_sums<F>(x, y, lo, hi, lane);
+      if (lane == 0) write_sums<F>(out, B, j, s, hi - lo);
+      continue;
+    }
+    const int64_t nch = chunks_of(hi - lo);
+    unsigned long long base = 0;
+    if (lane == 0) {
+      base = atomicAdd(reinterpret_cast<unsigned long long*>(sched.taken),
+                       (unsigned long long)nch);
+    }
+    const int64_t first = (int64_t)__shfl_sync(RMI_FULL_MASK, base, 0);
+    const bool room = first + nch <= sched.capacity;
+    for (int64_t k = lane; k < nch && first + k < sched.capacity; k += 32) {
+      sched.leaf[first + k] = room ? j : -1;
+      sched.chunk[first + k] = k;
+    }
+    if (room) continue;
+    Sums a;
+    for (int64_t k = 0; k < nch; ++k) {
+      const Sums s = chunk_sums<F>(x, y, lo + k * kChunk, min(hi, lo + (k + 1) * kChunk), lane);
+      if ((k & 31) == lane) {
+        a.x += s.x;
+        a.ln += s.ln;
+        a.y += s.y;
+      }
+    }
+    const Sums s = warp_sums<F>(a);
+    if (lane == 0) write_sums<F>(out, B, j, s, hi - lo);
+  }
+}
+
+// (3) each scheduled range's sums, its chunks' in chunk order ((2) is
+// fit_chunk_sums above)
+template <Form F>
+__global__ void __launch_bounds__(kFitThreads)
+sums_totals(const int64_t* __restrict__ aug_starts, const int64_t* __restrict__ aug_ends,
+            double* __restrict__ out, int64_t B, Schedule sched) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int64_t slots = sched.slots();
+  for (int64_t w = warp; w < slots; w += nwarps) {
+    const int64_t j = sched.leaf[w];
+    if (j < 0 || sched.chunk[w] != 0) continue;
+    const int64_t len = aug_ends[j] - aug_starts[j], nch = chunks_of(len);
+    Sums s;
+    s.x = chunk_order_sum(sched.sx + w, nch, lane);
+    if constexpr (F != Form::kXx) s.y = chunk_order_sum(sched.sy + w, nch, lane);
+    if constexpr (F == Form::kLog) s.ln = chunk_order_sum(sched.sln + w, nch, lane);
+    if (lane == 0) write_sums<F>(out, B, j, s, len);
+  }
+}
+
+template <Form F>
+int launch_sums(const double* x, const int32_t* y, const int64_t* aug_starts,
+                const int64_t* aug_ends, double* out, int64_t B, int64_t* scratch,
+                int64_t capacity, cudaStream_t s) {
+  const Schedule sched(scratch, capacity);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int64_t), s);
+  if (err != cudaSuccess) return (int)err;
+  sums_leaves<F><<<rmi_grid(B * 32, kFitThreads), kFitThreads, 0, s>>>(x, y, aug_starts,
+                                                                       aug_ends, out, B, sched);
+  if (capacity > 0) {
+    const int64_t blocks = rmi_grid(capacity * 32, kFitThreads);
+    const unsigned int g = blocks < kLongBlocks ? (unsigned int)blocks : kLongBlocks;
+    fit_chunk_sums<F><<<g, kFitThreads, 0, s>>>(x, y, aug_starts, aug_ends, sched);
+    sums_totals<F><<<g, kFitThreads, 0, s>>>(aug_starts, aug_ends, out, B, sched);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out [3, B]; scratch 1 + 7 * capacity int64 (ops/select_kernel.fit_capacity
+// of the shard); y unread (may be empty) for form 1; an unknown form is
+// refused
+RMI_API int rmi_aug_fit_sums(const double* x, const int32_t* y, const int64_t* aug_starts,
+                             const int64_t* aug_ends, int64_t form, double* out, int64_t B,
+                             int64_t* scratch, int64_t capacity, void* stream) {
+  if (form < 0 || form > 2 || capacity < 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 1)
+    return launch_sums<Form::kXx>(x, y, aug_starts, aug_ends, out, B, scratch, capacity, s);
+  if (form == 2)
+    return launch_sums<Form::kLog>(x, y, aug_starts, aug_ends, out, B, scratch, capacity, s);
+  return launch_sums<Form::kXy>(x, y, aug_starts, aug_ends, out, B, scratch, capacity, s);
 }

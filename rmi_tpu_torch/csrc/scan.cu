@@ -201,6 +201,17 @@ RMI_API int rmi_scan_i32(const int32_t* v, int32_t* out, int64_t n,
 // (changed ? i : 0) by shuffles from the round before's.  One launch, no
 // scratch, the same result in any order of the blocks; a max never
 // rounds, so it is bit-equal to the plain version.
+//
+// rmi_fixdups_carry is the same pass over one rank's shard in the
+// data-parallel build (parallel/dp_trainer.py:dist_fixdups), its
+// results global: out[i] = offset + p for a key whose run starts at
+// shard position p > 0, and *first, the global start of the shard's
+// first run, for the keys of that run (p = 0), which may have begun on
+// the ranks before (a run can span several shards, or a whole one).  It
+// replaces the eager chain the dp build ran there (rmi_tpu's
+// dist_fixdups, rmi_tpu/parallel/dp_trainer.py:137: a compare, an int32
+// arange, a select, K1's running max and a maximum with the carry, five
+// [m] passes, three of them writes), with the same bytes as rmi_fixdups.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -231,9 +242,13 @@ __device__ int64_t run_start(const int64_t* __restrict__ keys, int64_t s, int la
   }
 }
 
+// kCarry: out = offset + p where p > 0, *first where p = 0 (the shard form)
+template <bool kCarry>
 __global__ void __launch_bounds__(kFixdupsThreads)
-fixdups(const int64_t* __restrict__ keys, int32_t* __restrict__ out, int64_t n) {
+fixdups(const int64_t* __restrict__ keys, int32_t* __restrict__ out, int64_t n,
+        int64_t offset, const int64_t* __restrict__ first) {
   const int lane = threadIdx.x & 31;
+  const int64_t head = kCarry ? __ldg(first) : 0;   // the first run's global start
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   for (int64_t s = warp * kFixdupsWarpKeys; s < n; s += nwarps * kFixdupsWarpKeys) {
@@ -261,7 +276,7 @@ fixdups(const int64_t* __restrict__ keys, int32_t* __restrict__ out, int64_t n) 
           if (lane >= off) v = max(v, o);
         }
         v = max(v, running);
-        if (i < e) out[i] = (int32_t)v;
+        if (i < e) out[i] = (int32_t)(kCarry ? (v == 0 ? head : v + offset) : v);
         running = __shfl_sync(RMI_FULL_MASK, v, 31);
         last = __shfl_sync(RMI_FULL_MASK, k[u], 31);
       }
@@ -277,8 +292,23 @@ RMI_API int rmi_fixdups(const int64_t* keys, int32_t* out, int64_t n, void* stre
   if (n < 0 || n > ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int64_t warps = (n + kFixdupsWarpKeys - 1) / kFixdupsWarpKeys;
-    fixdups<<<rmi_grid(warps * 32, kFixdupsThreads), kFixdupsThreads, 0,
-              (cudaStream_t)stream>>>(keys, out, n);
+    fixdups<false><<<rmi_grid(warps * 32, kFixdupsThreads), kFixdupsThreads, 0,
+                     (cudaStream_t)stream>>>(keys, out, n, 0, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// a shard of n sorted key images whose first lies at global index offset;
+// first[0] the global start of its first run; offset + n at most 2^31, or
+// refused with cudaErrorInvalidValue
+RMI_API int rmi_fixdups_carry(const int64_t* keys, int32_t* out, int64_t n, int64_t offset,
+                              const int64_t* first, void* stream) {
+  if (n < 0 || offset < 0 || offset + n > ((int64_t)1 << 31) || first == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int64_t warps = (n + kFixdupsWarpKeys - 1) / kFixdupsWarpKeys;
+    fixdups<true><<<rmi_grid(warps * 32, kFixdupsThreads), kFixdupsThreads, 0,
+                    (cudaStream_t)stream>>>(keys, out, n, offset, first);
   }
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,16 @@
 //                       and writes the chosen row and its case
 //                       (choose_candidates), so the top's fit is two
 //                       launches with no host step between them;
+//   rmi_top_l1_partial  the same two sums over one rank's shard of the keys
+//                       in the data-parallel build, without the choice: the
+//                       shard's partial sums in the same fixed tree, which
+//                       parallel/dp_trainer.py adds across ranks in rank
+//                       order before it chooses (rmi_tpu's
+//                       _dist_fit_cubic_top, rmi_tpu/parallel/
+//                       dp_trainer.py:275, sums the two [m] error arrays in
+//                       XLA; the port's dp build took the scaled targets, two
+//                       predictions, their errors and two prefix sums in
+//                       eager torch, [m] f64 arrays all);
 //   rmi_top_assign      t[i] = min(B - 1, predict_to_int(top(x[i]))), int32:
 //                       each key's leaf (two_layer.rs:49).
 //
@@ -349,9 +359,9 @@ top_l1_blocks(const double* __restrict__ x, const int32_t* __restrict__ y, int64
 
 // pass 2, one block: thread k adds the partials of blocks k, k + kThreads,
 // ... in order, then the block's tree; sums[0] cubic, sums[1] linear;
-// then the choice (models/cubic.py choose_candidates and fit_cubic_aux's
-// case): row the cubic, or the spline as (0, 0, slope, intercept) where
-// l < c, and its case
+// then, where row is given, the choice (models/cubic.py choose_candidates
+// and fit_cubic_aux's case): row the cubic, or the spline as (0, 0, slope,
+// intercept) where l < c, and its case
 __global__ void __launch_bounds__(kThreads)
 top_l1_total(const double* __restrict__ partials, int64_t blocks,
              const double* __restrict__ cand, double* __restrict__ sums,
@@ -365,6 +375,7 @@ top_l1_total(const double* __restrict__ partials, int64_t blocks,
   if (threadIdx.x == 0) {
     sums[0] = sc;
     sums[1] = sl;
+    if (row == nullptr) return;
     const bool use_lin = sl < sc;
 #pragma unroll
     for (int k = 0; k < 4; ++k) row[k] = cand[kCubicRow + k];
@@ -500,6 +511,21 @@ RMI_API int rmi_top_l1_cubic(const double* x, const int32_t* y, int64_t n, doubl
       x, y, n, sf, scale_targets != 0, cand, partials);
   top_l1_total<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, blocks, cand, sums, row,
                                                          top_case);
+  return (int)cudaGetLastError();
+}
+
+// sums[0] (cubic) and sums[1] (linear) over the n keys of one shard, as
+// rmi_top_l1_cubic takes them but with no choice: n may be 0 (sums 0.0);
+// partials as rmi_top_l1_cubic's
+RMI_API int rmi_top_l1_partial(const double* x, const int32_t* y, int64_t n, double sf,
+                               int64_t scale_targets, const double* cand, double* partials,
+                               int64_t capacity, double* sums, void* stream) {
+  const int64_t blocks = l1_blocks(n);
+  if (n < 0 || capacity < blocks) return (int)cudaErrorInvalidValue;
+  top_l1_blocks<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      x, y, n, sf, scale_targets != 0, cand, partials);
+  top_l1_total<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, blocks, cand, sums, nullptr,
+                                                         nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,16 @@
 Counterpart of rmi_tpu/ops/scan_kernel.py.  ``fixdups`` is the build's
 first-occurrence index (train/two_layer.fixdups_i32): one launch of
 rmi_fixdups over the sorted keys, where rmi_tpu runs the scan over
-where(changed, i, 0) (rmi_tpu/train/two_layer.py:77-84).  ``scan_i32``
-(rmi_scan_i32) serves the data-parallel build's scans across shards
-(parallel/dp_trainer.py); the run lengths' reverse cummin is taken per
-leaf off each run's last key instead (ops/sweep_kernel.py:span_run_max),
-with this kernel's plain version in that pass's plain version.
+where(changed, i, 0) (rmi_tpu/train/two_layer.py:77-84).
+``fixdups_carry`` is the same over one rank's shard in the data-parallel
+build (parallel/dp_trainer.dist_fixdups), its indices global, the run
+continuing in from the ranks before given as a carry: one launch of
+rmi_fixdups_carry.  ``scan_i32`` (rmi_scan_i32) takes the dp build's
+running max and min across the ranks' carries, and its primitive
+dist_run_bounds; the run lengths' reverse cummin is taken per leaf off
+each run's last key instead (ops/sweep_kernel.py:span_run_max and
+span_run_max_carry), with this kernel's plain version in that pass's
+plain version.
 """
 
 from __future__ import annotations
@@ -60,9 +65,7 @@ def fixdups(keys: torch.Tensor) -> torch.Tensor:
     sorted int64 images ``keys`` (FixDups, models/mod.rs:143-185),
     bit-equal to the plain version: one launch of rmi_fixdups on the
     card, none for no keys."""
-    if keys.dtype != torch.int64 or keys.dim() != 1:
-        raise ValueError(f"fixdups: want 1-D int64 key images, got {keys.dtype} "
-                         f"{tuple(keys.shape)}")
+    _check_keys("fixdups", keys)
     n = keys.shape[0]
     if n > 1 << 31:
         raise ValueError("fixdups: int32 indices hold at most 2^31 keys")
@@ -71,3 +74,45 @@ def fixdups(keys: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return torch.empty(0, dtype=torch.int32, device=keys.device)
     return _build.launch("rmi_fixdups", keys, n, n)
+
+
+def _check_keys(name, keys):
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError(f"{name}: want 1-D int64 key images, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+
+
+def fixdups_carry_plain(keys: torch.Tensor, offset: int, continues: torch.Tensor,
+                        carry: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version, the data-parallel build's eager chain:
+    the running max of where(changed, offset + i, 0), the shard's first key
+    a change unless ``continues``, then its maximum with ``carry``."""
+    m = keys.shape[0]
+    changed = torch.ones(m, dtype=torch.bool, device=keys.device)
+    torch.ne(keys[1:], keys[:-1], out=changed[1:])
+    changed[:1] = ~continues
+    starts = torch.where(changed, torch.arange(offset, offset + m, dtype=torch.int32,
+                                               device=keys.device), 0)
+    return torch.maximum(scan_i32_plain(starts, is_max=True), carry)
+
+
+def fixdups_carry(keys: torch.Tensor, offset: int, continues: torch.Tensor,
+                  carry: torch.Tensor) -> torch.Tensor:
+    """[m] int32: FixDups of one rank's shard of the sorted key images, in
+    global indices: the shard's first key lies at global index ``offset``,
+    ``continues`` (a bool [1]) says whether it equals the last key of the
+    rank before, and ``carry`` (int32 [1] or scalar) is the global start of
+    the run in progress at the end of the ranks before (at most offset - 1;
+    0 on rank 0).  Bit-equal to the plain version: one launch of
+    rmi_fixdups_carry on the card, its first run's start where(continues,
+    carry, offset) handed over on the card, none for no keys."""
+    _check_keys("fixdups_carry", keys)
+    m = keys.shape[0]
+    if offset < 0 or offset + m > 1 << 31:
+        raise ValueError("fixdups_carry: int32 indices hold at most 2^31 keys")
+    if keys.is_cpu:
+        return fixdups_carry_plain(keys, offset, continues, carry)
+    if m == 0:
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
+    first = torch.where(continues, carry.long(), offset).reshape(1)
+    return _build.launch("rmi_fixdups_carry", keys, m, m, int(offset), first)

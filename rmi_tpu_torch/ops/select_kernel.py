@@ -13,9 +13,14 @@ the loglinear leaf fit whole (ln y and its 0/1 weight taken per key from
 the same int32 targets, then the weighted count, means and moments);
 ``aug_centered_moments`` launches ``rmi_aug_moments`` or, given 0/1
 weights, ``rmi_aug_moments_weighted`` (``has_w``, loglinear leaves) on
-means made outside; ``aug_centered_xx`` launches ``rmi_aug_moments_xx``
-(``xx_only``: the variance of x alone).  The data-parallel build
-(parallel/dp_trainer.py), whose sums cross ranks, keeps the last two.
+means made outside, y an f64 tensor or the int32 FixDups targets
+themselves (with ``log``, the weighted regression of ln y, its weights
+taken per key); ``aug_centered_xx`` launches ``rmi_aug_moments_xx``
+(``xx_only``: the variance of x alone); ``aug_fit_sums`` launches
+``rmi_aug_fit_sums``, the fit entries' first pass alone.  The
+data-parallel build (parallel/dp_trainer.py), whose sums cross ranks,
+takes the last three: each leaf's sums over the rank's clip, added across
+ranks, then its centered moments about the global means over the clip.
 """
 
 from __future__ import annotations
@@ -58,10 +63,13 @@ def span_elements(starts, ends):
 
 
 def aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
-                               weights=None):
+                               weights=None, log=False):
     """The plain PyTorch version of K2 and K2 weighted: the same terms,
     expanded per element of each augmented range and summed per leaf
-    with index_add_; a weighted term is the product times its weight."""
+    with index_add_; a weighted term is the product times its weight.
+    int32 targets ``y`` take target_terms(y, log) first."""
+    if y.dtype == torch.int32:
+        y, weights = target_terms(y, log)
     leaf, elem = span_elements(aug_starts, aug_ends)
     dx = x[elem] - mean_x[leaf]
     xx, xy = dx * dx, dx * (y[elem] - mean_y[leaf])
@@ -72,26 +80,55 @@ def aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
     return m2, torch.zeros_like(mean_x).index_add_(0, leaf, xy)
 
 
+def target_terms(y, log: bool = False):
+    """(y as f64, weights or None) of int32 FixDups targets ``y``: the
+    targets themselves, or with ``log`` models/linear.log_targets of them
+    (ln y, 0 where not finite, and its 0/1 weights)."""
+    if log:
+        return _log_targets(y)
+    return y.double(), None
+
+
 def aug_centered_moments(x, y, mean_x, mean_y, aug_starts, aug_ends, *,
-                         weights=None):
+                         weights=None, log=False):
     """(m2, c) [B] f64: per leaf j, sum (x - mean_x[j])^2 and
     sum (x - mean_x[j]) (y - mean_y[j]) over [aug_starts[j], aug_ends[j]),
     each term times weights[i] when 0/1 ``weights`` are given
-    (``rmi_aug_moments_weighted``, else ``rmi_aug_moments``).  Sums
-    differ from the plain version's by summation order only."""
-    named = [("x", x), ("y", y), ("mean_x", mean_x), ("mean_y", mean_y),
-             ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
-    if weights is not None:
-        named.append(("weights", weights))
+    (``rmi_aug_moments_weighted``, else ``rmi_aug_moments``).  ``y`` is
+    f64, or the int32 FixDups targets, which the kernel reads in place of
+    an f64 copy: as doubles, or with ``log`` (no ``weights``: they are
+    taken per key) as target_terms(y, log=True) gives them, weighted.
+    Sums differ from the plain version's by summation order only."""
+    targets = y is not None and y.dtype == torch.int32
+    if targets:
+        if weights is not None or y.shape != x.shape:
+            raise ValueError("aug_centered_moments: int32 targets take no weights and "
+                             "are shaped like x")
+        named = [("x", x), ("mean_x", mean_x), ("mean_y", mean_y),
+                 ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
+    else:
+        if log:
+            raise ValueError("aug_centered_moments: log takes the int32 targets")
+        named = [("x", x), ("y", y), ("mean_x", mean_x), ("mean_y", mean_y),
+                 ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
+        if weights is not None:
+            named.append(("weights", weights))
     _check("aug_centered_moments", named, _PER_LEAF)
     if x.is_cpu:
-        return aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts,
-                                          aug_ends, weights=weights)
+        return aug_centered_moments_plain(x, y, mean_x, mean_y, aug_starts, aug_ends,
+                                          weights=weights, log=log)
     B = mean_x.shape[0]
-    if weights is None:
-        return _build.launch("rmi_aug_moments", x, y, mean_x, mean_y, aug_starts,
+    f64, i32 = (torch.empty(0, dtype=t, device=x.device) for t in (torch.float64, torch.int32))
+    if targets:
+        if log:
+            return _build.launch("rmi_aug_moments_weighted", x, f64, f64, y, mean_x, mean_y,
+                                 aug_starts, aug_ends, B, B, B)
+        return _build.launch("rmi_aug_moments", x, f64, y, mean_x, mean_y, aug_starts,
                              aug_ends, B, B, B)
-    return _build.launch("rmi_aug_moments_weighted", x, y, weights, mean_x, mean_y,
+    if weights is None:
+        return _build.launch("rmi_aug_moments", x, y, i32, mean_x, mean_y, aug_starts,
+                             aug_ends, B, B, B)
+    return _build.launch("rmi_aug_moments_weighted", x, y, weights, i32, mean_x, mean_y,
                          aug_starts, aug_ends, B, B, B)
 
 
@@ -223,12 +260,109 @@ def aug_fit_log_moments(x, y, aug_starts, aug_ends):
     return out.unbind(0)
 
 
+# rmi_aug_fit_sums' forms (csrc/moments.cu)
+SUMS_FORMS = {"xy": 0, "xx": 1, "log": 2}
+
+
+def aug_fit_sums_plain(x, y, aug_starts, aug_ends, *, log=False):
+    """The plain PyTorch version, the data-parallel build's eager chain:
+    each summed value's f64 prefix sum over the whole shard (x; y as f64;
+    for ``log`` the weights, x and ln y times them), taken as differences
+    at the ranges' bounds; cnt the ranges' lengths, or the weights' sum."""
+    def sums(v):
+        c = seg.prefix_sum_exclusive(v)
+        return c[aug_ends] - c[aug_starts]
+    if log:
+        ln, w = _log_targets(y)
+        return sums(w), sums(x * w), sums(ln * w)
+    cnt = (aug_ends - aug_starts).double()
+    return cnt, sums(x), (torch.zeros_like(cnt) if y is None else sums(y.double()))
+
+
+def aug_fit_sums(x, y, aug_starts, aug_ends, *, log=False):
+    """(cnt, sum x, sum y) [B] f64 over each range [aug_starts[j],
+    aug_ends[j]) of x and the int32 FixDups targets ``y``: cnt the range's
+    length, sum y 0 where ``y`` is None; with ``log`` the sums of x and ln y
+    over the keys whose ln y is finite and their count.  The first pass of
+    aug_fit_moments and aug_fit_log_moments alone, for sums that cross
+    ranks.  On the card one launch of rmi_aug_fit_sums, its sum of y and
+    its counts exact, the same bits in every run, within fit_sums_tolerance
+    of the plain version; on the CPU the plain version."""
+    named = [("x", x), ("aug_starts", aug_starts), ("aug_ends", aug_ends)]
+    _check("aug_fit_sums", named, ("aug_starts", "aug_ends"))
+    if log and y is None:
+        raise ValueError("aug_fit_sums: the log form takes the int32 targets")
+    if y is not None and (y.dtype != torch.int32 or y.shape != x.shape):
+        raise ValueError("aug_fit_sums: y must be int32 shaped like x")
+    if x.is_cpu:
+        return aug_fit_sums_plain(x, y, aug_starts, aug_ends, log=log)
+    B = aug_starts.shape[0]
+    if B == 0:
+        return tuple(x.new_empty(0) for _ in range(3))
+    form = SUMS_FORMS["log" if log else ("xx" if y is None else "xy")]
+    if y is None:
+        y = torch.empty(0, dtype=torch.int32, device=x.device)
+    capacity = fit_capacity(x.shape[0], B)
+    out, _ = _build.launch("rmi_aug_fit_sums", x, y, aug_starts, aug_ends, form, (3, B), B,
+                           1 + 7 * capacity, capacity)
+    return out.unbind(0)
+
+
 def scan_levels(n: int) -> int:
     """Levels of segments._row_scan over n values (rows of 1024)."""
     levels = 1
     while n > 1024:
         n, levels = -(-n // 1024), levels + 1
     return levels
+
+
+def _sum_tol(v, w, lo, hi, kernel_ulps):
+    """How far a kernel's sum of v (times w, where given) over each range
+    [lo, hi) may lie from the plain version's prefix-sum difference: 2^11
+    L u P on the plain side (fit_tolerance says why), kernel_ulps u of the
+    range's sum of |v| on the kernel's."""
+    a = (v.double() if w is None else v * w).abs()
+    total = float(a.sum())
+    s_abs = seg.range_sum(a, lo, hi).abs()
+    return 2048 * scan_levels(v.shape[0]) * _U * total + kernel_ulps * _U * s_abs
+
+
+def fit_sums_tolerance(x, y, aug_starts, aug_ends, want, log=False):
+    """Per-range tolerances of aug_fit_sums on the card against its plain
+    version's outputs ``want`` (cnt, sum x, sum y), as fit_tolerance
+    derives them for the sums before its means: the counts exact on both
+    sides, the sum of y exact in the kernel (the log form's sum of ln y
+    within (cnt + 2) u, an ulp of each ln y allowed), the plain sums within
+    2^11 L u P of the exact ones, the kernel's within cnt u S."""
+    lo, hi = aug_starts, aug_ends
+    cnt = want[0]
+    zero = torch.zeros_like(cnt)
+    if y is None:
+        return [zero, _sum_tol(x, None, lo, hi, cnt), zero]
+    yv, w = target_terms(y, log)
+    return [zero, _sum_tol(x, w, lo, hi, cnt), _sum_tol(yv, w, lo, hi, cnt + 2 if log else 0.0)]
+
+
+def centered_tolerance(x, y, mean_x, mean_y, aug_starts, aug_ends, want, log=False):
+    """Per-leaf tolerances of aug_centered_moments on int32 targets (K2's
+    dp calls, given the means) against its plain version's ``want`` (m2,
+    c): the two sides take the same means, so they differ by summation
+    alone, each within cnt u of the sum of |term| (m2, and at most
+    sqrt(m2 syy) for c, syy the y variance sum), and in the log form by an
+    ulp of each ln y where CUDA's log and the plain version's differ, 2 u
+    sum w |x - mean_x| |ln y| in c."""
+    lo, hi = aug_starts, aug_ends
+    yv, w = target_terms(y, log)
+    cnt = (hi - lo).double()
+    m2, c = want
+    syy = aug_centered_moments_plain(yv, yv, mean_y, mean_y, lo, hi, weights=w)[0]
+    tm2 = (2 * cnt + 4) * _U * m2.abs()
+    tc = (2 * cnt + 4) * _U * torch.sqrt(m2.clamp(min=0) * syy.clamp(min=0))
+    if log:
+        leaf, elem = span_elements(lo, hi)
+        dx_ln = ((x[elem] - mean_x[leaf]) * yv[elem] * w[elem]).abs()
+        tc = tc + 2 * _U * torch.zeros_like(tc).index_add_(0, leaf, dx_ln)
+    return [tm2, tc]
 
 
 def fit_tolerance(x, y, aug_starts, aug_ends, want, log_form=False):
@@ -251,7 +385,6 @@ def fit_tolerance(x, y, aug_starts, aug_ends, want, log_form=False):
     (CUDA's against glibc's on the CPU), which moves the sum of ln y by
     2 u S and c by 2 u sum w |x - mean_x| |ln y|."""
     n, lo, hi = x.shape[0], aug_starts, aug_ends
-    levels = scan_levels(n)
     if log_form:
         ln, w = _log_targets(y)
         cnt = want[0]
@@ -262,11 +395,7 @@ def fit_tolerance(x, y, aug_starts, aug_ends, want, log_form=False):
     safe = cnt.clamp(min=1.0)
 
     def mean_tol(v, mean, kernel_ulps):
-        a = (v.double() if w is None else v * w).abs()
-        total = float(a.sum())
-        s_abs = seg.range_sum(a, lo, hi).abs()
-        tol = 2048 * levels * _U * total + kernel_ulps * _U * s_abs
-        return tol / safe + 4 * _U * mean.abs()
+        return _sum_tol(v, w, lo, hi, kernel_ulps) / safe + 4 * _U * mean.abs()
 
     tx = mean_tol(x, want[0], cnt)
     m2 = want[-2] if y is not None else want[1]

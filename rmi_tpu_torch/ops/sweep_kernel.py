@@ -6,7 +6,9 @@ csrc/run_max.cu, both walking csrc/span_max.cuh).
 sweep_errors fused with the segmented max that follows it
 (rmi_tpu/train/two_layer.py:337-338), one C entry point per leaf kernel:
 linear, cubic, loglinear and normal.  ``span_run_max`` is the longest
-duplicate run per leaf (two_layer.py:339-341 of rmi_tpu).  Neither
+duplicate run per leaf (two_layer.py:339-341 of rmi_tpu), and
+``span_run_max_carry`` the same over one rank's shard in the
+data-parallel build (rmi_tpu/parallel/dp_trainer.py:151 and :730).  None
 writes a per-key array.  ``sweep_errors`` is the per-key definition,
 plain PyTorch on any device, that rmi_tpu's sweep_errors is held to.
 
@@ -143,4 +145,65 @@ def span_run_max(keys, yfix, starts, ends) -> torch.Tensor:
     longest_run = torch.zeros(B, dtype=torch.int32, device=keys.device)
     _build.launch("rmi_span_run_max", keys, yfix, starts, ends, longest_run, B,
                   keys.shape[0])
+    return longest_run
+
+
+def shard_run_ends(keys, offset: int, total: int, continues, carry, scan) -> torch.Tensor:
+    """[m] int32: the global last index of each key's duplicate run in one
+    rank's shard of the sorted keys (its first key at global index
+    ``offset``, of ``total`` keys in all): ``scan`` (K1 or its plain
+    version) takes the reverse running min of where(ends, offset + i,
+    total - 1), the shard's last key a run's end unless ``continues`` (a
+    bool [1]: it equals the next rank's first key), then its minimum with
+    ``carry`` (int32: the first run end of the ranks after, total - 1 past
+    the last)."""
+    m = keys.shape[0]
+    ends = torch.ones(m, dtype=torch.bool, device=keys.device)
+    torch.ne(keys[1:], keys[:-1], out=ends[:-1])
+    ends[-1:] = ~continues
+    gidx = torch.arange(offset, offset + m, dtype=torch.int32, device=keys.device)
+    local = scan(torch.where(ends, gidx, total - 1))
+    return torch.minimum(local, carry)
+
+
+def span_run_max_carry_plain(keys, yfix, starts, ends, offset: int, total: int, continues,
+                             carry) -> torch.Tensor:
+    """The plain PyTorch version, the data-parallel build's eager chain:
+    each key's run end (shard_run_ends), its run length where that end is
+    below total - 1 and the key is not a pad (global index below total),
+    0 elsewhere, then the plain segmented max over the spans."""
+    run_end = shard_run_ends(keys, offset, total, continues, carry, lambda v: (
+        scan_kernel.scan_i32_plain(v, is_max=False, reverse=True)))
+    gidx = torch.arange(offset, offset + keys.shape[0], dtype=torch.int32,
+                        device=keys.device)
+    counted = torch.where((run_end < total - 1) & (gidx < total), run_end - yfix + 1, 0)
+    return seg.range_max(counted, starts, ends, 0)
+
+
+def span_run_max_carry(keys, yfix, starts, ends, offset: int, total: int, continues,
+                       carry) -> torch.Tensor:
+    """longest_run [B] int32: per leaf j the longest duplicate run among the
+    keys of its clip [starts[j], ends[j]) of one rank's shard of the sorted
+    int64 ``keys`` (shard positions; the shard's first key at global index
+    ``offset``, ``total`` keys in all), 0 if it has none, the array's final
+    run counting 0.  ``yfix`` holds the global run starts (fixdups_carry);
+    ``continues`` and ``carry`` are shard_run_ends'.  The kernel reads a
+    run's length off its last key, offset + i - yfix[i] + 1, and the
+    shard's last key's run end off min(where(continues, total - 1, offset +
+    m - 1), carry), handed over on the card: equal to the plain version
+    (integers), as span_run_max is to its own."""
+    _check_keys("span_run_max_carry", keys, yfix, torch.int64)
+    _check_spans("span_run_max_carry", starts, ends)
+    m = keys.shape[0]
+    if offset < 0 or offset + m >= 2**31 or not 1 <= total < 2**31:
+        raise ValueError("span_run_max_carry: global indices must lie below 2^31")
+    if keys.is_cpu:
+        return span_run_max_carry_plain(keys, yfix, starts, ends, offset, total, continues,
+                                        carry)
+    B = starts.shape[0]
+    longest_run = torch.zeros(B, dtype=torch.int32, device=keys.device)
+    last_end = torch.minimum(torch.where(continues, total - 1, offset + m - 1),
+                             carry.long()).reshape(1)
+    _build.launch("rmi_span_run_max_carry", keys, yfix, starts, ends, longest_run, B, m,
+                  int(offset), int(total), last_end)
     return longest_run

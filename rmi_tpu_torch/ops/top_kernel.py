@@ -13,6 +13,10 @@ assignment, each a launch over the keys with no host step between them.
                         the FixDups positions scaled in the kernel, the
                         chosen row and its case: rmi_top_l1_cubic, or
                         top_l1_cubic_plain;
+  top_l1_partial        the same two sums over one rank's shard in the
+                        data-parallel build, which adds them across ranks
+                        and chooses: rmi_top_l1_partial, or
+                        top_l1_partial_plain (the dp build's eager chain);
   top_moments           the linear, robust_linear and normal tops' whole
                         fit from the FixDups positions: rmi_top_moments,
                         or top_moments_plain (the model's fit_top);
@@ -194,6 +198,41 @@ def top_l1_cubic(x, yfix, sf: float, cand):
                                        int(scales(sf)), cand, 2 * L1_BLOCKS, L1_BLOCKS, 2,
                                        (1, 4), 1)
     return sums, row, case
+
+
+def top_l1_partial_plain(x, yfix, sf: float, cand, hi: int):
+    """The plain PyTorch version, the data-parallel build's eager chain
+    (parallel/dp_trainer._dist_cubic over the top's one span): each
+    candidate's |pred - y| over the whole shard, y scaled_targets(yfix,
+    sf), its f64 prefix sum and the difference at [0, hi)."""
+    from rmi_tpu_torch.models.cubic import cubic_predict   # the models import this module
+    from rmi_tpu_torch.models.linear import linear_predict
+    y = scaled_targets(yfix, sf)
+    sums = [seg.prefix_sum_exclusive((predict(w, None, x) - y).abs_())
+            for predict, w in ((cubic_predict, cand[None, :4]), (linear_predict, cand[None, 4:6]))]
+    return torch.stack([c[hi] - c[0] for c in sums])
+
+
+def top_l1_partial(x, yfix, sf: float, cand, hi: int):
+    """sums [2] f64: top_l1_cubic's two sums (cubic, linear) over rows [0,
+    hi) of one rank's shard (its rows below n: the pads lie past them),
+    with no choice: the partials the data-parallel build adds across ranks
+    in rank order before choose_candidates.  On the card one launch of
+    rmi_top_l1_partial over x[:hi] and yfix[:hi] (hi may be 0), its sums in
+    rmi_top_l1_cubic's fixed tree, the same bits in every run, within
+    cubic_l1_kernel.sum_tolerance of the plain version's."""
+    _check_fit("top_l1_partial", x, yfix)
+    if x.dtype != torch.float64:
+        raise ValueError("top_l1_partial: x must be float64")
+    if cand.dtype != torch.float64 or cand.shape != (CAND,):
+        raise ValueError(f"top_l1_partial: cand must be a [{CAND}] float64 buffer")
+    if not 0 <= hi <= x.shape[0]:
+        raise ValueError(f"top_l1_partial: hi = {hi} outside [0, {x.shape[0]}]")
+    if x.is_cpu:
+        return top_l1_partial_plain(x, yfix, sf, cand, hi)
+    _, sums = _build.launch("rmi_top_l1_partial", x[:hi], yfix[:hi], hi, float(sf),
+                            int(scales(sf)), cand, 2 * L1_BLOCKS, L1_BLOCKS, 2)
+    return sums
 
 
 def top_span(top_type: str, n: int):

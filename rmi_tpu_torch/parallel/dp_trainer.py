@@ -5,8 +5,7 @@ The sorted key array is cut into one equal shard per rank (``local_shard``:
 rank r holds global rows [r m, (r + 1) m), the last shard padded with
 max-key sentinels), each rank calls ``dp_train_two_layer`` on its shard,
 and every rank gets the same index back.  Per-leaf [B] statistics are
-replicated; every pass over the keys runs on the rank's shard alone,
-with the port's kernels where the single-device build runs them, and
+replicated; every pass over the keys runs on the rank's shard alone and
 is joined by a few collectives:
 
   * ``global_range_sum``    sums over global ranges, from the shard's
@@ -15,20 +14,33 @@ is joined by a few collectives:
   * ``global_searchsorted`` local counts, summed (leaf ids and keys are
                             globally sorted);
 
-and the running max and min across shards (FixDups' run starts, the
-duplicate runs' ends) as the shard's own scan (kernel K1) plus a carry
-gathered from the other ranks.  Each leaf's sums are a rank's kernel
-call over its clip of the leaf's augmented span (K2 for the linear
-family and the normal models, K6 for cubic leaves), the partials added
-across ranks; the per-leaf maxima of the error sweep (K3) and of the
-counted duplicate runs are maxima across ranks; the epsilon probes
-(K4) and the metrics run on the replicated [B] statistics as in the
-single-device build (train/two_layer.final_errors).
+and the runs of equal keys that cross shards as carries: every rank's
+first and last key and the ends of its first and last run (shard_edges:
+two binary searches) gathered in one collective, the running max and min
+across the ranks taken by K1 over that [world] vector (run_carries).
+The passes over a rank's m keys are the port's kernels: FixDups
+with its carry (rmi_fixdups_carry), the normalization and the leaf
+assignment (stage A's), the cubic top's L1 sums over the shard's rows
+below n (rmi_top_l1_partial), each leaf's sums over its clip of the
+leaf's augmented span (rmi_aug_fit_sums: the linear family, loglinear
+and normal leaves) and, about the means those sums give once added
+across ranks, its centered moments over the clip (K2, reading the int32
+FixDups targets; K2 xx for the normal models), K6 for cubic leaves, the
+error sweep (K3) and the counted duplicate runs (rmi_span_run_max_carry)
+over the rank's clips; the partials are added across ranks, the maxima
+met in one all_reduce(MAX); the epsilon probes (K4) and the metrics run
+on the replicated [B] statistics as in the single-device build
+(train/two_layer.final_errors).  The pads are the shard's rows past n
+(a count, never a mask).  What stays eager over [m]: the one-span fits of
+the linear-family, loglinear, normal and lognormal tops (the scaled
+targets and whole-shard prefix sums), lognormal leaves' max(ln x, 0),
+and the radix and bradix tops' bit arithmetic.
 
 Floats are added in a fixed order, so a build over a fixed world and
 fixed shapes gives the same bits every time and on every rank: a
-shard's sums in its row-scan order (utils/segments.prefix_sum_exclusive)
-or its kernel's, and the ranks' partial sums gathered and added in rank
+shard's sums in its row-scan order (utils/segments.prefix_sum_exclusive,
+what the CPU runs: each kernel's plain version is that eager chain) or
+its kernel's, and the ranks' partial sums gathered and added in rank
 order (``DPGroup.sum_f64``).  Integer sums, maxima and the owner's
 value reduce with all_reduce, which is exact.  The sums group
 differently from the single-device build's, so the two agree to
@@ -37,8 +49,8 @@ rounding (rmi_tpu's dp tolerance).
 Collectives are plain all_reduce, all_gather and broadcast: gloo (the
 CPU, and ranks sharing a card) and NCCL take them on the ranks' tensors.
 Gloo's point-to-point operations take no CUDA tensors, so a neighbour's
-edge key comes from an all_gather of every rank's first and last key, not
-from rmi_tpu's ppermute.  Not ported (TPU workarounds): the shard_map
+edge key comes from the all_gather of shard_edges, not from rmi_tpu's
+ppermute.  Not ported (TPU workarounds): the shard_map
 shims, jit of the mapped core, and the hier_count ladder (a histogram's
 leaf is torch.searchsorted of the pivots).
 
@@ -51,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -59,9 +72,9 @@ from rmi_tpu_torch.keys import KeyType, u64_bits
 from rmi_tpu_torch.models import get_model, validate_spec
 from rmi_tpu_torch.models.base import kernel_input, model_float_input
 from rmi_tpu_torch.models.cubic import (candidates_from_slopes, choose_candidates,
-                                        cubic_predict, slopes_from_points)
+                                        slopes_from_points)
 from rmi_tpu_torch.models.histogram import build_radix_index
-from rmi_tpu_torch.models.linear import (_slr_from_moments, linear_predict, log_targets,
+from rmi_tpu_torch.models.linear import (_slr_from_moments, log_targets,
                                          spline_from_endpoints, trimmed)
 from rmi_tpu_torch.models.normal import _ln_or_zero
 from rmi_tpu_torch.models.radix import bradix_fit, common_prefix_size, num_bits
@@ -184,76 +197,85 @@ def global_searchsorted(sorted_local, queries, comm: DPGroup, side: str = "left"
     return comm.all_reduce(local.long(), SUM)
 
 
-def _carry_max(v, comm: DPGroup, fill):
-    """max(fill, v of every rank before this one), for a running max's
-    carry into this shard."""
-    allv = comm.all_gather(v.reshape(1))[:, 0]
-    before = torch.arange(comm.world, device=allv.device) < comm.rank
-    return torch.where(before, allv, torch.full_like(allv, fill)).max()
-
-
-def _carry_min_rev(v, comm: DPGroup, fill):
-    """min(fill, v of every rank after this one), for a reverse running
-    min's carry into this shard."""
-    allv = comm.all_gather(v.reshape(1))[:, 0]
-    after = torch.arange(comm.world, device=allv.device) > comm.rank
-    return torch.where(after, allv, torch.full_like(allv, fill)).min()
-
-
-def _edge_keys(keys_local, comm: DPGroup):
-    """[world, 2]: every rank's first and last key."""
-    return comm.all_gather(keys_local[[0, -1]])
-
-
-def _neighbor_last_key(keys_local, comm: DPGroup):
-    """The previous rank's last key (rank 0: the last rank's)."""
-    return _edge_keys(keys_local, comm)[(comm.rank - 1) % comm.world, 1]
-
-
-def _neighbor_first_key(keys_local, comm: DPGroup):
-    """The next rank's first key (the last rank: rank 0's)."""
-    return _edge_keys(keys_local, comm)[(comm.rank + 1) % comm.world, 0]
-
-
-def _global_idx(m: int, comm: DPGroup, device):
-    off = _offset(m, comm)
-    return torch.arange(off, off + m, dtype=torch.int32, device=device)
-
-
 # ---------------------------------------------------------------------------
-# distributed FixDups and duplicate runs
+# the runs that cross shards: FixDups and the duplicate runs
 # ---------------------------------------------------------------------------
 
-def dist_fixdups(keys_local, comm: DPGroup):
-    """Each key's global first-occurrence index, int32: K1's running max
-    of the run starts, with the carry of the shards before."""
+class Carries(NamedTuple):
+    """What a rank's runs of equal keys take from the other ranks."""
+    continues_left: torch.Tensor    # [1] bool: its first key is the previous rank's last
+    start: torch.Tensor             # int32: the global start of the run in progress at
+                                    # the end of the ranks before (0 on rank 0)
+    continues_right: torch.Tensor   # [1] bool: its last key is the next rank's first
+    end: torch.Tensor               # int32: the first run end of the ranks after (n - 1
+                                    # on the last)
+
+
+def shard_edges(keys_local):
+    """[4] int64 of one shard of sorted key images: its first and last
+    key, the position of its last run's first key and of its first run's
+    last key (two binary searches, no pass over the shard)."""
+    return torch.cat([keys_local[[0, -1]],
+                      torch.searchsorted(keys_local, keys_local[-1:]),
+                      torch.searchsorted(keys_local, keys_local[:1], right=True) - 1])
+
+
+def run_carries(edges, m: int, n: int, rank: int) -> Carries:
+    """Rank ``rank``'s Carries from every rank's shard_edges [world, 4]
+    (shards of m keys, n real ones in all): the running max of the ranks'
+    last run starts (each the global index of the last key at which a run
+    starts in the shard, 0 where none starts there: the value at its last
+    key of rmi_tpu's cummax of where(changed, i, 0)) before it, and the
+    running min of their first run ends (n - 1 where none ends in the
+    shard) after it, both K1 over the [world] values (exact: rmi_tpu's
+    _carry_max and _carry_min_rev)."""
+    world, dev = edges.shape[0], edges.device
+    first, last, last_start, first_end = edges.unbind(1)
+    off = torch.arange(world, device=dev) * m
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    cont_left = torch.cat([no, first[1:] == last[:-1]])
+    cont_right = torch.cat([last[:-1] == first[1:], no])
+    starts = torch.where((last_start > 0) | ~cont_left, off + last_start, 0).to(torch.int32)
+    ends = torch.where((first_end < m - 1) | ~cont_right, (off + first_end).clamp(max=n - 1),
+                       n - 1).to(torch.int32)
+    before = scan_kernel.scan_i32(starts, is_max=True, fill=0)
+    after = scan_kernel.scan_i32(ends, is_max=False, fill=INT32_MAX, reverse=True)
+    start = torch.cat([before.new_zeros(1), before[:-1]])[rank]
+    end = torch.cat([after[1:], after.new_full((1,), n - 1)])[rank]
+    return Carries(cont_left[rank:rank + 1], start, cont_right[rank:rank + 1], end)
+
+
+def dist_carries(keys_local, n: int, comm: DPGroup) -> Carries:
+    """This rank's Carries: shard_edges gathered in one collective, then
+    run_carries."""
+    return run_carries(comm.all_gather(shard_edges(keys_local)), keys_local.shape[0], n,
+                       comm.rank)
+
+
+def dist_fixdups(keys_local, comm: DPGroup, carries: Carries = None):
+    """Each key's global first-occurrence index, int32: one launch of
+    rmi_fixdups_carry (scan_kernel.fixdups_carry) with the run carried in
+    from the shards before."""
     m = keys_local.shape[0]
-    changed = torch.ones(m, dtype=torch.bool, device=keys_local.device)
-    torch.ne(keys_local[1:], keys_local[:-1], out=changed[1:])
-    left_last = _neighbor_last_key(keys_local, comm)
-    if comm.rank > 0:
-        changed[:1] = keys_local[:1] != left_last
-    starts = torch.where(changed, _global_idx(m, comm, keys_local.device), 0)
-    local = scan_kernel.scan_i32(starts, is_max=True, fill=0)
-    return torch.maximum(local, _carry_max(local[-1], comm, 0))
+    if carries is None:
+        carries = dist_carries(keys_local, m * comm.world, comm)
+    return scan_kernel.fixdups_carry(keys_local, _offset(m, comm), carries.continues_left,
+                                     carries.start)
 
 
-def dist_run_bounds(keys_local, run_start, n: int, comm: DPGroup):
+def dist_run_bounds(keys_local, run_start, n: int, comm: DPGroup, carries: Carries = None):
     """(run_start, run_end): the global first and last index of each key's
     duplicate run, int32, ``run_start`` being dist_fixdups' (rmi_tpu
-    scans it again); run_end is K1's reverse running min of the run ends,
-    n - 1 past the last shard."""
+    scans it again); run_end is K1's reverse running min of the run ends
+    with the carry of the shards after, n - 1 past the last shard.  The
+    build takes the per-leaf longest runs in one kernel instead
+    (sweep_kernel.span_run_max_carry)."""
     m = keys_local.shape[0]
-    gidx = _global_idx(m, comm, keys_local.device)
-    ends = torch.ones(m, dtype=torch.bool, device=keys_local.device)
-    torch.ne(keys_local[1:], keys_local[:-1], out=ends[:-1])
-    right_first = _neighbor_first_key(keys_local, comm)
-    if comm.rank < comm.world - 1:
-        ends[-1:] = keys_local[-1:] != right_first
-    rev = torch.where(ends, gidx, n - 1)
-    # INT32_MAX, min's identity: the kernel's result is the plain scan's
-    local = scan_kernel.scan_i32(rev, is_max=False, fill=INT32_MAX, reverse=True)
-    return run_start, torch.minimum(local, _carry_min_rev(local[0], comm, n - 1))
+    if carries is None:
+        carries = dist_carries(keys_local, n, comm)
+    return run_start, sweep_kernel.shard_run_ends(
+        keys_local, _offset(m, comm), n, carries.continues_right, carries.end,
+        lambda v: scan_kernel.scan_i32(v, is_max=False, fill=INT32_MAX, reverse=True))
 
 
 # ---------------------------------------------------------------------------
@@ -274,30 +296,13 @@ def _local_spans(spans: seg.Spans, t_local, m: int, comm: DPGroup) -> seg.Spans:
                      aug_ends=clip(spans.aug_ends), nonempty=lo < hi, n=m, B=spans.B)
 
 
-def _centered_sums(x, y, mean_x, mean_y, spans, local, comm, weights=None):
-    """(m2, c): sum (x - mx)^2 and sum (x - mx)(y - my) over each
-    augmented span, a term times its 0/1 weight when given.  Leaves: K2
-    over the rank's clip, the partials added across ranks; a top's one
-    span: the products summed over the whole array."""
-    if spans.B == 1:
-        a, b = spans.aug_starts, spans.aug_ends
-        dx, dy = x - mean_x[0], y - mean_y[0]
-        xx, xy = dx * dx, dx * dy
-        if weights is not None:
-            xx, xy = xx * weights, xy * weights
-        return tuple(_range_sums((xx, xy), a, b, comm))
-    m2, c = select_kernel.aug_centered_moments(x, y, mean_x, mean_y, local.aug_starts,
-                                               local.aug_ends, weights=weights)
-    return tuple(comm.sum_f64(torch.stack([m2, c])))
-
-
-def _dist_slr_leaves(x, y, spans, t_local, comm, weights=None, trim=False):
-    """Least squares (alpha, beta) [B, 2] per augmented span: linear,
-    robust_linear (``trim``) and, with 0/1 ``weights``, loglinear
-    (models/linear.py's fit, its sums across shards)."""
-    use = trimmed(spans) if trim else spans
-    local = _local_spans(use, t_local, x.shape[0], comm)
-    a, b = use.aug_starts, use.aug_ends
+def _dist_slr_top(x, y, spans, comm, weights=None):
+    """Least squares (alpha, beta) [1, 2] over a top's one span (or a
+    one-leaf layer's), ``y`` its f64 targets, with 0/1 ``weights`` for a
+    loglinear top: models/linear.py's fit in eager torch, its sums and
+    centered sums each an f64 prefix sum over the whole shard (ROADMAP: the
+    whole-array moments still to be a kernel's walk over a shard)."""
+    a, b = spans.aug_starts, spans.aug_ends
     if weights is None:
         cnt = (b - a).double()
         sx, sy = _range_sums((x, y), a, b, comm)
@@ -305,74 +310,117 @@ def _dist_slr_leaves(x, y, spans, t_local, comm, weights=None, trim=False):
         cnt, sx, sy = _range_sums((weights, x * weights, y * weights), a, b, comm)
     safe = cnt.clamp(min=1.0)
     mean_x, mean_y = sx / safe, sy / safe
-    m2, c = _centered_sums(x, y, mean_x, mean_y, use, local, comm, weights)
+    dx, dy = x - mean_x[0], y - mean_y[0]
+    xx, xy = dx * dx, dx * dy
+    if weights is not None:
+        xx, xy = xx * weights, xy * weights
+    m2, c = _range_sums((xx, xy), a, b, comm)
     return _slr_from_moments(cnt, mean_x, mean_y, m2, c)
 
 
-def _dist_fit_ncdf_leaves(xv, yf, spans, t_local, n: int, comm):
-    """(mean, biased stdev, scale) [B, 3] per augmented span of the
-    normal models (models/normal.py), ``xv`` their training input."""
-    local = _local_spans(spans, t_local, xv.shape[0], comm)
+def _dist_slr_leaves(x, yfix, spans, t_local, comm, trim=False, log=False):
+    """Least squares (alpha, beta) [B, 2] per augmented span of the int32
+    FixDups targets: linear, robust_linear (``trim``) and loglinear
+    (``log``: ln y over the keys where it is finite), models/linear.py's
+    fit with its sums across shards.  Each rank's clip gives its sums
+    (rmi_aug_fit_sums), added across ranks into the means, then its
+    centered moments about them (K2 on the targets), added too.  One span
+    (B = 1) takes _dist_slr_top."""
+    use = trimmed(spans) if trim else spans
+    if use.B == 1:
+        yf = yfix.double()
+        if log:
+            ln, w = log_targets(yf)
+            return _dist_slr_top(x, ln, use, comm, weights=w)
+        return _dist_slr_top(x, yf, use, comm)
+    local = _local_spans(use, t_local, x.shape[0], comm)
+    cnt, sx, sy = select_kernel.aug_fit_sums(x, yfix, local.aug_starts, local.aug_ends,
+                                             log=log)
+    if log:
+        cnt, sx, sy = comm.sum_f64(torch.stack([cnt, sx, sy]))
+    else:
+        sx, sy = comm.sum_f64(torch.stack([sx, sy]))
+        cnt = (use.aug_ends - use.aug_starts).double()
+    safe = cnt.clamp(min=1.0)
+    mean_x, mean_y = sx / safe, sy / safe
+    m2, c = comm.sum_f64(torch.stack(select_kernel.aug_centered_moments(
+        x, yfix, mean_x, mean_y, local.aug_starts, local.aug_ends, log=log)))
+    return _slr_from_moments(cnt, mean_x, mean_y, m2, c)
+
+
+def _dist_fit_ncdf_leaves(xv, yfix, spans, t_local, n: int, comm, sf: float = 1.0):
+    """(mean, biased stdev, scale) [B, 3] per augmented span of the normal
+    models (models/normal.py), ``xv`` their training input, the scale the
+    last target (``yfix`` scaled by ``sf``, a top's).  Leaves: each rank's
+    clip gives its sum of x (rmi_aug_fit_sums), added across ranks, then
+    its centered sum about the mean (K2 xx), added; one span in eager
+    torch (whole-shard prefix sums)."""
     cnt = (spans.aug_ends - spans.aug_starts).double()
     safe = cnt.clamp(min=1.0)
-    sx = global_range_sum(xv, spans.aug_starts, spans.aug_ends, comm)
-    mean = torch.where(cnt == 0, 0.0, sx / safe)
     if spans.B == 1:
+        sx = global_range_sum(xv, spans.aug_starts, spans.aug_ends, comm)
+        mean = torch.where(cnt == 0, 0.0, sx / safe)
         dx = xv - mean[0]
         ss = global_range_sum(dx * dx, spans.aug_starts, spans.aug_ends, comm)
     else:
+        local = _local_spans(spans, t_local, xv.shape[0], comm)
+        sx = comm.sum_f64(select_kernel.aug_fit_sums(xv, None, local.aug_starts,
+                                                     local.aug_ends)[1])
+        mean = torch.where(cnt == 0, 0.0, sx / safe)
         ss = comm.sum_f64(select_kernel.aug_centered_xx(xv, mean, local.aug_starts,
                                                         local.aug_ends))
     stdev = torch.sqrt(torch.where(cnt == 0, float("nan"), ss.clamp(min=0.0) / safe))
     last = (spans.aug_ends - 1).clamp(0, n - 1)
     scale = torch.where(cnt == 0, float("-inf"),
-                        global_value_at(yf, last, comm).double())
+                        two_layer._scale(global_value_at(yfix, last, comm).double(), sf))
     return torch.stack([mean, stdev, scale], dim=-1)
 
 
-def _dist_cubic(xf, yf, spans, t_local, n: int, comm, ep_y=None):
+def _dist_cubic(xf, yfix, spans, t_local, n: int, comm, ep_y=None, sf: float = 1.0):
     """Cubic rows [B, 4] (models/cubic.py's fit): each span's endpoints and
-    inner points gathered from their owners, the L1 comparison with the
-    endpoint spline by K6 over the rank's clips for leaves, over the
-    whole array for the top."""
+    inner points gathered from their owners (their targets ``yfix`` scaled
+    by ``sf``, a top's, after the gather), the L1 comparison with the
+    endpoint spline by K6 over the rank's clips for leaves, for one span
+    (the top) by rmi_top_l1_partial over the shard's rows below n, the
+    partials added across ranks before the choice."""
     first, last = seg.aug_first_last(spans)
     B = spans.B
     ends_x = global_value_at(xf, torch.cat([first, last]), comm)
     xmin, xmax = ends_x[:B], ends_x[B:]
     if ep_y is None:
-        ends_y = global_value_at(yf, torch.cat([first, last]), comm).double()
+        ends_y = two_layer._scale(global_value_at(yfix, torch.cat([first, last]),
+                                                  comm).double(), sf)
         ymin, ymax = ends_y[:B], ends_y[B:]
     else:
         ymin, ymax = torch.full_like(xmin, ep_y[0]), torch.full_like(xmin, ep_y[1])
     inner = torch.cat([global_searchsorted(xf, xmin, comm, side="right"),
                        global_searchsorted(xf, xmax, comm) - 1]).clamp(0, n - 1)
     px = global_value_at(xf, inner, comm)
-    py = global_value_at(yf, inner, comm).double()
+    py = two_layer._scale(global_value_at(yfix, inner, comm).double(), sf)
     m1, m2 = slopes_from_points(px[:B], py[:B], px[B:], py[B:], xmin, ymin, xmax, ymax,
                                 xmin == xmax)
     cnt = (spans.aug_ends - spans.aug_starts).double()
     cubic_w, lin_w, st = candidates_from_slopes(xmin, ymin, xmax, ymax, m1, m2, cnt)
     if B == 1:
-        yd = yf.double()
-        a, b = spans.aug_starts, spans.aug_ends
-        c_err, l_err = _range_sums(((cubic_predict(cubic_w, None, xf) - yd).abs_(),
-                                    (linear_predict(lin_w, None, xf) - yd).abs_()),
-                                   a, b, comm)
+        m = xf.shape[0]
+        cand = torch.cat([cubic_w[0], lin_w[0], cubic_w.new_zeros(top_kernel.CAND - 6)])
+        real = max(0, min(m, n - _offset(m, comm)))
+        c_err, l_err = comm.sum_f64(top_kernel.top_l1_partial(xf, yfix, sf, cand,
+                                                              real)).split(1)
     else:
         local = _local_spans(spans, t_local, xf.shape[0], comm)
         c_err, l_err = comm.sum_f64(torch.stack(
-            cubic_l1_kernel.cubic_l1_sums(xf, yf, cubic_w, lin_w, local)))
+            cubic_l1_kernel.cubic_l1_sums(xf, yfix, cubic_w, lin_w, local)))
     return choose_candidates(cubic_w, lin_w, c_err, l_err, st["empty"])[0]
 
 
 def _dist_fit_leaves(leaf_type, leaf_in, yfix, spans, t_local, n: int, comm):
     """Leaf rows [B, ppm] over the global augmented spans."""
     if leaf_type in ("linear", "robust_linear"):
-        return _dist_slr_leaves(leaf_in, yfix.double(), spans, t_local, comm,
+        return _dist_slr_leaves(leaf_in, yfix, spans, t_local, comm,
                                 trim=leaf_type == "robust_linear")
     if leaf_type == "loglinear":
-        ln, w = log_targets(yfix.double())
-        return _dist_slr_leaves(leaf_in, ln, spans, t_local, comm, weights=w)
+        return _dist_slr_leaves(leaf_in, yfix, spans, t_local, comm, log=True)
     if leaf_type == "normal":
         return _dist_fit_ncdf_leaves(leaf_in, yfix, spans, t_local, n, comm)
     if leaf_type == "lognormal":
@@ -400,23 +448,26 @@ def _global_bitword_reduce(ki_local, n: int, comm: DPGroup):
     return common_prefix_size(global_value_at(ki_local, ends, comm))
 
 
-def _dist_fit_top(top_type, top_in, ys, ep, is_pad, n: int, B: int, comm):
+def _dist_fit_top(top_type, top_in, yfix, sf: float, ep, real: int, n: int, B: int, comm):
     """The top's parameters and each shard key's leaf id (int32, before
     the pads are routed; top_kernel.top_assign), ``top_in`` the top's
-    model input on the shard and ``ys`` its scaled targets."""
+    model input on the shard, its targets the FixDups positions ``yfix``
+    scaled by ``sf``, ``real`` the shard's rows below n."""
     dev = top_in.device
     whole = seg.whole_array_spans(n, dev)
-    zeros = torch.zeros(top_in.shape[0], dtype=torch.int32, device=dev)
-    if top_type in ("linear", "robust_linear"):
-        top_w = _dist_slr_leaves(top_in, ys, whole, zeros, comm,
-                                 trim=top_type == "robust_linear")
-    elif top_type == "loglinear":
-        ln, w = log_targets(ys)
-        top_w = _dist_slr_leaves(top_in, ln, whole, zeros, comm, weights=w)
+    if top_type in ("linear", "robust_linear", "loglinear"):
+        ys = two_layer._scale(yfix.double(), sf)
+        if top_type == "loglinear":
+            ln, w = log_targets(ys)
+            top_w = _dist_slr_top(top_in, ln, whole, comm, weights=w)
+        else:
+            top_w = _dist_slr_top(top_in, ys, trimmed(whole) if top_type == "robust_linear"
+                                  else whole, comm)
+        del ys
     elif top_type == "normal":
-        top_w = _dist_fit_ncdf_leaves(top_in, ys, whole, zeros, n, comm)
+        top_w = _dist_fit_ncdf_leaves(top_in, yfix, whole, None, n, comm, sf)
     elif top_type == "lognormal":
-        top_w = _dist_fit_ncdf_leaves(_ln_or_zero(top_in), ys, whole, zeros, n, comm)
+        top_w = _dist_fit_ncdf_leaves(_ln_or_zero(top_in), yfix, whole, None, n, comm, sf)
     elif top_type == "linear_spline":
         x = global_value_at(top_in, torch.tensor([0, n - 1], device=dev), comm)
         x0, x1 = x[:1], x[1:]
@@ -425,10 +476,10 @@ def _dist_fit_top(top_type, top_in, ys, ep, is_pad, n: int, B: int, comm):
                                      torch.full_like(x0, float(n)))
         top_w = torch.stack([a, b], dim=-1)
     elif top_type == "cubic":
-        top_w = _dist_cubic(top_in, ys, whole, zeros, n, comm, ep_y=ep)
+        top_w = _dist_cubic(top_in, yfix, whole, None, n, comm, ep_y=ep, sf=sf)
     elif top_type in ("radix", "bradix"):
-        largest = global_value_at(ys, torch.tensor([n - 1], device=dev), comm)[0]
-        max_output = largest.to(torch.int64)
+        last = global_value_at(yfix, torch.tensor([n - 1], device=dev), comm)
+        max_output = two_layer._scale(last.double(), sf)[0].to(torch.int64)
         prefix = _global_bitword_reduce(top_in, n, comm)
         if top_type == "radix":
             top_w = {"w_int": torch.stack([prefix, num_bits(max_output)])}
@@ -436,8 +487,8 @@ def _dist_fit_top(top_type, top_in, ys, ep, is_pad, n: int, B: int, comm):
             slots = torch.arange(B + 1, device=dev)
 
             def bucket_starts(bucket):
-                # pads to bucket B: past every slot, out of every count
-                return global_searchsorted(torch.where(is_pad, B, bucket), slots, comm)
+                # the shard's rows below n: the pads are in no count
+                return global_searchsorted(bucket[:real], slots, comm)
 
             top_w = bradix_fit(u64_bits(top_in), max_output, prefix, n, B, bucket_starts)
     elif top_type == "histogram":
@@ -507,22 +558,21 @@ def dp_train_two_layer(keys_local: torch.Tensor, n: int, key_type: KeyType,
                          f"below 2^31")
     dev = keys_local.device
     mtop, mleaf = get_model(top_type), get_model(leaf_type)
-    is_pad = torch.arange(_offset(m, comm), _offset(m, comm) + m, device=dev) >= n
+    off = _offset(m, comm)
+    real = max(0, min(m, n - off))      # the shard's rows below n; the pads follow
 
     ends = global_value_at(keys_local, torch.tensor([0, n - 1], device=dev), comm)
     kminf, s = two_layer.norm_from_ends(ends, key_type)
     top_in = model_float_input(mtop, keys_local, kminf, s, key_type)
-    yfix = dist_fixdups(keys_local, comm)
+    carries = dist_carries(keys_local, n, comm)
+    yfix = dist_fixdups(keys_local, comm, carries)
 
     # top fit and leaf ids; pad lanes go to the last leaf, which keeps the
     # ids sorted while ends[B - 1] = n keeps them out of every span
     sf = float(B) / float(n)
-    ys = two_layer._scale(yfix.double(), sf)
     ep = (two_layer._scale(0.0, sf), two_layer._scale(float(n - 1), sf))
-    top_w, t = _dist_fit_top(top_type, top_in, ys, ep, is_pad, n, B, comm)
-    del ys
-    t_local = torch.where(is_pad, B - 1, t).to(torch.int32)
-    del t
+    top_w, t_local = _dist_fit_top(top_type, top_in, yfix, sf, ep, real, n, B, comm)
+    t_local[real:] = B - 1
 
     starts = global_searchsorted(t_local, torch.arange(B, dtype=torch.int32, device=dev),
                                  comm)
@@ -545,12 +595,9 @@ def dp_train_two_layer(keys_local: torch.Tensor, n: int, key_type: KeyType,
     max_err = sweep_kernel.sweep_leaf_max(kernel_input(mleaf, leaf_in), yfix, local.starts,
                                           local.ends, leaf_w, n, leaf_type=leaf_type)
     del leaf_in
-    run_start, run_end = dist_run_bounds(keys_local, yfix, n, comm)
-    counted = torch.where((run_end < n - 1) & ~is_pad, run_end - run_start + 1, 0)
-    longest = torch.zeros(B, dtype=torch.int64, device=dev).scatter_reduce_(
-        0, t_local.long(), counted.long(), "amax")
-    del run_end, counted
-    maxima = comm.all_reduce(torch.stack([max_err.long(), longest]), MAX).clamp(min=0)
+    longest = sweep_kernel.span_run_max_carry(keys_local, yfix, local.starts, local.ends, off,
+                                              n, carries.continues_right, carries.end)
+    maxima = comm.all_reduce(torch.stack([max_err.long(), longest.long()]), MAX).clamp(min=0)
     maxima = torch.where(spans.nonempty, maxima, 0)
     final_err, metrics = two_layer.final_errors(
         maxima[0], maxima[1], spans, leaf_w, next_idx, next_key, prev_key, kminf, s,

@@ -34,7 +34,7 @@ def test_signatures_cover_every_entry_point():
     """SIGNATURES holds each C entry that csrc/ defines, once, with
     parameter types the binding converts, its stream last; launches
     counts each of them."""
-    assert len(_build.SIGNATURES) == 43
+    assert len(_build.SIGNATURES) == 47
     assert set(_build.SIGNATURES) == _defined_entries()
     assert list(_build.launches) == list(_build.SIGNATURES)
     for name, params in _build.SIGNATURES.items():

@@ -48,7 +48,14 @@ within one ulp of torch.log's for every y in [1, 2^28) (the count that
 differs printed); the build's FixDups and linear, normal and loglinear
 leaf fits one launch each, the fit allocating nothing of the keys' size;
 rmi_top_cubic_candidates bit-equal on runs of up to 2^20 + 1 equal keys
-at both ends and on f64 keys led by NaN, -inf or +inf.
+at both ends and on f64 keys led by NaN, -inf or +inf; the data-parallel
+build's per-shard forms (rmi_fixdups_carry, rmi_span_run_max_carry,
+rmi_aug_fit_sums, K2 on the int32 targets, rmi_top_l1_partial) against
+their plain versions on tests/test_torch_dp_kernels.py's edge shards and
+on one 200M-key shard (integers equal, sums within fit_sums_tolerance,
+centered_tolerance and sum_tolerance), the same bits when run again, and
+one NCCL rank's dp build at 2^22 keys with no torch operator over its m
+keys (tools/trace_torch_build.py's census).
 """
 
 import dataclasses
@@ -67,12 +74,15 @@ from rmi_tpu_torch.models.base import (REGISTRY, kernel_input, model_float_input
                                        params_equal, params_to, predict_top_assignment)
 from rmi_tpu_torch.models.linear import log_targets
 from rmi_tpu_torch.lookup import bounded_search
+from rmi_tpu_torch.parallel import dp_trainer
 from rmi_tpu_torch.ops import (_build, cachefix_kernel, cubic_l1_kernel, eval_kernel,
                                hier_kernel, packed_kernel, probe_kernels, scan_kernel,
                                select_kernel, sorted_serve_kernel as ssk, sweep_kernel,
                                top_kernel)
 from rmi_tpu_torch.train import two_layer
 from rmi_tpu_torch.utils import segments as seg
+from test_torch_dp_kernels import (EDGE_CASES, _clip, _groups, _leaves, _shards, _trace_tool,
+                                   _x_y)
 from test_torch_fit_kernels import (FIT_EDGES, FIXDUPS_EDGES, TABLE_EDGES, TOP_FIT_EDGES,
                                     _fixdups_np, fit_case, fixdups_case, leaf_arrays,
                                     table_edge_case, top_fit_case)
@@ -1031,6 +1041,17 @@ def _entry_calls(dev):
             x, y, spans.aug_starts, spans.aug_ends),
         "rmi_aug_fit_log_moments": lambda: select_kernel.aug_fit_log_moments(
             x, y, spans.aug_starts, spans.aug_ends),
+        "rmi_fixdups_carry": lambda: scan_kernel.fixdups_carry(
+            keys, 7, torch.ones(1, dtype=torch.bool, device=dev),
+            torch.full((), 3, dtype=torch.int32, device=dev)),
+        "rmi_aug_fit_sums": lambda: select_kernel.aug_fit_sums(
+            x, y, spans.aug_starts, spans.aug_ends),
+        "rmi_span_run_max_carry": lambda: sweep_kernel.span_run_max_carry(
+            keys, torch.arange(n, dtype=torch.int32, device=dev), spans.starts, spans.ends,
+            0, n, torch.zeros(1, dtype=torch.bool, device=dev),
+            torch.full((), n - 1, dtype=torch.int32, device=dev)),
+        "rmi_top_l1_partial": lambda: top_kernel.top_l1_partial(
+            x, y, 0.5, zeros[0].repeat(4), n - 3),
     }
     for leaf in LEAVES:
         kernel = get_model(leaf).leaf_kernel
@@ -2713,3 +2734,181 @@ def test_fit_and_fixdups_on_card(dev, spec):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < n
     assert w.shape == (B, leaf.ppm) and bool(torch.isfinite(w[spans.nonempty]).all())
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel build's per-shard forms
+# ---------------------------------------------------------------------------
+
+def _dp_forms(k, x, y, lo, hi, starts, ends, off, n, carries, cand, sf, real, means):
+    """Every dp form's wrapper on one shard: {name: output}."""
+    mean_x, mean_y = means
+    return {
+        "fixdups_carry": scan_kernel.fixdups_carry(k, off, carries.continues_left,
+                                                   carries.start),
+        "span_run_max_carry": sweep_kernel.span_run_max_carry(
+            k, y, starts, ends, off, n, carries.continues_right, carries.end),
+        **{f"aug_fit_sums {form}": select_kernel.aug_fit_sums(
+            x, None if form == "xx" else y, lo, hi, log=form == "log")
+           for form in ("xy", "xx", "log")},
+        **{f"aug_centered_moments log={log}": select_kernel.aug_centered_moments(
+            x, y, mean_x, mean_y, lo, hi, log=log) for log in (False, True)},
+        "top_l1_partial": top_kernel.top_l1_partial(x, y, sf, cand, real),
+    }
+
+
+def _check_dp_forms(got, want, x, y, lo, hi, means):
+    """The card's dp forms against their plain versions: the integers
+    equal, the sums within fit_sums_tolerance, the centered moments within
+    centered_tolerance, the partial L1 sums within sum_tolerance."""
+    for name, w in want.items():
+        g = got[name]
+        if name in ("fixdups_carry", "span_run_max_carry"):
+            assert torch.equal(g.cpu(), w.cpu()), name
+        elif name.startswith("aug_fit_sums"):
+            form = name.split()[1]
+            tol = select_kernel.fit_sums_tolerance(x, None if form == "xx" else y, lo, hi,
+                                                   list(w), log=form == "log")
+            for a, b, t in zip(g, w, tol):
+                assert ((a.cpu() - b.cpu()).abs() <= t.cpu()).all(), name
+        elif name.startswith("aug_centered_moments"):
+            tol = select_kernel.centered_tolerance(x, y, *means, lo, hi, list(w),
+                                                   log=name.endswith("True"))
+            for a, b, t in zip(g, w, tol):
+                assert ((a.cpu() - b.cpu()).abs() <= t.cpu()).all(), name
+        else:
+            assert ((g.cpu() - w.cpu()).abs()
+                    <= cubic_l1_kernel.sum_tolerance(w.cpu())).all(), name
+
+
+def _same_bits_again(a, b):
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        if x.is_floating_point():
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_dp_forms_on_edge_shards(dev, case):
+    """Each dp form on the card (rmi_fixdups_carry, rmi_span_run_max_carry,
+    rmi_aug_fit_sums' three forms, K2 on the targets, rmi_top_l1_partial)
+    against its plain version on the CPU, on tests/test_torch_dp_kernels'
+    edge shards, every rank of each: integers equal, sums within their
+    tolerances, the same bits when run again."""
+    keys_np, world, B = EDGE_CASES[case]
+    shards, n, m = _shards(keys_np, world)
+    _, spans = _leaves(keys_np, n, B)
+    sf = float(B) / float(n)
+    rng = np.random.default_rng(23)
+    cand = torch.from_numpy(np.concatenate([rng.standard_normal(6) * [1, 1, n, 1, 1, n],
+                                            np.zeros(top_kernel.CAND - 6)]))
+    for r, comm in enumerate(_groups(shards)):
+        k = shards[r]
+        x, y = _x_y(shards, n, r)
+        c = dp_trainer.dist_carries(k, n, comm)
+        local = _clip(spans, m, r)
+        lo, hi, starts, ends = local.aug_starts, local.aug_ends, local.starts, local.ends
+        means = (torch.from_numpy(rng.random(B)), torch.from_numpy(rng.random(B) * n))
+        real = max(0, min(m, n - r * m))
+        cpu = (k, x, y, lo, hi, starts, ends, r * m, n, c, cand, sf, real, means)
+        card = [a.to(dev) if torch.is_tensor(a) else a for a in cpu]
+        card[9] = dp_trainer.Carries(*(t.to(dev) for t in c))
+        card[13] = tuple(t.to(dev) for t in means)
+        before = dict(_build.launches)
+        got = _dp_forms(*card)
+        moved = _moved(before)
+        assert moved == {"rmi_fixdups_carry": 1, "rmi_span_run_max_carry": 1,
+                         "rmi_aug_fit_sums": 3, "rmi_aug_moments": 1,
+                         "rmi_aug_moments_weighted": 1, "rmi_top_l1_partial": 1}
+        _check_dp_forms(got, _dp_forms(*cpu), x, y, lo, hi, means)
+        again = _dp_forms(*card)
+        for name in got:
+            _same_bits_again(got[name], again[name])
+
+
+def test_dp_forms_on_a_200m_key_shard(dev):
+    """The dp forms on one shard of 200M books-like keys made on the card,
+    as the middle rank of three (its first run carried in, its last run
+    carried out), 262144 leaves: each against its plain version on the
+    card, integers equal, sums within their tolerances."""
+    m, B = 200_000_000, 262144
+    k = rdata.books_like_on_device(m, 27, dev)
+    off, n = m, 3 * m
+    kminf, s = two_layer.norm_constants(k, KeyType.U64)
+    x = top_kernel.key_normalize(k, kminf, s)
+    y = (scan_kernel.fixdups(k) + off).to(torch.int32)
+    t = top_kernel.top_assign("linear", torch.tensor([[0.0, B - 1.0]], device=dev,
+                                                     dtype=torch.float64), x, B)
+    spans = seg.make_spans(t, B)
+    del t
+    c = dp_trainer.Carries(torch.ones(1, dtype=torch.bool, device=dev),
+                           torch.full((), off - 17, dtype=torch.int32, device=dev),
+                           torch.ones(1, dtype=torch.bool, device=dev),
+                           torch.full((), off + m + 5, dtype=torch.int32, device=dev))
+    y[:int(torch.searchsorted(k, k[:1], right=True))] = off - 17   # the carried run
+    sums = select_kernel.aug_fit_sums(x, y, spans.aug_starts, spans.aug_ends)
+    safe = sums[0].clamp(min=1.0)
+    means = (sums[1] / safe, sums[2] / safe)
+    cand = torch.tensor([0.1, -0.2, 0.3 * B, 0.0, 0.0, float(B), *[0.0] * 10],
+                        dtype=torch.float64, device=dev)
+    args = (k, x, y, spans.aug_starts, spans.aug_ends, spans.starts, spans.ends, off, n, c,
+            cand, float(B) / n, m, means)
+    got = _dp_forms(*args)
+    want = {}
+    want["fixdups_carry"] = scan_kernel.fixdups_carry_plain(k, off, c.continues_left, c.start)
+    want["span_run_max_carry"] = sweep_kernel.span_run_max_carry_plain(
+        k, y, spans.starts, spans.ends, off, n, c.continues_right, c.end)
+    for form in ("xy", "xx", "log"):
+        want[f"aug_fit_sums {form}"] = select_kernel.aug_fit_sums_plain(
+            x, None if form == "xx" else y, spans.aug_starts, spans.aug_ends,
+            log=form == "log")
+    for log in (False, True):
+        want[f"aug_centered_moments log={log}"] = select_kernel.aug_centered_moments_plain(
+            x, y, *means, spans.aug_starts, spans.aug_ends, log=log)
+    want["top_l1_partial"] = top_kernel.top_l1_partial_plain(x, y, float(B) / n, cand, m)
+    _check_dp_forms(got, want, x, y, spans.aug_starts, spans.aug_ends, means)
+    assert torch.equal(got["fixdups_carry"].cpu(), y.cpu())
+
+
+def _dp_rank_census(rank, n, spec, B):
+    """One NCCL rank's warm dp build of ``spec`` over n books-like keys
+    made on the card, under torch.profiler (the inputs' shapes recorded)
+    and tools/trace_torch_build.py's OpCensus: the device operations
+    launched by torch operators given m = n elements or more
+    (device_ops_over), the torch operators over m elements (m_sized), and
+    the device launches the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+    tool = _trace_tool()
+    keys = rdata.books_like_on_device(n, 31, torch.device("cuda", torch.cuda.current_device()))
+    keys_local, n = dp_trainer.local_shard(keys, KeyType.U64)
+    del keys
+
+    def build():
+        dp_trainer.dp_train_two_layer(keys_local, n, KeyType.U64, *spec.split(","), B)
+        torch.cuda.synchronize()
+    build()
+    census = tool.OpCensus()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof, census:
+        build()
+    launches = sum(e.count for e in prof.key_averages() if tool._on_device(e))
+    m = keys_local.shape[0]
+    return tool.device_ops_over(prof, m), tool.m_sized(census.ops, m), launches
+
+
+@pytest.mark.parametrize("spec,B", [("cubic,linear", 1024), ("cubic,normal", 256),
+                                    ("cubic,loglinear", 256)])
+def test_dp_build_of_one_nccl_rank_runs_no_m_sized_torch_op(dev, tmp_path, spec, B):
+    """One NCCL rank's dp build at 2^22 keys: no device operation the
+    profiler traced was launched by a torch operator given the shard's m
+    keys, and no torch operator read or wrote m elements (the census of
+    tools/trace_torch_build.py --dp): every pass over the shard is a
+    kernel of the port; the profiler sees the build's device launches."""
+    from rmi_tpu_torch.parallel import multihost
+    _build.library()
+    (over, big, launches), = multihost.run_ranks(
+        _dp_rank_census, 1, f"file://{tmp_path}/nccl", backend="nccl", device="cuda:0",
+        args=(1 << 22, spec, B), timeout=600)
+    assert over == {} and big == {}
+    assert launches > 0
+

@@ -3,6 +3,8 @@
     python3 tools/trace_torch_build.py [--n 200000000] [--spec cubic,linear]
                                        [--B 262144] [--trace build_trace.json]
     python3 tools/trace_torch_build.py --paths [--root DIR]
+    python3 tools/trace_torch_build.py --dp [--spec cubic,linear] [--B 262144]
+                                       [--n 200000000] [--root DIR]
 
 Makes books-like keys on the card (as chip_smoke.py does), runs one
 untraced build and search to warm up, then traces with torch.profiler a
@@ -30,6 +32,21 @@ device kernels by name and its peak device memory above what it was
 given; --root DIR imports rmi_tpu_torch
 from DIR, a checkout of another commit, so that two commits' stage
 splits are taken with one tool on one card.
+
+--dp traces the data-parallel build (parallel/dp_trainer.py) of --spec
+with --B leaves by one NCCL rank on card 0 (multihost.run_ranks), its
+shard all --n keys: a cold build and DP_WARM warm ones (their median),
+then one warm build traced
+(its device ms, the idle share of its wall time, the kernels by device
+time, the peak device memory of the warm builds) and one more under
+OpCensus, which lists each torch operator that read or wrote m = --n
+elements or more (by name, with its count), and under torch.profiler
+with the inputs' shapes, which counts the device operations launched by
+a torch operator given m elements or more (device_ops_over): in this
+tree the build's passes over the keys are the port's kernels, whose
+launches the binding makes without a torch operator, so both are empty.  The census and
+its rule (m_sized) are this file's, so --root times another checkout's
+dp build with the same census.
 """
 
 from __future__ import annotations
@@ -42,14 +59,155 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = 1 << 22
+DP_WARM = 5               # warm dp builds timed (--dp); the median is reported
 SEARCH_BATCHES = 5
 # chip_smoke.py's build paths 1-5 and 8: (spec, B, key kind)
 PATHS = (("cubic,linear", 262144, "u64"), ("robust_linear,cubic", 65536, "u64"),
          ("cubic,loglinear", 65536, "u64"), ("cubic,normal", 65536, "u64"),
          ("radix18,linear", 65536, "u64"), ("linear,linear", 100, "u32"))
+
+
+# torch operators that read a few elements of a large input (a binary
+# search, a gather by a short index): what they read is what they write
+READS_FEW = ("aten::searchsorted", "aten::index", "aten::index_select", "aten::gather",
+             "aten::take", "aten::_local_scalar_dense")
+
+
+class OpCensus(TorchDispatchMode):
+    """Every torch operator dispatched while it is on: (name, elements of
+    the largest tensor it reads, of the largest it writes, whether it is a
+    view).  A kernel of the port, launched by its binding, dispatches no
+    operator and is not seen."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = [t for t in pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        outs = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
+        name = func._schema.name
+        # a view returns an alias of an input and writes none (its schema's
+        # Tensor(a), where an in-place op's is Tensor(a!))
+        aliases = [r.alias_info for r in func._schema.returns]
+        view = bool(aliases) and all(a is not None and not a.is_write for a in aliases)
+        self.ops.append((name, max((t.numel() for t in ins), default=0),
+                         max((t.numel() for t in outs), default=0), view))
+        return out
+
+
+def m_sized(ops, m: int) -> dict:
+    """{operator name: count} of the census' operators over m elements:
+    those that wrote m or more, or read m or more (READS_FEW: as many as
+    they wrote); views, which move no element, are not counted."""
+    found = {}
+    for name, read, wrote, view in ops:
+        if view:
+            continue
+        if max(wrote if name in READS_FEW else read, wrote) >= m:
+            found[name] = found.get(name, 0) + 1
+    return found
+
+
+def _numel(shape):
+    """Elements of a profiler-recorded input shape ([] for a non-tensor;
+    a list of shapes, a tensor list, counted by its largest)."""
+    if not shape:
+        return 0
+    if isinstance(shape[0], (list, tuple)):
+        return max((_numel(s) for s in shape), default=0)
+    out = 1
+    for d in shape:
+        out *= int(d)
+    return out
+
+
+def device_ops_over(prof, m: int) -> dict:
+    """{operator name: device launches} from a torch.profiler trace taken
+    with record_shapes: the device operations launched by a torch
+    operator that was given an input of m elements or more (READS_FEW
+    excepted: they read a few of them)."""
+    found = {}
+    for e in prof.events():
+        if not e.name.startswith("aten::") or e.name in READS_FEW:
+            continue
+        launched = len(getattr(e, "kernels", []) or [])
+        if launched and max((_numel(sh) for sh in (e.input_shapes or [])), default=0) >= m:
+            found[e.name] = found.get(e.name, 0) + launched
+    return found
+
+
+def _dp_rank(rank, root, n, seed, spec, B):
+    """The --dp trace, on the one rank: its report as a list of lines."""
+    sys.path.insert(0, os.path.abspath(root))
+    from rmi_tpu_torch import data as rdata
+    from rmi_tpu_torch.keys import KeyType
+    from rmi_tpu_torch.parallel import dp_trainer
+    dev = torch.device("cuda", torch.cuda.current_device())
+    keys = rdata.books_like_on_device(n, seed, dev)
+    keys_local, n = dp_trainer.local_shard(keys, KeyType.U64)
+    del keys
+    top, leaf = spec.split(",")
+
+    def build():
+        out = dp_trainer.dp_train_two_layer(keys_local, n, KeyType.U64, top, leaf, B)
+        torch.cuda.synchronize()
+        return out
+    build()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(DP_WARM):
+        t0 = time.perf_counter()
+        build()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        build()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    census = OpCensus()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as shapes, census:
+        build()
+    lines = [f"dp build {spec} B={B} n={n}, one NCCL rank: warm median "
+             f"{walls[DP_WARM // 2] * 1e3:.3f} ms of {DP_WARM} "
+             f"({', '.join(f'{w * 1e3:.3f}' for w in walls)}), peak device memory {peak:.2f} GiB"]
+    lines += _report_lines(prof, wall, f"dp build {spec} B={B} n={n} (traced)", 25)
+    big = m_sized(census.ops, keys_local.shape[0])
+    lines.append(f"  torch operators over m = {keys_local.shape[0]} elements: "
+                 + (", ".join(f"{k} x{c}" for k, c in sorted(big.items())) or "none")
+                 + f" (of {len(census.ops)} operators)")
+    over = device_ops_over(shapes, keys_local.shape[0])
+    lines.append("  device operations of torch operators given m elements or more "
+                 "(profiler): " + (", ".join(f"{k} x{c}" for k, c in sorted(over.items()))
+                                   or "none"))
+    return lines
+
+
+def dp_main(args):
+    """--dp: one NCCL rank on card 0 traces the dp build (_dp_rank)."""
+    import tempfile
+    sys.path.insert(0, os.path.abspath(args.root))
+    from rmi_tpu_torch.ops import _build
+    from rmi_tpu_torch.parallel import multihost
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    print(f"rmi_tpu_torch from {os.path.abspath(args.root)}")
+    _build.library()            # built here once; the rank loads it
+    with tempfile.TemporaryDirectory() as tmp:
+        (lines,) = multihost.run_ranks(
+            _dp_rank, 1, f"file://{tmp}/rdv", backend="nccl", device="cuda:0",
+            args=(args.root, args.n, args.seed, args.spec, args.B), timeout=1800)
+    print("\n".join(lines))
 
 
 def _dev_us(evt, self_only=False):
@@ -72,7 +230,11 @@ def main():
     ap.add_argument("--trace", default=None, help="chrome trace output path")
     ap.add_argument("--paths", action="store_true", help="trace paths 1-5 (PATHS)")
     ap.add_argument("--root", default=REPO, help="checkout to import rmi_tpu_torch from")
+    ap.add_argument("--dp", action="store_true",
+                    help="trace the dp build by one NCCL rank")
     args = ap.parse_args()
+    if args.dp:
+        return dp_main(args)
     sys.path.insert(0, os.path.abspath(args.root))
     import rmi_tpu_torch
     from rmi_tpu_torch import config, data as rdata
@@ -175,22 +337,29 @@ def main():
 
 
 def _report(prof, wall_s, label, top):
+    print("\n".join(_report_lines(prof, wall_s, label, top)))
+
+
+def _report_lines(prof, wall_s, label, top):
     evts = prof.key_averages()
-    print(f"{label}: wall {wall_s * 1e3:.3f} ms")
+    lines = [f"{label}: wall {wall_s * 1e3:.3f} ms"]
     # a range appears twice: its host span and its span on the device
     for key in sorted({e.key for e in evts if e.key.startswith("rmi.")}):
         same = [e for e in evts if e.key == key]
-        print(f"  range {key:18s} host {max(e.cpu_time_total for e in same) / 1e3:9.3f} ms"
-              f"  device {max(_dev_us(e) for e in same) / 1e3:9.3f} ms")
+        lines.append(f"  range {key:18s} host "
+                     f"{max(e.cpu_time_total for e in same) / 1e3:9.3f} ms  device "
+                     f"{max(_dev_us(e) for e in same) / 1e3:9.3f} ms")
     kernels = [e for e in evts if _on_device(e) and not e.key.startswith("rmi.")]
     busy = sum(_dev_us(e, True) for e in kernels) / 1e3
     wall = wall_s * 1e3
-    print(f"  device busy {busy:.3f} ms of {wall:.3f} ms traced wall "
-          f"(idle share {1 - busy / wall:.3f})")
+    lines.append(f"  device busy {busy:.3f} ms of {wall:.3f} ms traced wall "
+                 f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} "
+                 f"device launches")
     scatters = sorted({e.key for e in evts if "scatter" in e.key.lower()})
-    print(f"  scatter operations traced: {scatters or 'none'}")
+    lines.append(f"  scatter operations traced: {scatters or 'none'}")
     for e in sorted(kernels, key=lambda e: -_dev_us(e, True))[:top]:
-        print(f"  {_dev_us(e, True) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+        lines.append(f"  {_dev_us(e, True) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+    return lines
 
 
 if __name__ == "__main__":
